@@ -1,0 +1,311 @@
+// Paged prefill: the in-place page write and the chunked flash read.
+//
+// Replaces the two TPU kernels of tensorflowonspark_tpu/ops/
+// paged_prefill.py: `_page_write_kernel` (reached through `_write_pages`)
+// and `_prefill_read_kernel` (reached through `_read_attention`), which
+// `paged_prefill` runs back to back for every S > 1 prefill chunk.
+//
+// Page write.  Chunk position s of row b lands at
+// pool[table[b, clip((start + s) // page, 0, max_pages - 1)],
+// (start + s) % page] -- the same clip as the TPU kernel, so bucket-pad
+// overshoot and the all-sink tables of pad rows land in the sink page.
+// The pool is updated in place (the TPU kernel aliases it in and out).
+// Two rows that both write the sink race here where the TPU kernel sums;
+// sink bytes are garbage by contract and masked on every read.
+// Bound: bytes, nothing else (FLAGSHIP_PREFILL_KERNEL: 4 rows x 256 x
+// 8 x 128 x 2 B, read once and written once for k and v: 8.4 MB per
+// layer, 2.5 us at 3.35 TB/s).  Design: one block per (s, b) copies the
+// n_kv * Dh row of k and of v with 16-byte vector moves; no arithmetic.
+//
+// Prefill read.  Online softmax of the chunk's queries over
+// [context pages < start || the chunk's own k/v], the chunk part under
+// the causal triangle jc <= s.  Bound: operations (FLAGSHIP_PREFILL_
+// KERNEL: 18.9 GFLOP per layer, 19 us at the bf16 tensor-core peak; its
+// 33 MB of context would take 9.8 us).  This first version computes in
+// f32 on the CUDA cores, not the tensor cores, so it sits far from that
+// bound; a wgmma/mma.sync version is later work.  Design: one block per
+// (64-row tile of grouped queries, kv head, batch row), 256 threads.
+// The block keeps its q tile in shared memory, streams 32-key tiles of
+// k and v through shared memory (context pages looked up in the table,
+// then the chunk), and each thread holds 4 query rows x (2 scores,
+// Dh/16 output columns) of f32 state.  A block reads the row's context
+// once, so the context is read once per 64-row tile: ceil(S * group /
+// 64) times in all (8 at FLAGSHIP_PREFILL_KERNEL).
+#include "common.cuh"
+
+namespace tos {
+
+__global__ void __launch_bounds__(128)
+page_write_kernel(const uint8_t* __restrict__ k, const uint8_t* __restrict__ v,
+                  uint8_t* __restrict__ pk, uint8_t* __restrict__ pv,
+                  const int* __restrict__ table,
+                  const int* __restrict__ starts, int S, int row_bytes,
+                  int page, int max_pages, int n_pages) {
+  const int s = blockIdx.x;
+  const int b = blockIdx.y;
+  const int pos = starts[b] + s;
+  const int blk = min(max(pos / page, 0), max_pages - 1);
+  const int phys = table[size_t(b) * max_pages + blk];
+  // an out-of-range page drops the store, as a JAX scatter drops it
+  if (phys < 0 || phys >= n_pages) return;
+  const size_t dst = (size_t(phys) * page + pos % page) * row_bytes;
+  const size_t src = (size_t(b) * S + s) * row_bytes;
+  if (row_bytes % 16 == 0) {
+    const int n = row_bytes / 16;
+    const uint4* ks = reinterpret_cast<const uint4*>(k + src);
+    const uint4* vs = reinterpret_cast<const uint4*>(v + src);
+    uint4* kd = reinterpret_cast<uint4*>(pk + dst);
+    uint4* vd = reinterpret_cast<uint4*>(pv + dst);
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      kd[i] = ks[i];
+      vd[i] = vs[i];
+    }
+  } else {
+    for (int i = threadIdx.x; i < row_bytes; i += blockDim.x) {
+      pk[dst + i] = k[src + i];
+      pv[dst + i] = v[src + i];
+    }
+  }
+}
+
+constexpr int kBR = 64;   // grouped query rows per block
+constexpr int kBC = 32;   // keys per shared-memory tile
+constexpr int kNT = 256;  // threads: 16 (tx) x 16 (ty)
+
+template <int DH>
+constexpr int prefill_smem_bytes() {
+  return ((kBR + 2 * kBC) * (DH + 1) + kBR * (kBC + 1)) * 4;
+}
+
+// One key tile: scores, online-softmax update, P @ V.  `visible(row, j)`
+// says whether grouped row `row` sees tile key `j`.
+template <int DH, typename Vis>
+__device__ __forceinline__ void prefill_tile(
+    const float* Qs, const float* Ks, const float* Vs, float* Ps, int tx,
+    int ty, int r0, int j0, float sm_scale, Vis visible, float (&m)[4],
+    float (&l)[4], float (&acc)[4][DH / 16]) {
+  constexpr int DP = DH + 1;
+  constexpr int CPT = DH / 16;
+  float sc[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) sc[i][0] = sc[i][1] = 0.f;
+#pragma unroll 8
+  for (int d = 0; d < DH; ++d) {
+    float a[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = Qs[(ty * 4 + i) * DP + d];
+    const float k0 = Ks[tx * DP + d];
+    const float k1 = Ks[(tx + 16) * DP + d];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      sc[i][0] = fmaf(a[i], k0, sc[i][0]);
+      sc[i][1] = fmaf(a[i], k1, sc[i][1]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = r0 + ty * 4 + i;
+    const float s0 = visible(row, j0 + tx) ? sc[i][0] * sm_scale : NEG_INF;
+    const float s1 = visible(row, j0 + tx + 16) ? sc[i][1] * sm_scale
+                                                : NEG_INF;
+    const float mn = fmaxf(m[i], half_warp_max(fmaxf(s0, s1)));
+    const float alpha = expf(m[i] - mn);
+    const float p0 = expf(s0 - mn);
+    const float p1 = expf(s1 - mn);
+    l[i] = l[i] * alpha + half_warp_sum(p0 + p1);
+    m[i] = mn;
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) acc[i][c] *= alpha;
+    Ps[(ty * 4 + i) * (kBC + 1) + tx] = p0;
+    Ps[(ty * 4 + i) * (kBC + 1) + tx + 16] = p1;
+  }
+  __syncthreads();
+#pragma unroll 4
+  for (int c = 0; c < kBC; ++c) {
+    float p[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[i] = Ps[(ty * 4 + i) * (kBC + 1) + c];
+#pragma unroll
+    for (int cc = 0; cc < CPT; ++cc) {
+      const float vv = Vs[c * DP + tx + 16 * cc];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i][cc] = fmaf(p[i], vv, acc[i][cc]);
+    }
+  }
+  __syncthreads();
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(kNT)
+prefill_read_kernel(const T* __restrict__ q, const T* __restrict__ ck,
+                    const T* __restrict__ cv, const T* __restrict__ pk,
+                    const T* __restrict__ pv, const int* __restrict__ table,
+                    const int* __restrict__ starts, T* __restrict__ out,
+                    int S, int H, int n_kv, int page, int max_pages,
+                    int n_pages, float sm_scale) {
+  constexpr int DP = DH + 1;
+  constexpr int CPT = DH / 16;
+  extern __shared__ float smem[];
+  float* Qs = smem;              // [kBR][DP]
+  float* Ks = Qs + kBR * DP;     // [kBC][DP]
+  float* Vs = Ks + kBC * DP;     // [kBC][DP]
+  float* Ps = Vs + kBC * DP;     // [kBR][kBC + 1]
+
+  const int r0 = blockIdx.x * kBR;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int group = H / n_kv;
+  const int rows = S * group;
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int n_ctx = min(starts[b], max_pages * page);
+
+  for (int i = tid; i < kBR * DH; i += kNT) {
+    const int r = i / DH;
+    const int d = i % DH;
+    const int row = r0 + r;
+    float val = 0.f;
+    if (row < rows) {
+      const int s = row / group;
+      const int hq = h * group + row % group;
+      val = to_f32(q[((size_t(b) * S + s) * H + hq) * DH + d]);
+    }
+    Qs[r * DP + d] = val;
+  }
+
+  float m[4], l[4], acc[4][CPT];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
+  }
+
+  // context: every chunk query sits at or past `start`, so all keys
+  // j < start are visible
+  const int* row_table = table + size_t(b) * max_pages;
+  for (int j0 = 0; j0 < n_ctx; j0 += kBC) {
+    for (int i = tid; i < kBC * DH; i += kNT) {
+      const int c = i / DH;
+      const int d = i % DH;
+      const int j = j0 + c;
+      float kv = 0.f, vv = 0.f;
+      if (j < n_ctx) {
+        const int phys = min(max(row_table[j / page], 0), n_pages - 1);
+        const size_t src =
+            ((size_t(phys) * page + j % page) * n_kv + h) * DH + d;
+        kv = to_f32(pk[src]);
+        vv = to_f32(pv[src]);
+      }
+      Ks[c * DP + d] = kv;
+      Vs[c * DP + d] = vv;
+    }
+    __syncthreads();
+    prefill_tile<DH>(Qs, Ks, Vs, Ps, tx, ty, r0, j0, sm_scale,
+                     [n_ctx](int, int j) { return j < n_ctx; }, m, l, acc);
+  }
+
+  // the chunk's own keys under the causal triangle jc <= s; tiles past
+  // the tile's last query position are skipped
+  const int last_row = min(rows, r0 + kBR) - 1;
+  const int n_ck = min(S, last_row / group + 1);
+  for (int j0 = 0; j0 < n_ck; j0 += kBC) {
+    for (int i = tid; i < kBC * DH; i += kNT) {
+      const int c = i / DH;
+      const int d = i % DH;
+      const int j = j0 + c;
+      float kv = 0.f, vv = 0.f;
+      if (j < S) {
+        const size_t src = ((size_t(b) * S + j) * n_kv + h) * DH + d;
+        kv = to_f32(ck[src]);
+        vv = to_f32(cv[src]);
+      }
+      Ks[c * DP + d] = kv;
+      Vs[c * DP + d] = vv;
+    }
+    __syncthreads();
+    prefill_tile<DH>(
+        Qs, Ks, Vs, Ps, tx, ty, r0, j0, sm_scale,
+        [S, group](int row, int j) { return j < S && j <= row / group; }, m,
+        l, acc);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = r0 + ty * 4 + i;
+    if (row >= rows) continue;
+    const int s = row / group;
+    const int hq = h * group + row % group;
+    T* dst = out + ((size_t(b) * S + s) * H + hq) * DH;
+    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int c = 0; c < CPT; ++c)
+      dst[tx + 16 * c] = from_f32<T>(acc[i][c] * inv);
+  }
+}
+
+template <typename T, int DH>
+static int launch_prefill_read(dim3 grid, cudaStream_t st, const void* q,
+                               const void* ck, const void* cv, const void* pk,
+                               const void* pv, const int* table,
+                               const int* starts, void* out, int S, int H,
+                               int n_kv, int page, int max_pages, int n_pages,
+                               float sm_scale) {
+  constexpr int smem = prefill_smem_bytes<DH>();
+  cudaError_t err = cudaFuncSetAttribute(
+      prefill_read_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  prefill_read_kernel<T, DH><<<grid, kNT, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(ck),
+      static_cast<const T*>(cv), static_cast<const T*>(pk),
+      static_cast<const T*>(pv), table, starts, static_cast<T*>(out), S, H,
+      n_kv, page, max_pages, n_pages, sm_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tos
+
+extern "C" int tos_page_write(const void* k, const void* v, void* pk,
+                              void* pv, const int* table, const int* starts,
+                              int B, int S, int row_bytes, int page,
+                              int max_pages, int n_pages, void* stream) {
+  using namespace tos;
+  const dim3 grid(S, B);
+  page_write_kernel<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(k), static_cast<const uint8_t*>(v),
+      static_cast<uint8_t*>(pk), static_cast<uint8_t*>(pv), table, starts, S,
+      row_bytes, page, max_pages, n_pages);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tos_prefill_read(const void* q, const void* ck, const void* cv,
+                                const void* pk, const void* pv,
+                                const int* table, const int* starts, void* out,
+                                int B, int S, int H, int n_kv, int Dh,
+                                int page, int max_pages, int n_pages,
+                                float sm_scale, int dtype, void* stream) {
+  using namespace tos;
+  const int rows = S * (H / n_kv);
+  const dim3 grid((rows + kBR - 1) / kBR, n_kv, B);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16 && Dh == 128)
+    return launch_prefill_read<__nv_bfloat16, 128>(
+        grid, st, q, ck, cv, pk, pv, table, starts, out, S, H, n_kv, page,
+        max_pages, n_pages, sm_scale);
+  if (dtype == kBF16 && Dh == 64)
+    return launch_prefill_read<__nv_bfloat16, 64>(
+        grid, st, q, ck, cv, pk, pv, table, starts, out, S, H, n_kv, page,
+        max_pages, n_pages, sm_scale);
+  if (dtype == kF32 && Dh == 128)
+    return launch_prefill_read<float, 128>(grid, st, q, ck, cv, pk, pv, table,
+                                           starts, out, S, H, n_kv, page,
+                                           max_pages, n_pages, sm_scale);
+  if (dtype == kF32 && Dh == 64)
+    return launch_prefill_read<float, 64>(grid, st, q, ck, cv, pk, pv, table,
+                                          starts, out, S, H, n_kv, page,
+                                          max_pages, n_pages, sm_scale);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

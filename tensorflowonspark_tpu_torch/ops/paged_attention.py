@@ -1,0 +1,170 @@
+"""Paged flash-decode attention: read kv pages in place.
+
+Counterpart of ``tensorflowonspark_tpu/ops/paged_attention.py``.  The
+paged slot cache keeps kv in a shared pool ``pages_key/pages_value
+[kv_pages, page, n_kv, Dh]`` with a per-row ``page_table [B,
+max_pages]``; a decode step attends each row's query over the row's
+occupied pages only.
+
+Which implementation runs follows one rule: a CPU tensor takes the plain
+PyTorch version (:func:`paged_attention_plain`, the port of
+``paged_attention_reference``); a CUDA tensor launches the hand-written
+kernel ``csrc/paged_attention.cu`` (design and bound in its header) or
+raises.  The kernel writes split-K partials ``(acc, m, l)``; the
+log-sum-exp combine across splits stays plain tensor code here, as it is
+jax-side code around the TPU kernel.
+"""
+import torch
+
+from . import _build
+
+NEG_INF = -1e30  # large-finite: exp(NEG_INF - m) == 0 without inf-inf NaNs
+
+
+def _pick_splits(requested, max_pages):
+    """Largest split count <= requested that DIVIDES the page axis, as
+    the TPU wrapper picks it (every split then walks the same number of
+    pages)."""
+    for cand in range(min(int(requested), max_pages), 1, -1):
+        if max_pages % cand == 0:
+            return cand
+    return 1
+
+
+def _check_args(q, pages_key, pages_value, page_table, lengths, key_scales,
+                value_scales):
+    B, S, H, Dh = q.shape
+    NP, page, n_kv, Dh_kv = pages_key.shape
+    if pages_value.shape != pages_key.shape or Dh_kv != Dh:
+        raise ValueError(
+            f"pool shapes {tuple(pages_key.shape)} / "
+            f"{tuple(pages_value.shape)} must match and end in head_dim {Dh}")
+    if H % n_kv:
+        raise ValueError(
+            f"q heads {H} must be a multiple of kv heads {n_kv} (GQA "
+            "groups map onto their kv head inside the kernel)")
+    if page_table.shape[0] != B or lengths.shape != (B,):
+        raise ValueError(
+            f"page_table {tuple(page_table.shape)} / lengths "
+            f"{tuple(lengths.shape)} must have {B} rows")
+    if (pages_key.dtype == torch.int8 or key_scales is not None
+            or value_scales is not None):
+        raise NotImplementedError(
+            "int8 kv pools are not ported yet (ROADMAP: int8 kv branch of "
+            "kernels 1-3)")
+
+
+def paged_attention_plain(q, pages_key, pages_value, page_table, lengths, *,
+                          sm_scale=None):
+    """Dense gather version with the kernel's exact semantics (f32
+    softmax, large-finite mask, lengths-relative visibility): query s of
+    row b sees key j iff ``j <= lengths[b] - S + s``; rows with
+    ``lengths == 0`` return zeros.  Returns ``[B, S, H, Dh]`` in q's
+    dtype."""
+    B, S, H, Dh = q.shape
+    NP, page, n_kv, _ = pages_key.shape
+    max_pages = page_table.shape[1]
+    L = max_pages * page
+    if sm_scale is None:
+        sm_scale = 1.0 / (Dh ** 0.5)
+    table = page_table.long().clamp(0, NP - 1)     # gathers clip, as in JAX
+    kf = pages_key[table].reshape(B, L, n_kv, Dh).float()
+    vf = pages_value[table].reshape(B, L, n_kv, Dh).float()
+    if n_kv != H:
+        kf = kf.repeat_interleave(H // n_kv, dim=2)
+        vf = vf.repeat_interleave(H // n_kv, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * sm_scale
+    idx = lengths.long() - S
+    keys = torch.arange(L, device=q.device)
+    visible = keys[None, None, :] <= (
+        idx[:, None, None] + torch.arange(S, device=q.device)[None, :, None])
+    logits = torch.where(visible[:, None], logits,
+                         torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, vf)
+    out = torch.where((lengths > 0)[:, None, None, None], out,
+                      torch.zeros_like(out))
+    return out.to(q.dtype)
+
+
+def paged_attention(q, pages_key, pages_value, page_table, lengths, *,
+                    key_scales=None, value_scales=None, sm_scale=None,
+                    k_splits=8):
+    """Flash-decode attention over an in-place paged kv pool.
+
+    Args:
+      q: ``[B, S, H, Dh]`` query chunk (S=1 decode steps; any S >= 1).
+      pages_key / pages_value: the pool, ``[kv_pages, page, n_kv, Dh]``
+        in q's dtype (float32 or bfloat16 on the card).
+      page_table: ``[B, max_pages]`` int32 physical page per logical
+        block; entries past a row's length are never read.
+      lengths: ``[B]`` int32 tokens WRITTEN per row, including the current
+        chunk; query s sees key j iff ``j <= lengths - S + s``.
+      k_splits: target split-K parallelism over the page axis (clamped to
+        a divisor of max_pages).
+
+    Returns ``[B, S, H, Dh]`` in q's dtype.  CPU tensors take
+    :func:`paged_attention_plain`; CUDA tensors launch the kernel.
+    """
+    _check_args(q, pages_key, pages_value, page_table, lengths, key_scales,
+                value_scales)
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, pages_key, pages_value, page_table,
+                                     lengths, sm_scale=sm_scale)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"paged_attention: no kernel for {q.device}")
+    B, S, H, Dh = q.shape
+    NP, page, n_kv, _ = pages_key.shape
+    max_pages = page_table.shape[1]
+    if Dh not in (64, 128):
+        raise NotImplementedError(
+            f"paged_attention kernel takes head_dim 64 or 128, got {Dh}")
+    if not (pages_key.dtype == pages_value.dtype == q.dtype):
+        raise TypeError("q and the pools must share one dtype on the card")
+    for name, t in (("pages_key", pages_key), ("pages_value", pages_value),
+                    ("page_table", page_table), ("lengths", lengths)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if sm_scale is None:
+        sm_scale = 1.0 / (Dh ** 0.5)
+    lib = _build.lib()
+    q = _aligned(q)
+    pages_key, pages_value = _aligned(pages_key), _aligned(pages_value)
+    table = page_table.to(torch.int32).contiguous()
+    lens = lengths.to(torch.int32).contiguous()
+    group = H // n_kv
+    rows = S * group
+    n_splits = _pick_splits(k_splits, max_pages)
+    acc = torch.empty((B, n_kv, n_splits, rows, Dh), dtype=torch.float32,
+                      device=q.device)
+    m = torch.empty((B, n_kv, n_splits, rows), dtype=torch.float32,
+                    device=q.device)
+    l = torch.empty_like(m)
+    P = _build.ptr
+    code = lib.tos_paged_decode(
+        P(q), P(pages_key), P(pages_value), P(table), P(lens), P(acc), P(m),
+        P(l), B, S, H, n_kv, Dh, page, max_pages, NP, n_splits,
+        float(sm_scale), _build.dtype_code(q), _build.stream_ptr(q.device))
+    _build.check(code, "tos_paged_decode")
+    paged_attention.launches += 1
+    # LSE combine across splits: splits past a row's pages carry (m=-1e30,
+    # l=0, acc=0) and drop out; rows with no visible key anywhere
+    # (lengths == 0) hit the denominator guard and come out as zeros
+    mx = m.amax(dim=2, keepdim=True)
+    w = torch.exp(m - mx)
+    denom = (w * l).sum(dim=2).clamp_min(1e-30)
+    out = (w[..., None] * acc).sum(dim=2) / denom[..., None]
+    out = out.reshape(B, n_kv, S, group, Dh).permute(0, 2, 1, 3, 4)
+    return out.reshape(B, S, H, Dh).to(q.dtype)
+
+
+paged_attention.launches = 0
+
+
+def _aligned(t):
+    """Contiguous, with a 16-byte aligned base (the kernels' vector
+    loads need it)."""
+    t = t.contiguous()
+    if t.data_ptr() % 16:
+        t = t.clone()
+    return t

@@ -1,0 +1,165 @@
+"""The port's ground rules, checked on the CPU.
+
+- The port and ``chip_smoke.py`` import with ``jax``, ``flax`` and the
+  JAX package blocked, and no source file names them in an import.
+- Entry points raise without CUDA unless the CPU is asked for.
+- A CPU tensor passed to each kernel wrapper takes the plain version
+  (the launch counts stay 0); each kernel's CUDA source exists, names
+  the TPU function it replaces and is built by ``ops/_build.py``.
+- Unported flags and fields raise instead of being ignored.
+"""
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from tensorflowonspark_tpu_torch import convert, export, ops, serve
+from tensorflowonspark_tpu_torch.models import decode as port_decode
+from tensorflowonspark_tpu_torch.models import transformer as port_tf
+from tensorflowonspark_tpu_torch.ops import _build
+from tensorflowonspark_tpu_torch.ops import paged_attention as port_pa
+from tensorflowonspark_tpu_torch.ops import paged_prefill as port_pp
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "tensorflowonspark_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack",
+             "tensorflowonspark_tpu")
+TINY = dict(vocab_size=32, d_model=64, n_heads=4, n_kv_heads=2, n_layers=1,
+            d_ff=64, max_seq_len=32, dtype="float32", rope=True)
+
+
+def _port_sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PKG):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _module_names():
+    names = []
+    for path in _port_sources():
+        rel = os.path.relpath(path, REPO)[:-3].replace(os.sep, ".")
+        names.append(rel[:-len(".__init__")] if rel.endswith(".__init__")
+                     else rel)
+    return names
+
+
+def test_imports_with_jax_blocked():
+    code = (
+        "import sys\n"
+        f"for name in {FORBIDDEN!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import importlib\n"
+        f"for mod in {_module_names()!r}:\n"
+        "    importlib.import_module(mod)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""] if not node.level else []
+            else:
+                continue
+            for mod in mods:
+                assert mod.split(".")[0] not in FORBIDDEN, (path, mod)
+
+
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = port_tf.build_transformer(**TINY)
+    export.export_saved_model(str(tmp_path), model.state_dict(),
+                              builder_kwargs=TINY)
+    args = serve.build_argparser().parse_args([
+        "--export_dir", str(tmp_path), "--port", "0",
+        "--generate_kv_page_size", "8", "--generate_kv_pages", "8"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.make_server(args)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.GenerateService(str(tmp_path), kv_page_size=8, kv_pages=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.ContinuousBatcher(model, kv_page_size=8, kv_pages=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_decode.generate(model, [[1, 2, 3]], 2)
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    ops.reset_launch_counts()
+    rng = np.random.RandomState(0)
+    q = torch.from_numpy(rng.randn(2, 4, 4, 16).astype(np.float32))
+    k = torch.from_numpy(rng.randn(2, 4, 2, 16).astype(np.float32))
+    pk = torch.from_numpy(rng.randn(9, 8, 2, 16).astype(np.float32))
+    pv = torch.from_numpy(rng.randn(9, 8, 2, 16).astype(np.float32))
+    table = torch.tensor([[0, 1, 8], [2, 3, 8]], dtype=torch.int32)
+    starts = torch.tensor([0, 5], dtype=torch.int32)
+    lengths = starts + 4
+    out = port_pa.paged_attention(q, pk, pv, table, lengths)
+    want = port_pa.paged_attention_plain(q, pk, pv, table, lengths)
+    assert torch.equal(out, want)
+    pk2, pv2 = pk.clone(), pv.clone()
+    port_pp._write_pages(k, k, pk, pv, table, starts)
+    port_pp.write_pages_plain(k, k, pk2, pv2, table, starts)
+    assert torch.equal(pk, pk2) and torch.equal(pv, pv2)
+    out = port_pp._read_attention(q, k, k, pk, pv, table, starts)
+    want = port_pp.read_attention_plain(q, k, k, pk, pv, table, starts)
+    assert torch.equal(out, want)
+    assert ops.launch_counts() == {"paged_attention": 0, "page_write": 0,
+                                   "prefill_read": 0}
+
+
+def test_kernel_sources_exist_and_are_built():
+    csrc = os.path.join(PKG, "csrc")
+    replaces = {"paged_attention.cu": ["_decode_kernel"],
+                "paged_prefill.cu": ["_page_write_kernel",
+                                     "_prefill_read_kernel"]}
+    assert sorted(_build.SOURCES) == sorted(replaces)
+    for src, tpu_fns in replaces.items():
+        with open(os.path.join(csrc, src)) as f:
+            text = f.read()
+        for fn in tpu_fns:
+            assert fn in text, (src, fn)
+        assert 'extern "C"' in text
+    for name in _build.SIGNATURES:
+        assert any(name in open(os.path.join(csrc, s)).read()
+                   for s in _build.SOURCES), name
+    assert _build.ARCH_FLAGS == ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+
+@pytest.mark.parametrize("flag", [
+    ["--generate_engine", "async"], ["--generate_kv_dtype", "int8"],
+    ["--generate_quantize", "int8"], ["--spec_draft", "ngram"],
+    ["--generate_lora_rank", "2"], ["--generate_host_cache_mb", "4"]])
+def test_unported_flags_raise(flag):
+    args = serve.build_argparser().parse_args([
+        "--export_dir", "unused", "--device", "cpu",
+        "--generate_kv_page_size", "8", "--generate_kv_pages", "8", *flag])
+    with pytest.raises(NotImplementedError, match="not ported"):
+        serve.make_server(args)
+
+
+def test_convert_roundtrip_keeps_the_jax_layout():
+    model = port_tf.build_transformer(**dict(TINY, use_bias=True))
+    sd = model.state_dict()
+    tree = convert.params_to_jax(sd)
+    assert tree["layer_0"]["attn"]["query"]["kernel"].shape == (64, 64)
+    assert tree["layer_0"]["attn"]["key"]["kernel"].shape == (64, 32)
+    assert tree["token_embed"]["embedding"].shape == (32, 64)
+    assert set(tree["ln_f"]) == {"scale", "bias"}
+    back = convert.params_from_jax(tree)
+    assert set(back) == set(sd)
+    for name, t in sd.items():
+        assert torch.equal(back[name], t), name
