@@ -1,11 +1,14 @@
 """tensorflowonspark_tpu_torch — the PyTorch / CUDA port of
 tensorflowonspark_tpu, slice by slice.
 
-This slice serves a decoder LM through paged continuous batching on an
+Slice 1 serves a decoder LM through paged continuous batching on an
 NVIDIA H100: ``serve`` (HTTP :generate over ``ContinuousBatcher``),
 ``models.decode`` (paged slot cache, prefill and decode steps),
 ``models.transformer`` and the hand-written CUDA kernels in ``ops`` /
-``csrc``.  Module names follow the JAX package, so each module's
+``csrc``.  Slice 2 trains it on one card: ``benchmarks.
+make_flagship_step`` over ``parallel.train`` (the train step),
+``optim`` (schedules, optimizers) and the flash-attention and fused
+AdamW kernels.  Module names follow the JAX package, so each module's
 counterpart is easy to find.  The port imports ``torch``, numpy and the
 standard library only — never ``jax`` and nothing of the JAX package.
 
@@ -16,7 +19,7 @@ __version__ = "0.1.0"
 
 _LAZY_SUBMODULES = {
     "benchmarks", "convert", "device", "export", "metrics", "models", "ops",
-    "serve",
+    "optim", "parallel", "serve",
 }
 
 

@@ -1,5 +1,5 @@
 """Transformer LM — counterpart of ``tensorflowonspark_tpu/models/
-transformer.py`` for the serving slice.
+transformer.py`` for the serving and training slices.
 
 The same ``TransformerConfig`` (field names and defaults), the same
 parameter tree under PyTorch names (``convert.params_from_jax`` maps
@@ -7,20 +7,26 @@ one onto the other), and the same math: RoPE with split-half pairing,
 GQA attention with f32 softmax, plain or gated MLPs, RMSNorm or
 LayerNorm (statistics in f32), pre- or post-LN blocks.
 
-Two attention paths: the cache-free forward (dense causal attention, for
-scoring and the parity tests) and the paged slot cache
-(``_paged_attention_body``), which runs the paged kernels of ``ops``.
-Fields of the config whose feature is not ported raise
+Attention paths, as in the JAX package: the cache-free forward runs the
+flash kernels (``ops.flash_attention``, differentiable) for
+``attention_impl="flash"``, or ``"auto"`` on a CUDA tensor, and dense
+attention otherwise; the paged slot cache (``_paged_attention_body``)
+runs the paged kernels.  ``remat`` recomputes each block in the backward
+(``torch.utils.checkpoint``).  :func:`lm_loss` is the causal-LM loss the
+train step uses.  Fields of the config whose feature is not ported raise
 ``NotImplementedError`` naming the ROADMAP item when they are set.
 """
 import dataclasses
+import logging
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from tensorflowonspark_tpu_torch.ops.flash_attention import flash_attention
 from tensorflowonspark_tpu_torch.ops.paged_attention import paged_attention
 from tensorflowonspark_tpu_torch.ops.paged_prefill import paged_prefill
 
@@ -44,11 +50,11 @@ class TransformerConfig:
     moe_router: str = "dense"
     moe_top_k: int = 1
     moe_capacity_factor: float = 1.25
-    remat: bool = False           # training-only (not ported)
+    remat: bool = False           # recompute each block in the backward
     ring_attention_axis: Optional[str] = None   # context parallelism
     ulysses_axis: Optional[str] = None          # (not ported)
     sp_axis: Optional[str] = None
-    attention_impl: str = "auto"  # auto | dense; flash is not ported
+    attention_impl: str = "auto"  # auto | flash (CUDA kernels) | dense
     use_bias: bool = False
     ln_eps: float = 1e-6
     norm_type: str = "layernorm"  # layernorm | rmsnorm
@@ -75,10 +81,7 @@ _UNPORTED = (
     ("ulysses_axis", bool,
      "context-parallel attention (ROADMAP: the zoo and the rest)"),
     ("sp_axis", bool, "sequence parallelism (ROADMAP: the zoo and the rest)"),
-    ("remat", bool, "rematerialisation (ROADMAP: training main path)"),
     ("fused_ln", bool, "the fused LayerNorm kernel (ROADMAP: kernel 11)"),
-    ("attention_impl", lambda v: v == "flash",
-     "the flash-attention kernel (ROADMAP: kernels 4-6, training slice)"),
     ("kv_dtype", lambda v: v != "auto",
      "int8 kv pools (ROADMAP: int8 kv branch of kernels 1-3)"),
     ("kv_table_pages", lambda v: v > 0,
@@ -264,8 +267,21 @@ class Attention(nn.Module):
                 raise NotImplementedError(
                     "key-padding masks are not supported in decode mode")
             out = _paged_attention_body(q, k, v, cache, layer)
+        elif mask is None and (cfg.attention_impl == "flash" or (
+                cfg.attention_impl == "auto" and q.is_cuda)):
+            # GQA-native kernels: narrow k/v go straight in (no repeated
+            # kv on the card, dk/dv come back narrow)
+            out = flash_attention(q, k, v, causal=cfg.causal)
         else:
+            # dense path: broadcast back to full heads
             kf, vf = _kv_repeat(q, k, v)
+            if mask is not None and cfg.attention_impl == "flash":
+                # key-padding masks are not in the flash kernels; an
+                # explicit 'flash' request must not silently lose its
+                # O(S) memory promise
+                logging.getLogger(__name__).warning(
+                    "attention_impl='flash' with a key-padding mask falls "
+                    "back to dense O(S^2) attention")
             out = dot_product_attention(q, kf, vf, causal=cfg.causal,
                                         mask=mask)
         return self.out(out.reshape(B, S, cfg.d_model))
@@ -416,12 +432,30 @@ class Transformer(nn.Module):
             # like the JAX gather (their tokens are discarded)
             pos = pos.clamp(0, cfg.max_seq_len - 1)
             x = x + F.embedding(pos, self.pos_embed.weight).to(dt)
+        remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for i, name in enumerate(self.layer_names):
-            x = getattr(self, name)(x, cache, i)
+            block = getattr(self, name)
+            if remat:
+                # nn.remat(Block): keep only the block's input, recompute
+                # its activations in the backward
+                x = checkpoint(block, x, None, i, use_reentrant=False)
+            else:
+                x = block(x, cache, i)
         logits = self.lm_head(self.ln_f(x))
         if cache is not None:
             cache.cache_index = cache.cache_index + S
         return logits
+
+
+def lm_loss(logits, targets, ignore_id=-1):
+    """Causal-LM cross entropy: f32 logsumexp minus the gold logit, the
+    mean over targets that are not ``ignore_id``."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.clamp_min(0).long()[..., None])
+    mask = (targets != ignore_id).float()
+    return (torch.sum((logz - gold[..., 0]) * mask)
+            / torch.clamp_min(torch.sum(mask), 1.0))
 
 
 def build_transformer(**kwargs):

@@ -22,7 +22,8 @@ import time
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
-SOURCES = ("paged_attention.cu", "paged_prefill.cu")
+SOURCES = ("paged_attention.cu", "paged_prefill.cu", "flash_attention.cu",
+           "fused_optim.cu")
 HEADERS = ("common.cuh",)
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
                          "torch_kernels")
@@ -37,6 +38,7 @@ DTYPES = {"float32": 0, "bfloat16": 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # argtypes of every C entry: pointers and the stream as c_void_p (a bare
 # Python int would be passed as a 32-bit int and cut the pointer)
 SIGNATURES = {
@@ -45,6 +47,13 @@ SIGNATURES = {
     "tos_page_write": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "tos_prefill_read": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _I, _F, _I, _P],
+    "tos_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    "tos_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                         _I, _I, _P],
+    "tos_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _F, _I, _I, _P],
+    "tos_adamw": [_P, _P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _I, _I,
+                  _I, _P],
 }
 
 _lock = threading.Lock()

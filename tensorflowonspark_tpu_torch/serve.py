@@ -321,7 +321,7 @@ class ContinuousBatcher:
             "ttft_p95_ms": (1000.0 * ttft[min(len(ttft) - 1,
                                               int(0.95 * len(ttft)))]
                             if ttft else 0.0),
-            "kernel_launches": ops.launch_counts(),
+            "kernel_launches": ops.launch_counts(ops.SERVING_KERNELS),
         }
         out.update(self.counters.snapshot())
         return out
@@ -808,7 +808,8 @@ class ModelService:
             out["model"]["generate"] = "available"
             out["model"]["generate_slots"] = gen.batcher.n_slots
             out["model"]["generate_stats"] = gen.batcher.stats()
-        out["model"]["kernel_launches"] = ops.launch_counts()
+        out["model"]["kernel_launches"] = ops.launch_counts(
+            ops.SERVING_KERNELS)
         return out
 
     def close(self):

@@ -6,7 +6,8 @@
 - A CPU tensor passed to each kernel wrapper takes the plain version
   (the launch counts stay 0); each kernel's CUDA source exists, names
   the TPU function it replaces and is built by ``ops/_build.py``.
-- Unported flags and fields raise instead of being ignored.
+- Unported flags, fields, optimizers and train-step options raise
+  instead of being ignored.
 """
 import ast
 import os
@@ -17,12 +18,16 @@ import numpy as np
 import pytest
 import torch
 
-from tensorflowonspark_tpu_torch import convert, export, ops, serve
+from tensorflowonspark_tpu_torch import (benchmarks, convert, export, ops,
+                                         optim, serve)
 from tensorflowonspark_tpu_torch.models import decode as port_decode
 from tensorflowonspark_tpu_torch.models import transformer as port_tf
 from tensorflowonspark_tpu_torch.ops import _build
+from tensorflowonspark_tpu_torch.ops import flash_attention as port_fa
+from tensorflowonspark_tpu_torch.ops import fused_optim as port_fo
 from tensorflowonspark_tpu_torch.ops import paged_attention as port_pa
 from tensorflowonspark_tpu_torch.ops import paged_prefill as port_pp
+from tensorflowonspark_tpu_torch.parallel import train as port_train
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "tensorflowonspark_tpu_torch")
@@ -117,15 +122,38 @@ def test_cpu_tensors_take_the_plain_versions():
     out = port_pp._read_attention(q, k, k, pk, pv, table, starts)
     want = port_pp.read_attention_plain(q, k, k, pk, pv, table, starts)
     assert torch.equal(out, want)
-    assert ops.launch_counts() == {"paged_attention": 0, "page_write": 0,
-                                   "prefill_read": 0}
+    v = torch.from_numpy(rng.randn(2, 4, 2, 16).astype(np.float32))
+    out, lse = port_fa.flash_fwd(q, k, v)
+    want, want_lse = port_fa.flash_fwd_plain(q, k, v)
+    assert torch.equal(out, want) and torch.equal(lse, want_lse)
+    delta = torch.einsum("bshd,bshd->bhs", q, out)
+    assert torch.equal(port_fa.flash_bwd_dq(q, k, v, q, lse, delta),
+                       port_fa.flash_bwd_dq_plain(q, k, v, q, lse, delta))
+    for a, b in zip(port_fa.flash_bwd_dkv(q, k, v, q, lse, delta),
+                    port_fa.flash_bwd_dkv_plain(q, k, v, q, lse, delta)):
+        assert torch.equal(a, b)
+    g, p, nu = (torch.from_numpy(rng.rand(37).astype(np.float32))
+                for _ in range(3))
+    mu = torch.zeros(37, dtype=torch.bfloat16)
+    scal = torch.tensor([1e-3, 1.0, 0.1, 0.001])
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.1, write_param=True)
+    want = port_fo.adamw_plain(g, p, mu, nu, scal, **kw)
+    port_fo._adamw(g, p, mu, nu, scal, p, **kw)
+    for a, b in zip((p, mu, nu), want):
+        assert torch.equal(a, b)
+    assert ops.launch_counts() == {
+        "paged_attention": 0, "page_write": 0, "prefill_read": 0,
+        "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "adamw": 0}
 
 
 def test_kernel_sources_exist_and_are_built():
     csrc = os.path.join(PKG, "csrc")
     replaces = {"paged_attention.cu": ["_decode_kernel"],
                 "paged_prefill.cu": ["_page_write_kernel",
-                                     "_prefill_read_kernel"]}
+                                     "_prefill_read_kernel"],
+                "flash_attention.cu": ["_fwd_kernel", "_bwd_dq_kernel",
+                                       "_bwd_dkv_kernel"],
+                "fused_optim.cu": ["_adamw_kernel"]}
     assert sorted(_build.SOURCES) == sorted(replaces)
     for src, tpu_fns in replaces.items():
         with open(os.path.join(csrc, src)) as f:
@@ -149,6 +177,34 @@ def test_unported_flags_raise(flag):
         "--generate_kv_page_size", "8", "--generate_kv_pages", "8", *flag])
     with pytest.raises(NotImplementedError, match="not ported"):
         serve.make_server(args)
+
+
+def test_training_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        benchmarks.make_flagship_step(2, 16)
+
+
+@pytest.mark.parametrize("name", ["lion", "lion_fused", "adamw8bit",
+                                  "adafactor"])
+def test_unported_optimizers_raise(name):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        optim.make_optimizer(name)
+    with pytest.raises(NotImplementedError, match="kernel 8"):
+        port_fo.lion_fused(1e-3)
+
+
+@pytest.mark.parametrize("kw", [{"mesh": object()},
+                                {"param_shardings": {}},
+                                {"donate": False}])
+def test_unported_train_step_options_raise(kw):
+    opt, _ = optim.make_optimizer("adamw_fused")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        port_train.make_train_step(lambda m, b, r: 0.0, opt, **kw)
+    if "donate" not in kw:
+        model = port_tf.build_transformer(**TINY)
+        with pytest.raises(NotImplementedError, match="not ported"):
+            port_train.create_train_state(model, opt, **kw)
 
 
 def test_convert_roundtrip_keeps_the_jax_layout():
