@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch / CUDA port: builds the hand-written kernels
-and drives the port's two main paths — paged continuous-batching serving
-of the flagship LM, and its training step — on one NVIDIA GPU.
+and drives the port's main paths — paged continuous-batching serving of
+the flagship LM with bf16, int8 and int4 weights, and its training step —
+on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -19,11 +20,24 @@ caught and reported as passed):
 4. serving parity: FLAGSHIP_LM_V2 cut to 2 layers, the same seeded
    weights on the card (bf16, kernels) and on the CPU (f32, plain
    versions), one 300-token paged prefill then 8 greedy decode steps;
-5. serving main path: full-depth FLAGSHIP_LM_V2 (random bf16 weights
-   from a seed) served through the port's ``make_server`` on 127.0.0.1 —
-   a concurrent greedy burst of 8 requests, one of them again alone, one
-   seeded sampled request twice — with every serving kernel's launch
-   count > 0 and the page pool conserved;
+5. serving main path: full-depth FLAGSHIP_LM_V2 (random f32 master
+   weights from a seed, exported once and served at bf16) through the
+   port's ``make_server`` on 127.0.0.1 — a concurrent greedy burst of 8
+   requests, one of them again alone under torch.profiler, one seeded
+   sampled request twice — with every serving kernel's launch count > 0
+   and the page pool conserved;
+5a. quantised kernels (9 and 10) against their plain versions on the
+   card in bf16 at FLAGSHIP_QUANT_MATMUL (the ``wi`` shape at a 16-row
+   decode step and a 1024-row prefill dispatch), timed like phase 3,
+   with ``F.linear`` on the bf16 dequantised weight as the library call;
+   quantising that weight on the card gives the CPU's bytes;
+5b. quantised parity: phase 4 again with int8 and with int4 weights,
+   quantised once on the CPU from the f32 masters (card bf16 + kernels,
+   CPU f32 + plain versions, the same quantised bytes);
+5c. quantised main path: phase 5's export served again with
+   ``--generate_quantize int8`` and then ``int4``, the same requests;
+   launch counts > 0 for that mode's matmul kernel and kernels 1-3,
+   resident weight bytes and ``memory_allocated`` beside the bf16 run;
 6. training kernels the same way as phase 3: flash forward, dq and dk/dv
    at one layer of the flagship train step (B 8, S 1024, H 16, n_kv 8,
    D 128, bf16, causal), fused AdamW over the whole flagship parameter
@@ -38,8 +52,9 @@ caught and reported as passed):
    closed by a readback of the loss, then one step under torch.profiler;
    the loss finite and falling, 16 launches of each flash kernel per
    step and at least one AdamW launch per step;
-9. the ``kernels`` line (launches from each kernel's own main path);
-   then the card line and, last, the ``ok`` line.
+9. the ``kernels`` line (launches from each kernel's own main path; the
+   quantised kernels from their serving run); then the card line and,
+   last, the ``ok`` line.
 
 Exits 2 without a result when no CUDA device exists or when the port's
 package is not beside this file.
@@ -58,6 +73,9 @@ SEED = 20261016
 PEAK_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
 TOL = 1e-2                          # f32 math, bf16 output rounding
+# fused-dequant matmuls in bf16: the largest error within this share of
+# the largest |plain output| (the JAX package's own kernel tolerance)
+QMM_TOL = 2e-2
 # gradients accumulate over up to 1024 keys or 2 x 1024 queries: bf16
 # rounding of values up to ~10 on top of TOL
 GRAD_ATOL = 4e-2
@@ -245,25 +263,19 @@ def phase_kernels(torch, F, dev):
     return rows
 
 
-def phase_parity(torch, dev):
-    """2-layer full-width flagship: card (bf16, kernels) vs CPU (f32,
-    plain versions) on the same weights."""
-    from tensorflowonspark_tpu_torch.benchmarks import FLAGSHIP_LM_V2
+def compare_serving(torch, dev, cpu, card, label):
+    """One 300-token paged prefill, then 8 greedy decode steps, of
+    ``card`` (on the card) against ``cpu`` (on the CPU), both taking the
+    CPU's greedy token (teacher forcing, so every step compares the same
+    context): the largest logit difference within 5e-2 x std(logits) at
+    every step, and the greedy tokens agreeing wherever the top-2 margin
+    is wider than that tolerance.  Returns the per-step results and the
+    first step whose tokens part (None when all agree)."""
     from tensorflowonspark_tpu_torch.models import decode as dm
-    from tensorflowonspark_tpu_torch.models.transformer import (
-        build_transformer)
 
-    cfg = dict(FLAGSHIP_LM_V2, n_layers=2, max_seq_len=4096)
-    cpu = build_transformer(**dict(cfg, dtype="float32")).eval()
-    cpu.reset_parameters(torch.Generator().manual_seed(SEED))
-    with torch.device("meta"):
-        card = build_transformer(**cfg)
-    card.load_state_dict({k: v.to(dev, torch.bfloat16)
-                          for k, v in cpu.state_dict().items()},
-                         assign=True)
-    card.eval()
+    max_seq = card.cfg.max_seq_len
     plen, steps, page = 300, 8, 64
-    prompt = torch.randint(0, cfg["vocab_size"], (1, plen),
+    prompt = torch.randint(0, card.cfg.vocab_size, (1, plen),
                            generator=torch.Generator().manual_seed(SEED))
     n_pages = -(-(plen + steps) // page) + 1
     caches = {}
@@ -271,9 +283,10 @@ def phase_parity(torch, dev):
         _, cache = dm.init_paged_slot_cache(model, 1, page, n_pages)
         entries = list(range(n_pages - 1))
         dm.set_row_page_table(
-            cache, 0, entries + [n_pages - 1] * (4096 // page - len(entries)))
+            cache, 0,
+            entries + [n_pages - 1] * (max_seq // page - len(entries)))
         caches[name] = cache
-    results = []
+    results, parted = [], None
     with torch.no_grad():
         logits = {}
         for name, model, d in (("card", card, dev), ("cpu", cpu, "cpu")):
@@ -295,24 +308,115 @@ def phase_parity(torch, dev):
             results.append(dict(step=step, max_abs_diff=diff, tol=tol,
                                 top2_margin=margin, token_agrees=agree))
             if diff > tol:
-                raise AssertionError(f"full-width parity: step {step} "
-                                     f"logits differ by {diff} > {tol}")
-            if margin > tol and not agree:
-                raise AssertionError(f"full-width parity: step {step} "
-                                     "greedy tokens differ")
+                raise AssertionError(f"{label}: step {step} logits differ "
+                                     f"by {diff} > {tol}")
+            if not agree:
+                if margin > tol:
+                    raise AssertionError(f"{label}: step {step} greedy "
+                                         "tokens differ")
+                if parted is None:      # a near tie: within the tolerance
+                    parted = dict(step=step, top2_margin=margin, tol=tol)
             if step == steps:
                 break
-            # both sides take the CPU's greedy token (teacher forcing), so
-            # every step compares the same context
             for name, model, d in (("card", card, dev), ("cpu", cpu, "cpu")):
                 logits[name] = model(torch.tensor([[tok]], device=d),
                                      caches[name])[:, -1]
+    return results, parted
+
+
+def parity_cpu_model(torch):
+    """FLAGSHIP_LM_V2 cut to 2 layers at full width, f32 on the CPU,
+    random from the seed."""
+    from tensorflowonspark_tpu_torch.benchmarks import FLAGSHIP_LM_V2
+    from tensorflowonspark_tpu_torch.models.transformer import (
+        build_transformer)
+
+    cfg = dict(FLAGSHIP_LM_V2, n_layers=2, max_seq_len=4096)
+    cpu = build_transformer(**dict(cfg, dtype="float32")).eval()
+    cpu.reset_parameters(torch.Generator().manual_seed(SEED))
+    return cfg, cpu
+
+
+def phase_parity(torch, dev):
+    """2-layer full-width flagship: card (bf16, kernels) vs CPU (f32,
+    plain versions) on the same weights."""
+    from tensorflowonspark_tpu_torch.models.transformer import (
+        build_transformer)
+
+    cfg, cpu = parity_cpu_model(torch)
+    with torch.device("meta"):
+        card = build_transformer(**cfg)
+    card.load_state_dict({k: v.to(dev, torch.bfloat16)
+                          for k, v in cpu.state_dict().items()},
+                         assign=True)
+    card.eval()
+    results, _ = compare_serving(torch, dev, cpu, card, "full-width parity")
     return results
+
+
+def phase_quant_parity(torch, dev):
+    """Phase 4 with quantised weights: the 2-layer full-width flagship
+    quantised once on the CPU from its f32 masters (int8, then int4); the
+    card runs those bytes at bf16 through kernels 9 / 10 and 1-3, the CPU
+    in f32 through the plain versions."""
+    import copy
+
+    from tensorflowonspark_tpu_torch import quantize
+    from tensorflowonspark_tpu_torch.models.transformer import (
+        Dense, build_transformer)
+
+    cfg, cpu = parity_cpu_model(torch)
+    out = {}
+    for mode in quantize.MODES:
+        qcpu = copy.deepcopy(cpu)
+        quantize.quantize_module(qcpu, mode)
+        # the card model is built at the flagship's own bf16 width, as
+        # phase 4's is: its Dense layers compute in bf16, so kernels 9 /
+        # 10 run their bf16 branch on the CPU-quantised bytes
+        with torch.device("meta"):
+            card = build_transformer(**cfg)
+        if card.cfg.dtype != "bfloat16":
+            raise AssertionError(f"{mode} parity: card model computes in "
+                                 f"{card.cfg.dtype}, not bfloat16")
+        qmods = {name: mod for name, mod in qcpu.named_modules()
+                 if isinstance(mod, Dense) and mod.quant is not None}
+        quantized = set()
+        for name, mod in card.named_modules():
+            if name in qmods:
+                leaf = qmods[name].quantized_leaf()
+                if mode == "int8":
+                    leaf = {k: v.to(dev) for k, v in leaf.items()}
+                else:
+                    leaf = quantize.Int4Weight(leaf.q.to(dev),
+                                               leaf.scale.to(dev),
+                                               leaf.in_dim, leaf.group_size)
+                mod.set_quantized(leaf)
+                quantized |= {f"{name}.q", f"{name}.scale"}
+        # q stays int8 and the scales f32; every other float leaf is bf16
+        card.load_state_dict(
+            {k: (v.to(dev) if k in quantized else v.to(dev, torch.bfloat16))
+             for k, v in qcpu.state_dict().items()}, assign=True)
+        card.eval()
+        steps, parted = compare_serving(torch, dev, qcpu, card,
+                                        f"{mode} parity")
+        out[mode] = dict(steps=steps, first_token_parting=parted,
+                         tokens_agree=sum(r["token_agrees"] for r in steps),
+                         positions=len(steps),
+                         max_abs_diff=max(r["max_abs_diff"] for r in steps),
+                         tol=min(r["tol"] for r in steps))
+        del qcpu, card
+        torch.cuda.empty_cache()
+    return out
 
 
 # kernel-name fragments -> the group a training step's device time is
 # reported under (first match wins; the rest is "other")
-KERNEL_GROUPS = (("tos::flash", "flash kernels"),
+KERNEL_GROUPS = (("tos::quant_matmul", "quant matmul kernels"),
+                 ("tos::split_sum", "quant matmul kernels"),
+                 ("tos::paged_decode", "paged kernels"),
+                 ("tos::page_write", "paged kernels"),
+                 ("tos::prefill_read", "paged kernels"),
+                 ("tos::flash", "flash kernels"),
                  ("tos::adamw", "adamw kernel"),
                  ("nvjet", "matmul"), ("gemm", "matmul"),
                  ("cutlass", "matmul"), ("xmma", "matmul"),
@@ -357,19 +461,19 @@ def post_json(url, payload, timeout=600):
         return json.loads(resp.read())
 
 
-def phase_main_path(torch, dev):
-    """Full-depth flagship served through make_server on 127.0.0.1."""
-    from tensorflowonspark_tpu_torch import export, ops, serve
+def make_flagship_export(torch, dev):
+    """Full-depth FLAGSHIP_LM_V2 with random f32 master weights from the
+    seed, built on the card and exported (``params.pt``) once for the
+    serving phases.  Returns ``(cfg, export_dir, n_params)``."""
+    from tensorflowonspark_tpu_torch import export
     from tensorflowonspark_tpu_torch.benchmarks import FLAGSHIP_LM_V2
     from tensorflowonspark_tpu_torch.models.transformer import (
         build_transformer)
 
     cfg = dict(FLAGSHIP_LM_V2, max_seq_len=4096)
-    t0 = time.monotonic()
     with torch.device(dev):
         model = build_transformer(**cfg)
     model.reset_parameters(torch.Generator(dev).manual_seed(SEED))
-    model.to(torch.bfloat16)
     n_params = sum(p.numel() for p in model.parameters())
     export_dir = os.path.join(HERE, "build", "chip_smoke", "export")
     shutil.rmtree(export_dir, ignore_errors=True)
@@ -377,19 +481,41 @@ def phase_main_path(torch, dev):
                               builder_kwargs=cfg)
     del model
     torch.cuda.empty_cache()
+    return cfg, export_dir, n_params
+
+
+def get_json(url, timeout=60):
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        return json.loads(resp.read())
+
+
+def phase_main_path(torch, dev, cfg, export_dir, quantize="none"):
+    """Full-depth flagship served through make_server on 127.0.0.1, with
+    bf16 weights or (``quantize``) int8 / int4 projections."""
+    from tensorflowonspark_tpu_torch import ops, serve
+
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated()
     args = serve.build_argparser().parse_args([
         "--export_dir", export_dir, "--device", str(dev),
         "--host", "127.0.0.1", "--port", "0",
         "--generate_kv_page_size", "64", "--generate_kv_pages", "512",
         "--generate_slots", "8", "--generate_prefill_chunk", "256",
-        "--max_new_tokens_limit", "64"])
+        "--max_new_tokens_limit", "64", "--generate_quantize", quantize])
+    t0 = time.monotonic()
     server, service = serve.make_server(args)
-    service.generate_service()          # load the export onto the card
-    setup_s = time.monotonic() - t0
+    gen_service = service.generate_service()   # load the export onto the card
+    torch.cuda.synchronize()
+    load_s = time.monotonic() - t0
+    memory_allocated = torch.cuda.memory_allocated() - mem_before
+    model = gen_service.model
+    weight_bytes = sum(t.numel() * t.element_size() for t in
+                       list(model.parameters()) + list(model.buffers()))
+    del model, gen_service
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
-    url = (f"http://127.0.0.1:{server.server_address[1]}"
-           "/v1/models/default:generate")
+    base = f"http://127.0.0.1:{server.server_address[1]}/v1/models/default"
+    url = base + ":generate"
     gen = torch.Generator().manual_seed(SEED + 1)
     lens = [100, 300, 500, 700, 900, 1100, 1300, 1500]
     prompts = [torch.randint(0, cfg["vocab_size"], (n,),
@@ -440,26 +566,34 @@ def phase_main_path(torch, dev):
         s2 = post_json(url, sampled)["outputs"][0]
         if s1 != s2:
             raise AssertionError("seeded sampled request did not repeat")
-        launches = ops.launch_counts(ops.SERVING_KERNELS)
+        batcher = service.generate_service().batcher
+        launches = ops.launch_counts(batcher.kernels)
         if min(launches.values()) < 1:
             raise AssertionError(f"a kernel never launched: {launches}")
-        batcher = service.generate_service().batcher
         stats = batcher.stats()
         free = list(batcher._free_pages)
         owned = [p for pages in batcher._row_pages if pages for p in pages]
         if (len(set(free)) != len(free) or batcher._sink in free
                 or sorted(free + owned) != list(range(batcher._total_pages))):
             raise AssertionError("the page pool does not conserve its pages")
+        meta = get_json(base)["model"]
+        qinfo = meta.get("generate_quantize")
+        if (quantize != "none") != (qinfo is not None) or (
+                qinfo and qinfo["mode"] != quantize):
+            raise AssertionError(f"metadata reports {qinfo} for {quantize}")
+        del batcher
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=60)
-        shutil.rmtree(export_dir, ignore_errors=True)
     if thread.is_alive():
         raise RuntimeError("server thread did not stop")
     new_tokens = len(prompts) * max_new
     return launches, dict(
-        params=n_params, layers=cfg["n_layers"], setup_s=setup_s,
+        quantize=quantize, layers=cfg["n_layers"], load_s=load_s,
+        resident_weight_bytes=weight_bytes,
+        memory_allocated_by_load=memory_allocated,
+        generate_quantize=qinfo,
         burst_requests=len(prompts), prompt_tokens=sum(lens),
         burst_s=burst_s, burst_new_tokens_per_s=new_tokens / burst_s,
         ttft_mean_ms=1000.0 * stats["ttft_sum_s"] / stats["ttft_count"],
@@ -468,6 +602,81 @@ def phase_main_path(torch, dev):
         prefill_dispatches=stats["prefill_dispatches"],
         requests_served=stats["requests_served"], launches=launches,
         solo_profile=profile)
+
+
+def phase_quant_kernels(torch, F, dev):
+    """Kernels 9 and 10 against their plain versions at the flagship
+    ``wi`` shape, timed at a decode step and at a prefill dispatch."""
+    from tensorflowonspark_tpu_torch import quantize
+    from tensorflowonspark_tpu_torch.benchmarks import FLAGSHIP_QUANT_MATMUL
+    from tensorflowonspark_tpu_torch.ops import quant_matmul as qm
+
+    d = FLAGSHIP_QUANT_MATMUL
+    K, N, G = d["K"], d["N"], d["group_size"]
+    bf16 = torch.bfloat16
+    gen = torch.Generator().manual_seed(SEED + 4)
+    w = torch.randn((K, N), generator=gen) * K ** -0.5   # lecun-normal
+    # quantising on the card gives the CPU's bytes
+    leaves = {"int8": quantize.quantize_int8(w),
+              "int4": quantize.int4_pack(w, G)}
+    card8 = quantize.quantize_int8(w.to(dev))
+    card4 = quantize.int4_pack(w.to(dev), G)
+    same = (torch.equal(card8["q"].cpu(), leaves["int8"]["q"])
+            and torch.equal(card8["scale"].cpu(), leaves["int8"]["scale"])
+            and torch.equal(card4.q.cpu(), leaves["int4"].q)
+            and torch.equal(card4.scale.cpu(), leaves["int4"].scale))
+    if not same:
+        raise AssertionError("quantising on the card changed the bytes")
+    on_card = {"int8": card8, "int4": card4}
+    xs = {m: torch.randn((m, K), generator=gen).to(dev, bf16)
+          for m in (d["decode_m"], d["prefill_m"])}
+    rows = {}
+    for mode, plain in (("int8", qm.int8_matmul_plain),
+                        ("int4", qm.int4_matmul_plain)):
+        leaf = on_card[mode]
+        w_bytes = (K * N + 4 * N if mode == "int8"
+                   else leaf.q.numel() + 4 * leaf.scale.numel())
+        # the library's call: a W16 store, F.linear on the bf16 weight
+        w16 = quantize.dequantize_leaf(leaf, bf16).t().contiguous()
+        shapes = {}
+        for label, M in (("decode", d["decode_m"]),
+                         ("prefill", d["prefill_m"])):
+            x = xs[M]
+            got = qm.quant_matmul(x, leaf)
+            want = plain(x, leaf)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            if err > QMM_TOL * scale:
+                raise AssertionError(f"{mode} matmul kernel disagrees at "
+                                     f"M {M}: {err} > {QMM_TOL} x {scale}")
+            b_ms, b_by = bound(w_bytes + 2 * M * K + 2 * M * N,
+                               2 * M * K * N)
+            shapes[label] = dict(
+                M=M, K=K, N=N, max_abs_err=err, tol=QMM_TOL * scale,
+                ms=time_ms(lambda: qm.quant_matmul(x, leaf)),
+                plain_ms=time_ms(lambda: plain(x, leaf), reps=10),
+                library_ms=time_ms(lambda: F.linear(x, w16)),
+                bound_ms=b_ms, bound_by=b_by,
+                weight_bytes=w_bytes, library_weight_bytes=2 * K * N)
+        dec = shapes["decode"]
+        number = "9" if mode == "int8" else "10"
+        rows[f"{mode}_matmul"] = dict(
+            name=f"{mode}_matmul", route="cuda",
+            source="tensorflowonspark_tpu_torch/csrc/quant_matmul.cu",
+            replaces=("tensorflowonspark_tpu/ops/quant_matmul.py:81"
+                      if mode == "int8" else
+                      "tensorflowonspark_tpu/ops/quant_matmul.py:101"),
+            kernel=number, max_abs_err=max(v["max_abs_err"]
+                                           for v in shapes.values()),
+            ms=dec["ms"], plain_ms=dec["plain_ms"],
+            library_ms=dec["library_ms"], bound_ms=dec["bound_ms"],
+            bound_by=dec["bound_by"], main_numbers="decode",
+            library_note="F.linear on the bf16 dequantised weight",
+            group_size=G if mode == "int4" else None, shapes=shapes,
+            quantized_on_card_equals_cpu=same, dtype="bfloat16")
+        del w16
+    return rows
 
 
 def phase_train_kernels(torch, F, dev):
@@ -796,9 +1005,35 @@ def main():
     emit("parity", steps=parity)
     torch.cuda.empty_cache()
 
-    launches, main_path = phase_main_path(torch, dev)
-    emit("main_path", nvidia_smi=card, **main_path)
-    torch.cuda.empty_cache()
+    from tensorflowonspark_tpu_torch import quantize
+
+    cfg, export_dir, n_params = make_flagship_export(torch, dev)
+    try:
+        launches, main_path = phase_main_path(torch, dev, cfg, export_dir)
+        emit("main_path", nvidia_smi=card, params=n_params, **main_path)
+        torch.cuda.empty_cache()
+
+        quant_rows = phase_quant_kernels(torch, F, dev)
+        for row in quant_rows.values():
+            emit("kernel", **row)
+        rows.update(quant_rows)
+        torch.cuda.empty_cache()
+
+        emit("quant_parity", **phase_quant_parity(torch, dev))
+        torch.cuda.empty_cache()
+
+        for mode in quantize.MODES:
+            q_launches, q_main = phase_main_path(torch, dev, cfg, export_dir,
+                                                 quantize=mode)
+            emit("quant_main_path", nvidia_smi=card, params=n_params,
+                 bf16_resident_weight_bytes=main_path[
+                     "resident_weight_bytes"],
+                 bf16_memory_allocated_by_load=main_path[
+                     "memory_allocated_by_load"], **q_main)
+            launches[f"{mode}_matmul"] = q_launches[f"{mode}_matmul"]
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(export_dir, ignore_errors=True)
 
     train_rows = phase_train_kernels(torch, F, dev)
     for row in train_rows.values():

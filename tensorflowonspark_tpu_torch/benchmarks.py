@@ -14,6 +14,11 @@ FLAGSHIP_DECODE = dict(n_slots=16, page_size=64, max_seq=4096, fill=2000)
 # steady-state batched paged prefill: 4 rows, chunk 256 at offset 2000
 FLAGSHIP_PREFILL_KERNEL = dict(n_slots=4, page_size=64, max_seq=4096,
                                fill=2000, chunk=256)
+# the fused-dequant matmuls (kernels 9 and 10) at the flagship's largest
+# projection, wi (K 2048 -> N 8192): a decode step of 16 slots and a
+# batched prefill dispatch of 4 rows x 256 tokens; int4 groups of 128
+FLAGSHIP_QUANT_MATMUL = dict(K=2048, N=8192, decode_m=16, prefill_m=1024,
+                             group_size=128)
 # the flagship training step: batch 8 x max_seq_len tokens, the
 # single-pass fused AdamW with a bf16 first moment
 FLAGSHIP_BATCH = 8

@@ -11,10 +11,16 @@ goes back.  Flax ``Dense`` kernels are ``[in, out]`` and the port's
 state (``count`` and the ``mu`` / ``nu`` trees, which mirror the params)
 across with the same names and transposes, so both packages can step
 from one state.
+
+``qparams_from_jax`` / ``qparams_to_jax`` do the same for a quantised
+tree (``quantize.quantize_tree``): a quantised kernel keeps the JAX
+``[in, out]`` storage layout and bytes on both sides, as the ``q`` /
+``scale`` buffers of the port's quantised ``Dense``.
 """
 import numpy as np
 import torch
 
+from tensorflowonspark_tpu_torch import quantize
 from tensorflowonspark_tpu_torch.ops.fused_optim import FusedAdamWState
 
 _EMBEDS = ("token_embed", "pos_embed")
@@ -78,6 +84,76 @@ def params_to_jax(state_dict):
         for p in parts[:-1]:
             node = node.setdefault(p, {})
         node[leaf] = np.ascontiguousarray(arr)
+    return tree
+
+
+def _is_jax_qleaf(node):
+    """An int8 ``{"q", "scale"}`` dict or an ``Int4Weight``-shaped object
+    (``q``, ``scale``, ``in_dim``, ``group_size``) of either package."""
+    if isinstance(node, dict):
+        return (set(node) == {"q", "scale"}
+                and np.asarray(node["q"]).dtype == np.int8)
+    return all(hasattr(node, a) for a in ("q", "scale", "in_dim",
+                                          "group_size"))
+
+
+def qparams_from_jax(qtree):
+    """A JAX quantised tree (numpy leaves; int8 dicts and
+    ``Int4Weight``-shaped leaves at ``kernel``) -> the ``state_dict`` of
+    the port's model after ``quantize.quantize_module``: each quantised
+    kernel becomes ``<module>.q`` / ``<module>.scale`` unchanged, every
+    other leaf converts as in :func:`params_from_jax`."""
+    if isinstance(qtree, dict) and set(qtree) == {"params"}:
+        qtree = qtree["params"]
+    quantised = {}
+
+    def split(node, path):
+        if isinstance(node, dict) and not _is_jax_qleaf(node):
+            return {k: v for k, v in (
+                (key, split(child, path + (key,)))
+                for key, child in node.items()) if v is not None}
+        if _is_jax_qleaf(node):
+            if path[-1] != "kernel":
+                raise ValueError(f"{'/'.join(path)}: a quantized leaf that "
+                                 "is not a Dense kernel")
+            q, scale = ((node["q"], node["scale"]) if isinstance(node, dict)
+                        else (node.q, node.scale))
+            prefix = ".".join(path[:-1])
+            quantised[prefix + ".q"] = _tensor(np.asarray(q))
+            quantised[prefix + ".scale"] = _tensor(
+                np.asarray(scale, np.float32))
+            return None
+        return node
+
+    out = params_from_jax(split(qtree, ()))
+    out.update(quantised)
+    return out
+
+
+def qparams_to_jax(model):
+    """The port's model (after ``quantize.quantize_module``) -> nested
+    dicts of numpy arrays in the JAX package's layout: a quantised kernel
+    is an int8 ``{"q", "scale"}`` dict or a ``quantize.Int4Weight`` of
+    numpy arrays (build the JAX package's ``Int4Weight`` from its four
+    fields); float leaves as in :func:`params_to_jax`."""
+    from tensorflowonspark_tpu_torch.models.transformer import Dense
+
+    tree = params_to_jax({n: t for n, t in model.state_dict().items()
+                          if not n.endswith((".q", ".scale"))})
+    for name, mod in model.named_modules():
+        if not isinstance(mod, Dense) or mod.quant is None:
+            continue
+        node = tree
+        for part in name.split("."):
+            node = node.setdefault(part, {})
+        leaf = mod.quantized_leaf()
+        if mod.quant == "int8":
+            node["kernel"] = {"q": leaf["q"].cpu().numpy(),
+                              "scale": leaf["scale"].cpu().numpy()}
+        else:
+            node["kernel"] = quantize.Int4Weight(
+                leaf.q.cpu().numpy(), leaf.scale.cpu().numpy(), leaf.in_dim,
+                leaf.group_size)
     return tree
 
 

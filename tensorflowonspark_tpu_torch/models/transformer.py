@@ -26,9 +26,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from tensorflowonspark_tpu_torch import quantize
 from tensorflowonspark_tpu_torch.ops.flash_attention import flash_attention
 from tensorflowonspark_tpu_torch.ops.paged_attention import paged_attention
 from tensorflowonspark_tpu_torch.ops.paged_prefill import paged_prefill
+from tensorflowonspark_tpu_torch.ops.quant_matmul import quant_matmul
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,8 +71,8 @@ class TransformerConfig:
     kv_table_pages: int = 0
     kv_dtype: str = "auto"        # auto only; int8 kv is not ported
     paged_attn_impl: str = "kernel"    # the kernels are the only paged
-    quant_matmul_impl: str = "kernel"  # path on the card; float weights
-    paged_prefill_impl: str = "kernel"  # only (no quantized leaves)
+    quant_matmul_impl: str = "kernel"  # and quantised-weight paths on
+    paged_prefill_impl: str = "kernel"  # the card
 
 
 _UNPORTED = (
@@ -92,6 +94,9 @@ _UNPORTED = (
     ("paged_prefill_impl", lambda v: v != "kernel",
      "a selectable reference prefill path (the kernels are the only card "
      "path)"),
+    ("quant_matmul_impl", lambda v: v != "kernel",
+     "a selectable inline-dequant matmul path (the kernels are the only "
+     "card path)"),
 )
 
 
@@ -150,20 +155,65 @@ def apply_rope(x, positions, theta=10000.0):
 
 
 class Dense(nn.Module):
-    """The float path of the JAX package's ``QuantDense`` (``nn.Dense``
-    semantics): input, weight and bias promoted to ``dtype``, then one
-    matmul.  The weight is ``[out, in]`` (flax keeps ``[in, out]``)."""
+    """The JAX package's ``QuantDense``.  A float weight (``[out, in]``;
+    flax keeps ``[in, out]``) has ``nn.Dense`` semantics: input, weight
+    and bias promoted to ``dtype``, then one matmul.  After
+    :meth:`set_quantized` the weight is a quantised leaf held as buffers
+    ``q`` / ``scale`` in the JAX ``[in, out]`` storage layout (``quant``
+    names the mode); the input is cast to ``dtype``, goes through
+    ``ops.quant_matmul`` (kernels 9 and 10), and the bias is added in
+    ``dtype`` after it."""
 
     def __init__(self, in_features, features, use_bias, dtype):
         super().__init__()
+        self.in_features = in_features
+        self.out_features = features
         self.weight = nn.Parameter(torch.empty(features, in_features))
         self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
                      else None)
         self.dtype = dtype
+        self.quant = None          # None | "int8" | "int4"
+        self.group_size = 0
+
+    def set_quantized(self, leaf):
+        """Replace the float weight with a quantised leaf (an int8
+        ``{"q", "scale"}`` dict or an ``Int4Weight`` of this layer's
+        ``[in, out]`` shape)."""
+        if quantize.is_int8_leaf(leaf):
+            q, scale, mode, group = leaf["q"], leaf["scale"], "int8", 0
+            if tuple(q.shape) != (self.in_features, self.out_features):
+                raise ValueError(f"int8 kernel {tuple(q.shape)} does not fit "
+                                 f"a {self.in_features}->{self.out_features}"
+                                 " Dense")
+        elif isinstance(leaf, quantize.Int4Weight):
+            q, scale, mode, group = leaf.q, leaf.scale, "int4", leaf.group_size
+            if (leaf.in_dim, leaf.out_dim) != (self.in_features,
+                                               self.out_features):
+                raise ValueError(f"{leaf!r} does not fit a "
+                                 f"{self.in_features}->{self.out_features} "
+                                 "Dense")
+        else:
+            raise TypeError(f"not a quantized leaf: {type(leaf)!r}")
+        if self.quant is None:
+            del self.weight
+        self.register_buffer("q", q)
+        self.register_buffer("scale", scale)
+        self.quant, self.group_size = mode, group
+
+    def quantized_leaf(self):
+        """The quantised weight as ``ops.quant_matmul`` takes it."""
+        if self.quant == "int8":
+            return {"q": self.q, "scale": self.scale}
+        return quantize.Int4Weight(self.q, self.scale, self.in_features,
+                                   self.group_size)
 
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(self.dtype)
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
+        if self.quant is None:
+            return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
+                            bias)
+        y = quant_matmul(x.to(self.dtype), self.quantized_leaf())
+        return y if bias is None else y + bias
 
 
 class RMSNorm(nn.Module):

@@ -13,6 +13,9 @@ family, each with its plain PyTorch version beside it.
   ``_bwd_dkv_kernel``)
 - fused_optim : single-pass AdamW (csrc/fused_optim.cu; replaces
   ops/fused_optim.py ``_adamw_kernel``)
+- quant_matmul : fused-dequant W8A16 / W4A16 matmuls
+  (csrc/quant_matmul.cu; replaces ops/quant_matmul.py ``_int8_kernel``
+  and ``_int4_kernel``)
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises.  Kernels build at first use (ops/_build.py), never at import.
@@ -20,7 +23,8 @@ The package binds its submodules only (no function re-exports under the
 same names), so ``ops.paged_attention`` is always the module.
 """
 
-# the kernels each main path runs: serving (serve -> models.decode) and
+# the kernels each main path runs: serving (serve -> models.decode),
+# quantised-weight serving adds "<mode>_matmul" per mode, and
 # training (parallel.train -> models.transformer backward + optimizer)
 SERVING_KERNELS = ("paged_attention", "page_write", "prefill_read")
 TRAINING_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "adamw")
@@ -32,6 +36,7 @@ def _wrappers():
     from tensorflowonspark_tpu_torch.ops import fused_optim as fo
     from tensorflowonspark_tpu_torch.ops import paged_attention as pa
     from tensorflowonspark_tpu_torch.ops import paged_prefill as pp
+    from tensorflowonspark_tpu_torch.ops import quant_matmul as qm
 
     return {"paged_attention": pa.paged_attention,
             "page_write": pp._write_pages,
@@ -39,7 +44,9 @@ def _wrappers():
             "flash_fwd": fa.flash_fwd,
             "flash_bwd_dq": fa.flash_bwd_dq,
             "flash_bwd_dkv": fa.flash_bwd_dkv,
-            "adamw": fo._adamw}
+            "adamw": fo._adamw,
+            "int8_matmul": qm._int8_matmul,
+            "int4_matmul": qm._int4_matmul}
 
 
 def launch_counts(names=None):

@@ -23,7 +23,7 @@ import time
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 SOURCES = ("paged_attention.cu", "paged_prefill.cu", "flash_attention.cu",
-           "fused_optim.cu")
+           "fused_optim.cu", "quant_matmul.cu")
 HEADERS = ("common.cuh",)
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
                          "torch_kernels")
@@ -54,6 +54,8 @@ SIGNATURES = {
                           _F, _I, _I, _P],
     "tos_adamw": [_P, _P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _I, _I,
                   _I, _P],
+    "tos_quant_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -3,7 +3,8 @@
 configuration.
 
     python -m tensorflowonspark_tpu_torch.serve --export_dir D \\
-        --generate_kv_page_size 64 --generate_kv_pages N
+        --generate_kv_page_size 64 --generate_kv_pages N \\
+        [--generate_quantize int8|int4]
 
     POST /v1/models/<name>:generate
         {"inputs": [[ids..]], "max_new_tokens": n, "temperature": t,
@@ -15,7 +16,9 @@ configuration.
 Every request runs through the ContinuousBatcher: slot-based continuous
 batching over a paged kv cache, batched multi-row prefill rounds
 interleaved with decode steps, the sink page for free rows and
-bucket-pad overshoot.  Runs on ``cuda`` unless ``--device cpu`` is given;
+bucket-pad overshoot.  ``--generate_quantize int8|int4`` serves weight-only
+quantised projections (W8A16 / W4A16) through kernels 9 and 10.  Runs on
+``cuda`` unless ``--device cpu`` is given;
 without a CUDA device and without that request it raises.  Flags and
 request fields whose feature is not ported raise NotImplementedError
 (HTTP 501) naming the ROADMAP item; none is ignored.
@@ -33,12 +36,15 @@ import torch
 
 from tensorflowonspark_tpu_torch import device as device_mod
 from tensorflowonspark_tpu_torch import ops
+from tensorflowonspark_tpu_torch import quantize as quantize_mod
 from tensorflowonspark_tpu_torch.metrics import Counters
 from tensorflowonspark_tpu_torch.models import decode as decode_mod
 
 logger = logging.getLogger(__name__)
 
 _ASYNC = "async engine, prefix cache, growable tables and streaming"
+# weight-only quantisation modes of --generate_quantize
+QUANTIZE_MODES = ("none",) + quantize_mod.MODES
 
 
 def build_argparser():
@@ -83,8 +89,12 @@ def build_argparser():
                    help="pool size (pages) for --generate_kv_page_size")
     p.add_argument("--generate_kv_dtype", choices=["auto", "int8"],
                    default="auto")
-    p.add_argument("--generate_quantize", choices=["none", "int8", "int4"],
-                   default="none")
+    p.add_argument("--generate_quantize", choices=list(QUANTIZE_MODES),
+                   default="none",
+                   help="weight-only quantisation of the projections at "
+                        "load: int8 (W8A16, per-channel scales) or int4 "
+                        "(W4A16, per-128-row group scales), served through "
+                        "the fused-dequant matmul kernels")
     p.add_argument("--spec_draft", choices=["model", "ngram", "off"],
                    default=None)
     p.add_argument("--draft_export_dir", default=None)
@@ -102,8 +112,6 @@ _UNPORTED_FLAGS = (
     ("generate_engine", lambda v: v == "async", _ASYNC),
     ("generate_kv_dtype", lambda v: v == "int8",
      "int8 kv branch of kernels 1-3"),
-    ("generate_quantize", lambda v: v != "none",
-     "quantised weights (kernels 9 and 10)"),
     ("spec_draft", lambda v: v in ("model", "ngram"),
      "LoRA and speculation"),
     ("draft_export_dir", bool, "LoRA and speculation"),
@@ -281,6 +289,10 @@ class ContinuousBatcher:
         self._n_filtered = 0
         self._steps = 0
         self._step_ms = collections.deque(maxlen=1024)   # decode-only chunks
+        # the kernels this engine runs: the paged ones, plus the
+        # fused-dequant matmul of each quantisation mode in the model
+        self.kernels = ops.SERVING_KERNELS + tuple(
+            f"{mode}_matmul" for mode in quantize_mod.quantized_modes(model))
         self._dead = None
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._loop,
@@ -321,7 +333,7 @@ class ContinuousBatcher:
             "ttft_p95_ms": (1000.0 * ttft[min(len(ttft) - 1,
                                               int(0.95 * len(ttft)))]
                             if ttft else 0.0),
-            "kernel_launches": ops.launch_counts(ops.SERVING_KERNELS),
+            "kernel_launches": ops.launch_counts(self.kernels),
         }
         out.update(self.counters.snapshot())
         return out
@@ -666,28 +678,45 @@ _UNPORTED_FIELDS = (
 
 class GenerateService:
     """Autoregressive generation over an exported decoder LM: loads the
-    export onto the device at the model's compute width and serves every
-    request through one ContinuousBatcher."""
+    export onto the device, optionally quantises its projections
+    (``quantize_mode`` int8 / int4), stores the other floating leaves at
+    the model's compute width and serves every request through one
+    ContinuousBatcher."""
 
     _I32 = 1 << 31
 
     def __init__(self, export_dir, max_new_tokens_limit=512, slots=8,
                  read_chunk=8, prefill_chunk=512, prefill_rows=4,
                  prefill_budget=0, request_timeout_s=None, kv_page_size=0,
-                 kv_pages=0, engine="serial", device=None):
+                 kv_pages=0, engine="serial", quantize_mode="none",
+                 device=None):
         from tensorflowonspark_tpu_torch import export as export_mod
         from tensorflowonspark_tpu_torch.models.transformer import (
             Transformer, torch_dtype)
 
+        if quantize_mode not in QUANTIZE_MODES:
+            raise ValueError(f"quantize_mode={quantize_mode!r} not in "
+                             f"{QUANTIZE_MODES}")
         self.device = device_mod.resolve(device)
         model, _ = export_mod.load_model(export_dir, device=self.device)
         if not isinstance(model, Transformer):
             raise TypeError(f"export builder rebuilds {type(model).__name__}"
                             ", not a Transformer — :generate serves decoder "
                             "LMs only")
-        # serving reads every weight once per token: keep them at the
-        # model's compute width, as the JAX service does
-        self.model = model.to(torch_dtype(model.cfg)).eval()
+        self.quantize_mode = quantize_mode
+        self.weight_bytes = self.float_equivalent_bytes = 0
+        if quantize_mode != "none":
+            # quantise the stored (f32 master) weights BEFORE the
+            # compute-width cast, as the JAX service does: scales derive
+            # from the masters, not from rounded copies
+            quantize_mod.quantize_module(model, quantize_mode)
+            # sizes computed once here; metadata reads them per probe
+            self.weight_bytes, self.float_equivalent_bytes = (
+                quantize_mod.quantized_bytes(model))
+        # serving reads every weight once per token: keep the float leaves
+        # at the model's compute width; quantisation scales stay f32
+        self.model = quantize_mod.cast_float_leaves(
+            model, torch_dtype(model.cfg)).eval()
         self.model.requires_grad_(False)
         self.batcher = ContinuousBatcher(
             self.model, n_slots=slots or 8, read_chunk=read_chunk,
@@ -795,7 +824,9 @@ class ModelService:
                     request_timeout_s=a.generate_timeout_s,
                     kv_page_size=a.generate_kv_page_size,
                     kv_pages=a.generate_kv_pages,
-                    engine=a.generate_engine, device=self.device)
+                    engine=a.generate_engine,
+                    quantize_mode=a.generate_quantize,
+                    device=self.device)
             return self._gen
 
     def metadata(self):
@@ -808,8 +839,13 @@ class ModelService:
             out["model"]["generate"] = "available"
             out["model"]["generate_slots"] = gen.batcher.n_slots
             out["model"]["generate_stats"] = gen.batcher.stats()
+            if gen.quantize_mode != "none":
+                out["model"]["generate_quantize"] = {
+                    "mode": gen.quantize_mode,
+                    "weight_bytes": gen.weight_bytes,
+                    "float_equivalent_bytes": gen.float_equivalent_bytes}
         out["model"]["kernel_launches"] = ops.launch_counts(
-            ops.SERVING_KERNELS)
+            ops.SERVING_KERNELS if gen is None else gen.batcher.kernels)
         return out
 
     def close(self):

@@ -11,21 +11,28 @@ Shapes are small and deliberately awkward (head_dim 64 and 128, GQA
 groups of 1 to 4, S=1 and S=3 decode, chunks that straddle pages and
 tiles, empty rows, rows past the table, pad rows; flash sequences that
 are not a multiple of the 64 x 32 tiles, causal and not; AdamW leaves of
-odd sizes), in f32 and bf16.  Tolerances: f32 1e-4 (f32 math on both
-sides, summation order differs over <= 300 keys); bf16 1e-2 (f32 math,
-bf16 output rounding).  AdamW: the kernel's separately rounded f32 ops
-match the plain version's to 1e-6 (p, nu) and one bf16 step (mu).
+odd sizes; quantised matmuls at M 1, 7 and 1024, K 200 with groups of
+128, N 1000, 1003 and 32000, 3-D activations), in f32 and bf16.
+Tolerances: f32 1e-4 (f32 math on both sides, summation order differs
+over <= 300 keys); bf16 1e-2 (f32 math, bf16 output rounding).  AdamW:
+the kernel's separately rounded f32 ops match the plain version's to
+1e-6 (p, nu) and one bf16 step (mu).  Quantised matmuls: the largest
+error within 1e-5 (f32) or 2e-2 (bf16) of the largest |output|, as the
+JAX package's own kernel tests hold them, and each row's bits the same
+whatever the number of rows in the call.
 """
 import pytest
 import torch
 
-from tensorflowonspark_tpu_torch import benchmarks, ops
+from tensorflowonspark_tpu_torch import (benchmarks, export, ops, quantize,
+                                         serve)
 from tensorflowonspark_tpu_torch.models import decode as port_decode
 from tensorflowonspark_tpu_torch.models import transformer as port_tf
 from tensorflowonspark_tpu_torch.ops import flash_attention as fa
 from tensorflowonspark_tpu_torch.ops import fused_optim as fo
 from tensorflowonspark_tpu_torch.ops import paged_attention as pa
 from tensorflowonspark_tpu_torch.ops import paged_prefill as pp
+from tensorflowonspark_tpu_torch.ops import quant_matmul as qm
 
 pytestmark = pytest.mark.cuda
 
@@ -237,3 +244,98 @@ def test_flagship_step_on_card_matches_cpu(dev):
     for name, t in state.params.state_dict().items():
         diff = (t.cpu() - want[name]).abs()
         assert diff.max().item() <= 1e-4 and diff.mean().item() <= 1e-6, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+@pytest.mark.parametrize("shape", [(1, 200, 1000), (7, 200, 1003),
+                                   (1024, 200, 1000), (7, 2048, 32000),
+                                   (1, 1, 5), (3, 4, 7)])
+def test_quant_matmul_kernels_match_plain(dev, dtype, mode, shape):
+    M, K, N = shape
+    gen = torch.Generator().manual_seed(M + K + N)
+    w = torch.randn((K, N), generator=gen) * 0.3
+    leaf = (quantize.quantize_int8(w) if mode == "int8"
+            else quantize.int4_pack(w, 128))
+    on_card = ({"q": leaf["q"].to(dev), "scale": leaf["scale"].to(dev)}
+               if mode == "int8" else quantize.Int4Weight(
+                   leaf.q.to(dev), leaf.scale.to(dev), leaf.in_dim,
+                   leaf.group_size))
+    # a 3-D activation: [2, M, K] reshapes to 2M rows
+    x = torch.randn((2, M, K), generator=gen).to(dev, dtype)
+    name = f"{mode}_matmul"
+    before = ops.launch_counts()[name]
+    got = qm.quant_matmul(x, on_card)
+    assert ops.launch_counts()[name] == before + 1
+    plain = qm.int8_matmul_plain if mode == "int8" else qm.int4_matmul_plain
+    want = plain(x, on_card)
+    torch.cuda.synchronize()
+    assert got.shape == (2, M, N) and got.dtype == dtype
+    err = (got.float() - want.float()).abs().max().item()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert err <= tol * want.float().abs().max().item() + 1e-6, err
+    # the CPU plain version of the same leaf agrees too
+    cpu = plain(x.cpu(), leaf)
+    torch.testing.assert_close(got.cpu().float(), cpu.float(),
+                               atol=tol * cpu.float().abs().max().item()
+                               + 1e-6, rtol=0)
+
+
+def test_quantize_on_card_gives_the_cpu_bytes(dev):
+    gen = torch.Generator().manual_seed(5)
+    w = torch.randn((2048, 1024), generator=gen) * 0.02
+    a, b = quantize.quantize_int8(w), quantize.quantize_int8(w.to(dev))
+    assert torch.equal(a["q"], b["q"].cpu())
+    assert torch.equal(a["scale"], b["scale"].cpu())
+    a, b = quantize.int4_pack(w, 128), quantize.int4_pack(w.to(dev), 128)
+    assert torch.equal(a.q, b.q.cpu()) and torch.equal(a.scale,
+                                                       b.scale.cpu())
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_quantized_generate_on_card_matches_cpu(dev, mode, tmp_path):
+    # f32 on both sides; the card runs kernels 1-3 and the quantised
+    # matmul, the CPU their plain versions on the same quantised bytes
+    cfg = dict(vocab_size=128, d_model=256, n_heads=4, n_kv_heads=2,
+               n_layers=2, d_ff=512, max_seq_len=128, dtype="float32",
+               rope=True, norm_type="rmsnorm")
+    model = port_tf.build_transformer(**cfg)
+    model.reset_parameters(torch.Generator().manual_seed(3))
+    export.export_saved_model(str(tmp_path), model.state_dict(),
+                              builder_kwargs=cfg)
+    prompt = [5, 17, 99, 3, 42, 8, 1, 77, 64, 12, 9, 30, 2, 2, 101]
+    outs = {}
+    ops.reset_launch_counts()
+    for device in ("cpu", dev):
+        svc = serve.GenerateService(str(tmp_path), kv_page_size=16,
+                                    kv_pages=16, quantize_mode=mode,
+                                    device=device)
+        try:
+            outs[str(device)] = svc.generate({"inputs": [prompt],
+                                              "max_new_tokens": 12})
+        finally:
+            svc.close()
+    assert outs["cpu"] == outs[str(dev)]
+    counts = ops.launch_counts(ops.SERVING_KERNELS + (f"{mode}_matmul",))
+    assert min(counts.values()) >= 1, counts
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_quant_matmul_rows_do_not_depend_on_the_batch(dev, mode):
+    # a request decodes the same tokens alone or in a batch: each row's
+    # bits are the same at M 1 ... 64 (16-row tiles or 64, K chunks in
+    # their own blocks) as at M 300 (one block walks every chunk)
+    gen = torch.Generator().manual_seed(17)
+    K, N = 2048, 8192
+    w = torch.randn((K, N), generator=gen) * K ** -0.5
+    leaf = quantize.quantize_int8(w) if mode == "int8" else \
+        quantize.int4_pack(w, 128)
+    leaf = ({"q": leaf["q"].to(dev), "scale": leaf["scale"].to(dev)}
+            if mode == "int8" else quantize.Int4Weight(
+                leaf.q.to(dev), leaf.scale.to(dev), K, 128))
+    x = torch.randn((300, K), generator=gen).to(dev, torch.bfloat16)
+    full = qm.quant_matmul(x, leaf)
+    for M in (1, 7, 16, 17, 64):
+        assert torch.equal(qm.quant_matmul(x[:M].contiguous(), leaf),
+                           full[:M]), M

@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from tensorflowonspark_tpu_torch import (benchmarks, convert, export, ops,
-                                         optim, serve)
+                                         optim, quantize, serve)
 from tensorflowonspark_tpu_torch.models import decode as port_decode
 from tensorflowonspark_tpu_torch.models import transformer as port_tf
 from tensorflowonspark_tpu_torch.ops import _build
@@ -27,6 +27,7 @@ from tensorflowonspark_tpu_torch.ops import flash_attention as port_fa
 from tensorflowonspark_tpu_torch.ops import fused_optim as port_fo
 from tensorflowonspark_tpu_torch.ops import paged_attention as port_pa
 from tensorflowonspark_tpu_torch.ops import paged_prefill as port_pp
+from tensorflowonspark_tpu_torch.ops import quant_matmul as port_qm
 from tensorflowonspark_tpu_torch.parallel import train as port_train
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -141,9 +142,19 @@ def test_cpu_tensors_take_the_plain_versions():
     port_fo._adamw(g, p, mu, nu, scal, p, **kw)
     for a, b in zip((p, mu, nu), want):
         assert torch.equal(a, b)
+    x = torch.from_numpy(rng.randn(3, 200).astype(np.float32))
+    w8 = quantize.quantize_int8(torch.from_numpy(
+        rng.randn(200, 24).astype(np.float32)))
+    w4 = quantize.int4_pack(torch.from_numpy(
+        rng.randn(200, 24).astype(np.float32)), 128)
+    assert torch.equal(port_qm._int8_matmul(x, w8),
+                       port_qm.int8_matmul_plain(x, w8))
+    assert torch.equal(port_qm._int4_matmul(x, w4),
+                       port_qm.int4_matmul_plain(x, w4))
     assert ops.launch_counts() == {
         "paged_attention": 0, "page_write": 0, "prefill_read": 0,
-        "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "adamw": 0}
+        "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "adamw": 0,
+        "int8_matmul": 0, "int4_matmul": 0}
 
 
 def test_kernel_sources_exist_and_are_built():
@@ -153,7 +164,8 @@ def test_kernel_sources_exist_and_are_built():
                                      "_prefill_read_kernel"],
                 "flash_attention.cu": ["_fwd_kernel", "_bwd_dq_kernel",
                                        "_bwd_dkv_kernel"],
-                "fused_optim.cu": ["_adamw_kernel"]}
+                "fused_optim.cu": ["_adamw_kernel"],
+                "quant_matmul.cu": ["_int8_kernel", "_int4_kernel"]}
     assert sorted(_build.SOURCES) == sorted(replaces)
     for src, tpu_fns in replaces.items():
         with open(os.path.join(csrc, src)) as f:
@@ -169,7 +181,7 @@ def test_kernel_sources_exist_and_are_built():
 
 @pytest.mark.parametrize("flag", [
     ["--generate_engine", "async"], ["--generate_kv_dtype", "int8"],
-    ["--generate_quantize", "int8"], ["--spec_draft", "ngram"],
+    ["--generate_preempt_ms", "5"], ["--spec_draft", "ngram"],
     ["--generate_lora_rank", "2"], ["--generate_host_cache_mb", "4"]])
 def test_unported_flags_raise(flag):
     args = serve.build_argparser().parse_args([

@@ -6,7 +6,9 @@ port's ContinuousBatcher (a concurrent 3-request burst, one prompt
 longer than a prefill chunk) and of its HTTP ``:generate`` endpoint must
 equal JAX ``decode.generate`` token for token.  A seeded sampled request
 must reproduce itself (and the port's solo ``generate``); the quiesced
-pool must conserve its pages.
+pool must conserve its pages.  Served with ``--generate_quantize int8``
+or ``int4``, the greedy outputs equal JAX ``decode.generate`` over the
+JAX package's ``quantize_tree`` of the same weights.
 """
 import json
 import sys
@@ -16,6 +18,7 @@ import urllib.request
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -188,3 +191,91 @@ def test_concurrent_submitters_stress(lm, batcher):
     assert not errors and not any(t.is_alive() for t in threads)
     assert all(results[i] == want[i % len(PROMPTS)] for i in range(12))
     assert sorted(batcher._free_pages) == list(range(batcher._total_pages))
+
+
+@pytest.fixture(scope="module")
+def quant_want(lm):
+    """{mode: JAX greedy outputs for PROMPTS from the quantised tree of the
+    same weights} (quantize_tree; its bytes equal the port's)."""
+    from tensorflowonspark_tpu import quantize as jq
+
+    params = convert.params_to_jax(lm[0].state_dict())
+    jm = jax_tf.Transformer(jax_tf.TransformerConfig(**CFG))
+    out = {}
+    for mode in ("int8", "int4"):
+        qtree = jq.quantize_tree(params, mode=mode)
+        out[mode] = [np.asarray(jax_decode.generate(
+            jm, qtree, np.array([p], np.int32), max_new_tokens=MAX_NEW,
+            temperature=0.0, loop="host"))[0].tolist() for p in PROMPTS]
+    return out
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_http_generate_quantized_matches_jax(lm, quant_want, mode, tmp_path):
+    """``--generate_quantize`` over HTTP on the CPU: greedy outputs equal
+    the JAX package's quantised decode, metadata reports the mode and the
+    weight bytes, and the plain versions ran (no kernel launch)."""
+    export.export_saved_model(str(tmp_path), lm[0].state_dict(),
+                              builder_kwargs=CFG)
+    args = serve.build_argparser().parse_args([
+        "--export_dir", str(tmp_path), "--port", "0", "--device", "cpu",
+        "--generate_kv_page_size", "8", "--generate_kv_pages", "24",
+        "--generate_prefill_chunk", "8", "--generate_slots", "4",
+        "--generate_quantize", mode])
+    server, service = serve.make_server(args)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}/v1/models/default"
+    try:
+        body = json.dumps({"inputs": PROMPTS, "max_new_tokens": MAX_NEW,
+                           "temperature": 0.0}).encode()
+        req = urllib.request.Request(base + ":generate", data=body,
+                                     headers={"Content-Type":
+                                              "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            assert json.loads(resp.read())["outputs"] == quant_want[mode]
+        with urllib.request.urlopen(base, timeout=30) as resp:
+            meta = json.loads(resp.read())["model"]
+        qinfo = meta["generate_quantize"]
+        assert qinfo["mode"] == mode
+        # int8: 1 byte + 4/K of scale per f32 weight (~3.8x smaller);
+        # int4 pads these 64-row kernels to one 128-row group
+        shrink = {"int8": 3.5, "int4": 4.0}[mode]
+        assert 0 < qinfo["weight_bytes"] < (qinfo["float_equivalent_bytes"]
+                                            / shrink)
+        assert meta["kernel_launches"] == {
+            "paged_attention": 0, "page_write": 0, "prefill_read": 0,
+            f"{mode}_matmul": 0}
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    assert not thread.is_alive()
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_quantized_load_keeps_scales_f32(lm, mode, tmp_path):
+    """A bf16 model served quantised: every q is int8, every scale stays
+    f32 (the compute-width cast skips them), the other floats are bf16."""
+    cfg = dict(CFG, dtype="bfloat16")
+    export.export_saved_model(str(tmp_path), lm[0].state_dict(),
+                              builder_kwargs=cfg)
+    svc = serve.GenerateService(str(tmp_path), kv_page_size=8, kv_pages=8,
+                                quantize_mode=mode, device="cpu")
+    try:
+        state = svc.model.state_dict()
+        assert sum(n.endswith(".q") for n in state) == 9   # 4 x 2 + lm_head
+        for name, t in state.items():
+            if name.endswith(".q"):
+                assert t.dtype == torch.int8, name
+            elif name.endswith(".scale"):
+                assert t.dtype == torch.float32, name
+            else:
+                assert t.dtype == torch.bfloat16, name
+        out = svc.generate({"inputs": [PROMPTS[0]], "max_new_tokens": 3})
+        assert out[0][:len(PROMPTS[0])] == PROMPTS[0] and len(out[0]) == 8
+    finally:
+        svc.close()
+    with pytest.raises(ValueError, match="quantize_mode"):
+        serve.GenerateService(str(tmp_path), kv_page_size=8, kv_pages=8,
+                              quantize_mode="int2", device="cpu")
