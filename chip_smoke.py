@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch / CUDA port: builds the hand-written kernels
 and drives the port's main paths — paged continuous-batching serving of
-the flagship LM with bf16, int8 and int4 weights, and its training step —
-on one NVIDIA GPU.
+the flagship LM with bf16, int8 and int4 weights, over a bf16 or an int8
+kv pool, of its LayerNorm variant with the fused LayerNorm, and its
+training step — on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -38,6 +39,20 @@ caught and reported as passed):
    ``--generate_quantize int8`` and then ``int4``, the same requests;
    launch counts > 0 for that mode's matmul kernel and kernels 1-3,
    resident weight bytes and ``memory_allocated`` beside the bf16 run;
+5d. the int8 kv branch of kernels 1-3 against their plain versions at
+   phase 3's shapes (bf16 activations; the page write's payload, scales
+   and dequantised chunk bitwise equal to the plain version's on the card
+   and on the CPU), and kernel 11 (LayerNorm) at 1024 x 2048 and 8 x 2048
+   against its plain version and ``F.layer_norm``, timed like phase 3;
+5e. phase 4 again over an int8 kv pool, and for FLAGSHIP_LM (LayerNorm)
+   cut to 2 layers with ``fused_ln=True``, held against the CPU at the
+   card's bf16 (plain versions), with each one's distance from the f32
+   CPU run reported beside;
+5f. phase 5's export served again with ``--generate_kv_dtype int8``, and
+   with ``--generate_quantize int8 --generate_kv_dtype int8``; then a
+   full-depth FLAGSHIP_LM export with ``fused_ln=True`` served like
+   phase 5: launch counts > 0 for the int8 kv kernels and for kernel 11,
+   the kv pool's resident bytes beside the bf16 run's;
 6. training kernels the same way as phase 3: flash forward, dq and dk/dv
    at one layer of the flagship train step (B 8, S 1024, H 16, n_kv 8,
    D 128, bf16, causal), fused AdamW over the whole flagship parameter
@@ -52,9 +67,10 @@ caught and reported as passed):
    closed by a readback of the loss, then one step under torch.profiler;
    the loss finite and falling, 16 launches of each flash kernel per
    step and at least one AdamW launch per step;
-9. the ``kernels`` line (launches from each kernel's own main path; the
-   quantised kernels from their serving run); then the card line and,
-   last, the ``ok`` line.
+9. the ``kernels`` line (launches from each kernel's own main path: the
+   quantised kernels from their serving run, the int8 kv kernels from the
+   int8 kv run with bf16 weights, kernel 11 from the fused LayerNorm
+   run); then the card line and, last, the ``ok`` line.
 
 Exits 2 without a result when no CUDA device exists or when the port's
 package is not beside this file.
@@ -72,6 +88,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
 PEAK_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
+PEAK_F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 TOL = 1e-2                          # f32 math, bf16 output rounding
 # fused-dequant matmuls in bf16: the largest error within this share of
 # the largest |plain output| (the JAX package's own kernel tolerance)
@@ -120,9 +137,9 @@ def time_ms(fn, reps=25, warmup=3):
     return times[len(times) // 2]
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, peak=PEAK_BF16_FLOP_PER_S):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOP_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations")
 
@@ -263,14 +280,219 @@ def phase_kernels(torch, F, dev):
     return rows
 
 
-def compare_serving(torch, dev, cpu, card, label):
+def int8_pool(torch, gen, NP, page, n_kv, Dh, dev):
+    """An int8 kv pool (payload in [-127, 127]) and its f32 scales, the
+    magnitudes of the quantised bf16 activations."""
+    pools = [torch.randint(-127, 128, (NP, page, n_kv, Dh), generator=gen,
+                           dtype=torch.int8).to(dev) for _ in range(2)]
+    scales = [(torch.rand((NP, page, n_kv), generator=gen) * 0.03
+               + 0.01).to(dev) for _ in range(2)]
+    return pools, scales
+
+
+def phase_int8_kernels(torch, F, dev):
+    """The int8 kv branch of kernels 1-3 against their plain versions at
+    the flagship shapes (bf16 activations), timed like phase 3."""
+    from tensorflowonspark_tpu_torch.benchmarks import (
+        FLAGSHIP_DECODE, FLAGSHIP_LM_V2, FLAGSHIP_PREFILL_KERNEL)
+    from tensorflowonspark_tpu_torch.ops import paged_attention as pa
+    from tensorflowonspark_tpu_torch.ops import paged_prefill as pp
+
+    H, n_kv = FLAGSHIP_LM_V2["n_heads"], FLAGSHIP_LM_V2["n_kv_heads"]
+    Dh = FLAGSHIP_LM_V2["d_model"] // H
+    bf16 = torch.bfloat16
+    gen = torch.Generator().manual_seed(SEED + 5)
+    rows = {}
+
+    # --- kernel 1, int8 pool, at FLAGSHIP_DECODE ---------------------------
+    d = FLAGSHIP_DECODE
+    B, page, fill = d["n_slots"], d["page_size"], d["fill"]
+    max_pages = d["max_seq"] // page
+    NP = B * max_pages + 1
+    q = torch.randn((B, 1, H, Dh), generator=gen).to(dev, bf16)
+    pools, scales = int8_pool(torch, gen, NP, page, n_kv, Dh, dev)
+    sc = dict(key_scales=scales[0], value_scales=scales[1])
+    table = shuffled_table(torch, gen, B, max_pages, NP, dev)
+    lengths = torch.full((B,), fill + 1, dtype=torch.int32, device=dev)
+    out = pa.paged_attention(q, *pools, table, lengths, **sc)
+    ref = pa.paged_attention_plain(q, *pools, table, lengths, **sc)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    if not torch.allclose(out.float(), ref.float(), atol=TOL, rtol=TOL):
+        raise AssertionError(f"int8 paged decode kernel disagrees: {err}")
+    n = fill + 1
+    tl = table.long()
+    kd, vd = (pa.dequantize_pages(p[tl], s[tl]).to(bf16)
+              .reshape(B, -1, n_kv, Dh)[:, :n].transpose(1, 2).contiguous()
+              for p, s in zip(pools, scales))
+    qd = q.transpose(1, 2).contiguous()
+    b_ms, b_by = bound(q.numel() * 2 * 2 + 2 * B * n * n_kv * (Dh + 4),
+                       4 * B * H * n * Dh)
+    rows["paged_attention_int8"] = dict(
+        name="paged_attention_int8", route="cuda",
+        source="tensorflowonspark_tpu_torch/csrc/paged_attention.cu",
+        replaces="tensorflowonspark_tpu/ops/paged_attention.py:85",
+        max_abs_err=err, tol=TOL,
+        ms=time_ms(lambda: pa.paged_attention(q, *pools, table, lengths,
+                                              **sc)),
+        plain_ms=time_ms(lambda: pa.paged_attention_plain(
+            q, *pools, table, lengths, **sc), reps=10),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qd, kd, vd, enable_gqa=True)),
+        library_note="scaled_dot_product_attention on the dequantised bf16 "
+                     "dense view",
+        bound_ms=b_ms, bound_by=b_by,
+        shapes=dict(B=B, S=1, H=H, n_kv=n_kv, Dh=Dh, page=page,
+                    max_pages=max_pages, length=n, dtype="bfloat16",
+                    kv="int8"))
+    del pools, scales, kd, vd, sc
+
+    # --- kernels 2 and 3, int8 pool, at FLAGSHIP_PREFILL_KERNEL ------------
+    d = FLAGSHIP_PREFILL_KERNEL
+    B, page, fill, S = d["n_slots"], d["page_size"], d["fill"], d["chunk"]
+    max_pages = d["max_seq"] // page
+    NP = B * max_pages + 1
+    sink = NP - 1
+    q = torch.randn((B, S, H, Dh), generator=gen).to(dev, bf16)
+    k = torch.randn((B, S, n_kv, Dh), generator=gen).to(dev, bf16)
+    v = torch.randn((B, S, n_kv, Dh), generator=gen).to(dev, bf16)
+    pools, scales = int8_pool(torch, gen, NP, page, n_kv, Dh, dev)
+    table = shuffled_table(torch, gen, B, max_pages, NP, dev)
+    starts = torch.full((B,), fill, dtype=torch.int32, device=dev)
+    plain = [t.clone() for t in pools + scales]
+    host = [t.cpu() for t in pools + scales]
+    ck, cv = pp._write_pages_int8(k, v, *pools, *scales, table, starts)
+    pck, pcv = pp.write_pages_plain(k, v, plain[0], plain[1], table, starts,
+                                    plain[2], plain[3])
+    hck, hcv = pp.write_pages_plain(k.cpu(), v.cpu(), host[0], host[1],
+                                    table.cpu(), starts.cpu(), host[2],
+                                    host[3])
+    torch.cuda.synchronize()
+    nonsink = torch.arange(NP, device=dev) != sink
+    same_plain = all(torch.equal(a[nonsink], b[nonsink])
+                     for a, b in zip(pools + scales, plain))
+    same_cpu = all(torch.equal(a[nonsink].cpu(), b[nonsink.cpu()])
+                   for a, b in zip(pools + scales, host))
+    same_chunk = (torch.equal(ck, pck) and torch.equal(cv, pcv)
+                  and torch.equal(ck.cpu(), hck) and torch.equal(cv.cpu(),
+                                                                 hcv))
+    if not (same_plain and same_cpu and same_chunk):
+        raise AssertionError(
+            f"int8 page write: bytes differ (plain {same_plain}, cpu "
+            f"{same_cpu}, dequantised chunk {same_chunk})")
+    elems = k.numel()
+    b_ms, b_by = bound(2 * elems * 2 * 2 + 2 * elems + 2 * B * S * n_kv * 4,
+                       0)
+    rows["page_write_int8"] = dict(
+        name="page_write_int8", route="cuda",
+        source="tensorflowonspark_tpu_torch/csrc/paged_prefill.cu",
+        replaces="tensorflowonspark_tpu/ops/paged_prefill.py:100",
+        max_abs_err=0.0, tol=0.0, bitwise_equal_plain=same_plain,
+        bitwise_equal_cpu=same_cpu,
+        ms=time_ms(lambda: pp._write_pages_int8(k, v, *pools, *scales,
+                                                table, starts)),
+        plain_ms=time_ms(lambda: pp.write_pages_plain(
+            k, v, plain[0], plain[1], table, starts, plain[2], plain[3])),
+        library_ms=None,
+        library_note="no single library call quantises and scatters",
+        bound_ms=b_ms, bound_by=b_by,
+        shapes=dict(B=B, S=S, n_kv=n_kv, Dh=Dh, page=page, start=fill,
+                    dtype="bfloat16", kv="int8"))
+    del plain, host
+
+    sc = dict(key_scales=scales[0], value_scales=scales[1])
+    out = pp._read_attention(q, ck, cv, *pools, table, starts, **sc)
+    ref = pp.read_attention_plain(q, ck, cv, *pools, table, starts, **sc)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    if not torch.allclose(out.float(), ref.float(), atol=TOL, rtol=TOL):
+        raise AssertionError(f"int8 prefill read kernel disagrees: {err}")
+    tl = table.long()
+    ctx = [pa.dequantize_pages(p[tl], s[tl]).to(bf16)
+           .reshape(B, -1, n_kv, Dh)[:, :fill] for p, s in zip(pools, scales)]
+    kd = torch.cat([ctx[0], ck], 1).transpose(1, 2).contiguous()
+    vd = torch.cat([ctx[1], cv], 1).transpose(1, 2).contiguous()
+    qd = q.transpose(1, 2).contiguous()
+    keys = torch.arange(fill + S, device=dev)
+    mask = keys[None, :] <= fill + torch.arange(S, device=dev)[:, None]
+    visible = B * H * sum(fill + s + 1 for s in range(S))
+    b_ms, b_by = bound(2 * q.numel() * 2 + 2 * elems * 2
+                       + 2 * B * fill * n_kv * (Dh + 4), 4 * visible * Dh)
+    rows["prefill_read_int8"] = dict(
+        name="prefill_read_int8", route="cuda",
+        source="tensorflowonspark_tpu_torch/csrc/paged_prefill.cu",
+        replaces="tensorflowonspark_tpu/ops/paged_prefill.py:235",
+        max_abs_err=err, tol=TOL,
+        ms=time_ms(lambda: pp._read_attention(q, ck, cv, *pools, table,
+                                              starts, **sc)),
+        plain_ms=time_ms(lambda: pp.read_attention_plain(
+            q, ck, cv, *pools, table, starts, **sc), reps=10),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qd, kd, vd, attn_mask=mask, enable_gqa=True)),
+        library_note="scaled_dot_product_attention on the dequantised bf16 "
+                     "dense view, masked",
+        bound_ms=b_ms, bound_by=b_by,
+        shapes=dict(B=B, S=S, H=H, n_kv=n_kv, Dh=Dh, page=page, start=fill,
+                    dtype="bfloat16", kv="int8"))
+    return rows
+
+
+def phase_layernorm_kernel(torch, F, dev):
+    """Kernel 11 against its plain version and F.layer_norm at a prefill
+    dispatch (4 rows x 256 tokens) and a decode step (8 slots) of the
+    flagship width, bf16 activations and parameters (a serving model
+    keeps its norms at the compute width)."""
+    from tensorflowonspark_tpu_torch.benchmarks import FLAGSHIP_LM
+    from tensorflowonspark_tpu_torch.ops import layernorm as ln
+
+    D = FLAGSHIP_LM["d_model"]
+    bf16 = torch.bfloat16
+    gen = torch.Generator().manual_seed(SEED + 6)
+    w = (1 + 0.1 * torch.randn(D, generator=gen)).to(dev, bf16)
+    b = (0.1 * torch.randn(D, generator=gen)).to(dev, bf16)
+    shapes, err = {}, 0.0
+    for label, N in (("prefill", 1024), ("decode", 8)):
+        x = (torch.randn((N, D), generator=gen) * 2 + 0.5).to(dev, bf16)
+        out = ln.fused_layernorm(x, w, b)
+        ref = ln.layernorm_plain(x, w, b)
+        torch.cuda.synchronize()
+        e = (out.float() - ref.float()).abs().max().item()
+        if not torch.allclose(out.float(), ref.float(), atol=TOL, rtol=TOL):
+            raise AssertionError(f"LayerNorm kernel disagrees at N {N}: {e}")
+        err = max(err, e)
+        # ~8 f32 operations per element on the CUDA cores
+        b_ms, b_by = bound(2 * x.numel() * 2 + 2 * D * 2, 8 * x.numel(),
+                           PEAK_F32_FLOP_PER_S)
+        shapes[label] = dict(
+            N=N, D=D, max_abs_err=e,
+            ms=time_ms(lambda: ln.fused_layernorm(x, w, b)),
+            plain_ms=time_ms(lambda: ln.layernorm_plain(x, w, b)),
+            library_ms=time_ms(lambda: F.layer_norm(x, (D,), w, b, 1e-6)),
+            bound_ms=b_ms, bound_by=b_by)
+    pre = shapes["prefill"]
+    return {"layernorm": dict(
+        name="layernorm", route="cuda",
+        source="tensorflowonspark_tpu_torch/csrc/layernorm.cu",
+        replaces="tensorflowonspark_tpu/ops/layernorm.py:19",
+        max_abs_err=err, tol=TOL, ms=pre["ms"], plain_ms=pre["plain_ms"],
+        library_ms=pre["library_ms"], bound_ms=pre["bound_ms"],
+        bound_by=pre["bound_by"], main_numbers="prefill",
+        library_note="F.layer_norm, bf16", shapes=shapes,
+        dtype="bfloat16")}
+
+
+def compare_serving(torch, dev, cpu, card, label, kv_dtype=None, f32=None):
     """One 300-token paged prefill, then 8 greedy decode steps, of
-    ``card`` (on the card) against ``cpu`` (on the CPU), both taking the
+    ``card`` (on the card) against ``cpu`` (on the CPU), over paged pools
+    of ``kv_dtype`` (None: the model's), both taking the
     CPU's greedy token (teacher forcing, so every step compares the same
     context): the largest logit difference within 5e-2 x std(logits) at
     every step, and the greedy tokens agreeing wherever the top-2 margin
-    is wider than that tolerance.  Returns the per-step results and the
-    first step whose tokens part (None when all agree)."""
+    is wider than that tolerance.  With ``f32`` (the f32 model on the
+    CPU, when ``cpu`` computes at the card's bf16), each step also
+    reports, unchecked, how far the card and ``cpu`` each lie from it.
+    Returns the per-step results and the first step whose tokens part
+    (None when all agree)."""
     from tensorflowonspark_tpu_torch.models import decode as dm
 
     max_seq = card.cfg.max_seq_len
@@ -278,9 +500,13 @@ def compare_serving(torch, dev, cpu, card, label):
     prompt = torch.randint(0, card.cfg.vocab_size, (1, plen),
                            generator=torch.Generator().manual_seed(SEED))
     n_pages = -(-(plen + steps) // page) + 1
+    runs = [("card", card, dev), ("cpu", cpu, "cpu")]
+    if f32 is not None:
+        runs.append(("f32", f32, "cpu"))
     caches = {}
-    for name, model, d in (("card", card, dev), ("cpu", cpu, "cpu")):
-        _, cache = dm.init_paged_slot_cache(model, 1, page, n_pages)
+    for name, model, d in runs:
+        _, cache = dm.init_paged_slot_cache(model, 1, page, n_pages,
+                                            kv_dtype=kv_dtype)
         entries = list(range(n_pages - 1))
         dm.set_row_page_table(
             cache, 0,
@@ -289,7 +515,7 @@ def compare_serving(torch, dev, cpu, card, label):
     results, parted = [], None
     with torch.no_grad():
         logits = {}
-        for name, model, d in (("card", card, dev), ("cpu", cpu, "cpu")):
+        for name, model, d in runs:
             logits[name] = dm.slot_prefill_many(
                 model, caches[name], prompt.to(d),
                 torch.zeros(1, dtype=torch.long, device=d),
@@ -307,6 +533,11 @@ def compare_serving(torch, dev, cpu, card, label):
             agree = int(torch.argmax(got)) == tok
             results.append(dict(step=step, max_abs_diff=diff, tol=tol,
                                 top2_margin=margin, token_agrees=agree))
+            if f32 is not None:
+                want = logits["f32"][0].float()
+                results[-1].update(
+                    card_vs_f32=(got - want).abs().max().item(),
+                    cpu_vs_f32=(ref - want).abs().max().item())
             if diff > tol:
                 raise AssertionError(f"{label}: step {step} logits differ "
                                      f"by {diff} > {tol}")
@@ -318,40 +549,85 @@ def compare_serving(torch, dev, cpu, card, label):
                     parted = dict(step=step, top2_margin=margin, tol=tol)
             if step == steps:
                 break
-            for name, model, d in (("card", card, dev), ("cpu", cpu, "cpu")):
+            for name, model, d in runs:
                 logits[name] = model(torch.tensor([[tok]], device=d),
                                      caches[name])[:, -1]
     return results, parted
 
 
-def parity_cpu_model(torch):
-    """FLAGSHIP_LM_V2 cut to 2 layers at full width, f32 on the CPU,
-    random from the seed."""
+def parity_cpu_model(torch, base=None, **over):
+    """``base`` (FLAGSHIP_LM_V2 by default) cut to 2 layers at full
+    width, f32 on the CPU, random from the seed."""
     from tensorflowonspark_tpu_torch.benchmarks import FLAGSHIP_LM_V2
     from tensorflowonspark_tpu_torch.models.transformer import (
         build_transformer)
 
-    cfg = dict(FLAGSHIP_LM_V2, n_layers=2, max_seq_len=4096)
+    cfg = dict(base or FLAGSHIP_LM_V2, n_layers=2, max_seq_len=4096, **over)
     cpu = build_transformer(**dict(cfg, dtype="float32")).eval()
     cpu.reset_parameters(torch.Generator().manual_seed(SEED))
     return cfg, cpu
 
 
-def phase_parity(torch, dev):
-    """2-layer full-width flagship: card (bf16, kernels) vs CPU (f32,
-    plain versions) on the same weights."""
+def card_copy(torch, dev, cfg, cpu):
+    """The CPU model's weights in a bf16 model of ``cfg`` on ``dev``."""
     from tensorflowonspark_tpu_torch.models.transformer import (
         build_transformer)
 
-    cfg, cpu = parity_cpu_model(torch)
     with torch.device("meta"):
         card = build_transformer(**cfg)
     card.load_state_dict({k: v.to(dev, torch.bfloat16)
                           for k, v in cpu.state_dict().items()},
                          assign=True)
-    card.eval()
-    results, _ = compare_serving(torch, dev, cpu, card, "full-width parity")
+    return card.eval()
+
+
+def parity_summary(steps, parted):
+    out = dict(steps=steps, first_token_parting=parted,
+               tokens_agree=sum(r["token_agrees"] for r in steps),
+               positions=len(steps),
+               max_abs_diff=max(r["max_abs_diff"] for r in steps),
+               tol=min(r["tol"] for r in steps))
+    for key in ("card_vs_f32", "cpu_vs_f32"):
+        if key in steps[0]:
+            out[key] = max(r[key] for r in steps)
+    return out
+
+
+def phase_parity(torch, dev):
+    """2-layer full-width flagship: card (bf16, kernels) vs CPU (f32,
+    plain versions) on the same weights."""
+    cfg, cpu = parity_cpu_model(torch)
+    results, _ = compare_serving(torch, dev, cpu,
+                                 card_copy(torch, dev, cfg, cpu),
+                                 "full-width parity")
     return results
+
+
+def phase_slice4_parity(torch, dev):
+    """Phase 4 over an int8 kv pool (FLAGSHIP_LM_V2) and with the fused
+    LayerNorm (FLAGSHIP_LM, fused_ln=True), on the same weights.  The
+    checked reference is the CPU at the card's bf16 (plain versions):
+    on the CPU alone, bf16 already lies about one phase-4 tolerance from
+    f32 for these two models (the int8 round trip of bf16 k/v moves by
+    whole quantisation steps where f32 k/v would not; the LayerNorm
+    model's bf16 logits spread wider).  Each step also reports the card's
+    and the bf16 CPU's distance from the f32 CPU run."""
+    from tensorflowonspark_tpu_torch.benchmarks import FLAGSHIP_LM
+
+    out = {}
+    for label, base, over, kv in (
+            ("int8_kv", None, {}, "int8"),
+            ("fused_ln", FLAGSHIP_LM, {"fused_ln": True}, None)):
+        cfg, cpu = parity_cpu_model(torch, base, **over)
+        cpu16 = card_copy(torch, "cpu", cfg, cpu)
+        card = card_copy(torch, dev, cfg, cpu)
+        steps, parted = compare_serving(torch, dev, cpu16, card,
+                                        f"{label} parity", kv_dtype=kv,
+                                        f32=cpu)
+        out[label] = parity_summary(steps, parted)
+        del cpu, cpu16, card
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_quant_parity(torch, dev):
@@ -399,11 +675,7 @@ def phase_quant_parity(torch, dev):
         card.eval()
         steps, parted = compare_serving(torch, dev, qcpu, card,
                                         f"{mode} parity")
-        out[mode] = dict(steps=steps, first_token_parting=parted,
-                         tokens_agree=sum(r["token_agrees"] for r in steps),
-                         positions=len(steps),
-                         max_abs_diff=max(r["max_abs_diff"] for r in steps),
-                         tol=min(r["tol"] for r in steps))
+        out[mode] = parity_summary(steps, parted)
         del qcpu, card
         torch.cuda.empty_cache()
     return out
@@ -461,21 +733,22 @@ def post_json(url, payload, timeout=600):
         return json.loads(resp.read())
 
 
-def make_flagship_export(torch, dev):
-    """Full-depth FLAGSHIP_LM_V2 with random f32 master weights from the
-    seed, built on the card and exported (``params.pt``) once for the
-    serving phases.  Returns ``(cfg, export_dir, n_params)``."""
+def make_flagship_export(torch, dev, base=None, name="export", **over):
+    """Full-depth ``base`` (FLAGSHIP_LM_V2 by default) with random f32
+    master weights from the seed, built on the card and exported
+    (``params.pt``) once for the serving phases.  Returns ``(cfg,
+    export_dir, n_params)``."""
     from tensorflowonspark_tpu_torch import export
     from tensorflowonspark_tpu_torch.benchmarks import FLAGSHIP_LM_V2
     from tensorflowonspark_tpu_torch.models.transformer import (
         build_transformer)
 
-    cfg = dict(FLAGSHIP_LM_V2, max_seq_len=4096)
+    cfg = dict(base or FLAGSHIP_LM_V2, max_seq_len=4096, **over)
     with torch.device(dev):
         model = build_transformer(**cfg)
     model.reset_parameters(torch.Generator(dev).manual_seed(SEED))
     n_params = sum(p.numel() for p in model.parameters())
-    export_dir = os.path.join(HERE, "build", "chip_smoke", "export")
+    export_dir = os.path.join(HERE, "build", "chip_smoke", name)
     shutil.rmtree(export_dir, ignore_errors=True)
     export.export_saved_model(export_dir, model.state_dict(),
                               builder_kwargs=cfg)
@@ -489,9 +762,11 @@ def get_json(url, timeout=60):
         return json.loads(resp.read())
 
 
-def phase_main_path(torch, dev, cfg, export_dir, quantize="none"):
+def phase_main_path(torch, dev, cfg, export_dir, quantize="none",
+                    kv_dtype="auto"):
     """Full-depth flagship served through make_server on 127.0.0.1, with
-    bf16 weights or (``quantize``) int8 / int4 projections."""
+    bf16 weights or (``quantize``) int8 / int4 projections, over a bf16
+    or (``kv_dtype``) int8 kv pool."""
     from tensorflowonspark_tpu_torch import ops, serve
 
     torch.cuda.synchronize()
@@ -501,7 +776,8 @@ def phase_main_path(torch, dev, cfg, export_dir, quantize="none"):
         "--host", "127.0.0.1", "--port", "0",
         "--generate_kv_page_size", "64", "--generate_kv_pages", "512",
         "--generate_slots", "8", "--generate_prefill_chunk", "256",
-        "--max_new_tokens_limit", "64", "--generate_quantize", quantize])
+        "--max_new_tokens_limit", "64", "--generate_quantize", quantize,
+        "--generate_kv_dtype", kv_dtype])
     t0 = time.monotonic()
     server, service = serve.make_server(args)
     gen_service = service.generate_service()   # load the export onto the card
@@ -581,6 +857,10 @@ def phase_main_path(torch, dev, cfg, export_dir, quantize="none"):
         if (quantize != "none") != (qinfo is not None) or (
                 qinfo and qinfo["mode"] != quantize):
             raise AssertionError(f"metadata reports {qinfo} for {quantize}")
+        reported = meta["generate_stats"].get("kv_dtype", "auto")
+        if reported != kv_dtype:
+            raise AssertionError(f"stats report kv_dtype {reported} for "
+                                 f"{kv_dtype}")
         del batcher
     finally:
         server.shutdown()
@@ -590,8 +870,13 @@ def phase_main_path(torch, dev, cfg, export_dir, quantize="none"):
         raise RuntimeError("server thread did not stop")
     new_tokens = len(prompts) * max_new
     return launches, dict(
-        quantize=quantize, layers=cfg["n_layers"], load_s=load_s,
-        resident_weight_bytes=weight_bytes,
+        quantize=quantize, kv_dtype=kv_dtype, fused_ln=cfg.get("fused_ln",
+                                                               False),
+        norm_type=cfg.get("norm_type", "layernorm"), layers=cfg["n_layers"],
+        load_s=load_s, resident_weight_bytes=weight_bytes,
+        kv_pool_bytes=stats["kv_pool_bytes"],
+        # both asserted above: the run fails when either is false
+        pool_conserved=True, solo_equals_burst=True,
         memory_allocated_by_load=memory_allocated,
         generate_quantize=qinfo,
         burst_requests=len(prompts), prompt_tokens=sum(lens),
@@ -1005,7 +1290,8 @@ def main():
     emit("parity", steps=parity)
     torch.cuda.empty_cache()
 
-    from tensorflowonspark_tpu_torch import quantize
+    from tensorflowonspark_tpu_torch import ops, quantize
+    from tensorflowonspark_tpu_torch.benchmarks import FLAGSHIP_LM
 
     cfg, export_dir, n_params = make_flagship_export(torch, dev)
     try:
@@ -1032,8 +1318,45 @@ def main():
                      "memory_allocated_by_load"], **q_main)
             launches[f"{mode}_matmul"] = q_launches[f"{mode}_matmul"]
             torch.cuda.empty_cache()
+
+        s4_rows = phase_int8_kernels(torch, F, dev)
+        s4_rows.update(phase_layernorm_kernel(torch, F, dev))
+        for row in s4_rows.values():
+            emit("kernel", **row)
+        rows.update(s4_rows)
+        torch.cuda.empty_cache()
+
+        emit("slice4_parity", **phase_slice4_parity(torch, dev))
+        torch.cuda.empty_cache()
+
+        # the int8 kv pool, with bf16 and with int8 weights (the
+        # deployment of llama_serve.py --quantize int8 --kv_dtype int8)
+        for mode in ("none", "int8"):
+            kv_launches, kv_main = phase_main_path(
+                torch, dev, cfg, export_dir, quantize=mode, kv_dtype="int8")
+            emit("kv_int8_main_path", nvidia_smi=card, params=n_params,
+                 bf16_kv_pool_bytes=main_path["kv_pool_bytes"],
+                 bf16_memory_allocated_by_load=main_path[
+                     "memory_allocated_by_load"], **kv_main)
+            if mode == "none":
+                for name in ops.SERVING_KERNELS_INT8_KV:
+                    launches[name] = kv_launches[name]
+            torch.cuda.empty_cache()
     finally:
         shutil.rmtree(export_dir, ignore_errors=True)
+
+    # FLAGSHIP_LM (LayerNorm) at full depth with the fused LayerNorm
+    ln_cfg, ln_dir, ln_params = make_flagship_export(
+        torch, dev, FLAGSHIP_LM, name="export_fused_ln", fused_ln=True)
+    try:
+        ln_launches, ln_main = phase_main_path(torch, dev, ln_cfg, ln_dir)
+        emit("fused_ln_main_path", nvidia_smi=card, params=ln_params,
+             bf16_rmsnorm_memory_allocated_by_load=main_path[
+                 "memory_allocated_by_load"], **ln_main)
+        launches["layernorm"] = ln_launches["layernorm"]
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ln_dir, ignore_errors=True)
 
     train_rows = phase_train_kernels(torch, F, dev)
     for row in train_rows.values():

@@ -17,11 +17,16 @@ namespace tos {
 constexpr float NEG_INF = -1e30f;
 
 // dtype codes shared with the Python wrappers (ops/_build.py DTYPES).
-enum DType : int { kF32 = 0, kBF16 = 1 };
+// kI8 is a storage type only: int8 kv pools, whose f32 scales travel
+// beside them.
+enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
 }
 
 template <typename T>
@@ -82,6 +87,30 @@ struct VecLoad<__nv_bfloat16, 2> {
     out[0] = fa.x; out[1] = fa.y;
   }
 };
+
+// int8 kv payloads: 4 or 2 consecutive values in one 32- or 16-bit load.
+template <>
+struct VecLoad<int8_t, 4> {
+  __device__ __forceinline__ static void run(const int8_t* p, float* out) {
+    char4 v = *reinterpret_cast<const char4*>(p);
+    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  }
+};
+
+template <>
+struct VecLoad<int8_t, 2> {
+  __device__ __forceinline__ static void run(const int8_t* p, float* out) {
+    char2 v = *reinterpret_cast<const char2*>(p);
+    out[0] = v.x; out[1] = v.y;
+  }
+};
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll

@@ -26,16 +26,33 @@
 // in registers, f32 throughout; the 4 warps' partial states merge in
 // shared memory at the end.  Pages at or past the row's length are never
 // touched.
+//
+// int8 kv pools (the JAX kernel's `quant` branch): the same walk over int8
+// payloads with f32 per-(token, head) scales in their canonical
+// [NP, page, n_kv] layout, read in place (stride n_kv; the TPU wrapper's
+// transposed scale copy exists for its lane tiling only).  Each value is
+// cast to f32 and multiplied by its token's scale in f32 before the dot
+// product and the P @ V update, as `_decode_kernel` dequantises; nothing
+// rounds through bf16.  A lane still owns Dh/32 contiguous values, so a
+// warp reads a 128-byte int8 row (Dh 128) in one 4-byte load per lane
+// plus one broadcast scale load.  Bound: bytes, half the bf16 pool's
+// plus 8 B of scales per (token, head): FLAGSHIP_DECODE reads 67.6 MB per
+// layer, 20 us at 3.35 TB/s.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace tos {
 
 constexpr int kDecodeWarps = 4;
 
-template <typename T, int EPT, int RT>
+// T: q's type; TK: the pool's storage type (T, or int8_t with scales).
+template <typename T, typename TK, int EPT, int RT>
 __global__ void __launch_bounds__(kDecodeWarps * 32)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pk,
-                    const T* __restrict__ pv, const int* __restrict__ table,
+paged_decode_kernel(const T* __restrict__ q, const TK* __restrict__ pk,
+                    const TK* __restrict__ pv, const float* __restrict__ ks,
+                    const float* __restrict__ vs,
+                    const int* __restrict__ table,
                     const int* __restrict__ lengths,
                     float* __restrict__ acc_out, float* __restrict__ m_out,
                     float* __restrict__ l_out, int S, int H, int n_kv,
@@ -93,11 +110,20 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pk,
     // out-of-range table entries clamp into the pool, as a JAX gather
     // clips them
     const int phys = min(max(row_table[t / page], 0), n_pages - 1);
-    const size_t off =
-        ((size_t(phys) * page + t % page) * n_kv + h) * DH + lane * EPT;
+    const size_t row = (size_t(phys) * page + t % page) * n_kv + h;
+    const size_t off = row * DH + lane * EPT;
     float kf[EPT], vf[EPT];
-    VecLoad<T, EPT>::run(pk + off, kf);
-    VecLoad<T, EPT>::run(pv + off, vf);
+    VecLoad<TK, EPT>::run(pk + off, kf);
+    VecLoad<TK, EPT>::run(pv + off, vf);
+    if constexpr (std::is_same<TK, int8_t>::value) {
+      const float sk = ks[row];
+      const float sv = vs[row];
+#pragma unroll
+      for (int e = 0; e < EPT; ++e) {
+        kf[e] *= sk;
+        vf[e] *= sv;
+      }
+    }
 #pragma unroll
     for (int r = 0; r < RT; ++r) {
       float d = 0.f;
@@ -150,19 +176,20 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pk,
   }
 }
 
-template <typename T, int EPT>
+template <typename T, typename TK, int EPT>
 static void launch_decode_rt(int RT, dim3 grid, cudaStream_t st,
                              const void* q, const void* pk, const void* pv,
+                             const float* ks, const float* vs,
                              const int* table, const int* lengths,
                              float* acc, float* m, float* l, int S, int H,
                              int n_kv, int page, int max_pages, int n_pages,
                              int n_splits, int n_per, float sm_scale) {
   const dim3 block(kDecodeWarps * 32);
 #define TOS_DECODE(R)                                                      \
-  paged_decode_kernel<T, EPT, R><<<grid, block, 0, st>>>(                  \
-      static_cast<const T*>(q), static_cast<const T*>(pk),                 \
-      static_cast<const T*>(pv), table, lengths, acc, m, l, S, H, n_kv,    \
-      page, max_pages, n_pages, n_splits, n_per, sm_scale)
+  paged_decode_kernel<T, TK, EPT, R><<<grid, block, 0, st>>>(              \
+      static_cast<const T*>(q), static_cast<const TK*>(pk),                \
+      static_cast<const TK*>(pv), ks, vs, table, lengths, acc, m, l, S, H, \
+      n_kv, page, max_pages, n_pages, n_splits, n_per, sm_scale)
   switch (RT) {
     case 1: TOS_DECODE(1); break;
     case 2: TOS_DECODE(2); break;
@@ -170,6 +197,27 @@ static void launch_decode_rt(int RT, dim3 grid, cudaStream_t st,
     default: TOS_DECODE(8); break;
   }
 #undef TOS_DECODE
+}
+
+template <typename T, typename TK>
+static int launch_decode(int Dh, int RT, dim3 grid, cudaStream_t st,
+                         const void* q, const void* pk, const void* pv,
+                         const float* ks, const float* vs, const int* table,
+                         const int* lengths, float* acc, float* m, float* l,
+                         int S, int H, int n_kv, int page, int max_pages,
+                         int n_pages, int n_splits, int n_per,
+                         float sm_scale) {
+  if (Dh == 128)
+    launch_decode_rt<T, TK, 4>(RT, grid, st, q, pk, pv, ks, vs, table,
+                               lengths, acc, m, l, S, H, n_kv, page,
+                               max_pages, n_pages, n_splits, n_per, sm_scale);
+  else if (Dh == 64)
+    launch_decode_rt<T, TK, 2>(RT, grid, st, q, pk, pv, ks, vs, table,
+                               lengths, acc, m, l, S, H, n_kv, page,
+                               max_pages, n_pages, n_splits, n_per, sm_scale);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Grouped query rows per block: the smallest of 1, 2, 4, 8 that holds
@@ -180,12 +228,16 @@ static int decode_row_tile(int rows) {
 
 }  // namespace tos
 
+// kv_dtype: the pool's storage code, q's dtype or kI8 (then ks / vs are
+// the [NP, page, n_kv] f32 scale pools; otherwise they are unused).
 extern "C" int tos_paged_decode(const void* q, const void* pk, const void* pv,
+                                const float* ks, const float* vs,
                                 const int* table, const int* lengths,
                                 float* acc, float* m, float* l, int B, int S,
                                 int H, int n_kv, int Dh, int page,
                                 int max_pages, int n_pages, int n_splits,
-                                float sm_scale, int dtype, void* stream) {
+                                float sm_scale, int dtype, int kv_dtype,
+                                void* stream) {
   using namespace tos;
   const int rows = S * (H / n_kv);
   const int RT = decode_row_tile(rows);
@@ -193,25 +245,17 @@ extern "C" int tos_paged_decode(const void* q, const void* pk, const void* pv,
   const int n_per = max_pages / n_splits;
   const dim3 grid(n_splits, n_kv * n_rt, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16 && Dh == 128)
-    launch_decode_rt<__nv_bfloat16, 4>(RT, grid, st, q, pk, pv, table,
-                                       lengths, acc, m, l, S, H, n_kv, page,
-                                       max_pages, n_pages, n_splits, n_per,
-                                       sm_scale);
-  else if (dtype == kBF16 && Dh == 64)
-    launch_decode_rt<__nv_bfloat16, 2>(RT, grid, st, q, pk, pv, table,
-                                       lengths, acc, m, l, S, H, n_kv, page,
-                                       max_pages, n_pages, n_splits, n_per,
-                                       sm_scale);
-  else if (dtype == kF32 && Dh == 128)
-    launch_decode_rt<float, 4>(RT, grid, st, q, pk, pv, table, lengths, acc,
-                               m, l, S, H, n_kv, page, max_pages, n_pages,
-                               n_splits, n_per, sm_scale);
-  else if (dtype == kF32 && Dh == 64)
-    launch_decode_rt<float, 2>(RT, grid, st, q, pk, pv, table, lengths, acc,
-                               m, l, S, H, n_kv, page, max_pages, n_pages,
-                               n_splits, n_per, sm_scale);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+#define TOS_ARGS                                                             \
+  Dh, RT, grid, st, q, pk, pv, ks, vs, table, lengths, acc, m, l, S, H,     \
+      n_kv, page, max_pages, n_pages, n_splits, n_per, sm_scale
+  if (dtype == kBF16 && kv_dtype == kBF16)
+    return launch_decode<__nv_bfloat16, __nv_bfloat16>(TOS_ARGS);
+  if (dtype == kBF16 && kv_dtype == kI8)
+    return launch_decode<__nv_bfloat16, int8_t>(TOS_ARGS);
+  if (dtype == kF32 && kv_dtype == kF32)
+    return launch_decode<float, float>(TOS_ARGS);
+  if (dtype == kF32 && kv_dtype == kI8)
+    return launch_decode<float, int8_t>(TOS_ARGS);
+#undef TOS_ARGS
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -31,6 +31,26 @@
 // Dh/16 output columns) of f32 state.  A block reads the row's context
 // once, so the context is read once per 64-row tile: ceil(S * group /
 // 64) times in all (8 at FLAGSHIP_PREFILL_KERNEL).
+//
+// int8 kv pools (the JAX kernels' `quant` branch).  The page write takes
+// the chunk in its activation dtype and fuses the JAX wrapper's
+// `_quantize` into the store: one warp per (token, kv head) reduces the
+// amax over Dh, then scale = max(amax, 1e-12) / 127 and q = clip(rint(x /
+// scale), -127, 127), with IEEE division and round-half-to-even, so the
+// bytes equal `_kv_quantize`'s.  It stores the int8 row and the scale (in
+// the canonical [NP, page, n_kv] scale pool, under the same clip and
+// dropped out-of-range store) and also writes the chunk dequantised and
+// rounded to the activation dtype, which is what the read's chunk part
+// attends to (JAX `_dequantize(k_st, k_sc, k.dtype)`).  Bound: bytes
+// (FLAGSHIP_PREFILL_KERNEL: the bf16 chunk read once, the dequantised
+// bf16 chunk written once, int8 payload and f32 scales stored: 10.55 MB
+// per layer, 3.1 us).  The decode step's one-token write of an int8 pool
+// runs the same kernel (S = 1).  The read dequantises each context value
+// in f32 (payload x its token's scale) as it fills the shared-memory key
+// and value tiles, as `_prefill_read_kernel` does; the chunk part is
+// unchanged.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace tos {
@@ -65,6 +85,65 @@ page_write_kernel(const uint8_t* __restrict__ k, const uint8_t* __restrict__ v,
       pk[dst + i] = k[src + i];
       pv[dst + i] = v[src + i];
     }
+  }
+}
+
+// One kv row (one token, one head) of the chunk: quantise, store payload
+// and scale (when the page is in range), write the dequantised row.
+template <typename T, int EPT>
+__device__ __forceinline__ void quantize_row(const T* __restrict__ x,
+                                             int8_t* __restrict__ dst,
+                                             float* __restrict__ scale_dst,
+                                             T* __restrict__ deq, int lane) {
+  float xf[EPT];
+  VecLoad<T, EPT>::run(x + lane * EPT, xf);
+  float amax = 0.f;
+#pragma unroll
+  for (int e = 0; e < EPT; ++e) amax = fmaxf(amax, fabsf(xf[e]));
+  amax = warp_max(amax);
+  const float scale = __fdiv_rn(fmaxf(amax, 1e-12f), 127.0f);
+  int8_t q8[EPT];
+#pragma unroll
+  for (int e = 0; e < EPT; ++e) {
+    const float r = rintf(__fdiv_rn(xf[e], scale));
+    q8[e] = static_cast<int8_t>(fminf(fmaxf(r, -127.f), 127.f));
+    deq[lane * EPT + e] =
+        from_f32<T>(__fmul_rn(static_cast<float>(q8[e]), scale));
+  }
+  if (dst != nullptr) {
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) dst[lane * EPT + e] = q8[e];
+    if (lane == 0) *scale_dst = scale;
+  }
+}
+
+template <typename T, int EPT>
+__global__ void __launch_bounds__(256)
+page_write_int8_kernel(const T* __restrict__ k, const T* __restrict__ v,
+                       int8_t* __restrict__ pk, int8_t* __restrict__ pv,
+                       float* __restrict__ ks, float* __restrict__ vs,
+                       T* __restrict__ ck, T* __restrict__ cv,
+                       const int* __restrict__ table,
+                       const int* __restrict__ starts, int S, int n_kv,
+                       int page, int max_pages, int n_pages) {
+  constexpr int DH = 32 * EPT;
+  const int s = blockIdx.x;
+  const int b = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int pos = starts[b] + s;
+  const int blk = min(max(pos / page, 0), max_pages - 1);
+  const int phys = table[size_t(b) * max_pages + blk];
+  // an out-of-range page drops the store (a JAX scatter drops it); the
+  // dequantised chunk row is written either way
+  const bool keep = phys >= 0 && phys < n_pages;
+  for (int h = threadIdx.x >> 5; h < n_kv; h += blockDim.x >> 5) {
+    const size_t src = ((size_t(b) * S + s) * n_kv + h) * DH;
+    const size_t row =
+        (size_t(keep ? phys : 0) * page + pos % page) * n_kv + h;
+    quantize_row<T, EPT>(k + src, keep ? pk + row * DH : nullptr, ks + row,
+                         ck + src, lane);
+    quantize_row<T, EPT>(v + src, keep ? pv + row * DH : nullptr, vs + row,
+                         cv + src, lane);
   }
 }
 
@@ -135,11 +214,15 @@ __device__ __forceinline__ void prefill_tile(
   __syncthreads();
 }
 
-template <typename T, int DH>
+// T: q's and the chunk's type; TK: the pool's storage type (T, or int8_t
+// with the f32 scale pools ks / vs).
+template <typename T, typename TK, int DH>
 __global__ void __launch_bounds__(kNT)
 prefill_read_kernel(const T* __restrict__ q, const T* __restrict__ ck,
-                    const T* __restrict__ cv, const T* __restrict__ pk,
-                    const T* __restrict__ pv, const int* __restrict__ table,
+                    const T* __restrict__ cv, const TK* __restrict__ pk,
+                    const TK* __restrict__ pv, const float* __restrict__ ks,
+                    const float* __restrict__ vs,
+                    const int* __restrict__ table,
                     const int* __restrict__ starts, T* __restrict__ out,
                     int S, int H, int n_kv, int page, int max_pages,
                     int n_pages, float sm_scale) {
@@ -194,10 +277,13 @@ prefill_read_kernel(const T* __restrict__ q, const T* __restrict__ ck,
       float kv = 0.f, vv = 0.f;
       if (j < n_ctx) {
         const int phys = min(max(row_table[j / page], 0), n_pages - 1);
-        const size_t src =
-            ((size_t(phys) * page + j % page) * n_kv + h) * DH + d;
-        kv = to_f32(pk[src]);
-        vv = to_f32(pv[src]);
+        const size_t row = (size_t(phys) * page + j % page) * n_kv + h;
+        kv = to_f32(pk[row * DH + d]);
+        vv = to_f32(pv[row * DH + d]);
+        if constexpr (std::is_same<TK, int8_t>::value) {
+          kv *= ks[row];
+          vv *= vs[row];
+        }
       }
       Ks[c * DP + d] = kv;
       Vs[c * DP + d] = vv;
@@ -246,23 +332,68 @@ prefill_read_kernel(const T* __restrict__ q, const T* __restrict__ ck,
   }
 }
 
-template <typename T, int DH>
+template <typename T, typename TK, int DH>
 static int launch_prefill_read(dim3 grid, cudaStream_t st, const void* q,
                                const void* ck, const void* cv, const void* pk,
-                               const void* pv, const int* table,
+                               const void* pv, const float* ks,
+                               const float* vs, const int* table,
                                const int* starts, void* out, int S, int H,
                                int n_kv, int page, int max_pages, int n_pages,
                                float sm_scale) {
   constexpr int smem = prefill_smem_bytes<DH>();
   cudaError_t err = cudaFuncSetAttribute(
-      prefill_read_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      prefill_read_kernel<T, TK, DH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  prefill_read_kernel<T, DH><<<grid, kNT, smem, st>>>(
+  prefill_read_kernel<T, TK, DH><<<grid, kNT, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(ck),
-      static_cast<const T*>(cv), static_cast<const T*>(pk),
-      static_cast<const T*>(pv), table, starts, static_cast<T*>(out), S, H,
-      n_kv, page, max_pages, n_pages, sm_scale);
+      static_cast<const T*>(cv), static_cast<const TK*>(pk),
+      static_cast<const TK*>(pv), ks, vs, table, starts, static_cast<T*>(out),
+      S, H, n_kv, page, max_pages, n_pages, sm_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename TK>
+static int launch_prefill_read_dh(int Dh, dim3 grid, cudaStream_t st,
+                                  const void* q, const void* ck,
+                                  const void* cv, const void* pk,
+                                  const void* pv, const float* ks,
+                                  const float* vs, const int* table,
+                                  const int* starts, void* out, int S, int H,
+                                  int n_kv, int page, int max_pages,
+                                  int n_pages, float sm_scale) {
+  if (Dh == 128)
+    return launch_prefill_read<T, TK, 128>(grid, st, q, ck, cv, pk, pv, ks,
+                                           vs, table, starts, out, S, H,
+                                           n_kv, page, max_pages, n_pages,
+                                           sm_scale);
+  if (Dh == 64)
+    return launch_prefill_read<T, TK, 64>(grid, st, q, ck, cv, pk, pv, ks,
+                                          vs, table, starts, out, S, H, n_kv,
+                                          page, max_pages, n_pages, sm_scale);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T>
+static int launch_page_write_int8(int Dh, dim3 grid, cudaStream_t st,
+                                  const void* k, const void* v, void* pk,
+                                  void* pv, float* ks, float* vs, void* ck,
+                                  void* cv, const int* table,
+                                  const int* starts, int S, int n_kv,
+                                  int page, int max_pages, int n_pages) {
+#define TOS_WRITE8(EPT)                                                     \
+  page_write_int8_kernel<T, EPT><<<grid, 256, 0, st>>>(                     \
+      static_cast<const T*>(k), static_cast<const T*>(v),                   \
+      static_cast<int8_t*>(pk), static_cast<int8_t*>(pv), ks, vs,           \
+      static_cast<T*>(ck), static_cast<T*>(cv), table, starts, S, n_kv,     \
+      page, max_pages, n_pages)
+  if (Dh == 128)
+    TOS_WRITE8(4);
+  else if (Dh == 64)
+    TOS_WRITE8(2);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+#undef TOS_WRITE8
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -281,31 +412,54 @@ extern "C" int tos_page_write(const void* k, const void* v, void* pk,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The page write of an int8 pool: k / v [B, S, n_kv, Dh] in `dtype`,
+// payload pools pk / pv int8, scale pools ks / vs f32 [NP, page, n_kv],
+// ck / cv [B, S, n_kv, Dh] in `dtype` receive the dequantised chunk.
+extern "C" int tos_page_write_int8(const void* k, const void* v, void* pk,
+                                   void* pv, float* ks, float* vs, void* ck,
+                                   void* cv, const int* table,
+                                   const int* starts, int B, int S, int n_kv,
+                                   int Dh, int page, int max_pages,
+                                   int n_pages, int dtype, void* stream) {
+  using namespace tos;
+  const dim3 grid(S, B);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16)
+    return launch_page_write_int8<__nv_bfloat16>(
+        Dh, grid, st, k, v, pk, pv, ks, vs, ck, cv, table, starts, S, n_kv,
+        page, max_pages, n_pages);
+  if (dtype == kF32)
+    return launch_page_write_int8<float>(Dh, grid, st, k, v, pk, pv, ks, vs,
+                                         ck, cv, table, starts, S, n_kv,
+                                         page, max_pages, n_pages);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// kv_dtype: the pool's storage code, q's dtype or kI8 (then ks / vs are
+// the f32 scale pools; otherwise they are unused).
 extern "C" int tos_prefill_read(const void* q, const void* ck, const void* cv,
                                 const void* pk, const void* pv,
+                                const float* ks, const float* vs,
                                 const int* table, const int* starts, void* out,
                                 int B, int S, int H, int n_kv, int Dh,
                                 int page, int max_pages, int n_pages,
-                                float sm_scale, int dtype, void* stream) {
+                                float sm_scale, int dtype, int kv_dtype,
+                                void* stream) {
   using namespace tos;
   const int rows = S * (H / n_kv);
   const dim3 grid((rows + kBR - 1) / kBR, n_kv, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16 && Dh == 128)
-    return launch_prefill_read<__nv_bfloat16, 128>(
-        grid, st, q, ck, cv, pk, pv, table, starts, out, S, H, n_kv, page,
-        max_pages, n_pages, sm_scale);
-  if (dtype == kBF16 && Dh == 64)
-    return launch_prefill_read<__nv_bfloat16, 64>(
-        grid, st, q, ck, cv, pk, pv, table, starts, out, S, H, n_kv, page,
-        max_pages, n_pages, sm_scale);
-  if (dtype == kF32 && Dh == 128)
-    return launch_prefill_read<float, 128>(grid, st, q, ck, cv, pk, pv, table,
-                                           starts, out, S, H, n_kv, page,
-                                           max_pages, n_pages, sm_scale);
-  if (dtype == kF32 && Dh == 64)
-    return launch_prefill_read<float, 64>(grid, st, q, ck, cv, pk, pv, table,
-                                          starts, out, S, H, n_kv, page,
-                                          max_pages, n_pages, sm_scale);
+#define TOS_ARGS                                                          \
+  Dh, grid, st, q, ck, cv, pk, pv, ks, vs, table, starts, out, S, H, n_kv, \
+      page, max_pages, n_pages, sm_scale
+  if (dtype == kBF16 && kv_dtype == kBF16)
+    return launch_prefill_read_dh<__nv_bfloat16, __nv_bfloat16>(TOS_ARGS);
+  if (dtype == kBF16 && kv_dtype == kI8)
+    return launch_prefill_read_dh<__nv_bfloat16, int8_t>(TOS_ARGS);
+  if (dtype == kF32 && kv_dtype == kF32)
+    return launch_prefill_read_dh<float, float>(TOS_ARGS);
+  if (dtype == kF32 && kv_dtype == kI8)
+    return launch_prefill_read_dh<float, int8_t>(TOS_ARGS);
+#undef TOS_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -6,6 +6,8 @@ A paged slot cache keeps every layer's kv in a shared pool of pages
 through one ``page_table [n_slots, max_pages]``, with a per-row
 ``cache_index [n_slots]``: each row is an independent serving slot that
 requests join and leave at token boundaries (serve.ContinuousBatcher).
+With ``kv_dtype="int8"`` the pools hold int8 payloads beside f32
+per-(token, head) scale pools ``[kv_pages, page, n_kv]``.
 The jitted JAX bodies become plain functions that update the cache in
 place; the JAX package donated the cache to the same end.
 
@@ -30,18 +32,28 @@ from tensorflowonspark_tpu_torch.models.transformer import (
 class PagedCache:
     """The paged slot cache: per-layer pools (shared by every row) plus
     the per-row page table and write index, shared by every layer (the
-    JAX tree repeats them per layer; every copy holds the same values)."""
+    JAX tree repeats them per layer; every copy holds the same values).
+    ``key_scales`` / ``value_scales`` are the int8 pools' per-layer f32
+    scale pools, None for float pools."""
     pages_key: list        # per layer: [kv_pages, page, n_kv, Dh]
     pages_value: list
     page_table: torch.Tensor   # [rows, max_pages] int32
     cache_index: torch.Tensor  # [rows] int32: tokens written per row
     page_size: int
+    key_scales: list = None    # per layer: [kv_pages, page, n_kv] f32
+    value_scales: list = None
 
     def rows_view(self, page_table, cache_index):
         """A cache over other rows (a prefill batch) sharing these pools:
         writes through it land in the same pages."""
-        return PagedCache(self.pages_key, self.pages_value, page_table,
-                          cache_index, self.page_size)
+        return dataclasses.replace(self, page_table=page_table,
+                                   cache_index=cache_index)
+
+    def pool_bytes(self):
+        """Resident bytes of the pools, scales included."""
+        return sum(t.numel() * t.element_size() for t in (
+            self.pages_key + self.pages_value + (self.key_scales or [])
+            + (self.value_scales or [])))
 
 
 def init_paged_slot_cache(model_or_cfg, n_slots, page_size, n_pages,
@@ -49,6 +61,9 @@ def init_paged_slot_cache(model_or_cfg, n_slots, page_size, n_pages,
     """Build the paged slot cache for ``n_slots`` rows: per-layer pools
     of ``n_pages`` pages of ``page_size`` tokens, full-width page tables
     (``max_seq_len // page_size`` entries, all 0) and zero indices.
+    ``kv_dtype`` ("auto" or "int8"; None takes the config's) picks the
+    pools' storage: the compute dtype, or int8 payloads with f32 scale
+    pools.
 
     Accepts a Transformer (its parameters' device is used) or a config
     (then ``device``, resolved by the port's device rule).  Returns
@@ -65,10 +80,9 @@ def init_paged_slot_cache(model_or_cfg, n_slots, page_size, n_pages,
     else:
         raise TypeError(f"expected Transformer or TransformerConfig, got "
                         f"{type(model_or_cfg)}")
-    if kv_dtype not in (None, "auto"):
-        raise NotImplementedError(
-            f"kv_dtype={kv_dtype!r}: int8 kv pools are not ported yet "
-            "(ROADMAP: int8 kv branch of kernels 1-3)")
+    kv_dtype = cfg.kv_dtype if kv_dtype is None else kv_dtype
+    if kv_dtype not in ("auto", "int8"):
+        raise ValueError(f"kv_dtype={kv_dtype!r} not in ('auto', 'int8')")
     if table_pages:
         raise NotImplementedError(
             "table_pages > 0: growable page tables are not ported yet "
@@ -81,17 +95,22 @@ def init_paged_slot_cache(model_or_cfg, n_slots, page_size, n_pages,
         raise ValueError("a paged cache needs n_pages >= 1")
     head_dim = cfg.d_model // cfg.n_heads
     n_kv = cfg.n_heads if cfg.n_kv_heads is None else cfg.n_kv_heads
-    dt = torch_dtype(cfg)
+    quant = kv_dtype == "int8"
+    dt = torch.int8 if quant else torch_dtype(cfg)
     shape = (n_pages, page_size, n_kv, head_dim)
+
+    def pools(shape, dtype):
+        return [torch.zeros(shape, dtype=dtype, device=dev)
+                for _ in range(cfg.n_layers)]
+
     cache = PagedCache(
-        pages_key=[torch.zeros(shape, dtype=dt, device=dev)
-                   for _ in range(cfg.n_layers)],
-        pages_value=[torch.zeros(shape, dtype=dt, device=dev)
-                     for _ in range(cfg.n_layers)],
+        pages_key=pools(shape, dt), pages_value=pools(shape, dt),
         page_table=torch.zeros((n_slots, cfg.max_seq_len // page_size),
                                dtype=torch.int32, device=dev),
         cache_index=torch.zeros((n_slots,), dtype=torch.int32, device=dev),
-        page_size=page_size)
+        page_size=page_size,
+        key_scales=pools(shape[:3], torch.float32) if quant else None,
+        value_scales=pools(shape[:3], torch.float32) if quant else None)
     return model_or_cfg, cache
 
 
@@ -264,7 +283,8 @@ def _solo_page_size(max_seq_len):
 
 
 def generate(model, prompt, max_new_tokens, temperature=0.0, seed=None,
-             eos_id=None, top_k=0, top_p=1.0, min_p=0.0, device=None):
+             eos_id=None, top_k=0, top_p=1.0, min_p=0.0, device=None,
+             kv_dtype=None):
     """Generate continuations of ``prompt`` [B, T0] -> [B, T0 +
     max_new_tokens] through the paged slot path (one slot per row).
 
@@ -273,7 +293,9 @@ def generate(model, prompt, max_new_tokens, temperature=0.0, seed=None,
     (required when sampling).  With ``eos_id``, rows that emit it keep
     emitting it.  ``device`` follows the port's device rule (default
     ``cuda``; raises without one unless ``device="cpu"``); the model's
-    parameters must live there.  Returns an int64 tensor on that device.
+    parameters must live there.  ``kv_dtype="int8"`` decodes on an int8
+    paged pool, as the batcher serves it (None: the config's).  Returns
+    an int64 tensor on that device.
     """
     dev = device_mod.resolve(device)
     param_dev = next(model.parameters()).device
@@ -296,7 +318,8 @@ def generate(model, prompt, max_new_tokens, temperature=0.0, seed=None,
     page = _solo_page_size(cfg.max_seq_len)
     per_row = -(-(T0 + max_new_tokens) // page)
     sink = B * per_row
-    _, cache = init_paged_slot_cache(model, B, page, sink + 1)
+    _, cache = init_paged_slot_cache(model, B, page, sink + 1,
+                                     kv_dtype=kv_dtype)
     width = cache.page_table.shape[1]
     for b in range(B):
         pages = list(range(b * per_row, (b + 1) * per_row))

@@ -5,13 +5,16 @@ The same ``TransformerConfig`` (field names and defaults), the same
 parameter tree under PyTorch names (``convert.params_from_jax`` maps
 one onto the other), and the same math: RoPE with split-half pairing,
 GQA attention with f32 softmax, plain or gated MLPs, RMSNorm or
-LayerNorm (statistics in f32), pre- or post-LN blocks.
+LayerNorm (statistics in f32; ``fused_ln`` runs kernel 11), pre- or
+post-LN blocks.
 
 Attention paths, as in the JAX package: the cache-free forward runs the
 flash kernels (``ops.flash_attention``, differentiable) for
 ``attention_impl="flash"``, or ``"auto"`` on a CUDA tensor, and dense
 attention otherwise; the paged slot cache (``_paged_attention_body``)
-runs the paged kernels.  ``remat`` recomputes each block in the backward
+runs the paged kernels, over float or int8 pools (the cache decides:
+``models.decode.init_paged_slot_cache(kv_dtype=)``).  ``remat``
+recomputes each block in the backward
 (``torch.utils.checkpoint``).  :func:`lm_loss` is the causal-LM loss the
 train step uses.  Fields of the config whose feature is not ported raise
 ``NotImplementedError`` naming the ROADMAP item when they are set.
@@ -28,8 +31,10 @@ from torch.utils.checkpoint import checkpoint
 
 from tensorflowonspark_tpu_torch import quantize
 from tensorflowonspark_tpu_torch.ops.flash_attention import flash_attention
+from tensorflowonspark_tpu_torch.ops.layernorm import fused_layernorm
 from tensorflowonspark_tpu_torch.ops.paged_attention import paged_attention
-from tensorflowonspark_tpu_torch.ops.paged_prefill import paged_prefill
+from tensorflowonspark_tpu_torch.ops.paged_prefill import (_write_pages_int8,
+                                                           paged_prefill)
 from tensorflowonspark_tpu_torch.ops.quant_matmul import quant_matmul
 
 
@@ -60,7 +65,7 @@ class TransformerConfig:
     use_bias: bool = False
     ln_eps: float = 1e-6
     norm_type: str = "layernorm"  # layernorm | rmsnorm
-    fused_ln: bool = False        # kernel 11 (not ported)
+    fused_ln: bool = False        # LayerNorm through kernel 11
     norm_style: str = "pre"       # pre | post
     activation: str = "gelu_tanh"  # gelu_tanh | gelu_exact | relu | silu
     mlp_style: str = "plain"      # plain | gated
@@ -69,7 +74,7 @@ class TransformerConfig:
     kv_page_size: int = 0         # forward decides the decode mode
     kv_pages: int = 0
     kv_table_pages: int = 0
-    kv_dtype: str = "auto"        # auto only; int8 kv is not ported
+    kv_dtype: str = "auto"        # auto | int8: the paged pools' storage
     paged_attn_impl: str = "kernel"    # the kernels are the only paged
     quant_matmul_impl: str = "kernel"  # and quantised-weight paths on
     paged_prefill_impl: str = "kernel"  # the card
@@ -83,9 +88,6 @@ _UNPORTED = (
     ("ulysses_axis", bool,
      "context-parallel attention (ROADMAP: the zoo and the rest)"),
     ("sp_axis", bool, "sequence parallelism (ROADMAP: the zoo and the rest)"),
-    ("fused_ln", bool, "the fused LayerNorm kernel (ROADMAP: kernel 11)"),
-    ("kv_dtype", lambda v: v != "auto",
-     "int8 kv pools (ROADMAP: int8 kv branch of kernels 1-3)"),
     ("kv_table_pages", lambda v: v > 0,
      "growable page tables (ROADMAP: async engine, prefix cache, growable "
      "tables and streaming)"),
@@ -114,6 +116,12 @@ def check_ported(cfg):
     if cfg.norm_type not in ("layernorm", "rmsnorm"):
         raise ValueError(
             f"norm_type={cfg.norm_type!r} not in ('layernorm', 'rmsnorm')")
+    if cfg.fused_ln and cfg.norm_type == "rmsnorm":
+        raise ValueError("fused_ln applies to norm_type='layernorm' (the "
+                         "fused kernel computes mean and variance)")
+    if cfg.kv_dtype not in ("auto", "int8"):
+        raise ValueError(f"kv_dtype={cfg.kv_dtype!r} not in ('auto', "
+                         "'int8')")
     if cfg.norm_style not in ("pre", "post"):
         raise ValueError(
             f"norm_style={cfg.norm_style!r} not in ('pre', 'post')")
@@ -249,9 +257,21 @@ class LayerNorm(nn.Module):
         return (x - mean) * mul + self.bias.float()
 
 
+class FusedLayerNorm(LayerNorm):
+    """The JAX package's ``FusedLayerNorm``: LayerNorm through
+    ``ops.layernorm`` (kernel 11 on the card), centred f32 variance, the
+    output in x's dtype.  Same parameters as :class:`LayerNorm`, so
+    ``convert`` maps the JAX ``scale`` / ``bias`` unchanged."""
+
+    def forward(self, x):
+        return fused_layernorm(x, self.weight, self.bias, self.eps)
+
+
 def _make_ln(cfg):
     if cfg.norm_type == "rmsnorm":
         return RMSNorm(cfg.d_model, cfg.ln_eps)
+    if cfg.fused_ln:
+        return FusedLayerNorm(cfg.d_model, cfg.ln_eps)
     return LayerNorm(cfg.d_model, cfg.ln_eps)
 
 
@@ -341,12 +361,14 @@ def _paged_attention_body(q, k, v, cache, layer):
     """Paged continuous-batching attention for one layer.
 
     ``cache`` holds this layer's pool ``pages_key[layer] /
-    pages_value[layer] [kv_pages, page, n_kv, Dh]``, the per-row
-    ``page_table [B, max_pages]`` and ``cache_index [B]`` (tokens already
-    written).  Prefill chunks (S > 1) run ``paged_prefill`` (page write +
-    chunked flash read).  Decode steps (S == 1) write the token's k/v by
-    plain tensor indexing and read through ``paged_attention`` with
-    ``lengths = cache_index + S``.
+    pages_value[layer] [kv_pages, page, n_kv, Dh]`` (an int8 pool also
+    ``key_scales[layer] / value_scales[layer] [kv_pages, page, n_kv]``
+    f32), the per-row ``page_table [B, max_pages]`` and ``cache_index
+    [B]`` (tokens already written).  Prefill chunks (S > 1) run
+    ``paged_prefill`` (page write + chunked flash read).  Decode steps
+    (S == 1) write the token's k/v (a float pool by plain tensor
+    indexing, an int8 pool through the quantising page write) and read
+    through ``paged_attention`` with ``lengths = cache_index + S``.
 
     CONTRACT (as in the JAX package): a row's table names valid pool
     pages for every position it will touch, and every other entry names
@@ -354,22 +376,33 @@ def _paged_attention_body(q, k, v, cache, layer):
     (bucket-pad overshoot, the garbage steps of free rows).
     """
     pk, pv = cache.pages_key[layer], cache.pages_value[layer]
+    ks = vs = None
+    if cache.key_scales is not None:
+        ks, vs = cache.key_scales[layer], cache.value_scales[layer]
     table, idx = cache.page_table, cache.cache_index
     S = k.shape[1]
     if S > 1:
-        out, _ = paged_prefill(q, k, v, pk, pv, table, idx)
+        out, _ = paged_prefill(q, k, v, pk, pv, table, idx, key_scales=ks,
+                               value_scales=vs)
         return out
-    NP, P = pk.shape[:2]
-    pos = idx.long()
-    block = (pos // P).clamp(0, table.shape[1] - 1)
-    # an out-of-range page id clamps to the pool's last page (the sink in
-    # the serving layout) instead of raising; masking it out would cost
-    # a host sync per layer
-    phys = torch.gather(table.long(), 1, block[:, None])[:, 0].clamp(0, NP - 1)
-    # in place: the JAX step donates the pool instead
-    pk[phys, pos % P] = k[:, 0].to(pk.dtype)
-    pv[phys, pos % P] = v[:, 0].to(pv.dtype)
-    return paged_attention(q, pk, pv, table, idx + S)
+    if ks is not None:
+        # the one-token quantising store: the JAX blend writes the same
+        # bytes (a valid table never names a page outside the pool)
+        _write_pages_int8(k, v, pk, pv, ks, vs, table, idx)
+    else:
+        NP, P = pk.shape[:2]
+        pos = idx.long()
+        block = (pos // P).clamp(0, table.shape[1] - 1)
+        # an out-of-range page id clamps to the pool's last page (the sink
+        # in the serving layout) instead of raising; masking it out would
+        # cost a host sync per layer
+        phys = torch.gather(table.long(), 1,
+                            block[:, None])[:, 0].clamp(0, NP - 1)
+        # in place: the JAX step donates the pool instead
+        pk[phys, pos % P] = k[:, 0].to(pk.dtype)
+        pv[phys, pos % P] = v[:, 0].to(pv.dtype)
+    return paged_attention(q, pk, pv, table, idx + S, key_scales=ks,
+                           value_scales=vs)
 
 
 def _activation(x, name):

@@ -16,6 +16,8 @@ family, each with its plain PyTorch version beside it.
 - quant_matmul : fused-dequant W8A16 / W4A16 matmuls
   (csrc/quant_matmul.cu; replaces ops/quant_matmul.py ``_int8_kernel``
   and ``_int4_kernel``)
+- layernorm : row LayerNorm with f32 statistics (csrc/layernorm.cu;
+  replaces ops/layernorm.py ``_ln_kernel``)
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises.  Kernels build at first use (ops/_build.py), never at import.
@@ -23,17 +25,23 @@ The package binds its submodules only (no function re-exports under the
 same names), so ``ops.paged_attention`` is always the module.
 """
 
-# the kernels each main path runs: serving (serve -> models.decode),
-# quantised-weight serving adds "<mode>_matmul" per mode, and
-# training (parallel.train -> models.transformer backward + optimizer)
+# the kernels each main path runs: serving (serve -> models.decode) over
+# a float or an int8 kv pool, quantised-weight serving adds
+# "<mode>_matmul" per mode and fused_ln models "layernorm", and training
+# (parallel.train -> models.transformer backward + optimizer)
 SERVING_KERNELS = ("paged_attention", "page_write", "prefill_read")
+SERVING_KERNELS_INT8_KV = ("paged_attention_int8", "page_write_int8",
+                           "prefill_read_int8")
 TRAINING_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "adamw")
 
 
 def _wrappers():
-    """{kernel name: its launching wrapper} of every ported kernel."""
+    """{kernel name: its launching wrapper} of every ported kernel (or,
+    where one wrapper launches two instantiations, the second one's
+    ``_build.Launches``)."""
     from tensorflowonspark_tpu_torch.ops import flash_attention as fa
     from tensorflowonspark_tpu_torch.ops import fused_optim as fo
+    from tensorflowonspark_tpu_torch.ops import layernorm as ln
     from tensorflowonspark_tpu_torch.ops import paged_attention as pa
     from tensorflowonspark_tpu_torch.ops import paged_prefill as pp
     from tensorflowonspark_tpu_torch.ops import quant_matmul as qm
@@ -41,12 +49,16 @@ def _wrappers():
     return {"paged_attention": pa.paged_attention,
             "page_write": pp._write_pages,
             "prefill_read": pp._read_attention,
+            "paged_attention_int8": pa.INT8_LAUNCHES,
+            "page_write_int8": pp._write_pages_int8,
+            "prefill_read_int8": pp.READ_INT8_LAUNCHES,
             "flash_fwd": fa.flash_fwd,
             "flash_bwd_dq": fa.flash_bwd_dq,
             "flash_bwd_dkv": fa.flash_bwd_dkv,
             "adamw": fo._adamw,
             "int8_matmul": qm._int8_matmul,
-            "int4_matmul": qm._int4_matmul}
+            "int4_matmul": qm._int4_matmul,
+            "layernorm": ln._layernorm}
 
 
 def launch_counts(names=None):

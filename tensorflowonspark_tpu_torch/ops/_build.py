@@ -23,7 +23,7 @@ import time
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 SOURCES = ("paged_attention.cu", "paged_prefill.cu", "flash_attention.cu",
-           "fused_optim.cu", "quant_matmul.cu")
+           "fused_optim.cu", "quant_matmul.cu", "layernorm.cu")
 HEADERS = ("common.cuh",)
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
                          "torch_kernels")
@@ -32,8 +32,9 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v"]
 
-# dtype codes of the C entries (csrc/common.cuh DType)
-DTYPES = {"float32": 0, "bfloat16": 1}
+# dtype codes of the C entries (csrc/common.cuh DType); int8 is a kv
+# pool storage type only
+DTYPES = {"float32": 0, "bfloat16": 1, "int8": 2}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,11 +43,13 @@ _L = ctypes.c_longlong
 # argtypes of every C entry: pointers and the stream as c_void_p (a bare
 # Python int would be passed as a 32-bit int and cut the pointer)
 SIGNATURES = {
-    "tos_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _I, _I, _I, _I, _F, _I, _P],
+    "tos_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                         _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     "tos_page_write": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "tos_prefill_read": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _I, _I, _I, _F, _I, _P],
+    "tos_page_write_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                            _I, _I, _I, _I, _I, _I, _P],
+    "tos_prefill_read": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                         _I, _I, _I, _I, _I, _F, _I, _I, _P],
     "tos_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     "tos_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                          _I, _I, _P],
@@ -56,10 +59,22 @@ SIGNATURES = {
                   _I, _P],
     "tos_quant_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _I, _I, _P],
+    "tos_layernorm": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
 }
 
 _lock = threading.Lock()
 _lib = None
+
+
+class Launches:
+    """The launch count of a kernel instantiation whose wrapper launches
+    more than one (a wrapper's own count is its ``.launches``): the
+    wrapper adds one right after each launch, and nowhere else."""
+
+    __slots__ = ("launches",)
+
+    def __init__(self):
+        self.launches = 0
 
 
 def nvcc_path():

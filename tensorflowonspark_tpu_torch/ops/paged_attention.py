@@ -13,6 +13,12 @@ kernel ``csrc/paged_attention.cu`` (design and bound in its header) or
 raises.  The kernel writes split-K partials ``(acc, m, l)``; the
 log-sum-exp combine across splits stays plain tensor code here, as it is
 jax-side code around the TPU kernel.
+
+int8 pools (``--generate_kv_dtype int8``) carry f32 per-(token, head)
+scales ``key_scales/value_scales [kv_pages, page, n_kv]``; both versions
+dequantise every value in f32 (payload x scale) before it meets q, as
+the JAX kernel does.  The int8 launches count apart from the float ones
+(``ops.launch_counts()["paged_attention_int8"]``).
 """
 import torch
 
@@ -33,6 +39,7 @@ def _pick_splits(requested, max_pages):
 
 def _check_args(q, pages_key, pages_value, page_table, lengths, key_scales,
                 value_scales):
+    """Validate shapes; returns whether the pool is int8."""
     B, S, H, Dh = q.shape
     NP, page, n_kv, Dh_kv = pages_key.shape
     if pages_value.shape != pages_key.shape or Dh_kv != Dh:
@@ -47,20 +54,55 @@ def _check_args(q, pages_key, pages_value, page_table, lengths, key_scales,
         raise ValueError(
             f"page_table {tuple(page_table.shape)} / lengths "
             f"{tuple(lengths.shape)} must have {B} rows")
-    if (pages_key.dtype == torch.int8 or key_scales is not None
-            or value_scales is not None):
-        raise NotImplementedError(
-            "int8 kv pools are not ported yet (ROADMAP: int8 kv branch of "
-            "kernels 1-3)")
+    return check_scales(pages_key, pages_value, key_scales, value_scales)
+
+
+def check_scales(pages_key, pages_value, key_scales, value_scales):
+    """The JAX wrappers' int8 rules: an int8 pool needs both scale pools
+    ``[kv_pages, page, n_kv]``, a float pool takes none.  Returns whether
+    the pool is int8."""
+    quant = pages_key.dtype == torch.int8
+    if quant and (key_scales is None or value_scales is None):
+        raise ValueError("int8 pools need key_scales and value_scales "
+                         "[kv_pages, page, n_kv]")
+    if not quant and (key_scales is not None or value_scales is not None):
+        raise ValueError("scales are only meaningful for int8 pools")
+    if quant:
+        if pages_value.dtype != torch.int8:
+            raise ValueError("pages_key is int8 but pages_value is "
+                             f"{pages_value.dtype}")
+        for name, sc in (("key_scales", key_scales),
+                         ("value_scales", value_scales)):
+            if tuple(sc.shape) != tuple(pages_key.shape[:3]):
+                raise ValueError(f"{name} {tuple(sc.shape)} must be "
+                                 f"{tuple(pages_key.shape[:3])}")
+    return quant
+
+
+def check_card_scales(key_scales, value_scales, device):
+    """The kernels read the scale pools in place: f32, contiguous, on the
+    pool's card."""
+    for name, sc in (("key_scales", key_scales),
+                     ("value_scales", value_scales)):
+        if sc.dtype != torch.float32 or not sc.is_contiguous():
+            raise TypeError(f"{name} must be a contiguous float32 tensor on "
+                            f"the card, got {sc.dtype}")
+        if sc.device != device:
+            raise ValueError(f"{name} is on {sc.device}, q on {device}")
+
+
+def dequantize_pages(pages, scales):
+    """An int8 pool (or a gather of it) in f32: payload x its scale."""
+    return pages.float() * scales[..., None]
 
 
 def paged_attention_plain(q, pages_key, pages_value, page_table, lengths, *,
-                          sm_scale=None):
+                          key_scales=None, value_scales=None, sm_scale=None):
     """Dense gather version with the kernel's exact semantics (f32
-    softmax, large-finite mask, lengths-relative visibility): query s of
-    row b sees key j iff ``j <= lengths[b] - S + s``; rows with
-    ``lengths == 0`` return zeros.  Returns ``[B, S, H, Dh]`` in q's
-    dtype."""
+    softmax, large-finite mask, lengths-relative visibility, int8 pools
+    dequantised in f32): query s of row b sees key j iff ``j <=
+    lengths[b] - S + s``; rows with ``lengths == 0`` return zeros.
+    Returns ``[B, S, H, Dh]`` in q's dtype."""
     B, S, H, Dh = q.shape
     NP, page, n_kv, _ = pages_key.shape
     max_pages = page_table.shape[1]
@@ -68,8 +110,12 @@ def paged_attention_plain(q, pages_key, pages_value, page_table, lengths, *,
     if sm_scale is None:
         sm_scale = 1.0 / (Dh ** 0.5)
     table = page_table.long().clamp(0, NP - 1)     # gathers clip, as in JAX
-    kf = pages_key[table].reshape(B, L, n_kv, Dh).float()
-    vf = pages_value[table].reshape(B, L, n_kv, Dh).float()
+    kf, vf = pages_key[table], pages_value[table]
+    if key_scales is not None:
+        kf = dequantize_pages(kf, key_scales[table])
+        vf = dequantize_pages(vf, value_scales[table])
+    kf = kf.reshape(B, L, n_kv, Dh).float()
+    vf = vf.reshape(B, L, n_kv, Dh).float()
     if n_kv != H:
         kf = kf.repeat_interleave(H // n_kv, dim=2)
         vf = vf.repeat_interleave(H // n_kv, dim=2)
@@ -95,7 +141,8 @@ def paged_attention(q, pages_key, pages_value, page_table, lengths, *,
     Args:
       q: ``[B, S, H, Dh]`` query chunk (S=1 decode steps; any S >= 1).
       pages_key / pages_value: the pool, ``[kv_pages, page, n_kv, Dh]``
-        in q's dtype (float32 or bfloat16 on the card).
+        in q's dtype (float32 or bfloat16 on the card), or int8 with
+        ``key_scales``/``value_scales`` ``[kv_pages, page, n_kv]`` f32.
       page_table: ``[B, max_pages]`` int32 physical page per logical
         block; entries past a row's length are never read.
       lengths: ``[B]`` int32 tokens WRITTEN per row, including the current
@@ -106,11 +153,13 @@ def paged_attention(q, pages_key, pages_value, page_table, lengths, *,
     Returns ``[B, S, H, Dh]`` in q's dtype.  CPU tensors take
     :func:`paged_attention_plain`; CUDA tensors launch the kernel.
     """
-    _check_args(q, pages_key, pages_value, page_table, lengths, key_scales,
-                value_scales)
+    quant = _check_args(q, pages_key, pages_value, page_table, lengths,
+                        key_scales, value_scales)
     if q.device.type == "cpu":
-        return paged_attention_plain(q, pages_key, pages_value, page_table,
-                                     lengths, sm_scale=sm_scale)
+        return paged_attention_plain(
+            q, pages_key, pages_value, page_table, lengths,
+            key_scales=key_scales, value_scales=value_scales,
+            sm_scale=sm_scale)
     if q.device.type != "cuda":
         raise RuntimeError(f"paged_attention: no kernel for {q.device}")
     B, S, H, Dh = q.shape
@@ -119,8 +168,10 @@ def paged_attention(q, pages_key, pages_value, page_table, lengths, *,
     if Dh not in (64, 128):
         raise NotImplementedError(
             f"paged_attention kernel takes head_dim 64 or 128, got {Dh}")
-    if not (pages_key.dtype == pages_value.dtype == q.dtype):
-        raise TypeError("q and the pools must share one dtype on the card")
+    if quant:
+        check_card_scales(key_scales, value_scales, q.device)
+    elif not (pages_key.dtype == pages_value.dtype == q.dtype):
+        raise TypeError("q and float pools must share one dtype on the card")
     for name, t in (("pages_key", pages_key), ("pages_value", pages_value),
                     ("page_table", page_table), ("lengths", lengths)):
         if t.device != q.device:
@@ -141,12 +192,14 @@ def paged_attention(q, pages_key, pages_value, page_table, lengths, *,
                     device=q.device)
     l = torch.empty_like(m)
     P = _build.ptr
+    scales = ((P(key_scales), P(value_scales)) if quant else (None, None))
     code = lib.tos_paged_decode(
-        P(q), P(pages_key), P(pages_value), P(table), P(lens), P(acc), P(m),
-        P(l), B, S, H, n_kv, Dh, page, max_pages, NP, n_splits,
-        float(sm_scale), _build.dtype_code(q), _build.stream_ptr(q.device))
+        P(q), P(pages_key), P(pages_value), *scales, P(table), P(lens),
+        P(acc), P(m), P(l), B, S, H, n_kv, Dh, page, max_pages, NP, n_splits,
+        float(sm_scale), _build.dtype_code(q), _build.dtype_code(pages_key),
+        _build.stream_ptr(q.device))
     _build.check(code, "tos_paged_decode")
-    paged_attention.launches += 1
+    (INT8_LAUNCHES if quant else paged_attention).launches += 1
     # LSE combine across splits: splits past a row's pages carry (m=-1e30,
     # l=0, acc=0) and drop out; rows with no visible key anywhere
     # (lengths == 0) hit the denominator guard and come out as zeros
@@ -159,6 +212,8 @@ def paged_attention(q, pages_key, pages_value, page_table, lengths, *,
 
 
 paged_attention.launches = 0
+# launches of the int8-pool instantiation, made by paged_attention
+INT8_LAUNCHES = _build.Launches()
 
 
 def _aligned(t):

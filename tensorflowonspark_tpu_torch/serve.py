@@ -4,7 +4,7 @@ configuration.
 
     python -m tensorflowonspark_tpu_torch.serve --export_dir D \\
         --generate_kv_page_size 64 --generate_kv_pages N \\
-        [--generate_quantize int8|int4]
+        [--generate_quantize int8|int4] [--generate_kv_dtype int8]
 
     POST /v1/models/<name>:generate
         {"inputs": [[ids..]], "max_new_tokens": n, "temperature": t,
@@ -17,7 +17,10 @@ Every request runs through the ContinuousBatcher: slot-based continuous
 batching over a paged kv cache, batched multi-row prefill rounds
 interleaved with decode steps, the sink page for free rows and
 bucket-pad overshoot.  ``--generate_quantize int8|int4`` serves weight-only
-quantised projections (W8A16 / W4A16) through kernels 9 and 10.  Runs on
+quantised projections (W8A16 / W4A16) through kernels 9 and 10;
+``--generate_kv_dtype int8`` keeps the kv pool in int8 with f32
+per-(token, head) scales (the int8 branch of kernels 1-3), about half
+the bf16 pool's bytes.  The two compose.  Runs on
 ``cuda`` unless ``--device cpu`` is given;
 without a CUDA device and without that request it raises.  Flags and
 request fields whose feature is not ported raise NotImplementedError
@@ -88,7 +91,10 @@ def build_argparser():
     p.add_argument("--generate_kv_pages", type=int, default=0,
                    help="pool size (pages) for --generate_kv_page_size")
     p.add_argument("--generate_kv_dtype", choices=["auto", "int8"],
-                   default="auto")
+                   default="auto",
+                   help="int8 = the paged kv pool stored as int8 payloads "
+                        "with per-(token, head) f32 scales: about half "
+                        "the bf16 pool's bytes")
     p.add_argument("--generate_quantize", choices=list(QUANTIZE_MODES),
                    default="none",
                    help="weight-only quantisation of the projections at "
@@ -110,8 +116,6 @@ def build_argparser():
 # (flag, predicate of "asked for", ROADMAP item)
 _UNPORTED_FLAGS = (
     ("generate_engine", lambda v: v == "async", _ASYNC),
-    ("generate_kv_dtype", lambda v: v == "int8",
-     "int8 kv branch of kernels 1-3"),
     ("spec_draft", lambda v: v in ("model", "ngram"),
      "LoRA and speculation"),
     ("draft_export_dir", bool, "LoRA and speculation"),
@@ -212,9 +216,12 @@ class ContinuousBatcher:
     the free list; when the pool is short the admission waits at the
     head of the line.
 
-    Greedy rows decode exactly the tokens of a solo ``decode.generate``;
-    sampled rows draw the counter-based noise of (seed, ordinal), so a
-    seeded request reproduces itself.
+    ``kv_dtype="int8"`` stores the pool as int8 payloads with f32
+    per-(token, head) scales ("auto" means the model's compute dtype).
+
+    Greedy rows decode exactly the tokens of a solo ``decode.generate``
+    (with the same ``kv_dtype``); sampled rows draw the counter-based
+    noise of (seed, ordinal), so a seeded request reproduces itself.
     """
 
     def __init__(self, model, n_slots=8, max_pending=1024, read_chunk=8,
@@ -249,7 +256,11 @@ class ContinuousBatcher:
         self._table_width = max_table_pages(self.max_seq, self.kv_page_size)
         _, self._cache = decode_mod.init_paged_slot_cache(
             model, n_slots, self.kv_page_size, int(kv_pages) + 1,
-            kv_dtype=kv_dtype)
+            kv_dtype=None if kv_dtype == "auto" else kv_dtype)
+        # "auto" (the CLI default) and None leave the model config's
+        # choice; stats() reports what the pool holds
+        self.kv_dtype = "int8" if self._cache.key_scales else None
+        self.kv_pool_bytes = self._cache.pool_bytes()
         self._sink_entries = [self._sink] * self._table_width
         for row in range(n_slots):       # unoccupied rows start at the sink
             decode_mod.set_row_page_table(self._cache, row,
@@ -289,10 +300,15 @@ class ContinuousBatcher:
         self._n_filtered = 0
         self._steps = 0
         self._step_ms = collections.deque(maxlen=1024)   # decode-only chunks
-        # the kernels this engine runs: the paged ones, plus the
-        # fused-dequant matmul of each quantisation mode in the model
-        self.kernels = ops.SERVING_KERNELS + tuple(
-            f"{mode}_matmul" for mode in quantize_mod.quantized_modes(model))
+        # the kernels this engine runs: the paged ones for its pool, the
+        # fused-dequant matmul of each quantisation mode in the model, and
+        # the fused LayerNorm of a fused_ln model
+        self.kernels = (
+            (ops.SERVING_KERNELS_INT8_KV if self._cache.key_scales
+             else ops.SERVING_KERNELS)
+            + tuple(f"{mode}_matmul"
+                    for mode in quantize_mod.quantized_modes(model))
+            + (("layernorm",) if model.cfg.fused_ln else ()))
         self._dead = None
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._loop,
@@ -323,6 +339,7 @@ class ContinuousBatcher:
             "kv_pages_total": self._total_pages,
             "kv_pages_used": self._total_pages - free,
             "kv_page_size": self.kv_page_size,
+            "kv_pool_bytes": self.kv_pool_bytes,
             # host-clock ms per decode step over readback chunks with no
             # prefill or idle wait in them (the readback syncs the card)
             "decode_step_ms_mean": (sum(step_ms) / len(step_ms)
@@ -335,6 +352,8 @@ class ContinuousBatcher:
                             if ttft else 0.0),
             "kernel_launches": ops.launch_counts(self.kernels),
         }
+        if self.kv_dtype:
+            out["kv_dtype"] = self.kv_dtype
         out.update(self.counters.snapshot())
         return out
 
@@ -681,15 +700,15 @@ class GenerateService:
     export onto the device, optionally quantises its projections
     (``quantize_mode`` int8 / int4), stores the other floating leaves at
     the model's compute width and serves every request through one
-    ContinuousBatcher."""
+    ContinuousBatcher (over an int8 kv pool with ``kv_dtype="int8"``)."""
 
     _I32 = 1 << 31
 
     def __init__(self, export_dir, max_new_tokens_limit=512, slots=8,
                  read_chunk=8, prefill_chunk=512, prefill_rows=4,
                  prefill_budget=0, request_timeout_s=None, kv_page_size=0,
-                 kv_pages=0, engine="serial", quantize_mode="none",
-                 device=None):
+                 kv_pages=0, kv_dtype="auto", engine="serial",
+                 quantize_mode="none", device=None):
         from tensorflowonspark_tpu_torch import export as export_mod
         from tensorflowonspark_tpu_torch.models.transformer import (
             Transformer, torch_dtype)
@@ -722,7 +741,8 @@ class GenerateService:
             self.model, n_slots=slots or 8, read_chunk=read_chunk,
             prefill_chunk=prefill_chunk, prefill_rows=prefill_rows,
             prefill_budget=prefill_budget, kv_page_size=kv_page_size,
-            kv_pages=kv_pages, engine=engine, device=self.device)
+            kv_pages=kv_pages, kv_dtype=kv_dtype, engine=engine,
+            device=self.device)
         self.limit = max_new_tokens_limit
         self.timeout_s = request_timeout_s or max(
             600.0, 2.0 * max_new_tokens_limit)
@@ -824,6 +844,7 @@ class ModelService:
                     request_timeout_s=a.generate_timeout_s,
                     kv_page_size=a.generate_kv_page_size,
                     kv_pages=a.generate_kv_pages,
+                    kv_dtype=a.generate_kv_dtype,
                     engine=a.generate_engine,
                     quantize_mode=a.generate_quantize,
                     device=self.device)

@@ -12,14 +12,19 @@ groups of 1 to 4, S=1 and S=3 decode, chunks that straddle pages and
 tiles, empty rows, rows past the table, pad rows; flash sequences that
 are not a multiple of the 64 x 32 tiles, causal and not; AdamW leaves of
 odd sizes; quantised matmuls at M 1, 7 and 1024, K 200 with groups of
-128, N 1000, 1003 and 32000, 3-D activations), in f32 and bf16.
+128, N 1000, 1003 and 32000, 3-D activations; int8 kv pools at odd S
+and starts straddling pages; LayerNorm rows of 64 to 8192, D not a
+multiple of 256, f32 and bf16 parameters), in f32 and bf16.
 Tolerances: f32 1e-4 (f32 math on both sides, summation order differs
 over <= 300 keys); bf16 1e-2 (f32 math, bf16 output rounding).  AdamW:
 the kernel's separately rounded f32 ops match the plain version's to
 1e-6 (p, nu) and one bf16 step (mu).  Quantised matmuls: the largest
 error within 1e-5 (f32) or 2e-2 (bf16) of the largest |output|, as the
 JAX package's own kernel tests hold them, and each row's bits the same
-whatever the number of rows in the call.
+whatever the number of rows in the call.  int8 kv: the quantising page
+write gives the plain version's and the CPU's bytes exactly (payload,
+scales and the dequantised chunk); the reads as above.  LayerNorm: f32
+1e-5, bf16 one bf16 step (rtol 2^-7).
 """
 import pytest
 import torch
@@ -30,6 +35,7 @@ from tensorflowonspark_tpu_torch.models import decode as port_decode
 from tensorflowonspark_tpu_torch.models import transformer as port_tf
 from tensorflowonspark_tpu_torch.ops import flash_attention as fa
 from tensorflowonspark_tpu_torch.ops import fused_optim as fo
+from tensorflowonspark_tpu_torch.ops import layernorm as ln
 from tensorflowonspark_tpu_torch.ops import paged_attention as pa
 from tensorflowonspark_tpu_torch.ops import paged_prefill as pp
 from tensorflowonspark_tpu_torch.ops import quant_matmul as qm
@@ -339,3 +345,169 @@ def test_quant_matmul_rows_do_not_depend_on_the_batch(dev, mode):
     for M in (1, 7, 16, 17, 64):
         assert torch.equal(qm.quant_matmul(x[:M].contiguous(), leaf),
                            full[:M]), M
+
+
+def _int8_pool(gen, B, max_pages, page, n_kv, Dh, dev, extra=2):
+    NP = B * max_pages + extra
+    pools = [torch.randint(-127, 128, (NP, page, n_kv, Dh), generator=gen,
+                           dtype=torch.int8).to(dev) for _ in range(2)]
+    scales = [(torch.rand((NP, page, n_kv), generator=gen) * 0.05
+               + 1e-3).to(dev) for _ in range(2)]
+    perm = torch.randperm(NP - 1, generator=gen)[:B * max_pages]
+    table = perm.reshape(B, max_pages).to(dev, torch.int32)
+    return pools, scales, table, NP
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("S,H,n_kv,Dh", [(1, 8, 2, 64), (1, 16, 8, 128),
+                                         (3, 8, 2, 64), (3, 4, 4, 128)])
+def test_int8_decode_kernel_matches_plain(dev, dtype, S, H, n_kv, Dh):
+    gen = torch.Generator().manual_seed(S * 100 + H + Dh + 1)
+    B, page, max_pages = 5, 16, 6
+    pools, scales, table, _ = _int8_pool(gen, B, max_pages, page, n_kv, Dh,
+                                         dev)
+    q = torch.randn((B, S, H, Dh), generator=gen).to(dev, dtype)
+    lengths = torch.tensor([0, 21, 32, 96, 130], dtype=torch.int32,
+                           device=dev)
+    lengths[1:] = lengths[1:].clamp_min(S)
+    sc = dict(key_scales=scales[0], value_scales=scales[1])
+    counts = ops.launch_counts()
+    out = pa.paged_attention(q, *pools, table, lengths, **sc)
+    ref = pa.paged_attention_plain(q, *pools, table, lengths, **sc)
+    after = ops.launch_counts()
+    assert after["paged_attention_int8"] == counts["paged_attention_int8"] + 1
+    assert after["paged_attention"] == counts["paged_attention"]
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    assert not out[0].any()
+    # rows do not depend on the batch: row 3 alone gives the same bits
+    alone = pa.paged_attention(q[3:4], *pools, table[3:4], lengths[3:4],
+                               **sc)
+    assert torch.equal(alone, out[3:4])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("S,H,n_kv,Dh,starts", [
+    (1, 8, 2, 64, (5, 16, 31, 0)),
+    (33, 16, 8, 128, (64, 0, 100, 0)),
+    (70, 4, 4, 128, (0, 33, 5, 0)),
+    (13, 8, 2, 64, (7, 15, 0, 0)),
+])
+def test_int8_prefill_kernels_match_plain(dev, dtype, S, H, n_kv, Dh,
+                                          starts):
+    gen = torch.Generator().manual_seed(S + H + Dh + 2)
+    B, page, max_pages = len(starts), 16, 12
+    pools, scales, table, NP = _int8_pool(gen, B, max_pages, page, n_kv, Dh,
+                                          dev)
+    sink = NP - 1
+    table[3] = sink                      # the last row is a pad row
+    q = torch.randn((B, S, H, Dh), generator=gen).to(dev, dtype)
+    k = torch.randn((B, S, n_kv, Dh), generator=gen).to(dev, dtype)
+    v = torch.randn((B, S, n_kv, Dh), generator=gen).to(dev, dtype)
+    k[0, 0] = 0.0                        # an all-zero row
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    plain = [t.clone() for t in pools + scales]
+    cpu = [t.cpu() for t in pools + scales]
+    counts = ops.launch_counts()
+    ck, cv = pp._write_pages_int8(k, v, *pools, *scales, table, st)
+    pck, pcv = pp.write_pages_plain(k, v, plain[0], plain[1], table, st,
+                                    plain[2], plain[3])
+    cck, ccv = pp.write_pages_plain(k.cpu(), v.cpu(), cpu[0], cpu[1],
+                                    table.cpu(), st.cpu(), cpu[2], cpu[3])
+    nonsink = torch.arange(NP, device=dev) != sink
+    for got, want, host in zip(pools + scales, plain, cpu):
+        assert torch.equal(got[nonsink], want[nonsink])
+        assert torch.equal(got[nonsink].cpu(), host[nonsink.cpu()])
+    for got, want, host in ((ck, pck, cck), (cv, pcv, ccv)):
+        assert torch.equal(got, want) and torch.equal(got.cpu(), host)
+    sc = dict(key_scales=scales[0], value_scales=scales[1])
+    out = pp._read_attention(q, ck, cv, *pools, table, st, **sc)
+    ref = pp.read_attention_plain(q, ck, cv, *pools, table, st, **sc)
+    after = ops.launch_counts()
+    assert after["page_write_int8"] == counts["page_write_int8"] + 1
+    assert after["prefill_read_int8"] == counts["prefill_read_int8"] + 1
+    assert after["page_write"] == counts["page_write"]
+    torch.testing.assert_close(out[:3].float(), ref[:3].float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_kv_quantize_on_card_gives_the_cpu_bytes(dev):
+    gen = torch.Generator().manual_seed(23)
+    x = torch.randn((64, 8, 128), generator=gen) * 3.0
+    x[0] = 0.0
+    x[1, 0, :4] = torch.tensor([127.0, 2.5, -3.5, 0.5])   # exact ties
+    x[1, 0, 4:] = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        t = x.to(dtype)
+        a = pp.kv_quantize(t)
+        b = pp.kv_quantize(t.to(dev))
+        assert torch.equal(a[0], b[0].cpu()) and torch.equal(a[1],
+                                                             b[1].cpu())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("param_dtype", [torch.float32, torch.bfloat16],
+                         ids=["p32", "p16"])
+@pytest.mark.parametrize("N,D", [(1, 64), (300, 1000), (37, 2048),
+                                 (5, 8192), (1024, 2048)])
+def test_layernorm_kernel_matches_plain(dev, dtype, param_dtype, N, D):
+    gen = torch.Generator().manual_seed(N + D)
+    x = (torch.randn((N, D), generator=gen) * 2 + 0.5).to(dev, dtype)
+    w = (1 + 0.1 * torch.randn(D, generator=gen)).to(dev, param_dtype)
+    b = (0.1 * torch.randn(D, generator=gen)).to(dev, param_dtype)
+    before = ln._layernorm.launches
+    out = ln.fused_layernorm(x, w, b)
+    assert ln._layernorm.launches == before + 1
+    ref = ln.layernorm_plain(x, w, b)
+    assert out.dtype == dtype
+    tol = (dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32
+           else dict(atol=1e-2, rtol=2 ** -7))
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    # rows do not depend on how many share the call
+    for M in (1, min(N, 7)):
+        assert torch.equal(ln.fused_layernorm(x[:M].contiguous(), w, b),
+                           out[:M])
+
+
+def test_layernorm_autograd_on_card(dev):
+    gen = torch.Generator().manual_seed(29)
+    leaves = [t.to(dev).requires_grad_(True) for t in (
+        torch.randn((3, 50, 320), generator=gen),
+        1 + 0.1 * torch.randn(320, generator=gen),
+        0.1 * torch.randn(320, generator=gen))]
+    out = ln.fused_layernorm(*leaves)
+    want = ln.layernorm_plain(*leaves)
+    torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)
+    g = torch.randn(out.shape, generator=gen).to(dev)
+    for a, b in zip(torch.autograd.grad(out, leaves, g),
+                    torch.autograd.grad(want, leaves, g)):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("variant", ["int8_kv", "fused_ln"])
+def test_slice4_generate_on_card_matches_cpu(dev, variant):
+    # f32 on both sides: the card runs the int8 kv branch of kernels 1-3
+    # (or kernel 11 and kernels 1-3), the CPU their plain versions
+    cfg = dict(vocab_size=128, d_model=256, n_heads=4, n_kv_heads=2,
+               n_layers=2, d_ff=512, max_seq_len=128, dtype="float32",
+               rope=True, norm_type="layernorm",
+               fused_ln=variant == "fused_ln")
+    kv = "int8" if variant == "int8_kv" else None
+    cpu = port_tf.build_transformer(**cfg).eval()
+    cpu.reset_parameters(torch.Generator().manual_seed(3))
+    card = port_tf.build_transformer(**cfg).eval()
+    card.load_state_dict(cpu.state_dict())
+    card.to(dev)
+    prompt = [[5, 17, 99, 3, 42, 8, 1, 77, 64, 12, 9, 30, 2, 2, 101]]
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        want = port_decode.generate(cpu, prompt, 12, device="cpu",
+                                    kv_dtype=kv)
+        got = port_decode.generate(card, prompt, 12, device=dev, kv_dtype=kv)
+    assert got.cpu().tolist() == want.tolist()
+    names = (ops.SERVING_KERNELS_INT8_KV if kv
+             else ops.SERVING_KERNELS + ("layernorm",))
+    assert min(ops.launch_counts(names).values()) >= 1

@@ -85,6 +85,13 @@ def test_rejects_bad_shapes_and_int8_pools():
     t = [torch.from_numpy(a) for a in (q, pk, pv, table, lengths)]
     with pytest.raises(ValueError, match="multiple of kv heads"):
         port_pa.paged_attention(t[0][:, :, :3], *t[1:])
-    with pytest.raises(NotImplementedError, match="int8"):
-        port_pa.paged_attention(t[0], t[1].to(torch.int8),
-                                t[2].to(torch.int8), *t[3:])
+    # the JAX wrapper's int8 rules: scales with int8 pools, and only then
+    k8, v8 = t[1].to(torch.int8), t[2].to(torch.int8)
+    sc = torch.ones(t[1].shape[:3])
+    with pytest.raises(ValueError, match="int8 pools need"):
+        port_pa.paged_attention(t[0], k8, v8, *t[3:])
+    with pytest.raises(ValueError, match="only meaningful for int8"):
+        port_pa.paged_attention(*t, key_scales=sc, value_scales=sc)
+    with pytest.raises(ValueError, match="key_scales"):
+        port_pa.paged_attention(t[0], k8, v8, *t[3:], key_scales=sc[:1],
+                                value_scales=sc)

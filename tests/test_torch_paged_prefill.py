@@ -106,6 +106,10 @@ def test_rejects_bad_shapes_and_int8_pools():
         port_pp.paged_prefill(t[0][:, :, :3], *t[1:])
     with pytest.raises(ValueError, match="must be"):
         port_pp.paged_prefill(t[0], t[1][:, :4], t[2][:, :4], *t[3:])
-    with pytest.raises(NotImplementedError, match="int8"):
-        port_pp.paged_prefill(t[0], t[1], t[2], t[3].to(torch.int8),
-                              t[4].to(torch.int8), *t[5:])
+    # the JAX wrapper's int8 rules: scales with int8 pools, and only then
+    k8, v8 = t[3].to(torch.int8), t[4].to(torch.int8)
+    sc = torch.ones(t[3].shape[:3])
+    with pytest.raises(ValueError, match="int8 pools need"):
+        port_pp.paged_prefill(t[0], t[1], t[2], k8, v8, *t[5:])
+    with pytest.raises(ValueError, match="only meaningful for int8"):
+        port_pp.paged_prefill(*t, key_scales=sc, value_scales=sc)

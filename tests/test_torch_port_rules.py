@@ -25,6 +25,7 @@ from tensorflowonspark_tpu_torch.models import transformer as port_tf
 from tensorflowonspark_tpu_torch.ops import _build
 from tensorflowonspark_tpu_torch.ops import flash_attention as port_fa
 from tensorflowonspark_tpu_torch.ops import fused_optim as port_fo
+from tensorflowonspark_tpu_torch.ops import layernorm as port_ln
 from tensorflowonspark_tpu_torch.ops import paged_attention as port_pa
 from tensorflowonspark_tpu_torch.ops import paged_prefill as port_pp
 from tensorflowonspark_tpu_torch.ops import quant_matmul as port_qm
@@ -151,10 +152,32 @@ def test_cpu_tensors_take_the_plain_versions():
                        port_qm.int8_matmul_plain(x, w8))
     assert torch.equal(port_qm._int4_matmul(x, w4),
                        port_qm.int4_matmul_plain(x, w4))
+    # int8 kv pools: the quantising write, both reads
+    pools = [torch.zeros((9, 8, 2, 16), dtype=torch.int8) for _ in range(2)]
+    scales = [torch.zeros((9, 8, 2)) for _ in range(2)]
+    pools2 = [t.clone() for t in pools + scales]
+    ck, cv = port_pp._write_pages_int8(k, v, *pools, *scales, table, starts)
+    want = port_pp.write_pages_plain(k, v, pools2[0], pools2[1], table,
+                                     starts, pools2[2], pools2[3])
+    assert torch.equal(ck, want[0]) and torch.equal(cv, want[1])
+    for a, b in zip(pools + scales, pools2):
+        assert torch.equal(a, b)
+    sc = dict(key_scales=scales[0], value_scales=scales[1])
+    assert torch.equal(
+        port_pp._read_attention(q, ck, cv, *pools, table, starts, **sc),
+        port_pp.read_attention_plain(q, ck, cv, *pools, table, starts, **sc))
+    assert torch.equal(
+        port_pa.paged_attention(q, *pools, table, lengths, **sc),
+        port_pa.paged_attention_plain(q, *pools, table, lengths, **sc))
+    w, b = torch.rand(200), torch.rand(200)
+    assert torch.equal(port_ln._layernorm(x, w, b, 1e-6),
+                       port_ln.layernorm_plain(x, w, b, 1e-6))
     assert ops.launch_counts() == {
         "paged_attention": 0, "page_write": 0, "prefill_read": 0,
-        "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "adamw": 0,
-        "int8_matmul": 0, "int4_matmul": 0}
+        "paged_attention_int8": 0, "page_write_int8": 0,
+        "prefill_read_int8": 0, "flash_fwd": 0, "flash_bwd_dq": 0,
+        "flash_bwd_dkv": 0, "adamw": 0, "int8_matmul": 0, "int4_matmul": 0,
+        "layernorm": 0}
 
 
 def test_kernel_sources_exist_and_are_built():
@@ -165,7 +188,8 @@ def test_kernel_sources_exist_and_are_built():
                 "flash_attention.cu": ["_fwd_kernel", "_bwd_dq_kernel",
                                        "_bwd_dkv_kernel"],
                 "fused_optim.cu": ["_adamw_kernel"],
-                "quant_matmul.cu": ["_int8_kernel", "_int4_kernel"]}
+                "quant_matmul.cu": ["_int8_kernel", "_int4_kernel"],
+                "layernorm.cu": ["_ln_kernel"]}
     assert sorted(_build.SOURCES) == sorted(replaces)
     for src, tpu_fns in replaces.items():
         with open(os.path.join(csrc, src)) as f:
@@ -180,8 +204,7 @@ def test_kernel_sources_exist_and_are_built():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--generate_engine", "async"], ["--generate_kv_dtype", "int8"],
-    ["--generate_preempt_ms", "5"], ["--spec_draft", "ngram"],
+    ["--generate_engine", "async"], ["--generate_preempt_ms", "5"], ["--spec_draft", "ngram"],
     ["--generate_lora_rank", "2"], ["--generate_host_cache_mb", "4"]])
 def test_unported_flags_raise(flag):
     args = serve.build_argparser().parse_args([

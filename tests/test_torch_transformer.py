@@ -160,8 +160,7 @@ def test_filter_top_k_p_matches_jax(top_k, top_p, min_p):
 
 
 def test_unported_config_fields_raise():
-    for kw in ({"num_experts": 2}, {"kv_dtype": "int8"},
-               {"ring_attention_axis": "tp"},
-               {"paged_attn_impl": "einsum"}, {"fused_ln": True}):
+    for kw in ({"num_experts": 2}, {"ring_attention_axis": "tp"},
+               {"paged_attn_impl": "einsum"}):
         with pytest.raises(NotImplementedError, match="not ported"):
             port_tf.build_transformer(**dict(BASE, **kw))
