@@ -57,20 +57,39 @@ caught and reported as passed):
    at one layer of the flagship train step (B 8, S 1024, H 16, n_kv 8,
    D 128, bf16, causal), fused AdamW over the whole flagship parameter
    tree (f32 p/g/nu, bf16 mu);
+6b. kernel 8 (fused Lion) over the whole flagship parameter tree (f32
+   p/g, bf16 mu), bitwise against its plain version, timed like phase 3
+   (no PyTorch call computes Lion: the library column is null);
+6c. ``flash_attention_with_lse`` at phase 6's layer and at head_dim 64:
+   out, lse, and dq / dk / dv under a random lse cotangent (folded into
+   delta before kernels 5 and 6) against the plain versions;
 7. training parity: FLAGSHIP_LM_V2 cut to 2 layers at full width, B 2 x
    S 256, one ``adamw_fused`` step from the same weights on the card
    (bf16 compute over f32 masters, kernels) and on the CPU (f32, plain
    versions): loss, grad norm and every parameter's update;
+7b. phase 7 again for ``lion_fused``, ``adamw8bit`` (two steps, so that
+   the second reads the dequantised int8 moments) and ``adafactor``,
+   each with its update tolerance; then one more ``adamw8bit`` update
+   from the card's int8 state on the card and on the CPU from the same
+   inputs: payloads and scales bitwise, updates within rtol 1e-6;
 8. training main path: full-depth FLAGSHIP_LM_V2 through
    ``make_flagship_step()`` (B 8 x S 1024, adamw_fused, bf16 mu, lr
    3e-4): a warm-up step, then the best of 2 windows of 5 steps, each
    closed by a readback of the loss, then one step under torch.profiler;
    the loss finite and falling, 16 launches of each flash kernel per
-   step and at least one AdamW launch per step;
+   step and one AdamW launch per parameter leaf per step;
+8b. phase 8 with ``make_flagship_step(optimizer="lion_fused")``: one
+   Lion launch per parameter leaf per step;
+8c. the full-depth step with ``adamw8bit`` and with ``adafactor`` (built
+   with ``make_optimizer(name, learning_rate=3e-4)`` and
+   ``make_train_step``: both refuse make_flagship_step's bf16 mu): a
+   warm-up step and one window of 3 steps, the loss finite, step ms and
+   peak memory beside phase 8's;
 9. the ``kernels`` line (launches from each kernel's own main path: the
    quantised kernels from their serving run, the int8 kv kernels from the
    int8 kv run with bf16 weights, kernel 11 from the fused LayerNorm
-   run); then the card line and, last, the ``ok`` line.
+   run, kernel 8 from phase 8b); then the card line and, last, the
+   ``ok`` line.
 
 Exits 2 without a result when no CUDA device exists or when the port's
 package is not beside this file.
@@ -690,6 +709,7 @@ KERNEL_GROUPS = (("tos::quant_matmul", "quant matmul kernels"),
                  ("tos::prefill_read", "paged kernels"),
                  ("tos::flash", "flash kernels"),
                  ("tos::adamw", "adamw kernel"),
+                 ("tos::lion", "lion kernel"),
                  ("nvjet", "matmul"), ("gemm", "matmul"),
                  ("cutlass", "matmul"), ("xmma", "matmul"),
                  ("reduce", "reductions"), ("norm", "reductions"),
@@ -1134,67 +1154,295 @@ def phase_train_kernels(torch, F, dev):
     return rows
 
 
-def phase_train_parity(torch, dev):
-    """One adamw_fused step of the 2-layer full-width flagship: card
-    (bf16 compute over f32 masters, kernels) vs CPU (f32, plain
-    versions) from the same weights."""
-    from tensorflowonspark_tpu_torch.benchmarks import (
-        FLAGSHIP_LM_V2, make_flagship_step)
+def flagship_tree(torch, dev, seed):
+    """Random f32 parameters and gradients of the flagship's shapes, by
+    name, on the card."""
+    from tensorflowonspark_tpu_torch.benchmarks import FLAGSHIP_LM_V2
+    from tensorflowonspark_tpu_torch.models.transformer import (
+        build_transformer)
 
+    with torch.device("meta"):
+        tree = build_transformer(**FLAGSHIP_LM_V2)
+    shapes_of = {n: p.shape for n, p in tree.named_parameters()}
+    cgen = torch.Generator(dev).manual_seed(seed)
+    params = {n: torch.randn(s, device=dev, generator=cgen)
+              for n, s in shapes_of.items()}
+    grads = {n: torch.randn(s, device=dev, generator=cgen)
+             for n, s in shapes_of.items()}
+    return params, grads
+
+
+def phase_lion_kernel(torch, dev):
+    """Kernel 8 over the whole flagship tree against its plain version,
+    bitwise, timed."""
+    from tensorflowonspark_tpu_torch.benchmarks import FLAGSHIP_MU_DTYPE
+    from tensorflowonspark_tpu_torch.ops import fused_optim as fo
+    from tensorflowonspark_tpu_torch.optim import make_optimizer
+
+    params, grads = flagship_tree(torch, dev, SEED + 4)
+    opt, _ = make_optimizer("lion_fused", learning_rate=3e-4,
+                            mu_dtype=FLAGSHIP_MU_DTYPE)
+    state = opt.init(params)
+    for n in params:            # a momentum of a run in progress
+        state.mu[n].copy_(0.1 * grads[n])
+    n_params = sum(p.numel() for p in params.values())
+    scal = fo._scalars(lambda c: torch.full_like(c, 3e-4, dtype=torch.float32),
+                       state.count, None, 0.9, 0.99, grads)
+    kw = dict(b1=0.9, b2=0.99, wd=0.0, write_param=True)
+    err = 0.0
+    for n, g in grads.items():
+        want = fo.lion_plain(g, params[n], state.mu[n], scal, **kw)
+        fo._lion(g, params[n], state.mu[n], scal, params[n], **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(params[n], want[0])
+                and torch.equal(state.mu[n], want[1])):
+            raise AssertionError(f"Lion kernel is not bitwise equal to its "
+                                 f"plain version on {n}")
+        err = max(err, (params[n] - want[0]).abs().max().item())
+        del want
+
+    def plain_tree():
+        for n, g in grads.items():
+            fo.lion_plain(g, params[n], state.mu[n], scal, **kw)
+
+    ms = time_ms(lambda: opt.apply(grads, state, params), reps=10)
+    plain_ms = time_ms(plain_tree, reps=3)
+    # g and p f32 read, bf16 mu read; p f32 and mu bf16 written
+    b_ms, b_by = bound(n_params * (2 * 4 + 2) + n_params * (4 + 2), 0)
+    n_leaves = len(params)
+    del state, params, grads
+    torch.cuda.empty_cache()
+    return {"lion": dict(
+        name="lion", route="cuda",
+        source="tensorflowonspark_tpu_torch/csrc/fused_optim.cu",
+        replaces="tensorflowonspark_tpu/ops/fused_optim.py:131",
+        max_abs_err=err, tol=0.0, bitwise=True, ms=ms, plain_ms=plain_ms,
+        library_ms=None, library_note="no PyTorch call computes Lion",
+        bound_ms=b_ms, bound_by=b_by,
+        bound_bytes=n_params * 16,
+        shapes=dict(params=n_params, leaves=n_leaves, p="float32",
+                    g="float32", mu=FLAGSHIP_MU_DTYPE))}
+
+
+def phase_lse_path(torch, dev):
+    """flash_attention_with_lse at phase 6's layer and at head_dim 64:
+    out and lse, and the gradients under a random lse cotangent, against
+    the plain versions."""
+    from tensorflowonspark_tpu_torch import ops
+    from tensorflowonspark_tpu_torch.benchmarks import (
+        FLAGSHIP_BATCH, FLAGSHIP_LM_V2)
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+
+    B, S = FLAGSHIP_BATCH, FLAGSHIP_LM_V2["max_seq_len"]
+    H, n_kv = FLAGSHIP_LM_V2["n_heads"], FLAGSHIP_LM_V2["n_kv_heads"]
+    bf16 = torch.bfloat16
+    out_rows = []
+    for D in (FLAGSHIP_LM_V2["d_model"] // H, 64):
+        gen = torch.Generator().manual_seed(SEED + 5 + D)
+        q, k, v = (torch.randn((B, S, h, D), generator=gen).to(dev, bf16)
+                   .requires_grad_(True) for h in (H, n_kv, n_kv))
+        do = torch.randn((B, S, H, D), generator=gen).to(dev, bf16)
+        g_lse = torch.randn((B, H, S), generator=gen).to(dev)
+        before = ops.launch_counts(ops.TRAINING_KERNELS)
+        out, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
+        dq, dk, dv = torch.autograd.grad((out, lse), (q, k, v),
+                                         (do, g_lse))
+        torch.cuda.synchronize()
+        after = ops.launch_counts(ops.TRAINING_KERNELS)
+        q, k, v = q.detach(), k.detach(), v.detach()
+        ref, ref_lse = fa.flash_fwd_plain(q, k, v, True)
+        delta = (torch.einsum("bshd,bshd->bhs", do.float(), ref.float())
+                 - g_lse)
+        want = [fa.flash_bwd_dq_plain(q, k, v, do, ref_lse, delta, True),
+                *fa.flash_bwd_dkv_plain(q, k, v, do, ref_lse, delta, True)]
+        errs = {}
+        for name, got, ref_t, atol in (
+                ("out", out, ref, TOL), ("lse", lse, ref_lse, TOL),
+                ("dq", dq, want[0], GRAD_ATOL), ("dk", dk, want[1],
+                                                 GRAD_ATOL),
+                ("dv", dv, want[2], GRAD_ATOL)):
+            errs[name] = (got.float() - ref_t.float()).abs().max().item()
+            if not torch.allclose(got.float(), ref_t.float(), atol=atol,
+                                  rtol=TOL):
+                raise AssertionError(f"lse path D {D}: {name} disagrees "
+                                     f"({errs[name]})")
+        launched = {n: after[n] - before[n] for n in after}
+        if any(launched[n] != 1 for n in ("flash_fwd", "flash_bwd_dq",
+                                          "flash_bwd_dkv")):
+            raise AssertionError(f"lse path D {D}: launches {launched}")
+        out_rows.append(dict(D=D, max_abs_err=errs, launches=launched))
+        del q, k, v, do, g_lse, out, lse, dq, dk, dv, ref, ref_lse, want
+        torch.cuda.empty_cache()
+    return dict(B=B, S=S, H=H, n_kv=n_kv, dtype="bfloat16", causal=True,
+                tol=dict(out_lse=TOL, grads=GRAD_ATOL, rtol=TOL),
+                cases=out_rows)
+
+
+def flagship_step(name, batch=None, cfg="v2", dev=None):
+    """``make_flagship_step``'s step with optimizer ``name`` (None:
+    adamw_fused); ``adamw8bit`` and ``adafactor``, which refuse the
+    bf16 mu of make_flagship_step, are built with ``make_optimizer(name,
+    learning_rate=3e-4)`` and ``make_train_step`` on the same model."""
+    from tensorflowonspark_tpu_torch.benchmarks import make_flagship_step
+    from tensorflowonspark_tpu_torch.models.transformer import lm_loss
+    from tensorflowonspark_tpu_torch.optim import make_optimizer
+    from tensorflowonspark_tpu_torch.parallel import train as train_mod
+
+    if name not in ("adamw8bit", "adafactor"):
+        return make_flagship_step(batch, None, cfg, optimizer=name,
+                                  device=dev)
+    _, state, tokens, n_params = make_flagship_step(batch, None, cfg,
+                                                    optimizer="sgd0",
+                                                    device=dev)
+    opt, _ = make_optimizer(name, learning_rate=3e-4)
+    step = train_mod.make_train_step(
+        lambda m, b, r: lm_loss(m(b[:, :-1]), b[:, 1:]), opt, donate=True)
+    return (step, train_mod.create_train_state(state.params, opt), tokens,
+            n_params)
+
+
+def phase_opt_parity(torch, dev, name, steps=1):
+    """Phase 7 (``name`` None: adamw_fused) and 7b: ``steps`` steps of the
+    2-layer full-width flagship with optimizer ``name`` on the card (bf16
+    compute over f32 masters, kernels) and on the CPU (f32, plain
+    versions) from the same weights.  bf16 activations keep ~3
+    significant digits: each step's loss within 1%, its gradient norm
+    within 5%.  Each step moves each element by about its optimizer's
+    step s: AdamW and adamw8bit g / |g| x lr on the first step and about
+    lr after it, lion_fused sign(g) x lr, adafactor g over its rms
+    estimate x lr x rms(p) (+-1 where the second moment is not factored,
+    as for 1-D leaves).  Updates agree where the two agree on the
+    gradient's sign; only elements with a gradient near 0 may turn.  So
+    an element agrees where the two moves lie within s / 2, 95% of all
+    elements and 90% of each leaf's must agree, and (all but adafactor)
+    none differs by more than twice the most the steps can move it: s a
+    step, but 2 s for adamw8bit's later steps, whose int8 first moment
+    may round up to twice its value (about 1.5 s at the most)."""
+    from tensorflowonspark_tpu_torch.benchmarks import FLAGSHIP_LM_V2
+
+    label = name or "adamw_fused"
     cfg = dict(FLAGSHIP_LM_V2, n_layers=2, max_seq_len=256)
-    cpu_step, cpu_state, tokens, _ = make_flagship_step(
-        2, None, dict(cfg, dtype="float32", attention_impl="flash"),
-        device="cpu")
-    step, state, card_tokens, _ = make_flagship_step(2, None, cfg,
-                                                     device=dev)
+    cpu_step, cpu_state, tokens, _ = flagship_step(
+        name, 2, dict(cfg, dtype="float32", attention_impl="flash"), "cpu")
+    step, state, card_tokens, _ = flagship_step(name, 2, cfg, dev)
     state.params.load_state_dict(cpu_state.params.state_dict())
     before = {n: t.detach().clone()
               for n, t in cpu_state.params.state_dict().items()}
-    cpu_state, want = cpu_step(cpu_state, tokens, None)
-    state, got = step(state, card_tokens, None)
     lr = 3e-4
-    loss = (got["loss"].item(), want["loss"].item())
-    norm = (got["grad_norm"].item(), want["grad_norm"].item())
-    # bf16 activations keep ~3 significant digits: loss within 1%, the
-    # gradient norm within 5%
-    if abs(loss[0] - loss[1]) > 1e-2 * abs(loss[1]):
-        raise AssertionError(f"train parity: loss card/cpu {loss}")
-    if abs(norm[0] - norm[1]) > 5e-2 * abs(norm[1]):
-        raise AssertionError(f"train parity: grad norm card/cpu {norm}")
-    # the first AdamW step moves each element by lr * g / (|g| + eps),
-    # about +-lr: updates agree where the two agree on the gradient's
-    # sign; only elements with a gradient near 0 may turn
+    losses, norms = [], []
+    for _ in range(steps):
+        cpu_state, want = cpu_step(cpu_state, tokens, None)
+        state, got = step(state, card_tokens, None)
+        loss = (got["loss"].item(), want["loss"].item())
+        norm = (got["grad_norm"].item(), want["grad_norm"].item())
+        if abs(loss[0] - loss[1]) > 1e-2 * abs(loss[1]):
+            raise AssertionError(f"{label} parity: loss card/cpu {loss}")
+        if abs(norm[0] - norm[1]) > 5e-2 * abs(norm[1]):
+            raise AssertionError(f"{label} parity: grad norm card/cpu "
+                                 f"{norm}")
+        losses.append(loss)
+        norms.append(norm)
     cpu_params = cpu_state.params.state_dict()
     agree, total, worst = 0, 0, (1.0, None)
     for n, t in state.params.state_dict().items():
+        s_n = lr
+        if name == "adafactor":
+            s_n = lr * max(before[n].pow(2).mean().sqrt().item(), 1e-3)
         d_card = t.detach().cpu() - before[n]
         d_cpu = cpu_params[n] - before[n]
-        if (d_card - d_cpu).abs().max().item() > 2 * lr + 1e-6:
-            raise AssertionError(f"train parity: {n} moved more than 2 lr")
-        same = ((d_card - d_cpu).abs() <= lr / 2).sum().item()
+        diff = (d_card - d_cpu).abs()
+        reach = s_n * (1 + (2 if name == "adamw8bit" else 1) * (steps - 1))
+        if name != "adafactor" and diff.max().item() > 2 * reach + 1e-6:
+            raise AssertionError(f"{label} parity: {n} moved more than "
+                                 f"2 x {reach}")
+        same = (diff <= s_n / 2).sum().item()
         agree += same
         total += t.numel()
         if same / t.numel() < worst[0]:
             worst = (same / t.numel(), n)
     if agree / total < 0.95 or worst[0] < 0.9:
-        raise AssertionError(f"train parity: updates agree on "
+        raise AssertionError(f"{label} parity: updates agree on "
                              f"{agree / total:.4f} (worst {worst})")
-    return dict(layers=2, batch=2, seq=256, loss_card=loss[0],
-                loss_cpu=loss[1], grad_norm_card=norm[0],
-                grad_norm_cpu=norm[1], update_agreement=agree / total,
-                worst_leaf_agreement=worst[0], worst_leaf=worst[1],
-                tol=dict(loss_rel=1e-2, grad_norm_rel=5e-2,
-                         update_agreement=0.95, leaf_agreement=0.9))
+    out = dict(optimizer=label, layers=cfg["n_layers"], batch=2,
+               seq=cfg["max_seq_len"], steps=steps,
+               loss_card=[x[0] for x in losses],
+               loss_cpu=[x[1] for x in losses],
+               grad_norm_card=[x[0] for x in norms],
+               grad_norm_cpu=[x[1] for x in norms],
+               update_agreement=agree / total,
+               worst_leaf_agreement=worst[0], worst_leaf=worst[1],
+               tol=dict(loss_rel=1e-2, grad_norm_rel=5e-2,
+                        update_agreement=0.95, leaf_agreement=0.9,
+                        agree_within="step / 2"))
+    if name == "adamw8bit":
+        out["state_check"] = check_8bit_state(torch, state)
+    return out
 
 
-def phase_train_main(torch, dev):
-    """Full-depth flagship train step on the card, timed."""
+def _to_cpu(tree):
+    """A copy of a state tree (tensors, dicts, tuples, NamedTuples) on
+    the CPU."""
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        items = [_to_cpu(v) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") \
+            else type(tree)(items)
+    return tree.cpu() if hasattr(tree, "cpu") else tree
+
+
+def check_8bit_state(torch, state, seed=7):
+    """One more ``adamw8bit`` update from ``state`` (the card's int8
+    moments after phase 7b's steps) and one random gradient, on the card
+    and on the CPU from the same inputs: dequantise, update, requantise.
+    The int8 payloads and f32 scales must be equal bit for bit; the
+    updates within rtol 1e-6 (the bias corrections come from
+    ``torch.pow``, which the card's math library may round an ulp away
+    from the CPU's)."""
+    from tensorflowonspark_tpu_torch.optim import make_optimizer
+
+    opt, _ = make_optimizer("adamw8bit", learning_rate=3e-4)
+    params = {n: p.detach() for n, p in state.params.named_parameters()}
+    gen = torch.Generator().manual_seed(seed)
+    grads = {n: 1e-2 * torch.randn(p.shape, generator=gen)
+             for n, p in params.items()}
+    with torch.no_grad():
+        got, got_state = opt.update(
+            {n: g.to(params[n].device) for n, g in grads.items()},
+            state.opt_state, params)
+        want, want_state = opt.update(
+            grads, _to_cpu(state.opt_state),
+            {n: p.cpu() for n, p in params.items()})
+    got_8bit, want_8bit = got_state[0], want_state[0]
+    for n in params:
+        for part in ("mu", "nu_sqrt"):
+            a, b = getattr(got_8bit, part)[n], getattr(want_8bit, part)[n]
+            if not (torch.equal(a.q.cpu(), b.q)
+                    and torch.equal(a.scale.cpu(), b.scale)):
+                raise AssertionError(f"adamw8bit state: {n} {part} card "
+                                     f"and cpu bits differ")
+    rel = max(((got[n].cpu() - want[n]).abs()
+               / want[n].abs().clamp_min(1e-30)).max().item()
+              for n in params)
+    if rel > 1e-6:
+        raise AssertionError(f"adamw8bit state: update rel err {rel}")
+    return dict(count=int(want_8bit.count), leaves=len(params),
+                elements=sum(p.numel() for p in params.values()),
+                payloads_and_scales="bitwise", update_max_rel_err=rel,
+                tol=dict(update_rtol=1e-6))
+
+
+def phase_train_main(torch, dev, optimizer=None, windows=2, window=5,
+                     profile=True, must_fall=True):
+    """Full-depth flagship train step on the card with ``optimizer``
+    (None: adamw_fused), timed: a warm-up step, the best of ``windows``
+    windows of ``window`` steps, then (``profile``) one step under
+    torch.profiler."""
     from tensorflowonspark_tpu_torch import ops
-    from tensorflowonspark_tpu_torch.benchmarks import (
-        FLAGSHIP_LM_V2, make_flagship_step)
+    from tensorflowonspark_tpu_torch.benchmarks import FLAGSHIP_LM_V2
 
     t0 = time.monotonic()
-    step, state, tokens, n_params = make_flagship_step(device=dev)
+    step, state, tokens, n_params = flagship_step(optimizer, dev=dev)
     torch.cuda.synchronize()
     setup_s = time.monotonic() - t0
     B, S = tokens.shape[0], tokens.shape[1] - 1
@@ -1204,47 +1452,53 @@ def phase_train_main(torch, dev):
     losses = []
     state, m = step(state, tokens, None)             # warm-up
     losses.append(m["loss"])
-    windows = []
-    for _ in range(2):
+    times = []
+    for _ in range(windows):
         torch.cuda.synchronize()
         t = time.monotonic()
-        for _ in range(5):
+        for _ in range(window):
             state, m = step(state, tokens, None)
             losses.append(m["loss"])
         m["loss"].item()              # the readback closes the window
-        windows.append((time.monotonic() - t) * 1000.0 / 5)
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t = time.monotonic()
-        state, m = step(state, tokens, None)
-        losses.append(m["loss"])
-        m["loss"].item()
-        profiled_ms = (time.monotonic() - t) * 1000.0
+        times.append((time.monotonic() - t) * 1000.0 / window)
+    extra = {}
+    if profile:
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t = time.monotonic()
+            state, m = step(state, tokens, None)
+            losses.append(m["loss"])
+            m["loss"].item()
+            profiled_ms = (time.monotonic() - t) * 1000.0
+        extra["step_profile"] = profile_summary(prof, profiled_ms, top=12)
     launches = ops.launch_counts(ops.TRAINING_KERNELS)
     steps = len(losses)
     losses = [x.item() for x in losses]
     if not all(x == x and abs(x) < float("inf") for x in losses):
         raise AssertionError(f"training loss is not finite: {losses}")
-    if not losses[-1] < losses[0]:
+    if must_fall and not losses[-1] < losses[0]:
         raise AssertionError(f"training loss did not fall: {losses}")
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         if launches[name] != layers * steps:
             raise AssertionError(f"{name}: {launches[name]} launches in "
                                  f"{steps} steps of {layers} layers")
-    if launches["adamw"] < steps:
-        raise AssertionError(f"adamw: {launches['adamw']} launches in "
-                             f"{steps} steps")
-    step_ms = min(windows)
+    kernel = {None: "adamw", "lion_fused": "lion"}.get(optimizer)
+    n_leaves = len(list(state.params.parameters()))
+    if kernel and launches[kernel] != n_leaves * steps:
+        raise AssertionError(f"{kernel}: {launches[kernel]} launches in "
+                             f"{steps} steps of {n_leaves} leaves")
+    step_ms = min(times)
     return launches, dict(
-        params=n_params, layers=layers, batch=B, seq=S, setup_s=setup_s,
-        steps=steps, window_step_ms=windows, step_ms=step_ms,
+        optimizer=optimizer or "adamw_fused", params=n_params,
+        layers=layers, batch=B, seq=S, setup_s=setup_s, steps=steps,
+        window_step_ms=times, step_ms=step_ms,
         tokens_per_s=B * S / (step_ms / 1000.0),
         mfu=6.0 * n_params * B * S / (step_ms / 1000.0)
         / PEAK_BF16_FLOP_PER_S,
         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
-        losses=losses, launches=launches,
-        step_profile=profile_summary(prof, profiled_ms, top=12))
+        losses=losses, loss_fell=losses[-1] < losses[0], launches=launches,
+        **extra)
 
 
 def main():
@@ -1359,16 +1613,44 @@ def main():
         shutil.rmtree(ln_dir, ignore_errors=True)
 
     train_rows = phase_train_kernels(torch, F, dev)
+    train_rows.update(phase_lion_kernel(torch, dev))
     for row in train_rows.values():
         emit("kernel", **row)
     rows.update(train_rows)
-
-    emit("train_parity", **phase_train_parity(torch, dev))
+    emit("lse_path", **phase_lse_path(torch, dev))
     torch.cuda.empty_cache()
+
+    emit("train_parity", **phase_opt_parity(torch, dev, None))
+    torch.cuda.empty_cache()
+    # adamw8bit takes two steps: its first moves each element by about
+    # +-lr whatever its int8 state holds; the second reads it back
+    for name, steps in (("lion_fused", 1), ("adamw8bit", 2),
+                        ("adafactor", 1)):
+        emit("optimizer_parity",
+             **phase_opt_parity(torch, dev, name, steps))
+        torch.cuda.empty_cache()
 
     train_launches, train_main = phase_train_main(torch, dev)
     emit("train_main_path", nvidia_smi=card, **train_main)
     launches.update(train_launches)
+    torch.cuda.empty_cache()
+
+    lion_launches, lion_main = phase_train_main(torch, dev, "lion_fused")
+    emit("lion_main_path", nvidia_smi=card,
+         adamw_fused_step_ms=train_main["step_ms"],
+         adamw_fused_max_memory_allocated_gb=train_main[
+             "max_memory_allocated_gb"], **lion_main)
+    launches["lion"] = lion_launches["lion"]
+    torch.cuda.empty_cache()
+    for name in ("adamw8bit", "adafactor"):
+        _, opt_main = phase_train_main(torch, dev, name, windows=1,
+                                       window=3, profile=False,
+                                       must_fall=False)
+        emit("optimizer_main_path", nvidia_smi=card,
+             adamw_fused_step_ms=train_main["step_ms"],
+             adamw_fused_max_memory_allocated_gb=train_main[
+                 "max_memory_allocated_gb"], **opt_main)
+        torch.cuda.empty_cache()
 
     kernels = []
     for name, row in rows.items():

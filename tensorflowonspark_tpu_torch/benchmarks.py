@@ -34,8 +34,14 @@ def make_flagship_step(batch_size=None, seq_len=None, config="v2",
 
     ``config``: "v2" (rmsnorm), "v1" (layernorm), or a dict of
     TransformerConfig fields (a small model for the CPU).  ``optimizer``: None
-    -> FLAGSHIP_OPTIMIZER (adamw_fused, kernel 7); "adamw" -> the plain
-    optax-semantics AdamW; "sgd0" -> zero-lr momentum-less SGD.  The
+    -> FLAGSHIP_OPTIMIZER (adamw_fused, kernel 7); "lion_fused" -> the
+    fused Lion (kernel 8); "adam", "adamw", "lion" -> their plain
+    optax-semantics versions; "sgd0" -> zero-lr momentum-less SGD.  Every
+    optimizer gets lr 3e-4 and the bf16 first moment, so "sgd",
+    "adamw8bit" and "adafactor", which have no mu_dtype knob, raise
+    ValueError here as in the JAX package: build those with
+    ``optim.make_optimizer(name, learning_rate=3e-4)`` and
+    ``parallel.train.make_train_step`` on the same model.  The
     parameters are f32 masters with bf16 compute through ``Dense``'s
     cast, random from a seed (0); tokens ``[B, S + 1]`` come from
     ``np.random.RandomState(0)``.  ``device`` defaults to ``cuda``

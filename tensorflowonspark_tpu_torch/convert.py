@@ -10,7 +10,12 @@ goes back.  Flax ``Dense`` kernels are ``[in, out]`` and the port's
 ``adamw_state_from_jax`` / ``adamw_state_to_jax`` carry a fused-AdamW
 state (``count`` and the ``mu`` / ``nu`` trees, which mirror the params)
 across with the same names and transposes, so both packages can step
-from one state.
+from one state; ``lion_state_from_jax`` / ``lion_state_to_jax`` do the
+same for a fused-Lion state (``count``, ``mu``).
+``adam8bit_state_from_jax`` carries an 8-bit Adam state: payloads and
+scales unchanged where the port stores the leaf as JAX does, and a Dense
+kernel's moments dequantised, transposed and quantised again in the
+port's layout (its blocks run along the other axis).
 
 ``qparams_from_jax`` / ``qparams_to_jax`` do the same for a quantised
 tree (``quantize.quantize_tree``): a quantised kernel keeps the JAX
@@ -20,8 +25,9 @@ tree (``quantize.quantize_tree``): a quantised kernel keeps the JAX
 import numpy as np
 import torch
 
-from tensorflowonspark_tpu_torch import quantize
-from tensorflowonspark_tpu_torch.ops.fused_optim import FusedAdamWState
+from tensorflowonspark_tpu_torch import optim8bit, quantize
+from tensorflowonspark_tpu_torch.ops.fused_optim import (FusedAdamWState,
+                                                         FusedLionState)
 
 _EMBEDS = ("token_embed", "pos_embed")
 _NORMS = ("ln1", "ln2", "ln_f")
@@ -40,21 +46,27 @@ def params_from_jax(tree):
                 walk(child, path + (key,))
             return
         arr = np.asarray(node)
-        leaf = path[-1]
-        if leaf == "kernel":
+        name, kernel = _port_name(path)
+        if kernel:
             if arr.ndim != 2:
                 raise ValueError(f"{'/'.join(path)}: expected a 2-D Dense "
                                  f"kernel, got shape {arr.shape}")
-            arr, leaf = arr.T, "weight"
-        elif leaf in ("embedding", "scale"):
-            leaf = "weight"
-        elif leaf != "bias":
-            raise ValueError(f"{'/'.join(path)}: unknown parameter {leaf!r}")
-        name = ".".join(path[:-1] + (leaf,))
+            arr = arr.T
         out[name] = _tensor(arr)
 
     walk(tree, ())
     return out
+
+
+def _port_name(path):
+    """A JAX parameter path -> ``(the port's dotted name, True for a
+    Dense kernel, which the port stores transposed)``."""
+    leaf = path[-1]
+    if leaf in ("kernel", "embedding", "scale"):
+        return ".".join(path[:-1] + ("weight",)), leaf == "kernel"
+    if leaf != "bias":
+        raise ValueError(f"{'/'.join(path)}: unknown parameter {leaf!r}")
+    return ".".join(path), False
 
 
 def _tensor(arr):
@@ -178,3 +190,59 @@ def adamw_state_to_jax(state):
     return FusedAdamWState(
         count=np.asarray(int(state.count), np.int32),
         mu=params_to_jax(state.mu), nu=params_to_jax(state.nu))
+
+
+def lion_state_from_jax(state, device="cpu"):
+    """A JAX ``FusedLionState(count, mu)`` (arrays or numpy) -> the port's
+    ``FusedLionState`` on ``device``; a bf16 ``mu`` stays bf16."""
+    count, mu = state
+    return FusedLionState(
+        count=torch.tensor(int(np.asarray(count)), dtype=torch.int32,
+                           device=device),
+        mu={n: t.to(device) for n, t in params_from_jax(mu).items()})
+
+
+def lion_state_to_jax(state):
+    """The port's ``FusedLionState`` -> ``FusedLionState(count, mu)`` of
+    numpy in the JAX package's layout (mu float32)."""
+    return FusedLionState(count=np.asarray(int(state.count), np.int32),
+                          mu=params_to_jax(state.mu))
+
+
+def adam8bit_state_from_jax(state, params, device="cpu"):
+    """A JAX ``Adam8bitState(count, mu, nu_sqrt)`` of ``Quantized`` leaves
+    (arrays or numpy, no layouts) -> the port's ``Adam8bitState`` on
+    ``device``.  ``params`` (the port's ``{name: tensor}``) gives each
+    Dense kernel's shape: its moments are dequantised in the JAX layout,
+    transposed and quantised again (one more rounding, at most half a
+    quantisation step); every other leaf's payload and scales carry over
+    unchanged."""
+    count, mu, nu_sqrt = state
+
+    def carry(tree, signed):
+        out = {}
+
+        def walk(node, path):
+            if isinstance(node, dict):
+                for key, child in node.items():
+                    walk(child, path + (key,))
+                return
+            name, kernel = _port_name(path)
+            qt = optim8bit.Quantized(
+                torch.from_numpy(np.array(node[0], np.int8)),
+                torch.from_numpy(np.array(node[1], np.float32)))
+            if kernel:
+                out_dim, in_dim = params[name].shape
+                x = optim8bit.dequantize(qt, (in_dim, out_dim),
+                                         signed=signed)
+                qt = optim8bit.quantize(x.T, qt.q.shape[1], signed=signed)
+            out[name] = optim8bit.Quantized(qt.q.to(device),
+                                            qt.scale.to(device))
+
+        walk(tree, ())
+        return out
+
+    return optim8bit.Adam8bitState(
+        torch.tensor(int(np.asarray(count)), dtype=torch.int32,
+                     device=device),
+        carry(mu, True), carry(nu_sqrt, False))

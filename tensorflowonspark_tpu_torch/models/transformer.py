@@ -509,10 +509,15 @@ class Transformer(nn.Module):
             pos = torch.arange(S, device=tokens.device)
             if cache is not None:          # per-row positions: [B, S]
                 pos = cache.cache_index.long()[:, None] + pos[None, :]
+            elif S > cfg.max_seq_len:
+                # the JAX gather fills NaN past the table: a too-long
+                # batch must not train on clamped positions
+                raise ValueError(f"sequence length {S} exceeds max_seq_len "
+                                 f"{cfg.max_seq_len} (learned positions)")
             else:
                 pos = pos[None]
             # free rows keep stepping past max_seq_len; the lookup clips
-            # like the JAX gather (their tokens are discarded)
+            # (their tokens are discarded)
             pos = pos.clamp(0, cfg.max_seq_len - 1)
             x = x + F.embedding(pos, self.pos_embed.weight).to(dt)
         remat = cfg.remat and cache is None and torch.is_grad_enabled()

@@ -11,8 +11,8 @@ family, each with its plain PyTorch version beside it.
   dq / narrow dk-dv backward (csrc/flash_attention.cu; replaces
   ops/flash_attention.py ``_fwd_kernel``, ``_bwd_dq_kernel`` and
   ``_bwd_dkv_kernel``)
-- fused_optim : single-pass AdamW (csrc/fused_optim.cu; replaces
-  ops/fused_optim.py ``_adamw_kernel``)
+- fused_optim : single-pass AdamW and Lion (csrc/fused_optim.cu;
+  replaces ops/fused_optim.py ``_adamw_kernel`` and ``_lion_kernel``)
 - quant_matmul : fused-dequant W8A16 / W4A16 matmuls
   (csrc/quant_matmul.cu; replaces ops/quant_matmul.py ``_int8_kernel``
   and ``_int4_kernel``)
@@ -21,18 +21,23 @@ family, each with its plain PyTorch version beside it.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises.  Kernels build at first use (ops/_build.py), never at import.
-The package binds its submodules only (no function re-exports under the
-same names), so ``ops.paged_attention`` is always the module.
+The package binds its submodules (no function re-exports under the
+same names), so ``ops.paged_attention`` is always the module; it
+re-exports ``flash_attention_with_lse``, whose name no module takes.
 """
+from tensorflowonspark_tpu_torch.ops.flash_attention import (  # noqa: F401
+    flash_attention_with_lse)
 
 # the kernels each main path runs: serving (serve -> models.decode) over
 # a float or an int8 kv pool, quantised-weight serving adds
 # "<mode>_matmul" per mode and fused_ln models "layernorm", and training
-# (parallel.train -> models.transformer backward + optimizer)
+# (parallel.train -> models.transformer backward + the fused optimizer:
+# "adamw" for adamw_fused, "lion" for lion_fused)
 SERVING_KERNELS = ("paged_attention", "page_write", "prefill_read")
 SERVING_KERNELS_INT8_KV = ("paged_attention_int8", "page_write_int8",
                            "prefill_read_int8")
-TRAINING_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "adamw")
+TRAINING_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "adamw",
+                    "lion")
 
 
 def _wrappers():
@@ -56,6 +61,7 @@ def _wrappers():
             "flash_bwd_dq": fa.flash_bwd_dq,
             "flash_bwd_dkv": fa.flash_bwd_dkv,
             "adamw": fo._adamw,
+            "lion": fo._lion,
             "int8_matmul": qm._int8_matmul,
             "int4_matmul": qm._int4_matmul,
             "layernorm": ln._layernorm}

@@ -57,6 +57,7 @@ SIGNATURES = {
                           _F, _I, _I, _P],
     "tos_adamw": [_P, _P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _I, _I,
                   _I, _P],
+    "tos_lion": [_P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _I, _I, _I, _P],
     "tos_quant_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _I, _I, _P],
     "tos_layernorm": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P],

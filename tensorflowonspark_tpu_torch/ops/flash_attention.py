@@ -11,7 +11,9 @@ function is a ``custom_vjp``: the forward without grad writes no LSE; the
 forward with grad saves ``(q, k, v, out, lse)``; the backward computes
 ``delta = rowsum(dO * O)`` in f32 as plain torch (the JAX package does it
 outside its kernels too), then runs the dq kernel and the narrow dk/dv
-kernel.
+kernel.  :func:`flash_attention_with_lse` also returns the per-row
+logsumexp, differentiably: its cotangent folds into ``delta``
+(``delta -= g_lse``) before the same two kernels.
 
 Three kernels, one wrapper each (:func:`flash_fwd`, :func:`flash_bwd_dq`,
 :func:`flash_bwd_dkv`), with the port's one rule: a CPU tensor takes the
@@ -233,6 +235,23 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, sm_scale=None):
 flash_bwd_dkv.launches = 0
 
 
+def _flash_backward(ctx, g, g_lse):
+    """dq, dk, dv of the saved forward for the cotangents of out (``g``)
+    and of lse (``g_lse``); either may be None (zero)."""
+    q, k, v, out, lse = ctx.saved_tensors
+    # autograd may hand over a strided cotangent
+    g = torch.zeros_like(out) if g is None else g.contiguous()
+    # delta = rowsum(dO * O): [B, H, S], f32, outside the kernels
+    delta = torch.einsum("bshd,bshd->bhs", g.float(), out.float())
+    if g_lse is not None:
+        # ds_ij = p_ij (dp_ij - delta_i + g_lse_i), since dlse_i/ds_ij =
+        # p_ij: an lse cotangent folds exactly into delta
+        delta = delta - g_lse.float()
+    dq = flash_bwd_dq(q, k, v, g, lse, delta, ctx.causal, ctx.sm_scale)
+    dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, ctx.causal, ctx.sm_scale)
+    return dq, dk, dv, None, None
+
+
 class _Flash(torch.autograd.Function):
     """The JAX ``custom_vjp``: forward with LSE saved, backward through
     the dq and dk/dv kernels."""
@@ -246,15 +265,38 @@ class _Flash(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, out, lse = ctx.saved_tensors
-        # autograd may hand over a strided cotangent
-        g = g.contiguous()
-        # delta = rowsum(dO * O): [B, H, S], f32, outside the kernels
-        delta = torch.einsum("bshd,bshd->bhs", g.float(), out.float())
-        dq = flash_bwd_dq(q, k, v, g, lse, delta, ctx.causal, ctx.sm_scale)
-        dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, ctx.causal,
-                               ctx.sm_scale)
-        return dq, dk, dv, None, None
+        return _flash_backward(ctx, g, None)
+
+
+class _FlashLSE(torch.autograd.Function):
+    """The JAX ``_flash_lse`` custom_vjp: ``(out, lse)`` out, the lse
+    cotangent folded into delta in the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale):
+        out, lse = flash_fwd(q, k, v, causal, sm_scale, need_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        # an unused output's cotangent arrives as None, not as zeros
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, g_lse):
+        return _flash_backward(ctx, g, g_lse)
+
+
+def flash_attention_with_lse(q, k, v, causal=True, sm_scale=None):
+    """:func:`flash_attention` that also returns the per-row logsumexp,
+    f32 ``[B, H, S]`` (0 for a row that sees no key): the merge key for
+    attention computed over key/value blocks (ring attention's per-step
+    compute).  Differentiable in q, k and v through both outputs."""
+    _check_shapes(q, k, v)
+    sm_scale = _scale(q, sm_scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashLSE.apply(q, k, v, causal, sm_scale)
+    return flash_fwd(q, k, v, causal, sm_scale, need_lse=True)
 
 
 def flash_attention(q, k, v, causal=True, sm_scale=None):

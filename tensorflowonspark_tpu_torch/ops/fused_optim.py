@@ -1,35 +1,37 @@
-"""Single-pass fused AdamW (kernel 7).
+"""Single-pass fused AdamW (kernel 7) and Lion (kernel 8).
 
 Counterpart of ``tensorflowonspark_tpu/ops/fused_optim.py``.  The whole
-AdamW update of a parameter (clip scale, moments, bias corrections,
-decoupled weight decay, learning rate, the parameter write) runs as one
-pass over it: g, p, mu and nu are read once and p, mu and nu written
-once.
+update of a parameter (clip scale, moments, bias corrections, decoupled
+weight decay, learning rate, the parameter write) runs as one pass over
+it: g, p and the moments are read once and p and the moments written
+once.  Lion keeps one moment (``mu``) where AdamW keeps two.
 
 Trees are dicts ``{name: tensor}`` (``dict(model.named_parameters())``);
-``FusedAdamWState.mu/nu`` mirror them name for name.  The object that
-:func:`adamw_fused` returns has the JAX package's three methods:
+``FusedAdamWState.mu/nu`` and ``FusedLionState.mu`` mirror them name
+for name.  The objects that :func:`adamw_fused` and :func:`lion_fused`
+return have the JAX package's three methods:
 
     ``init(params)`` -> state
     ``update(grads, state, params=None)`` -> (updates, state)
     ``apply(grads, state, params)`` -> (params, state)
 
-``apply`` writes the parameters, ``mu`` and ``nu`` IN PLACE, where the
-JAX train step donates their buffers; ``update`` writes ``-lr * upd``
-into new tensors and updates ``mu`` and ``nu`` in place too.  Both take
-an optional ``grad_norm``: the train step passes the global norm it
+``apply`` writes the parameters and the moments IN PLACE, where the JAX
+train step donates their buffers; ``update`` writes ``-lr * upd`` into
+new tensors and updates the moments in place too.  Both take an
+optional ``grad_norm``: the train step passes the global norm it
 computes for its metrics, so the reduction runs once (in the JAX package
 XLA merges the two).
 
 The four step scalars ``[lr, clip, 1 - b1^t, 1 - b2^t]`` are computed on
 the device (the schedule of the count, the clip scale from the global
-gradient norm, the bias corrections in f32) and the kernel reads them
-from a device pointer, so no step waits on the host.
+gradient norm, the bias corrections in f32; Lion reads the first two)
+and the kernels read them from a device pointer, so no step waits on the
+host.
 
-One rule per leaf: a CPU tensor takes :func:`adamw_plain`; a CUDA tensor
-launches ``csrc/fused_optim.cu`` or raises.  The JAX function's
-``block_rows`` and ``interpret`` are TPU grid and interpreter knobs and
-are not in the signature.
+One rule per leaf: a CPU tensor takes :func:`adamw_plain` /
+:func:`lion_plain`; a CUDA tensor launches ``csrc/fused_optim.cu`` or
+raises.  The JAX functions' ``block_rows`` and ``interpret`` are TPU grid
+and interpreter knobs and are not in the signatures.
 """
 from typing import Any, Callable, NamedTuple
 
@@ -45,6 +47,12 @@ class FusedAdamWState(NamedTuple):
     count: Any
     mu: Any
     nu: Any
+
+
+class FusedLionState(NamedTuple):
+    """Fused-Lion state; mu mirrors the param dict name for name."""
+    count: Any
+    mu: Any
 
 
 class FusedOptimizer(NamedTuple):
@@ -88,6 +96,31 @@ def adamw_plain(g, p, mu, nu, scalars, *, b1, b2, eps, wd, write_param):
     return out, new_mu.to(mu.dtype), new_nu.to(nu.dtype)
 
 
+def _check_card(g, same_dtype, **tensors):
+    """The in-place kernels' preconditions on the card: every tensor on
+    the grad's device and contiguous, ``same_dtype`` sharing the grad's
+    dtype, one size, f32 step scalars."""
+    if g.device.type != "cuda":
+        raise RuntimeError(f"fused optimizer: no kernel for {g.device}")
+    for name, t in tensors.items():
+        if t.device != g.device:
+            raise ValueError(f"{name} is on {t.device}, the grad on "
+                             f"{g.device}")
+        # the update is in place: a copy would lose it
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous for the in-place "
+                             "optimizer kernel")
+    if any(tensors[n].dtype != g.dtype for n in same_dtype):
+        raise TypeError(f"grad, {', '.join(same_dtype)} must share one "
+                        "dtype on the card")
+    if any(t.numel() != g.numel() for n, t in tensors.items()
+           if n != "scalars"):
+        raise ValueError("grad, param and moments must have one size")
+    scalars = tensors["scalars"]
+    if scalars.dtype != torch.float32 or scalars.numel() != 4:
+        raise ValueError("scalars must be f32 [lr, clip, 1-b1^t, 1-b2^t]")
+
+
 def _adamw(g, p, mu, nu, scalars, out, *, b1, b2, eps, wd, write_param):
     """Kernel 7 on one leaf: writes ``out`` (p itself for ``apply``), mu
     and nu in place.  CPU tensors take :func:`adamw_plain`."""
@@ -98,25 +131,8 @@ def _adamw(g, p, mu, nu, scalars, out, *, b1, b2, eps, wd, write_param):
         mu.copy_(m)
         nu.copy_(n)
         return
-    if g.device.type != "cuda":
-        raise RuntimeError(f"adamw: no kernel for {g.device}")
-    for name, t in (("param", p), ("mu", mu), ("nu", nu), ("out", out),
-                    ("scalars", scalars)):
-        if t.device != g.device:
-            raise ValueError(f"{name} is on {t.device}, the grad on "
-                             f"{g.device}")
-        # the update is in place: a copy would lose it
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous for the in-place "
-                             "AdamW kernel")
-    if not (g.dtype == p.dtype == nu.dtype == out.dtype):
-        raise TypeError("grad, param, nu and the output must share one dtype "
-                        "on the card")
-    if not (g.numel() == p.numel() == mu.numel() == nu.numel()
-            == out.numel()):
-        raise ValueError("grad, param and moments must have one size")
-    if scalars.dtype != torch.float32 or scalars.numel() != 4:
-        raise ValueError("scalars must be f32 [lr, clip, 1-b1^t, 1-b2^t]")
+    _check_card(g, ("param", "nu", "out"), param=p, mu=mu, nu=nu, out=out,
+                scalars=scalars)
     g = g.contiguous()
     P = _build.ptr
     code = _build.lib().tos_adamw(
@@ -129,6 +145,57 @@ def _adamw(g, p, mu, nu, scalars, out, *, b1, b2, eps, wd, write_param):
 
 
 _adamw.launches = 0
+
+
+def sign(x):
+    """``jnp.sign``: +-1 for a nonzero value, the value itself for +-0
+    and NaN (``torch.sign`` maps NaN to 0 and -0 to +0)."""
+    return torch.where(x > 0, 1.0, torch.where(x < 0, -1.0, x))
+
+
+def lion_plain(g, p, mu, scalars, *, b1, b2, wd, write_param):
+    """Plain version of kernel 8 for one leaf: ``(out, mu)`` in the TPU
+    kernel's expression order (f32 math; out in p's dtype, or g's for
+    ``update``; mu in its own dtype).  ``scalars[0:2]`` are lr and the
+    clip scale."""
+    lr, clip = scalars[0], scalars[1]
+    gf = g.float() * clip
+    mf = mu.float()
+    upd = sign((1.0 - b1) * gf + b1 * mf)
+    new_mu = (1.0 - b2) * gf + b2 * mf
+    pf = p.float()
+    if wd:
+        upd = upd + wd * pf
+    if write_param:
+        out = (pf - lr * upd).to(p.dtype)
+    else:
+        out = (-lr * upd).to(g.dtype)
+    return out, new_mu.to(mu.dtype)
+
+
+def _lion(g, p, mu, scalars, out, *, b1, b2, wd, write_param):
+    """Kernel 8 on one leaf: writes ``out`` (p itself for ``apply``) and
+    mu in place.  CPU tensors take :func:`lion_plain`."""
+    if g.device.type == "cpu":
+        o, m = lion_plain(g, p, mu, scalars, b1=b1, b2=b2, wd=wd,
+                          write_param=write_param)
+        out.copy_(o)
+        mu.copy_(m)
+        return
+    _check_card(g, ("param", "out"), param=p, mu=mu, out=out,
+                scalars=scalars)
+    g = g.contiguous()
+    P = _build.ptr
+    code = _build.lib().tos_lion(
+        P(g), P(p), P(mu), P(out), P(scalars), g.numel(), float(b1),
+        1.0 - b1, float(b2), 1.0 - b2, float(wd), int(write_param),
+        _build.dtype_code(g), _build.dtype_code(mu),
+        _build.stream_ptr(g.device))
+    _build.check(code, "tos_lion")
+    _lion.launches += 1
+
+
+_lion.launches = 0
 
 
 def _scalars(learning_rate, count, clip_norm, b1, b2, updates,
@@ -164,30 +231,18 @@ def _decay_tree(params, weight_decay, mask):
             for name in params}
 
 
-def adamw_fused(learning_rate, b1=0.9, b2=0.999, eps=1e-8,
-                weight_decay=0.0, mask=None, clip_norm=None, mu_dtype=None):
-    """Fused AdamW: the math of ``optax.chain(clip_by_global_norm(
-    clip_norm), adamw(...))`` in one pass per leaf.  ``learning_rate`` may
-    be a schedule (called with the update count, optax convention).
-    ``mu_dtype`` stores the first moment narrower (bf16, rounded to
-    nearest even); nu keeps the parameter's dtype."""
-    if isinstance(mu_dtype, str):
-        mu_dtype = getattr(torch, mu_dtype)
-
-    def init_fn(params):
-        first = next(iter(params.values()))
-        return FusedAdamWState(
-            count=torch.zeros((), dtype=torch.int32, device=first.device),
-            mu={n: torch.zeros_like(p, dtype=mu_dtype or p.dtype)
-                for n, p in params.items()},
-            nu={n: torch.zeros_like(p) for n, p in params.items()})
+def _fused(name, init_fn, leaf, learning_rate, b1, b2, weight_decay, mask,
+           clip_norm):
+    """The :class:`FusedOptimizer` of a single-pass kernel: ``leaf(g, p,
+    moments, scalars, out, wd, write_param)`` runs it on one leaf; the
+    state is ``(count, *moment dicts)``."""
 
     @torch.no_grad()
     def _run(updates, state, params, write_param, grad_norm):
         if params is None:
             if weight_decay:
                 raise ValueError(
-                    "adamw_fused with weight_decay requires params "
+                    f"{name} with weight_decay requires params "
                     "(optax convention: update(grads, state, params))")
             if write_param:
                 raise ValueError("apply() requires params")
@@ -196,16 +251,15 @@ def adamw_fused(learning_rate, b1=0.9, b2=0.999, eps=1e-8,
                         updates, grad_norm)
         wds = _decay_tree(updates, weight_decay, mask)
         out = {}
-        for name, g in updates.items():
-            p = params[name]
+        for n, g in updates.items():
+            p = params[n]
             # apply: in place into the parameter, where JAX donates it
             dst = p if write_param else torch.empty_like(g)
-            # mu and nu in place, where the JAX train step donates them
-            _adamw(g, p, state.mu[name], state.nu[name], scal, dst, b1=b1,
-                   b2=b2, eps=eps, wd=wds[name], write_param=write_param)
-            out[name] = dst
-        return out, FusedAdamWState(safe_increment(state.count), state.mu,
-                                    state.nu)
+            # the moments in place, where the JAX train step donates them
+            leaf(g, p, [m[n] for m in state[1:]], scal, dst, wds[n],
+                 write_param)
+            out[n] = dst
+        return out, type(state)(safe_increment(state.count), *state[1:])
 
     def update_fn(updates, state, params=None, *, grad_norm=None):
         return _run(updates, state, params, False, grad_norm)
@@ -216,8 +270,52 @@ def adamw_fused(learning_rate, b1=0.9, b2=0.999, eps=1e-8,
     return FusedOptimizer(init_fn, update_fn, apply_fn)
 
 
-def lion_fused(*args, **kwargs):
-    """Not ported: the fused Lion kernel."""
-    raise NotImplementedError(
-        "lion_fused is not ported yet (ROADMAP: kernel 8, the fused Lion "
-        "kernel)")
+def _zero_state(cls, params, mu_dtype, n_full):
+    """``cls(count 0, mu in mu_dtype, then n_full moments in each
+    parameter's dtype)``, on the parameters' device."""
+    first = next(iter(params.values()))
+    return cls(torch.zeros((), dtype=torch.int32, device=first.device),
+               {n: torch.zeros_like(p, dtype=mu_dtype or p.dtype)
+                for n, p in params.items()},
+               *({n: torch.zeros_like(p) for n, p in params.items()}
+                 for _ in range(n_full)))
+
+
+def adamw_fused(learning_rate, b1=0.9, b2=0.999, eps=1e-8,
+                weight_decay=0.0, mask=None, clip_norm=None, mu_dtype=None):
+    """Fused AdamW: the math of ``optax.chain(clip_by_global_norm(
+    clip_norm), adamw(...))`` in one pass per leaf.  ``learning_rate`` may
+    be a schedule (called with the update count, optax convention).
+    ``mu_dtype`` stores the first moment narrower (bf16, rounded to
+    nearest even); nu keeps the parameter's dtype."""
+    if isinstance(mu_dtype, str):
+        mu_dtype = getattr(torch, mu_dtype)
+
+    def leaf(g, p, moments, scal, out, wd, write_param):
+        _adamw(g, p, *moments, scal, out, b1=b1, b2=b2, eps=eps, wd=wd,
+               write_param=write_param)
+
+    return _fused("adamw_fused",
+                  lambda params: _zero_state(FusedAdamWState, params,
+                                             mu_dtype, 1),
+                  leaf, learning_rate, b1, b2, weight_decay, mask, clip_norm)
+
+
+def lion_fused(learning_rate, b1=0.9, b2=0.99, weight_decay=0.0, mask=None,
+               clip_norm=None, mu_dtype=None):
+    """Fused Lion (sign momentum): the math of ``optax.chain(
+    clip_by_global_norm(clip_norm), lion(...))`` in one pass per leaf,
+    with half of AdamW's moment state.  The kernel upcasts a bf16 mu to
+    f32 before ``b1 * mu``, as the TPU kernel does (optax's plain
+    ``lion`` multiplies in bf16 first)."""
+    if isinstance(mu_dtype, str):
+        mu_dtype = getattr(torch, mu_dtype)
+
+    def leaf(g, p, moments, scal, out, wd, write_param):
+        _lion(g, p, *moments, scal, out, b1=b1, b2=b2, wd=wd,
+              write_param=write_param)
+
+    return _fused("lion_fused",
+                  lambda params: _zero_state(FusedLionState, params,
+                                             mu_dtype, 0),
+                  leaf, learning_rate, b1, b2, weight_decay, mask, clip_norm)

@@ -9,11 +9,13 @@
 Trees are dicts ``{name: tensor}`` (``dict(model.named_parameters())``).
 An optimizer is an optax-style pair ``init(params) -> state`` /
 ``update(grads, state, params=None) -> (updates, state)``; apply the
-updates with :func:`apply_updates`.  ``adamw_fused`` (kernel 7,
-``ops.fused_optim``) adds the single-pass ``apply(grads, state, params)``
-that the train step takes, with clipping and decay folded in.  The plain
-optimizers (``adam``, ``adamw``, ``sgd``) are PyTorch tensor code with
-optax's semantics and expression order.
+updates with :func:`apply_updates`.  ``adamw_fused`` and ``lion_fused``
+(kernels 7 and 8, ``ops.fused_optim``) add the single-pass ``apply(grads,
+state, params)`` that the train step takes, with clipping and decay
+folded in.  The plain optimizers (``adam``, ``adamw``, ``sgd``, ``lion``,
+``adafactor``) are PyTorch tensor code with optax's semantics and
+expression order; ``adamw8bit`` (int8 blockwise moments) is
+:mod:`optim8bit`.
 
 Schedules take the update count (an int or an integer tensor, optax's
 convention: ``lr = schedule(count)`` before the count's increment) and
@@ -24,6 +26,7 @@ import logging
 import math
 from typing import Any, Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from tensorflowonspark_tpu_torch.ops import fused_optim
@@ -36,12 +39,6 @@ SCHEDULES = ("constant", "cosine", "linear", "rsqrt")
 OPTIMIZERS = ("adam", "adamw", "adamw_fused", "adamw8bit", "sgd", "lion",
               "lion_fused", "adafactor")
 _FUSED = ("adamw_fused", "lion_fused")
-_UNPORTED = {
-    "lion": "ROADMAP: the zoo and the rest (optax.lion)",
-    "lion_fused": "ROADMAP: kernel 8, the fused Lion kernel",
-    "adamw8bit": "ROADMAP: the zoo and the rest (optim8bit)",
-    "adafactor": "ROADMAP: the zoo and the rest (optax.adafactor)",
-}
 
 
 # ---------------------------------------------------------------------------
@@ -142,6 +139,20 @@ class TraceState(NamedTuple):
     trace: Any
 
 
+class ScaleByLionState(NamedTuple):
+    count: Any
+    mu: Any
+
+
+class FactoredState(NamedTuple):
+    """``optax.FactoredState`` without its placeholders: ``v_row`` /
+    ``v_col`` hold the factored leaves only, ``v`` the others."""
+    count: Any
+    v_row: Any
+    v_col: Any
+    v: Any
+
+
 def _device_of(params):
     return next(iter(params.values())).device
 
@@ -216,17 +227,152 @@ def add_decayed_weights(weight_decay, mask=None):
     return GradientTransformation(lambda params: (), update_fn)
 
 
-def scale_by_learning_rate(schedule):
-    """``optax.scale_by_learning_rate`` of a schedule:
-    ``-schedule(count) * u``."""
+def scale_by_learning_rate(schedule, flip_sign=True):
+    """``optax.scale_by_learning_rate`` of a schedule (or a constant):
+    ``-schedule(count) * u``, or ``+`` when ``flip_sign`` is False."""
+    if not callable(schedule):
+        schedule = _constant(schedule)
+
     def init_fn(params):
         return ScaleByScheduleState(_zero_count(params))
 
     def update_fn(updates, state, params=None):
-        step = -schedule(state.count)
+        step = schedule(state.count)
+        if flip_sign:
+            step = -step
         return ({n: step.to(u.dtype) * u for n, u in updates.items()},
                 ScaleByScheduleState(safe_increment(state.count)))
     return GradientTransformation(init_fn, update_fn)
+
+
+def scale_by_lion(b1=0.9, b2=0.99, mu_dtype=None):
+    """``optax.scale_by_lion``: ``sign((1-b1) g + b1 mu)``, then ``mu =
+    (1-b2) g + b2 mu`` stored in ``mu_dtype``."""
+    def init_fn(params):
+        return ScaleByLionState(
+            _zero_count(params),
+            {n: torch.zeros_like(p, dtype=mu_dtype or p.dtype)
+             for n, p in params.items()})
+
+    def update_fn(updates, state, params=None):
+        # JAX's weak typing: b1 * mu of a bf16 mu is rounded to bf16
+        # before the f32 sum (the fused kernel upcasts mu first)
+        out, mu = {}, {}
+        for n, g in updates.items():
+            m = state.mu[n]
+            out[n] = fused_optim.sign((1.0 - b1) * g + _weak(b1, m) * m)
+            mu[n] = ((1.0 - b2) * g + _weak(b2, m) * m).to(
+                mu_dtype or m.dtype)
+        return out, ScaleByLionState(safe_increment(state.count), mu)
+    return GradientTransformation(init_fn, update_fn)
+
+
+def _factored_dims(shape, min_dim_size_to_factor):
+    """The two largest axes (second largest first), when both reach
+    ``min_dim_size_to_factor``; None keeps a full second moment."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)      # numpy's order for ties, as optax
+    if shape[order[-2]] < min_dim_size_to_factor:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+def _shape_without(shape, dim):
+    return tuple(d for i, d in enumerate(shape) if i != dim)
+
+
+def scale_by_factored_rms(decay_rate=0.8, min_dim_size_to_factor=128,
+                          epsilon=1e-30):
+    """``optax.scale_by_factored_rms`` (factored, step_offset 0): the
+    gradient over a row-and-column estimate of its rms for leaves whose
+    two largest axes reach ``min_dim_size_to_factor``, over a full
+    ``v`` for the rest.  The decay is ``1 - (count + 1)^-decay_rate``."""
+    def init_fn(params):
+        v_row, v_col, v = {}, {}, {}
+        for n, p in params.items():
+            dims = _factored_dims(tuple(p.shape), min_dim_size_to_factor)
+            if dims is None:
+                v[n] = torch.zeros_like(p)
+                continue
+            d1, d0 = dims
+            v_row[n] = p.new_zeros(_shape_without(p.shape, d0))
+            v_col[n] = p.new_zeros(_shape_without(p.shape, d1))
+        return FactoredState(_zero_count(params), v_row, v_col, v)
+
+    def update_fn(updates, state, params=None):
+        if params is None:
+            raise ValueError("scale_by_factored_rms requires params")
+        t = (state.count + 1).float()
+        decay_t = 1.0 - t ** (-decay_rate)
+        out, v_row, v_col, v = {}, {}, {}, {}
+        for n, g in updates.items():
+            dtype = params[n].dtype
+            grad_sqr = g * g + epsilon
+            if n in state.v:
+                v[n] = (decay_t * state.v[n]
+                        + (1.0 - decay_t) * grad_sqr).to(dtype)
+                out[n] = g * v[n] ** -0.5
+                continue
+            d1, d0 = _factored_dims(tuple(g.shape), min_dim_size_to_factor)
+            v_row[n] = (decay_t * state.v_row[n] + (1.0 - decay_t)
+                        * grad_sqr.mean(dim=d0)).to(dtype)
+            v_col[n] = (decay_t * state.v_col[n] + (1.0 - decay_t)
+                        * grad_sqr.mean(dim=d1)).to(dtype)
+            reduced_d1 = d1 - 1 if d1 > d0 else d1
+            row_col_mean = v_row[n].mean(dim=reduced_d1, keepdim=True)
+            row_factor = (v_row[n] / row_col_mean) ** -0.5
+            col_factor = v_col[n] ** -0.5
+            out[n] = (g * row_factor.unsqueeze(d0)
+                      * col_factor.unsqueeze(d1))
+        return out, FactoredState(safe_increment(state.count), v_row, v_col,
+                                  v)
+    return GradientTransformation(init_fn, update_fn)
+
+
+def scale(step_size):
+    """``optax.scale``: ``step_size * u``."""
+    return GradientTransformation(
+        lambda params: (),
+        lambda u, state, params=None: ({n: step_size * t
+                                        for n, t in u.items()}, state))
+
+
+def clip_by_block_rms(threshold):
+    """``optax.clip_by_block_rms``: each leaf over ``max(1, rms /
+    threshold)``."""
+    def update_fn(updates, state, params=None):
+        return {n: u / torch.clamp_min(
+            torch.sqrt(torch.mean(u * u)) / threshold, 1.0)
+            for n, u in updates.items()}, state
+    return GradientTransformation(lambda params: (), update_fn)
+
+
+def scale_by_param_block_rms(min_scale=1e-3):
+    """``optax.scale_by_param_block_rms``: each leaf times ``max(rms(p),
+    min_scale)``."""
+    def update_fn(updates, state, params=None):
+        if params is None:
+            raise ValueError("scale_by_param_block_rms requires params")
+        out = {}
+        for n, u in updates.items():
+            rms = torch.sqrt(torch.mean(params[n] * params[n]))
+            out[n] = u * torch.where(rms <= min_scale,
+                                     torch.full_like(rms, min_scale), rms)
+        return out, state
+    return GradientTransformation(lambda params: (), update_fn)
+
+
+def adafactor(learning_rate):
+    """``optax.adafactor(learning_rate)`` at its defaults: factored rms
+    scaling, the block-rms clip at 1, the learning rate (not negated),
+    the parameter-rms scale (floor 1e-3), then the sign flip, in that
+    order (each rounding where optax's lands)."""
+    return chain(scale_by_factored_rms(),
+                 clip_by_block_rms(1.0),
+                 scale_by_learning_rate(learning_rate, flip_sign=False),
+                 scale_by_param_block_rms(),
+                 scale(-1.0))
 
 
 def trace(decay):
@@ -276,8 +422,8 @@ def make_optimizer(name="adamw", learning_rate=1e-3, schedule="constant",
     norms.  ``clip_norm`` prepends global-norm clipping (folded into the
     kernel for ``adamw_fused``).  ``b1``/``b2`` default to each
     optimizer's published defaults.  ``mu_dtype`` (``"bfloat16"``)
-    stores the first moment narrower.  ``lion``, ``lion_fused``,
-    ``adamw8bit`` and ``adafactor`` raise NotImplementedError."""
+    stores the first moment narrower.  ``layouts`` (adamw8bit's sharded
+    state) raises NotImplementedError."""
     if isinstance(mu_dtype, str):
         mu_dtype = getattr(torch, mu_dtype)
     if mu_dtype is not None and name not in ("adam", "adamw", "lion") + _FUSED:
@@ -294,9 +440,6 @@ def make_optimizer(name="adamw", learning_rate=1e-3, schedule="constant",
             f"optimizer={name!r} has no decoupled weight decay; use adamw, "
             "adamw_fused, adamw8bit, or lion (or drop "
             "weight_decay/decay_mask)")
-    if name in _UNPORTED:
-        raise NotImplementedError(
-            f"optimizer={name!r} is not ported yet ({_UNPORTED[name]})")
     sched = make_schedule(learning_rate, schedule, warmup_steps,
                           total_steps, end_value)
     if name == "adam":
@@ -307,14 +450,32 @@ def make_optimizer(name="adamw", learning_rate=1e-3, schedule="constant",
                      add_decayed_weights(weight_decay, decay_mask),
                      scale_by_learning_rate(sched))
     elif name == "adamw_fused":
-        # single-pass kernel: clip_norm and decay fold INTO the update
-        # (chaining a clip around it would waste a pass and lose .apply)
+        # single-pass kernels: clip_norm and decay fold INTO the update
+        # (chaining a clip around them would waste a pass and lose .apply)
         core = fused_optim.adamw_fused(
             sched, b1=b1 or 0.9, b2=b2 or 0.999, weight_decay=weight_decay,
             mask=decay_mask, clip_norm=clip_norm, mu_dtype=mu_dtype)
-    else:  # sgd; momentum=None keeps no trace state
+    elif name == "lion_fused":
+        core = fused_optim.lion_fused(
+            sched, b1=b1 or 0.9, b2=b2 or 0.99, weight_decay=weight_decay,
+            mask=decay_mask, clip_norm=clip_norm, mu_dtype=mu_dtype)
+    elif name == "adamw8bit":
+        # int8 blockwise moments; mu_dtype is refused above
+        from tensorflowonspark_tpu_torch import optim8bit
+        core = optim8bit.adamw8bit(sched, b1=b1 or 0.9, b2=b2 or 0.999,
+                                   weight_decay=weight_decay,
+                                   mask=decay_mask, layouts=layouts)
+    elif name == "sgd":  # momentum=None keeps no trace state
         core = chain(_identity() if momentum is None else trace(momentum),
                      scale_by_learning_rate(sched))
+    elif name == "lion":
+        # optax.lion: the decay transform is always in the chain (the
+        # factory's weight_decay, default 0, not optax's own 1e-3)
+        core = chain(scale_by_lion(b1 or 0.9, b2 or 0.99, mu_dtype),
+                     add_decayed_weights(weight_decay, decay_mask),
+                     scale_by_learning_rate(sched))
+    else:  # adafactor: the memory-frugal choice for big models
+        core = adafactor(sched)
     if clip_norm and name not in _FUSED:
         core = chain(clip_by_global_norm(clip_norm), core)
     logger.info("optimizer %s lr=%s schedule=%s warmup=%d wd=%s clip=%s",

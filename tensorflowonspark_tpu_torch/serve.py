@@ -110,10 +110,47 @@ def build_argparser():
     p.add_argument("--generate_preempt_ms", type=float, default=0.0)
     p.add_argument("--fleet", default=None, metavar="HOST:PORT")
     p.add_argument("--verbose", action="store_true")
+    # the JAX server's other flags: parsed so that its command lines reach
+    # the NotImplementedError that names their ROADMAP item
+    for flag, kw in _JAX_ONLY_FLAGS:
+        p.add_argument(flag, default=None, **kw)
     return p
 
 
-# (flag, predicate of "asked for", ROADMAP item)
+_ZOO = "the zoo and the rest"
+_FLEET = "migration, host tier and fleet"
+_LORA = "LoRA and speculation"
+# (flag, argparse keywords) of the JAX server's flags the port lacks;
+# each defaults to None, "not asked for"
+_JAX_ONLY_FLAGS = (
+    ("--generate_lora", dict(action="append", metavar="NAME=PATH")),
+    ("--generate_lora_capacity", dict(type=int)),
+    ("--draft_k", dict(type=int)),
+    ("--generate_pipeline_depth", dict(type=int)),
+    ("--generate_priority_weight", dict(type=int)),
+    ("--generate_park_capacity", dict(type=int)),
+    ("--generate_trace_ring", dict(type=int)),
+    ("--generate_trace_decode_sample", dict(type=int)),
+    ("--generate_paged_attn", dict(choices=["kernel", "einsum"])),
+    ("--generate_paged_prefill", dict(choices=["kernel", "blend"])),
+    ("--role", dict(choices=["mixed", "prefill", "decode"])),
+    ("--advertise_host", {}),
+    ("--fleet_heartbeat_s", dict(type=float)),
+    ("--engine", dict(choices=["auto", "native", "jax", "builder"])),
+    ("--batch_size", dict(type=int)),
+    ("--batch_wait_ms", dict(type=float)),
+    ("--input_mapping", {}),
+    ("--output_mapping", {}),
+    ("--signature_def_key", {}),
+)
+
+
+def _given(v):
+    """Any value given: a flag whose default (None) means "not asked"."""
+    return True
+
+
+# (flag, predicate of "asked for" a value other than None, ROADMAP item)
 _UNPORTED_FLAGS = (
     ("generate_engine", lambda v: v == "async", _ASYNC),
     ("spec_draft", lambda v: v in ("model", "ngram"),
@@ -126,6 +163,28 @@ _UNPORTED_FLAGS = (
     ("generate_preempt_ms", lambda v: v > 0,
      "migration, host tier and fleet"),
     ("fleet", bool, "migration, host tier and fleet"),
+    ("generate_lora", bool, _LORA),
+    ("generate_lora_capacity", _given, _LORA),
+    ("draft_k", _given, _LORA),
+    ("generate_pipeline_depth", _given, _ASYNC),
+    ("generate_priority_weight", _given, _FLEET),
+    ("generate_park_capacity", _given, _FLEET),
+    ("generate_trace_ring", _given, _FLEET),
+    ("generate_trace_decode_sample", _given, _FLEET),
+    # "kernel" is what the port runs; the plain XLA read paths are not
+    ("generate_paged_attn", lambda v: v == "einsum", _ZOO),
+    ("generate_paged_prefill", lambda v: v == "blend", _ZOO),
+    ("role", lambda v: v in ("prefill", "decode"), _FLEET),
+    ("advertise_host", _given, _FLEET),
+    ("fleet_heartbeat_s", _given, _FLEET),
+    ("engine", lambda v: v in ("native", "jax", "builder"),
+     _ZOO + " (aot and the native runner)"),
+    # the :predict endpoint's flags
+    ("batch_size", _given, _ZOO + " (:predict)"),
+    ("batch_wait_ms", _given, _ZOO + " (:predict)"),
+    ("input_mapping", _given, _ZOO + " (:predict)"),
+    ("output_mapping", _given, _ZOO + " (:predict)"),
+    ("signature_def_key", _given, _ZOO + " (:predict)"),
 )
 
 
@@ -250,6 +309,7 @@ class ContinuousBatcher:
         self.n_slots = n_slots
         self.kv_page_size = int(kv_page_size)
         self.max_seq = model.cfg.max_seq_len
+        self.vocab_size = model.cfg.vocab_size
         self.counters = Counters()
         self._sink = int(kv_pages)
         self._total_pages = int(kv_pages)
@@ -364,6 +424,11 @@ class ContinuousBatcher:
         decode_mod.check_pick_args(temperature, top_k, top_p, min_p)
         if not prompt or max_new < 1:
             raise ValueError("need a non-empty prompt and max_new >= 1")
+        # an id past the embedding table would raise in the engine thread
+        # (a device-side assert on the card) and kill every later request
+        if not all(0 <= t < self.vocab_size for t in prompt):
+            raise ValueError(f"prompt token ids must lie in [0, "
+                             f"{self.vocab_size})")
         if len(prompt) + max_new > self.max_seq:
             raise ValueError(f"prompt {len(prompt)} + max_new_tokens "
                              f"{max_new} exceeds max_seq_len {self.max_seq}")
@@ -756,12 +821,13 @@ class GenerateService:
                     f'request field "{field}" is not ported yet (ROADMAP: '
                     f"{item})")
         inputs = req.get("inputs")
+        vocab = self.model.cfg.vocab_size
         if (not isinstance(inputs, list) or not inputs
                 or not all(isinstance(p, list) and p
-                           and all(_is_int(t) and 0 <= t < self._I32
+                           and all(_is_int(t) and 0 <= t < vocab
                                    for t in p) for p in inputs)):
             raise ValueError('"inputs" must be a non-empty list of non-empty '
-                             "lists of token ids in [0, 2^31)")
+                             f"lists of token ids in [0, {vocab})")
         max_new = req.get("max_new_tokens", 16)
         if not _is_int(max_new) or not 1 <= max_new <= self.limit:
             raise ValueError(f'"max_new_tokens" must be an int in '
@@ -930,7 +996,8 @@ def make_server(args):
     whose feature is not ported raise NotImplementedError; the device is
     resolved here, so a missing CUDA device raises before serving."""
     for flag, asked, item in _UNPORTED_FLAGS:
-        if asked(getattr(args, flag, None) or 0):
+        value = getattr(args, flag, None)
+        if value is not None and asked(value):
             raise NotImplementedError(
                 f"--{flag}={getattr(args, flag)!r} is not ported yet "
                 f"(ROADMAP: {item})")

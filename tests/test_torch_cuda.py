@@ -16,7 +16,12 @@ odd sizes; quantised matmuls at M 1, 7 and 1024, K 200 with groups of
 and starts straddling pages; LayerNorm rows of 64 to 8192, D not a
 multiple of 256, f32 and bf16 parameters), in f32 and bf16.
 Tolerances: f32 1e-4 (f32 math on both sides, summation order differs
-over <= 300 keys); bf16 1e-2 (f32 math, bf16 output rounding).  AdamW:
+over <= 300 keys); bf16 1e-2 (f32 math, bf16 output rounding).  Lion
+(kernel 8): bitwise equal to ``lion_plain`` (bit patterns, so the sign
+of a zero counts; a NaN as a NaN, whose payload the bf16 conversions
+spell differently), at sizes 1, 255, 257 and 2^20 + 3 with zeros, -0
+and a NaN among the inputs.  ``flash_attention_with_lse``: the
+gradients under a random lse cotangent as the flash kernels' (f32).  AdamW:
 the kernel's separately rounded f32 ops match the plain version's to
 1e-6 (p, nu) and one bf16 step (mu).  Quantised matmuls: the largest
 error within 1e-5 (f32) or 2e-2 (bf16) of the largest |output|, as the
@@ -24,13 +29,18 @@ JAX package's own kernel tests hold them, and each row's bits the same
 whatever the number of rows in the call.  int8 kv: the quantising page
 write gives the plain version's and the CPU's bytes exactly (payload,
 scales and the dequantised chunk); the reads as above.  LayerNorm: f32
-1e-5, bf16 one bf16 step (rtol 2^-7).
+1e-5, bf16 one bf16 step (rtol 2^-7).  8-bit AdamW state (``optim8bit``,
+plain PyTorch on both sides): its square root, quantise / dequantise
+and three updates give the CPU's bits (the int8 payloads and f32
+scales); the updates within rtol 1e-6 (the bias corrections'
+``torch.pow`` may round an ulp apart) and atol 1e-8 (an ulp of a term
+where weight decay cancels).
 """
 import pytest
 import torch
 
-from tensorflowonspark_tpu_torch import (benchmarks, export, ops, quantize,
-                                         serve)
+from tensorflowonspark_tpu_torch import (benchmarks, export, ops, optim,
+                                         optim8bit, quantize, serve)
 from tensorflowonspark_tpu_torch.models import decode as port_decode
 from tensorflowonspark_tpu_torch.models import transformer as port_tf
 from tensorflowonspark_tpu_torch.ops import flash_attention as fa
@@ -217,6 +227,136 @@ def test_adamw_kernel_matches_plain(dev, dtype, mu_dtype, write_param):
                                rtol=ulp[mu_dtype])
 
 
+def _same_bits(a, b):
+    """Equal bit patterns, NaN for NaN."""
+    nan = torch.isnan(a)
+    if not torch.equal(nan, torch.isnan(b)):
+        return False
+    view = torch.int32 if a.dtype == torch.float32 else torch.int16
+    return torch.equal(a.view(view)[~nan], b.view(view)[~nan])
+
+
+@pytest.mark.parametrize("n", [1, 255, 257, 2**20 + 3])
+@pytest.mark.parametrize("dtype,mu_dtype", [
+    (torch.float32, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32)],
+    ids=["f32-mubf16", "f32", "bf16", "bf16-muf32"])
+@pytest.mark.parametrize("write_param", [True, False],
+                         ids=["apply", "update"])
+@pytest.mark.parametrize("wd", [0.0, 0.1], ids=["nowd", "wd"])
+def test_lion_kernel_matches_plain_bitwise(dev, n, dtype, mu_dtype,
+                                           write_param, wd):
+    gen = torch.Generator().manual_seed(n + 13)
+    g = torch.randn(n, generator=gen)
+    mu = 0.1 * torch.randn(n, generator=gen)
+    if n > 8:
+        g[:4] = torch.tensor([0.0, -0.0, 0.0, float("nan")])
+        mu[:4] = torch.tensor([0.0, -0.0, -0.0, 0.5])
+    g, mu = g.to(dev, dtype), mu.to(dev, mu_dtype)
+    p = torch.randn(n, generator=gen).to(dev, dtype)
+    scal = torch.tensor([3e-4, 0.5, 0.19, 0.002], device=dev)
+    kw = dict(b1=0.9, b2=0.99, wd=wd, write_param=write_param)
+    want_out, want_mu = fo.lion_plain(g, p, mu, scal, **kw)
+    out = p if write_param else torch.empty_like(g)
+    before = fo._lion.launches
+    fo._lion(g, p, mu, scal, out, **kw)
+    torch.cuda.synchronize()
+    assert fo._lion.launches == before + 1
+    assert out.dtype == dtype and mu.dtype == mu_dtype
+    assert _same_bits(out, want_out)
+    assert _same_bits(mu, want_mu)
+
+
+def _8bit_inputs(gen, signed):
+    zeros_first = torch.randn(700, generator=gen)
+    zeros_first[:256] = 0.0                   # one block of zeros
+    ties = torch.zeros(300)
+    ties[:4] = torch.tensor([254.0, 1.0, -127.0, 0.5])  # .5 steps at 254
+    xs = [torch.randn(1, generator=gen), torch.randn(255, generator=gen),
+          torch.randn(3, 301, generator=gen) * 5.0, zeros_first, ties]
+    return xs if signed else [x.abs() for x in xs]
+
+
+@pytest.mark.parametrize("block", [256, 64])
+@pytest.mark.parametrize("signed", [True, False],
+                         ids=["signed", "unsigned"])
+def test_optim8bit_quantize_on_card_gives_the_cpu_bytes(dev, signed, block):
+    gen = torch.Generator().manual_seed(block + signed)
+    for x in _8bit_inputs(gen, signed):
+        want = optim8bit.quantize(x, block, signed=signed)
+        got = optim8bit.quantize(x.to(dev), block, signed=signed)
+        assert torch.equal(got.q.cpu(), want.q)
+        assert torch.equal(got.scale.cpu(), want.scale)
+        back = optim8bit.dequantize(got, x.shape, signed=signed)
+        assert _same_bits(back.cpu(), optim8bit.dequantize(
+            want, x.shape, signed=signed))
+
+
+def test_optim8bit_sqrt_on_card_is_the_cpu_sqrt(dev):
+    x = torch.rand(1 << 20, generator=torch.Generator().manual_seed(5))
+    x[:3] = torch.tensor([0.0, 1.0, 4.0])
+    got = optim8bit.sqrt(x.to(dev))
+    assert got.dtype == torch.float32
+    assert _same_bits(got.cpu(), optim8bit.sqrt(x))
+    assert got[:3].tolist() == [0.0, 1.0, 2.0]
+
+
+def test_adamw8bit_steps_on_card_match_cpu(dev):
+    gen = torch.Generator().manual_seed(31)
+    params = {"w": torch.randn(40, 70, generator=gen),
+              "b": torch.randn(300, generator=gen),
+              "z": torch.zeros(600), "s": torch.randn(5, generator=gen)}
+    opt, _ = optim.make_optimizer("adamw8bit", learning_rate=0.05,
+                                  weight_decay=0.1)
+    card = {n: p.to(dev) for n, p in params.items()}
+    cpu_state, card_state = opt.init(params), opt.init(card)
+    for _ in range(3):
+        grads = {n: torch.randn(p.shape, generator=gen)
+                 for n, p in params.items()}
+        grads["z"][:256] = 0.0                # one block of zeros
+        want, cpu_state = opt.update(grads, cpu_state, params)
+        got, card_state = opt.update({n: g.to(dev) for n, g in
+                                      grads.items()}, card_state, card)
+        for n in params:
+            for part in ("mu", "nu_sqrt"):
+                a = getattr(card_state[0], part)[n]
+                b = getattr(cpu_state[0], part)[n]
+                assert torch.equal(a.q.cpu(), b.q), (n, part)
+                assert torch.equal(a.scale.cpu(), b.scale), (n, part)
+            # atol: where u + wd p cancels, an ulp of a term (~4e-9)
+            torch.testing.assert_close(got[n].cpu(), want[n], atol=1e-8,
+                                       rtol=1e-6)
+            params[n] = params[n] + want[n]
+            card[n] = params[n].to(dev)      # both follow the CPU's path
+        assert int(card_state[0].count) == int(cpu_state[0].count)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_with_lse_backward_matches_plain(dev, D, causal):
+    gen = torch.Generator().manual_seed(D + causal)
+    shapes = ((2, 70, 8, D), (2, 70, 2, D), (2, 70, 2, D))
+    leaves = [torch.randn(s, generator=gen).to(dev).requires_grad_(True)
+              for s in shapes]
+    g = torch.randn(shapes[0], generator=gen).to(dev)
+    g_lse = torch.randn((2, 8, 70), generator=gen).to(dev)
+    before = ops.launch_counts()
+    out, lse = fa.flash_attention_with_lse(*leaves, causal=causal)
+    got = torch.autograd.grad((out, lse), leaves, (g, g_lse))
+    after = ops.launch_counts()
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert after[name] == before[name] + 1, name
+    q, k, v = (t.detach() for t in leaves)
+    ref, ref_lse = fa.flash_fwd_plain(q, k, v, causal)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+    delta = (torch.einsum("bshd,bshd->bhs", g, ref) - g_lse)
+    want = [fa.flash_bwd_dq_plain(q, k, v, g, ref_lse, delta, causal),
+            *fa.flash_bwd_dkv_plain(q, k, v, g, ref_lse, delta, causal)]
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=4e-4, rtol=1e-4)
+
+
 def test_flagship_step_on_card_matches_cpu(dev):
     # f32 on both sides: the card runs kernels 4-7, the CPU their plain
     # versions; loss to 1e-4.  Parameters after 3 AdamW steps (lr 3e-4,
@@ -245,7 +385,7 @@ def test_flagship_step_on_card_matches_cpu(dev):
     n_leaves = len(list(state.params.parameters()))
     assert ops.launch_counts(ops.TRAINING_KERNELS) == {
         "flash_fwd": 6, "flash_bwd_dq": 6, "flash_bwd_dkv": 6,
-        "adamw": 3 * n_leaves}
+        "adamw": 3 * n_leaves, "lion": 0}
     want = cpu_state.params.state_dict()
     for name, t in state.params.state_dict().items():
         diff = (t.cpu() - want[name]).abs()

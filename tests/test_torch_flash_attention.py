@@ -5,7 +5,13 @@ kernels in interpret mode, 16 x 16 blocks, tiny shapes) and the port's
 ``flash_attention`` on CPU tensors (the plain versions of kernels 4-6
 behind the autograd function): the output, and the q/k/v gradients for
 one cotangent.  Causal and not, a ragged S = 40 (not a multiple of the
-blocks), GQA groups of 1, 2 and 4.
+blocks), GQA groups of 1, 2 and 4.  ``flash_attention_with_lse``: its
+``(out, lse)`` and the q/k/v gradients of ``sum(out * w) + sum(lse *
+u)`` (the lse cotangent folded into delta) against the JAX function, at
+head dims 64 and 128; and a two-block merge (each query block's
+attention over the key blocks it sees, merged by their lse weights, as
+ring attention merges its steps) against ``flash_attention`` over all
+keys, forward and gradients.
 
 Tolerances: f32 1e-5 (f32 math on both sides; summation order differs);
 bf16 2e-2 (f32 math on both sides, then outputs and gradients rounded
@@ -103,3 +109,89 @@ def test_no_grad_forward_skips_the_lse_and_heads_must_divide():
     with pytest.raises(ValueError, match="multiple of kv heads"):
         port_fa.flash_attention(tq, tk[:, :, :1].expand(-1, -1, 3, -1),
                                 tv[:, :, :1].expand(-1, -1, 3, -1))
+
+
+@pytest.mark.parametrize("causal,S,group,D", [
+    (True, 24, 2, 64), (False, 24, 1, 64), (True, 20, 4, 128),
+    (False, 16, 2, 128)])
+def test_with_lse_forward_and_grads_match_jax_interpret(causal, S, group,
+                                                        D):
+    rng = np.random.RandomState(S + D + group)
+    Hq = 4
+    q = rng.randn(1, S, Hq, D).astype(np.float32)
+    k = rng.randn(1, S, Hq // group, D).astype(np.float32)
+    v = rng.randn(1, S, Hq // group, D).astype(np.float32)
+    w = rng.randn(1, S, Hq, D).astype(np.float32)
+    u = rng.randn(1, Hq, S).astype(np.float32)
+
+    def jax_flash(q_, k_, v_):
+        return jax_fa.flash_attention_with_lse(
+            q_, k_, v_, causal=causal, block_q=16, block_k=16,
+            interpret=True)
+
+    (out, lse), vjp = jax.vjp(jax_flash, *(jnp.asarray(x)
+                                            for x in (q, k, v)))
+    want = [out, lse] + list(vjp((jnp.asarray(w), jnp.asarray(u))))
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    pout, plse = port_fa.flash_attention_with_lse(*leaves, causal=causal)
+    loss = (pout * torch.from_numpy(w)).sum() + (
+        plse * torch.from_numpy(u)).sum()
+    got = [pout, plse] + list(torch.autograd.grad(loss, leaves))
+    for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), got, want):
+        assert tuple(a.shape) == b.shape, name
+        np.testing.assert_allclose(a.detach().numpy(), _np(b), atol=1e-5,
+                                   rtol=1e-5, err_msg=name)
+
+
+def test_with_lse_without_grad_and_unused_lse():
+    q, k, v, g = _inputs(6, 24, 2)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    out, lse = port_fa.flash_attention_with_lse(tq, tk, tv)
+    want, want_lse = port_fa.flash_fwd_plain(tq, tk, tv)
+    assert torch.equal(out, want) and torch.equal(lse, want_lse)
+    # only out reaches the loss: the gradients are flash_attention's
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    out, _ = port_fa.flash_attention_with_lse(*leaves)
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(g))
+    ref = port_fa.flash_attention(*leaves)
+    want = torch.autograd.grad(ref, leaves, torch.from_numpy(g))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def _merge(parts):
+    """Attention over the union of key blocks from each block's ``(out,
+    lse)``: weights ``exp(lse_i - logsumexp(lse))``."""
+    lses = torch.stack([lse for _, lse in parts])          # [n, B, H, S]
+    total = torch.logsumexp(lses, dim=0)
+    return sum(out * torch.exp(lse - total).permute(0, 2, 1)[..., None]
+               for out, lse in parts)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_two_block_merge_equals_full_attention(causal):
+    q, k, v, g = _inputs(8, 32, 2)
+    half = 16
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    full = port_fa.flash_attention(*leaves, causal=causal)
+    want = [full] + list(torch.autograd.grad(full, leaves,
+                                             torch.from_numpy(g)))
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    tq, tk, tv = leaves
+    blocks = [slice(0, half), slice(half, None)]
+    outs = []
+    for qi, qs in enumerate(blocks):
+        parts = []
+        for ki, ks in enumerate(blocks):
+            if causal and ki > qi:
+                continue          # keys after every query of the block
+            parts.append(port_fa.flash_attention_with_lse(
+                tq[:, qs], tk[:, ks], tv[:, ks],
+                causal=causal and ki == qi))
+        outs.append(_merge(parts))
+    merged = torch.cat(outs, dim=1)
+    got = [merged] + list(torch.autograd.grad(merged, leaves,
+                                              torch.from_numpy(g)))
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
+                                   atol=1e-5, rtol=1e-5, err_msg=name)

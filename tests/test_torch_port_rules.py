@@ -6,8 +6,8 @@
 - A CPU tensor passed to each kernel wrapper takes the plain version
   (the launch counts stay 0); each kernel's CUDA source exists, names
   the TPU function it replaces and is built by ``ops/_build.py``.
-- Unported flags, fields, optimizers and train-step options raise
-  instead of being ignored.
+- Unported flags (every JAX serve flag the port lacks), fields and
+  train-step options raise instead of being ignored.
 """
 import ast
 import os
@@ -56,6 +56,7 @@ def _module_names():
 
 
 def test_imports_with_jax_blocked():
+    assert "tensorflowonspark_tpu_torch.optim8bit" in _module_names()
     code = (
         "import sys\n"
         f"for name in {FORBIDDEN!r}:\n"
@@ -143,6 +144,11 @@ def test_cpu_tensors_take_the_plain_versions():
     port_fo._adamw(g, p, mu, nu, scal, p, **kw)
     for a, b in zip((p, mu, nu), want):
         assert torch.equal(a, b)
+    kw = dict(b1=0.9, b2=0.99, wd=0.1, write_param=False)
+    out = torch.empty_like(g)
+    want = port_fo.lion_plain(g, p, mu, scal, **kw)
+    port_fo._lion(g, p, mu, scal, out, **kw)
+    assert torch.equal(out, want[0]) and torch.equal(mu, want[1])
     x = torch.from_numpy(rng.randn(3, 200).astype(np.float32))
     w8 = quantize.quantize_int8(torch.from_numpy(
         rng.randn(200, 24).astype(np.float32)))
@@ -176,8 +182,8 @@ def test_cpu_tensors_take_the_plain_versions():
         "paged_attention": 0, "page_write": 0, "prefill_read": 0,
         "paged_attention_int8": 0, "page_write_int8": 0,
         "prefill_read_int8": 0, "flash_fwd": 0, "flash_bwd_dq": 0,
-        "flash_bwd_dkv": 0, "adamw": 0, "int8_matmul": 0, "int4_matmul": 0,
-        "layernorm": 0}
+        "flash_bwd_dkv": 0, "adamw": 0, "lion": 0, "int8_matmul": 0,
+        "int4_matmul": 0, "layernorm": 0}
 
 
 def test_kernel_sources_exist_and_are_built():
@@ -187,7 +193,7 @@ def test_kernel_sources_exist_and_are_built():
                                      "_prefill_read_kernel"],
                 "flash_attention.cu": ["_fwd_kernel", "_bwd_dq_kernel",
                                        "_bwd_dkv_kernel"],
-                "fused_optim.cu": ["_adamw_kernel"],
+                "fused_optim.cu": ["_adamw_kernel", "_lion_kernel"],
                 "quant_matmul.cu": ["_int8_kernel", "_int4_kernel"],
                 "layernorm.cu": ["_ln_kernel"]}
     assert sorted(_build.SOURCES) == sorted(replaces)
@@ -205,12 +211,26 @@ def test_kernel_sources_exist_and_are_built():
 
 @pytest.mark.parametrize("flag", [
     ["--generate_engine", "async"], ["--generate_preempt_ms", "5"], ["--spec_draft", "ngram"],
-    ["--generate_lora_rank", "2"], ["--generate_host_cache_mb", "4"]])
+    ["--generate_lora_rank", "2"], ["--generate_host_cache_mb", "4"],
+    # the JAX server's flags the port's parser lacked
+    ["--generate_lora", "a=b.npz"], ["--generate_lora_capacity", "8"],
+    ["--draft_k", "4"], ["--generate_pipeline_depth", "2"],
+    ["--generate_priority_weight", "4"], ["--generate_park_capacity", "8"],
+    ["--generate_trace_ring", "4096"],
+    ["--generate_trace_decode_sample", "16"],
+    ["--generate_paged_attn", "einsum"],
+    ["--generate_paged_prefill", "blend"], ["--role", "prefill"],
+    ["--advertise_host", "10.0.0.1"], ["--fleet_heartbeat_s", "2.0"],
+    ["--engine", "native"], ["--batch_size", "64"],
+    ["--batch_wait_ms", "5"], ["--input_mapping", "x"],
+    ["--output_mapping", "y"], ["--signature_def_key", "serving_default"]])
 def test_unported_flags_raise(flag):
     args = serve.build_argparser().parse_args([
         "--export_dir", "unused", "--device", "cpu",
         "--generate_kv_page_size", "8", "--generate_kv_pages", "8", *flag])
-    with pytest.raises(NotImplementedError, match="not ported"):
+    name = flag[0].lstrip("-")
+    with pytest.raises(NotImplementedError,
+                       match=f"--{name}=.* not ported yet \\(ROADMAP: "):
         serve.make_server(args)
 
 
@@ -218,15 +238,6 @@ def test_training_entry_points_raise_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         benchmarks.make_flagship_step(2, 16)
-
-
-@pytest.mark.parametrize("name", ["lion", "lion_fused", "adamw8bit",
-                                  "adafactor"])
-def test_unported_optimizers_raise(name):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        optim.make_optimizer(name)
-    with pytest.raises(NotImplementedError, match="kernel 8"):
-        port_fo.lion_fused(1e-3)
 
 
 @pytest.mark.parametrize("kw", [{"mesh": object()},

@@ -8,7 +8,9 @@ equal JAX ``decode.generate`` token for token.  A seeded sampled request
 must reproduce itself (and the port's solo ``generate``); the quiesced
 pool must conserve its pages.  Served with ``--generate_quantize int8``
 or ``int4``, the greedy outputs equal JAX ``decode.generate`` over the
-JAX package's ``quantize_tree`` of the same weights.
+JAX package's ``quantize_tree`` of the same weights.  A prompt with a
+token id past the vocabulary gets HTTP 400 (the batcher refuses it too),
+and the next request is served.
 """
 import json
 import sys
@@ -137,6 +139,39 @@ def test_http_generate_roundtrip(lm, tmp_path):
         server.server_close()
         thread.join(timeout=30)
     assert not thread.is_alive()
+
+
+def test_out_of_vocab_prompt_gets_400_and_serving_goes_on(lm, tmp_path):
+    pm, want = lm
+    export.export_saved_model(str(tmp_path), pm.state_dict(),
+                              builder_kwargs=CFG)
+    args = serve.build_argparser().parse_args([
+        "--export_dir", str(tmp_path), "--port", "0", "--device", "cpu",
+        "--generate_kv_page_size", "8", "--generate_kv_pages", "24"])
+    server, service = serve.make_server(args)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = (f"http://127.0.0.1:{server.server_address[1]}"
+           "/v1/models/default:generate")
+
+    def post(prompt):
+        return urllib.request.urlopen(urllib.request.Request(
+            url, data=json.dumps({"inputs": [prompt], "max_new_tokens": 3})
+            .encode()), timeout=120)
+
+    try:
+        with pytest.raises(urllib.error.HTTPError) as err:
+            post([5, 70, 2])                   # vocab 64
+        assert err.value.code == 400
+        with pytest.raises(ValueError, match=r"\[0, 64\)"):
+            service.generate_service().batcher.submit([5, 70, 2], 3)
+        with post(PROMPTS[0]) as resp:
+            got = json.loads(resp.read())["outputs"][0]
+        assert got == want[0][:len(PROMPTS[0]) + 3]
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
 
 
 def test_pool_backpressure_and_eos(lm):

@@ -11,6 +11,10 @@ Weights come from the JAX init (a numpy seed) and reach the port through
   against the JAX slot path run through its own reference bodies
   (``paged_attn_impl="einsum"``, ``paged_prefill_impl="blend"``).
 
+- A cache-free forward longer than ``max_seq_len`` with learned
+  positions: JAX's gather fills NaN, the port raises ValueError (it does
+  not clamp); at ``max_seq_len`` and with RoPE both agree.
+
 Tolerance 1e-4 on logits: f32 on both sides, two layers of d_model 64,
 differing only in summation order.  Greedy tokens must agree exactly.
 """
@@ -63,6 +67,27 @@ def test_post_ln_bias_learned_positions_match_jax():
                            use_bias=True, rope=False, ln_eps=1e-5,
                            activation="gelu_exact")
     toks = np.random.RandomState(2).randint(0, 96, (2, 9))
+    want = np.asarray(jm.apply({"params": params}, jnp.asarray(toks)))
+    with torch.no_grad():
+        got = pm(torch.from_numpy(toks)).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
+def test_cache_free_forward_past_max_seq_len_raises():
+    jm, params, pm = _pair(3, n_kv_heads=2, rope=False, max_seq_len=8)
+    toks = np.random.RandomState(4).randint(0, 96, (1, 12))
+    want = np.asarray(jm.apply({"params": params}, jnp.asarray(toks)))
+    assert np.isnan(want).all()        # the reference fills NaN
+    with pytest.raises(ValueError, match="exceeds max_seq_len 8"):
+        pm(torch.from_numpy(toks))
+    short = toks[:, :8]
+    want = np.asarray(jm.apply({"params": params}, jnp.asarray(short)))
+    with torch.no_grad():
+        got = pm(torch.from_numpy(short)).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+    # RoPE has no table: the reference runs past max_seq_len, so does
+    # the port
+    jm, params, pm = _pair(3, n_kv_heads=2, max_seq_len=8)
     want = np.asarray(jm.apply({"params": params}, jnp.asarray(toks)))
     with torch.no_grad():
         got = pm(torch.from_numpy(toks)).numpy()
