@@ -28,10 +28,12 @@ caught and reported as passed):
    sampled request twice — with every serving kernel's launch count > 0
    and the page pool conserved;
 5a. quantised kernels (9 and 10) against their plain versions on the
-   card in bf16 at FLAGSHIP_QUANT_MATMUL (the ``wi`` shape at a 16-row
-   decode step and a 1024-row prefill dispatch), timed like phase 3,
-   with ``F.linear`` on the bf16 dequantised weight as the library call;
-   quantising that weight on the card gives the CPU's bytes;
+   card in bf16 at FLAGSHIP_QUANT_MATMUL (the ``wi`` shape, and ``wo``
+   with K and N swapped, each at a 16-row decode step and a 1024-row
+   prefill dispatch), timed like phase 3, with ``F.linear`` on the bf16
+   dequantised weight as the library call and the achieved TFLOP/s and
+   share of the bound beside each time; quantising the ``wi`` weight on
+   the card gives the CPU's bytes;
 5b. quantised parity: phase 4 again with int8 and with int4 weights,
    quantised once on the CPU from the f32 masters (card bf16 + kernels,
    CPU f32 + plain versions, the same quantised bytes);
@@ -911,7 +913,10 @@ def phase_main_path(torch, dev, cfg, export_dir, quantize="none",
 
 def phase_quant_kernels(torch, F, dev):
     """Kernels 9 and 10 against their plain versions at the flagship
-    ``wi`` shape, timed at a decode step and at a prefill dispatch."""
+    ``wi`` shape (K 2048 -> N 8192) and at ``wo`` (K 8192 -> N 2048, its
+    own chunk plan), timed at a decode step and at a prefill dispatch,
+    with the achieved TFLOP/s and the share of the bound beside each
+    time."""
     from tensorflowonspark_tpu_torch import quantize
     from tensorflowonspark_tpu_torch.benchmarks import FLAGSHIP_QUANT_MATMUL
     from tensorflowonspark_tpu_torch.ops import quant_matmul as qm
@@ -932,38 +937,48 @@ def phase_quant_kernels(torch, F, dev):
             and torch.equal(card4.scale.cpu(), leaves["int4"].scale))
     if not same:
         raise AssertionError("quantising on the card changed the bytes")
-    on_card = {"int8": card8, "int4": card4}
-    xs = {m: torch.randn((m, K), generator=gen).to(dev, bf16)
-          for m in (d["decode_m"], d["prefill_m"])}
+    # `wo`: the transposed projection, N -> K
+    w_wo = (torch.randn((N, K), generator=gen) * N ** -0.5).to(dev)
+    on_card = {("wi", "int8"): card8, ("wi", "int4"): card4,
+               ("wo", "int8"): quantize.quantize_int8(w_wo),
+               ("wo", "int4"): quantize.int4_pack(w_wo, G)}
+    del w_wo
+    xs = {(kd, m): torch.randn((m, kd), generator=gen).to(dev, bf16)
+          for kd in (K, N) for m in (d["decode_m"], d["prefill_m"])}
     rows = {}
     for mode, plain in (("int8", qm.int8_matmul_plain),
                         ("int4", qm.int4_matmul_plain)):
-        leaf = on_card[mode]
-        w_bytes = (K * N + 4 * N if mode == "int8"
-                   else leaf.q.numel() + 4 * leaf.scale.numel())
-        # the library's call: a W16 store, F.linear on the bf16 weight
-        w16 = quantize.dequantize_leaf(leaf, bf16).t().contiguous()
         shapes = {}
-        for label, M in (("decode", d["decode_m"]),
-                         ("prefill", d["prefill_m"])):
-            x = xs[M]
-            got = qm.quant_matmul(x, leaf)
-            want = plain(x, leaf)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            scale = want.float().abs().max().item()
-            if err > QMM_TOL * scale:
-                raise AssertionError(f"{mode} matmul kernel disagrees at "
-                                     f"M {M}: {err} > {QMM_TOL} x {scale}")
-            b_ms, b_by = bound(w_bytes + 2 * M * K + 2 * M * N,
-                               2 * M * K * N)
-            shapes[label] = dict(
-                M=M, K=K, N=N, max_abs_err=err, tol=QMM_TOL * scale,
-                ms=time_ms(lambda: qm.quant_matmul(x, leaf)),
-                plain_ms=time_ms(lambda: plain(x, leaf), reps=10),
-                library_ms=time_ms(lambda: F.linear(x, w16)),
-                bound_ms=b_ms, bound_by=b_by,
-                weight_bytes=w_bytes, library_weight_bytes=2 * K * N)
+        # the `wi` shapes keep their labels; `wo`'s are prefixed
+        for proj, kd, nd in (("wi", K, N), ("wo", N, K)):
+            leaf = on_card[proj, mode]
+            w_bytes = (kd * nd + 4 * nd if mode == "int8"
+                       else leaf.q.numel() + 4 * leaf.scale.numel())
+            # the library's call: a W16 store, F.linear on the bf16 weight
+            w16 = quantize.dequantize_leaf(leaf, bf16).t().contiguous()
+            for label, M in (("decode", d["decode_m"]),
+                             ("prefill", d["prefill_m"])):
+                x = xs[kd, M]
+                got = qm.quant_matmul(x, leaf)
+                want = plain(x, leaf)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                scale = want.float().abs().max().item()
+                if err > QMM_TOL * scale:
+                    raise AssertionError(
+                        f"{mode} matmul kernel disagrees at {proj} M {M}: "
+                        f"{err} > {QMM_TOL} x {scale}")
+                flops = 2 * M * kd * nd
+                b_ms, b_by = bound(w_bytes + 2 * M * kd + 2 * M * nd, flops)
+                ms = time_ms(lambda: qm.quant_matmul(x, leaf))
+                shapes[label if proj == "wi" else f"wo_{label}"] = dict(
+                    M=M, K=kd, N=nd, max_abs_err=err, tol=QMM_TOL * scale,
+                    ms=ms, tflops=flops / ms / 1e9, bound_share=b_ms / ms,
+                    plain_ms=time_ms(lambda: plain(x, leaf), reps=10),
+                    library_ms=time_ms(lambda: F.linear(x, w16)),
+                    bound_ms=b_ms, bound_by=b_by,
+                    weight_bytes=w_bytes, library_weight_bytes=2 * kd * nd)
+            del w16
         dec = shapes["decode"]
         number = "9" if mode == "int8" else "10"
         rows[f"{mode}_matmul"] = dict(
@@ -979,8 +994,8 @@ def phase_quant_kernels(torch, F, dev):
             bound_by=dec["bound_by"], main_numbers="decode",
             library_note="F.linear on the bf16 dequantised weight",
             group_size=G if mode == "int4" else None, shapes=shapes,
-            quantized_on_card_equals_cpu=same, dtype="bfloat16")
-        del w16
+            quantized_on_card_equals_cpu=same, dtype="bfloat16",
+            bf16_path="tensor cores (mma.sync.m16n8k16)")
     return rows
 
 

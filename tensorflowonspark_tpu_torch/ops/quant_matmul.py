@@ -5,8 +5,10 @@ weight arrives in its quantised storage form (``quantize.py``): an int8
 ``{"q": [K, N], "scale": [1, N]}`` dict, or a nibble-packed
 :class:`~tensorflowonspark_tpu_torch.quantize.Int4Weight` with
 per-group scales.  ``csrc/quant_matmul.cu`` dequantises weight tiles in
-registers and shared memory, so the dense weight never exists in device
-memory; it accumulates in f32 and writes x's dtype.
+shared memory, so the dense weight never exists in device memory; it
+accumulates in f32 and writes x's dtype.  bf16 activations run on the
+tensor cores (``mma.sync``, the weight tile dequantised to bf16), f32
+activations on the CUDA cores (the weight tile dequantised to f32).
 
 One rule per call: a CPU tensor takes the plain version
 (:func:`int8_matmul_plain` / :func:`int4_matmul_plain`, exactly the JAX
@@ -81,7 +83,10 @@ def launch_plan(M, K, N, n_sm):
 
 def _launch(x2, q, scale, K, N, group, int4, name):
     """Run ``csrc/quant_matmul.cu`` on the card: ``x2 [M, K]`` in f32 or
-    bf16 -> ``[M, N]`` in x's dtype."""
+    bf16 -> ``[M, N]`` in x's dtype.  ``vec`` tells the kernel which rows
+    take 16-byte copies: bit 0 the weight's and scales' (N % 4 == 0,
+    16-byte aligned bases), bit 1 x's (K % 8 == 0, a 16-byte aligned
+    base); the others take predicated loads in the same kernel."""
     if x2.device.type != "cuda":
         raise RuntimeError(f"{name}: no kernel for {x2.device}")
     for label, t in (("q", q), ("scale", scale)):
@@ -105,8 +110,9 @@ def _launch(x2, q, scale, K, N, group, int4, name):
         raise ValueError(f"{name}: {M} rows exceed one launch's grid")
     partial = (torch.empty((splits, M, N), dtype=torch.float32,
                            device=x2.device) if splits > 1 else None)
-    vec = int(N % 4 == 0 and q.data_ptr() % 16 == 0
-              and scale.data_ptr() % 16 == 0)
+    vec = (int(N % 4 == 0 and q.data_ptr() % 16 == 0
+               and scale.data_ptr() % 16 == 0)
+           | int(K % 8 == 0 and x2.data_ptr() % 16 == 0) << 1)
     code = _build.lib().tos_quant_matmul(
         _build.ptr(x2), _build.ptr(q), _build.ptr(scale), _build.ptr(out),
         None if partial is None else _build.ptr(partial), M, K, N,

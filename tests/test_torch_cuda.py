@@ -11,8 +11,10 @@ Shapes are small and deliberately awkward (head_dim 64 and 128, GQA
 groups of 1 to 4, S=1 and S=3 decode, chunks that straddle pages and
 tiles, empty rows, rows past the table, pad rows; flash sequences that
 are not a multiple of the 64 x 32 tiles, causal and not; AdamW leaves of
-odd sizes; quantised matmuls at M 1, 7 and 1024, K 200 with groups of
-128, N 1000, 1003 and 32000, 3-D activations; int8 kv pools at odd S
+odd sizes; quantised matmuls at 1 to 2048 rows (16, 17 and 65 on the
+tensor-core tile edges), K 1 to 8192 (130: x rows not 16-byte aligned),
+int4 groups of 16, 32, 128 and 256, N 5 to 32000, 3-D activations; int8 kv
+pools at odd S
 and starts straddling pages; LayerNorm rows of 64 to 8192, D not a
 multiple of 256, f32 and bf16 parameters), in f32 and bf16.
 Tolerances: f32 1e-4 (f32 math on both sides, summation order differs
@@ -394,22 +396,33 @@ def test_flagship_step_on_card_matches_cpu(dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("mode", ["int8", "int4"])
-@pytest.mark.parametrize("shape", [(1, 200, 1000), (7, 200, 1003),
-                                   (1024, 200, 1000), (7, 2048, 32000),
-                                   (1, 1, 5), (3, 4, 7)])
-def test_quant_matmul_kernels_match_plain(dev, dtype, mode, shape):
-    M, K, N = shape
+# int4 groups: 32 to 256 stage one scale row with each 32-row K step, 16
+# reads each row's scales (a step spans two groups)
+@pytest.mark.parametrize("mode,group", [("int8", None), ("int4", 128),
+                                        ("int4", 32), ("int4", 256),
+                                        ("int4", 16)],
+                         ids=["int8", "int4", "int4-g32", "int4-g256",
+                              "int4-g16"])
+@pytest.mark.parametrize("shape", [
+    (1, 200, 1000), (7, 200, 1003), (1024, 200, 1000), (7, 2048, 32000),
+    (1, 1, 5), (3, 4, 7),
+    # [B, M, K, N]: B * M rows on the 16- and 64-row tile edges at the
+    # flagship's `wi`; K 130 (x rows not 16-byte aligned, a ragged last
+    # step); `wo` at decode (K 8192, N 2048); `lm_head` at a decode step
+    (1, 16, 2048, 8192), (1, 17, 2048, 8192), (1, 65, 2048, 8192),
+    (2, 7, 130, 1000), (1, 16, 8192, 2048), (1, 8, 2048, 32000)])
+def test_quant_matmul_kernels_match_plain(dev, dtype, mode, group, shape):
+    # a 3-D activation [B, M, K] reshapes to B * M rows (B 2 unless given)
+    B, M, K, N = shape if len(shape) == 4 else (2, *shape)
     gen = torch.Generator().manual_seed(M + K + N)
     w = torch.randn((K, N), generator=gen) * 0.3
     leaf = (quantize.quantize_int8(w) if mode == "int8"
-            else quantize.int4_pack(w, 128))
+            else quantize.int4_pack(w, group))
     on_card = ({"q": leaf["q"].to(dev), "scale": leaf["scale"].to(dev)}
                if mode == "int8" else quantize.Int4Weight(
                    leaf.q.to(dev), leaf.scale.to(dev), leaf.in_dim,
                    leaf.group_size))
-    # a 3-D activation: [2, M, K] reshapes to 2M rows
-    x = torch.randn((2, M, K), generator=gen).to(dev, dtype)
+    x = torch.randn((B, M, K), generator=gen).to(dev, dtype)
     name = f"{mode}_matmul"
     before = ops.launch_counts()[name]
     got = qm.quant_matmul(x, on_card)
@@ -417,7 +430,7 @@ def test_quant_matmul_kernels_match_plain(dev, dtype, mode, shape):
     plain = qm.int8_matmul_plain if mode == "int8" else qm.int4_matmul_plain
     want = plain(x, on_card)
     torch.cuda.synchronize()
-    assert got.shape == (2, M, N) and got.dtype == dtype
+    assert got.shape == (B, M, N) and got.dtype == dtype
     err = (got.float() - want.float()).abs().max().item()
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     assert err <= tol * want.float().abs().max().item() + 1e-6, err
