@@ -17,7 +17,9 @@ caught and reported as passed):
    the flagship shapes in bf16 (paged decode at FLAGSHIP_DECODE, page
    write and prefill read at FLAGSHIP_PREFILL_KERNEL), with CUDA-event
    times of the kernel, its plain version and one library call, and the
-   analytic bound;
+   analytic bound; the prefill read (bf16, tensor cores) also with its
+   TFLOP/s and share of the bound, and the run fails if its time lies
+   above the CUDA cores' 67 TFLOP/s f32 line;
 4. serving parity: FLAGSHIP_LM_V2 cut to 2 layers, the same seeded
    weights on the card (bf16, kernels) and on the CPU (f32, plain
    versions), one 300-token paged prefill then 8 greedy decode steps;
@@ -57,8 +59,9 @@ caught and reported as passed):
    the kv pool's resident bytes beside the bf16 run's;
 6. training kernels the same way as phase 3: flash forward, dq and dk/dv
    at one layer of the flagship train step (B 8, S 1024, H 16, n_kv 8,
-   D 128, bf16, causal), fused AdamW over the whole flagship parameter
-   tree (f32 p/g/nu, bf16 mu);
+   D 128, bf16, causal; the forward on the tensor cores, checked
+   against the f32 line as in phase 3), fused AdamW over the whole
+   flagship parameter tree (f32 p/g/nu, bf16 mu);
 6b. kernel 8 (fused Lion) over the whole flagship parameter tree (f32
    p/g, bf16 mu), bitwise against its plain version, timed like phase 3
    (no PyTorch call computes Lion: the library column is null);
@@ -163,6 +166,20 @@ def bound(nbytes, flops, peak=PEAK_BF16_FLOP_PER_S):
     t_ops = flops / peak * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations")
+
+
+def tensor_core_check(name, flops, ms, bound_ms):
+    """The achieved TFLOP/s and share of the bound of a bf16 kernel that
+    runs on the tensor cores; raises when its time lies above the line
+    of the CUDA cores' f32 rate (``flops`` at 67 TFLOP/s), which only
+    the tensor cores can beat."""
+    line_ms = flops / PEAK_F32_FLOP_PER_S * 1e3
+    if ms > line_ms:
+        raise AssertionError(
+            f"{name}: {ms:.4f} ms lies above the CUDA cores' f32 line "
+            f"({line_ms:.4f} ms for {flops / 1e9:.2f} GFLOP)")
+    return dict(tflops=flops / ms / 1e9, share_of_bound=bound_ms / ms,
+                f32_line_ms=line_ms)
 
 
 def shuffled_table(torch, gen, B, max_pages, n_pages, dev):
@@ -282,15 +299,16 @@ def phase_kernels(torch, F, dev):
     keys = torch.arange(fill + S, device=dev)
     mask = keys[None, :] <= fill + torch.arange(S, device=dev)[:, None]
     visible = B * H * sum(fill + s + 1 for s in range(S))
+    flops = 4 * visible * Dh
     b_ms, b_by = bound(2 * q.numel() * 2 + chunk_bytes
-                       + 2 * B * fill * n_kv * Dh * 2, 4 * visible * Dh)
+                       + 2 * B * fill * n_kv * Dh * 2, flops)
+    ms = time_ms(lambda: pp._read_attention(q, k, v, pk, pv, table, starts))
     rows["prefill_read"] = dict(
         name="prefill_read", route="cuda",
         source="tensorflowonspark_tpu_torch/csrc/paged_prefill.cu",
         replaces="tensorflowonspark_tpu/ops/paged_prefill.py:235",
-        max_abs_err=err, tol=TOL,
-        ms=time_ms(lambda: pp._read_attention(q, k, v, pk, pv, table,
-                                              starts)),
+        max_abs_err=err, tol=TOL, ms=ms,
+        **tensor_core_check("prefill_read", flops, ms, b_ms),
         plain_ms=time_ms(lambda: pp.read_attention_plain(
             q, k, v, pk, pv, table, starts), reps=20),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
@@ -1042,13 +1060,15 @@ def phase_train_kernels(torch, F, dev):
     visible = B * H * S * (S + 1) // 2
     qb, kvb, rowb = q.numel() * 2, k.numel() * 2, B * H * S * 4
     qd, kd, vd = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    b_ms, b_by = bound(2 * qb + 2 * kvb + rowb, 4 * visible * D)
+    flops = 4 * visible * D
+    b_ms, b_by = bound(2 * qb + 2 * kvb + rowb, flops)
+    ms = time_ms(lambda: fa.flash_fwd(q, k, v, True))
     rows["flash_fwd"] = dict(
         name="flash_fwd", route="cuda",
         source="tensorflowonspark_tpu_torch/csrc/flash_attention.cu",
         replaces="tensorflowonspark_tpu/ops/flash_attention.py:56",
-        max_abs_err=err, lse_max_abs_err=lse_err, tol=TOL,
-        ms=time_ms(lambda: fa.flash_fwd(q, k, v, True)),
+        max_abs_err=err, lse_max_abs_err=lse_err, tol=TOL, ms=ms,
+        **tensor_core_check("flash_fwd", flops, ms, b_ms),
         plain_ms=time_ms(lambda: fa.flash_fwd_plain(q, k, v, True), reps=5),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qd, kd, vd, is_causal=True, enable_gqa=True)),

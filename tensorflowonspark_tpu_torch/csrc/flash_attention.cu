@@ -17,12 +17,28 @@
 // Bound: operations.  At one layer of the flagship train step (B 8, S
 // 1024, H 16, H_kv 8, D 128, causal) the visible (query, key) pairs are
 // V = B*H*S*(S+1)/2 = 67.2M; the forward does 4*V*D = 34 GFLOP (35 us at
-// the bf16 tensor-core peak), dq 6*V*D and dk/dv 8*V*D, against 17 MB of
-// operands (5 us at 3.35 TB/s).  These first versions compute in f32 on
-// the CUDA cores, not the tensor cores, so they sit far from that bound;
-// an mma.sync/wgmma version is later work.
+// the bf16 tensor-core peak, 0.51 ms at the 67 TFLOP/s f32 rate of the
+// CUDA cores), dq 6*V*D and dk/dv 8*V*D, against 17 MB of operands (5 us
+// at 3.35 TB/s).
 //
-// Design, common to the three kernels: 256 threads (16 x 16) per block.
+// bf16 forward: `flash_fwd_mma_kernel`, on the tensor cores.  One block
+// of 4 warps per (64-query tile, q head, batch row), the longest causal
+// tiles (the last ones) scheduled first so they do not leave a tail
+// wave.  The block stages its Q tile and 64-key K / V tiles in shared
+// memory with 16-byte `cp.async` copies (two stages: tile t + 1 lands
+// while tile t is multiplied; rows past S are zero-filled), and each
+// warp runs the shared tile loop of mma.cuh (`AttnWarp`: S = Q K^T and
+// O += P V by `mma.sync.m16n8k16`, bf16 in and f32 sums, the online
+// softmax in registers, P rounded to bf16 before P V and l summed from
+// the f32 p).  Causal key tiles strictly above the diagonal are skipped;
+// masks apply on the diagonal tile and the ragged last one.  O / l is
+// staged through the warp's Q rows and written with 16-byte stores.
+// q, k and v must be 16-byte aligned (the C entry refuses others).
+// Left to later work: `wgmma`, TMA and warp specialisation.
+//
+// f32 (all three kernels) and the bf16 backward compute in f32 on the
+// CUDA cores, so they sit far from the bound.  Design, common to the
+// three CUDA-core kernels: 256 threads (16 x 16) per block.
 // A block keeps one 64-row tile resident in shared memory (as f32, for
 // bf16 and f32 inputs alike) and streams 32-row tiles of the other
 // operand through shared memory; thread (tx, ty) owns 4 resident rows
@@ -42,6 +58,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace tos {
 
@@ -211,6 +228,77 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (lse != nullptr && tx == 0)
       lse[(size_t(b) * H + h) * S + row] =
           m[i] <= NEG_INF / 2 ? 0.f : m[i] + logf(lv);
+  }
+}
+
+// The bf16 forward on the tensor cores (see the header): q [B, S, H, D],
+// k / v [B, S, n_kv, D], out like q, lse f32 [B, H, S] or null.
+template <int D>
+__global__ void __launch_bounds__(kAttnThreads, 2)
+flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v,
+                     __nv_bfloat16* __restrict__ out,
+                     float* __restrict__ lse, int S, int H, int n_kv,
+                     float sm_scale, int causal) {
+  using Sm = AttnSmem<D>;
+  constexpr int LD = Sm::LD, CH = Sm::CHUNKS;
+  extern __shared__ __align__(16) unsigned char attn_smem[];
+  const unsigned base = smem_u32(attn_smem);
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kAttnRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (H / n_kv);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  // rows s0.. of head `hh` of a [B, S, nh, D] tensor into the tile at
+  // `dst`; rows at or past S read 0
+  auto stage_rows = [&](unsigned dst, const __nv_bfloat16* src, int s0,
+                        int nh, int hh) {
+#pragma unroll
+    for (int i = tid; i < kAttnRows * CH; i += kAttnThreads) {
+      const int r = i / CH, c = i % CH;
+      const bool ok = s0 + r < S;
+      const __nv_bfloat16* p =
+          ok ? src + ((size_t(b) * S + s0 + r) * nh + hh) * D + c * 8 : src;
+      cp_async16(dst + (r * LD + c * 8) * 2, p, ok);
+    }
+  };
+
+  // causal: key tiles past the tile's last query are skipped
+  const int k_end = causal ? min(S, q0 + kAttnRows) : S;
+  stage_rows(base + Sm::Q, q, q0, H, h);
+  cp_async_commit();
+  // the lane's two fragment rows, and the keys they see
+  const int row0 = q0 + warp * 16 + (lane >> 2);
+  const int row1 = row0 + 8;
+  const int lim0 = causal ? min(S, row0 + 1) : S;
+  const int lim1 = causal ? min(S, row1 + 1) : S;
+  AttnWarp<D> w;
+  w.run(base, (k_end + kAttnKeys - 1) / kAttnKeys, sm_scale * kLog2e,
+        [&](int t, int st) {
+          stage_rows(base + Sm::K(st), k, t * kAttnKeys, n_kv, hk);
+          stage_rows(base + Sm::V(st), v, t * kAttnKeys, n_kv, hk);
+        },
+        [&](int t, int (&lim)[2]) {
+          lim[0] = lim0 - t * kAttnKeys;
+          lim[1] = lim1 - t * kAttnKeys;
+        });
+
+  float row_lse[2];
+  w.store(attn_smem, row_lse, [&](int r) -> __nv_bfloat16* {
+    const int row = q0 + warp * 16 + r;
+    return row < S ? out + ((size_t(b) * S + row) * H + h) * D : nullptr;
+  });
+  // a row that saw no key keeps the finite sentinel 0, so the
+  // backward's exp(NEG_INF - lse) underflows to exactly 0
+  if (lse != nullptr && (lane & 3) == 0) {
+    float* dst = lse + (size_t(b) * H + h) * S;
+    if (row0 < S) dst[row0] = row_lse[0];
+    if (row1 < S) dst[row1] = row_lse[1];
   }
 }
 
@@ -403,6 +491,21 @@ extern "C" int tos_flash_fwd(const void* q, const void* k, const void* v,
   return dispatch_flash(dtype, D, [&](auto t, auto d) {
     using T = decltype(t);
     constexpr int DD = decltype(d)::value;
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      // bf16: the tensor cores, whose 16-byte copies need aligned rows
+      if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+           reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out))
+          & 15)
+        return static_cast<int>(cudaErrorMisalignedAddress);
+      constexpr int smem = AttnSmem<DD>::BYTES;
+      int err = prepare(flash_fwd_mma_kernel<DD>, smem);
+      if (err) return err;
+      flash_fwd_mma_kernel<DD><<<grid, kAttnThreads, smem, st>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<T*>(out), lse, S, H, n_kv,
+          sm_scale, causal);
+      return static_cast<int>(cudaGetLastError());
+    }
     constexpr int smem = fwd_smem_bytes<DD>();
     int err = prepare(flash_fwd_kernel<T, DD>, smem);
     if (err) return err;

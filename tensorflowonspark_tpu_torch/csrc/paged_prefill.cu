@@ -20,11 +20,29 @@
 // Prefill read.  Online softmax of the chunk's queries over
 // [context pages < start || the chunk's own k/v], the chunk part under
 // the causal triangle jc <= s.  Bound: operations (FLAGSHIP_PREFILL_
-// KERNEL: 18.9 GFLOP per layer, 19 us at the bf16 tensor-core peak; its
-// 33 MB of context would take 9.8 us).  This first version computes in
-// f32 on the CUDA cores, not the tensor cores, so it sits far from that
-// bound; a wgmma/mma.sync version is later work.  Design: one block per
-// (64-row tile of grouped queries, kv head, batch row), 256 threads.
+// KERNEL: 18.9 GFLOP per layer, 19 us at the bf16 tensor-core peak, 0.28
+// ms at the 67 TFLOP/s f32 rate of the CUDA cores; its 33 MB of context
+// would take 9.8 us).
+//
+// bf16 pools: `prefill_read_mma_kernel`, on the tensor cores.  One block
+// of 4 warps per (64-row tile of grouped queries, kv head, batch row);
+// row r of the tile is query position r / group and GQA member r %
+// group, so each kv head's context is read once per 64-row tile.  The
+// block stages its Q rows and 64-key K / V tiles in shared memory with
+// 16-byte `cp.async` copies (two stages), first the context tiles, each
+// 16-byte chunk of key row j through its own page-table entry (clipped
+// to the pool, as below; the page size need not match the tile), then
+// the chunk's own strided k / v, and each warp runs the shared tile loop
+// of mma.cuh (`AttnWarp`: `mma.sync.m16n8k16`, online softmax in
+// registers, P rounded to bf16 before P V).  Masks: context keys j <
+// n_ctx = min(start, max_pages * page); chunk keys jc <= r / group;
+// chunk tiles past the tile's last query position are skipped.  The
+// longest tiles (the last rows) are scheduled first.  Left to later
+// work: `wgmma`, TMA and warp specialisation.
+//
+// f32 and int8 pools: `prefill_read_kernel`, in f32 on the CUDA cores,
+// far from the bound.  Design: one block per (64-row tile of grouped
+// queries, kv head, batch row), 256 threads.
 // The block keeps its q tile in shared memory, streams 32-key tiles of
 // k and v through shared memory (context pages looked up in the table,
 // then the chunk), and each thread holds 4 query rows x (2 scores,
@@ -52,6 +70,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace tos {
 
@@ -332,6 +351,134 @@ prefill_read_kernel(const T* __restrict__ q, const T* __restrict__ ck,
   }
 }
 
+// The bf16-pool read on the tensor cores (see the header): q / out [B,
+// S, H, D], ck / cv [B, S, n_kv, D], pools pk / pv [n_pages, page, n_kv,
+// D], all bf16.
+template <int D>
+__global__ void __launch_bounds__(kAttnThreads, 2)
+prefill_read_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ ck,
+                        const __nv_bfloat16* __restrict__ cv,
+                        const __nv_bfloat16* __restrict__ pk,
+                        const __nv_bfloat16* __restrict__ pv,
+                        const int* __restrict__ table,
+                        const int* __restrict__ starts,
+                        __nv_bfloat16* __restrict__ out, int S, int H,
+                        int n_kv, int page, int max_pages, int n_pages,
+                        float sm_scale) {
+  using Sm = AttnSmem<D>;
+  constexpr int LD = Sm::LD, CH = Sm::CHUNKS;
+  extern __shared__ __align__(16) unsigned char attn_smem[];
+  const unsigned base = smem_u32(attn_smem);
+
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * kAttnRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int group = H / n_kv;
+  const int rows = S * group;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int n_ctx = min(starts[b], max_pages * page);
+  const int* row_table = table + size_t(b) * max_pages;
+
+  // grouped query row r0 + r -> q[b, r / group, h * group + r % group]
+  auto q_row = [&](int row) {
+    return (size_t(b) * S + row / group) * H + h * group + row % group;
+  };
+#pragma unroll
+  for (int i = tid; i < kAttnRows * CH; i += kAttnThreads) {
+    const int r = i / CH, c = i % CH;
+    const bool ok = r0 + r < rows;
+    cp_async16(base + Sm::Q + (r * LD + c * 8) * 2,
+               ok ? q + q_row(r0 + r) * D + c * 8 : q, ok);
+  }
+  cp_async_commit();
+
+  // context tiles first (every chunk query sits at or past `start`, so
+  // all keys j < n_ctx are visible), then the chunk's own keys up to the
+  // tile's last query position
+  const int n_ctx_t = (n_ctx + kAttnKeys - 1) / kAttnKeys;
+  const int n_ck = min(S, (min(rows, r0 + kAttnRows) - 1) / group + 1);
+  const int n_t = n_ctx_t + (n_ck + kAttnKeys - 1) / kAttnKeys;
+  auto stage_tile = [&](int t, int st) {
+    const unsigned kd = base + Sm::K(st), vd = base + Sm::V(st);
+    if (t < n_ctx_t) {
+      const int j0 = t * kAttnKeys;
+#pragma unroll
+      for (int i = tid; i < kAttnKeys * CH; i += kAttnThreads) {
+        const int r = i / CH, c = i % CH;
+        const int j = j0 + r;
+        const bool ok = j < n_ctx;
+        size_t src = 0;
+        if (ok) {
+          const int phys = min(max(row_table[j / page], 0), n_pages - 1);
+          src = ((size_t(phys) * page + j % page) * n_kv + h) * D + c * 8;
+        }
+        const unsigned off = (r * LD + c * 8) * 2;
+        cp_async16(kd + off, pk + src, ok);
+        cp_async16(vd + off, pv + src, ok);
+      }
+    } else {
+      const int j0 = (t - n_ctx_t) * kAttnKeys;
+#pragma unroll
+      for (int i = tid; i < kAttnKeys * CH; i += kAttnThreads) {
+        const int r = i / CH, c = i % CH;
+        const int j = j0 + r;
+        const bool ok = j < S;
+        const size_t src =
+            ok ? ((size_t(b) * S + j) * n_kv + h) * D + c * 8 : 0;
+        const unsigned off = (r * LD + c * 8) * 2;
+        cp_async16(kd + off, ck + src, ok);
+        cp_async16(vd + off, cv + src, ok);
+      }
+    }
+  };
+  // the lane's two fragment rows, and the chunk keys they see (jc <= s)
+  const int row0 = r0 + warp * 16 + (lane >> 2);
+  const int ck_lim0 = min(S, row0 / group + 1);
+  const int ck_lim1 = min(S, (row0 + 8) / group + 1);
+  AttnWarp<D> w;
+  w.run(base, n_t, sm_scale * kLog2e, stage_tile,
+        [&](int t, int (&lim)[2]) {
+          if (t < n_ctx_t) {
+            lim[0] = lim[1] = n_ctx - t * kAttnKeys;
+          } else {
+            const int j0 = (t - n_ctx_t) * kAttnKeys;
+            lim[0] = ck_lim0 - j0;
+            lim[1] = ck_lim1 - j0;
+          }
+        });
+
+  float row_lse[2];
+  w.store(attn_smem, row_lse, [&](int r) -> __nv_bfloat16* {
+    const int row = r0 + warp * 16 + r;
+    return row < rows ? out + q_row(row) * D : nullptr;
+  });
+}
+
+template <int D>
+static int launch_prefill_read_mma(dim3 grid, cudaStream_t st,
+                                   const void* q, const void* ck,
+                                   const void* cv, const void* pk,
+                                   const void* pv, const int* table,
+                                   const int* starts, void* out, int S,
+                                   int H, int n_kv, int page, int max_pages,
+                                   int n_pages, float sm_scale) {
+  using BF = __nv_bfloat16;
+  constexpr int smem = AttnSmem<D>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      prefill_read_mma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  prefill_read_mma_kernel<D><<<grid, kAttnThreads, smem, st>>>(
+      static_cast<const BF*>(q), static_cast<const BF*>(ck),
+      static_cast<const BF*>(cv), static_cast<const BF*>(pk),
+      static_cast<const BF*>(pv), table, starts, static_cast<BF*>(out), S, H,
+      n_kv, page, max_pages, n_pages, sm_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, typename TK, int DH>
 static int launch_prefill_read(dim3 grid, cudaStream_t st, const void* q,
                                const void* ck, const void* cv, const void* pk,
@@ -452,8 +599,18 @@ extern "C" int tos_prefill_read(const void* q, const void* ck, const void* cv,
 #define TOS_ARGS                                                          \
   Dh, grid, st, q, ck, cv, pk, pv, ks, vs, table, starts, out, S, H, n_kv, \
       page, max_pages, n_pages, sm_scale
-  if (dtype == kBF16 && kv_dtype == kBF16)
-    return launch_prefill_read_dh<__nv_bfloat16, __nv_bfloat16>(TOS_ARGS);
+  if (dtype == kBF16 && kv_dtype == kBF16) {
+    // bf16 pools: the tensor cores
+    if (Dh == 128)
+      return launch_prefill_read_mma<128>(grid, st, q, ck, cv, pk, pv, table,
+                                          starts, out, S, H, n_kv, page,
+                                          max_pages, n_pages, sm_scale);
+    if (Dh == 64)
+      return launch_prefill_read_mma<64>(grid, st, q, ck, cv, pk, pv, table,
+                                         starts, out, S, H, n_kv, page,
+                                         max_pages, n_pages, sm_scale);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (dtype == kBF16 && kv_dtype == kI8)
     return launch_prefill_read_dh<__nv_bfloat16, int8_t>(TOS_ARGS);
   if (dtype == kF32 && kv_dtype == kF32)

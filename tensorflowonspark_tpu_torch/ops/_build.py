@@ -24,7 +24,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 SOURCES = ("paged_attention.cu", "paged_prefill.cu", "flash_attention.cu",
            "fused_optim.cu", "quant_matmul.cu", "layernorm.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "mma.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
                          "torch_kernels")
 LIBRARY = os.path.join(BUILD_DIR, "libtos_kernels.so")

@@ -11,7 +11,8 @@ Two kernels, one wrapper each, with the port's one rule: a CPU tensor
 takes the plain PyTorch version (:func:`write_pages_plain`,
 :func:`read_attention_plain`); a CUDA tensor launches the hand-written
 kernel in ``csrc/paged_prefill.cu`` (design and bounds in its header) or
-raises.
+raises.  The read over a bf16 pool runs on the tensor cores, over an
+f32 or int8 pool on the CUDA cores.
 
 int8 pools (``--generate_kv_dtype int8``) keep f32 per-(token, head)
 scales ``[kv_pages, page, n_kv]`` beside the payload.  The page write

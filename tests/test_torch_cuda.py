@@ -9,8 +9,11 @@ JAX, so skip it):
 
 Shapes are small and deliberately awkward (head_dim 64 and 128, GQA
 groups of 1 to 4, S=1 and S=3 decode, chunks that straddle pages and
-tiles, empty rows, rows past the table, pad rows; flash sequences that
-are not a multiple of the 64 x 32 tiles, causal and not; AdamW leaves of
+tiles, empty rows, rows past the table, pad rows, page 64 with starts
+and contexts off the page and the 64-key tile; flash sequences that are
+not a multiple of the 64 x 32 tiles, causal and not, and in bf16 on the
+tensor-core forward's 64-row / 64-key tile edges (S 63, 64, 65, 129,
+1024) at GQA groups 1 to 8; AdamW leaves of
 odd sizes; quantised matmuls at 1 to 2048 rows (16, 17 and 65 on the
 tensor-core tile edges), K 1 to 8192 (130: x rows not 16-byte aligned),
 int4 groups of 16, 32, 128 and 256, N 5 to 32000, 3-D activations; int8 kv
@@ -98,16 +101,35 @@ def test_decode_kernel_matches_plain(dev, dtype, S, H, n_kv, Dh):
         assert not out[0].any()          # empty row: exact zeros
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
-@pytest.mark.parametrize("S,H,n_kv,Dh,starts", [
-    (12, 8, 2, 64, (0, 8, 21, 0)),
-    (70, 4, 4, 128, (0, 33, 5, 0)),
-    (33, 16, 4, 128, (64, 0, 100, 0)),
-])
-def test_prefill_kernels_match_plain(dev, dtype, S, H, n_kv, Dh, starts):
+def _cases(f32_and_bf16, bf16_only):
+    """Parametrize cases: each shape in f32 and bf16, then bf16-only
+    shapes (the tensor-core kernels' tile edges; f32 runs the CUDA-core
+    kernels, which the first list covers)."""
+    def case(dtype, name, shape):
+        parts = ["_".join(map(str, x)) if isinstance(x, tuple) else str(x)
+                 for x in shape]
+        return pytest.param(dtype, *shape, id="-".join([*parts, name]))
+
+    return ([case(dt, name, shape) for shape in f32_and_bf16
+             for dt, name in ((torch.float32, "f32"),
+                              (torch.bfloat16, "bf16"))]
+            + [case(torch.bfloat16, "bf16", shape) for shape in bf16_only])
+
+
+# page 64 with starts that are not page multiples and contexts that are
+# not multiples of the 64-key tile; GQA group 4 (bf16 runs the
+# tensor-core read)
+@pytest.mark.parametrize("dtype,S,H,n_kv,Dh,starts,page", _cases(
+    [(12, 8, 2, 64, (0, 8, 21, 0), 16),
+     (70, 4, 4, 128, (0, 33, 5, 0), 16),
+     (33, 16, 4, 128, (64, 0, 100, 0), 16)],
+    [(100, 16, 4, 128, (130, 64, 0, 0), 64),
+     (37, 8, 2, 64, (200, 5, 64, 0), 64),
+     (65, 8, 2, 128, (63, 127, 1, 0), 16)]))
+def test_prefill_kernels_match_plain(dev, dtype, S, H, n_kv, Dh, starts,
+                                     page):
     gen = torch.Generator().manual_seed(S + H + Dh)
-    B, page, max_pages = len(starts), 16, 12
+    B, max_pages = len(starts), 12
     pk, pv, table, NP = _pool(gen, B, max_pages, page, n_kv, Dh, dtype, dev)
     sink = NP - 1
     table[3] = sink                      # the last row is a pad row
@@ -149,12 +171,16 @@ def test_greedy_generate_on_card_matches_cpu(dev):
     assert min(ops.launch_counts(ops.SERVING_KERNELS).values()) >= 1
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
-@pytest.mark.parametrize("B,S,H,n_kv,D,causal", [
-    (2, 40, 4, 4, 64, True), (1, 100, 8, 4, 128, True),
-    (2, 67, 8, 2, 64, False), (1, 130, 4, 1, 128, False),
-    (1, 1, 2, 1, 64, True)])
+# bf16-only: the tensor-core forward's tile edges (S 63, 64, 65, 129 and
+# 1024), GQA groups 1 to 8, D 64 and 128, causal and not
+@pytest.mark.parametrize("dtype,B,S,H,n_kv,D,causal", _cases(
+    [(2, 40, 4, 4, 64, True), (1, 100, 8, 4, 128, True),
+     (2, 67, 8, 2, 64, False), (1, 130, 4, 1, 128, False),
+     (1, 1, 2, 1, 64, True)],
+    [(1, 63, 4, 4, 64, True), (2, 64, 8, 4, 128, False),
+     (1, 65, 8, 2, 128, True), (2, 65, 4, 1, 64, False),
+     (1, 129, 8, 1, 64, False), (1, 129, 16, 2, 128, True),
+     (1, 1024, 8, 4, 128, True), (1, 1024, 8, 1, 64, False)]))
 def test_flash_kernels_match_plain(dev, dtype, B, S, H, n_kv, D, causal):
     gen = torch.Generator().manual_seed(B * 1000 + S + H + D)
     q = torch.randn((B, S, H, D), generator=gen).to(dev, dtype)

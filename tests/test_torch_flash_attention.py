@@ -11,7 +11,11 @@ u)`` (the lse cotangent folded into delta) against the JAX function, at
 head dims 64 and 128; and a two-block merge (each query block's
 attention over the key blocks it sees, merged by their lse weights, as
 ring attention merges its steps) against ``flash_attention`` over all
-keys, forward and gradients.
+keys, forward and gradients.  The bf16 tensor-core forward's rounding
+point (p rounded to bf16 before the value product; an emulation of its
+arithmetic in torch at D 128, S 200, GQA group 2) against the JAX
+function in interpret mode, at the card tests' bf16 tolerances (1e-2
+out, 1e-4 lse).
 
 Tolerances: f32 1e-5 (f32 math on both sides; summation order differs);
 bf16 2e-2 (f32 math on both sides, then outputs and gradients rounded
@@ -195,3 +199,62 @@ def test_two_block_merge_equals_full_attention(causal):
     for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
                                    atol=1e-5, rtol=1e-5, err_msg=name)
+
+
+def _tensor_core_forward(q, k, v, causal, tile=64):
+    """The arithmetic of the bf16 tensor-core forward (csrc/mma.cuh
+    ``AttnWarp``), emulated in torch: 64-key tiles, f32 scores in log2
+    units, f32 running max and sum, p rounded to bf16 before the value
+    product (f32 sums), l summed from the f32 p, out rounded to bf16.
+    Returns ``(out [B, S, H, D] bf16, lse [B, H, S] f32)``."""
+    B, S, H, D = q.shape
+    group = H // k.shape[2]
+    qf = q.float().permute(0, 2, 1, 3)
+    kf = k.float().repeat_interleave(group, 2).permute(0, 2, 1, 3)
+    vf = v.float().repeat_interleave(group, 2).permute(0, 2, 1, 3)
+    scale2 = D ** -0.5 * np.log2(np.e)
+    m = torch.full((B, H, S), port_fa.NEG_INF)
+    l = torch.zeros((B, H, S))
+    o = torch.zeros((B, H, S, D))
+    rows = torch.arange(S)
+    for k0 in range(0, S, tile):
+        keys = torch.arange(k0, min(S, k0 + tile))
+        s = qf @ kf[:, :, k0:k0 + tile].transpose(-1, -2) * scale2
+        if causal:
+            s = torch.where(keys[None, :] <= rows[:, None], s,
+                            torch.tensor(port_fa.NEG_INF))
+        mn = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2(m - mn)
+        p = torch.exp2(s - mn[..., None])
+        l = l * alpha + p.sum(-1)
+        o = o * alpha[..., None] + (p.bfloat16().float()
+                                    @ vf[:, :, k0:k0 + tile])
+        m = mn
+    l = l.clamp_min(1e-30)
+    out = (o / l[..., None]).bfloat16().permute(0, 2, 1, 3)
+    lse = torch.where(m <= port_fa.NEG_INF / 2, torch.zeros_like(m),
+                      m * np.log(2.0) + torch.log(l))
+    return out, lse
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_tensor_core_rounding_point_fits_the_tolerance(causal):
+    """The bf16 tensor-core forward rounds p to bf16 before the value
+    product (the JAX ``attention_reference`` rounds there too); its
+    emulation stays within the card tests' bf16 tolerances of the JAX
+    kernel in interpret mode: 1e-2 for out, 1e-4 for lse."""
+    rng = np.random.RandomState(200 + causal)
+    S, Hq, group, Dh = 200, 4, 2, 128
+    q = rng.randn(1, S, Hq, Dh).astype(np.float32)
+    k = rng.randn(1, S, Hq // group, Dh).astype(np.float32)
+    v = rng.randn(1, S, Hq // group, Dh).astype(np.float32)
+    want, want_lse = jax_fa.flash_attention_with_lse(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)), causal=causal,
+        block_q=64, block_k=64, interpret=True)
+    got, lse = _tensor_core_forward(
+        *(torch.from_numpy(x).bfloat16() for x in (q, k, v)), causal)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), _np(want), atol=1e-2,
+                               rtol=1e-2)
+    np.testing.assert_allclose(lse.numpy(), _np(want_lse), atol=1e-4,
+                               rtol=1e-4)
