@@ -1,7 +1,24 @@
 // Tensor-core building blocks of the port's bf16 kernels: the PTX
-// helpers (`cp.async`, `ldmatrix`, `mma.sync.m16n8k16`) and the attention
-// tile loop that the flash forward (flash_attention.cu) and the paged
-// prefill read (paged_prefill.cu) share.
+// helpers (`cp.async`, `ldmatrix`, `mma.sync.m16n8k16`), the warp-level
+// steps of the attention kernels, and the attention tile loop that the
+// flash forward (flash_attention.cu) and the paged prefill read
+// (paged_prefill.cu) share.
+//
+// Warp-level steps, which the flash backward's dq and dk/dv kernels
+// (flash_attention.cu) call:
+//   mma_scores      s[16 x 8 NT] += A (16 x D) * tile^T, the tile's rows
+//                   read by non-transposed ldmatrix as the `.col`
+//                   operand; A from registers or by ldmatrix per k16 step;
+//   c_to_a          f32 C accumulators -> bf16 A fragments in registers;
+//   mma_accumulate  acc[16 x D] += A (16 x 16 KS) * tile, the tile read
+//                   by ldmatrix.trans;
+//   store_rows      acc times per-row factors, as bf16, out through the
+//                   warp's shared rows in 16-byte stores.
+//
+// The tile loop below computes the same steps inline: built from these
+// helpers, ptxas scheduled the forward's loop differently (same registers
+// and instructions) and the flash forward took 1.5-1.8% longer on an H100
+// (scripts/torch_kernel_rows.py, parent and change in turns).
 //
 // Attention tile loop.  A block of 4 warps owns 64 query rows; each warp
 // owns 16 of them and keeps, in registers, its Q tile as `ldmatrix` A
@@ -51,6 +68,14 @@ __device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
                                            bool pred) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes global -> shared; `pred` false writes 4 zero bytes
+__device__ __forceinline__ void cp_async4(unsigned dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(pred ? 4 : 0)
                : "memory");
 }
 
@@ -119,6 +144,113 @@ struct AttnSmem {
     return (3 + stage) * TILE_BYTES;
   }
 };
+
+// Warp-level pieces of the attention kernels (rows of every tile are
+// [n][D + 8] bf16, row pitch LD; `tile` is the shared address of its
+// row 0).  The flash backward (flash_attention.cu) is built from these.
+
+// A fragments of the 16 rows at `rows`, one per k16 step over D:
+// ldmatrix x4 matrices (rows 0-7, d 0-7), (8-15, 0-7), (0-7, 8-15),
+// (8-15, 8-15) = a0..a3
+template <int D>
+__device__ __forceinline__ unsigned a_rows(unsigned rows, int lane) {
+  return rows + ((lane & 15) * (D + 8) + (lane >> 4) * 8) * 2;
+}
+
+template <int D>
+__device__ __forceinline__ void load_a(unsigned (&f)[D / 16][4],
+                                       unsigned rows, int lane) {
+  const unsigned a = a_rows<D>(rows, lane);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) ldmatrix_x4(f[kk], a + kk * 32);
+}
+
+// The scores step: s[NT][4] += A (16 x D) * tile^T over the tile's 8 NT
+// rows, each tile row one column of s.  `a(kk, f)` sets f to the A
+// fragment of k16 step kk (from registers, or by ldmatrix).  ldmatrix
+// x4 over tile rows 16 np.. and d 16 kk..: matrices (rows 0-7, d 0-7),
+// (0-7, 8-15), (8-15, 0-7), (8-15, 8-15) = b0, b1 of n8 tile 2 np, then
+// b0, b1 of tile 2 np + 1 (the `.col` operand, read non-transposed).
+template <int D, int NT, typename AFrag>
+__device__ __forceinline__ void mma_scores(float (&s)[NT][4], AFrag&& a,
+                                           unsigned tile, int lane) {
+  constexpr int LD = D + 8;
+  const unsigned ta =
+      tile + (((lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 8)
+                 * 2;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    unsigned af[4];
+    a(kk, af);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      unsigned b[4];
+      ldmatrix_x4(b, ta + (np * 16 * LD + kk * 16) * 2);
+      mma_bf16(s[2 * np], af, b[0], b[1]);
+      mma_bf16(s[2 * np + 1], af, b[2], b[3]);
+    }
+  }
+}
+
+// f32 C accumulators of n8 tiles 2 j and 2 j + 1 as the bf16 A fragment
+// of k16 step j: the m16n8 C layout of two n8 tiles is the m16n8k16 A
+// layout, so a product's result feeds the next product in registers.
+__device__ __forceinline__ void c_to_a(unsigned (&f)[4], const float (&c0)[4],
+                                       const float (&c1)[4]) {
+  f[0] = pack_bf16(c0[0], c0[1]);
+  f[1] = pack_bf16(c0[2], c0[3]);
+  f[2] = pack_bf16(c1[0], c1[1]);
+  f[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// The accumulate step: acc[D / 8][4] += P (16 x 16 KS, bf16 A fragments)
+// * tile (16 KS rows x D), the tile read by ldmatrix.trans x4 over rows
+// 16 kk.. and d 16 dp..: matrices (rows 0-7, d 0-7), (8-15, 0-7), (0-7,
+// 8-15), (8-15, 8-15) = b0, b1 of n8 tile 2 dp, then of tile 2 dp + 1.
+template <int D, int KS>
+__device__ __forceinline__ void mma_accumulate(float (&acc)[D / 8][4],
+                                               const unsigned (&pf)[KS][4],
+                                               unsigned tile, int lane) {
+  constexpr int LD = D + 8;
+  const unsigned ta = a_rows<D>(tile, lane);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      unsigned b[4];
+      ldmatrix_x4_trans(b, ta + (kk * 16 * LD + dp * 16) * 2);
+      mma_bf16(acc[2 * dp], pf[kk], b[0], b[1]);
+      mma_bf16(acc[2 * dp + 1], pf[kk], b[2], b[3]);
+    }
+}
+
+// The warp's f32 accumulator [16 x D] times f0 (row lane / 4) and f1
+// (row lane / 4 + 8) as bf16 into the 16 shared rows at `rows`, then
+// each row r to `dst(r)` (D bf16, 16-byte aligned; null for a row past
+// the end) in 16-byte stores.  `rows` must be the warp's own.
+template <int D, typename Dst>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* rows,
+                                           const float (&acc)[D / 8][4],
+                                           float f0, float f1, int lane,
+                                           Dst&& dst) {
+  constexpr int LD = D + 8, CH = D / 8;
+  const int r = lane >> 2, c = (lane & 3) * 2;
+#pragma unroll
+  for (int t = 0; t < D / 8; ++t) {
+    *reinterpret_cast<unsigned*>(rows + r * LD + t * 8 + c) =
+        pack_bf16(acc[t][0] * f0, acc[t][1] * f0);
+    *reinterpret_cast<unsigned*>(rows + (r + 8) * LD + t * 8 + c) =
+        pack_bf16(acc[t][2] * f1, acc[t][3] * f1);
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * CH; i += 32) {
+    const int rr = i / CH, cc = i % CH;
+    __nv_bfloat16* p = dst(rr);
+    if (p != nullptr)
+      *reinterpret_cast<uint4*>(p + cc * 8) =
+          *reinterpret_cast<const uint4*>(rows + rr * LD + cc * 8);
+  }
+}
 
 // One warp's state of the tile loop (see the header comment).
 template <int D>

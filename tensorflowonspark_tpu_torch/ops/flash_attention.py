@@ -20,13 +20,16 @@ Three kernels, one wrapper each (:func:`flash_fwd`, :func:`flash_bwd_dq`,
 plain PyTorch version (:func:`flash_fwd_plain`, :func:`flash_bwd_dq_plain`,
 :func:`flash_bwd_dkv_plain`); a CUDA tensor launches the hand-written
 kernel in ``csrc/flash_attention.cu`` (design and bound in its header) or
-raises.  The kernels take head_dim 64 or 128, in f32 or bf16; the bf16
-forward runs on the tensor cores, the rest on the CUDA cores.
+raises.  The kernels take head_dim 64 or 128, in f32 or bf16; in bf16 all
+three run on the tensor cores (and refuse rows that are not 16-byte
+aligned), in f32 on the CUDA cores.  Their card tests alone, with the
+prefill read's: ``python -m pytest --noconftest -m cuda
+tests/test_torch_cuda.py -k "flash or prefill"``.
 
 The JAX function's ``block_q`` / ``block_k`` are not in the signature:
 they size the TPU grid and its VMEM tiles (``_pick_block``), while the
-CUDA kernels use fixed tiles sized for shared memory (64 x 64 for the
-bf16 forward, 64 x 32 otherwise), and the plain versions have no tiles
+CUDA kernels use fixed tiles sized for shared memory (64 x 64 in bf16,
+64 x 32 in f32), and the plain versions have no tiles
 at all.  Queries and keys share one sequence length, as the JAX
 kernels' masks assume.
 """

@@ -12,8 +12,9 @@ groups of 1 to 4, S=1 and S=3 decode, chunks that straddle pages and
 tiles, empty rows, rows past the table, pad rows, page 64 with starts
 and contexts off the page and the 64-key tile; flash sequences that are
 not a multiple of the 64 x 32 tiles, causal and not, and in bf16 on the
-tensor-core forward's 64-row / 64-key tile edges (S 63, 64, 65, 129,
-1024) at GQA groups 1 to 8; AdamW leaves of
+tensor-core kernels' 64-row / 64-key tile edges (S 63, 64, 65, 129,
+1024) at GQA groups 1 to 8 (the backward also repeated bitwise, and
+refusing rows that are not 16-byte aligned); AdamW leaves of
 odd sizes; quantised matmuls at 1 to 2048 rows (16, 17 and 65 on the
 tensor-core tile edges), K 1 to 8192 (130: x rows not 16-byte aligned),
 int4 groups of 16, 32, 128 and 256, N 5 to 32000, 3-D activations; int8 kv
@@ -26,7 +27,8 @@ over <= 300 keys); bf16 1e-2 (f32 math, bf16 output rounding).  Lion
 of a zero counts; a NaN as a NaN, whose payload the bf16 conversions
 spell differently), at sizes 1, 255, 257 and 2^20 + 3 with zeros, -0
 and a NaN among the inputs.  ``flash_attention_with_lse``: the
-gradients under a random lse cotangent as the flash kernels' (f32).  AdamW:
+gradients under a random lse cotangent as the flash kernels' (f32, and
+bf16 at the flash backward's bf16 tolerance, atol 4e-2).  AdamW:
 the kernel's separately rounded f32 ops match the plain version's to
 1e-6 (p, nu) and one bf16 step (mu).  Quantised matmuls: the largest
 error within 1e-5 (f32) or 2e-2 (bf16) of the largest |output|, as the
@@ -171,8 +173,9 @@ def test_greedy_generate_on_card_matches_cpu(dev):
     assert min(ops.launch_counts(ops.SERVING_KERNELS).values()) >= 1
 
 
-# bf16-only: the tensor-core forward's tile edges (S 63, 64, 65, 129 and
-# 1024), GQA groups 1 to 8, D 64 and 128, causal and not
+# bf16-only: the tensor-core kernels' tile edges (S 63, 64, 65, 129 and
+# 1024), GQA groups 1 to 8, D 64 and 128, causal and not; group 8 at S 65
+# and 129 walks the dk/dv kernel over 8 q heads into a ragged last tile
 @pytest.mark.parametrize("dtype,B,S,H,n_kv,D,causal", _cases(
     [(2, 40, 4, 4, 64, True), (1, 100, 8, 4, 128, True),
      (2, 67, 8, 2, 64, False), (1, 130, 4, 1, 128, False),
@@ -180,7 +183,11 @@ def test_greedy_generate_on_card_matches_cpu(dev):
     [(1, 63, 4, 4, 64, True), (2, 64, 8, 4, 128, False),
      (1, 65, 8, 2, 128, True), (2, 65, 4, 1, 64, False),
      (1, 129, 8, 1, 64, False), (1, 129, 16, 2, 128, True),
-     (1, 1024, 8, 4, 128, True), (1, 1024, 8, 1, 64, False)]))
+     (1, 1024, 8, 4, 128, True), (1, 1024, 8, 1, 64, False),
+     (1, 65, 8, 1, 64, True), (1, 65, 8, 1, 64, False),
+     (1, 65, 8, 1, 128, True), (1, 65, 8, 1, 128, False),
+     (1, 129, 8, 1, 64, True), (1, 129, 8, 1, 128, True),
+     (1, 129, 8, 1, 128, False)]))
 def test_flash_kernels_match_plain(dev, dtype, B, S, H, n_kv, D, causal):
     gen = torch.Generator().manual_seed(B * 1000 + S + H + D)
     q = torch.randn((B, S, H, D), generator=gen).to(dev, dtype)
@@ -209,6 +216,48 @@ def test_flash_kernels_match_plain(dev, dtype, B, S, H, n_kv, D, causal):
     assert after["flash_fwd"] == counts["flash_fwd"] + 2
     assert after["flash_bwd_dq"] == counts["flash_bwd_dq"] + 1
     assert after["flash_bwd_dkv"] == counts["flash_bwd_dkv"] + 1
+
+
+@pytest.mark.parametrize("S,H,n_kv,D,causal", [
+    (200, 8, 2, 128, True), (129, 8, 1, 64, False)])
+def test_flash_backward_kernels_repeat_bitwise(dev, S, H, n_kv, D, causal):
+    # bf16 (the tensor-core kernels): each output element is written
+    # once by one block, summed in a fixed order
+    gen = torch.Generator().manual_seed(S + D)
+    q, do = (torch.randn((2, S, H, D), generator=gen).to(dev, torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn((2, S, n_kv, D), generator=gen).to(
+        dev, torch.bfloat16) for _ in range(2))
+    out, lse = fa.flash_fwd(q, k, v, causal)
+    delta = torch.einsum("bshd,bshd->bhs", do.float(), out.float())
+    first = [fa.flash_bwd_dq(q, k, v, do, lse, delta, causal),
+             *fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal)]
+    again = [fa.flash_bwd_dq(q, k, v, do, lse, delta, causal),
+             *fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal)]
+    for a, b in zip(first, again):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+def test_flash_kernels_refuse_what_they_do_not_take(dev):
+    # bf16 rows that are not 16-byte aligned, and head_dim 32, raise
+    # rather than take another path
+    gen = torch.Generator().manual_seed(11)
+    B, S, H, D = 1, 70, 4, 64
+    n = B * S * H * D
+    buf = torch.randn(n + 1, generator=gen).to(dev, torch.bfloat16)
+    q = buf[1:].view(B, S, H, D)                 # 2 bytes off
+    k = torch.randn((B, S, H, D), generator=gen).to(dev, torch.bfloat16)
+    lse = torch.zeros((B, H, S), device=dev)
+    for call in (lambda: fa.flash_fwd(q, k, k),
+                 lambda: fa.flash_bwd_dq(q, k, k, k, lse, lse),
+                 lambda: fa.flash_bwd_dkv(k, k, k, q, lse, lse)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            call()
+    small = k[..., :32].contiguous()
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        fa.flash_bwd_dq(small, small, small, small, lse, lse)
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        fa.flash_bwd_dkv(small, small, small, small, lse, lse)
 
 
 def test_flash_attention_autograd_on_card(dev):
@@ -383,6 +432,32 @@ def test_flash_with_lse_backward_matches_plain(dev, D, causal):
             *fa.flash_bwd_dkv_plain(q, k, v, g, ref_lse, delta, causal)]
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=4e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_with_lse_bf16_backward_matches_plain(dev, causal):
+    # the tensor-core backward under an lse cotangent (folded into
+    # delta), at the bf16 gradient tolerance of test_flash_kernels_match_plain
+    gen = torch.Generator().manual_seed(128 + causal)
+    shapes = ((2, 150, 8, 128), (2, 150, 2, 128), (2, 150, 2, 128))
+    leaves = [torch.randn(s, generator=gen).to(dev, torch.bfloat16)
+              .requires_grad_(True) for s in shapes]
+    g = torch.randn(shapes[0], generator=gen).to(dev, torch.bfloat16)
+    g_lse = torch.randn((2, 8, 150), generator=gen).to(dev)
+    out, lse = fa.flash_attention_with_lse(*leaves, causal=causal)
+    got = torch.autograd.grad((out, lse), leaves, (g, g_lse))
+    q, k, v = (t.detach() for t in leaves)
+    ref, ref_lse = fa.flash_fwd_plain(q, k, v, causal)
+    delta = (torch.einsum("bshd,bshd->bhs", g.float(), out.float())
+             - g_lse)
+    want = [fa.flash_bwd_dq_plain(q, k, v, g, lse, delta, causal),
+            *fa.flash_bwd_dkv_plain(q, k, v, g, lse, delta, causal)]
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a.float(), b.float(), atol=tol * 4,
+                                   rtol=tol)
 
 
 def test_flagship_step_on_card_matches_cpu(dev):

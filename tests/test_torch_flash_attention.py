@@ -15,7 +15,10 @@ keys, forward and gradients.  The bf16 tensor-core forward's rounding
 point (p rounded to bf16 before the value product; an emulation of its
 arithmetic in torch at D 128, S 200, GQA group 2) against the JAX
 function in interpret mode, at the card tests' bf16 tolerances (1e-2
-out, 1e-4 lse).
+out, 1e-4 lse).  The bf16 tensor-core backward's rounding points (p and
+ds rounded to bf16 before their products; an emulation in torch at D
+128, S 200, GQA group 2) against the JAX gradients in interpret mode,
+at the card's backward tolerance (atol 4e-2, rtol 1e-2).
 
 Tolerances: f32 1e-5 (f32 math on both sides; summation order differs);
 bf16 2e-2 (f32 math on both sides, then outputs and gradients rounded
@@ -258,3 +261,93 @@ def test_tensor_core_rounding_point_fits_the_tolerance(causal):
                                rtol=1e-2)
     np.testing.assert_allclose(lse.numpy(), _np(want_lse), atol=1e-4,
                                rtol=1e-4)
+
+
+def _tensor_core_backward(q, k, v, do, lse, delta, causal, tile=64):
+    """The arithmetic of the bf16 tensor-core backward
+    (csrc/flash_attention.cu ``flash_bwd_dq_mma_kernel`` and
+    ``flash_bwd_dkv_mma_kernel``), emulated in torch: 64 x 64 tiles
+    (causal tiles above the diagonal skipped), f32 scores in log2 units,
+    ``p = exp2(s * scale * log2 e - lse * log2 e)`` (0 where masked),
+    ``ds = p (dp - delta)``, p and ds rounded to bf16 before their
+    products (f32 sums), dk and dv summed over each kv head's group, and
+    ``dq = scale ds k``, ``dk = scale ds^T q``, ``dv = p^T dO`` rounded
+    to bf16.  Returns ``(dq, dk, dv)`` in the layouts of q and k."""
+    B, S, H, D = q.shape
+    n_kv = k.shape[2]
+    group = H // n_kv
+
+    def heads(x):
+        return x.float().repeat_interleave(H // x.shape[2], 2).permute(
+            0, 2, 1, 3)
+
+    qf, kf, vf, of = (heads(x) for x in (q, k, v, do))
+    scale = D ** -0.5
+    log2e = np.float32(np.log2(np.e))
+    scale2 = np.float32(scale) * log2e
+    lse2 = lse.float() * log2e
+    pos = torch.arange(S)
+    dq = torch.zeros((B, H, S, D))
+    dk = torch.zeros((B, H, S, D))
+    dv = torch.zeros((B, H, S, D))
+    for q0 in range(0, S, tile):
+        qs = slice(q0, q0 + tile)
+        for k0 in range(0, S, tile):
+            if causal and k0 > q0 + tile - 1:
+                continue
+            ks = slice(k0, k0 + tile)
+            s = qf[:, :, qs] @ kf[:, :, ks].transpose(-1, -2)
+            dp = of[:, :, qs] @ vf[:, :, ks].transpose(-1, -2)
+            seen = torch.ones((len(pos[qs]), len(pos[ks])), dtype=torch.bool)
+            if causal:
+                seen = pos[ks][None, :] <= pos[qs][:, None]
+            p = torch.where(seen, torch.exp2(s * scale2
+                                             - lse2[:, :, qs, None]),
+                            torch.zeros(()))
+            ds = p * (dp - delta[:, :, qs, None])
+            pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
+            dq[:, :, qs] += dsb @ kf[:, :, ks]
+            dv[:, :, ks] += pb.transpose(-1, -2) @ of[:, :, qs]
+            dk[:, :, ks] += dsb.transpose(-1, -2) @ qf[:, :, qs]
+
+    def narrow(x):
+        return x.reshape(B, n_kv, group, S, D).sum(2).permute(0, 2, 1, 3)
+
+    return ((scale * dq).permute(0, 2, 1, 3).bfloat16(),
+            narrow(scale * dk).bfloat16(), narrow(dv).bfloat16())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_tensor_core_backward_rounding_points_fit_the_tolerance(causal):
+    """The bf16 tensor-core backward rounds p and ds to bf16 before
+    their products (the JAX kernels keep them in f32); its emulation
+    stays within the card tests' backward tolerance (atol 4e-2, rtol
+    1e-2) of the JAX gradients with the Pallas kernels in interpret mode
+    at D 128, S 200 (ragged, four 64-row tiles), 4 q / 2 kv heads.  The
+    share of the tolerance used is in the failure message."""
+    rng = np.random.RandomState(300 + causal)
+    S, Hq, group, Dh = 200, 4, 2, 128
+    q = rng.randn(1, S, Hq, Dh).astype(np.float32)
+    k = rng.randn(1, S, Hq // group, Dh).astype(np.float32)
+    v = rng.randn(1, S, Hq // group, Dh).astype(np.float32)
+    g = rng.randn(1, S, Hq, Dh).astype(np.float32)
+    jq, jk, jv, jg = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, g))
+
+    def jax_flash(*args):
+        return jax_fa.flash_attention(*args, causal=causal, block_q=64,
+                                      block_k=64, interpret=True)
+
+    out, vjp = jax.vjp(jax_flash, jq, jk, jv)
+    want = vjp(jg)
+    _, lse = jax_fa.flash_attention_with_lse(
+        jq, jk, jv, causal=causal, block_q=64, block_k=64, interpret=True)
+    delta = torch.einsum("bshd,bshd->bhs", torch.tensor(_np(jg)),
+                         torch.tensor(_np(out)))
+    got = _tensor_core_backward(
+        *(torch.from_numpy(x).bfloat16() for x in (q, k, v, g)),
+        torch.tensor(_np(lse)), delta, causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16 and tuple(a.shape) == b.shape
+        err = np.abs(a.float().numpy() - _np(b))
+        used = (err / (4e-2 + 1e-2 * np.abs(_np(b)))).max()
+        assert used <= 1.0, f"{name}: {used:.3f} of the tolerance"
