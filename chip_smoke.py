@@ -15,14 +15,18 @@ caught and reported as passed):
 2. build: every ``csrc/*.cu`` with nvcc for sm_90a, from a clean build
    dir; each kernel's registers, shared memory and spill bytes from
    ``-Xptxas -v``, by name, and the run fails if a tensor-core kernel
-   (``*_mma_kernel``, ``*_tc_kernel``) spills;
+   (``*_mma_kernel``, ``*_tc_kernel``) or a paged decode kernel spills;
+   each kernel row below carries the figures of its main path's
+   instantiations (``ptxas``);
 3. serving kernels against their plain PyTorch versions on the card, at
    the flagship shapes in bf16 (paged decode at FLAGSHIP_DECODE, page
    write and prefill read at FLAGSHIP_PREFILL_KERNEL), with CUDA-event
    times of the kernel, its plain version and one library call, and the
-   analytic bound; the prefill read (bf16, tensor cores) also with its
-   TFLOP/s and share of the bound, and the run fails if its time lies
-   above the CUDA cores' 67 TFLOP/s f32 line;
+   analytic bound; the paged decode also with its decode kernel and its
+   split combine timed apart (``kernel_ms``, ``combine_ms``); the prefill
+   read (bf16, tensor cores) also with its TFLOP/s and share of the
+   bound, and the run fails if its time lies above the CUDA cores' 67
+   TFLOP/s f32 line;
 4. serving parity: FLAGSHIP_LM_V2 cut to 2 layers, the same seeded
    weights on the card (bf16, kernels) and on the CPU (f32, plain
    versions), one 300-token paged prefill then 8 greedy decode steps;
@@ -49,7 +53,9 @@ caught and reported as passed):
 5d. the int8 kv branch of kernels 1-3 against their plain versions at
    phase 3's shapes (bf16 activations; the page write's payload, scales
    and dequantised chunk bitwise equal to the plain version's on the card
-   and on the CPU), and kernel 11 (LayerNorm) at 1024 x 2048 and 8 x 2048
+   and on the CPU; the decode kernel and combine timed apart; the prefill
+   read, on the tensor cores, held to the f32 line as in phase 3), and
+   kernel 11 (LayerNorm) at 1024 x 2048 and 8 x 2048
    against its plain version and ``F.layer_norm``, timed like phase 3;
 5e. phase 4 again over an int8 kv pool, and for FLAGSHIP_LM (LayerNorm)
    cut to 2 layers with ``fused_ln=True``, held against the CPU at the
@@ -218,6 +224,50 @@ def ptxas_kernels(reports):
     return kernels
 
 
+# kernel row -> fragments of the mangled names of the instantiations its
+# main path runs (bf16 activations), for the row's -Xptxas -v figures
+ROW_SYMBOLS = {
+    "paged_attention": ("paged_decode_kernelI13__nv_bfloat16S1_",
+                        "paged_decode_combine_kernelI13__nv_bfloat16"),
+    "paged_attention_int8": ("paged_decode_kernelI13__nv_bfloat16a",
+                             "paged_decode_combine_kernelI13__nv_bfloat16"),
+    "page_write": ("page_write_kernel",),
+    "page_write_int8": ("page_write_int8_kernelI13__nv_bfloat16",),
+    "prefill_read": ("prefill_read_mma_kernel",),
+    "prefill_read_int8": ("prefill_read_i8_mma_kernel",),
+    "int8_matmul": ("quant_matmul_tc_kernelILb0",),
+    "int4_matmul": ("quant_matmul_tc_kernelILb1",),
+    "layernorm": ("layernorm_kernelI13__nv_bfloat16S1_",),
+    "flash_fwd": ("flash_fwd_mma_kernel",),
+    "flash_bwd_dq": ("flash_bwd_dq_mma_kernel",),
+    "flash_bwd_dkv": ("flash_bwd_dkv_mma_kernel",),
+    "adamw": ("adamw_kernelIf13__nv_bfloat16",),
+    "lion": ("lion_kernelIf13__nv_bfloat16",),
+}
+
+
+def attach_ptxas(rows, built):
+    """Each kernel row's ``ptxas``: registers, static shared memory and
+    spill bytes of the instantiations of its main path (ROW_SYMBOLS),
+    keyed by the mangled name cut after its template arguments."""
+    for name, row in rows.items():
+        frags = ROW_SYMBOLS.get(name, ())
+        row["ptxas"] = {
+            re.sub(r"^_ZN3tos\d+", "", sym).split("EEv")[0]: figures
+            for sym, figures in built.items()
+            if any(f in sym for f in frags)}
+
+
+def decode_times(pa, q, pools, table, lengths, **sc):
+    """Kernel 1 apart: the decode kernel alone (its split partials) and
+    the one-launch combine alone, timed like the whole call."""
+    parts = pa._split_partials(q, *pools, table, lengths, **sc)
+    return dict(
+        kernel_ms=time_ms(lambda: pa._split_partials(q, *pools, table,
+                                                     lengths, **sc)),
+        combine_ms=time_ms(lambda: pa._combine_splits(q, *parts)))
+
+
 def shuffled_table(torch, gen, B, max_pages, n_pages, dev):
     perm = torch.randperm(n_pages - 1, generator=gen).to(torch.int32)
     return perm[:B * max_pages].reshape(B, max_pages).to(dev)
@@ -265,6 +315,7 @@ def phase_kernels(torch, F, dev):
         replaces="tensorflowonspark_tpu/ops/paged_attention.py:85",
         max_abs_err=err, tol=TOL,
         ms=time_ms(lambda: pa.paged_attention(q, pk, pv, table, lengths)),
+        **decode_times(pa, q, (pk, pv), table, lengths),
         plain_ms=time_ms(lambda: pa.paged_attention_plain(
             q, pk, pv, table, lengths), reps=20),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
@@ -410,6 +461,7 @@ def phase_int8_kernels(torch, F, dev):
         max_abs_err=err, tol=TOL,
         ms=time_ms(lambda: pa.paged_attention(q, *pools, table, lengths,
                                               **sc)),
+        **decode_times(pa, q, pools, table, lengths, **sc),
         plain_ms=time_ms(lambda: pa.paged_attention_plain(
             q, *pools, table, lengths, **sc), reps=10),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
@@ -491,15 +543,17 @@ def phase_int8_kernels(torch, F, dev):
     keys = torch.arange(fill + S, device=dev)
     mask = keys[None, :] <= fill + torch.arange(S, device=dev)[:, None]
     visible = B * H * sum(fill + s + 1 for s in range(S))
+    flops = 4 * visible * Dh
     b_ms, b_by = bound(2 * q.numel() * 2 + 2 * elems * 2
-                       + 2 * B * fill * n_kv * (Dh + 4), 4 * visible * Dh)
+                       + 2 * B * fill * n_kv * (Dh + 4), flops)
+    ms = time_ms(lambda: pp._read_attention(q, ck, cv, *pools, table, starts,
+                                            **sc))
     rows["prefill_read_int8"] = dict(
         name="prefill_read_int8", route="cuda",
         source="tensorflowonspark_tpu_torch/csrc/paged_prefill.cu",
         replaces="tensorflowonspark_tpu/ops/paged_prefill.py:235",
-        max_abs_err=err, tol=TOL,
-        ms=time_ms(lambda: pp._read_attention(q, ck, cv, *pools, table,
-                                              starts, **sc)),
+        max_abs_err=err, tol=TOL, ms=ms,
+        **tensor_core_check("prefill_read_int8", flops, ms, b_ms),
         plain_ms=time_ms(lambda: pp.read_attention_plain(
             q, ck, cv, *pools, table, starts, **sc), reps=10),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
@@ -1621,13 +1675,15 @@ def main():
          ptxas=built)
     # a kernel whose spill line was not read counts as spilling
     spills = [name for name, k in built.items()
-              if ("mma_kernel" in name or "_tc_kernel" in name)
+              if ("mma_kernel" in name or "_tc_kernel" in name
+                  or "paged_decode" in name)
               and k.get("spill_stores", 1) + k.get("spill_loads", 1)]
     if not any("mma_kernel" in name for name in built) or spills:
-        raise AssertionError(f"tensor-core kernels spill or are missing "
-                             f"from the ptxas report: {spills}")
+        raise AssertionError(f"tensor-core or paged decode kernels spill or "
+                             f"are missing from the ptxas report: {spills}")
 
     rows = phase_kernels(torch, F, dev)
+    attach_ptxas(rows, built)
     for row in rows.values():
         emit("kernel", **row)
     torch.cuda.empty_cache()
@@ -1646,6 +1702,7 @@ def main():
         torch.cuda.empty_cache()
 
         quant_rows = phase_quant_kernels(torch, F, dev)
+        attach_ptxas(quant_rows, built)
         for row in quant_rows.values():
             emit("kernel", **row)
         rows.update(quant_rows)
@@ -1667,6 +1724,7 @@ def main():
 
         s4_rows = phase_int8_kernels(torch, F, dev)
         s4_rows.update(phase_layernorm_kernel(torch, F, dev))
+        attach_ptxas(s4_rows, built)
         for row in s4_rows.values():
             emit("kernel", **row)
         rows.update(s4_rows)
@@ -1706,6 +1764,7 @@ def main():
 
     train_rows = phase_train_kernels(torch, F, dev)
     train_rows.update(phase_lion_kernel(torch, dev))
+    attach_ptxas(train_rows, built)
     for row in train_rows.values():
         emit("kernel", **row)
     rows.update(train_rows)

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""The serving and training kernel rows of ``chip_smoke.py`` (phases 3 and
-6: paged decode, page write, prefill read, flash forward, dq, dk/dv and
-fused AdamW at the flagship shapes, each against its plain version, with
-CUDA-event times beside the bound and the library call), without the main
-paths, for one checkout of the port.
+"""The serving and training kernel rows of ``chip_smoke.py`` (phases 3,
+5d and 6: paged decode, page write and prefill read over a bf16 and over
+an int8 kv pool, flash forward, dq, dk/dv and fused AdamW at the flagship
+shapes, each against its plain version, with CUDA-event times beside the
+bound and the library call, and its ``-Xptxas -v`` figures), without the
+main paths, for one checkout of the port.
 
     python3 scripts/torch_kernel_rows.py [--root DIR]
 
@@ -40,11 +41,17 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     print(chip_smoke.nvidia_smi(), flush=True)
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
-    _build.build(force=True)
+    built = chip_smoke.ptxas_kernels(_build.build(force=True)["ptxas"])
     dev = torch.device("cuda")
     rows = chip_smoke.phase_kernels(torch, F, dev)
     torch.cuda.empty_cache()
+    rows.update(chip_smoke.phase_int8_kernels(torch, F, dev))
+    torch.cuda.empty_cache()
     rows.update(chip_smoke.phase_train_kernels(torch, F, dev))
+    # a checkout whose chip_smoke.py predates the rows' ptxas figures
+    # prints its rows without them
+    if hasattr(chip_smoke, "attach_ptxas"):
+        chip_smoke.attach_ptxas(rows, built)
     for row in rows.values():
         print(json.dumps(dict(row, root=root)), flush=True)
     return 0

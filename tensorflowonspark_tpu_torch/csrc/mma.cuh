@@ -14,6 +14,8 @@
 //                   by ldmatrix.trans;
 //   store_rows      acc times per-row factors, as bf16, out through the
 //                   warp's shared rows in 16-byte stores.
+// c_to_a_f16 and mma_accumulate_f16 are the same two steps in f16, for
+// the int8-pool prefill read's P' times its integer payload tile.
 //
 // The tile loop below computes the same steps inline: built from these
 // helpers, ptxas scheduled the forward's loop differently (same registers
@@ -53,6 +55,8 @@
 // so far sees p = exp2(NEG_INF - NEG_INF) = 1 for them, as the CUDA-core
 // kernels do; the first visible key's alpha = 0 wipes that out.
 #pragma once
+
+#include <cuda_fp16.h>
 
 #include "common.cuh"
 
@@ -118,6 +122,22 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
 // two f32 as one bf16x2 register, `lo` in the low half (the lower column)
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// d += a (16 x 16, row) * b (16 x 8, col), f16 in, f32 sums
+__device__ __forceinline__ void mma_f16(float (&d)[4], const unsigned (&a)[4],
+                                        unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 as one f16x2 register, `lo` in the low half (the lower column)
+__device__ __forceinline__ unsigned pack_f16(float lo, float hi) {
+  const __half2 h = __floats2half2_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&h);
 }
 
@@ -221,6 +241,35 @@ __device__ __forceinline__ void mma_accumulate(float (&acc)[D / 8][4],
       ldmatrix_x4_trans(b, ta + (kk * 16 * LD + dp * 16) * 2);
       mma_bf16(acc[2 * dp], pf[kk], b[0], b[1]);
       mma_bf16(acc[2 * dp + 1], pf[kk], b[2], b[3]);
+    }
+}
+
+// c_to_a and mma_accumulate in f16 (10 mantissa bits to bf16's 7): the
+// int8-pool prefill read multiplies its P' (p times a v scale) by an
+// integer payload tile, exact in f16.
+__device__ __forceinline__ void c_to_a_f16(unsigned (&f)[4],
+                                           const float (&c0)[4],
+                                           const float (&c1)[4]) {
+  f[0] = pack_f16(c0[0], c0[1]);
+  f[1] = pack_f16(c0[2], c0[3]);
+  f[2] = pack_f16(c1[0], c1[1]);
+  f[3] = pack_f16(c1[2], c1[3]);
+}
+
+template <int D, int KS>
+__device__ __forceinline__ void mma_accumulate_f16(float (&acc)[D / 8][4],
+                                                   const unsigned (&pf)[KS][4],
+                                                   unsigned tile, int lane) {
+  constexpr int LD = D + 8;
+  const unsigned ta = a_rows<D>(tile, lane);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      unsigned b[4];
+      ldmatrix_x4_trans(b, ta + (kk * 16 * LD + dp * 16) * 2);
+      mma_f16(acc[2 * dp], pf[kk], b[0], b[1]);
+      mma_f16(acc[2 * dp + 1], pf[kk], b[2], b[3]);
     }
 }
 

@@ -40,12 +40,50 @@
 // longest tiles (the last rows) are scheduled first.  Left to later
 // work: `wgmma`, TMA and warp specialisation.
 //
-// f32 and int8 pools: `prefill_read_kernel`, in f32 on the CUDA cores,
-// far from the bound.  Design: one block per (64-row tile of grouped
-// queries, kv head, batch row), 256 threads.
-// The block keeps its q tile in shared memory, streams 32-key tiles of
-// k and v through shared memory (context pages looked up in the table,
-// then the chunk), and each thread holds 4 query rows x (2 scores,
+// int8 pools with bf16 activations: `prefill_read_i8_mma_kernel`, on
+// the tensor cores, with the same block layout (4 warps per 64-row tile
+// of grouped queries, kv head and batch row; longest tiles first).  The
+// per-(token, head) f32 scales fold into the products instead of into
+// the values: an int8 payload value (-127..127) is exact in bf16, so the
+// block stages the int8 K / V payload of a 64-key context tile (16-byte
+// `cp.async`, each chunk of key row j through its own page-table entry)
+// and its 64 + 64 scales (4-byte `cp.async`, stride n_kv in the
+// canonical [NP, page, n_kv] scale pools) into a landing area, converts
+// the payload exactly to 16-bit [64][D + 8] tiles (two stages,
+// AttnSmem's layout; K as bf16, V as f16) one tile ahead, and keeps each
+// stage's scales beside it.  Per tile each warp, from mma.cuh's
+// warp-level steps:
+//   S = Q K_int^T    mma_scores, f32 sums (exact products);
+//   s = S * (k_scale[j] * sm_scale * log2 e), then the mask, per column;
+//   m, alpha, l += sum p, with p = exp2(s - m) in f32 (unscaled);
+//   O += P' V_int    P' = p * v_scale[j], rounded to f16 by c_to_a_f16,
+//                    then mma_accumulate_f16;
+// and O / l goes out through store_rows.  The one rounding added to the
+// JAX kernel's f32 arithmetic is that of p' to f16 (relative 2^-11).
+// In bf16, as the bf16-pool kernel rounds p, it would cost up to |v| x
+// 2^-9 an output per dominant key, and an int8 pool's values reach
+// +-6: more than the 1e-2 tolerance of an output near 0 (the CPU
+// emulation measured 101% of it).  f16 holds the payload exactly and
+// p' up to 65504, so the kernel takes pools whose scales stay below
+// that (activations of |k|, |v| < 8.3e6); dequantising into a bf16
+// tile instead would round every context value k * k_scale and v *
+// v_scale to bf16 as well.  The chunk's own tiles (already dequantised
+// and rounded to bf16 by the page write) are staged straight into the
+// stage with scale 1 and multiply in bf16, as in the bf16-pool kernel.
+// Trouble it handles: keys at or past n_ctx land as zero
+// payload and zero scale and are still masked to NEG_INF (a zero scale
+// never stands in for the mask); the page size need not match the
+// tile; a pad row's all-sink table reads the sink's garbage, which only
+// its own (never compared) output sees.  Shared memory at D 128:
+// 104,960 B (Q, 2 x K, 2 x V bf16; the int8 landing tiles; 3 x 512 B of
+// scales), two blocks an SM.
+//
+// f32 activations: `prefill_read_kernel`, in f32 on the CUDA cores (the
+// tensor cores have no exact f32 product), far from the bound.  Design:
+// one block per (64-row tile of grouped queries, kv head, batch row), 256
+// threads.  The block keeps its q tile in shared memory, streams 32-key
+// tiles of k and v through shared memory (context pages looked up in the
+// table, then the chunk), and each thread holds 4 query rows x (2 scores,
 // Dh/16 output columns) of f32 state.  A block reads the row's context
 // once, so the context is read once per 64-row tile: ceil(S * group /
 // 64) times in all (8 at FLAGSHIP_PREFILL_KERNEL).
@@ -63,10 +101,11 @@
 // (FLAGSHIP_PREFILL_KERNEL: the bf16 chunk read once, the dequantised
 // bf16 chunk written once, int8 payload and f32 scales stored: 10.55 MB
 // per layer, 3.1 us).  The decode step's one-token write of an int8 pool
-// runs the same kernel (S = 1).  The read dequantises each context value
-// in f32 (payload x its token's scale) as it fills the shared-memory key
-// and value tiles, as `_prefill_read_kernel` does; the chunk part is
-// unchanged.
+// runs the same kernel (S = 1).  With f32 activations the read
+// dequantises each context value in f32 (payload x its token's scale) as
+// it fills the shared-memory key and value tiles, as
+// `_prefill_read_kernel` does; with bf16 activations it folds the scales
+// into the products on the tensor cores (above).
 #include <type_traits>
 
 #include "common.cuh"
@@ -457,6 +496,316 @@ prefill_read_mma_kernel(const __nv_bfloat16* __restrict__ q,
   });
 }
 
+// Shared memory of the int8-pool read: Q, K and V as bf16 tiles in two
+// stages (AttnSmem's layout), then the landing area of one context tile
+// (its int8 K and V payload [64][D] and its 64 k and 64 v scales), then
+// the scales of each bf16 stage.
+template <int D>
+struct PrefillI8Smem {
+  using Tiles = AttnSmem<D>;
+  static constexpr int I8_TILE = kAttnKeys * D;        // bytes
+  static constexpr int SCALES = 2 * kAttnKeys * 4;     // bytes
+  static constexpr unsigned K8 = Tiles::BYTES;
+  static constexpr unsigned V8 = K8 + I8_TILE;
+  static constexpr unsigned SC8 = V8 + I8_TILE;
+  static __host__ __device__ constexpr unsigned SC(int stage) {
+    return SC8 + (1 + stage) * SCALES;
+  }
+  static constexpr int BYTES = SC8 + 3 * SCALES;
+};
+
+// bytes 2 i and 2 i + 1 of w (int8) as one bf16x2 (or f16x2) register,
+// exactly
+template <bool F16>
+__device__ __forceinline__ unsigned i8x2_to_16x2(unsigned w, int i) {
+  const float lo = static_cast<float>(static_cast<int>(w << (24 - 16 * i))
+                                      >> 24);
+  const float hi = static_cast<float>(static_cast<int>(w << (16 - 16 * i))
+                                      >> 24);
+  return F16 ? pack_f16(lo, hi) : pack_bf16(lo, hi);
+}
+
+// 16 int8 payload values at `src` (shared) as 16 bf16 (or f16) at `dst`
+template <bool F16>
+__device__ __forceinline__ void i8x16_to_16(const unsigned char* src,
+                                            unsigned char* dst) {
+  const uint4 w = *reinterpret_cast<const uint4*>(src);
+  *reinterpret_cast<uint4*>(dst) =
+      make_uint4(i8x2_to_16x2<F16>(w.x, 0), i8x2_to_16x2<F16>(w.x, 1),
+                 i8x2_to_16x2<F16>(w.y, 0), i8x2_to_16x2<F16>(w.y, 1));
+  *reinterpret_cast<uint4*>(dst + 16) =
+      make_uint4(i8x2_to_16x2<F16>(w.z, 0), i8x2_to_16x2<F16>(w.z, 1),
+                 i8x2_to_16x2<F16>(w.w, 0), i8x2_to_16x2<F16>(w.w, 1));
+}
+
+// The int8-pool read with bf16 activations on the tensor cores (see the
+// header): q / out [B, S, H, D] and ck / cv [B, S, n_kv, D] bf16, pools
+// pk / pv [n_pages, page, n_kv, D] int8, scale pools ks / vs [n_pages,
+// page, n_kv] f32.
+template <int D>
+__global__ void __launch_bounds__(kAttnThreads, 2)
+prefill_read_i8_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ ck,
+                           const __nv_bfloat16* __restrict__ cv,
+                           const int8_t* __restrict__ pk,
+                           const int8_t* __restrict__ pv,
+                           const float* __restrict__ ks,
+                           const float* __restrict__ vs,
+                           const int* __restrict__ table,
+                           const int* __restrict__ starts,
+                           __nv_bfloat16* __restrict__ out, int S, int H,
+                           int n_kv, int page, int max_pages, int n_pages,
+                           float sm_scale) {
+  using Sm = PrefillI8Smem<D>;
+  using Tiles = AttnSmem<D>;
+  constexpr int LD = Tiles::LD, CH = Tiles::CHUNKS, CH8 = D / 16;
+  static_assert(kAttnThreads == 2 * kAttnKeys, "one scale copy a thread");
+  extern __shared__ __align__(16) unsigned char attn_smem[];
+  const unsigned base = smem_u32(attn_smem);
+
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * kAttnRows;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int group = H / n_kv;
+  const int rows = S * group;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int n_ctx = min(starts[b], max_pages * page);
+  const int* row_table = table + size_t(b) * max_pages;
+
+  // grouped query row r0 + r -> q[b, r / group, h * group + r % group]
+  auto q_row = [&](int row) {
+    return (size_t(b) * S + row / group) * H + h * group + row % group;
+  };
+#pragma unroll
+  for (int i = tid; i < kAttnRows * CH; i += kAttnThreads) {
+    const int r = i / CH, c = i % CH;
+    const bool ok = r0 + r < rows;
+    cp_async16(base + Tiles::Q + (r * LD + c * 8) * 2,
+               ok ? q + q_row(r0 + r) * D + c * 8 : q, ok);
+  }
+  cp_async_commit();
+
+  // context tiles first (every chunk query sits at or past `start`, so
+  // all keys j < n_ctx are visible), then the chunk's own keys up to the
+  // tile's last query position
+  const int n_ctx_t = (n_ctx + kAttnKeys - 1) / kAttnKeys;
+  const int n_ck = min(S, (min(rows, r0 + kAttnRows) - 1) / group + 1);
+  const int n_t = n_ctx_t + (n_ck + kAttnKeys - 1) / kAttnKeys;
+  // (token j, head h) of the pool, clipped into it as a JAX gather clips
+  auto pool_row = [&](int j) {
+    const int phys = min(max(row_table[j / page], 0), n_pages - 1);
+    return (size_t(phys) * page + j % page) * n_kv + h;
+  };
+  // context tile t's payload and scales into the landing area; keys at
+  // or past n_ctx land as zeros (and are masked all the same)
+  auto land = [&](int t) {
+    const int j0 = t * kAttnKeys;
+#pragma unroll
+    for (int i = tid; i < kAttnKeys * CH8; i += kAttnThreads) {
+      const int r = i / CH8, c = i % CH8;
+      const bool ok = j0 + r < n_ctx;
+      const size_t src = ok ? pool_row(j0 + r) * D + c * 16 : 0;
+      cp_async16(base + Sm::K8 + r * D + c * 16, pk + src, ok);
+      cp_async16(base + Sm::V8 + r * D + c * 16, pv + src, ok);
+    }
+    // thread i < 64 copies key i's k scale, thread 64 + i its v scale
+    const int r = tid & (kAttnKeys - 1);
+    const bool ok = j0 + r < n_ctx;
+    cp_async4(base + Sm::SC8 + tid * 4,
+              (tid < kAttnKeys ? ks : vs) + (ok ? pool_row(j0 + r) : 0), ok);
+  };
+  // tile t into bf16 stage st: a context tile converted from the landing
+  // area with its scales, a chunk tile copied in with scale 1
+  auto prepare = [&](int t, int st) {
+    float* sc = reinterpret_cast<float*>(attn_smem + Sm::SC(st));
+    if (t < n_ctx_t) {
+      // K as bf16 (for the bf16 q), V as f16 (for P' in f16)
+#pragma unroll
+      for (int i = tid; i < kAttnKeys * CH8; i += kAttnThreads) {
+        const int r = i / CH8, c = i % CH8;
+        const unsigned src = r * D + c * 16, dst = (r * LD + c * 16) * 2;
+        i8x16_to_16<false>(attn_smem + Sm::K8 + src,
+                           attn_smem + Tiles::K(st) + dst);
+        i8x16_to_16<true>(attn_smem + Sm::V8 + src,
+                          attn_smem + Tiles::V(st) + dst);
+      }
+      sc[tid] = reinterpret_cast<const float*>(attn_smem + Sm::SC8)[tid];
+    } else {
+      const int j0 = (t - n_ctx_t) * kAttnKeys;
+#pragma unroll
+      for (int i = tid; i < kAttnKeys * CH; i += kAttnThreads) {
+        const int r = i / CH, c = i % CH;
+        const int j = j0 + r;
+        const bool ok = j < S;
+        const size_t src =
+            ok ? ((size_t(b) * S + j) * n_kv + h) * D + c * 8 : 0;
+        const unsigned off = (r * LD + c * 8) * 2;
+        cp_async16(base + Tiles::K(st) + off, ck + src, ok);
+        cp_async16(base + Tiles::V(st) + off, cv + src, ok);
+      }
+      sc[tid] = 1.f;
+    }
+  };
+
+  if (n_ctx_t > 0) land(0);
+  cp_async_commit();
+  cp_async_wait<0>();       // the Q tile and tile 0's payload landed
+  __syncthreads();
+  prepare(0, 0);
+  __syncthreads();          // the landing area read before it is refilled
+  if (n_ctx_t > 1) land(1);
+  cp_async_commit();
+
+  unsigned qf[D / 16][4];   // Q as A fragments, one per k16 step
+  load_a<D>(qf, base + Tiles::Q + warp * 16 * LD * 2, lane);
+  float o[D / 8][4];
+#pragma unroll
+  for (int t = 0; t < D / 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[t][e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  const float scale2 = sm_scale * kLog2e;
+  const int c = (lane & 3) * 2;
+  // the lane's two fragment rows, and the chunk keys they see (jc <= s)
+  const int row0 = r0 + warp * 16 + (lane >> 2);
+  const int ck_lim0 = min(S, row0 / group + 1);
+  const int ck_lim1 = min(S, (row0 + 8) / group + 1);
+
+  for (int t = 0; t < n_t; ++t) {
+    cp_async_wait<0>();     // tile t's copies and tile t + 1's payload
+    __syncthreads();        // landed; tile t - 1 is done with its stage
+    if (t + 1 < n_t) prepare(t + 1, (t + 1) & 1);
+    __syncthreads();        // the landing area read before it is refilled
+    if (t + 2 < n_ctx_t) land(t + 2);
+    cp_async_commit();
+
+    const int st = t & 1;
+    const float* ksc = reinterpret_cast<const float*>(attn_smem + Sm::SC(st));
+    const float* vsc = ksc + kAttnKeys;
+    int lim[2];
+    if (t < n_ctx_t) {
+      lim[0] = lim[1] = n_ctx - t * kAttnKeys;
+    } else {
+      const int j0 = (t - n_ctx_t) * kAttnKeys;
+      lim[0] = ck_lim0 - j0;
+      lim[1] = ck_lim1 - j0;
+    }
+    float s[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    mma_scores<D, 8>(
+        s,
+        [&](int kk, unsigned (&f)[4]) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) f[e] = qf[kk][e];
+        },
+        base + Tiles::K(st), lane);
+
+    // each column's k scale (times sm_scale log2 e), the mask, the
+    // running max over the quad that shares a row
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float2 kf = *reinterpret_cast<const float2*>(ksc + n * 8 + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hh = e >> 1;
+        float x = s[n][e] * ((e & 1 ? kf.y : kf.x) * scale2);
+        if (n * 8 + c + (e & 1) >= lim[hh]) x = NEG_INF;
+        s[n][e] = x;
+        mx[hh] = fmaxf(mx[hh], x);
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      const float alpha = exp2f(m[hh] - mx[hh]);
+      m[hh] = mx[hh];
+      l[hh] *= alpha;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        o[n][2 * hh] *= alpha;
+        o[n][2 * hh + 1] *= alpha;
+      }
+    }
+
+    // p in f32 for l; a context tile's P' = p times its column's v scale
+    // as f16 A fragments of O += P' V_int, a chunk tile's p as bf16 ones
+    // of O += P V (as the bf16-pool kernel rounds p)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float2 vf = *reinterpret_cast<const float2*>(vsc + n * 8 + c);
+      const float p0 = exp2f(s[n][0] - mx[0]);
+      const float p1 = exp2f(s[n][1] - mx[0]);
+      const float p2 = exp2f(s[n][2] - mx[1]);
+      const float p3 = exp2f(s[n][3] - mx[1]);
+      l[0] += p0 + p1;
+      l[1] += p2 + p3;
+      s[n][0] = p0 * vf.x;
+      s[n][1] = p1 * vf.y;
+      s[n][2] = p2 * vf.x;
+      s[n][3] = p3 * vf.y;
+    }
+    unsigned pf[4][4];
+    if (t < n_ctx_t) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        c_to_a_f16(pf[kk], s[2 * kk], s[2 * kk + 1]);
+      mma_accumulate_f16<D, 4>(o, pf, base + Tiles::V(st), lane);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) c_to_a(pf[kk], s[2 * kk], s[2 * kk + 1]);
+      mma_accumulate<D, 4>(o, pf, base + Tiles::V(st), lane);
+    }
+  }
+
+  // O / l (l summed over the quad, clamped at 1e-30) out through the
+  // warp's own Q rows
+  float inv[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float lv = l[hh];
+    lv += __shfl_xor_sync(0xffffffffu, lv, 1);
+    lv += __shfl_xor_sync(0xffffffffu, lv, 2);
+    inv[hh] = 1.f / fmaxf(lv, 1e-30f);
+  }
+  store_rows<D>(reinterpret_cast<__nv_bfloat16*>(attn_smem + Tiles::Q) +
+                    warp * 16 * LD,
+                o, inv[0], inv[1], lane, [&](int r) -> __nv_bfloat16* {
+                  const int row = r0 + warp * 16 + r;
+                  return row < rows ? out + q_row(row) * D : nullptr;
+                });
+}
+
+template <int D>
+static int launch_prefill_read_i8_mma(dim3 grid, cudaStream_t st,
+                                      const void* q, const void* ck,
+                                      const void* cv, const void* pk,
+                                      const void* pv, const float* ks,
+                                      const float* vs, const int* table,
+                                      const int* starts, void* out, int S,
+                                      int H, int n_kv, int page,
+                                      int max_pages, int n_pages,
+                                      float sm_scale) {
+  using BF = __nv_bfloat16;
+  constexpr int smem = PrefillI8Smem<D>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      prefill_read_i8_mma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  prefill_read_i8_mma_kernel<D><<<grid, kAttnThreads, smem, st>>>(
+      static_cast<const BF*>(q), static_cast<const BF*>(ck),
+      static_cast<const BF*>(cv), static_cast<const int8_t*>(pk),
+      static_cast<const int8_t*>(pv), ks, vs, table, starts,
+      static_cast<BF*>(out), S, H, n_kv, page, max_pages, n_pages, sm_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D>
 static int launch_prefill_read_mma(dim3 grid, cudaStream_t st,
                                    const void* q, const void* ck,
@@ -611,8 +960,20 @@ extern "C" int tos_prefill_read(const void* q, const void* ck, const void* cv,
                                          max_pages, n_pages, sm_scale);
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == kBF16 && kv_dtype == kI8)
-    return launch_prefill_read_dh<__nv_bfloat16, int8_t>(TOS_ARGS);
+  if (dtype == kBF16 && kv_dtype == kI8) {
+    // int8 pools, bf16 activations: the tensor cores, scales folded
+    if (Dh == 128)
+      return launch_prefill_read_i8_mma<128>(grid, st, q, ck, cv, pk, pv, ks,
+                                             vs, table, starts, out, S, H,
+                                             n_kv, page, max_pages, n_pages,
+                                             sm_scale);
+    if (Dh == 64)
+      return launch_prefill_read_i8_mma<64>(grid, st, q, ck, cv, pk, pv, ks,
+                                            vs, table, starts, out, S, H,
+                                            n_kv, page, max_pages, n_pages,
+                                            sm_scale);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (dtype == kF32 && kv_dtype == kF32)
     return launch_prefill_read_dh<float, float>(TOS_ARGS);
   if (dtype == kF32 && kv_dtype == kI8)

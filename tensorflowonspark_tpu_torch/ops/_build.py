@@ -45,6 +45,8 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "tos_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                          _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    "tos_paged_decode_combine": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                 _P],
     "tos_page_write": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "tos_page_write_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                             _I, _I, _I, _I, _I, _I, _P],
@@ -167,6 +169,16 @@ def stream_ptr(device):
 
 def ptr(t):
     return ctypes.c_void_p(t.data_ptr())
+
+
+def aligned(t):
+    """``t`` contiguous, with a 16-byte aligned base (the kernels' vector
+    loads and ``cp.async`` copies need it): a misaligned tensor is cloned,
+    so the same kernel runs on an aligned copy."""
+    t = t.contiguous()
+    if t.data_ptr() % 16:
+        t = t.clone()
+    return t
 
 
 def dtype_code(t):

@@ -21,8 +21,9 @@ plain PyTorch version (:func:`flash_fwd_plain`, :func:`flash_bwd_dq_plain`,
 :func:`flash_bwd_dkv_plain`); a CUDA tensor launches the hand-written
 kernel in ``csrc/flash_attention.cu`` (design and bound in its header) or
 raises.  The kernels take head_dim 64 or 128, in f32 or bf16; in bf16 all
-three run on the tensor cores (and refuse rows that are not 16-byte
-aligned), in f32 on the CUDA cores.  Their card tests alone, with the
+three run on the tensor cores, in f32 on the CUDA cores.  The C entries
+refuse rows that are not 16-byte aligned; the wrappers hand them an
+aligned copy of a misaligned view.  Their card tests alone, with the
 prefill read's: ``python -m pytest --noconftest -m cuda
 tests/test_torch_cuda.py -k "flash or prefill"``.
 
@@ -145,7 +146,8 @@ def attention_reference(q, k, v, causal=True, sm_scale=None):
 
 
 def _card_args(*tensors):
-    """Check the tensors for the kernels and return them contiguous."""
+    """Check the tensors for the kernels and return them contiguous and
+    16-byte aligned (a misaligned view runs on an aligned copy)."""
     q = tensors[0]
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention: no kernel for {q.device}")
@@ -159,7 +161,7 @@ def _card_args(*tensors):
         if t.dtype != q.dtype:
             raise TypeError("q, k, v and dO must share one dtype on the card")
     _build.dtype_code(q)
-    return [t.contiguous() for t in tensors]
+    return [_build.aligned(t) for t in tensors]
 
 
 def _rows(t, name, shape):

@@ -10,9 +10,10 @@ Which implementation runs follows one rule: a CPU tensor takes the plain
 PyTorch version (:func:`paged_attention_plain`, the port of
 ``paged_attention_reference``); a CUDA tensor launches the hand-written
 kernel ``csrc/paged_attention.cu`` (design and bound in its header) or
-raises.  The kernel writes split-K partials ``(acc, m, l)``; the
-log-sum-exp combine across splits stays plain tensor code here, as it is
-jax-side code around the TPU kernel.
+raises.  The kernel writes split-K partials ``(acc, m, l)``, each split
+over its share of the row's occupied pages; a second small kernel merges
+them by their log-sum-exp weights (the JAX wrapper's combine) in one
+launch.
 
 int8 pools (``--generate_kv_dtype int8``) carry f32 per-(token, head)
 scales ``key_scales/value_scales [kv_pages, page, n_kv]``; both versions
@@ -162,9 +163,7 @@ def paged_attention(q, pages_key, pages_value, page_table, lengths, *,
             sm_scale=sm_scale)
     if q.device.type != "cuda":
         raise RuntimeError(f"paged_attention: no kernel for {q.device}")
-    B, S, H, Dh = q.shape
-    NP, page, n_kv, _ = pages_key.shape
-    max_pages = page_table.shape[1]
+    Dh = q.shape[-1]
     if Dh not in (64, 128):
         raise NotImplementedError(
             f"paged_attention kernel takes head_dim 64 or 128, got {Dh}")
@@ -176,15 +175,38 @@ def paged_attention(q, pages_key, pages_value, page_table, lengths, *,
                     ("page_table", page_table), ("lengths", lengths)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    parts = _split_partials(q, pages_key, pages_value, page_table, lengths,
+                            key_scales=key_scales, value_scales=value_scales,
+                            sm_scale=sm_scale, k_splits=k_splits)
+    out = _combine_splits(q, *parts)
+    (INT8_LAUNCHES if quant else paged_attention).launches += 1
+    return out
+
+
+paged_attention.launches = 0
+# launches of the int8-pool instantiation, made by paged_attention
+INT8_LAUNCHES = _build.Launches()
+
+
+def _split_partials(q, pages_key, pages_value, page_table, lengths, *,
+                    key_scales=None, value_scales=None, sm_scale=None,
+                    k_splits=8):
+    """The decode kernel's launch (card tensors, checked by
+    :func:`paged_attention`): each split's unnormalised ``(acc, m, l)``
+    over its span of the row's occupied pages, f32 ``[B, n_kv, n_splits,
+    S * group(, Dh)]``."""
+    B, S, H, Dh = q.shape
+    NP, page, n_kv, _ = pages_key.shape
+    max_pages = page_table.shape[1]
+    quant = key_scales is not None
     if sm_scale is None:
         sm_scale = 1.0 / (Dh ** 0.5)
     lib = _build.lib()
-    q = _aligned(q)
-    pages_key, pages_value = _aligned(pages_key), _aligned(pages_value)
+    q, pages_key, pages_value = (_build.aligned(t)
+                                 for t in (q, pages_key, pages_value))
     table = page_table.to(torch.int32).contiguous()
     lens = lengths.to(torch.int32).contiguous()
-    group = H // n_kv
-    rows = S * group
+    rows = S * (H // n_kv)
     n_splits = _pick_splits(k_splits, max_pages)
     acc = torch.empty((B, n_kv, n_splits, rows, Dh), dtype=torch.float32,
                       device=q.device)
@@ -199,27 +221,19 @@ def paged_attention(q, pages_key, pages_value, page_table, lengths, *,
         float(sm_scale), _build.dtype_code(q), _build.dtype_code(pages_key),
         _build.stream_ptr(q.device))
     _build.check(code, "tos_paged_decode")
-    (INT8_LAUNCHES if quant else paged_attention).launches += 1
-    # LSE combine across splits: splits past a row's pages carry (m=-1e30,
-    # l=0, acc=0) and drop out; rows with no visible key anywhere
-    # (lengths == 0) hit the denominator guard and come out as zeros
-    mx = m.amax(dim=2, keepdim=True)
-    w = torch.exp(m - mx)
-    denom = (w * l).sum(dim=2).clamp_min(1e-30)
-    out = (w[..., None] * acc).sum(dim=2) / denom[..., None]
-    out = out.reshape(B, n_kv, S, group, Dh).permute(0, 2, 1, 3, 4)
-    return out.reshape(B, S, H, Dh).to(q.dtype)
+    return acc, m, l
 
 
-paged_attention.launches = 0
-# launches of the int8-pool instantiation, made by paged_attention
-INT8_LAUNCHES = _build.Launches()
-
-
-def _aligned(t):
-    """Contiguous, with a 16-byte aligned base (the kernels' vector
-    loads need it)."""
-    t = t.contiguous()
-    if t.data_ptr() % 16:
-        t = t.clone()
-    return t
+def _combine_splits(q, acc, m, l):
+    """The combine kernel's launch: the splits' partials merged by their
+    log-sum-exp weights in split order, ``[B, S, H, Dh]`` in q's dtype;
+    rows with no visible key (lengths == 0) come out as exact zeros."""
+    B, S, H, Dh = q.shape
+    n_kv, n_splits = acc.shape[1], acc.shape[2]
+    out = torch.empty((B, S, H, Dh), dtype=q.dtype, device=q.device)
+    P = _build.ptr
+    code = _build.lib().tos_paged_decode_combine(
+        P(acc), P(m), P(l), P(out), B, S, H, n_kv, Dh, n_splits,
+        _build.dtype_code(q), _build.stream_ptr(q.device))
+    _build.check(code, "tos_paged_decode_combine")
+    return out

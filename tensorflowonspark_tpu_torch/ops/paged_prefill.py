@@ -11,15 +11,18 @@ Two kernels, one wrapper each, with the port's one rule: a CPU tensor
 takes the plain PyTorch version (:func:`write_pages_plain`,
 :func:`read_attention_plain`); a CUDA tensor launches the hand-written
 kernel in ``csrc/paged_prefill.cu`` (design and bounds in its header) or
-raises.  The read over a bf16 pool runs on the tensor cores, over an
-f32 or int8 pool on the CUDA cores.
+raises.  With bf16 activations the read runs on the tensor cores, over
+a bf16 pool or an int8 one (whose scales fold into the products); with
+f32 activations on the CUDA cores.
 
 int8 pools (``--generate_kv_dtype int8``) keep f32 per-(token, head)
 scales ``[kv_pages, page, n_kv]`` beside the payload.  The page write
 quantises the chunk (:func:`kv_quantize`, bit-identical to the JAX
 package's ``_kv_quantize``) and returns it dequantised to the activation
-dtype; the read attends to that chunk and dequantises the context pages
-in f32.  On the card the quantisation is fused into the write kernel
+dtype; the read attends to that chunk and to the context pages, each
+value payload x scale in f32 (on the tensor cores the scales multiply
+the f32 products instead, and only p x v_scale rounds to bf16).  On the
+card the quantisation is fused into the write kernel
 (:func:`_write_pages_int8`), and the int8 launches count apart from the
 float ones.
 
@@ -32,8 +35,8 @@ bytes are garbage by contract, masked on every read.
 import torch
 
 from . import _build
-from .paged_attention import (NEG_INF, _aligned, check_card_scales,
-                              check_scales, dequantize_pages)
+from .paged_attention import (NEG_INF, check_card_scales, check_scales,
+                              dequantize_pages)
 
 
 def kv_quantize(x):
@@ -173,7 +176,7 @@ def _write_pages(k, v, pages_key, pages_value, page_table, starts):
     B, S, n_kv, Dh = k.shape
     NP, page = pages_key.shape[:2]
     lib = _build.lib()
-    k, v = _aligned(k), _aligned(v)
+    k, v = _build.aligned(k), _build.aligned(v)
     table = page_table.to(torch.int32).contiguous()
     st = starts.to(torch.int32).contiguous()
     P = _build.ptr
@@ -206,7 +209,7 @@ def _write_pages_int8(k, v, pages_key, pages_value, key_scales,
     B, S, n_kv, Dh = k.shape
     NP, page = pages_key.shape[:2]
     lib = _build.lib()
-    k, v = _aligned(k), _aligned(v)
+    k, v = _build.aligned(k), _build.aligned(v)
     ck, cv = torch.empty_like(k), torch.empty_like(v)
     table = page_table.to(torch.int32).contiguous()
     st = starts.to(torch.int32).contiguous()
@@ -241,8 +244,8 @@ def _read_attention(q, ck, cv, pages_key, pages_value, page_table, starts,
     if sm_scale is None:
         sm_scale = 1.0 / (Dh ** 0.5)
     lib = _build.lib()
-    q, ck, cv = _aligned(q), _aligned(ck), _aligned(cv)
-    pages_key, pages_value = _aligned(pages_key), _aligned(pages_value)
+    q, ck, cv, pages_key, pages_value = (
+        _build.aligned(t) for t in (q, ck, cv, pages_key, pages_value))
     table = page_table.to(torch.int32).contiguous()
     st = starts.to(torch.int32).contiguous()
     out = torch.empty_like(q)

@@ -13,8 +13,11 @@ tiles, empty rows, rows past the table, pad rows, page 64 with starts
 and contexts off the page and the 64-key tile; flash sequences that are
 not a multiple of the 64 x 32 tiles, causal and not, and in bf16 on the
 tensor-core kernels' 64-row / 64-key tile edges (S 63, 64, 65, 129,
-1024) at GQA groups 1 to 8 (the backward also repeated bitwise, and
-refusing rows that are not 16-byte aligned); AdamW leaves of
+1024) at GQA groups 1 to 8 (the backward also repeated bitwise; the C
+entries refuse rows that are not 16-byte aligned, the wrappers run an
+aligned copy of them and give its bits); paged decode rows shorter than
+their splits, repeated bitwise and alone as in a batch; the int8-pool
+prefill read on the tensor cores over several 64-key tiles; AdamW leaves of
 odd sizes; quantised matmuls at 1 to 2048 rows (16, 17 and 65 on the
 tensor-core tile edges), K 1 to 8192 (130: x rows not 16-byte aligned),
 int4 groups of 16, 32, 128 and 256, N 5 to 32000, 3-D activations; int8 kv
@@ -50,6 +53,7 @@ from tensorflowonspark_tpu_torch import (benchmarks, export, ops, optim,
                                          optim8bit, quantize, serve)
 from tensorflowonspark_tpu_torch.models import decode as port_decode
 from tensorflowonspark_tpu_torch.models import transformer as port_tf
+from tensorflowonspark_tpu_torch.ops import _build
 from tensorflowonspark_tpu_torch.ops import flash_attention as fa
 from tensorflowonspark_tpu_torch.ops import fused_optim as fo
 from tensorflowonspark_tpu_torch.ops import layernorm as ln
@@ -239,7 +243,8 @@ def test_flash_backward_kernels_repeat_bitwise(dev, S, H, n_kv, D, causal):
 
 
 def test_flash_kernels_refuse_what_they_do_not_take(dev):
-    # bf16 rows that are not 16-byte aligned, and head_dim 32, raise
+    # the bf16 C entries refuse rows that are not 16-byte aligned (the
+    # wrappers hand them an aligned copy instead), and head_dim 32 raises
     # rather than take another path
     gen = torch.Generator().manual_seed(11)
     B, S, H, D = 1, 70, 4, 64
@@ -248,16 +253,50 @@ def test_flash_kernels_refuse_what_they_do_not_take(dev):
     q = buf[1:].view(B, S, H, D)                 # 2 bytes off
     k = torch.randn((B, S, H, D), generator=gen).to(dev, torch.bfloat16)
     lse = torch.zeros((B, H, S), device=dev)
-    for call in (lambda: fa.flash_fwd(q, k, k),
-                 lambda: fa.flash_bwd_dq(q, k, k, k, lse, lse),
-                 lambda: fa.flash_bwd_dkv(k, k, k, q, lse, lse)):
+    out, dk, dv = (torch.empty_like(k) for _ in range(3))
+    lib, P = _build.lib(), _build.ptr
+    tail = (B, S, H, H, D, D ** -0.5, 1, _build.dtype_code(q),
+            _build.stream_ptr(dev))
+    for name, args in (
+            ("tos_flash_fwd", (q, k, k, out, lse)),
+            ("tos_flash_bwd_dq", (q, k, k, k, lse, lse, out)),
+            ("tos_flash_bwd_dkv", (k, k, k, q, lse, lse, dk, dv))):
+        code = getattr(lib, name)(*map(P, args), *tail)
         with pytest.raises(RuntimeError, match="CUDA error"):
-            call()
+            _build.check(code, name)
     small = k[..., :32].contiguous()
     with pytest.raises(NotImplementedError, match="head_dim"):
         fa.flash_bwd_dq(small, small, small, small, lse, lse)
     with pytest.raises(NotImplementedError, match="head_dim"):
         fa.flash_bwd_dkv(small, small, small, small, lse, lse)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_wrappers_realign_misaligned_views(dev, D):
+    # a bf16 view 2 bytes off a 16-byte boundary runs the same kernel on
+    # an aligned copy: the bits of the aligned input's result
+    gen = torch.Generator().manual_seed(D + 3)
+    B, S, H, n_kv = 1, 70, 4, 2
+    tensors = {}
+    for name, h in (("q", H), ("k", n_kv), ("v", n_kv), ("do", H)):
+        n = B * S * h * D
+        buf = torch.randn(n + 1, generator=gen).to(dev, torch.bfloat16)
+        tensors[name] = buf[1:].view(B, S, h, D)
+    assert all(t.data_ptr() % 16 for t in tensors.values())
+    copies = {name: t.clone() for name, t in tensors.items()}
+    assert not any(t.data_ptr() % 16 for t in copies.values())
+    lse = torch.randn((B, H, S), generator=gen).to(dev)
+    delta = torch.randn((B, H, S), generator=gen).to(dev)
+
+    def run(t):
+        out, out_lse = fa.flash_fwd(t["q"], t["k"], t["v"])
+        return [out, out_lse,
+                fa.flash_bwd_dq(t["q"], t["k"], t["v"], t["do"], lse, delta),
+                *fa.flash_bwd_dkv(t["q"], t["k"], t["v"], t["do"], lse,
+                                  delta)]
+
+    for got, want in zip(run(tensors), run(copies)):
+        assert torch.equal(got, want)
 
 
 def test_flash_attention_autograd_on_card(dev):
@@ -685,6 +724,102 @@ def test_int8_prefill_kernels_match_plain(dev, dtype, S, H, n_kv, Dh,
     assert after["page_write"] == counts["page_write"]
     torch.testing.assert_close(out[:3].float(), ref[:3].float(),
                                atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def _kernels_launched(fn):
+    """``{kernel name: launches}`` of the CUDA kernels that ``fn()`` runs,
+    from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    # the first CUDA profile of a process can drop the records of its
+    # first kernels while CUPTI starts up: count from a second profile
+    with profile(activities=[ProfilerActivity.CUDA]):
+        fn()
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {ev.key: ev.count for ev in prof.key_averages()
+            if getattr(ev, "device_type", None)
+            == torch.autograd.DeviceType.CUDA}
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("S,H,n_kv,Dh", [(1, 16, 8, 128), (3, 8, 2, 64)])
+def test_decode_spans_follow_the_occupied_pages(dev, kv, S, H, n_kv, Dh):
+    # 8 splits over 16 table pages: rows of 3 pages (fewer than the
+    # splits), one token past a page, 13 pages and the full table; the
+    # split partials merge in one more launch, repeated launches give the
+    # same bits, and each row alone gives its bits in the batch
+    gen = torch.Generator().manual_seed(S * 10 + Dh + (kv == "int8"))
+    B, page, max_pages = 4, 16, 16
+    if kv == "int8":
+        pools, scales, table, _ = _int8_pool(gen, B, max_pages, page, n_kv,
+                                             Dh, dev)
+        sc = dict(key_scales=scales[0], value_scales=scales[1])
+    else:
+        pk, pv, table, _ = _pool(gen, B, max_pages, page, n_kv, Dh,
+                                 torch.bfloat16, dev)
+        pools, sc = [pk, pv], {}
+    q = torch.randn((B, S, H, Dh), generator=gen).to(dev, torch.bfloat16)
+    lengths = torch.tensor([40, 17, 200, 256], dtype=torch.int32,
+                           device=dev)
+    counts = ops.launch_counts()
+    out = pa.paged_attention(q, *pools, table, lengths, **sc)
+    key = "paged_attention_int8" if kv == "int8" else "paged_attention"
+    assert ops.launch_counts()[key] == counts[key] + 1
+    ref = pa.paged_attention_plain(q, *pools, table, lengths, **sc)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[
+        torch.bfloat16], rtol=TOL[torch.bfloat16])
+    launched = _kernels_launched(
+        lambda: pa.paged_attention(q, *pools, table, lengths, **sc))
+    decode = {k: n for k, n in launched.items() if "paged_decode" in k}
+    assert sorted(decode.values()) == [1, 1], launched
+    assert any("combine" in k for k in decode), launched
+    again = pa.paged_attention(q, *pools, table, lengths, **sc)
+    assert torch.equal(again.view(torch.int16), out.view(torch.int16))
+    for b in range(B):
+        alone = pa.paged_attention(q[b:b + 1], *pools, table[b:b + 1],
+                                   lengths[b:b + 1], **sc)
+        assert torch.equal(alone.view(torch.int16),
+                           out[b:b + 1].view(torch.int16)), b
+
+
+@pytest.mark.parametrize("S,H,n_kv,Dh,starts", [
+    (100, 8, 2, 128, (130, 200, 77, 0)),
+    (70, 16, 4, 64, (193, 131, 64, 0)),
+])
+def test_int8_prefill_read_runs_on_the_tensor_cores(dev, S, H, n_kv, Dh,
+                                                    starts):
+    # bf16 activations over an int8 pool: contexts of several 64-key
+    # tiles at page 16, starts off the tile, a pad row (row 3, its table
+    # all sink), chunks longer than one tile; the new kernel runs once a
+    # call, within TOL of the plain version, and repeats its bits
+    gen = torch.Generator().manual_seed(S + Dh + 5)
+    B, page, max_pages = len(starts), 16, 24
+    pools, scales, table, NP = _int8_pool(gen, B, max_pages, page, n_kv, Dh,
+                                          dev)
+    table[3] = NP - 1
+    q = torch.randn((B, S, H, Dh), generator=gen).to(dev, torch.bfloat16)
+    ck, cv = (torch.randn((B, S, n_kv, Dh), generator=gen).to(
+        dev, torch.bfloat16) for _ in range(2))
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    sc = dict(key_scales=scales[0], value_scales=scales[1])
+    counts = ops.launch_counts()
+    out = pp._read_attention(q, ck, cv, *pools, table, st, **sc)
+    after = ops.launch_counts()
+    assert after["prefill_read_int8"] == counts["prefill_read_int8"] + 1
+    assert after["prefill_read"] == counts["prefill_read"]
+    ref = pp.read_attention_plain(q, ck, cv, *pools, table, st, **sc)
+    torch.testing.assert_close(out[:3].float(), ref[:3].float(),
+                               atol=TOL[torch.bfloat16],
+                               rtol=TOL[torch.bfloat16])
+    launched = _kernels_launched(
+        lambda: pp._read_attention(q, ck, cv, *pools, table, st, **sc))
+    assert [n for k, n in launched.items()
+            if "prefill_read_i8_mma_kernel" in k] == [1], launched
+    again = pp._read_attention(q, ck, cv, *pools, table, st, **sc)
+    assert torch.equal(again.view(torch.int16), out.view(torch.int16))
 
 
 def test_kv_quantize_on_card_gives_the_cpu_bytes(dev):

@@ -39,6 +39,7 @@ from tensorflowonspark_tpu_torch.models import decode as port_decode
 from tensorflowonspark_tpu_torch.models import transformer as port_tf
 from tensorflowonspark_tpu_torch.ops import paged_attention as port_pa
 from tensorflowonspark_tpu_torch.ops import paged_prefill as port_pp
+from test_torch_paged_attention import decode_split_order
 
 # the JAX ops package binds its kernel functions under the submodules'
 # names, so the submodules are fetched by their full names
@@ -101,34 +102,65 @@ DECODE_CASES = {
 }
 
 
-@pytest.mark.parametrize("name", list(DECODE_CASES))
-def test_int8_paged_attention_matches_jax_kernel(name):
-    kw = DECODE_CASES[name]
-    rng = np.random.RandomState(len(name))
-    B, S, H, n_kv, page, max_pages, Dh = (kw["B"], kw["S"], kw["H"],
-                                          kw["n_kv"], 8, 4, 16)
+def _int8_decode_case(seed, B, S, H, n_kv, lengths, max_pages=4, page=8,
+                      Dh=16):
+    """q, an int8 pool and its scales, a shuffled table whose unoccupied
+    entries name the last pool page, and the lengths."""
+    rng = np.random.RandomState(seed)
     NP = B * max_pages + 3
     q = rng.randn(B, S, H, Dh).astype(np.float32)
     (pk, pv), (ks, vs) = _int8_pool(rng, NP, page, n_kv, Dh)
     perm = rng.permutation(NP - 1)
     table = np.full((B, max_pages), NP - 1, np.int32)
     off = 0
-    for b, n in enumerate(kw["lengths"]):
+    for b, n in enumerate(lengths):
         used = -(-n // page)
         table[b, :used] = perm[off:off + used]
         off += used
-    lengths = np.asarray(kw["lengths"], np.int32)
-    args = (q, pk, pv, table, lengths)
+    return (q, pk, pv, table, np.asarray(lengths, np.int32)), (ks, vs)
+
+
+def _jax_decode(args, ks, vs):
+    return np.asarray(jax_pa.paged_attention(
+        *[jnp.asarray(a) for a in args], interpret=True,
+        key_scales=jnp.asarray(ks), value_scales=jnp.asarray(vs)))
+
+
+@pytest.mark.parametrize("name", list(DECODE_CASES))
+def test_int8_paged_attention_matches_jax_kernel(name):
+    args, (ks, vs) = _int8_decode_case(len(name), **DECODE_CASES[name])
     out = port_pa.paged_attention(
         *[torch.from_numpy(a) for a in args],
         key_scales=torch.from_numpy(ks), value_scales=torch.from_numpy(vs))
-    jargs = [jnp.asarray(a) for a in args]
-    jsc = dict(key_scales=jnp.asarray(ks), value_scales=jnp.asarray(vs))
-    kernel = np.asarray(jax_pa.paged_attention(*jargs, interpret=True, **jsc))
-    ref = np.asarray(jax_pa.paged_attention_reference(*jargs, **jsc))
+    kernel = _jax_decode(args, ks, vs)
+    ref = np.asarray(jax_pa.paged_attention_reference(
+        *[jnp.asarray(a) for a in args], key_scales=jnp.asarray(ks),
+        value_scales=jnp.asarray(vs)))
     np.testing.assert_allclose(out.numpy(), kernel, atol=ATOL, rtol=RTOL)
     np.testing.assert_allclose(out.numpy(), ref, atol=ATOL, rtol=RTOL)
     assert not out[0].any()          # the empty row is exact zeros
+
+
+DECODE_ORDER_CASES = dict(DECODE_CASES, **{
+    # 8 splits over 8 table pages: rows of 1, 2 and 8 pages
+    "short-rows": dict(B=3, S=1, H=4, n_kv=2, lengths=[5, 12, 64],
+                       max_pages=8)})
+
+
+@pytest.mark.parametrize("name", list(DECODE_ORDER_CASES))
+def test_int8_decode_order_of_work_matches_jax_kernel(name):
+    """Kernel 1's order of work over an int8 pool (occupied-page splits,
+    one softmax update per token tile, scales folded into the f32
+    products; ``decode_split_order``) against the JAX kernel in interpret
+    mode: it differs only in the order and rounding of f32 sums."""
+    args, (ks, vs) = _int8_decode_case(len(name) + 7,
+                                       **DECODE_ORDER_CASES[name])
+    got = decode_split_order(*[torch.from_numpy(a) for a in args],
+                             key_scales=torch.from_numpy(ks),
+                             value_scales=torch.from_numpy(vs), tile=16)
+    np.testing.assert_allclose(got.numpy(), _jax_decode(args, ks, vs),
+                               atol=ATOL, rtol=RTOL)
+    assert not got[args[4] == 0].any()
 
 
 def _prefill_case(seed, H, n_kv, S=12, page=8, max_pages=4, Dh=16,
@@ -189,6 +221,107 @@ def test_int8_paged_prefill_matches_jax_kernel(name):
                                       _bits(np.asarray(want)[nonsink]))
     np.testing.assert_allclose(out.numpy()[live], np.asarray(jout)[live],
                                atol=ATOL, rtol=RTOL)
+
+
+def _i8_tensor_core_read(q, ck, cv, pk, pv, ks, vs, table, starts,
+                         tile=64):
+    """The arithmetic of kernel 3's int8-pool read on the tensor cores
+    (csrc/paged_prefill.cu ``prefill_read_i8_mma_kernel``), emulated in
+    torch: 64-key tiles, first the row's context (keys j < start, read
+    through the table and clipped into the pool), then the chunk's own;
+    scores = (bf16 q . exact-bf16 int8 payload, f32 sums) x (k_scale x
+    sm_scale x log2 e), in log2 units; f32 running max and sum; l from
+    the f32 p; p x v_scale rounded to f16 before the product with the
+    payload (f32 sums); the chunk tiles with scale 1 and p rounded to
+    bf16 (the bf16-pool kernel's rounding); out rounded to bf16.
+    Returns ``[B, S, H, Dh]`` bf16."""
+    B, S, H, Dh = q.shape
+    NP, page, n_kv, _ = pk.shape
+    max_pages = table.shape[1]
+    group = H // n_kv
+    rows = S * group
+    scale2 = Dh ** -0.5 * np.log2(np.e)
+    neg = port_pa.NEG_INF
+    out = torch.empty(B, S, H, Dh, dtype=torch.bfloat16)
+    for b in range(B):
+        n_ctx = min(int(starts[b]), max_pages * page)
+        j = torch.arange(n_ctx)
+        phys = table[b, j // page].long().clamp(0, NP - 1)
+        ctx = [(pk[phys, j % page].float(), ks[phys, j % page],
+                pv[phys, j % page].float(), vs[phys, j % page], None,
+                torch.float16)]
+        r = torch.arange(rows)
+        jc = torch.arange(S)
+        ones = torch.ones(S, n_kv)
+        chunk = [(ck[b].float(), ones, cv[b].float(), ones,
+                  jc[None, :] <= (r // group)[:, None], torch.bfloat16)]
+        for h in range(n_kv):
+            qh = q[b, :, h * group:(h + 1) * group].reshape(rows, Dh).float()
+            m = torch.full((rows,), neg)
+            l = torch.zeros(rows)
+            o = torch.zeros(rows, Dh)
+            for k, ksc, v, vsc, mask, p_dtype in ctx + chunk:
+                for k0 in range(0, k.shape[0], tile):
+                    sl = slice(k0, k0 + tile)
+                    s = (qh @ k[sl, h].T) * (ksc[sl, h] * scale2)[None]
+                    if mask is not None:
+                        s = torch.where(mask[:, sl], s, torch.tensor(neg))
+                    mn = torch.maximum(m, s.amax(-1))
+                    alpha = torch.exp2(m - mn)
+                    p = torch.exp2(s - mn[:, None])
+                    l = l * alpha + p.sum(-1)
+                    p = (p * vsc[sl, h][None]).to(p_dtype).float()
+                    o = o * alpha[:, None] + p @ v[sl, h]
+                    m = mn
+            o = (o / l.clamp_min(1e-30)[:, None]).bfloat16()
+            out[b, :, h * group:(h + 1) * group] = o.reshape(S, group, Dh)
+    return out
+
+
+@pytest.mark.parametrize("Dh", [64, 128])
+def test_int8_tensor_core_read_fits_the_tolerance(Dh):
+    """Kernel 3's int8-pool read on the tensor cores rounds one thing the
+    JAX kernel keeps in f32: p x v_scale, to f16 before the product with
+    the payload (and, over the chunk, p to bf16, as the bf16-pool kernel
+    does).  Its emulation
+    (``_i8_tensor_core_read``) stays within the card tests' bf16 TOL
+    (atol = rtol = 1e-2) of JAX ``_read_attention`` in interpret mode, on
+    bf16 activations over an int8 pool: a shuffled table, page 16, starts
+    130 and 77 (not multiples of the 64-key tile; contexts of 3 and 2
+    tiles), a fresh row, a chunk of 80 (two tiles), GQA group 2.  The
+    largest |error| / (atol + rtol |ref|) is 0.62 at Dh 128 and 0.63 at
+    Dh 64: one bf16 step of an output just above 4 (the plain version
+    itself is one step off at 0.44 / 0.46).  Rounding p x v_scale to
+    bf16 instead gave 1.01 at Dh 64: an error of |v| x 2^-9 on an output
+    near 0, where the int8 pool's values reach +-6."""
+    rng = np.random.RandomState(300 + Dh)
+    B, S, H, n_kv, page = 3, 80, 4, 2, 16
+    starts = np.asarray([130, 77, 0], np.int32)
+    max_pages = -(-(int(starts.max()) + S) // page)
+    NP = B * max_pages + 2
+    (pk, pv), (ks, vs) = _int8_pool(rng, NP, page, n_kv, Dh)
+    table = rng.permutation(NP - 1)[:B * max_pages].reshape(
+        B, max_pages).astype(np.int32)
+    q, ck, cv = (torch.from_numpy(rng.randn(B, S, h, Dh).astype(
+        np.float32)).bfloat16() for h in (H, n_kv, n_kv))
+    want = np.asarray(jax_pp._read_attention(
+        *(jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (q, ck, cv)),
+        jnp.asarray(pk), jnp.asarray(pv), jnp.asarray(ks), jnp.asarray(vs),
+        jnp.asarray(table), jnp.asarray(starts), sm_scale=Dh ** -0.5,
+        interpret=True), np.float32)
+    got = _i8_tensor_core_read(
+        q, ck, cv, *(torch.from_numpy(a) for a in (pk, pv, ks, vs, table)),
+        starts)
+    assert got.dtype == torch.bfloat16
+    share = (np.abs(got.float().numpy() - want)
+             / (1e-2 + 1e-2 * np.abs(want))).max()
+    assert share < 1.0, share
+    # the same inputs through the port's plain version
+    plain = port_pp.read_attention_plain(
+        q, ck, cv, *(torch.from_numpy(a) for a in (pk, pv, table, starts)),
+        key_scales=torch.from_numpy(ks), value_scales=torch.from_numpy(vs))
+    np.testing.assert_allclose(got.float().numpy(), plain.float().numpy(),
+                               atol=1e-2, rtol=1e-2)
 
 
 def _pair(seed, **kw):
