@@ -15,12 +15,15 @@ caught and reported as passed):
 2. build: every ``csrc/*.cu`` with nvcc for sm_90a, from a clean build
    dir; each kernel's registers, shared memory and spill bytes from
    ``-Xptxas -v``, by name, and the run fails if a tensor-core kernel
-   (``*_mma_kernel``, ``*_tc_kernel``) or a paged decode kernel spills;
-   each kernel row below carries the figures of its main path's
-   instantiations (``ptxas``);
+   (``*_mma_kernel``, ``*_tc_kernel``), a paged decode, page write or
+   LayerNorm kernel spills (NO_SPILL); each kernel row below carries the
+   figures of its main path's instantiations (``ptxas``); then the
+   timer's floor (``launch_floor``: ``time_ms`` of a one-element
+   ``zero_()``), which every kernel row carries as ``floor_ms``;
 3. serving kernels against their plain PyTorch versions on the card, at
    the flagship shapes in bf16 (paged decode at FLAGSHIP_DECODE, page
-   write and prefill read at FLAGSHIP_PREFILL_KERNEL), with CUDA-event
+   write and prefill read at FLAGSHIP_PREFILL_KERNEL, the page write
+   also at a FLAGSHIP_DECODE step under ``shapes``), with CUDA-event
    times of the kernel, its plain version and one library call, and the
    analytic bound; the paged decode also with its decode kernel and its
    split combine timed apart (``kernel_ms``, ``combine_ms``); the prefill
@@ -35,7 +38,10 @@ caught and reported as passed):
    port's ``make_server`` on 127.0.0.1 — a concurrent greedy burst of 8
    requests, one of them again alone under torch.profiler, one seeded
    sampled request twice — with every serving kernel's launch count > 0
-   and the page pool conserved;
+   and the page pool conserved; each serving run reports its kernels'
+   launches by shape (``launches_by_shape``: decode steps and prefill
+   dispatches times the launching modules of one forward, and whether
+   they add up to the wrapper's count);
 5a. quantised kernels (9 and 10) against their plain versions on the
    card in bf16 at FLAGSHIP_QUANT_MATMUL (the ``wi`` shape, and ``wo``
    with K and N swapped, each at a 16-row decode step and a 1024-row
@@ -53,7 +59,9 @@ caught and reported as passed):
 5d. the int8 kv branch of kernels 1-3 against their plain versions at
    phase 3's shapes (bf16 activations; the page write's payload, scales
    and dequantised chunk bitwise equal to the plain version's on the card
-   and on the CPU; the decode kernel and combine timed apart; the prefill
+   and on the CPU, at the prefill chunk and at a FLAGSHIP_DECODE step
+   (S 1, 16 rows at position 2000), each timed under ``shapes``; the
+   decode kernel and combine timed apart; the prefill
    read, on the tensor cores, held to the f32 line as in phase 3), and
    kernel 11 (LayerNorm) at 1024 x 2048 and 8 x 2048
    against its plain version and ``F.layer_norm``, timed like phase 3;
@@ -99,7 +107,9 @@ caught and reported as passed):
    ``make_train_step``: both refuse make_flagship_step's bf16 mu): a
    warm-up step and one window of 3 steps, the loss finite, step ms and
    peak memory beside phase 8's;
-9. the ``kernels`` line (launches from each kernel's own main path: the
+9. the ``launch_split`` line (the serving kernels' launches by shape,
+   each from its own main path); the ``kernels`` line (launches from
+   each kernel's own main path: the
    quantised kernels from their serving run, the int8 kv kernels from the
    int8 kv run with bf16 weights, kernel 11 from the fused LayerNorm
    run, kernel 8 from phase 8b); then the card line and, last, the
@@ -176,6 +186,16 @@ def time_ms(fn, reps=25, warmup=3):
     return times[len(times) // 2]
 
 
+def launch_floor_ms():
+    """The timer's floor: :func:`time_ms` of one launch that does next to
+    nothing (a one-element ``zero_()`` on the card), the least any kernel
+    row can read."""
+    import torch
+
+    one = torch.zeros(1, device="cuda")
+    return time_ms(one.zero_)
+
+
 def bound(nbytes, flops, peak=PEAK_BF16_FLOP_PER_S):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
@@ -246,6 +266,12 @@ ROW_SYMBOLS = {
 }
 
 
+# fragments of the kernel names that must show 0 spill bytes: the
+# tensor-core kernels and the kernels redesigned for bytes in flight
+NO_SPILL = ("mma_kernel", "_tc_kernel", "paged_decode", "page_write",
+            "layernorm_kernel")
+
+
 def attach_ptxas(rows, built):
     """Each kernel row's ``ptxas``: registers, static shared memory and
     spill bytes of the instantiations of its main path (ROW_SYMBOLS),
@@ -256,6 +282,65 @@ def attach_ptxas(rows, built):
             re.sub(r"^_ZN3tos\d+", "", sym).split("EEv")[0]: figures
             for sym, figures in built.items()
             if any(f in sym for f in frags)}
+
+
+def attach_floor(rows, floor_ms):
+    """Each kernel row's ``floor_ms``: the timer's floor of this run
+    (:func:`launch_floor_ms`), beside the row's times."""
+    for row in rows.values():
+        row["floor_ms"] = floor_ms
+
+
+def main_numbers(shapes, label="prefill"):
+    """A row's top-level numbers: those of its ``label`` shape (the other
+    shapes stay under ``shapes``)."""
+    return dict({key: shapes[label][key] for key in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        main_numbers=label)
+
+
+# kernel -> the modules of one forward that launch it once each, at a
+# decode step and at a prefill dispatch (None: not at that shape); a
+# bf16 pool's decode write is plain indexing, not kernel 2
+KERNEL_FORWARD = {
+    "paged_attention": ("attention", None),
+    "paged_attention_int8": ("attention", None),
+    "page_write": (None, "attention"),
+    "page_write_int8": ("attention", "attention"),
+    "prefill_read": (None, "attention"),
+    "prefill_read_int8": (None, "attention"),
+    "int8_matmul": ("quantized", "quantized"),
+    "int4_matmul": ("quantized", "quantized"),
+    "layernorm": ("fused_ln", "fused_ln"),
+}
+
+
+def forward_modules(model):
+    """The modules of one forward that launch a serving kernel once
+    each: attention layers, quantised projections, fused LayerNorms."""
+    from tensorflowonspark_tpu_torch.models import transformer as tf
+
+    mods = list(model.modules())
+    return dict(
+        attention=sum(isinstance(m, tf.Attention) for m in mods),
+        quantized=sum(isinstance(m, tf.Dense) and m.quant is not None
+                      for m in mods),
+        fused_ln=sum(isinstance(m, tf.FusedLayerNorm) for m in mods))
+
+
+def launch_split(launches, modules, decode_steps, prefill_dispatches):
+    """Each kernel's launches in a serving run by shape, computed from the
+    run's decode steps and prefill dispatches and the launching modules
+    of one forward (no counter on the hot path): ``{kernel: dict(decode,
+    prefill, adds_up)}``, ``adds_up`` when the two sum to the wrapper's
+    own count."""
+    split = {}
+    for name, n in launches.items():
+        at_decode, at_prefill = KERNEL_FORWARD[name]
+        dec = decode_steps * modules[at_decode] if at_decode else 0
+        pre = prefill_dispatches * modules[at_prefill] if at_prefill else 0
+        split[name] = dict(decode=dec, prefill=pre, adds_up=dec + pre == n)
+    return split
 
 
 def decode_times(pa, q, pools, table, lengths, **sc):
@@ -271,6 +356,115 @@ def decode_times(pa, q, pools, table, lengths, **sc):
 def shuffled_table(torch, gen, B, max_pages, n_pages, dev):
     perm = torch.randperm(n_pages - 1, generator=gen).to(torch.int32)
     return perm[:B * max_pages].reshape(B, max_pages).to(dev)
+
+
+def page_write_case(torch, pp, k, v, pk, pv, table, starts, **shape):
+    """Kernel 2 over a float pool at one shape: the pools equal the plain
+    version's off the sink (the last page; raises otherwise), then the
+    kernel, its plain version and ``index_copy_`` into the flat pools
+    timed."""
+    dev = k.device
+    B, S, n_kv, Dh = k.shape
+    NP, page = pk.shape[:2]
+    pk2, pv2 = pk.clone(), pv.clone()
+    pp._write_pages(k, v, pk, pv, table, starts)
+    pp.write_pages_plain(k, v, pk2, pv2, table, starts)
+    torch.cuda.synchronize()
+    nonsink = torch.arange(NP, device=dev) != NP - 1
+    if not (torch.equal(pk[nonsink], pk2[nonsink])
+            and torch.equal(pv[nonsink], pv2[nonsink])):
+        raise AssertionError(f"page write kernel: pools differ off the "
+                             f"sink at S {S}")
+    flat_k = pk2.view(NP * page, n_kv * Dh)
+    flat_v = pv2.view(NP * page, n_kv * Dh)
+    pos = starts.long()[:, None] + torch.arange(S, device=dev)
+    dest = (torch.gather(table.long(), 1, pos // page) * page
+            + pos % page).reshape(-1)
+    k2d, v2d = k.reshape(B * S, -1), v.reshape(B * S, -1)
+
+    def library_write():
+        flat_k.index_copy_(0, dest, k2d)
+        flat_v.index_copy_(0, dest, v2d)
+
+    b_ms, b_by = bound(2 * 2 * k.numel() * k.element_size(), 0)
+    return dict(
+        B=B, S=S, n_kv=n_kv, Dh=Dh, page=page, **shape,
+        ms=time_ms(lambda: pp._write_pages(k, v, pk, pv, table, starts)),
+        plain_ms=time_ms(lambda: pp.write_pages_plain(
+            k, v, pk2, pv2, table, starts)),
+        library_ms=time_ms(library_write), bound_ms=b_ms, bound_by=b_by)
+
+
+def page_write_int8_case(torch, pp, k, v, pools, scales, table, starts,
+                         **shape):
+    """Kernel 2 over an int8 pool at one shape: payload, scales and the
+    dequantised chunk bitwise equal to the plain version's on the card
+    and on the CPU, off the sink (the last page; raises otherwise), then
+    the kernel and its plain version timed.  Returns ``((ck, cv),
+    figures)``."""
+    dev = k.device
+    B, S, n_kv, Dh = k.shape
+    NP, page = pools[0].shape[:2]
+    plain = [t.clone() for t in pools + scales]
+    host = [t.cpu() for t in pools + scales]
+    ck, cv = pp._write_pages_int8(k, v, *pools, *scales, table, starts)
+    pck, pcv = pp.write_pages_plain(k, v, plain[0], plain[1], table, starts,
+                                    plain[2], plain[3])
+    hck, hcv = pp.write_pages_plain(k.cpu(), v.cpu(), host[0], host[1],
+                                    table.cpu(), starts.cpu(), host[2],
+                                    host[3])
+    torch.cuda.synchronize()
+    nonsink = torch.arange(NP, device=dev) != NP - 1
+    same_plain = all(torch.equal(a[nonsink], b[nonsink])
+                     for a, b in zip(pools + scales, plain))
+    same_cpu = all(torch.equal(a[nonsink].cpu(), b[nonsink.cpu()])
+                   for a, b in zip(pools + scales, host))
+    same_chunk = (torch.equal(ck, pck) and torch.equal(cv, pcv)
+                  and torch.equal(ck.cpu(), hck) and torch.equal(cv.cpu(),
+                                                                 hcv))
+    if not (same_plain and same_cpu and same_chunk):
+        raise AssertionError(
+            f"int8 page write at S {S}: bytes differ (plain {same_plain}, "
+            f"cpu {same_cpu}, dequantised chunk {same_chunk})")
+    elems = k.numel()
+    # k, v read and the dequantised k, v written in the activation dtype,
+    # the int8 payload and the f32 scales stored
+    b_ms, b_by = bound(2 * elems * k.element_size() * 2 + 2 * elems
+                       + 2 * B * S * n_kv * 4, 0)
+    return (ck, cv), dict(
+        B=B, S=S, n_kv=n_kv, Dh=Dh, page=page, **shape,
+        bitwise_equal_plain=same_plain, bitwise_equal_cpu=same_cpu,
+        ms=time_ms(lambda: pp._write_pages_int8(k, v, *pools, *scales,
+                                                table, starts)),
+        plain_ms=time_ms(lambda: pp.write_pages_plain(
+            k, v, plain[0], plain[1], table, starts, plain[2], plain[3])),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
+def decode_write_inputs(torch, dev, kv_dtype=None):
+    """A decode step's one-token k / v at FLAGSHIP_DECODE (16 rows at
+    position 2000, bf16) and a pool to write them into: a bf16 one, or
+    with ``kv_dtype="int8"`` an int8 one and its scales."""
+    from tensorflowonspark_tpu_torch.benchmarks import (FLAGSHIP_DECODE,
+                                                        FLAGSHIP_LM_V2)
+
+    n_kv = FLAGSHIP_LM_V2["n_kv_heads"]
+    Dh = FLAGSHIP_LM_V2["d_model"] // FLAGSHIP_LM_V2["n_heads"]
+    d = FLAGSHIP_DECODE
+    B, page, fill = d["n_slots"], d["page_size"], d["fill"]
+    max_pages = d["max_seq"] // page
+    NP = B * max_pages + 1
+    gen = torch.Generator().manual_seed(SEED + 7)
+    k, v = (torch.randn((B, 1, n_kv, Dh), generator=gen).to(
+        dev, torch.bfloat16) for _ in range(2))
+    if kv_dtype == "int8":
+        pools = int8_pool(torch, gen, NP, page, n_kv, Dh, dev)
+    else:
+        pools = [torch.randn((NP, page, n_kv, Dh), generator=gen).to(
+            dev, torch.bfloat16) for _ in range(2)]
+    table = shuffled_table(torch, gen, B, max_pages, NP, dev)
+    starts = torch.full((B,), fill, dtype=torch.int32, device=dev)
+    return k, v, pools, table, starts
 
 
 def phase_kernels(torch, F, dev):
@@ -330,7 +524,6 @@ def phase_kernels(torch, F, dev):
     B, page, fill, S = d["n_slots"], d["page_size"], d["fill"], d["chunk"]
     max_pages = d["max_seq"] // page
     NP = B * max_pages + 1
-    sink = NP - 1
     q = torch.randn((B, S, H, Dh), generator=gen).to(dev, bf16)
     k = torch.randn((B, S, n_kv, Dh), generator=gen).to(dev, bf16)
     v = torch.randn((B, S, n_kv, Dh), generator=gen).to(dev, bf16)
@@ -338,39 +531,23 @@ def phase_kernels(torch, F, dev):
     pv = torch.randn((NP, page, n_kv, Dh), generator=gen).to(dev, bf16)
     table = shuffled_table(torch, gen, B, max_pages, NP, dev)
     starts = torch.full((B,), fill, dtype=torch.int32, device=dev)
-    pk2, pv2 = pk.clone(), pv.clone()
-    pp._write_pages(k, v, pk, pv, table, starts)
-    pp.write_pages_plain(k, v, pk2, pv2, table, starts)
-    torch.cuda.synchronize()
-    nonsink = torch.arange(NP, device=dev) != sink
-    if not (torch.equal(pk[nonsink], pk2[nonsink])
-            and torch.equal(pv[nonsink], pv2[nonsink])):
-        raise AssertionError("page write kernel: pools differ off the sink")
-    flat_k = pk2.view(NP * page, n_kv * Dh)
-    flat_v = pv2.view(NP * page, n_kv * Dh)
-    pos = starts.long()[:, None] + torch.arange(S, device=dev)
-    dest = (torch.gather(table.long(), 1, pos // page) * page
-            + pos % page).reshape(-1)
-    k2d, v2d = k.reshape(B * S, -1), v.reshape(B * S, -1)
-
-    def library_write():
-        flat_k.index_copy_(0, dest, k2d)
-        flat_v.index_copy_(0, dest, v2d)
-
-    chunk_bytes = 2 * k.numel() * 2
-    b_ms, b_by = bound(2 * chunk_bytes, 0)
+    shapes = dict(prefill=page_write_case(
+        torch, pp, k, v, pk, pv, table, starts, start=fill,
+        dtype="bfloat16"))
+    dk, dv, (dpk, dpv), dtable, dstarts = decode_write_inputs(torch, dev)
+    shapes["decode"] = page_write_case(
+        torch, pp, dk, dv, dpk, dpv, dtable, dstarts,
+        start=FLAGSHIP_DECODE["fill"], dtype="bfloat16",
+        note="not on the serving path: a bf16 pool's decode write is "
+             "plain indexing")
+    del dk, dv, dpk, dpv
     rows["page_write"] = dict(
         name="page_write", route="cuda",
         source="tensorflowonspark_tpu_torch/csrc/paged_prefill.cu",
         replaces="tensorflowonspark_tpu/ops/paged_prefill.py:100",
-        max_abs_err=0.0, tol=0.0,
-        ms=time_ms(lambda: pp._write_pages(k, v, pk, pv, table, starts)),
-        plain_ms=time_ms(lambda: pp.write_pages_plain(
-            k, v, pk2, pv2, table, starts)),
-        library_ms=time_ms(library_write),
-        bound_ms=b_ms, bound_by=b_by,
-        shapes=dict(B=B, S=S, n_kv=n_kv, Dh=Dh, page=page, start=fill,
-                    dtype="bfloat16"))
+        max_abs_err=0.0, tol=0.0, **main_numbers(shapes),
+        library_note="index_copy_ x2 into the flat pools", shapes=shapes)
+    chunk_bytes = 2 * k.numel() * 2
 
     out = pp._read_attention(q, k, v, pk, pv, table, starts)
     ref = pp.read_attention_plain(q, k, v, pk, pv, table, starts)
@@ -479,53 +656,35 @@ def phase_int8_kernels(torch, F, dev):
     B, page, fill, S = d["n_slots"], d["page_size"], d["fill"], d["chunk"]
     max_pages = d["max_seq"] // page
     NP = B * max_pages + 1
-    sink = NP - 1
     q = torch.randn((B, S, H, Dh), generator=gen).to(dev, bf16)
     k = torch.randn((B, S, n_kv, Dh), generator=gen).to(dev, bf16)
     v = torch.randn((B, S, n_kv, Dh), generator=gen).to(dev, bf16)
     pools, scales = int8_pool(torch, gen, NP, page, n_kv, Dh, dev)
     table = shuffled_table(torch, gen, B, max_pages, NP, dev)
     starts = torch.full((B,), fill, dtype=torch.int32, device=dev)
-    plain = [t.clone() for t in pools + scales]
-    host = [t.cpu() for t in pools + scales]
-    ck, cv = pp._write_pages_int8(k, v, *pools, *scales, table, starts)
-    pck, pcv = pp.write_pages_plain(k, v, plain[0], plain[1], table, starts,
-                                    plain[2], plain[3])
-    hck, hcv = pp.write_pages_plain(k.cpu(), v.cpu(), host[0], host[1],
-                                    table.cpu(), starts.cpu(), host[2],
-                                    host[3])
-    torch.cuda.synchronize()
-    nonsink = torch.arange(NP, device=dev) != sink
-    same_plain = all(torch.equal(a[nonsink], b[nonsink])
-                     for a, b in zip(pools + scales, plain))
-    same_cpu = all(torch.equal(a[nonsink].cpu(), b[nonsink.cpu()])
-                   for a, b in zip(pools + scales, host))
-    same_chunk = (torch.equal(ck, pck) and torch.equal(cv, pcv)
-                  and torch.equal(ck.cpu(), hck) and torch.equal(cv.cpu(),
-                                                                 hcv))
-    if not (same_plain and same_cpu and same_chunk):
-        raise AssertionError(
-            f"int8 page write: bytes differ (plain {same_plain}, cpu "
-            f"{same_cpu}, dequantised chunk {same_chunk})")
-    elems = k.numel()
-    b_ms, b_by = bound(2 * elems * 2 * 2 + 2 * elems + 2 * B * S * n_kv * 4,
-                       0)
+    (ck, cv), pre = page_write_int8_case(torch, pp, k, v, pools, scales,
+                                         table, starts, start=fill,
+                                         dtype="bfloat16", kv="int8")
+    dk, dv, (dpools, dscales), dtable, dstarts = decode_write_inputs(
+        torch, dev, "int8")
+    _, dec = page_write_int8_case(torch, pp, dk, dv, dpools, dscales,
+                                  dtable, dstarts,
+                                  start=FLAGSHIP_DECODE["fill"],
+                                  dtype="bfloat16", kv="int8")
+    del dk, dv, dpools, dscales
+    shapes = dict(prefill=pre, decode=dec)
     rows["page_write_int8"] = dict(
         name="page_write_int8", route="cuda",
         source="tensorflowonspark_tpu_torch/csrc/paged_prefill.cu",
         replaces="tensorflowonspark_tpu/ops/paged_prefill.py:100",
-        max_abs_err=0.0, tol=0.0, bitwise_equal_plain=same_plain,
-        bitwise_equal_cpu=same_cpu,
-        ms=time_ms(lambda: pp._write_pages_int8(k, v, *pools, *scales,
-                                                table, starts)),
-        plain_ms=time_ms(lambda: pp.write_pages_plain(
-            k, v, plain[0], plain[1], table, starts, plain[2], plain[3])),
-        library_ms=None,
+        max_abs_err=0.0, tol=0.0,
+        bitwise_equal_plain=pre["bitwise_equal_plain"]
+        and dec["bitwise_equal_plain"],
+        bitwise_equal_cpu=pre["bitwise_equal_cpu"]
+        and dec["bitwise_equal_cpu"], **main_numbers(shapes),
         library_note="no single library call quantises and scatters",
-        bound_ms=b_ms, bound_by=b_by,
-        shapes=dict(B=B, S=S, n_kv=n_kv, Dh=Dh, page=page, start=fill,
-                    dtype="bfloat16", kv="int8"))
-    del plain, host
+        shapes=shapes)
+    elems = k.numel()
 
     sc = dict(key_scales=scales[0], value_scales=scales[1])
     out = pp._read_attention(q, ck, cv, *pools, table, starts, **sc)
@@ -598,14 +757,11 @@ def phase_layernorm_kernel(torch, F, dev):
             plain_ms=time_ms(lambda: ln.layernorm_plain(x, w, b)),
             library_ms=time_ms(lambda: F.layer_norm(x, (D,), w, b, 1e-6)),
             bound_ms=b_ms, bound_by=b_by)
-    pre = shapes["prefill"]
     return {"layernorm": dict(
         name="layernorm", route="cuda",
         source="tensorflowonspark_tpu_torch/csrc/layernorm.cu",
         replaces="tensorflowonspark_tpu/ops/layernorm.py:19",
-        max_abs_err=err, tol=TOL, ms=pre["ms"], plain_ms=pre["plain_ms"],
-        library_ms=pre["library_ms"], bound_ms=pre["bound_ms"],
-        bound_by=pre["bound_by"], main_numbers="prefill",
+        max_abs_err=err, tol=TOL, **main_numbers(shapes),
         library_note="F.layer_norm, bf16", shapes=shapes,
         dtype="bfloat16")}
 
@@ -817,6 +973,7 @@ KERNEL_GROUPS = (("tos::quant_matmul", "quant matmul kernels"),
                  ("tos::paged_decode", "paged kernels"),
                  ("tos::page_write", "paged kernels"),
                  ("tos::prefill_read", "paged kernels"),
+                 ("tos::layernorm", "layernorm kernel"),
                  ("tos::flash", "flash kernels"),
                  ("tos::adamw", "adamw kernel"),
                  ("tos::lion", "lion kernel"),
@@ -917,6 +1074,7 @@ def phase_main_path(torch, dev, cfg, export_dir, quantize="none",
     model = gen_service.model
     weight_bytes = sum(t.numel() * t.element_size() for t in
                        list(model.parameters()) + list(model.buffers()))
+    modules = forward_modules(model)
     del model, gen_service
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -1016,6 +1174,12 @@ def phase_main_path(torch, dev, cfg, export_dir, quantize="none",
         decode_steps=stats["decode_steps"],
         prefill_dispatches=stats["prefill_dispatches"],
         requests_served=stats["requests_served"], launches=launches,
+        forward_modules=modules,
+        # decode steps run every slot one token each (8 rows), prefill
+        # dispatches the admitted rows' chunks
+        launches_by_shape=launch_split(launches, modules,
+                                       stats["decode_steps"],
+                                       stats["prefill_dispatches"]),
         solo_profile=profile)
 
 
@@ -1675,15 +1839,19 @@ def main():
          ptxas=built)
     # a kernel whose spill line was not read counts as spilling
     spills = [name for name, k in built.items()
-              if ("mma_kernel" in name or "_tc_kernel" in name
-                  or "paged_decode" in name)
+              if any(frag in name for frag in NO_SPILL)
               and k.get("spill_stores", 1) + k.get("spill_loads", 1)]
-    if not any("mma_kernel" in name for name in built) or spills:
-        raise AssertionError(f"tensor-core or paged decode kernels spill or "
-                             f"are missing from the ptxas report: {spills}")
+    if not all(any(frag in name for name in built) for frag in NO_SPILL) \
+            or spills:
+        raise AssertionError(f"kernels that must not spill spill or are "
+                             f"missing from the ptxas report: {spills}")
+
+    floor_ms = launch_floor_ms()
+    emit("launch_floor", floor_ms=floor_ms, nvidia_smi=card)
 
     rows = phase_kernels(torch, F, dev)
     attach_ptxas(rows, built)
+    attach_floor(rows, floor_ms)
     for row in rows.values():
         emit("kernel", **row)
     torch.cuda.empty_cache()
@@ -1698,11 +1866,13 @@ def main():
     cfg, export_dir, n_params = make_flagship_export(torch, dev)
     try:
         launches, main_path = phase_main_path(torch, dev, cfg, export_dir)
+        splits = dict(main_path["launches_by_shape"])
         emit("main_path", nvidia_smi=card, params=n_params, **main_path)
         torch.cuda.empty_cache()
 
         quant_rows = phase_quant_kernels(torch, F, dev)
         attach_ptxas(quant_rows, built)
+        attach_floor(quant_rows, floor_ms)
         for row in quant_rows.values():
             emit("kernel", **row)
         rows.update(quant_rows)
@@ -1720,11 +1890,14 @@ def main():
                  bf16_memory_allocated_by_load=main_path[
                      "memory_allocated_by_load"], **q_main)
             launches[f"{mode}_matmul"] = q_launches[f"{mode}_matmul"]
+            splits[f"{mode}_matmul"] = q_main["launches_by_shape"][
+                f"{mode}_matmul"]
             torch.cuda.empty_cache()
 
         s4_rows = phase_int8_kernels(torch, F, dev)
         s4_rows.update(phase_layernorm_kernel(torch, F, dev))
         attach_ptxas(s4_rows, built)
+        attach_floor(s4_rows, floor_ms)
         for row in s4_rows.values():
             emit("kernel", **row)
         rows.update(s4_rows)
@@ -1745,6 +1918,7 @@ def main():
             if mode == "none":
                 for name in ops.SERVING_KERNELS_INT8_KV:
                     launches[name] = kv_launches[name]
+                    splits[name] = kv_main["launches_by_shape"][name]
             torch.cuda.empty_cache()
     finally:
         shutil.rmtree(export_dir, ignore_errors=True)
@@ -1758,6 +1932,7 @@ def main():
              bf16_rmsnorm_memory_allocated_by_load=main_path[
                  "memory_allocated_by_load"], **ln_main)
         launches["layernorm"] = ln_launches["layernorm"]
+        splits["layernorm"] = ln_main["launches_by_shape"]["layernorm"]
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(ln_dir, ignore_errors=True)
@@ -1765,6 +1940,7 @@ def main():
     train_rows = phase_train_kernels(torch, F, dev)
     train_rows.update(phase_lion_kernel(torch, dev))
     attach_ptxas(train_rows, built)
+    attach_floor(train_rows, floor_ms)
     for row in train_rows.values():
         emit("kernel", **row)
     rows.update(train_rows)
@@ -1803,6 +1979,8 @@ def main():
                  "max_memory_allocated_gb"], **opt_main)
         torch.cuda.empty_cache()
 
+    # the serving kernels' launches by shape, each from its own main path
+    emit("launch_split", nvidia_smi=card, kernels=splits)
     kernels = []
     for name, row in rows.items():
         kernels.append({key: row[key] for key in (

@@ -38,6 +38,14 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// N consecutive elements of T as they lie in memory, moved in one
+// transaction of N * sizeof(T) bytes (at most 16): the base must be
+// aligned to that size.
+template <typename T, int N>
+struct alignas(sizeof(T) * N) Pack {
+  T v[N];
+};
+
 // Load N consecutive elements starting at p (N * sizeof(T) aligned) as
 // f32: one 8- or 16-byte transaction per call for the widths the kernels
 // use, a scalar loop otherwise.
@@ -104,6 +112,18 @@ struct VecLoad<int8_t, 2> {
     out[0] = v.x; out[1] = v.y;
   }
 };
+
+// The card's SM count (read once), for launches that size their blocks
+// to fill it.
+inline int sm_count() {
+  static const int n = [] {
+    int dev = 0, count = 132;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    return count;
+  }();
+  return n;
+}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll

@@ -14,8 +14,14 @@
 // sink bytes are garbage by contract and masked on every read.
 // Bound: bytes, nothing else (FLAGSHIP_PREFILL_KERNEL: 4 rows x 256 x
 // 8 x 128 x 2 B, read once and written once for k and v: 8.4 MB per
-// layer, 2.5 us at 3.35 TB/s).  Design: one block per (s, b) copies the
-// n_kv * Dh row of k and of v with 16-byte vector moves; no arithmetic.
+// layer, 2.5 us at 3.35 TB/s; a 16-row decode step moves 128 KB, where
+// the time is latency).  Design: one warp per token row, four rows a
+// block; each lane loads up to 4 16-byte chunks of k and 4 of v before
+// the row's page lookup, so the data and the lookup are in flight
+// together, then stores them; no arithmetic.  The lookup takes one trip
+// to memory where a row's table holds at most 64 pages (the lanes read
+// the whole table row beside starts[b] and the entry comes by a
+// shuffle), two dependent ones (starts, then table) beyond.
 //
 // Prefill read.  Online softmax of the chunk's queries over
 // [context pages < start || the chunk's own k/v], the chunk part under
@@ -90,22 +96,28 @@
 //
 // int8 kv pools (the JAX kernels' `quant` branch).  The page write takes
 // the chunk in its activation dtype and fuses the JAX wrapper's
-// `_quantize` into the store: one warp per (token, kv head) reduces the
-// amax over Dh, then scale = max(amax, 1e-12) / 127 and q = clip(rint(x /
-// scale), -127, 127), with IEEE division and round-half-to-even, so the
-// bytes equal `_kv_quantize`'s.  It stores the int8 row and the scale (in
+// `_quantize` into the store: a warp takes kv rows ((token, kv head)
+// pairs) of k and of v together, reduces each row's amax over Dh, then
+// scale = max(amax, 1e-12) / 127 and q = clip(rint(x / scale), -127,
+// 127), with IEEE division and round-half-to-even, so the bytes equal
+// `_kv_quantize`'s.  It issues every load of its rows, then their page
+// lookups, then one shuffle tree for all their amaxes; a lane stores its
+// payload in one 4- or 2-byte store and its dequantised values in one
+// 8- or 4-byte (bf16) store.  Four rows a warp when that still leaves
+// eight warps an SM (prefill), else one (a decode step's B x n_kv rows
+// spread over B x n_kv warps).  It stores the int8 row and the scale (in
 // the canonical [NP, page, n_kv] scale pool, under the same clip and
 // dropped out-of-range store) and also writes the chunk dequantised and
 // rounded to the activation dtype, which is what the read's chunk part
 // attends to (JAX `_dequantize(k_st, k_sc, k.dtype)`).  Bound: bytes
 // (FLAGSHIP_PREFILL_KERNEL: the bf16 chunk read once, the dequantised
 // bf16 chunk written once, int8 payload and f32 scales stored: 10.55 MB
-// per layer, 3.1 us).  The decode step's one-token write of an int8 pool
-// runs the same kernel (S = 1).  With f32 activations the read
-// dequantises each context value in f32 (payload x its token's scale) as
-// it fills the shared-memory key and value tiles, as
-// `_prefill_read_kernel` does; with bf16 activations it folds the scales
-// into the products on the tensor cores (above).
+// per layer, 3.1 us; a 16-row decode step 161 KB).  The decode step's
+// one-token write of an int8 pool runs the same kernel (S = 1).  With
+// f32 activations the read dequantises each context value in f32
+// (payload x its token's scale) as it fills the shared-memory key and
+// value tiles, as `_prefill_read_kernel` does; with bf16 activations it
+// folds the scales into the products on the tensor cores (above).
 #include <type_traits>
 
 #include "common.cuh"
@@ -113,95 +125,197 @@
 
 namespace tos {
 
-__global__ void __launch_bounds__(128)
-page_write_kernel(const uint8_t* __restrict__ k, const uint8_t* __restrict__ v,
-                  uint8_t* __restrict__ pk, uint8_t* __restrict__ pv,
-                  const int* __restrict__ table,
-                  const int* __restrict__ starts, int S, int row_bytes,
-                  int page, int max_pages, int n_pages) {
-  const int s = blockIdx.x;
-  const int b = blockIdx.y;
+constexpr int kWriteWarps = 4;  // warps a page-write block
+constexpr int kWriteU = 4;      // 16-byte chunks of k and of v a lane holds
+
+// The pool row (physical page * page + offset) where chunk position s of
+// row b lands, or -1 when the page id is out of range: the store drops,
+// as a JAX scatter drops it.  Two dependent loads (starts, then table).
+__device__ __forceinline__ long long page_row(const int* __restrict__ table,
+                                              const int* __restrict__ starts,
+                                              int b, int s, int page,
+                                              int max_pages, int n_pages) {
   const int pos = starts[b] + s;
   const int blk = min(max(pos / page, 0), max_pages - 1);
   const int phys = table[size_t(b) * max_pages + blk];
-  // an out-of-range page drops the store, as a JAX scatter drops it
-  if (phys < 0 || phys >= n_pages) return;
-  const size_t dst = (size_t(phys) * page + pos % page) * row_bytes;
-  const size_t src = (size_t(b) * S + s) * row_bytes;
-  if (row_bytes % 16 == 0) {
-    const int n = row_bytes / 16;
-    const uint4* ks = reinterpret_cast<const uint4*>(k + src);
-    const uint4* vs = reinterpret_cast<const uint4*>(v + src);
-    uint4* kd = reinterpret_cast<uint4*>(pk + dst);
-    uint4* vd = reinterpret_cast<uint4*>(pv + dst);
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      kd[i] = ks[i];
-      vd[i] = vs[i];
+  if (phys < 0 || phys >= n_pages) return -1;
+  return static_cast<long long>(phys) * page + pos % page;
+}
+
+// page_row for a whole warp (b and s the same in every lane), in one
+// trip to memory where the row's table fits in two entries a lane
+// (max_pages <= 64): the lanes read the table row beside starts[b]
+// instead of after it, and the entry comes from its lane by a shuffle.
+__device__ __forceinline__ long long warp_page_row(
+    const int* __restrict__ table, const int* __restrict__ starts, int b,
+    int s, int page, int max_pages, int n_pages, int lane) {
+  if (max_pages > 64)
+    return page_row(table, starts, b, s, page, max_pages, n_pages);
+  const int* tr = table + size_t(b) * max_pages;
+  const int t0 = tr[min(lane, max_pages - 1)];
+  const int t1 = tr[min(lane + 32, max_pages - 1)];
+  const int pos = starts[b] + s;
+  const int blk = min(max(pos / page, 0), max_pages - 1);
+  const int phys = __shfl_sync(0xffffffffu, blk < 32 ? t0 : t1, blk & 31);
+  if (phys < 0 || phys >= n_pages) return -1;
+  return static_cast<long long>(phys) * page + pos % page;
+}
+
+// One warp a token row (n_kv * Dh values of k and of v, n16 16-byte
+// chunks each).  The lane's first kWriteU chunks of k and of v are loaded
+// before the page lookup, so the data and the lookup are in flight
+// together; the stores follow.
+__global__ void __launch_bounds__(32 * kWriteWarps)
+page_write_kernel(const uint4* __restrict__ k, const uint4* __restrict__ v,
+                  uint4* __restrict__ pk, uint4* __restrict__ pv,
+                  const int* __restrict__ table,
+                  const int* __restrict__ starts, int B, int S, int n16,
+                  int page, int max_pages, int n_pages) {
+  const int lane = threadIdx.x & 31;
+  const int tok = blockIdx.x * kWriteWarps + (threadIdx.x >> 5);
+  if (tok >= B * S) return;
+  const uint4* ks = k + size_t(tok) * n16;
+  const uint4* vs = v + size_t(tok) * n16;
+  uint4 kr[kWriteU], vr[kWriteU];
+#pragma unroll
+  for (int u = 0; u < kWriteU; ++u) {
+    const int i = lane + 32 * u;
+    if (i < n16) {
+      kr[u] = ks[i];
+      vr[u] = vs[i];
     }
-  } else {
-    for (int i = threadIdx.x; i < row_bytes; i += blockDim.x) {
-      pk[dst + i] = k[src + i];
-      pv[dst + i] = v[src + i];
+  }
+  const int b = tok / S;
+  const long long row = warp_page_row(table, starts, b, tok - b * S, page,
+                                      max_pages, n_pages, lane);
+  if (row < 0) return;
+  uint4* kd = pk + row * n16;
+  uint4* vd = pv + row * n16;
+  for (int base = 0;;) {
+#pragma unroll
+    for (int u = 0; u < kWriteU; ++u) {
+      const int i = base + lane + 32 * u;
+      if (i < n16) {
+        kd[i] = kr[u];
+        vd[i] = vr[u];
+      }
+    }
+    base += 32 * kWriteU;
+    if (base >= n16) break;
+#pragma unroll
+    for (int u = 0; u < kWriteU; ++u) {
+      const int i = base + lane + 32 * u;
+      if (i < n16) {
+        kr[u] = ks[i];
+        vr[u] = vs[i];
+      }
     }
   }
 }
 
-// One kv row (one token, one head) of the chunk: quantise, store payload
-// and scale (when the page is in range), write the dequantised row.
+// Quantise one kv row held as EPT values a lane, its amax already
+// reduced over the warp: the dequantised row (one EPT-value store a
+// lane), and, where the page is in range (dst >= 0), the int8 payload
+// (one 4- or 2-byte store a lane) and the scale.  The arithmetic of
+// `_kv_quantize`: IEEE division, round half to even, the clip to +-127.
 template <typename T, int EPT>
-__device__ __forceinline__ void quantize_row(const T* __restrict__ x,
-                                             int8_t* __restrict__ dst,
-                                             float* __restrict__ scale_dst,
-                                             T* __restrict__ deq, int lane) {
-  float xf[EPT];
-  VecLoad<T, EPT>::run(x + lane * EPT, xf);
-  float amax = 0.f;
-#pragma unroll
-  for (int e = 0; e < EPT; ++e) amax = fmaxf(amax, fabsf(xf[e]));
-  amax = warp_max(amax);
+__device__ __forceinline__ void quantize_store(const float (&x)[EPT],
+                                               float amax, long long dst,
+                                               int8_t* __restrict__ pool,
+                                               float* __restrict__ scales,
+                                               T* __restrict__ deq,
+                                               int lane) {
+  using Word = std::conditional_t<EPT == 4, uint32_t, uint16_t>;
   const float scale = __fdiv_rn(fmaxf(amax, 1e-12f), 127.0f);
-  int8_t q8[EPT];
+  Pack<T, EPT> d;
+  Word q = 0;
 #pragma unroll
   for (int e = 0; e < EPT; ++e) {
-    const float r = rintf(__fdiv_rn(xf[e], scale));
-    q8[e] = static_cast<int8_t>(fminf(fmaxf(r, -127.f), 127.f));
-    deq[lane * EPT + e] =
-        from_f32<T>(__fmul_rn(static_cast<float>(q8[e]), scale));
+    const float r = rintf(__fdiv_rn(x[e], scale));
+    const int8_t q8 = static_cast<int8_t>(fminf(fmaxf(r, -127.f), 127.f));
+    q |= static_cast<Word>(static_cast<uint8_t>(q8)) << (8 * e);
+    d.v[e] = from_f32<T>(__fmul_rn(static_cast<float>(q8), scale));
   }
-  if (dst != nullptr) {
-#pragma unroll
-    for (int e = 0; e < EPT; ++e) dst[lane * EPT + e] = q8[e];
-    if (lane == 0) *scale_dst = scale;
+  *reinterpret_cast<Pack<T, EPT>*>(deq + lane * EPT) = d;
+  if (dst >= 0) {
+    *reinterpret_cast<Word*>(pool + dst * (32 * EPT) + lane * EPT) = q;
+    if (lane == 0) scales[dst] = scale;
   }
 }
 
-template <typename T, int EPT>
-__global__ void __launch_bounds__(256)
+// One warp quantises RW consecutive kv rows ((token, head) pairs, Dh =
+// 32 * EPT values) of k and of v together: every row's loads, then the
+// page lookups, then one shuffle tree for all 2 * RW amaxes, then the
+// stores.  RW > 1 at prefill puts more bytes in flight a warp; RW 1 at
+// a decode step spreads the B x n_kv rows over B x n_kv warps.
+template <typename T, int EPT, int RW>
+__global__ void __launch_bounds__(32 * kWriteWarps)
 page_write_int8_kernel(const T* __restrict__ k, const T* __restrict__ v,
                        int8_t* __restrict__ pk, int8_t* __restrict__ pv,
                        float* __restrict__ ks, float* __restrict__ vs,
                        T* __restrict__ ck, T* __restrict__ cv,
                        const int* __restrict__ table,
-                       const int* __restrict__ starts, int S, int n_kv,
+                       const int* __restrict__ starts, int B, int S, int n_kv,
                        int page, int max_pages, int n_pages) {
   constexpr int DH = 32 * EPT;
-  const int s = blockIdx.x;
-  const int b = blockIdx.y;
   const int lane = threadIdx.x & 31;
-  const int pos = starts[b] + s;
-  const int blk = min(max(pos / page, 0), max_pages - 1);
-  const int phys = table[size_t(b) * max_pages + blk];
-  // an out-of-range page drops the store (a JAX scatter drops it); the
-  // dequantised chunk row is written either way
-  const bool keep = phys >= 0 && phys < n_pages;
-  for (int h = threadIdx.x >> 5; h < n_kv; h += blockDim.x >> 5) {
-    const size_t src = ((size_t(b) * S + s) * n_kv + h) * DH;
-    const size_t row =
-        (size_t(keep ? phys : 0) * page + pos % page) * n_kv + h;
-    quantize_row<T, EPT>(k + src, keep ? pk + row * DH : nullptr, ks + row,
-                         ck + src, lane);
-    quantize_row<T, EPT>(v + src, keep ? pv + row * DH : nullptr, vs + row,
-                         cv + src, lane);
+  const int rows = B * S * n_kv;
+  const int r0 = (blockIdx.x * kWriteWarps + (threadIdx.x >> 5)) * RW;
+  if (r0 >= rows) return;
+  // unconditional loads, all issued before the first use: a row past
+  // the end reads the last row and is neither stored nor written
+  Pack<T, EPT> ka[RW], va[RW];
+#pragma unroll
+  for (int j = 0; j < RW; ++j) {
+    const size_t at = size_t(min(r0 + j, rows - 1)) * DH + lane * EPT;
+    ka[j] = *reinterpret_cast<const Pack<T, EPT>*>(k + at);
+    va[j] = *reinterpret_cast<const Pack<T, EPT>*>(v + at);
+  }
+  // the scale pools' row of each kv row: (pool row) * n_kv + head
+  long long dst[RW];
+#pragma unroll
+  for (int j = 0; j < RW; ++j) {
+    const int r = min(r0 + j, rows - 1);
+    const int tok = r / n_kv;
+    const int b = tok / S;
+    // the plain two-trip lookup: warp_page_row's extra table loads, four
+    // rows a warp, measured slower at prefill on the H100 and no faster
+    // at a decode step
+    const long long row =
+        page_row(table, starts, b, tok - b * S, page, max_pages, n_pages);
+    dst[j] = row < 0 ? -1 : row * n_kv + (r - tok * n_kv);
+  }
+  float xk[RW][EPT], xv[RW][EPT];
+#pragma unroll
+  for (int j = 0; j < RW; ++j)
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      xk[j][e] = to_f32(ka[j].v[e]);
+      xv[j][e] = to_f32(va[j].v[e]);
+    }
+  float ak[RW], av[RW];
+#pragma unroll
+  for (int j = 0; j < RW; ++j) {
+    ak[j] = av[j] = 0.f;
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      ak[j] = fmaxf(ak[j], fabsf(xk[j][e]));
+      av[j] = fmaxf(av[j], fabsf(xv[j][e]));
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int j = 0; j < RW; ++j) {
+      ak[j] = fmaxf(ak[j], __shfl_xor_sync(0xffffffffu, ak[j], o));
+      av[j] = fmaxf(av[j], __shfl_xor_sync(0xffffffffu, av[j], o));
+    }
+#pragma unroll
+  for (int j = 0; j < RW; ++j) {
+    if (r0 + j >= rows) break;
+    const size_t at = size_t(r0 + j) * DH;
+    quantize_store<T, EPT>(xk[j], ak[j], dst[j], pk, ks, ck + at, lane);
+    quantize_store<T, EPT>(xv[j], av[j], dst[j], pv, vs, cv + at, lane);
   }
 }
 
@@ -871,22 +985,32 @@ static int launch_prefill_read_dh(int Dh, dim3 grid, cudaStream_t st,
 }
 
 template <typename T>
-static int launch_page_write_int8(int Dh, dim3 grid, cudaStream_t st,
-                                  const void* k, const void* v, void* pk,
-                                  void* pv, float* ks, float* vs, void* ck,
-                                  void* cv, const int* table,
-                                  const int* starts, int S, int n_kv,
-                                  int page, int max_pages, int n_pages) {
-#define TOS_WRITE8(EPT)                                                     \
-  page_write_int8_kernel<T, EPT><<<grid, 256, 0, st>>>(                     \
+static int launch_page_write_int8(int Dh, cudaStream_t st, const void* k,
+                                  const void* v, void* pk, void* pv,
+                                  float* ks, float* vs, void* ck, void* cv,
+                                  const int* table, const int* starts, int B,
+                                  int S, int n_kv, int page, int max_pages,
+                                  int n_pages) {
+  const int rows = B * S * n_kv;
+  if (rows == 0) return static_cast<int>(cudaSuccess);
+  // 4 rows a warp while that still leaves 8 warps an SM, else 1
+  const bool wide = rows >= 4 * 8 * sm_count();
+  const int warps = wide ? (rows + 3) / 4 : rows;
+  const int grid = (warps + kWriteWarps - 1) / kWriteWarps;
+#define TOS_WRITE8(EPT, RW)                                                 \
+  page_write_int8_kernel<T, EPT, RW><<<grid, 32 * kWriteWarps, 0, st>>>(    \
       static_cast<const T*>(k), static_cast<const T*>(v),                   \
       static_cast<int8_t*>(pk), static_cast<int8_t*>(pv), ks, vs,           \
-      static_cast<T*>(ck), static_cast<T*>(cv), table, starts, S, n_kv,     \
+      static_cast<T*>(ck), static_cast<T*>(cv), table, starts, B, S, n_kv,  \
       page, max_pages, n_pages)
-  if (Dh == 128)
-    TOS_WRITE8(4);
+  if (Dh == 128 && wide)
+    TOS_WRITE8(4, 4);
+  else if (Dh == 128)
+    TOS_WRITE8(4, 1);
+  else if (Dh == 64 && wide)
+    TOS_WRITE8(2, 4);
   else if (Dh == 64)
-    TOS_WRITE8(2);
+    TOS_WRITE8(2, 1);
   else
     return static_cast<int>(cudaErrorInvalidValue);
 #undef TOS_WRITE8
@@ -895,16 +1019,26 @@ static int launch_page_write_int8(int Dh, dim3 grid, cudaStream_t st,
 
 }  // namespace tos
 
+// The page write of a float pool: k / v [B, S, n_kv, Dh] in the pool's
+// dtype, row_bytes = n_kv * Dh * its size (a multiple of 16), every
+// pointer 16-byte aligned.
 extern "C" int tos_page_write(const void* k, const void* v, void* pk,
                               void* pv, const int* table, const int* starts,
                               int B, int S, int row_bytes, int page,
                               int max_pages, int n_pages, void* stream) {
   using namespace tos;
-  const dim3 grid(S, B);
-  page_write_kernel<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(k), static_cast<const uint8_t*>(v),
-      static_cast<uint8_t*>(pk), static_cast<uint8_t*>(pv), table, starts, S,
-      row_bytes, page, max_pages, n_pages);
+  const uintptr_t addr =
+      reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v) |
+      reinterpret_cast<uintptr_t>(pk) | reinterpret_cast<uintptr_t>(pv);
+  if (row_bytes % 16 || addr % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B * S == 0) return static_cast<int>(cudaSuccess);
+  const int grid = (B * S + kWriteWarps - 1) / kWriteWarps;
+  page_write_kernel<<<grid, 32 * kWriteWarps, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(k), static_cast<const uint4*>(v),
+      static_cast<uint4*>(pk), static_cast<uint4*>(pv), table, starts, B, S,
+      row_bytes / 16, page, max_pages, n_pages);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -918,16 +1052,13 @@ extern "C" int tos_page_write_int8(const void* k, const void* v, void* pk,
                                    int Dh, int page, int max_pages,
                                    int n_pages, int dtype, void* stream) {
   using namespace tos;
-  const dim3 grid(S, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16)
-    return launch_page_write_int8<__nv_bfloat16>(
-        Dh, grid, st, k, v, pk, pv, ks, vs, ck, cv, table, starts, S, n_kv,
-        page, max_pages, n_pages);
-  if (dtype == kF32)
-    return launch_page_write_int8<float>(Dh, grid, st, k, v, pk, pv, ks, vs,
-                                         ck, cv, table, starts, S, n_kv,
-                                         page, max_pages, n_pages);
+#define TOS_ARGS                                                          \
+  Dh, st, k, v, pk, pv, ks, vs, ck, cv, table, starts, B, S, n_kv, page, \
+      max_pages, n_pages
+  if (dtype == kBF16) return launch_page_write_int8<__nv_bfloat16>(TOS_ARGS);
+  if (dtype == kF32) return launch_page_write_int8<float>(TOS_ARGS);
+#undef TOS_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -62,7 +62,7 @@ SIGNATURES = {
     "tos_lion": [_P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _I, _I, _I, _P],
     "tos_quant_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _I, _I, _P],
-    "tos_layernorm": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
+    "tos_layernorm": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -11,12 +11,39 @@ The one rule of the port's kernels: a CPU tensor takes the plain PyTorch
 version (:func:`layernorm_plain`, the port of ``layernorm_reference``); a
 CUDA tensor launches the hand-written kernel ``csrc/layernorm.cu``
 (design and bound in its header) or raises.  The kernel needs no row
-padding (the TPU version pads N to its row block).  The gradient, as in
-the JAX custom VJP, recomputes through the plain version under autograd.
+padding (the TPU version pads N to its row block); how it splits a row
+over threads is :func:`kernel_layout`, a function of D and the dtype
+alone.  The gradient, as in the JAX custom VJP, recomputes through the
+plain version under autograd.
 """
 import torch
 
 from . import _build
+
+# csrc/layernorm.cu: the most f32 values of x a thread keeps, and the
+# most threads a block (so the most threads a row)
+KERNEL_VALUES = 32
+KERNEL_BLOCK = 256
+
+
+def kernel_layout(D, dtype):
+    """``(vec, lanes)`` of kernel 11 for rows of ``D`` elements of
+    ``dtype``: a row is cut into chunks of ``vec`` values (16 bytes of x
+    where the row's byte width is a multiple of 16, else single values)
+    and ``lanes`` threads share it, thread l taking chunks l, l + lanes,
+    ...  (at most ``KERNEL_VALUES`` values each).  It depends on D and
+    the dtype alone, never on the number of rows, so a row's sums run in
+    one order whatever shares the call."""
+    size = torch.empty((), dtype=dtype).element_size()
+    vec = 16 // size if D * size % 16 == 0 else 1
+    per = KERNEL_VALUES // vec
+    lanes = 8 if vec > 1 else 32
+    while lanes * per < D // vec:
+        lanes *= 2
+    if lanes > KERNEL_BLOCK:
+        raise NotImplementedError(
+            f"the LayerNorm kernel takes rows of up to 8192, got {D}")
+    return vec, lanes
 
 
 def layernorm_plain(x, scale, bias, eps=1e-6):
@@ -38,9 +65,7 @@ def _layernorm(x, scale, bias, eps):
     if x.device.type != "cuda":
         raise RuntimeError(f"fused_layernorm: no kernel for {x.device}")
     D = x.shape[-1]
-    if D > 8192:
-        raise NotImplementedError(
-            f"the LayerNorm kernel takes rows of up to 8192, got {D}")
+    vec, lanes = kernel_layout(D, x.dtype)      # raises above D 8192
     for name, t in (("scale", scale), ("bias", bias)):
         if t.shape != (D,) or t.device != x.device:
             raise ValueError(f"{name} must be [{D}] on {x.device}, got "
@@ -48,13 +73,15 @@ def _layernorm(x, scale, bias, eps):
     if scale.dtype != bias.dtype:
         raise TypeError(f"scale {scale.dtype} and bias {bias.dtype} differ")
     lib = _build.lib()
-    x2 = x.reshape(-1, D).contiguous()
-    scale, bias = scale.contiguous(), bias.contiguous()
+    # the 16-byte loads need 16-byte aligned bases: a misaligned view
+    # runs on an aligned copy
+    x2, scale, bias = (_build.aligned(t) for t in (x.reshape(-1, D), scale,
+                                                   bias))
     y = torch.empty_like(x2)
     P = _build.ptr
     code = lib.tos_layernorm(
-        P(x2), P(scale), P(bias), P(y), x2.shape[0], D, float(eps),
-        _build.dtype_code(x2), _build.dtype_code(scale),
+        P(x2), P(scale), P(bias), P(y), x2.shape[0], D, vec, lanes,
+        float(eps), _build.dtype_code(x2), _build.dtype_code(scale),
         _build.stream_ptr(x.device))
     _build.check(code, "tos_layernorm")
     _layernorm.launches += 1

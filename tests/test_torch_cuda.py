@@ -22,8 +22,14 @@ odd sizes; quantised matmuls at 1 to 2048 rows (16, 17 and 65 on the
 tensor-core tile edges), K 1 to 8192 (130: x rows not 16-byte aligned),
 int4 groups of 16, 32, 128 and 256, N 5 to 32000, 3-D activations; int8 kv
 pools at odd S
-and starts straddling pages; LayerNorm rows of 64 to 8192, D not a
-multiple of 256, f32 and bf16 parameters), in f32 and bf16.
+and starts straddling pages; the int8 page write at 16-row decode
+steps (positions at offset 0 and page - 1 of a page) and at prefill
+chunks of four kv rows a warp, with a ragged last warp, and the float
+page write at S 1, 7 and 256 over rows of 128 to 4096 bytes, each with
+an out-of-range page id; LayerNorm rows of 64 to 8192, D not a
+multiple of 256, both of the kernel's layouts (16-byte chunks, single
+values) at N 1, 8 and 1024 with every (x, parameter) dtype pair, and
+misaligned views), in f32 and bf16.
 Tolerances: f32 1e-4 (f32 math on both sides, summation order differs
 over <= 300 keys); bf16 1e-2 (f32 math, bf16 output rounding).  Lion
 (kernel 8): bitwise equal to ``lion_plain`` (bit patterns, so the sign
@@ -39,7 +45,10 @@ JAX package's own kernel tests hold them, and each row's bits the same
 whatever the number of rows in the call.  int8 kv: the quantising page
 write gives the plain version's and the CPU's bytes exactly (payload,
 scales and the dequantised chunk); the reads as above.  LayerNorm: f32
-1e-5, bf16 one bf16 step (rtol 2^-7).  8-bit AdamW state (``optim8bit``,
+1e-5, bf16 one bf16 step (rtol 2^-7); each row's bits the same at every
+N, and a misaligned view's the same as its aligned copy's.  The page
+write: bitwise (pools, scales, dequantised chunk; off the sink where a
+pad row writes it).  8-bit AdamW state (``optim8bit``,
 plain PyTorch on both sides): its square root, quantise / dequantise
 and three updates give the CPU's bits (the int8 payloads and f32
 scales); the updates within rtol 1e-6 (the bias corrections'
@@ -874,6 +883,143 @@ def test_layernorm_autograd_on_card(dev):
     for a, b in zip(torch.autograd.grad(out, leaves, g),
                     torch.autograd.grad(want, leaves, g)):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+_LN_DTYPES = [pytest.param(x, p, id=f"{xn}-{pn}")
+              for x, xn in ((torch.float32, "f32"), (torch.bfloat16, "bf16"))
+              for p, pn in ((torch.float32, "p32"), (torch.bfloat16, "p16"))]
+
+
+@pytest.mark.parametrize("dtype,param_dtype", _LN_DTYPES)
+@pytest.mark.parametrize("D", [64, 100, 1000, 2048, 8192])
+def test_layernorm_rows_keep_their_bits_at_every_n(dev, dtype, param_dtype,
+                                                   D):
+    # every layout branch (16-byte chunks and single values; rows of 8 to
+    # 256 threads): within the tolerance of the plain version at N 1024,
+    # and each row's bits the same at N 1, 8 and 1024
+    gen = torch.Generator().manual_seed(D + 7)
+    x = (torch.randn((1024, D), generator=gen) * 2 + 0.5).to(dev, dtype)
+    w = (1 + 0.1 * torch.randn(D, generator=gen)).to(dev, param_dtype)
+    b = (0.1 * torch.randn(D, generator=gen)).to(dev, param_dtype)
+    before = ln._layernorm.launches
+    full = ln.fused_layernorm(x, w, b)
+    ref = ln.layernorm_plain(x, w, b)
+    tol = (dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32
+           else dict(atol=1e-2, rtol=2 ** -7))
+    torch.testing.assert_close(full.float(), ref.float(), **tol)
+    for N in (1, 8):
+        part = ln.fused_layernorm(x[:N].contiguous(), w, b)
+        torch.testing.assert_close(part.float(), ref[:N].float(), **tol)
+        assert torch.equal(part.view(-1).view(torch.uint8),
+                           full[:N].reshape(-1).view(torch.uint8)), N
+    assert ln._layernorm.launches == before + 3
+
+
+@pytest.mark.parametrize("D", [100, 2048])
+def test_layernorm_realigns_misaligned_views(dev, D):
+    # buf[1:] of a bf16 buffer starts 2 bytes off 16: the wrapper runs the
+    # kernel on an aligned copy and gives that copy's bits
+    gen = torch.Generator().manual_seed(D)
+    buf = torch.randn(37 * D + 1, generator=gen).to(dev, torch.bfloat16)
+    x = buf[1:].view(37, D)
+    assert x.data_ptr() % 16
+    w = (1 + 0.1 * torch.randn(D, generator=gen)).to(dev, torch.bfloat16)
+    b = (0.1 * torch.randn(D, generator=gen)).to(dev, torch.bfloat16)
+    got = ln.fused_layernorm(x, w, b)
+    want = ln.fused_layernorm(x.clone(), w, b)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    launched = _kernels_launched(lambda: ln.fused_layernorm(x, w, b))
+    assert [n for k, n in launched.items() if "layernorm_kernel" in k] == [1]
+
+
+def _write_case(gen, dtype, B, S, n_kv, Dh, page, starts, dev, int8):
+    """A chunk, a pool (int8 with scales, or float) whose table is a
+    permutation of its pages but the sink (the last page), and one table
+    entry of row 1 out of the pool's range (its stores drop)."""
+    max_pages = max(starts) // page + (S - 1) // page + 2
+    NP = B * max_pages + 2
+    k, v = (torch.randn((B, S, n_kv, Dh), generator=gen).to(dev, dtype)
+            for _ in range(2))
+    if int8:
+        pools = [torch.randint(-127, 128, (NP, page, n_kv, Dh),
+                               generator=gen, dtype=torch.int8).to(dev)
+                 for _ in range(2)]
+        pools += [(torch.rand((NP, page, n_kv), generator=gen) * 0.05
+                   + 1e-3).to(dev) for _ in range(2)]
+    else:
+        pools = [torch.randn((NP, page, n_kv, Dh), generator=gen).to(
+            dev, dtype) for _ in range(2)]
+    perm = torch.randperm(NP - 1, generator=gen)[:B * max_pages]
+    table = perm.reshape(B, max_pages).to(dev, torch.int32)
+    table[1, starts[1] // page] = NP + 3
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    return k, v, pools, table, st
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,n_kv,Dh,page,starts", [
+    # decode steps of 16 rows: positions at offset 0 and page - 1
+    # (logical pages up to 36: table entries past the first 32 lanes)
+    pytest.param(16, 1, 8, 128, 64, tuple(576 * (i % 5) + 63 * (i % 2)
+                                          for i in range(16)), id="decode"),
+    pytest.param(16, 1, 2, 64, 16, tuple(96 * (i % 7) + 15 * (i % 2)
+                                         for i in range(16)),
+                 id="decode-d64"),
+    # prefill chunks of 4 rows a warp (8192 and 4227 kv rows, the second
+    # with a ragged last warp), starts straddling pages
+    pytest.param(4, 256, 8, 128, 64, (2000, 63, 0, 5), id="prefill"),
+    pytest.param(3, 1409, 1, 64, 16, (15, 0, 33), id="prefill-ragged"),
+])
+def test_int8_page_write_matches_plain_bitwise(dev, dtype, B, S, n_kv, Dh,
+                                               page, starts):
+    gen = torch.Generator().manual_seed(B * S + Dh)
+    k, v, pools, table, st = _write_case(gen, dtype, B, S, n_kv, Dh, page,
+                                         starts, dev, int8=True)
+    plain = [t.clone() for t in pools]
+    cpu = [t.cpu() for t in pools]
+    counts = ops.launch_counts()
+    ck, cv = pp._write_pages_int8(k, v, *pools, table, st)
+    assert ops.launch_counts()["page_write_int8"] == (
+        counts["page_write_int8"] + 1)
+    pck, pcv = pp.write_pages_plain(k, v, plain[0], plain[1], table, st,
+                                    plain[2], plain[3])
+    cck, ccv = pp.write_pages_plain(k.cpu(), v.cpu(), cpu[0], cpu[1],
+                                    table.cpu(), st.cpu(), cpu[2], cpu[3])
+    # the whole pools: no row writes the sink, and the out-of-range page's
+    # stores drop on every side
+    for got, want, host in zip(pools, plain, cpu):
+        assert torch.equal(got, want) and torch.equal(got.cpu(), host)
+    # the dequantised chunk is written for every row, dropped page or not
+    for got, want, host in ((ck, pck, cck), (cv, pcv, ccv)):
+        assert torch.equal(got, want) and torch.equal(got.cpu(), host)
+
+
+@pytest.mark.parametrize("S", [1, 7, 256])
+@pytest.mark.parametrize("dtype,n_kv,Dh", [
+    (torch.bfloat16, 8, 128), (torch.float32, 8, 128),
+    (torch.bfloat16, 1, 64), (torch.float32, 3, 64)],
+    ids=["bf16-8x128", "f32-8x128", "bf16-1x64", "f32-3x64"])
+def test_page_write_kernel_matches_plain_off_the_sink(dev, S, dtype, n_kv,
+                                                      Dh):
+    # row bytes of 128 to 4096 (one or two passes of a warp's 16-byte
+    # chunks), starts straddling a page, logical pages past 32, a pad row
+    # whose table is all sink (row 3) and an out-of-range page id (row 1)
+    gen = torch.Generator().manual_seed(S * 10 + Dh + n_kv)
+    page = 64
+    k, v, (pk, pv), table, st = _write_case(
+        gen, dtype, 4, S, n_kv, Dh, page, (60, 2040, 127, 5), dev,
+        int8=False)
+    NP = pk.shape[0]
+    table[3] = NP - 1
+    pk2, pv2 = pk.clone(), pv.clone()
+    counts = ops.launch_counts()
+    pp._write_pages(k, v, pk, pv, table, st)
+    assert ops.launch_counts()["page_write"] == counts["page_write"] + 1
+    pp.write_pages_plain(k, v, pk2, pv2, table, st)
+    nonsink = torch.arange(NP, device=dev) != NP - 1
+    assert torch.equal(pk[nonsink], pk2[nonsink])
+    assert torch.equal(pv[nonsink], pv2[nonsink])
 
 
 @pytest.mark.parametrize("variant", ["int8_kv", "fused_ln"])

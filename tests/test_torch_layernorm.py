@@ -14,6 +14,13 @@ against the JAX package.
   port's paged ``generate`` and of its ContinuousBatcher equal to JAX
   ``decode.generate``; the batcher lists the ``layernorm`` kernel.
 - ``fused_ln`` with ``norm_type="rmsnorm"`` raises ValueError in both.
+- Kernel 11's layout (``kernel_layout``: chunks of 16 bytes or single
+  values, threads a row) depends on D and the dtype alone, keeps at most
+  32 values a thread and covers rows of up to 8192; its order of work
+  (each thread's sums over its chunks, the xor-butterfly over the row's
+  lanes, the warps' totals in order), emulated in f32 on the CPU, agrees
+  with the JAX kernel in interpret mode at D 64, 100, 1000, 2048 and
+  8192 within the tolerances above.
 """
 import importlib
 
@@ -82,6 +89,97 @@ def test_gradients_match_jax_custom_vjp():
     for t, g in zip(leaves, want):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(g),
                                    atol=1e-5, rtol=1e-5)
+
+
+def _fma(a, b, c):
+    """f32 ``fmaf`` emulated in f64 (the product is exact there)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _kernel_order_layernorm(x, scale, bias, eps):
+    """Kernel 11's arithmetic in its order of work (csrc/layernorm.cu), in
+    f32 on the CPU: thread l of a row's ``lanes`` sums its chunks l, l +
+    lanes, ... value by value, the lanes' sums meet in an xor butterfly
+    (offsets 16 down to 1, below ``lanes``), and rows of more than 32
+    lanes add their warps' totals in warp order; mean and variance are
+    divided by D; y = fma(xc * rsqrt(var + eps), scale, bias)."""
+    N, D = x.shape
+    vec, lanes = port_ln.kernel_layout(D, x.dtype)
+    chunks = D // vec
+    per = -(-chunks // lanes)
+    # [lanes, per * vec]: the element each lane takes at each step, -1 past
+    # the row
+    idx = torch.full((lanes, per * vec), -1, dtype=torch.long)
+    for lane in range(lanes):
+        for i in range(per):
+            c = lane + i * lanes
+            if c < chunks:
+                idx[lane, i * vec:(i + 1) * vec] = torch.arange(
+                    c * vec, (c + 1) * vec)
+    valid = idx >= 0
+    vals = x.float()[:, idx.clamp_min(0)]             # [N, lanes, steps]
+
+    def row_total(part):
+        for o in (16, 8, 4, 2, 1):
+            if o < lanes:
+                part = part + part[:, torch.arange(lanes) ^ o]
+        if lanes <= 32:
+            return part[:, :1]
+        total = torch.zeros((N, 1))
+        for w in range(lanes // 32):
+            total = total + part[:, w * 32:w * 32 + 1]
+        return total
+
+    part = torch.zeros((N, lanes))
+    for j in range(per * vec):
+        part = torch.where(valid[:, j], part + vals[:, :, j], part)
+    mean = row_total(part) / torch.tensor(float(D))
+    xc = vals - mean[:, :, None]
+    part = torch.zeros((N, lanes))
+    for j in range(per * vec):
+        part = torch.where(valid[:, j], _fma(xc[:, :, j], xc[:, :, j], part),
+                           part)
+    var = row_total(part) / torch.tensor(float(D))
+    inv = torch.rsqrt(var + eps)
+    y = torch.empty((N, D))
+    sel = idx[valid]
+    y[:, sel] = _fma(xc[:, valid] * inv, scale.float()[sel],
+                     bias.float()[sel])
+    return y.to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_kernel_layout_depends_on_d_and_dtype_alone(dtype):
+    size = torch.empty((), dtype=dtype).element_size()
+    for D in list(range(1, 300)) + [1000, 2047, 2048, 4100, 8191, 8192]:
+        vec, lanes = port_ln.kernel_layout(D, dtype)
+        assert vec == (16 // size if D * size % 16 == 0 else 1)
+        assert lanes & (lanes - 1) == 0 and lanes <= port_ln.KERNEL_BLOCK
+        per = -(-(D // vec) // lanes)
+        assert per * vec <= port_ln.KERNEL_VALUES and lanes * per * vec >= D
+    assert port_ln.kernel_layout(2048, torch.bfloat16) == (8, 64)
+    with pytest.raises(NotImplementedError):
+        port_ln.kernel_layout(8193, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [64, 100, 1000, 2048, 8192])
+def test_kernel_order_of_work_matches_jax_kernel(D, dtype):
+    rng = np.random.RandomState(D)
+    x = (rng.randn(5, D) * 2.0 + 0.5).astype(np.float32)
+    scale = (1.0 + 0.1 * rng.randn(D)).astype(np.float32)
+    bias = (0.1 * rng.randn(D)).astype(np.float32)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    want = jax_ln.fused_layernorm(
+        jnp.asarray(xt.float().numpy()).astype(dtype), jnp.asarray(scale),
+        jnp.asarray(bias), eps=1e-6, interpret=True)
+    got = _kernel_order_layernorm(xt, torch.from_numpy(scale),
+                                  torch.from_numpy(bias), 1e-6)
+    tol = (dict(atol=1e-5, rtol=1e-5) if dtype == "float32"
+           else dict(atol=1e-2, rtol=2 ** -7))
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **tol)
 
 
 @pytest.fixture(scope="module")
