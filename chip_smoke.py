@@ -2,8 +2,9 @@
 """Chip smoke of the PyTorch / CUDA port: builds the hand-written kernels
 and drives the port's main paths — paged continuous-batching serving of
 the flagship LM with bf16, int8 and int4 weights, over a bf16 or an int8
-kv pool, of its LayerNorm variant with the fused LayerNorm, and its
-training step — on one NVIDIA GPU.
+kv pool, of its LayerNorm variant with the fused LayerNorm, its
+training step, and that step fed through the cluster runtime — on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -107,6 +108,22 @@ caught and reported as passed):
    ``make_train_step``: both refuse make_flagship_step's bf16 mu): a
    warm-up step and one window of 3 steps, the loss finite, step ms and
    peak memory beside phase 8's;
+10. (after 8c) cluster: a ``gpu_info`` line (in a fresh process that
+   never loads torch: its GPU count against ``torch.cuda.device_count()``,
+   ``assign_chips(1, 1)`` refused as oversubscription on one GPU,
+   ``assign_chips(1, 0)`` giving ``CUDA_VISIBLE_DEVICES=0``), then the
+   ``cluster_main_path`` line: ``cluster.run(LocalBackend(1,
+   start_method="spawn"), fed_train_fn, num_chips=1)`` trains the
+   full-depth flagship step (phase 8's) in the executor's node process
+   over 11 batches of 88 seeded token rows pushed in two partitions
+   through the shm ring and DataFeed (a warm-up step and 2 windows of 5),
+   and ``c.inference`` scores 32 rows with a fresh seeded model
+   (kernel 4); every row seen, the ring attached, the executor free of
+   torch, 16 launches of each flash kernel and 131 of AdamW a step in the
+   node, and fed losses and scores equal, bit for bit, to the same
+   seeded work run directly in this process over the same batches; with
+   the fed and direct step ms, the feed wait, the feed's rows and MB per
+   second of wait, and the spawn-to-first-step seconds;
 9. the ``launch_split`` line (the serving kernels' launches by shape,
    each from its own main path); the ``kernels`` line (launches from
    each kernel's own main path: the
@@ -1806,6 +1823,346 @@ def phase_train_main(torch, dev, optimizer=None, windows=2, window=5,
         **extra)
 
 
+# phase 10: the cluster runtime feeding the flagship train step
+CLUSTER_STEPS = 11              # a warm-up step and 2 windows of 5
+CLUSTER_WINDOWS, CLUSTER_WINDOW = 2, 5
+CLUSTER_SCORE_ROWS = 32
+
+
+def cluster_rows(seed, n, vocab, seq):
+    """``n`` token rows of ``seq + 1`` int32 from a seeded RandomState:
+    the records the cluster phases feed."""
+    import numpy as np
+
+    return np.random.RandomState(seed).randint(
+        0, vocab, (n, seq + 1)).astype(np.int32)
+
+
+def _card_flags(torch):
+    # the parent's settings (main()), so both sides run the same kernels
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def fed_train_fn(args, ctx):
+    """Phase 10's training map_fun, run by the cluster's node process (a
+    fork of a spawn-started executor, so the first CUDA call here
+    initialises CUDA for this process): the flagship step of
+    ``make_flagship_step()`` over ``args["steps"]`` batches taken from
+    the node's DataFeed through the port's prefetch — a warm-up step,
+    then ``args["windows"]`` windows of ``args["window"]`` steps, each
+    closed by a loss readback.  Writes what it saw and timed to
+    ``fed_train.json`` in the executor's working dir."""
+    import itertools
+
+    t0 = time.time()
+    # the executor (and so this fork of it) must not have loaded torch:
+    # a fork of a process whose CPU thread pool ran hangs or crawls
+    torch_preloaded = "torch" in sys.modules
+    import torch
+    from tensorflowonspark_tpu_torch import feed, ops
+    from tensorflowonspark_tpu_torch.benchmarks import make_flagship_step
+
+    imported = time.time()
+    _card_flags(torch)
+    step, state, _, n_params = make_flagship_step()
+    torch.cuda.synchronize()
+    built = time.time()
+    B = args["batch"]
+    df = ctx.get_data_feed()
+    batches = feed.device_prefetch(itertools.islice(
+        df.iter_batches(B, numpy=True), args["steps"]), depth=2)
+    waits, rows = [], [0]
+
+    def next_batch():
+        t = time.monotonic()
+        batch = next(batches)
+        waits.append(time.monotonic() - t)
+        rows[0] += batch.shape[0]
+        return batch.long()
+
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    state, m = step(state, next_batch(), None)          # warm-up
+    losses = [m["loss"]]
+    m["loss"].item()
+    first_step = time.time()
+    window_ms, window_wait_ms = [], []
+    for _ in range(args["windows"]):
+        torch.cuda.synchronize()
+        t, w0 = time.monotonic(), len(waits)
+        for _ in range(args["window"]):
+            state, m = step(state, next_batch(), None)
+            losses.append(m["loss"])
+        m["loss"].item()              # the readback closes the window
+        window_ms.append((time.monotonic() - t) * 1000.0 / args["window"])
+        window_wait_ms.append(sum(waits[w0:]) * 1000.0 / args["window"])
+    launches = ops.launch_counts(ops.TRAINING_KERNELS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the rest of the feed (none is expected): read until the driver's
+    # shutdown ends it, so every fed row is accounted for
+    extra = sum(len(b) for b in df.iter_batches(B, numpy=True))
+    out = dict(
+        losses=[x.item() for x in losses], window_step_ms=window_ms,
+        window_feed_wait_ms=window_wait_ms,
+        feed_wait_ms=[w * 1000.0 for w in waits], rows_seen=rows[0],
+        rows_after_steps=extra, ring_attached=df._ring is not None,
+        launches=launches, n_leaves=len(list(state.params.parameters())),
+        n_params=n_params, max_memory_allocated_gb=peak_gb,
+        device=torch.cuda.get_device_name(0),
+        cuda_visible_devices=os.environ.get("CUDA_VISIBLE_DEVICES"),
+        torch_preloaded=torch_preloaded, started=t0,
+        torch_imported=imported, model_built=built,
+        first_step_done=first_step, pid=os.getpid())
+    with open(os.path.join(ctx.working_dir, "fed_train.json"), "w") as f:
+        json.dump(out, f)
+
+
+def score_model(torch, dev, seed):
+    """A fresh full-depth FLAGSHIP_LM_V2 (f32 masters, bf16 compute) with
+    random weights from ``seed``, for phase 10's scoring."""
+    from tensorflowonspark_tpu_torch.benchmarks import FLAGSHIP_LM_V2
+    from tensorflowonspark_tpu_torch.models.transformer import (
+        Transformer, TransformerConfig)
+
+    with torch.device(dev):
+        model = Transformer(TransformerConfig(**FLAGSHIP_LM_V2))
+    model.reset_parameters(torch.Generator(dev).manual_seed(seed))
+    return model.eval()
+
+
+def row_scores(torch, model, batch):
+    """Each row's mean next-token loss (f32 logsumexp minus the gold
+    logit, as ``lm_loss``) from one eval forward without autograd."""
+    with torch.no_grad():
+        logits = model(batch[:, :-1]).float()
+        gold = torch.gather(logits, -1, batch[:, 1:, None])[..., 0]
+        return (torch.logsumexp(logits, -1) - gold).mean(-1).tolist()
+
+
+def fed_score_fn(args, ctx):
+    """Phase 10's inference map_fun: scores every fed row (a batch of at
+    most ``args["batch"]`` rows, cut at partition ends) with
+    :func:`score_model` and returns the scores 1:1 through the DataFeed."""
+    import torch
+    from tensorflowonspark_tpu_torch import ops
+    from tensorflowonspark_tpu_torch.device import resolve
+
+    _card_flags(torch)
+    dev = resolve()
+    model = score_model(torch, dev, args["seed"])
+    df = ctx.get_data_feed(train_mode=False)
+    ops.reset_launch_counts()
+    rows = []
+    while not df.should_stop():
+        batch = df.next_numpy_batch(args["batch"])
+        if batch is None or not len(batch):
+            continue
+        rows.append(len(batch))
+        df.batch_results(row_scores(
+            torch, model, torch.from_numpy(batch).to(dev).long()))
+    with open(os.path.join(ctx.working_dir, "fed_score.json"), "w") as f:
+        json.dump({"batches": rows, "launches": ops.launch_counts(
+            ("flash_fwd",)), "device": torch.cuda.get_device_name(0)}, f)
+
+
+_GPU_INFO_PROBE = """
+import json, sys
+from tensorflowonspark_tpu_torch import gpu_info
+out = {"count": gpu_info._count_local_chips(),
+       "info": gpu_info.get_accelerator_info()}
+try:
+    gpu_info.assign_chips(1, 1)
+    out["oversubscribed"] = None
+except RuntimeError as e:
+    out["oversubscribed"] = str(e)
+out["assigned"] = gpu_info.assign_chips(1, 0)
+out["torch_imported"] = "torch" in sys.modules
+print(json.dumps(out))
+"""
+
+
+def phase_gpu_info(torch):
+    """``gpu_info`` in a fresh process (which must not initialise CUDA):
+    its count against ``torch.cuda.device_count()``, ``assign_chips(1,
+    1)`` refused as oversubscription on one GPU, ``assign_chips(1, 0)``
+    giving ``CUDA_VISIBLE_DEVICES=0``."""
+    res = subprocess.run([sys.executable, "-c", _GPU_INFO_PROBE], cwd=HERE,
+                         env=dict(os.environ, PYTHONPATH=HERE),
+                         capture_output=True, text=True, timeout=120)
+    if res.returncode:
+        raise AssertionError(f"gpu_info probe failed:\n{res.stderr}")
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    out["torch_device_count"] = torch.cuda.device_count()
+    smi = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
+                         text=True, timeout=60)
+    out["nvidia_smi_gpus"] = sum(1 for line in smi.stdout.splitlines()
+                                 if line.startswith("GPU "))
+    if out["count"] != out["torch_device_count"]:
+        raise AssertionError(f"gpu_info counts {out['count']} GPUs, torch "
+                             f"{out['torch_device_count']}")
+    if out["torch_device_count"] == 1 and not (
+            out["oversubscribed"] and "oversubscription"
+            in out["oversubscribed"]):
+        raise AssertionError(f"assign_chips(1, 1) on one GPU: "
+                             f"{out['oversubscribed']!r}")
+    if out["assigned"] != "0" or out["torch_imported"]:
+        raise AssertionError(f"assign_chips(1, 0): {out}")
+    return out
+
+
+def phase_cluster(torch, dev, direct_step_ms):
+    """Phase 10: a one-executor, spawn-started ``LocalBackend`` cluster
+    trains the full-depth flagship from partitions fed through the shm
+    ring and DataFeed (:func:`fed_train_fn`), then scores rows through
+    ``c.inference`` (:func:`fed_score_fn`); both are held to the same
+    seeded work run directly in this process over the same batches.  A
+    failure aborts the cluster (its processes killed) and propagates."""
+    import numpy as np
+
+    from tensorflowonspark_tpu_torch import backend, cluster
+    from tensorflowonspark_tpu_torch.benchmarks import (
+        FLAGSHIP_BATCH, FLAGSHIP_LM_V2, make_flagship_step)
+
+    B, S = FLAGSHIP_BATCH, FLAGSHIP_LM_V2["max_seq_len"]
+    vocab, layers = FLAGSHIP_LM_V2["vocab_size"], FLAGSHIP_LM_V2["n_layers"]
+    rows = cluster_rows(SEED, B * CLUSTER_STEPS, vocab, S)
+    half = len(rows) // 2
+    parts = [list(rows[:half]), list(rows[half:])]
+    root = os.path.join(HERE, "build", "chip_smoke", "cluster")
+    shutil.rmtree(root, ignore_errors=True)
+    args = dict(batch=B, steps=CLUSTER_STEPS, windows=CLUSTER_WINDOWS,
+                window=CLUSTER_WINDOW)
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    c = cluster.run(
+        backend.LocalBackend(1, workdir=os.path.join(root, "train"),
+                             start_method="spawn"),
+        fed_train_fn, args, num_executors=1,
+        input_mode=cluster.InputMode.SPARK, num_chips=1,
+        reservation_timeout=300)
+    registered = time.time()
+    try:
+        c.train(parts, feed_timeout=600)
+        c.shutdown(timeout=600)
+    except BaseException:
+        c.abort()
+        raise
+    with open(os.path.join(root, "train", "executor-0",
+                           "fed_train.json")) as f:
+        fed = json.load(f)
+
+    # the same seeded step, run directly here over the same batches
+    step, state, _, _ = make_flagship_step()
+    batches = [torch.from_numpy(rows[i * B:(i + 1) * B]).to(dev).long()
+               for i in range(CLUSTER_STEPS)]
+    direct, times = [], []
+    state, m = step(state, batches[0], None)
+    direct.append(m["loss"])
+    for w in range(CLUSTER_WINDOWS):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        for i in range(CLUSTER_WINDOW):
+            state, m = step(state, batches[1 + w * CLUSTER_WINDOW + i], None)
+            direct.append(m["loss"])
+        m["loss"].item()
+        times.append((time.monotonic() - t) * 1000.0 / CLUSTER_WINDOW)
+    direct = [x.item() for x in direct]
+    del step, state, batches, m
+    torch.cuda.empty_cache()
+
+    n_rows, n_leaves = len(rows), fed["n_leaves"]
+    if fed["rows_seen"] != n_rows or fed["rows_after_steps"]:
+        raise AssertionError(f"fed {n_rows} rows, the node saw "
+                             f"{fed['rows_seen']} + "
+                             f"{fed['rows_after_steps']}")
+    if not fed["ring_attached"]:
+        raise AssertionError("the feed did not ride the shm ring")
+    if fed["torch_preloaded"]:
+        raise AssertionError("the executor loaded torch before forking "
+                             "the node process")
+    want = {name: layers * CLUSTER_STEPS for name in
+            ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    want.update(adamw=n_leaves * CLUSTER_STEPS, lion=0)
+    if fed["launches"] != want:
+        raise AssertionError(f"node launches {fed['launches']}, want "
+                             f"{want}")
+    if fed["losses"] != direct:
+        raise AssertionError(f"fed losses {fed['losses']} differ from the "
+                             f"direct loop's {direct}")
+
+    # inference: a fresh seeded model scores rows 1:1, in order
+    score = cluster_rows(SEED + 1, CLUSTER_SCORE_ROWS, vocab, S)
+    sparts = [list(score[:CLUSTER_SCORE_ROWS // 2]),
+              list(score[CLUSTER_SCORE_ROWS // 2:])]
+    sargs = dict(batch=B, seed=SEED + 2)
+    c = cluster.run(
+        backend.LocalBackend(1, workdir=os.path.join(root, "score"),
+                             start_method="spawn"),
+        fed_score_fn, sargs, num_executors=1,
+        input_mode=cluster.InputMode.SPARK, num_chips=1,
+        reservation_timeout=300)
+    try:
+        scores = c.inference(sparts)
+        c.shutdown(timeout=600)
+    except BaseException:
+        c.abort()
+        raise
+    with open(os.path.join(root, "score", "executor-0",
+                           "fed_score.json")) as f:
+        fed_score = json.load(f)
+    model = score_model(torch, dev, sargs["seed"])
+    want_scores = []
+    for part in sparts:
+        for i in range(0, len(part), B):
+            batch = torch.from_numpy(np.stack(part[i:i + B])).to(dev).long()
+            want_scores += row_scores(torch, model, batch)
+    del model
+    torch.cuda.empty_cache()
+    if scores != want_scores:
+        raise AssertionError(f"cluster scores {scores} differ from direct "
+                             f"scoring {want_scores}")
+    n_batches = -(-CLUSTER_SCORE_ROWS // B)
+    if fed_score["launches"]["flash_fwd"] != layers * n_batches:
+        raise AssertionError(f"scoring launched flash_fwd "
+                             f"{fed_score['launches']['flash_fwd']} times")
+    shutil.rmtree(root, ignore_errors=True)
+
+    fed_step_ms = min(fed["window_step_ms"])
+    # the feed's delivery rate while the consumer waits on it, after the
+    # first batch (which waits for the feeder task to start)
+    waits = fed["feed_wait_ms"][1:]
+    wait_s = sum(waits) / 1000.0
+    row_bytes = rows.itemsize * rows.shape[1]
+    loop_s = fed["first_step_done"] - fed["model_built"] + sum(
+        fed["window_step_ms"]) * CLUSTER_WINDOW / 1000.0
+    return dict(
+        config="FLAGSHIP_LM_V2", batch=B, seq=S, steps=CLUSTER_STEPS,
+        rows=n_rows, partitions=len(parts), bytes_per_step=B * row_bytes,
+        fed_step_ms=fed_step_ms, fed_window_step_ms=fed["window_step_ms"],
+        direct_step_ms=min(times), direct_window_step_ms=times,
+        phase8_direct_step_ms=direct_step_ms,
+        fed_over_direct=fed_step_ms / min(times),
+        feed_wait_ms_per_step=sum(waits) / len(waits),
+        feed_wait_ms_first_batch=fed["feed_wait_ms"][0],
+        window_feed_wait_ms=fed["window_feed_wait_ms"],
+        feed_rows_per_s=(n_rows - B) / wait_s,
+        feed_mb_per_s=(n_rows - B) * row_bytes / wait_s / 1e6,
+        train_rows_per_s=n_rows / loop_s,
+        spawn_to_registered_s=registered - t0,
+        spawn_to_first_step_s=fed["first_step_done"] - t0,
+        node_torch_import_s=fed["torch_imported"] - fed["started"],
+        node_model_build_s=fed["model_built"] - fed["torch_imported"],
+        losses=fed["losses"], losses_equal=True,
+        launches=fed["launches"], n_leaves=n_leaves,
+        node_max_memory_allocated_gb=fed["max_memory_allocated_gb"],
+        node_device=fed["device"],
+        node_cuda_visible_devices=fed["cuda_visible_devices"],
+        scored_rows=len(scores), score_batches=fed_score["batches"],
+        scores_equal=True, score_launches=fed_score["launches"],
+        scores=scores)
+
+
 def main():
     try:
         import torch
@@ -1978,6 +2335,11 @@ def main():
              adamw_fused_max_memory_allocated_gb=train_main[
                  "max_memory_allocated_gb"], **opt_main)
         torch.cuda.empty_cache()
+
+    emit("gpu_info", nvidia_smi=card, **phase_gpu_info(torch))
+    emit("cluster_main_path", nvidia_smi=card,
+         **phase_cluster(torch, dev, train_main["step_ms"]))
+    torch.cuda.empty_cache()
 
     # the serving kernels' launches by shape, each from its own main path
     emit("launch_split", nvidia_smi=card, kernels=splits)

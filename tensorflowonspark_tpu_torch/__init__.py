@@ -8,8 +8,14 @@ NVIDIA H100: ``serve`` (HTTP :generate over ``ContinuousBatcher``),
 ``csrc``.  Slice 2 trains it on one card: ``benchmarks.
 make_flagship_step`` over ``parallel.train`` (the train step),
 ``optim`` (schedules, optimizers) and the flash-attention and fused
-AdamW kernels.  Module names follow the JAX package, so each module's
-counterpart is easy to find.  The port imports ``torch``, numpy and the
+AdamW kernels.  Slice 6 ports the cluster runtime: ``cluster.run`` over
+a ``backend`` (``LocalBackend``) turns executors into trainers, each a
+``node`` process fed partitions through ``reservation``, ``manager``,
+the ``shm`` ring and ``feed.DataFeed``, with ``gpu_info`` giving each
+executor its GPUs and ``parallel.train.feed_consensus`` voting across
+processes.  Module names follow the JAX package, so each module's
+counterpart is easy to find (``gpu_info`` takes the place of
+``tpu_info``).  The port imports ``torch``, numpy and the
 standard library only — never ``jax`` and nothing of the JAX package.
 
 Submodules import lazily, keeping ``import tensorflowonspark_tpu_torch``
@@ -18,8 +24,10 @@ cheap.
 __version__ = "0.1.0"
 
 _LAZY_SUBMODULES = {
-    "benchmarks", "convert", "device", "export", "metrics", "models", "ops",
-    "optim", "parallel", "serve",
+    "backend", "benchmarks", "cluster", "compat", "convert", "device",
+    "export", "faults", "feed", "gpu_info", "manager", "marker", "metrics",
+    "models", "node", "ops", "optim", "parallel", "parallel_runner",
+    "reservation", "serve", "shm", "util",
 }
 
 

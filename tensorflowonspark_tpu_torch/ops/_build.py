@@ -11,9 +11,14 @@ silently.
 The build happens at first use (or explicitly through :func:`build`),
 from the sources in the checkout alone: one ``nvcc -c`` per source, all
 started together, then one link.  Nothing is compiled at import time,
-so the CPU test tier imports these modules without a toolkit.
+so the CPU test tier imports these modules without a toolkit.  Several
+processes may reach the first use at once (the executors of one cluster
+on a fresh checkout): :func:`lib` builds under an ``flock`` on
+``BUILD_DIR/lock``, so one compiles and the others then find the library
+fresh.
 """
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -28,6 +33,7 @@ HEADERS = ("common.cuh", "mma.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
                          "torch_kernels")
 LIBRARY = os.path.join(BUILD_DIR, "libtos_kernels.so")
+LOCK = os.path.join(BUILD_DIR, "lock")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v"]
@@ -138,12 +144,27 @@ def build(force=False):
             "ptxas": reports}
 
 
+def locked_build():
+    """:func:`build` under an exclusive ``flock`` on :data:`LOCK`, so
+    processes that build at once compile one after another (the later
+    ones find the library fresh and skip the work) instead of writing the
+    same objects together.  The lock is released when the holder exits,
+    however it exits."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(LOCK, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            return build()
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def lib():
     """The loaded kernel library, built first when missing or stale."""
     global _lib
     with _lock:
         if _lib is None:
-            build()
+            locked_build()
             handle = ctypes.CDLL(LIBRARY)
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(handle, name)

@@ -1,7 +1,8 @@
 """Parallelism and the train-step harness — counterpart of
 ``tensorflowonspark_tpu/parallel``.
 
-This slice ports the single-card train step (``parallel.train``).
-Meshes, sharding rules and the multi-process collectives wait for the
-cluster runtime (ROADMAP: cluster runtime) and multi-GPU sharding.
+``parallel.train`` holds the train step of one card and
+``feed_consensus``, the stop vote across the processes of a cluster
+(``torch.distributed``).  Meshes and sharding rules wait for multi-GPU
+sharding (ROADMAP).
 """

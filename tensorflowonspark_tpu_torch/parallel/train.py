@@ -15,7 +15,9 @@ JAX's step is a pure function whose state buffers jit donates; the port
 updates the parameters and the optimizer state IN PLACE (the fused
 AdamW kernel writes them in its one pass) and returns a new
 ``TrainState`` that holds the same tensors.  Meshes and explicit
-shardings wait for the cluster runtime and multi-GPU sharding.
+shardings wait for multi-GPU sharding; :func:`feed_consensus` votes over
+the ``torch.distributed`` group the cluster runtime's
+``NodeContext.init_distributed`` makes.
 """
 from typing import Any, NamedTuple
 
@@ -26,7 +28,7 @@ from tensorflowonspark_tpu_torch.ops.fused_optim import global_norm
 from tensorflowonspark_tpu_torch.optim import apply_updates
 
 _MESH = ("a mesh and explicit shardings are not ported yet (ROADMAP: "
-         "cluster runtime, then multi-GPU sharding)")
+         "multi-GPU sharding)")
 
 
 class TrainState(NamedTuple):
@@ -170,14 +172,27 @@ def make_eval_step(forward_fn, mesh=None):
 
 
 def feed_consensus(has_data):
-    """Global stop-consensus over an uneven feed: True while every
-    process has data.  One process here; several raise until the cluster
-    runtime brings the collective (ROADMAP: cluster runtime)."""
+    """Global stop-consensus over an uneven feed: True while EVERY
+    process has data, so every rank leaves the loop on the same step
+    (a rank that stopped alone would leave its peers blocked in the
+    step's collective).  An ``all_reduce(MIN)`` of a one-element int
+    tensor over the default process group — a CPU tensor under gloo, a
+    CUDA tensor under nccl; with one process, or no process group, the
+    answer is ``has_data`` itself.
+
+        while True:
+            batch = feed.next_numpy_batch(B, timeout=probe_s)
+            if not feed_consensus(batch is not None and len(batch[0])):
+                break
+            state, m = step(state, batch, rng)
+    """
     import torch.distributed as dist
 
-    if (dist.is_available() and dist.is_initialized()
+    if not (dist.is_available() and dist.is_initialized()
             and dist.get_world_size() > 1):
-        raise NotImplementedError(
-            "feed_consensus across processes is not ported yet (ROADMAP: "
-            "cluster runtime)")
-    return bool(has_data)
+        return bool(has_data)
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dist.get_backend() == "nccl" else torch.device("cpu"))
+    vote = torch.tensor([1 if has_data else 0], dtype=torch.int32, device=dev)
+    dist.all_reduce(vote, op=dist.ReduceOp.MIN)
+    return bool(vote.item())

@@ -1046,3 +1046,78 @@ def test_slice4_generate_on_card_matches_cpu(dev, variant):
     names = (ops.SERVING_KERNELS_INT8_KV if kv
              else ops.SERVING_KERNELS + ("layernorm",))
     assert min(ops.launch_counts(names).values()) >= 1
+
+
+def fn_cluster_train_on_card(args, ctx):
+    """Map_fun of the spawn-started cluster test: runs in the node
+    process, which initialises CUDA itself."""
+    import json
+    import os
+
+    from tensorflowonspark_tpu_torch import benchmarks, ops
+
+    step, state, _, _ = benchmarks.make_flagship_step(
+        args["batch"], None, args["cfg"])
+    ops.reset_launch_counts()
+    df = ctx.get_data_feed()
+    losses = []
+    for batch in df.iter_device_batches(args["batch"]):
+        state, m = step(state, batch.long(), None)
+        losses.append(m["loss"].item())
+    out = {"losses": losses, "ring": df._ring is not None,
+           "launches": ops.launch_counts(ops.TRAINING_KERNELS),
+           "leaves": len(list(state.params.parameters())),
+           "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+    with open(os.path.join(ctx.working_dir, "card.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _tiny_card_lm():
+    return dict(benchmarks.FLAGSHIP_LM_V2, vocab_size=256, d_model=256,
+                n_heads=4, n_kv_heads=2, n_layers=2, d_ff=512,
+                max_seq_len=96)
+
+
+def test_spawned_cluster_trains_on_card(dev, tmp_path):
+    # a driver that holds CUDA (this process) starts its executors with
+    # spawn; the node process (a fork of the executor) runs kernels 4-7
+    import json
+
+    import numpy as np
+
+    from tensorflowonspark_tpu_torch import backend, cluster
+
+    torch.zeros(1, device=dev)
+    c = cluster.run(
+        backend.LocalBackend(1, workdir=str(tmp_path), start_method="spawn"),
+        fn_cluster_train_on_card, {"cfg": _tiny_card_lm(), "batch": 2},
+        num_executors=1, input_mode=cluster.InputMode.SPARK, num_chips=1,
+        reservation_timeout=120)
+    rows = np.random.RandomState(0).randint(0, 256, (4, 97)).astype(np.int32)
+    try:
+        c.train([list(rows)], feed_timeout=120)
+        c.shutdown(timeout=120)
+    except BaseException:
+        c.abort()
+        raise
+    with open(tmp_path / "executor-0" / "card.json") as f:
+        out = json.load(f)
+    assert out["ring"] and out["visible"] == "0"
+    assert len(out["losses"]) == 2
+    assert all(np.isfinite(out["losses"]))
+    n = out["launches"]
+    assert n["flash_fwd"] == n["flash_bwd_dq"] == n["flash_bwd_dkv"] == 4
+    assert n["adamw"] == 2 * out["leaves"] > 0
+
+
+def test_fork_started_executor_is_refused_after_cuda(dev, tmp_path):
+    # fork after this driver initialised CUDA: refused in the driver, with
+    # the way out in the message, before any executor starts
+    from tensorflowonspark_tpu_torch import backend, cluster
+
+    torch.zeros(1, device=dev)
+    fork = backend.LocalBackend(1, workdir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="start_method='spawn'"):
+        cluster.run(fork, fn_cluster_train_on_card, {}, num_executors=1,
+                    input_mode=cluster.InputMode.SPARK)
+    assert fork._bootstrap_procs == []

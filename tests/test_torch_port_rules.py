@@ -1,7 +1,9 @@
 """The port's ground rules, checked on the CPU.
 
-- The port and ``chip_smoke.py`` import with ``jax``, ``flax`` and the
-  JAX package blocked, and no source file names them in an import.
+- The port and ``chip_smoke.py`` import with ``jax``, ``flax``,
+  ``msgpack``, ``cloudpickle`` and the JAX package blocked, and no source
+  file names them in an import; the cluster runtime's modules import
+  without ``torch``.
 - Entry points raise without CUDA unless the CPU is asked for.
 - A CPU tensor passed to each kernel wrapper takes the plain version
   (the launch counts stay 0); each kernel's CUDA source exists, names
@@ -33,8 +35,13 @@ from tensorflowonspark_tpu_torch.parallel import train as port_train
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "tensorflowonspark_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack",
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "cloudpickle",
              "tensorflowonspark_tpu")
+# the cluster runtime: executors and feeders import these without torch
+# (a process that never loaded torch forks a clean node process)
+TORCH_FREE = ("util", "faults", "marker", "gpu_info", "reservation",
+              "manager", "shm", "feed", "node", "backend", "cluster",
+              "parallel_runner", "compat")
 TINY = dict(vocab_size=32, d_model=64, n_heads=4, n_kv_heads=2, n_layers=1,
             d_ff=64, max_seq_len=32, dtype="float32", rope=True)
 
@@ -70,6 +77,20 @@ def test_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
+
+
+def test_cluster_runtime_imports_without_torch():
+    assert set(TORCH_FREE) <= {m.rsplit(".", 1)[-1] for m in _module_names()}
+    code = (
+        "import importlib, sys\n"
+        f"for mod in {TORCH_FREE!r}:\n"
+        "    importlib.import_module('tensorflowonspark_tpu_torch.' + mod)\n"
+        "print('torch' in sys.modules)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "False"
 
 
 def test_no_source_imports_jax_or_the_jax_package():
