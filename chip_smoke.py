@@ -3,8 +3,9 @@
 and drives the port's main paths — paged continuous-batching serving of
 the flagship LM with bf16, int8 and int4 weights, over a bf16 or an int8
 kv pool, of its LayerNorm variant with the fused LayerNorm, its
-training step, and that step fed through the cluster runtime — on one
-NVIDIA GPU.
+training step, that step fed through the cluster runtime, and the
+pipeline API training it from a DataFrame (through the shm ring and from
+TFRecords) and scoring with the export — on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -124,6 +125,27 @@ caught and reported as passed):
    seeded work run directly in this process over the same batches; with
    the fed and direct step ms, the feed wait, the feed's rows and MB per
    second of wait, and the spawn-to-first-step seconds;
+11. (after 10) the ``pipeline_main_path`` line: on a minispark
+   ``SparkContext`` with one spawn-started executor, a DataFrame of 32
+   rows of 1025 int32 tokens (two partitions) trains the full-depth
+   flagship step (phase 8's) 4 steps through ``pipeline_ml.Pipeline(
+   [TFEstimator])``, once fed through ``SparkBackend`` -> minispark ->
+   the shm ring -> ``DataFeed`` (``InputMode.SPARK``, in the node; the
+   chief exports the f32 masters) and once from the TFRecords
+   ``dfutil.saveAsTFRecords`` writes, read by ``data.Dataset`` through
+   ``prefetch`` and ``prefetch_to_device`` (``InputMode.NATIVE``, in the
+   executor); the same seeded step runs here over the same batches.  The
+   fitted stage's base ``pipeline.TFModel`` scores 16 rows of 64 tokens
+   in the executor, and ``python -m tensorflowonspark_tpu_torch.
+   inference`` scores a TFRecord shard of 4 rows of 16 tokens.  Both
+   fits' losses equal the direct loop's, the transform's and the CLI's
+   logits a direct forward of the loaded export, bit for bit; kernels
+   4-6 launch 16 times and kernel 7 131 times a step in each fit, kernel
+   4 16 times a partition in the transform; with each step's ms (wait
+   included) beside the direct step's, the feed wait and the NATIVE
+   decode per step, ``saveAsTFRecords``, export write and load seconds,
+   the spawn-to-first-step seconds of each fit, the transform's rows per
+   second and first-partition latency, and the CLI's wall seconds;
 9. the ``launch_split`` line (the serving kernels' launches by shape,
    each from its own main path); the ``kernels`` line (launches from
    each kernel's own main path: the
@@ -2163,6 +2185,381 @@ def phase_cluster(torch, dev, direct_step_ms):
         scores=scores)
 
 
+# phase 11: the data layer and the pipeline API train and score the flagship
+PIPELINE_STEPS = 4              # each closed by a readback: warm-up + 3
+PIPELINE_ROWS = 32              # 4 batches of 8, in two partitions
+PIPELINE_SCORE = (16, 64)       # transform: rows x tokens, two partitions
+PIPELINE_CLI = (4, 16)          # the CLI's TFRecord shard: rows x tokens
+
+
+def frame_records(seed, n, vocab, seq):
+    """Phase 11's DataFrame records: ``n`` one-column tuples, each a row
+    of ``seq`` int32 token ids (``cluster_rows`` with that seed)."""
+    return [(row,) for row in cluster_rows(seed, n, vocab, seq - 1)]
+
+
+def first_difference(got, want):
+    """None when the arrays of ``got`` equal those of ``want`` bit for bit
+    (the same count, dtypes, shapes and bytes), else what differs first."""
+    import numpy as np
+
+    if len(got) != len(want):
+        return f"{len(got)} arrays against {len(want)}"
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = np.asarray(g), np.asarray(w)
+        if g.dtype != w.dtype or g.shape != w.shape:
+            return (f"array {i}: {g.dtype} {g.shape} against {w.dtype} "
+                    f"{w.shape}")
+        if g.tobytes() != w.tobytes():
+            diff = np.abs(g.astype(np.float64) - w.astype(np.float64))
+            return (f"array {i}: the bits differ (max |difference| "
+                    f"{float(np.nanmax(diff))!r})")
+    return None
+
+
+def check_bits(what, got, want):
+    """Raise unless ``got`` equals ``want`` bit for bit (`first_difference`)."""
+    diff = first_difference(got, want)
+    if diff is not None:
+        raise AssertionError(f"{what}: {diff}")
+
+
+def _example_tokens(example):
+    import numpy as np
+
+    return np.asarray(example["tokens"][1], np.int32)
+
+
+def _timed(batches, n, sink):
+    """The first ``n`` items of ``batches``, the ms each took to produce
+    appended to ``sink`` (it raises if fewer come)."""
+    it = iter(batches)
+    for _ in range(n):
+        t = time.perf_counter()
+        item = next(it)
+        sink.append((time.perf_counter() - t) * 1000.0)
+        yield item
+
+
+def pipeline_train_fn(args, ctx):
+    """Phase 11's train_fn, run by ``TFEstimator.fit``: in a SPARK-mode fit
+    by the node process (a fork of the minispark executor, which has not
+    loaded torch), in a NATIVE-mode fit by the executor itself.  It takes
+    ``args.steps`` steps of ``make_flagship_step()``, each closed by a
+    loss readback, over batches of ``args.batch_size`` rows: from the
+    DataFeed (SPARK), or from ``data.Dataset.from_tfrecords(args.
+    tfrecord_dir)`` through ``prefetch`` (a host thread) and
+    ``prefetch_to_device`` (NATIVE).  ``host_ms`` is the host's work for
+    each batch (the feed's wait and unpacking, or, in the prefetch
+    thread, the TFRecord read, CRC, Example decode and stacking),
+    ``wait_ms`` each step's wait for its batch, ``step_ms`` each step's
+    wall time, wait included.  With ``args.export_dir`` the chief exports
+    the f32 masters.  Writes what it saw and timed to
+    ``pipeline_<mode>.json`` in the executor's dir."""
+    t0 = time.time()
+    torch_preloaded = "torch" in sys.modules
+    import torch
+    from tensorflowonspark_tpu_torch import cluster, data, export, feed, ops
+    from tensorflowonspark_tpu_torch.benchmarks import (FLAGSHIP_LM_V2,
+                                                        make_flagship_step)
+
+    imported = time.time()
+    _card_flags(torch)
+    step, state, _, n_params = make_flagship_step()
+    torch.cuda.synchronize()
+    built = time.time()
+    B, steps = args.batch_size, args.steps
+    native = args.input_mode == cluster.InputMode.NATIVE
+    host_ms, waits = [], []
+    if native:
+        mode = "native"
+        records = (data.Dataset.from_tfrecords(args.tfrecord_dir)
+                   .map(_example_tokens).batch(B, drop_remainder=True))
+        batches = iter(data.Dataset.from_generator(
+            lambda: _timed(records, steps, host_ms)).prefetch(2)
+            .prefetch_to_device(depth=2))
+    else:
+        mode = "spark"
+        df = ctx.get_data_feed()
+        batches = feed.device_prefetch(_timed(
+            (b[0] for b in df.iter_batches(B, numpy=True)), steps, host_ms),
+            depth=2)
+
+    def next_batch():
+        t = time.monotonic()
+        batch = next(batches)
+        waits.append((time.monotonic() - t) * 1000.0)
+        return batch.long()
+
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for i in range(steps):
+        t = time.monotonic()
+        state, m = step(state, next_batch(), None)
+        losses.append(m["loss"].item())      # the readback closes the step
+        step_ms.append((time.monotonic() - t) * 1000.0)
+        if i == 0:
+            first_step = time.time()
+    out = dict(
+        mode=mode, losses=losses, step_ms=step_ms, host_ms=host_ms,
+        wait_ms=waits, launches=ops.launch_counts(ops.TRAINING_KERNELS),
+        n_leaves=len(list(state.params.parameters())), n_params=n_params,
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        device=torch.cuda.get_device_name(0), torch_preloaded=torch_preloaded,
+        started=t0, torch_imported=imported, model_built=built,
+        first_step_done=first_step, pid=os.getpid())
+    if args.export_dir:
+        t = time.time()
+        export.export_saved_model(args.export_dir, state.params.state_dict(),
+                                  builder_kwargs=FLAGSHIP_LM_V2,
+                                  is_chief=ctx.is_chief)
+        out["export_write_s"] = time.time() - t
+        out["export_bytes"] = os.path.getsize(
+            os.path.join(args.export_dir, export.PARAMS_FILE))
+    if not native:
+        # the rest of the feed (none is expected): read until the
+        # driver's shutdown ends it, so every fed row is accounted for
+        out["rows_after_steps"] = sum(
+            len(b[0]) for b in df.iter_batches(B, numpy=True))
+    del step, state, m, batches
+    torch.cuda.empty_cache()
+    out["done"] = time.time()
+    with open(os.path.join(ctx.working_dir, f"pipeline_{mode}.json"),
+              "w") as f:
+        json.dump(out, f)
+
+
+def executor_launches(iterator):
+    """A minispark task: the executor's kernel-4 launches since the last
+    call (the count is reset)."""
+    from tensorflowonspark_tpu_torch import ops
+
+    n = ops.launch_counts(("flash_fwd",))["flash_fwd"]
+    ops.reset_launch_counts()
+    return [n]
+
+
+def _read_json(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def phase_pipeline(torch, dev, direct_step_ms):
+    """Phase 11: on a minispark ``SparkContext`` (one spawn-started
+    executor), ``pipeline_ml.Pipeline([TFEstimator])`` fits the full-depth
+    flagship from a DataFrame through the shm ring (SPARK) and from the
+    TFRecords ``dfutil.saveAsTFRecords`` wrote (NATIVE, ``data.Dataset``);
+    the SPARK fit exports the f32 masters, the base ``pipeline.TFModel``
+    of the fitted stage scores a DataFrame in the executor, and the batch
+    CLI scores a TFRecord shard in a subprocess.  Losses and logits are
+    held, bit for bit, to the same seeded work run here.  A failure
+    aborts the fit's cluster (``TFEstimator``) and stops the context, and
+    propagates."""
+    import numpy as np
+
+    from tensorflowonspark_tpu_torch import (cluster, dfutil, export,
+                                             minispark, pipeline,
+                                             pipeline_ml)
+    from tensorflowonspark_tpu_torch.benchmarks import (
+        FLAGSHIP_BATCH, FLAGSHIP_LM_V2, make_flagship_step)
+    from tensorflowonspark_tpu_torch.minispark import sql
+    from tensorflowonspark_tpu_torch.minispark.sql import types as T
+
+    B, S = FLAGSHIP_BATCH, FLAGSHIP_LM_V2["max_seq_len"]
+    vocab, layers = FLAGSHIP_LM_V2["vocab_size"], FLAGSHIP_LM_V2["n_layers"]
+    steps = PIPELINE_STEPS
+    root = os.path.join(HERE, "build", "chip_smoke", "pipeline")
+    shutil.rmtree(root, ignore_errors=True)
+    exp = os.path.join(root, "export")
+    tfr = os.path.join(root, "tfrecords")
+    records = frame_records(SEED + 3, PIPELINE_ROWS, vocab, S + 1)
+    score = frame_records(SEED + 4, PIPELINE_SCORE[0], vocab,
+                          PIPELINE_SCORE[1])
+    schema = T.StructType([T.StructField("tokens",
+                                         T.ArrayType(T.IntegerType()))])
+    torch.cuda.empty_cache()
+    sc = minispark.SparkContext(num_executors=1,
+                                workdir=os.path.join(root, "executors"))
+    try:
+        spark = sql.SparkSession.builder.getOrCreate()
+        df = spark.createDataFrame(sc.parallelize(records, 2), schema)
+        est = (pipeline_ml.TFEstimator(pipeline_train_fn, {"steps": steps})
+               .setClusterSize(1).setBatchSize(B).setEpochs(1)
+               .setGraceSecs(0).setInputMapping({"tokens": "input"})
+               .setInputMode(cluster.InputMode.SPARK).setExportDir(exp))
+        workdir = os.path.join(root, "executors", "executor-0")
+
+        # 1. SPARK-fed fit: SparkBackend -> minispark -> shm ring -> DataFeed
+        t0 = time.time()
+        fitted = pipeline_ml.Pipeline(stages=[est]).fit(df)
+        fit_s = time.time() - t0
+        # fit returns once the node announced its exit: the JSON, written
+        # as the train_fn's last act, and the export are whole
+        fed = _read_json(os.path.join(workdir, "pipeline_spark.json"))
+
+        # 2. NATIVE-fed fit from the TFRecords saveAsTFRecords writes
+        t = time.time()
+        probe = os.path.join(root, "tfrecords_probe")
+        if dfutil.saveAsTFRecords(df, probe) != PIPELINE_ROWS:
+            raise AssertionError("saveAsTFRecords wrote a wrong count")
+        save_s = time.time() - t
+        shards = sorted(os.listdir(probe))
+        tfr_bytes = sum(os.path.getsize(os.path.join(probe, f))
+                        for f in shards)
+        est.setInputMode(cluster.InputMode.NATIVE).setTfrecordDir(tfr) \
+            .setExportDir(None)
+        t1 = time.time()
+        pipeline_ml.Pipeline(stages=[est]).fit(df)
+        native_fit_s = time.time() - t1
+        nat = _read_json(os.path.join(workdir, "pipeline_native.json"))
+        if sorted(os.listdir(tfr)) != shards or any(
+                open(os.path.join(tfr, f), "rb").read()
+                != open(os.path.join(probe, f), "rb").read()
+                for f in shards):
+            raise AssertionError("the NATIVE fit's TFRecords differ from "
+                                 "saveAsTFRecords'")
+
+        # 3. the same seeded step here over the same batches
+        rows = np.stack([r[0] for r in records])
+        step, state, _, _ = make_flagship_step()
+        batches = [torch.from_numpy(rows[i * B:(i + 1) * B]).to(dev).long()
+                   for i in range(steps)]
+        direct, direct_ms = [], []
+        torch.cuda.synchronize()
+        for batch in batches:
+            t = time.monotonic()
+            state, m = step(state, batch, None)
+            direct.append(m["loss"].item())
+            direct_ms.append((time.monotonic() - t) * 1000.0)
+        del step, state, batches, m
+        torch.cuda.empty_cache()
+        check_bits("SPARK-fed losses against the direct loop's",
+                   [np.asarray(fed["losses"])], [np.asarray(direct)])
+        check_bits("NATIVE-fed losses against the direct loop's",
+                   [np.asarray(nat["losses"])], [np.asarray(direct)])
+        want = {name: layers * steps for name in
+                ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        want.update(adamw=fed["n_leaves"] * steps, lion=0)
+        for run in (fed, nat):
+            if run["launches"] != want:
+                raise AssertionError(f"{run['mode']} fit launched "
+                                     f"{run['launches']}, want {want}")
+        if fed["torch_preloaded"] or fed.get("rows_after_steps"):
+            raise AssertionError("the executor loaded torch before forking "
+                                 "the node, or rows were left over")
+
+        # 4. transform: the fitted stage's base TFModel in the executor
+        t = time.time()
+        predict, _ = export.load_saved_model(exp)
+        load_s = time.time() - t
+        scorer = pipeline.TFModel(fitted.stages[0].merge_args_params())
+        half = PIPELINE_SCORE[0] // 2
+        t = time.time()
+        first = scorer.transform(spark.createDataFrame(
+            sc.parallelize(score[:half], 1), schema), box=False).collect()
+        first_s = time.time() - t
+        sc.parallelize([0], 1).mapPartitions(executor_launches).collect()
+        t = time.time()
+        got = scorer.transform(spark.createDataFrame(
+            sc.parallelize(score, 2), schema), box=False).collect()
+        transform_s = time.time() - t
+        transform_launches = sc.parallelize([0], 1).mapPartitions(
+            executor_launches).collect()[0]
+        # the same forward here, batch by batch: its time (the device's
+        # work and the logits' copy to the host) beside the transform's
+        direct_logits, forward_ms = [], []
+        for part in (score[:half], score[half:]):
+            for i in range(0, len(part), B):
+                t = time.perf_counter()
+                direct_logits += list(predict(
+                    np.stack([r[0] for r in part[i:i + B]])))
+                forward_ms.append((time.perf_counter() - t) * 1000.0)
+        check_bits("transform logits against the direct forward",
+                   got, direct_logits)
+        check_bits("first-partition logits", first, direct_logits[:half])
+        if transform_launches != layers * 2:
+            raise AssertionError(f"the transform launched kernel 4 "
+                                 f"{transform_launches} times in the "
+                                 f"executor, want {layers * 2}")
+
+        # 5. the batch CLI over one TFRecord shard, as a subprocess
+        cli = np.stack([r[0] for r in frame_records(
+            SEED + 5, PIPELINE_CLI[0], vocab, PIPELINE_CLI[1])])
+        shard = os.path.join(root, "cli", "part-r-00000")
+        os.makedirs(os.path.dirname(shard))
+        dfutil.write_tfrecords(({"tokens": r} for r in cli), shard)
+        cli_out = os.path.join(root, "cli_out")
+        t = time.time()
+        res = subprocess.run(
+            [sys.executable, "-m", "tensorflowonspark_tpu_torch.inference",
+             "--export_dir", exp, "--input", shard, "--output", cli_out,
+             "--schema_hint", "struct<tokens:array<int>>",
+             "--input_mapping", '{"tokens": "input"}',
+             "--batch_size", str(PIPELINE_CLI[0])],
+            cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+            capture_output=True, text=True, timeout=600)
+        cli_s = time.time() - t
+        if res.returncode:
+            raise AssertionError(f"the CLI failed:\n{res.stderr[-4000:]}")
+        with open(os.path.join(cli_out, "part-00000.json")) as f:
+            cli_got = [np.asarray(json.loads(line)["output"], np.float32)
+                       for line in f]
+        check_bits("CLI logits against the direct forward", cli_got,
+                   list(predict(cli)))
+        del predict
+        torch.cuda.empty_cache()
+    finally:
+        sc.stop()
+    shutil.rmtree(root, ignore_errors=True)
+
+    row_bytes = rows.itemsize * rows.shape[1]
+    # each step's wall time, its batch's wait included; the best of the
+    # steps after the warm-up
+    spark_ms, native_ms = min(fed["step_ms"][1:]), min(nat["step_ms"][1:])
+    best_direct_ms = min(direct_ms[1:])
+    return dict(
+        config="FLAGSHIP_LM_V2", batch=B, seq=S, steps=steps,
+        rows=PIPELINE_ROWS, partitions=2, bytes_per_step=B * row_bytes,
+        spark_step_ms=spark_ms, native_step_ms=native_ms,
+        direct_step_ms=best_direct_ms, spark_steps_ms=fed["step_ms"],
+        native_steps_ms=nat["step_ms"], direct_steps_ms=direct_ms,
+        phase8_direct_step_ms=direct_step_ms,
+        spark_over_direct=spark_ms / best_direct_ms,
+        native_over_direct=native_ms / best_direct_ms,
+        feed_wait_ms_per_step=sum(fed["wait_ms"][1:]) / (steps - 1),
+        feed_wait_ms=fed["wait_ms"], feed_host_ms=fed["host_ms"],
+        native_wait_ms_per_step=sum(nat["wait_ms"][1:]) / (steps - 1),
+        native_wait_ms=nat["wait_ms"],
+        native_decode_ms_per_step=sum(nat["host_ms"]) / steps,
+        native_decode_ms=nat["host_ms"],
+        native_decode_mb_per_s=tfr_bytes / 1e6
+        / (sum(nat["host_ms"]) / 1000.0),
+        save_tfrecords_s=save_s, tfrecord_bytes=tfr_bytes,
+        save_tfrecords_mb_per_s=tfr_bytes / 1e6 / save_s,
+        export_write_s=fed["export_write_s"],
+        export_bytes=fed["export_bytes"], export_load_s=load_s,
+        spark_fit_s=fit_s, native_fit_s=native_fit_s,
+        spark_spawn_to_first_step_s=fed["first_step_done"] - t0,
+        native_spawn_to_first_step_s=nat["first_step_done"] - t1,
+        spark_node_torch_import_s=fed["torch_imported"] - fed["started"],
+        native_executor_torch_import_s=(nat["torch_imported"]
+                                        - nat["started"]),
+        transform_rows=PIPELINE_SCORE[0], transform_seq=PIPELINE_SCORE[1],
+        transform_s=transform_s,
+        transform_rows_per_s=PIPELINE_SCORE[0] / transform_s,
+        transform_first_partition_s=first_s,
+        direct_forward_ms_per_batch=forward_ms,
+        transform_logits_bytes=sum(a.nbytes for a in got),
+        transform_launches=transform_launches,
+        cli_rows=PIPELINE_CLI[0], cli_seq=PIPELINE_CLI[1], cli_wall_s=cli_s,
+        launches={"spark": fed["launches"], "native": nat["launches"]},
+        n_leaves=fed["n_leaves"],
+        node_max_memory_allocated_gb=fed["max_memory_allocated_gb"],
+        losses=fed["losses"], losses_equal=True, logits_equal=True,
+        node_device=fed["device"])
+
+
 def main():
     try:
         import torch
@@ -2339,6 +2736,9 @@ def main():
     emit("gpu_info", nvidia_smi=card, **phase_gpu_info(torch))
     emit("cluster_main_path", nvidia_smi=card,
          **phase_cluster(torch, dev, train_main["step_ms"]))
+    torch.cuda.empty_cache()
+    emit("pipeline_main_path", nvidia_smi=card,
+         **phase_pipeline(torch, dev, train_main["step_ms"]))
     torch.cuda.empty_cache()
 
     # the serving kernels' launches by shape, each from its own main path

@@ -13,10 +13,16 @@ a ``backend`` (``LocalBackend``) turns executors into trainers, each a
 ``node`` process fed partitions through ``reservation``, ``manager``,
 the ``shm`` ring and ``feed.DataFeed``, with ``gpu_info`` giving each
 executor its GPUs and ``parallel.train.feed_consensus`` voting across
-processes.  Module names follow the JAX package, so each module's
-counterpart is easy to find (``gpu_info`` takes the place of
-``tpu_info``).  The port imports ``torch``, numpy and the
-standard library only — never ``jax`` and nothing of the JAX package.
+processes.  Slice 7 ports the data layer and the pipeline API:
+``tfrecord`` (framing, CRC32C, the ``tf.train.Example`` codec), ``data``
+(``Dataset``, the NATIVE feed), ``dfutil`` (DataFrame <-> TFRecords),
+``fsio``, ``schema``, ``minispark`` (a local stand-in for pyspark),
+``pipeline`` / ``pipeline_ml`` (``TFEstimator.fit``, ``TFModel.
+transform``) and ``inference`` (the batch CLI).  Module names follow
+the JAX package, so each module's counterpart is easy to find
+(``gpu_info`` takes the place of ``tpu_info``).  The port imports
+``torch``, numpy and the standard library only — never ``jax`` and
+nothing of the JAX package.
 
 Submodules import lazily, keeping ``import tensorflowonspark_tpu_torch``
 cheap.
@@ -24,10 +30,12 @@ cheap.
 __version__ = "0.1.0"
 
 _LAZY_SUBMODULES = {
-    "backend", "benchmarks", "cluster", "compat", "convert", "device",
-    "export", "faults", "feed", "gpu_info", "manager", "marker", "metrics",
-    "models", "node", "ops", "optim", "parallel", "parallel_runner",
-    "reservation", "serve", "shm", "util",
+    "backend", "benchmarks", "cluster", "compat", "convert", "data",
+    "device", "dfutil", "export", "faults", "feed", "fsio", "gpu_info",
+    "inference", "manager", "marker", "metrics", "minispark", "models",
+    "node", "ops", "optim", "parallel", "parallel_runner", "pipeline",
+    "pipeline_ml", "quantize", "reservation", "schema", "serve", "shm",
+    "tfrecord", "util",
 }
 
 

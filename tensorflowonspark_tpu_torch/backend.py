@@ -7,8 +7,8 @@ The reference is hard-wired to Spark: `TFCluster.run` does
 framework factors that contract into a `Backend` interface with two
 implementations:
 
-- `SparkBackend` — thin wrappers over a live SparkContext (import-gated, since
-  pyspark is optional; pyspark ships the task callables itself).
+- `SparkBackend` — thin wrappers over a live SparkContext: real pyspark's
+  (which ships the task callables itself) or the port's `minispark`.
 - `LocalBackend`  — N real OS processes, one per "executor", each pinned to
   its own working directory.  This is both the test substrate (the
   analog of the reference's 2-worker Spark standalone test cluster,
@@ -81,15 +81,17 @@ class Backend:
         """Raise in the driver when `fn` cannot reach an executor."""
 
 
-def refuse_fork_after_cuda(what):
+_SPAWN_HINT = ("start executors with LocalBackend(n, start_method='spawn') "
+               "from a driver that holds CUDA")
+
+
+def refuse_fork_after_cuda(what, hint=_SPAWN_HINT):
     """Raise when this process has initialised CUDA: `what`, forked from
-    it, could not use CUDA."""
+    it, could not use CUDA; `hint` says the way out."""
     if util.cuda_initialized():
         raise RuntimeError(
             f"cannot fork {what}: this process has initialised CUDA, and a "
-            f"forked child cannot use CUDA; start executors with "
-            f"LocalBackend(n, start_method='spawn') from a driver that holds "
-            f"CUDA")
+            f"forked child cannot use CUDA; {hint}")
 
 
 def check_picklable(fn):
@@ -394,8 +396,25 @@ class LocalBackend(Backend):
                 p.kill()
 
 
+class _PartitionLists:
+    """A record-iterator task for an RDD whose ELEMENTS are partition
+    lists (the shape `parallelize(list_of_partitions)` produces): unwraps
+    one level so `fn` still sees records.  A module-level class, so the
+    task ships through the standard pickler."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __call__(self, element_iter):
+        for part in element_iter:
+            out = self.fn(iter(part))
+            if out is not None:
+                yield from out
+
+
 class SparkBackend(Backend):
-    """Backend over a live SparkContext (requires pyspark at call time).
+    """Backend over a live SparkContext: real pyspark's, or the port's
+    `minispark` (which ships tasks through the standard pickler).
 
     Maps the reference's direct Spark calls: node bootstrap via
     `sc.parallelize(range(n), n).foreachPartition` on a daemon thread
@@ -405,6 +424,7 @@ class SparkBackend(Backend):
 
     def __init__(self, sc):
         self._sc = sc
+        self._errors = queue_mod.Queue()
 
     @property
     def num_executors(self):
@@ -414,41 +434,53 @@ class SparkBackend(Backend):
     def spark_context(self):
         return self._sc
 
-    def run_on_executors(self, fn, n):
-        import threading
+    def check_shippable(self, fn):
+        """The port's minispark ships tasks through the standard pickler:
+        refuse a closure here, in the driver (real pyspark ships it)."""
+        from . import minispark
 
+        if isinstance(self._sc, minispark.SparkContext):
+            check_picklable(fn)
+
+    def run_on_executors(self, fn, n):
         node_rdd = self._sc.parallelize(range(n), n)
-        t = threading.Thread(target=node_rdd.foreachPartition, args=(fn,), daemon=True)
+        t = threading.Thread(target=self._bootstrap, args=(node_rdd, fn),
+                             daemon=True)
         t.start()
 
-    @staticmethod
-    def _adapt(fn):
-        """Wrap a record-iterator closure for an RDD whose ELEMENTS are
-        partition-lists (the shape `parallelize(list_of_partitions)`
-        produces): unwrap one level so fn still sees records."""
-        def run(element_iter):
-            for part in element_iter:
-                out = fn(iter(part))
-                if out is not None:
-                    yield from out
-        return run
+    def _bootstrap(self, node_rdd, fn):
+        # a failed bootstrap task (a NATIVE-mode node's error, a refused
+        # fork) reaches the driver through check_bootstrap_errors
+        try:
+            node_rdd.foreachPartition(fn)
+        except BaseException:
+            self._errors.put(traceback.format_exc())
 
-    def _as_rdd(self, partitions):
-        """(rdd, fn_adapter) for either a real RDD or a list of partition
-        lists.  Materializes generators exactly once so nothing is silently
+    def check_bootstrap_errors(self):
+        """Non-blocking: the first bootstrap task failure, if any."""
+        try:
+            return self._errors.get_nowait()
+        except queue_mod.Empty:
+            return None
+
+    def _as_rdd(self, partitions, fn):
+        """(rdd, task) for either a real RDD (`fn` as it is) or a list of
+        partition lists (one element a partition, `fn` unwrapping it).
+        Materializes generators exactly once so nothing is silently
         consumed before parallelize."""
         if hasattr(partitions, "foreachPartition"):
-            return partitions, lambda fn: fn
+            return partitions, fn
         parts = [list(p) for p in partitions]
-        return self._sc.parallelize(parts, max(len(parts), 1)), self._adapt
+        return (self._sc.parallelize(parts, max(len(parts), 1)),
+                _PartitionLists(fn))
 
     def foreach_partition(self, partitions, fn, timeout=None):
-        rdd, adapt = self._as_rdd(partitions)
-        rdd.foreachPartition(adapt(fn))
+        rdd, task = self._as_rdd(partitions, fn)
+        rdd.foreachPartition(task)
 
     def map_partitions(self, partitions, fn):
-        rdd, adapt = self._as_rdd(partitions)
-        return rdd.mapPartitions(adapt(fn))  # lazy RDD, like the reference
+        rdd, task = self._as_rdd(partitions, fn)
+        return rdd.mapPartitions(task)  # lazy RDD, like the reference
 
 
 def resolve(backend_or_sc):

@@ -227,27 +227,26 @@ class GPUCluster:
                 node.shutdown(self.cluster_info, queues=self.queues_to_close,
                               grace_secs=grace_secs), **kwargs)
             self._check_driver_error()
-            # Before stopping evaluators, wait until every TRAINING node
-            # announced its normal exit (BYE) — the evaluator exists to
-            # score checkpoints the trainers are still writing (maps the
-            # reference's statusTracker poll until only ps/eval tasks
-            # remain, TFCluster.py:154-169).  Bounded by `timeout` via the
-            # watchdog; node failures surface through the error channel.
-            has_eval = any(n["job_name"] == "evaluator"
-                           for n in self.cluster_info)
-            if has_eval:
-                training = {n["executor_id"] for n in self.cluster_info
-                            if n["job_name"] in ("chief", "worker")}
-                deadline = time.time() + timeout
-                while not training <= self.server.finished_ids():
-                    self._check_driver_error()
-                    if time.time() > deadline:
-                        logger.warning(
-                            "training nodes %s never announced exit; "
-                            "stopping evaluator anyway",
-                            sorted(training - self.server.finished_ids()))
-                        break
-                    time.sleep(0.5)
+            # Wait until every TRAINING node announced its normal exit
+            # (BYE), under every backend: a SPARK-mode node runs in a process
+            # of its own that no backend joins, and the chief may still be
+            # exporting, so returning earlier would hand the caller a half-
+            # written export; the evaluator, too, scores checkpoints the
+            # trainers are still writing (maps the reference's statusTracker
+            # poll until only ps/eval tasks remain, TFCluster.py:154-169).
+            # Bounded by `timeout`; node failures surface through the error
+            # channel.
+            training = {n["executor_id"] for n in self.cluster_info
+                        if n["job_name"] in ("chief", "worker")}
+            deadline = time.time() + timeout
+            while not training <= self.server.finished_ids():
+                self._check_driver_error()
+                if time.time() > deadline:
+                    logger.warning(
+                        "training nodes %s never announced exit",
+                        sorted(training - self.server.finished_ids()))
+                    break
+                time.sleep(0.05)
             # Evaluator nodes run remote-mode managers so the driver can push
             # their stop sentinel directly (maps TFCluster.py:186-194); then
             # mark them 'stopped' so their bootstrap releases the manager.

@@ -304,6 +304,17 @@ def run(map_fun, tf_args, cluster_meta, tensorboard=False, log_dir=None,
 
 def _bootstrap(executor_id, job_name, task_index, client, map_fun, tf_args,
                cluster_meta, tensorboard, queues, background):
+        # 1b. a background node is a fork of this executor, which must not
+        #     hold CUDA (a persistent executor that ran a transform or a
+        #     NATIVE-mode node does): refuse before registering, so the
+        #     driver's startup wait fails with this error at once
+        if background:
+            from . import backend as backend_mod
+            backend_mod.refuse_fork_after_cuda(
+                "the background node process",
+                hint="this executor ran CUDA work (a TFModel transform or a "
+                     "NATIVE-mode node) before this SPARK-mode node; fit "
+                     "before transform, or fit on a fresh context")
         # 2. stale-manager detection: a Spark task retry on the same executor
         #    must not double-start a node (maps TFSparkNode.py:249-255).
         state_file = os.path.join(os.getcwd(), ".tfos_cluster_id")
@@ -418,10 +429,8 @@ def _bootstrap(executor_id, job_name, task_index, client, map_fun, tf_args,
                     working_dir=os.getcwd(), mgr=None, num_chips=num_chips)
                 # forked: map_fun crosses as the object itself (no pickling),
                 # so any callable works here; the fork is safe because this
-                # bootstrap never initialised CUDA (the node process does)
-                from . import backend as backend_mod
-                backend_mod.refuse_fork_after_cuda("the background node "
-                                                   "process")
+                # executor has not initialised CUDA (checked at the top; the
+                # node process does)
                 p = mp.get_context("fork").Process(
                     target=_wrapper_fn_background,
                     args=(map_fun, tf_args, ctx_bg,

@@ -10,10 +10,19 @@ shape, checked on the CPU.
   count, on the figures of a flagship serving run (133 decode steps, 17
   prefill dispatches, 16 layers, 97 quantised projections, 33 fused
   LayerNorms).
+- phase 11's helpers: ``frame_records`` gives the seeded one-column
+  int32 token records the pipeline phase feeds (``cluster_rows``' rows,
+  the same on every call); ``first_difference`` / ``check_bits`` pass
+  equal arrays and name the first array whose dtype, shape or bits
+  differ (one flipped bit of an f32 logit, a -0.0 against 0.0, a NaN
+  payload, a missing array); ``_timed`` yields exactly ``n`` items and
+  times each.
 """
 import importlib.util
 import os
 
+import numpy as np
+import pytest
 import torch
 
 from tensorflowonspark_tpu_torch import quantize
@@ -79,3 +88,47 @@ def test_launch_split_of_a_flagship_serving_run():
     # a count the shapes do not explain is flagged, not hidden
     off = chip_smoke.launch_split({"page_write": 288}, modules, 133, 17)
     assert off["page_write"] == dict(decode=0, prefill=272, adds_up=False)
+
+
+def test_pipeline_phase_records_and_bit_checks():
+    recs = chip_smoke.frame_records(7, 5, 32000, 1025)
+    assert len(recs) == 5 and all(len(r) == 1 for r in recs)
+    rows = np.stack([r[0] for r in recs])
+    assert rows.shape == (5, 1025) and rows.dtype == np.int32
+    assert rows.min() >= 0 and rows.max() < 32000
+    np.testing.assert_array_equal(rows, chip_smoke.cluster_rows(7, 5, 32000,
+                                                                1024))
+    again = np.stack([r[0] for r in chip_smoke.frame_records(7, 5, 32000,
+                                                              1025)])
+    assert again.tobytes() == rows.tobytes()
+
+    logits = list(np.random.RandomState(0).randn(3, 4, 8).astype(np.float32))
+    same = [a.copy() for a in logits]
+    assert chip_smoke.first_difference(logits, same) is None
+    chip_smoke.check_bits("equal", logits, same)
+    flipped = [a.copy() for a in logits]
+    flipped[1].view(np.uint32)[2, 3] ^= 1          # one ulp of one logit
+    assert chip_smoke.first_difference(logits, flipped).startswith(
+        "array 1: the bits differ")
+    with pytest.raises(AssertionError, match="transform: array 1"):
+        chip_smoke.check_bits("transform", flipped, logits)
+    zeros = [np.zeros(2, np.float32)]
+    assert chip_smoke.first_difference([-zeros[0]], zeros) is not None
+    nan = np.full(2, np.nan, np.float32)
+    other_nan = nan.copy()
+    other_nan.view(np.uint32)[0] ^= 1
+    assert chip_smoke.first_difference([nan], [nan.copy()]) is None
+    assert chip_smoke.first_difference([nan], [other_nan]) is not None
+    assert "float64" in chip_smoke.first_difference(
+        [logits[0].astype(np.float64)], logits[:1])
+    assert chip_smoke.first_difference(logits[:2], logits) == \
+        "2 arrays against 3"
+    losses = [4.5, 4.25]
+    assert chip_smoke.first_difference([np.asarray(losses)],
+                                       [np.asarray([4.5, 4.25])]) is None
+
+    sink = []
+    assert list(chip_smoke._timed(iter(range(10)), 3, sink)) == [0, 1, 2]
+    assert len(sink) == 3 and all(t >= 0 for t in sink)
+    with pytest.raises(RuntimeError):          # fewer items than asked
+        list(chip_smoke._timed(iter(range(2)), 3, []))

@@ -37,11 +37,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "tensorflowonspark_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "cloudpickle",
              "tensorflowonspark_tpu")
-# the cluster runtime: executors and feeders import these without torch
-# (a process that never loaded torch forks a clean node process)
+# the cluster runtime, the data layer and the pipeline API: executors
+# and feeders import these without torch (a process that never loaded
+# torch forks a clean node process)
 TORCH_FREE = ("util", "faults", "marker", "gpu_info", "reservation",
               "manager", "shm", "feed", "node", "backend", "cluster",
-              "parallel_runner", "compat")
+              "parallel_runner", "compat", "fsio", "schema", "tfrecord",
+              "data", "minispark", "minispark.executor", "minispark.sql",
+              "minispark.sql.types", "minispark.ml", "minispark.streaming",
+              "dfutil", "pipeline", "pipeline_ml")
 TINY = dict(vocab_size=32, d_model=64, n_heads=4, n_kv_heads=2, n_layers=1,
             d_ff=64, max_seq_len=32, dtype="float32", rope=True)
 
@@ -80,7 +84,9 @@ def test_imports_with_jax_blocked():
 
 
 def test_cluster_runtime_imports_without_torch():
-    assert set(TORCH_FREE) <= {m.rsplit(".", 1)[-1] for m in _module_names()}
+    prefix = "tensorflowonspark_tpu_torch."
+    assert set(TORCH_FREE) <= {m[len(prefix):] for m in _module_names()
+                               if m.startswith(prefix)}
     code = (
         "import importlib, sys\n"
         f"for mod in {TORCH_FREE!r}:\n"
@@ -124,6 +130,41 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         serve.ContinuousBatcher(model, kv_page_size=8, kv_pages=8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_decode.generate(model, [[1, 2, 3]], 2)
+
+
+def test_loaders_pipeline_and_cli_follow_the_device_rule(monkeypatch,
+                                                        tmp_path):
+    from tensorflowonspark_tpu_torch import dfutil, inference, pipeline
+
+    model = port_tf.build_transformer(**TINY)
+    export.export_saved_model(str(tmp_path), model.state_dict(),
+                              builder_kwargs=TINY)
+    rows = [[(np.arange(4, dtype=np.int32),)]]
+    loaded, _ = export.load_model(str(tmp_path), device="cpu")
+    predict, _ = export.load_saved_model(str(tmp_path), device="cpu")
+    assert predict.device.type == "cpu" and predict(np.stack(
+        [r[0] for r in rows[0]])).shape == (1, 4, TINY["vocab_size"])
+    assert len(pipeline.TFModel({"export_dir": str(tmp_path),
+                                 "device": "cpu"}).transform(rows)) == 1
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        export.load_model(str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        export.load_saved_model(str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pipeline.TFModel({"export_dir": str(tmp_path)}).transform(rows)
+    shard = str(tmp_path / "part-r-00000")
+    dfutil.write_tfrecords([{"input": list(range(4))}], shard)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        inference.main(["--export_dir", str(tmp_path), "--input", shard,
+                        "--output", str(tmp_path / "out")])
+    for kw in ({"quantize_int8": True}, {"aot_batch_sizes": [8]}):
+        with pytest.raises(NotImplementedError, match="ROADMAP A[58]"):
+            export.export_saved_model(str(tmp_path / "x"),
+                                      model.state_dict(), **kw)
+    assert export.export_saved_model(str(tmp_path / "y"), model.state_dict(),
+                                     is_chief=False) is None
+    assert not os.path.exists(tmp_path / "y")
 
 
 def test_cpu_tensors_take_the_plain_versions():

@@ -40,12 +40,15 @@ def test_port_helpers(tmp_path):
     with pytest.raises(ValueError):
         util.parse_port_spec("9-3")
     port = util.get_free_port("127.0.0.1")
-    sock = util.bind_socket("127.0.0.1", [port, port + 1])
+    sock = util.bind_socket("127.0.0.1", [port])
     try:
         assert sock.getsockname()[1] == port
-        # the taken port is skipped for the next candidate
-        sock2 = util.bind_socket("127.0.0.1", [port, port + 1])
-        assert sock2.getsockname()[1] == port + 1
+        # the taken port is skipped for the next candidate, itself a port
+        # just found free (a fixed neighbour such as port + 1 may be held
+        # by another process)
+        other = util.get_free_port("127.0.0.1")
+        sock2 = util.bind_socket("127.0.0.1", [port, other])
+        assert sock2.getsockname()[1] == other
         sock2.close()
     finally:
         sock.close()
