@@ -3,9 +3,12 @@
 and drives the port's main paths — paged continuous-batching serving of
 the flagship LM with bf16, int8 and int4 weights, over a bf16 or an int8
 kv pool, of its LayerNorm variant with the fused LayerNorm, its
-training step, that step fed through the cluster runtime, and the
-pipeline API training it from a DataFrame (through the shm ring and from
-TFRecords) and scoring with the export — on one NVIDIA GPU.
+training step, that step fed through the cluster runtime, the pipeline
+API training it from a DataFrame (through the shm ring and from
+TFRecords) and scoring with the export, and the serving engine the way
+the JAX server serves by default (async over the dense slot cache) and
+paged (growable tables, the prefix cache, the mega-prompt lane,
+streaming) — on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -44,6 +47,9 @@ caught and reported as passed):
    launches by shape (``launches_by_shape``: decode steps and prefill
    dispatches times the launching modules of one forward, and whether
    they add up to the wrapper's count);
+   (phase 5 runs the default async engine; the burst's full prompt
+   pages are dropped from the prefix cache before the solo request, and
+   the pool conserves free + prefix-cached + owned pages);
 5a. quantised kernels (9 and 10) against their plain versions on the
    card in bf16 at FLAGSHIP_QUANT_MATMUL (the ``wi`` shape, and ``wo``
    with K and N swapped, each at a 16-row decode step and a 1024-row
@@ -146,12 +152,36 @@ caught and reported as passed):
    decode per step, ``saveAsTFRecords``, export write and load seconds,
    the spawn-to-first-step seconds of each fit, the transform's rows per
    second and first-partition latency, and the CLI's wall seconds;
+12. (after 5f, on phase 5's export) the ``serving_engine`` line: phase
+   5's 8 prompts (100..1500 tokens, 32 new) sent as ONE request (so every
+   run admits them alike) to (a) the JAX server's default command line
+   (no engine or paging flag: the async engine over the dense slot
+   cache) and to ``--generate_engine serial`` on the same cache, tokens
+   equal; (b) the paged pool (page 64, 512 pages, tables from 8 pages)
+   async and serial, tokens equal, kernels 1-3 launched in the async
+   burst (``ops.reset_launch_counts`` just before it, read just after),
+   ``kv_table_grows`` > 0; each run's burst tokens/s, mean TTFT, decode
+   step ms and its 700-token prompt alone under torch.profiler (device
+   idle share); (c) on the paged async server, 8 requests sharing one
+   1024-token prefix with distinct 64-token suffixes, each alone:
+   ``prefill_tokens_shared`` >= 7 x 1024, tokens against the same
+   requests after ``drop_prefix_cache`` (cold), and where a token
+   differs, first-step logits within phase 4's tolerance (which of the
+   two held is reported); (d) ``--generate_long_prompt_threshold 1024``
+   over a 64-page pool holding 56 cold prefix pages: the 1100-1500-token
+   prompts through the lane, ``kv_pages_demoted_overflow`` > 0, every
+   page free after the drain and a cache drop; (e) one ``"stream":
+   true`` request (NDJSON), its tokens equal to the plain answer; and
+   kernel 1 at table width 8 and 32 and kernel 3 at offset 1024 against
+   their plain versions at this phase's shapes;
 9. the ``launch_split`` line (the serving kernels' launches by shape,
    each from its own main path); the ``kernels`` line (launches from
    each kernel's own main path: the
    quantised kernels from their serving run, the int8 kv kernels from the
    int8 kv run with bf16 weights, kernel 11 from the fused LayerNorm
-   run, kernel 8 from phase 8b); then the card line and, last, the
+   run, kernel 8 from phase 8b); the ``engine_serial_vs_async`` line
+   (phase 12's four numbers of each engine, dense and paged, beside the
+   card's name and power limit); then the card line and, last, the
    ``ok`` line.
 
 Exits 2 without a result when no CUDA device exists or when the port's
@@ -1088,6 +1118,18 @@ def get_json(url, timeout=60):
         return json.loads(resp.read())
 
 
+def pool_conserved(batcher):
+    """Every pool page free, cached by the prefix cache at refcount 0, or
+    owned by a row, once; never the sink."""
+    free = list(batcher._free_pages)
+    cached = list(batcher._prefix.values())
+    owned = [p for pages in batcher._row_pages if pages for p in pages
+             if p not in batcher._page_rc]
+    return (len(set(free)) == len(free) and batcher._sink not in free
+            and sorted(free + cached + owned)
+            == list(range(batcher._total_pages)))
+
+
 def phase_main_path(torch, dev, cfg, export_dir, quantize="none",
                     kv_dtype="auto"):
     """Full-depth flagship served through make_server on 127.0.0.1, with
@@ -1151,7 +1193,10 @@ def phase_main_path(torch, dev, cfg, export_dir, quantize="none",
             if o[:len(p)] != p or len(o) != len(p) + max_new:
                 raise AssertionError("burst output is not prompt + new")
         # the solo request runs under torch.profiler: device busy share
-        # of its wall time and where the device time goes
+        # of its wall time and where the device time goes; the burst's
+        # full prompt pages are dropped from the prefix cache first, so
+        # the solo prefills the whole prompt as its burst twin did
+        service.generate_service().batcher.drop_prefix_cache()
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -1174,10 +1219,7 @@ def phase_main_path(torch, dev, cfg, export_dir, quantize="none",
         if min(launches.values()) < 1:
             raise AssertionError(f"a kernel never launched: {launches}")
         stats = batcher.stats()
-        free = list(batcher._free_pages)
-        owned = [p for pages in batcher._row_pages if pages for p in pages]
-        if (len(set(free)) != len(free) or batcher._sink in free
-                or sorted(free + owned) != list(range(batcher._total_pages))):
+        if not pool_conserved(batcher):
             raise AssertionError("the page pool does not conserve its pages")
         meta = get_json(base)["model"]
         qinfo = meta.get("generate_quantize")
@@ -1208,7 +1250,7 @@ def phase_main_path(torch, dev, cfg, export_dir, quantize="none",
         generate_quantize=qinfo,
         burst_requests=len(prompts), prompt_tokens=sum(lens),
         burst_s=burst_s, burst_new_tokens_per_s=new_tokens / burst_s,
-        ttft_mean_ms=1000.0 * stats["ttft_sum_s"] / stats["ttft_count"],
+        ttft_mean_ms=stats["ttft_avg_ms"],
         decode_step_ms=stats["decode_step_ms_mean"],
         decode_steps=stats["decode_steps"],
         prefill_dispatches=stats["prefill_dispatches"],
@@ -1220,6 +1262,356 @@ def phase_main_path(torch, dev, cfg, export_dir, quantize="none",
                                        stats["decode_steps"],
                                        stats["prefill_dispatches"]),
         solo_profile=profile)
+
+
+# phase 12: the serving engine (async and serial, dense and paged, the
+# prefix cache, the mega-prompt lane, streaming)
+ENGINE_LENS = (100, 300, 500, 700, 900, 1100, 1300, 1500)
+ENGINE_NEW = 32
+ENGINE_PAGED = ("--generate_kv_page_size", "64", "--generate_kv_pages", "512",
+                "--generate_prefill_chunk", "256")
+PREFIX_LEN, SUFFIX_LEN, PREFIX_ROWS = 1024, 64, 8
+LANE_PAGES, LANE_THRESHOLD = 64, 1024
+
+
+def engine_prompts(torch, vocab, lens=ENGINE_LENS, seed=SEED + 1):
+    """Phase 5's burst: seeded prompts of ``lens`` tokens."""
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randint(0, vocab, (n,), generator=gen).tolist()
+            for n in lens]
+
+
+def post_stream(url, payload, timeout=600):
+    """(content type, events) of a ``"stream": true`` request."""
+    req = urllib.request.Request(
+        url, data=json.dumps(dict(payload, stream=True)).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        ctype = resp.headers.get("Content-Type")
+        return ctype, [json.loads(line) for line in resp.read().splitlines()]
+
+
+class EngineServer:
+    """``make_server`` over the export with ``argv`` on 127.0.0.1, served
+    from a thread; closed (engine stopped) on exit."""
+
+    def __init__(self, export_dir, dev, *argv):
+        from tensorflowonspark_tpu_torch import serve
+
+        self.args = serve.build_argparser().parse_args([
+            "--export_dir", export_dir, "--device", str(dev),
+            "--host", "127.0.0.1", "--port", "0", *argv])
+
+    def __enter__(self):
+        from tensorflowonspark_tpu_torch import serve
+
+        self.server, service = serve.make_server(self.args)
+        self.batcher = service.generate_service().batcher
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.url = (f"http://127.0.0.1:{self.server.server_address[1]}"
+                    "/v1/models/default:generate")
+        return self
+
+    def generate(self, prompts, max_new=ENGINE_NEW, **kw):
+        """One request carrying every prompt: the engine queues them all
+        before its first admission, so every run admits them alike."""
+        return post_json(self.url, {"inputs": prompts,
+                                    "max_new_tokens": max_new,
+                                    "temperature": 0.0, **kw})["outputs"]
+
+    def __exit__(self, *exc):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=60)
+        if self.thread.is_alive():
+            raise RuntimeError("server thread did not stop")
+        del self.batcher
+        return False
+
+
+def engine_run(torch, srv, prompts):
+    """The burst as one request (the serving kernels' launch counts set
+    to 0 just before it and read just after), then its 700-token prompt
+    alone under torch.profiler (the prefix cache dropped first): the
+    engine's numbers.  Returns (outputs, numbers, launches)."""
+    from tensorflowonspark_tpu_torch import ops
+
+    b = srv.batcher
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    outs = srv.generate(prompts)
+    burst_s = time.monotonic() - t0
+    launches = ops.launch_counts(b.kernels)
+    for p, o in zip(prompts, outs):
+        if o[:len(p)] != p or len(o) != len(p) + ENGINE_NEW:
+            raise AssertionError("engine output is not prompt + new")
+    st = b.stats()
+    b.drop_prefix_cache()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t_solo = time.monotonic()
+        solo = srv.generate([prompts[3]])[0]
+        solo_ms = (time.monotonic() - t_solo) * 1000.0
+    profile = profile_summary(prof, solo_ms)
+    if solo != outs[3]:
+        raise AssertionError("solo answer differs from its burst answer")
+    numbers = dict(
+        engine=st["engine"], paged="kv_page_size" in st, burst_s=burst_s,
+        burst_new_tokens_per_s=len(prompts) * ENGINE_NEW / burst_s,
+        ttft_mean_ms=st["ttft_avg_ms"],
+        decode_step_ms=st["decode_step_ms_mean"],
+        decode_steps=st["decode_steps"],
+        prefill_dispatches=st["prefill_dispatches"],
+        pipeline_depth_peak=st["pipeline_depth_peak"],
+        device_wait_ms=st["device_wait_ms"],
+        engine_device_idle_fraction=st["device_idle_fraction"],
+        solo_wall_ms=solo_ms, solo_device_ms=profile["device_ms"],
+        solo_device_idle_share=1.0 - profile["device_busy_share"],
+        solo_profile=profile)
+    for key in ("kv_table_width", "kv_table_grows", "prefill_tokens_shared"):
+        if key in st:
+            numbers[key] = st[key]
+    return outs, numbers, launches
+
+
+def engine_kernel_checks(torch, dev):
+    """Kernel 1 at table width 8 and after growth (32), and kernel 3 at a
+    page-aligned offset > 0 (a suffix after shared prefix pages), each
+    against its plain version on the card at this phase's shapes."""
+    from tensorflowonspark_tpu_torch.benchmarks import FLAGSHIP_LM_V2
+    from tensorflowonspark_tpu_torch.ops import paged_attention as pa
+    from tensorflowonspark_tpu_torch.ops import paged_prefill as pp
+
+    H, n_kv = FLAGSHIP_LM_V2["n_heads"], FLAGSHIP_LM_V2["n_kv_heads"]
+    Dh = FLAGSHIP_LM_V2["d_model"] // H
+    bf16, page, NP = torch.bfloat16, 64, 513
+    gen = torch.Generator().manual_seed(SEED + 12)
+    pk = torch.randn((NP, page, n_kv, Dh), generator=gen).to(dev, bf16)
+    pv = torch.randn((NP, page, n_kv, Dh), generator=gen).to(dev, bf16)
+    out = {}
+
+    def check(name, got, want, **shape):
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if not torch.allclose(got.float(), want.float(), atol=TOL, rtol=TOL):
+            raise AssertionError(f"{name} disagrees with its plain version: "
+                                 f"{err}")
+        out[name] = dict(max_abs_err=err, tol=TOL, **shape)
+
+    B = len(ENGINE_LENS)
+    q = torch.randn((B, 1, H, Dh), generator=gen).to(dev, bf16)
+    for width in (8, 32):
+        table = shuffled_table(torch, gen, B, width, NP, dev)
+        lengths = torch.tensor([min(n, width * page) for n in ENGINE_LENS],
+                               dtype=torch.int32, device=dev)
+        check(f"paged_attention_width_{width}",
+              pa.paged_attention(q, pk, pv, table, lengths),
+              pa.paged_attention_plain(q, pk, pv, table, lengths),
+              B=B, max_pages=width, lengths=lengths.tolist())
+    # the engine widens a prefill's table by the bucket's pages (sink)
+    B, S, width = PREFIX_ROWS - 1, SUFFIX_LEN, 32
+    table = torch.cat([shuffled_table(torch, gen, B, width, NP, dev),
+                       torch.full((B, 1), NP - 1, dtype=torch.int32,
+                                  device=dev)], dim=1)
+    starts = torch.full((B,), PREFIX_LEN, dtype=torch.int32, device=dev)
+    q = torch.randn((B, S, H, Dh), generator=gen).to(dev, bf16)
+    k = torch.randn((B, S, n_kv, Dh), generator=gen).to(dev, bf16)
+    v = torch.randn((B, S, n_kv, Dh), generator=gen).to(dev, bf16)
+    check("prefill_read_offset", pp._read_attention(q, k, v, pk, pv, table,
+                                                   starts),
+          pp.read_attention_plain(q, k, v, pk, pv, table, starts),
+          B=B, S=S, start=PREFIX_LEN, max_pages=width + 1)
+    return out
+
+
+def shared_prefix_run(torch, srv, vocab):
+    """(c) 8 requests sharing one 1024-token prefix with distinct 64-token
+    suffixes, each alone: the first prefills the prefix, the other 7
+    share its 16 full pages and prefill only their suffix; then each
+    again alone after ``drop_prefix_cache`` (cold).  Tokens are compared;
+    where they differ, the first-step logits (recorded at admission) must
+    agree within phase 4's tolerance.  Each request runs alone in both
+    runs, so the only difference is the shared pages (batching requests
+    together would change the matmuls' shapes and their bf16 bits)."""
+    gen = torch.Generator().manual_seed(SEED + 3)
+    prefix = torch.randint(0, vocab, (PREFIX_LEN,), generator=gen).tolist()
+    prompts = [prefix + torch.randint(0, vocab, (SUFFIX_LEN,),
+                                      generator=gen).tolist()
+               for _ in range(PREFIX_ROWS)]
+    b = srv.batcher
+    logits = {"shared": {}, "cold": {}}
+    box = {"run": "shared"}
+    finish = b._finish_admission
+
+    def record(adm, logits_row):
+        logits[box["run"]][tuple(adm["item"]["prompt"])] = \
+            logits_row.float().cpu()
+        return finish(adm, logits_row)
+
+    b._finish_admission = record
+    try:
+        b.drop_prefix_cache()
+        shared0 = b.stats()["prefill_tokens_shared"]
+        shared = [srv.generate([p])[0] for p in prompts]
+        shared_tokens = b.stats()["prefill_tokens_shared"] - shared0
+        box["run"] = "cold"
+        cold = []
+        for p in prompts:
+            b.drop_prefix_cache()
+            cold += srv.generate([p])
+    finally:
+        del b._finish_admission
+    if shared_tokens < (PREFIX_ROWS - 1) * PREFIX_LEN:
+        raise AssertionError(f"prefill_tokens_shared {shared_tokens} < "
+                             f"{(PREFIX_ROWS - 1) * PREFIX_LEN}")
+    diffs, parted = [], []
+    for i, p in enumerate(prompts):
+        ref, got = logits["cold"][tuple(p)], logits["shared"][tuple(p)]
+        tol = 5e-2 * ref.std().item()
+        diffs.append((got - ref).abs().max().item())
+        if shared[i] != cold[i]:
+            if diffs[-1] > tol:
+                raise AssertionError(f"prefix request {i}: tokens differ and "
+                                     f"first-step logits by {diffs[-1]} > "
+                                     f"{tol}")
+            parted.append(i)
+    return dict(requests=PREFIX_ROWS, prefix_tokens=PREFIX_LEN,
+                suffix_tokens=SUFFIX_LEN,
+                prefill_tokens_shared=shared_tokens,
+                tokens_equal=PREFIX_ROWS - len(parted),
+                held=("tokens equal" if not parted else
+                      "first-step logits within tolerance"),
+                parted_requests=parted, first_logit_max_abs_diff=max(diffs),
+                first_logit_tol=min(5e-2 * logits["cold"][tuple(p)]
+                                    .std().item() for p in prompts))
+
+
+def lane_run(torch, export_dir, dev, prompts, paged_outs, vocab):
+    """(d) the mega-prompt lane over a 64-page pool: 4 distinct 900-token
+    prompts leave 56 cold prefix pages cached, then the burst's three
+    prompts above 1024 tokens stream through the lane (one at a time,
+    pages mapped chunk by chunk, cold pages reclaimed), then the rest;
+    after the drain and a cache drop, every page is free."""
+    warm = engine_prompts(torch, vocab, lens=(900,) * 4, seed=SEED + 4)
+    long_ids = [i for i, p in enumerate(prompts) if len(p) > LANE_THRESHOLD]
+    short_ids = [i for i in range(len(prompts)) if i not in long_ids]
+    with EngineServer(export_dir, dev, "--generate_kv_page_size", "64",
+                      "--generate_kv_pages", str(LANE_PAGES),
+                      "--generate_long_prompt_threshold",
+                      str(LANE_THRESHOLD)) as srv:
+        b = srv.batcher
+        srv.generate(warm, max_new=8)
+        cached = b.stats()["prefix_pages_cached"]
+        t0 = time.monotonic()
+        outs = dict(zip(long_ids, srv.generate([prompts[i]
+                                                for i in long_ids])))
+        lane_s = time.monotonic() - t0
+        outs.update(zip(short_ids, srv.generate([prompts[i]
+                                                 for i in short_ids])))
+        st = b.stats()
+        b.drop_prefix_cache()
+        free = b.stats()["kv_pages_free"]
+        if not pool_conserved(b) or free != LANE_PAGES:
+            raise AssertionError(f"lane pool after the drain: {free} free of "
+                                 f"{LANE_PAGES}")
+    for i, o in outs.items():
+        if o[:len(prompts[i])] != prompts[i] or \
+                len(o) != len(prompts[i]) + ENGINE_NEW:
+            raise AssertionError("lane output is not prompt + new")
+    if st["long_chunks_dispatched"] < 1 or st["kv_pages_demoted_overflow"] < 1:
+        raise AssertionError(f"the lane did not run or reclaim: {st}")
+    if st["long_prompts_active"]:
+        raise AssertionError("a lane request is still active")
+    return dict(kv_pages=LANE_PAGES, threshold=LANE_THRESHOLD,
+                lane_prompts=[len(prompts[i]) for i in long_ids],
+                cold_pages_before=cached, lane_s=lane_s,
+                long_chunks_dispatched=st["long_chunks_dispatched"],
+                kv_pages_demoted_overflow=st["kv_pages_demoted_overflow"],
+                kv_table_grows=st["kv_table_grows"],
+                free_after_drain=free,
+                tokens_equal_to_paged=sum(outs[i] == paged_outs[i]
+                                          for i in outs))
+
+
+def phase_serving_engine(torch, dev, cfg, export_dir, card):
+    """Phase 12: phase 5's export served the way the JAX server serves by
+    default and paged, async against serial; the prefix cache, the lane,
+    streaming, and kernels 1-3 on this phase's paths."""
+    vocab = cfg["vocab_size"]
+    prompts = engine_prompts(torch, vocab)
+    runs, outs = {}, {}
+    # (a) the default command line: the async engine, the dense cache
+    with EngineServer(export_dir, dev) as srv:
+        if srv.batcher.engine != "async" or srv.batcher.kv_page_size:
+            raise AssertionError("the default command line does not serve "
+                                 "the async engine over the dense cache")
+        outs["dense_async"], runs["dense_async"], _ = engine_run(
+            torch, srv, prompts)
+        # (e) one stream request against the same prompt served plainly
+        ctype, events = post_stream(srv.url, {
+            "inputs": [prompts[2]], "max_new_tokens": ENGINE_NEW})
+        plain = srv.generate([prompts[2]])[0]
+        toks = [e["token"] for e in events[:-1]]
+        if (ctype != "application/x-ndjson"
+                or events[-1] != {"done": True, "output": plain}
+                or prompts[2] + toks != plain):
+            raise AssertionError("stream tokens differ from the non-stream "
+                                 "output")
+        stream = dict(content_type=ctype, token_events=len(toks),
+                      equals_non_stream=True)
+    torch.cuda.empty_cache()
+    with EngineServer(export_dir, dev, "--generate_engine", "serial") as srv:
+        outs["dense_serial"], runs["dense_serial"], _ = engine_run(
+            torch, srv, prompts)
+    torch.cuda.empty_cache()
+    if outs["dense_serial"] != outs["dense_async"]:
+        raise AssertionError("dense cache: async tokens differ from serial")
+    # (b) the paged pool, async, then serial
+    with EngineServer(export_dir, dev, *ENGINE_PAGED) as srv:
+        outs["paged_async"], runs["paged_async"], launches = engine_run(
+            torch, srv, prompts)
+        if len(launches) != 3 or min(launches.values()) < 1:
+            raise AssertionError(f"a paged kernel never launched: {launches}")
+        if runs["paged_async"]["kv_table_grows"] < 1:
+            raise AssertionError("the page tables never grew")
+        # (c) the shared prefix on the same server
+        prefix = shared_prefix_run(torch, srv, vocab)
+        if not pool_conserved(srv.batcher):
+            raise AssertionError("the paged pool does not conserve its pages")
+    torch.cuda.empty_cache()
+    with EngineServer(export_dir, dev, "--generate_engine", "serial",
+                      *ENGINE_PAGED) as srv:
+        outs["paged_serial"], runs["paged_serial"], _ = engine_run(
+            torch, srv, prompts)
+    torch.cuda.empty_cache()
+    if outs["paged_serial"] != outs["paged_async"]:
+        raise AssertionError("paged pool: async tokens differ from serial")
+    # (d) the mega-prompt lane
+    lane = lane_run(torch, export_dir, dev, prompts, outs["paged_serial"],
+                    vocab)
+    torch.cuda.empty_cache()
+    checks = engine_kernel_checks(torch, dev)
+    torch.cuda.empty_cache()
+    return dict(
+        layers=cfg["n_layers"], burst_requests=len(prompts),
+        prompt_tokens=sum(ENGINE_LENS), new_tokens=ENGINE_NEW,
+        async_equals_serial=dict(dense=True, paged=True),
+        paged_equals_dense=outs["paged_async"] == outs["dense_async"],
+        paged_launches=launches, runs=runs, shared_prefix=prefix,
+        lane=lane, stream=stream, kernel_checks=checks, nvidia_smi=card)
+
+
+def engine_summary(phase):
+    """Serial against async: the four numbers of each, per cache."""
+    keys = ("burst_new_tokens_per_s", "ttft_mean_ms", "decode_step_ms",
+            "solo_device_idle_share")
+    return {cache: {engine: {k: phase["runs"][f"{cache}_{engine}"][k]
+                             for k in keys}
+                    for engine in ("serial", "async")}
+            for cache in ("dense", "paged")}
 
 
 def phase_quant_kernels(torch, F, dev):
@@ -2674,6 +3066,9 @@ def main():
                     launches[name] = kv_launches[name]
                     splits[name] = kv_main["launches_by_shape"][name]
             torch.cuda.empty_cache()
+
+        engine = phase_serving_engine(torch, dev, cfg, export_dir, card)
+        emit("serving_engine", **engine)
     finally:
         shutil.rmtree(export_dir, ignore_errors=True)
 
@@ -2743,6 +3138,7 @@ def main():
 
     # the serving kernels' launches by shape, each from its own main path
     emit("launch_split", nvidia_smi=card, kernels=splits)
+    emit("engine_serial_vs_async", nvidia_smi=card, **engine_summary(engine))
     kernels = []
     for name, row in rows.items():
         kernels.append({key: row[key] for key in (

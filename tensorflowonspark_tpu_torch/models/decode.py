@@ -1,15 +1,23 @@
-"""Paged slot decoding — counterpart of ``tensorflowonspark_tpu/models/
-decode.py`` for the serving slice.
+"""Slot decoding — counterpart of ``tensorflowonspark_tpu/models/
+decode.py`` for the serving slices.
 
-A paged slot cache keeps every layer's kv in a shared pool of pages
-(``pages_key/pages_value [kv_pages, page, n_kv, Dh]``) mapped per row
-through one ``page_table [n_slots, max_pages]``, with a per-row
-``cache_index [n_slots]``: each row is an independent serving slot that
-requests join and leave at token boundaries (serve.ContinuousBatcher).
-With ``kv_dtype="int8"`` the pools hold int8 payloads beside f32
-per-(token, head) scale pools ``[kv_pages, page, n_kv]``.
-The jitted JAX bodies become plain functions that update the cache in
-place; the JAX package donated the cache to the same end.
+Every row of a slot cache is an independent serving slot that requests
+join and leave at token boundaries (serve.ContinuousBatcher), with a
+per-row ``cache_index [n_slots]``.  Two layouts, as in the JAX package:
+
+- the dense slot cache (:func:`init_slot_cache`, ``kv_page_size 0``):
+  every row owns a full ``[max_seq_len, n_kv, Dh]`` window per layer;
+- the paged slot cache (:func:`init_paged_slot_cache`): every layer's kv
+  lives in a shared pool of pages (``pages_key/pages_value [kv_pages,
+  page, n_kv, Dh]``) mapped per row through one ``page_table [n_slots,
+  width]``.  The table may start narrow and grow (:func:`grow_page_table`).
+
+With ``kv_dtype="int8"`` either layout holds int8 payloads beside f32
+per-(token, head) scales.  The jitted JAX bodies become plain functions
+that update the cache in place; the JAX package donated the cache to
+the same end.  Host values reach the card through pinned buffers with
+non-blocking copies (:func:`to_device`), so a dispatch never waits for
+the card.
 
 Sampling is counter-based: the noise of row b for new-token ordinal t
 is a pure function of ``(seed_b, t)``, drawn from an explicit
@@ -26,6 +34,45 @@ import torch
 from tensorflowonspark_tpu_torch import device as device_mod
 from tensorflowonspark_tpu_torch.models.transformer import (
     Transformer, TransformerConfig, torch_dtype)
+
+
+def to_device(array, device):
+    """A host array or tensor on ``device``.  On the card the copy runs
+    from a pinned buffer without blocking the host (a pageable copy
+    would wait for the stream to drain); on the CPU it is the tensor
+    itself."""
+    t = torch.as_tensor(array)
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+@dataclasses.dataclass
+class SlotCache:
+    """The dense slot cache: per layer a ``[n_slots + 1, max_seq_len,
+    n_kv, Dh]`` kv store (``key_scales`` / ``value_scales`` ``[n_slots +
+    1, max_seq_len, n_kv]`` f32 beside an int8 store) and the per-row
+    ``cache_index``.  The extra last row is the garbage row: a prefill's
+    pad rows and writes past ``max_seq_len`` (the JAX one-hot write
+    drops those) land there.  ``rows`` maps the rows of a view onto the
+    store (a prefill batch); None means rows ``0..B-1``."""
+    keys: list                 # per layer: [n_slots + 1, L, n_kv, Dh]
+    values: list
+    cache_index: torch.Tensor  # [rows] int32: tokens written per row
+    key_scales: list = None    # per layer: [n_slots + 1, L, n_kv] f32
+    value_scales: list = None
+    rows: torch.Tensor = None  # [rows] int64 store row of each view row
+
+    def rows_view(self, rows, cache_index):
+        """A view over store rows ``rows`` (pad rows name the garbage
+        row, ``n_slots``) at write offsets ``cache_index``."""
+        return dataclasses.replace(self, rows=rows, cache_index=cache_index)
+
+    def pool_bytes(self):
+        """Resident bytes of the stores, scales included."""
+        return sum(t.numel() * t.element_size() for t in (
+            self.keys + self.values + (self.key_scales or [])
+            + (self.value_scales or [])))
 
 
 @dataclasses.dataclass
@@ -56,21 +103,10 @@ class PagedCache:
             + (self.value_scales or [])))
 
 
-def init_paged_slot_cache(model_or_cfg, n_slots, page_size, n_pages,
-                          kv_dtype=None, table_pages=0, device=None):
-    """Build the paged slot cache for ``n_slots`` rows: per-layer pools
-    of ``n_pages`` pages of ``page_size`` tokens, full-width page tables
-    (``max_seq_len // page_size`` entries, all 0) and zero indices.
-    ``kv_dtype`` ("auto" or "int8"; None takes the config's) picks the
-    pools' storage: the compute dtype, or int8 payloads with f32 scale
-    pools.
-
-    Accepts a Transformer (its parameters' device is used) or a config
-    (then ``device``, resolved by the port's device rule).  Returns
-    ``(model_or_cfg, cache)``.  CALLER CONTRACT, as in the JAX package:
-    reserve one pool page as a garbage SINK and point every unallocated
-    or retired table entry at it (serve.ContinuousBatcher allocates
-    ``kv_pages + 1`` pages and uses the last as the sink)."""
+def _cache_layout(model_or_cfg, device, kv_dtype):
+    """(cfg, device, head_dim, n_kv, int8?, store dtype) of a slot cache
+    for a Transformer (its parameters' device) or a config (``device``,
+    resolved by the port's device rule)."""
     if isinstance(model_or_cfg, Transformer):
         cfg = model_or_cfg.cfg
         dev = next(model_or_cfg.parameters()).device
@@ -83,29 +119,81 @@ def init_paged_slot_cache(model_or_cfg, n_slots, page_size, n_pages,
     kv_dtype = cfg.kv_dtype if kv_dtype is None else kv_dtype
     if kv_dtype not in ("auto", "int8"):
         raise ValueError(f"kv_dtype={kv_dtype!r} not in ('auto', 'int8')")
-    if table_pages:
-        raise NotImplementedError(
-            "table_pages > 0: growable page tables are not ported yet "
-            "(ROADMAP: async engine, prefix cache, growable tables and "
-            "streaming)")
+    head_dim = cfg.d_model // cfg.n_heads
+    n_kv = cfg.n_heads if cfg.n_kv_heads is None else cfg.n_kv_heads
+    quant = kv_dtype == "int8"
+    return (cfg, dev, head_dim, n_kv, quant,
+            torch.int8 if quant else torch_dtype(cfg))
+
+
+def _per_layer(cfg, shape, dtype, dev):
+    """One zero tensor of ``shape`` per layer."""
+    return [torch.zeros(shape, dtype=dtype, device=dev)
+            for _ in range(cfg.n_layers)]
+
+
+def init_slot_cache(model_or_cfg, n_slots, kv_dtype=None, device=None):
+    """Build the dense slot cache for ``n_slots`` rows (the JAX
+    ``init_slot_cache`` at ``page_size 0``): per layer a zero
+    ``[n_slots + 1, max_seq_len, n_kv, Dh]`` store (the last row is the
+    garbage row) in the compute dtype, or int8 with f32 scales
+    (``kv_dtype="int8"``; None takes the config's), and zero indices.
+    Returns ``(model_or_cfg, cache)``."""
+    cfg, dev, head_dim, n_kv, quant, dt = _cache_layout(
+        model_or_cfg, device, kv_dtype)
+    if n_slots < 1:
+        raise ValueError("a slot cache needs n_slots >= 1")
+    shape = (n_slots + 1, cfg.max_seq_len, n_kv, head_dim)
+
+    def stores(shape, dtype):
+        return _per_layer(cfg, shape, dtype, dev)
+
+    cache = SlotCache(
+        keys=stores(shape, dt), values=stores(shape, dt),
+        cache_index=torch.zeros((n_slots,), dtype=torch.int32, device=dev),
+        key_scales=stores(shape[:3], torch.float32) if quant else None,
+        value_scales=stores(shape[:3], torch.float32) if quant else None)
+    return model_or_cfg, cache
+
+
+def init_paged_slot_cache(model_or_cfg, n_slots, page_size, n_pages,
+                          kv_dtype=None, table_pages=0, device=None):
+    """Build the paged slot cache for ``n_slots`` rows: per-layer pools
+    of ``n_pages`` pages of ``page_size`` tokens, page tables (all 0)
+    and zero indices.  ``kv_dtype`` ("auto" or "int8"; None takes the
+    config's) picks the pools' storage: the compute dtype, or int8
+    payloads with f32 scale pools.
+
+    The tables are ``table_pages`` entries wide (else the config's
+    ``kv_table_pages``; 0 means the full ``max_seq_len // page_size``),
+    capped at the full width: the growable layout, which
+    :func:`grow_page_table` widens as rows outgrow it.
+
+    Accepts a Transformer (its parameters' device is used) or a config
+    (then ``device``, resolved by the port's device rule).  Returns
+    ``(model_or_cfg, cache)``.  CALLER CONTRACT, as in the JAX package:
+    reserve one pool page as a garbage SINK and point every unallocated
+    or retired table entry at it (serve.ContinuousBatcher allocates
+    ``kv_pages + 1`` pages and uses the last as the sink)."""
+    cfg, dev, head_dim, n_kv, quant, dt = _cache_layout(
+        model_or_cfg, device, kv_dtype)
     if page_size < 1 or cfg.max_seq_len % page_size:
         raise ValueError(f"max_seq_len={cfg.max_seq_len} must be a multiple "
                          f"of page_size={page_size} >= 1")
     if n_pages < 1:
         raise ValueError("a paged cache needs n_pages >= 1")
-    head_dim = cfg.d_model // cfg.n_heads
-    n_kv = cfg.n_heads if cfg.n_kv_heads is None else cfg.n_kv_heads
-    quant = kv_dtype == "int8"
-    dt = torch.int8 if quant else torch_dtype(cfg)
+    cap = cfg.max_seq_len // page_size
+    width = int(table_pages or cfg.kv_table_pages or cap)
+    if width < 1:
+        raise ValueError(f"table_pages={width} must be >= 1")
     shape = (n_pages, page_size, n_kv, head_dim)
 
     def pools(shape, dtype):
-        return [torch.zeros(shape, dtype=dtype, device=dev)
-                for _ in range(cfg.n_layers)]
+        return _per_layer(cfg, shape, dtype, dev)
 
     cache = PagedCache(
         pages_key=pools(shape, dt), pages_value=pools(shape, dt),
-        page_table=torch.zeros((n_slots, cfg.max_seq_len // page_size),
+        page_table=torch.zeros((n_slots, min(width, cap)),
                                dtype=torch.int32, device=dev),
         cache_index=torch.zeros((n_slots,), dtype=torch.int32, device=dev),
         page_size=page_size,
@@ -116,9 +204,39 @@ def init_paged_slot_cache(model_or_cfg, n_slots, page_size, n_pages,
 
 def set_row_page_table(cache, row, entries):
     """Install row ``row``'s page mapping (serving-side allocation), in
-    place: the port of ``_jitted_set_row_page_table``."""
-    cache.page_table[row] = torch.as_tensor(
-        entries, dtype=torch.int32).to(cache.page_table.device)
+    place: the port of ``_jitted_set_row_page_table``.  ``entries`` is a
+    host sequence or a tensor on the table's device, as wide as the
+    table."""
+    if not isinstance(entries, torch.Tensor):
+        entries = to_device(np.asarray(entries, np.int32),
+                            cache.page_table.device)
+    cache.page_table[row] = entries
+
+
+def grow_page_table(cache, new_width, sink):
+    """Widen every row's page table to ``new_width`` entries (the port of
+    ``_jitted_grow_page_table``): existing mappings keep their columns
+    and the new tail names the ``sink`` page, so a row mid-decode keeps
+    its pages and the widened table is safe to step at once."""
+    rows, width = cache.page_table.shape
+    if new_width < width:
+        raise ValueError(f"a page table grows: {new_width} < {width}")
+    pad = torch.full((rows, new_width - width), int(sink), dtype=torch.int32,
+                     device=cache.page_table.device)
+    cache.page_table = torch.cat([cache.page_table, pad], dim=1)
+
+
+def set_row_indices(cache, rows, values):
+    """Write ``values`` into ``cache.cache_index`` at ``rows`` (device
+    tensors): the port of ``_jitted_set_row_index`` /
+    ``_reset_row_indices`` over a batch.  Rows ``>= n_slots`` (a
+    prefill's pad rows) are dropped, as the JAX scatter drops them,
+    through one spare slot and without reading the rows back to the
+    host."""
+    n_slots = cache.cache_index.shape[0]
+    index = torch.cat([cache.cache_index, cache.cache_index.new_zeros(1)])
+    index[rows.long().clamp(max=n_slots)] = values.to(torch.int32)
+    cache.cache_index = index[:n_slots]
 
 
 def build_prefill_batch(entries, width, bucket, n_slots, device):
@@ -147,35 +265,41 @@ def build_prefill_batch(entries, width, bucket, n_slots, device):
         rows[i] = row
         starts[i] = start
         n_valids[i] = len(toks)
-    return tuple(torch.from_numpy(a).to(device)
-                 for a in (chunks, rows, starts, n_valids))
+    return tuple(to_device(a, device) for a in (chunks, rows, starts,
+                                                n_valids))
 
 
 def slot_prefill_many(model, cache, chunks, rows, starts, n_valids, sink):
     """Batched multi-row prefill (``_slot_prefill_many_body``): one
-    forward writes one bucket-padded chunk for each of P rows.
+    forward writes one bucket-padded chunk for each of P rows, over a
+    dense or a paged slot cache.
 
     ``chunks`` [P, bucket]; ``rows`` / ``starts`` / ``n_valids`` [P] give
     each row's slot, write offset and true token count.  JAX's
     out-of-bounds rules do not hold in torch, so they are reproduced
-    here: pad rows (``rows == n_slots``) CLIP to the last slot on the
-    gather, their tables are replaced by the ``sink`` page, and their
-    index writeback is DROPPED.  Rows must be distinct.  Returns the
-    last-valid-position logits [P, V]; pools and ``cache_index`` update
-    in place."""
+    here: pad rows (``rows == n_slots``) write into the dense cache's
+    garbage row, or (paged) take a table of ``sink`` pages; their index
+    writeback is DROPPED.  A paged chunk's table is widened by sink
+    entries for the bucket, so bucket-pad overshoot past a row's table
+    lands in the sink (the JAX kernel's clip would park it in the row's
+    last page).  Rows must be distinct.  Returns the last-valid-position
+    logits [P, V]; stores, pools and ``cache_index`` update in place."""
     n_slots = cache.cache_index.shape[0]
     rows = rows.long()
-    valid = rows < n_slots
-    table = cache.page_table[rows.clamp(max=n_slots - 1)]
-    table = torch.where(valid[:, None], table,
-                        torch.full_like(table, int(sink)))
-    sub = cache.rows_view(table, starts.to(torch.int32))
+    if isinstance(cache, SlotCache):
+        sub = cache.rows_view(rows.clamp(max=n_slots), starts.to(torch.int32))
+    else:
+        valid = rows < n_slots
+        table = cache.page_table[rows.clamp(max=n_slots - 1)]
+        table = torch.where(valid[:, None], table,
+                            torch.full_like(table, int(sink)))
+        tail = -(-chunks.shape[1] // cache.page_size)
+        table = torch.cat([table, torch.full(
+            (table.shape[0], tail), int(sink), dtype=table.dtype,
+            device=table.device)], dim=1)
+        sub = cache.rows_view(table, starts.to(torch.int32))
     logits = model(chunks.long(), sub)
-    # writeback through one spare slot that absorbs the pad rows (the
-    # JAX scatter drops them), without reading `valid` back to the host
-    index = torch.cat([cache.cache_index, cache.cache_index.new_zeros(1)])
-    index[rows] = (starts + n_valids).to(torch.int32)
-    cache.cache_index = index[:n_slots]
+    set_row_indices(cache, rows, starts + n_valids)
     pick = (n_valids.long() - 1).clamp(0, chunks.shape[1] - 1)
     return logits[torch.arange(logits.shape[0], device=logits.device), pick]
 
@@ -235,31 +359,42 @@ def pick_tokens(logits, temps, seeds, ords, topks=None, topps=None,
     if not sampled:
         return greedy
     dev = logits.device
-    t = torch.tensor([max(float(x), 1e-6) for x in temps], device=dev)
+    t = to_device(torch.tensor([max(float(x), 1e-6) for x in temps]), dev)
     scaled = logits / t[:, None]
     if topks is not None:
         scaled = filter_top_k_p(
-            scaled, torch.tensor(list(topks), device=dev),
-            torch.tensor(list(topps), dtype=torch.float32, device=dev),
-            None if minps is None else torch.tensor(
-                list(minps), dtype=torch.float32, device=dev))
+            scaled, to_device(torch.tensor(list(topks)), dev),
+            to_device(torch.tensor(list(topps), dtype=torch.float32), dev),
+            None if minps is None else to_device(torch.tensor(
+                list(minps), dtype=torch.float32), dev))
     noise = torch.zeros(logits.shape)
     for i in sampled:
         noise[i] = sample_noise(seeds[i], ords[i], logits.shape[-1])
-    pick = torch.argmax(scaled + noise.to(dev), dim=-1)
-    use = torch.tensor([x > 0 for x in temps], device=dev)
+    pick = torch.argmax(scaled + to_device(noise, dev), dim=-1)
+    use = to_device(torch.tensor([x > 0 for x in temps]), dev)
     return torch.where(use, pick, greedy)
 
 
 def slot_step(model, cache, toks, temps, seeds, ords, topks=None,
-              topps=None, minps=None):
+              topps=None, minps=None, rems=None, eoss=None, eos_on=None):
     """One decode step over ALL slots (``_slot_step_body``): feed each
     row its current token ``toks [n]`` (a device tensor, the previous
     step's pick), then pick per row (:func:`pick_tokens`).  Free rows
-    step too; their tables name the sink, where their writes are
-    harmless.  Returns the picks [n]; the cache advances in place."""
+    step too; their writes land in the sink page (paged) or past their
+    window.  Returns the picks [n]; the cache advances in place.
+
+    With ``rems`` / ``eoss`` / ``eos_on`` ([n] device tensors: remaining
+    budget, eos id, whether an eos is set) the stop decision runs on the
+    device too: returns ``(picks, rems - 1, done)`` with ``done[b]``
+    raised when row b's budget hits zero or it picked its eos, so the
+    serving engine reads the verdict back with the tokens and never
+    inspects token values to decide whether to keep dispatching."""
     logits = model(toks.long()[:, None], cache)[:, -1]
-    return pick_tokens(logits, temps, seeds, ords, topks, topps, minps)
+    pick = pick_tokens(logits, temps, seeds, ords, topks, topps, minps)
+    if rems is None:
+        return pick
+    rems = rems - 1
+    return pick, rems, (rems <= 0) | (eos_on & (pick == eoss))
 
 
 def check_pick_args(temperature, top_k, top_p, min_p):
@@ -319,7 +454,8 @@ def generate(model, prompt, max_new_tokens, temperature=0.0, seed=None,
     per_row = -(-(T0 + max_new_tokens) // page)
     sink = B * per_row
     _, cache = init_paged_slot_cache(model, B, page, sink + 1,
-                                     kv_dtype=kv_dtype)
+                                     kv_dtype=kv_dtype,
+                                     table_pages=cfg.max_seq_len // page)
     width = cache.page_table.shape[1]
     for b in range(B):
         pages = list(range(b * per_row, (b + 1) * per_row))

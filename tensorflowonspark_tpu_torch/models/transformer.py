@@ -13,7 +13,9 @@ flash kernels (``ops.flash_attention``, differentiable) for
 ``attention_impl="flash"``, or ``"auto"`` on a CUDA tensor, and dense
 attention otherwise; the paged slot cache (``_paged_attention_body``)
 runs the paged kernels, over float or int8 pools (the cache decides:
-``models.decode.init_paged_slot_cache(kv_dtype=)``).  ``remat``
+``models.decode.init_paged_slot_cache(kv_dtype=)``), and the dense slot
+cache (``_slot_attention_body``) plain products over each row's window,
+as the JAX package computes it in XLA.  ``remat``
 recomputes each block in the backward
 (``torch.utils.checkpoint``).  :func:`lm_loss` is the causal-LM loss the
 train step uses.  Fields of the config whose feature is not ported raise
@@ -33,8 +35,8 @@ from tensorflowonspark_tpu_torch import quantize
 from tensorflowonspark_tpu_torch.ops.flash_attention import flash_attention
 from tensorflowonspark_tpu_torch.ops.layernorm import fused_layernorm
 from tensorflowonspark_tpu_torch.ops.paged_attention import paged_attention
-from tensorflowonspark_tpu_torch.ops.paged_prefill import (_write_pages_int8,
-                                                           paged_prefill)
+from tensorflowonspark_tpu_torch.ops.paged_prefill import (
+    _write_pages_int8, kv_dequantize, kv_quantize, paged_prefill)
 from tensorflowonspark_tpu_torch.ops.quant_matmul import quant_matmul
 
 
@@ -88,9 +90,6 @@ _UNPORTED = (
     ("ulysses_axis", bool,
      "context-parallel attention (ROADMAP: the zoo and the rest)"),
     ("sp_axis", bool, "sequence parallelism (ROADMAP: the zoo and the rest)"),
-    ("kv_table_pages", lambda v: v > 0,
-     "growable page tables (ROADMAP: async engine, prefix cache, growable "
-     "tables and streaming)"),
     ("paged_attn_impl", lambda v: v != "kernel",
      "a selectable reference read path (the kernel is the only card path)"),
     ("paged_prefill_impl", lambda v: v != "kernel",
@@ -336,7 +335,9 @@ class Attention(nn.Module):
             if mask is not None:
                 raise NotImplementedError(
                     "key-padding masks are not supported in decode mode")
-            out = _paged_attention_body(q, k, v, cache, layer)
+            out = (_paged_attention_body(q, k, v, cache, layer)
+                   if hasattr(cache, "page_table")
+                   else _slot_attention_body(q, k, v, cache, layer))
         elif mask is None and (cfg.attention_impl == "flash" or (
                 cfg.attention_impl == "auto" and q.is_cuda)):
             # GQA-native kernels: narrow k/v go straight in (no repeated
@@ -405,6 +406,57 @@ def _paged_attention_body(q, k, v, cache, layer):
                            value_scales=vs)
 
 
+def _slot_attention_body(q, k, v, cache, layer):
+    """Dense slot-cache attention for one layer (the ``decode_slots``
+    branch of the JAX ``_decode_attention``, computed there in XLA, so
+    plain products here too).
+
+    ``cache`` holds this layer's store ``keys[layer] / values[layer]
+    [n_slots + 1, L, n_kv, Dh]`` (an int8 store also ``key_scales[layer]
+    / value_scales[layer] [n_slots + 1, L, n_kv]`` f32), ``cache_index
+    [B]`` and ``rows`` (the view's store rows; None: ``0..B-1``).  The
+    chunk's k/v are written at each row's ``cache_index`` (int8: through
+    ``kv_quantize``, bit-identical to ``_kv_quantize``); positions past L
+    go to the garbage row (the JAX one-hot write drops them).  Query s
+    of row b then sees key j iff ``j <= cache_index[b] + s``, f32
+    softmax, probabilities rounded to the activation dtype."""
+    ck, cv = cache.keys[layer], cache.values[layer]
+    quant = cache.key_scales is not None
+    B, S, n_kv, Dh = k.shape
+    L, garbage = ck.shape[1], ck.shape[0] - 1
+    dev = k.device
+    pos = cache.cache_index.long()[:, None] + torch.arange(S, device=dev)
+    rows = (torch.arange(B, device=dev) if cache.rows is None
+            else cache.rows.long())
+    inside = pos < L
+    wrow = torch.where(inside, rows[:, None], garbage)
+    wpos = torch.where(inside, pos, L - 1)
+    if quant:
+        k_st, k_sc = kv_quantize(k)
+        v_st, v_sc = kv_quantize(v)
+        cache.key_scales[layer][wrow, wpos] = k_sc
+        cache.value_scales[layer][wrow, wpos] = v_sc
+    else:
+        k_st, v_st = k, v
+    ck[wrow, wpos] = k_st.to(ck.dtype)
+    cv[wrow, wpos] = v_st.to(cv.dtype)
+    pick = slice(0, B) if cache.rows is None else rows
+    kf, vf = ck[pick], cv[pick]
+    if quant:
+        kf = kv_dequantize(kf, cache.key_scales[layer][pick], q.dtype)
+        vf = kv_dequantize(vf, cache.value_scales[layer][pick], q.dtype)
+    H = q.shape[2]
+    # query head h reads kv head h // (H // n_kv), as _kv_repeat does
+    qg = q.reshape(B, S, n_kv, H // n_kv, Dh)
+    logits = (torch.einsum("bsngd,blnd->bngsl", qg, kf).float()
+              * (1.0 / math.sqrt(Dh)))
+    visible = torch.arange(L, device=dev)[None, None, :] <= pos[:, :, None]
+    logits = torch.where(visible[:, None, None], logits,
+                         torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bngsl,blnd->bsngd", probs, vf).reshape(B, S, H, Dh)
+
+
 def _activation(x, name):
     if name == "gelu_tanh":
         return F.gelu(x, approximate="tanh")
@@ -462,9 +514,10 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """Token ids -> logits.  With ``cache`` (a paged slot cache from
-    ``models.decode``) the forward is one prefill chunk or decode step
-    at each row's ``cache_index``, and advances the index by S."""
+    """Token ids -> logits.  With ``cache`` (a dense or a paged slot
+    cache from ``models.decode``) the forward is one prefill chunk or
+    decode step at each row's ``cache_index``, and advances the index by
+    S."""
 
     def __init__(self, cfg):
         super().__init__()

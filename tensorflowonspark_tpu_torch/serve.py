@@ -1,30 +1,36 @@
 """Online :generate server over an exported decoder LM — the port of
-``tensorflowonspark_tpu/serve.py`` at its paged, serial-engine
-configuration.
+``tensorflowonspark_tpu/serve.py``.
 
     python -m tensorflowonspark_tpu_torch.serve --export_dir D \\
-        --generate_kv_page_size 64 --generate_kv_pages N \\
+        [--generate_kv_page_size 64 --generate_kv_pages N] \\
+        [--generate_engine async|serial] [--generate_pipeline_depth 2] \\
+        [--generate_long_prompt_threshold T] \\
         [--generate_quantize int8|int4] [--generate_kv_dtype int8]
 
     POST /v1/models/<name>:generate
         {"inputs": [[ids..]], "max_new_tokens": n, "temperature": t,
          "seed": s, "eos_id": e, "top_k": k, "top_p": p, "min_p": m}
         -> {"outputs": [prompt + new tokens, ...]}
+        with "stream": true (one prompt): chunked application/x-ndjson,
+        {"token": t} per token, then {"done": true, "output": [...]}
     GET  /v1/models/<name>   -> engine stats and kernel launch counts
     GET  /healthz, /readyz
 
-Every request runs through the ContinuousBatcher: slot-based continuous
-batching over a paged kv cache, batched multi-row prefill rounds
-interleaved with decode steps, the sink page for free rows and
-bucket-pad overshoot.  ``--generate_quantize int8|int4`` serves weight-only
-quantised projections (W8A16 / W4A16) through kernels 9 and 10;
-``--generate_kv_dtype int8`` keeps the kv pool in int8 with f32
-per-(token, head) scales (the int8 branch of kernels 1-3), about half
-the bf16 pool's bytes.  The two compose.  Runs on
-``cuda`` unless ``--device cpu`` is given;
-without a CUDA device and without that request it raises.  Flags and
-request fields whose feature is not ported raise NotImplementedError
-(HTTP 501) naming the ROADMAP item; none is ignored.
+Every request runs through the ContinuousBatcher, as in the JAX server:
+slot-based continuous batching with batched multi-row prefill rounds
+interleaved with decode steps, by default on the async engine (a device
+thread dispatching, a host thread reading back) over the dense slot
+cache.  ``--generate_kv_page_size`` serves a paged pool instead (the
+sink page for free rows and bucket-pad overshoot, growable page tables,
+the prefix cache, the mega-prompt lane above
+``--generate_long_prompt_threshold``).  ``--generate_quantize int8|int4``
+serves weight-only quantised projections (W8A16 / W4A16) through kernels
+9 and 10; ``--generate_kv_dtype int8`` keeps the kv cache in int8 with
+f32 per-(token, head) scales (the int8 branch of kernels 1-3 over a
+paged pool).  Runs on ``cuda`` unless ``--device cpu`` is given; without
+a CUDA device and without that request it raises.  Flags and request
+fields whose feature is not ported raise NotImplementedError (HTTP 501)
+naming the ROADMAP item; none is ignored.
 """
 import argparse
 import collections
@@ -38,14 +44,13 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import torch
 
 from tensorflowonspark_tpu_torch import device as device_mod
-from tensorflowonspark_tpu_torch import ops
+from tensorflowonspark_tpu_torch import faults, ops
 from tensorflowonspark_tpu_torch import quantize as quantize_mod
-from tensorflowonspark_tpu_torch.metrics import Counters
+from tensorflowonspark_tpu_torch.metrics import Counters, Gauge, LatencyWindow
 from tensorflowonspark_tpu_torch.models import decode as decode_mod
 
 logger = logging.getLogger(__name__)
 
-_ASYNC = "async engine, prefix cache, growable tables and streaming"
 # weight-only quantisation modes of --generate_quantize
 QUANTIZE_MODES = ("none",) + quantize_mod.MODES
 
@@ -54,7 +59,7 @@ def build_argparser():
     p = argparse.ArgumentParser(
         prog="tensorflowonspark_tpu_torch.serve",
         description="online :generate HTTP server over an exported LM "
-                    "(PyTorch / CUDA port, paged kv)")
+                    "(PyTorch / CUDA port)")
     p.add_argument("--export_dir", required=True)
     p.add_argument("--model_name", default="default",
                    help="name served under /v1/models/<name>")
@@ -80,21 +85,29 @@ def build_argparser():
                    help="prefill tokens per scheduler round (0 = "
                         "prefill_rows * prefill_chunk)")
     p.add_argument("--generate_engine", choices=["async", "serial"],
-                   default="serial",
-                   help="decode engine; the port has the serial engine "
-                        "(the async one is a ROADMAP item)")
+                   default="async",
+                   help="decode engine: \"async\" (default) = a device "
+                        "thread keeps up to --generate_pipeline_depth "
+                        "flushed chunks in flight while a host thread reads "
+                        "them back, commits tokens and delivers streams; "
+                        "\"serial\" = the one-thread reference loop (the "
+                        "same tokens)")
+    p.add_argument("--generate_pipeline_depth", type=int, default=2,
+                   help="async engine: flushed readback chunks in flight "
+                        "between the device and host threads (>= 1)")
     p.add_argument("--generate_timeout_s", type=float, default=None,
                    help="wall-time bound on one :generate request")
     p.add_argument("--generate_kv_page_size", type=int, default=0,
-                   help="tokens per kv page (the port serves the paged "
-                        "cache only: required)")
+                   help=">0 serves a PAGED kv cache: rows draw pages of "
+                        "this many tokens from a shared pool (requires "
+                        "--generate_kv_pages); 0 = the dense slot cache")
     p.add_argument("--generate_kv_pages", type=int, default=0,
                    help="pool size (pages) for --generate_kv_page_size")
     p.add_argument("--generate_kv_dtype", choices=["auto", "int8"],
                    default="auto",
-                   help="int8 = the paged kv pool stored as int8 payloads "
+                   help="int8 = the kv cache stored as int8 payloads "
                         "with per-(token, head) f32 scales: about half "
-                        "the bf16 pool's bytes")
+                        "the bf16 cache's bytes")
     p.add_argument("--generate_quantize", choices=list(QUANTIZE_MODES),
                    default="none",
                    help="weight-only quantisation of the projections at "
@@ -106,7 +119,12 @@ def build_argparser():
     p.add_argument("--draft_export_dir", default=None)
     p.add_argument("--generate_lora_rank", type=int, default=0)
     p.add_argument("--generate_host_cache_mb", type=int, default=0)
-    p.add_argument("--generate_long_prompt_threshold", type=int, default=0)
+    p.add_argument("--generate_long_prompt_threshold", type=int, default=0,
+                   help=">0 routes prompts longer than this many tokens "
+                        "through the mega-prompt lane: they admit one at a "
+                        "time and map kv pages chunk by chunk, evicting "
+                        "cold prefix pages when the pool runs dry "
+                        "(requires --generate_kv_page_size)")
     p.add_argument("--generate_preempt_ms", type=float, default=0.0)
     p.add_argument("--fleet", default=None, metavar="HOST:PORT")
     p.add_argument("--verbose", action="store_true")
@@ -126,7 +144,6 @@ _JAX_ONLY_FLAGS = (
     ("--generate_lora", dict(action="append", metavar="NAME=PATH")),
     ("--generate_lora_capacity", dict(type=int)),
     ("--draft_k", dict(type=int)),
-    ("--generate_pipeline_depth", dict(type=int)),
     ("--generate_priority_weight", dict(type=int)),
     ("--generate_park_capacity", dict(type=int)),
     ("--generate_trace_ring", dict(type=int)),
@@ -152,21 +169,18 @@ def _given(v):
 
 # (flag, predicate of "asked for" a value other than None, ROADMAP item)
 _UNPORTED_FLAGS = (
-    ("generate_engine", lambda v: v == "async", _ASYNC),
     ("spec_draft", lambda v: v in ("model", "ngram"),
      "LoRA and speculation"),
     ("draft_export_dir", bool, "LoRA and speculation"),
     ("generate_lora_rank", lambda v: v > 0, "LoRA and speculation"),
     ("generate_host_cache_mb", lambda v: v > 0,
      "migration, host tier and fleet"),
-    ("generate_long_prompt_threshold", lambda v: v > 0, _ASYNC),
     ("generate_preempt_ms", lambda v: v > 0,
      "migration, host tier and fleet"),
     ("fleet", bool, "migration, host tier and fleet"),
     ("generate_lora", bool, _LORA),
     ("generate_lora_capacity", _given, _LORA),
     ("draft_k", _given, _LORA),
-    ("generate_pipeline_depth", _given, _ASYNC),
     ("generate_priority_weight", _given, _FLEET),
     ("generate_park_capacity", _given, _FLEET),
     ("generate_trace_ring", _given, _FLEET),
@@ -200,14 +214,31 @@ def _bucket_len(n, cap):
 
 
 def _pow2_width(n):
-    """Padded row count of a batched prefill dispatch: next power of 2."""
+    """Padded row count of a batched prefill dispatch (and the step of a
+    page table's growth): the next power of 2."""
     return 1 << (n - 1).bit_length()
 
 
 def max_table_pages(max_seq_len, kv_page_size):
-    """The page-table width of one row: enough entries to map a full
+    """The page-table width CAP of one row: enough entries to map a full
     max_seq_len sequence."""
     return max_seq_len // kv_page_size
+
+
+# Initial per-row page-table width (entries): rows start this narrow and
+# grow geometrically (decode.grow_page_table) only when an admission
+# needs more, as in the JAX package.
+_INIT_TABLE_PAGES = 8
+# normal admissions per mega-prompt admission while both wait (the JAX
+# package's default --generate_priority_weight, whose flag is A7's)
+_LONG_CREDIT = 4
+
+
+class KVOverflowError(RuntimeError):
+    """The kv pool could not yield the pages a mega-prompt needs even
+    with nothing else running: the request cannot fit this replica.  A
+    typed 503 over HTTP (retryable elsewhere), not a 400: the request is
+    well-formed."""
 
 
 def _aligned_prefill_chunk(prefill_chunk, kv_page_size):
@@ -222,13 +253,17 @@ def _aligned_prefill_chunk(prefill_chunk, kv_page_size):
 
 
 class SlotHandle:
-    """One in-flight generation; ``.result()`` blocks for the full
-    sequence (per-token streaming is a ROADMAP item)."""
+    """One in-flight generation: tokens stream into ``.tokens`` as they
+    decode (one list per host tick, then the None sentinel);
+    ``.result()`` blocks for the full sequence."""
 
     def __init__(self):
+        self.tokens = queue_mod.Queue()
         self.cancelled = threading.Event()
         self._done = threading.Event()
-        self._outcome_lock = threading.Lock()   # first outcome wins
+        # first outcome wins: the host thread finishes handles while
+        # stop() or the death drain may fail them
+        self._outcome_lock = threading.Lock()
         self._seq = None
         self._err = None
 
@@ -243,6 +278,7 @@ class SlotHandle:
                 return
             self._seq = seq
             self._done.set()
+            self.tokens.put(None)
 
     def _fail(self, err):
         with self._outcome_lock:
@@ -250,6 +286,7 @@ class SlotHandle:
                 return
             self._err = err
             self._done.set()
+            self.tokens.put(None)
 
     def result(self, timeout=None):
         if not self._done.wait(timeout):
@@ -259,25 +296,62 @@ class SlotHandle:
         return self._seq
 
 
+class _HostBuffers:
+    """Host buffers of flushed readback chunks: a ``[read_chunk,
+    n_slots]`` token plane and done plane, pinned on the card so that
+    the copy runs without blocking.  A buffer goes back to the free list
+    only after its chunk was processed, so no copy lands in a buffer the
+    host still reads."""
+
+    def __init__(self, read_chunk, n_slots, device):
+        self._shape = (read_chunk, n_slots)
+        self._pin = device.type == "cuda"
+        self._free = queue_mod.SimpleQueue()
+
+    def take(self):
+        try:
+            return self._free.get_nowait()
+        except queue_mod.Empty:
+            return (torch.empty(self._shape, dtype=torch.int64,
+                                pin_memory=self._pin),
+                    torch.empty(self._shape, dtype=torch.bool,
+                                pin_memory=self._pin))
+
+    def give(self, bufs):
+        self._free.put(bufs)
+
+
 class ContinuousBatcher:
-    """The serving decode engine: slot-based continuous batching over the
-    paged kv cache (models.decode).  New requests prefill into a free
-    slot in chunks, batched across up to ``prefill_rows`` admissions per
-    dispatch and interleaved with decode steps; finished slots retire at
-    readback boundaries.  One engine thread owns the model and the cache
-    (the JAX package's serial engine).
+    """The serving decode engine: slot-based continuous batching over a
+    dense (``kv_page_size 0``) or a paged slot cache (models.decode).
+    New requests prefill into a free slot in chunks, batched across up
+    to ``prefill_rows`` admissions per dispatch and interleaved with
+    decode steps; finished slots retire at readback boundaries.
 
-    Pool: ``kv_pages + 1`` pages, the last one the garbage SINK.  Free
-    rows keep decoding junk (every step runs all rows) and bucket-pad
-    overshoot lands past a row's allocation, so every unallocated table
-    entry names the sink, never a page another row owns.  Admission
-    takes a row's whole need (``ceil((prompt + max_new) / page)``) from
-    the free list; when the pool is short the admission waits at the
-    head of the line.
+    Engines, as in the JAX package.  ``"async"`` (the default) splits
+    the loop: a device thread (admission, prefill, decode dispatch; owns
+    every device buffer) flushes readback chunks into a bounded queue
+    (``pipeline_depth``), and a host thread drains them (commits tokens,
+    delivers stream batches, retires rows through the device thread).
+    ``"serial"`` is the one-thread reference: it processes the PREVIOUS
+    chunk while the current one computes.  Both read back without
+    blocking: a chunk's tokens and done plane are copied into pinned
+    host buffers, and the host waits on a CUDA event recorded after the
+    copy.  The two engines give the same tokens.
 
-    ``kv_dtype="int8"`` stores the pool as int8 payloads with f32
+    Paged pool: ``kv_pages + 1`` pages, the last one the garbage SINK
+    (free rows keep decoding junk and bucket-pad overshoot lands past a
+    row's allocation, so every unallocated table entry names the sink).
+    Tables start ``_INIT_TABLE_PAGES`` wide and grow in pow2 steps.
+    Full prompt pages are shared through a prefix cache (refcounted;
+    cached at refcount 0, evicted LRU under pressure).  Admission takes
+    a row's whole need less its shared pages; when the pool is short the
+    admission waits at the head of the line.  Prompts longer than
+    ``long_prompt_threshold`` take the mega-prompt lane: they admit one
+    at a time and map pages chunk by chunk.
+
+    ``kv_dtype="int8"`` stores the cache as int8 payloads with f32
     per-(token, head) scales ("auto" means the model's compute dtype).
-
     Greedy rows decode exactly the tokens of a solo ``decode.generate``
     (with the same ``kv_dtype``); sampled rows draw the counter-based
     noise of (seed, ordinal), so a seeded request reproduces itself.
@@ -286,49 +360,78 @@ class ContinuousBatcher:
     def __init__(self, model, n_slots=8, max_pending=1024, read_chunk=8,
                  prefill_chunk=512, prefill_rows=4, prefill_budget=0,
                  kv_page_size=0, kv_pages=0, kv_dtype=None,
-                 engine="serial", device=None):
-        if engine != "serial":
-            raise NotImplementedError(
-                f"engine={engine!r} is not ported yet (ROADMAP: {_ASYNC})")
-        if not kv_page_size:
-            raise NotImplementedError(
-                "the dense slot cache is not ported yet (ROADMAP: "
-                f"{_ASYNC}); serve the paged cache (kv_page_size > 0, "
-                "--generate_kv_page_size)")
-        if int(kv_pages) < 1:
-            raise ValueError("kv_page_size > 0 requires kv_pages >= 1")
+                 engine="async", pipeline_depth=2, long_prompt_threshold=0,
+                 long_chunk_quota=1, device=None):
+        if engine not in ("async", "serial"):
+            raise ValueError(f"engine={engine!r} not in ('async', 'serial')")
         if n_slots < 1:
             raise ValueError("n_slots must be >= 1")
+        self.kv_page_size = int(kv_page_size or 0)
+        if self.kv_page_size and int(kv_pages) < 1:
+            raise ValueError("kv_page_size > 0 requires kv_pages >= 1")
+        self.long_prompt_threshold = int(long_prompt_threshold or 0)
+        if self.long_prompt_threshold < 0:
+            raise ValueError("long_prompt_threshold must be >= 0")
+        if self.long_prompt_threshold and not self.kv_page_size:
+            raise ValueError(
+                "long_prompt_threshold > 0 requires a paged kv cache "
+                "(--generate_kv_page_size): the mega-prompt lane allocates "
+                "pages lazily as chunks land")
+        self.long_chunk_quota = max(1, int(long_chunk_quota or 1))
         self.device = device_mod.resolve(device)
         param_dev = next(model.parameters()).device
         if param_dev.type != self.device.type:
             raise ValueError(f"model parameters are on {param_dev}, the "
                              f"batcher runs on {self.device}")
         self.engine = engine
+        self.pipeline_depth = max(1, int(pipeline_depth))
         self.model = model
         self.n_slots = n_slots
-        self.kv_page_size = int(kv_page_size)
         self.max_seq = model.cfg.max_seq_len
         self.vocab_size = model.cfg.vocab_size
         self.counters = Counters()
-        self._sink = int(kv_pages)
-        self._total_pages = int(kv_pages)
-        self._table_width = max_table_pages(self.max_seq, self.kv_page_size)
-        _, self._cache = decode_mod.init_paged_slot_cache(
-            model, n_slots, self.kv_page_size, int(kv_pages) + 1,
-            kv_dtype=None if kv_dtype == "auto" else kv_dtype)
+        kv_dtype = None if kv_dtype == "auto" else kv_dtype
+        if self.kv_page_size:
+            self._sink = int(kv_pages)
+            self._total_pages = int(kv_pages)
+            self._table_cap = max_table_pages(self.max_seq,
+                                              self.kv_page_size)
+            self._table_width = min(self._table_cap, _INIT_TABLE_PAGES)
+            _, self._cache = decode_mod.init_paged_slot_cache(
+                model, n_slots, self.kv_page_size, int(kv_pages) + 1,
+                kv_dtype=kv_dtype, table_pages=self._table_width)
+            # sized to the current table width; _grow_table rebuilds it
+            self._sink_entries = torch.full(
+                (self._table_width,), self._sink, dtype=torch.int32,
+                device=self.device)
+            for row in range(n_slots):   # unoccupied rows start at the sink
+                decode_mod.set_row_page_table(self._cache, row,
+                                              self._sink_entries)
+            # device-thread-owned pool state; stats() only takes len() of
+            # momentary snapshots
+            # graftcheck: disable-next-line=thread-race
+            self._free_pages = list(range(int(kv_pages)))
+            self._row_pages = [None] * n_slots
+            # prefix cache: cumulative-prefix key -> pool page, its LRU
+            # ticks, and the live-row refcount of every managed page
+            # graftcheck: disable-next-line=thread-race
+            self._prefix = {}
+            self._prefix_lru = {}
+            self._page_rc = {}
+            self._lru_tick = 0
+            self._row_shared_n = [0] * n_slots
+            self._row_prefix_keys = [None] * n_slots
+            self.prefill_tokens_shared = 0
+        else:
+            _, self._cache = decode_mod.init_slot_cache(model, n_slots,
+                                                        kv_dtype=kv_dtype)
         # "auto" (the CLI default) and None leave the model config's
-        # choice; stats() reports what the pool holds
+        # choice; stats() reports what the cache holds
         self.kv_dtype = "int8" if self._cache.key_scales else None
         self.kv_pool_bytes = self._cache.pool_bytes()
-        self._sink_entries = [self._sink] * self._table_width
-        for row in range(n_slots):       # unoccupied rows start at the sink
-            decode_mod.set_row_page_table(self._cache, row,
-                                          self._sink_entries)
-        # engine-thread-owned free list; stats() only takes len() of it
+        # swap-to-None teardown in stop()/_die() runs after the threads
+        # are joined or dead
         # graftcheck: disable-next-line=thread-race
-        self._free_pages = list(range(int(kv_pages)))
-        self._row_pages = [None] * n_slots
         self._parked = None    # admission waiting for pool pages (FIFO)
         self.read_chunk = max(1, read_chunk)
         self.prefill_chunk = _aligned_prefill_chunk(prefill_chunk,
@@ -337,20 +440,33 @@ class ContinuousBatcher:
         self.prefill_budget = (int(prefill_budget or 0)
                                or self.prefill_rows * self.prefill_chunk)
         self._pending = queue_mod.Queue(max_pending)
-        self._waiting = collections.deque()   # engine-thread FIFO
+        # device-thread-owned admission queues (the one priority class
+        # until A7, and the mega-prompt lane); stats() only len()s them
+        # graftcheck: disable-next-line=thread-race
+        self._waiting = collections.deque()
+        # graftcheck: disable-next-line=thread-race
+        self._longq = collections.deque()
+        self._long_credit = 0    # normal picks since the last long pick
         # cells are rebound, never resized; the generation counter makes
         # stale readback entries self-invalidating
         # graftcheck: disable-next-line=thread-race
         self._slots = [None] * n_slots
+        # graftcheck: disable-next-line=thread-race
         self._gen = [0] * n_slots
         # graftcheck: disable-next-line=thread-race
         self._admissions = []        # in-flight chunked admissions
-        self._ttft = []              # seconds, submit -> first token
-        self._ttft_lock = threading.Lock()
-        # per-row decode state: the previous pick on the device, the
-        # sampling controls on the host (free rows: greedy, no filter)
+        self._ttft = LatencyWindow()   # submit -> first token
+        # per-row decode state: the previous pick and the stop registers
+        # on the device, the sampling controls on the host (free rows:
+        # greedy, no filter)
         self._toks = torch.zeros((n_slots,), dtype=torch.int64,
                                  device=self.device)
+        self._rems = torch.zeros((n_slots,), dtype=torch.int32,
+                                 device=self.device)
+        self._eoss = torch.zeros((n_slots,), dtype=torch.int64,
+                                 device=self.device)
+        self._eos_on = torch.zeros((n_slots,), dtype=torch.bool,
+                                   device=self.device)
         self._temps = [0.0] * n_slots
         self._seeds = [0] * n_slots
         self._ords = [0] * n_slots
@@ -360,60 +476,103 @@ class ContinuousBatcher:
         self._n_filtered = 0
         self._steps = 0
         self._step_ms = collections.deque(maxlen=1024)   # decode-only chunks
-        # the kernels this engine runs: the paged ones for its pool, the
-        # fused-dequant matmul of each quantisation mode in the model, and
-        # the fused LayerNorm of a fused_ln model
+        self._bufs = _HostBuffers(self.read_chunk, n_slots, self.device)
+        # device->host handoff: flushed chunks ride here; the bound IS the
+        # pipeline depth (backpressure when the host falls behind)
+        self._ready = queue_mod.Queue(self.pipeline_depth)
+        # host->device retirement requests (row, gen, ack): _free_row
+        # writes a page table on the card, so only the device thread
+        # applies it; the host blocks on the ack, so a finished handle
+        # always sees consistent pool accounting
+        self._retire_q = queue_mod.Queue()
+        # other device-thread operations posted from any thread, acked
+        # the same way (drop_prefix_cache)
+        self._ops_q = queue_mod.Queue()
+        self._depth = Gauge()   # steps dispatched but not host-processed
+        self._t0 = time.monotonic()   # device_idle_fraction time base
+        # the kernels this engine runs: the paged ones for a paged pool,
+        # the fused-dequant matmul of each quantisation mode in the
+        # model, and the fused LayerNorm of a fused_ln model
         self.kernels = (
-            (ops.SERVING_KERNELS_INT8_KV if self._cache.key_scales
-             else ops.SERVING_KERNELS)
+            ((ops.SERVING_KERNELS_INT8_KV if self.kv_dtype
+              else ops.SERVING_KERNELS) if self.kv_page_size else ())
             + tuple(f"{mode}_matmul"
                     for mode in quantize_mod.quantized_modes(model))
             + (("layernorm",) if model.cfg.fused_ln else ()))
-        self._dead = None
+        self._dead = None     # the fatal exception once a thread died
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._loop,
                                         name="slot-batcher", daemon=True)
+        self._host_thread = None
+        if engine == "async":
+            self._host_thread = threading.Thread(
+                target=self._host_loop, name="slot-host", daemon=True)
+            self._host_thread.start()
         self._thread.start()
 
     # ---- public surface -------------------------------------------------
 
     def stats(self):
         """Operational snapshot: occupancy, queue depth, dispatch counts,
-        pool state, TTFT and the kernels' launch counts (monitoring
-        reads; momentary skew is fine)."""
-        free = len(self._free_pages)
-        with self._ttft_lock:
-            ttft = sorted(self._ttft)
+        the pipeline, pool and prefix-cache state, TTFT and the kernels'
+        launch counts (monitoring reads; momentary skew is fine)."""
         step_ms = list(self._step_ms)
+        elapsed_ms = (time.monotonic() - self._t0) * 1000.0
+        wait_ms = self.counters.get("device_wait_ms")
         out = {
             "slots_busy": sum(s is not None for s in self._slots),
-            "pending": self._pending.qsize() + len(self._waiting),
+            "pending": (self._pending.qsize() + len(self._waiting)
+                        + len(self._longq)),
+            "admitting": bool(self._admissions),
             "admissions_inflight": len(self._admissions),
             "prefill_rows": self.prefill_rows,
             "prefill_budget": self.prefill_budget,
             "requests_served": self.counters.get("requests_served"),
             "decode_steps": self._steps,
             "engine": self.engine,
+            "pipeline_depth": self.pipeline_depth,
+            # high-water mark of dispatched-but-unprocessed steps: > 1 is
+            # the proof that the pipeline overlapped host work with steps
+            "pipeline_depth_peak": self._depth.peak,
+            # share of wall time the device thread spent blocked on host
+            # work (serial: processing chunks inline; async: waiting for
+            # the host to drain a full pipeline)
+            "device_idle_fraction": (
+                round(min(1.0, wait_ms / elapsed_ms), 4) if elapsed_ms > 0
+                else 0.0),
             "device": str(self.device),
-            "kv_pages_free": free,
-            "kv_pages_total": self._total_pages,
-            "kv_pages_used": self._total_pages - free,
-            "kv_page_size": self.kv_page_size,
-            "kv_pool_bytes": self.kv_pool_bytes,
-            # host-clock ms per decode step over readback chunks with no
-            # prefill or idle wait in them (the readback syncs the card)
+            # host-clock ms per decode step between flushes of chunks with
+            # no prefill or idle wait in them
             "decode_step_ms_mean": (sum(step_ms) / len(step_ms)
                                     if step_ms else 0.0),
-            "ttft_count": len(ttft),
-            "ttft_sum_s": sum(ttft),
-            "ttft_p50_ms": (1000.0 * ttft[len(ttft) // 2] if ttft else 0.0),
-            "ttft_p95_ms": (1000.0 * ttft[min(len(ttft) - 1,
-                                              int(0.95 * len(ttft)))]
-                            if ttft else 0.0),
+            "kv_pool_bytes": self.kv_pool_bytes,
             "kernel_launches": ops.launch_counts(self.kernels),
+            "long_prompt_threshold": self.long_prompt_threshold,
         }
+        out.update(self._ttft.stats("ttft"))
+        if self.kv_page_size:
+            free = len(self._free_pages)
+            out["kv_pages_free"] = free
+            out["kv_pages_total"] = self._total_pages
+            out["kv_pages_used"] = self._total_pages - free
+            out["kv_page_size"] = self.kv_page_size
+            out["admission_waiting_for_pages"] = self._parked is not None
+            out["prefix_pages_cached"] = len(self._prefix)
+            out["prefill_tokens_shared"] = self.prefill_tokens_shared
+            for key in ("prefix_hits", "prefix_misses", "kv_sink_writes"):
+                out[key] = self.counters.get(key)
+            out["kv_table_width"] = self._table_width
+            out["kv_table_cap"] = self._table_cap
         if self.kv_dtype:
             out["kv_dtype"] = self.kv_dtype
+        for key in ("kv_table_grows", "kv_pages_demoted_overflow",
+                    "long_chunks_dispatched", "device_wait_ms"):
+            out[key] = self.counters.get(key)
+        out["long_prompts_active"] = (
+            len(self._longq)
+            + sum(1 for adm in list(self._admissions) if adm["item"]["long"])
+            + sum(1 for s in list(self._slots)
+                  if s is not None and s["item"]["long"]))
         out.update(self.counters.snapshot())
         return out
 
@@ -432,66 +591,279 @@ class ContinuousBatcher:
         if len(prompt) + max_new > self.max_seq:
             raise ValueError(f"prompt {len(prompt)} + max_new_tokens "
                              f"{max_new} exceeds max_seq_len {self.max_seq}")
-        need = self._pages_needed(len(prompt), max_new)
-        if need > self._total_pages:
-            # a request the whole pool cannot hold would wait forever at
-            # the head of the line, wedging every later admission
-            raise ValueError(
-                f"request needs {need} kv pages but the pool only has "
-                f"{self._total_pages}; raise --generate_kv_pages or shorten "
-                "the request")
+        if self.kv_page_size:
+            need = self._pages_needed(len(prompt), max_new)
+            if need > self._total_pages:
+                # a request the whole pool cannot hold would wait forever
+                # at the head of the line, wedging every later admission
+                raise ValueError(
+                    f"request needs {need} kv pages but the pool only has "
+                    f"{self._total_pages}; raise --generate_kv_pages or "
+                    "shorten the request")
         h = SlotHandle()
+        # the lane flag is decided once, here: every later hop keys off it
+        is_long = bool(self.long_prompt_threshold
+                       and len(prompt) > self.long_prompt_threshold)
         self._pending.put({
             "h": h, "prompt": list(prompt), "max_new": int(max_new),
             "temp": float(temperature), "eos": eos_id, "seed": int(seed),
             "topk": int(top_k), "topp": float(top_p), "minp": float(min_p),
-            "t_submit": time.monotonic()})
+            "long": is_long, "t_submit": time.monotonic()})
         if self._dead is not None:
             # the loop may have died between the check and the put
             self._drain_pending(RuntimeError(f"batcher died: {self._dead}"))
         return h
 
     def stop(self, timeout=30):
-        """Shut the engine thread down; queued, in-flight and
+        """Shut both engine threads down; queued, in-flight and
         mid-admission requests fail with RuntimeError."""
         self._stop.set()
         self._thread.join(timeout)
-        self._fail_all(RuntimeError("batcher stopped"))
+        if self._host_thread is not None:
+            self._host_thread.join(timeout)
+        err = RuntimeError("batcher stopped")
+        self._dead = self._dead or err
+        self._fail_all(err)
 
-    # ---- pool -----------------------------------------------------------
+    def drop_prefix_cache(self, timeout_s=30.0):
+        """Evict every refcount-0 page of the prefix cache (pages still
+        shared with live rows stay).  From any thread: posts a device
+        thread operation and waits for its ack.  Returns the number of
+        pages evicted (0 for the dense cache)."""
+        if not self.kv_page_size:
+            return 0
+        if self._dead is not None:
+            raise RuntimeError(f"batcher died: {self._dead}")
+        if threading.current_thread() is self._thread:
+            return self._evict_cached_pages(self._total_pages)
+        box, ev = {}, threading.Event()
+        self._ops_q.put(("drop_prefix", box, ev))
+        deadline = time.monotonic() + timeout_s
+        while not ev.wait(0.05):
+            if self._stop.is_set() or self._dead is not None:
+                return 0    # device thread gone: stop()/_die drain acks
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"prefix-cache drop did not land in {timeout_s:.1f}s")
+        return box.get("n", 0)
+
+    # ---- pool, page tables and the prefix cache ----------------------------
 
     def _pages_needed(self, prompt_len, max_new):
         return -(-(prompt_len + max_new) // self.kv_page_size)
 
-    def _try_allocate(self, row, item):
-        """Reserve `item`'s whole page need for `row`, or False when the
-        free list cannot cover it (the caller parks the item)."""
-        need = self._pages_needed(len(item["prompt"]), item["max_new"])
-        if len(self._free_pages) < need:
-            return False
-        pages = [self._free_pages.pop() for _ in range(need)]
+    def _prefix_keys(self, prompt, upto_tokens):
+        """Cumulative-prefix keys of each FULL page within `upto_tokens`:
+        nested tuples ``(prev_key, page_tokens)``, so a lookup is exact
+        (two prefixes never serve each other's kv) and each key shares
+        its predecessor's structure.  The root is ``()``: the base
+        model's keys (LoRA roots are A6's)."""
+        P = self.kv_page_size
+        keys, k = [], ()
+        for i in range(upto_tokens // P):
+            k = (k, tuple(prompt[i * P:(i + 1) * P]))
+            keys.append(k)
+        return keys
+
+    def _prefix_lookup(self, prompt):
+        """(shared pages, keys of every full page): the longest cached
+        run of full prompt pages, within len(prompt) - 1 tokens (the last
+        prompt token must run through prefill for the first logits)."""
+        keys = self._prefix_keys(prompt, len(prompt) - 1)
+        shared = []
+        for key in keys:
+            page = self._prefix.get(key)
+            if page is None:
+                break
+            shared.append(page)
+            self._lru_tick += 1
+            self._prefix_lru[key] = self._lru_tick
+        return shared, keys
+
+    def _evict_cached_pages(self, want):
+        """Free up to `want` pages by evicting refcount-0 cached prefix
+        pages, least recently used first.  Returns the number freed."""
+        evictable = sorted(
+            (k for k, p in self._prefix.items()
+             if self._page_rc.get(p, 0) == 0),
+            key=lambda k: self._prefix_lru.get(k, 0))
+        victims = [(k, self._prefix[k]) for k in evictable[:max(0, want)]]
+        for key, page in victims:
+            self._prefix.pop(key)
+            self._prefix_lru.pop(key, None)
+            self._page_rc.pop(page, None)
+            self._free_pages.append(page)
+        return len(victims)
+
+    def _assert_no_sink(self, pages):
+        """Every allocation passes here: the sink absorbs garbage writes,
+        so a row that owned it would see them in its kv."""
         if self._sink in pages:
             raise RuntimeError(f"page allocator handed out the sink page "
-                               f"{self._sink}; the free list is corrupted")
-        decode_mod.set_row_page_table(
-            self._cache, row,
-            pages + [self._sink] * (self._table_width - len(pages)))
+                               f"{self._sink} (allocated {pages}); the free "
+                               "list or the prefix cache is corrupted")
+        return pages
+
+    def _row_entries(self, pages):
+        """One row's table entries at the current width: `pages`, then
+        the sink for the unallocated tail."""
+        return pages + [self._sink] * (self._table_width - len(pages))
+
+    def _grow_table(self, need):
+        """Widen every row's table to cover `need` entries: pow2 steps
+        (at least doubling) capped at the full-sequence width.  The new
+        tail entries name the sink, so no mapped page changes.  Callers
+        keep it inside their allocation rollback."""
+        new_w = min(self._table_cap,
+                    max(_pow2_width(need), 2 * self._table_width))
+        if new_w <= self._table_width:
+            return
+        decode_mod.grow_page_table(self._cache, new_w, self._sink)
+        self._table_width = new_w
+        self._sink_entries = torch.full((new_w,), self._sink,
+                                        dtype=torch.int32, device=self.device)
+        self.counters.inc("kv_table_grows")
+
+    def _map_row(self, row, pages):
+        """Point `row`'s table at `pages` (growing the tables first when
+        they are too narrow)."""
+        if len(pages) > self._table_width:
+            self._grow_table(len(pages))
+        decode_mod.set_row_page_table(self._cache, row,
+                                      self._row_entries(pages))
+
+    def _overflow_reclaim(self, want):
+        """The mega-prompt lane's overflow valve: free up to `want` pool
+        pages by evicting cold (refcount-0) prefix pages, LRU first (no
+        demotion: the host tier is A7's).  Returns the number freed."""
+        if want <= 0 or faults.deny("serve.overflow_demote"):
+            return 0
+        freed = self._evict_cached_pages(want)
+        if freed:
+            self.counters.inc("kv_pages_demoted_overflow", freed)
+        return freed
+
+    def _ensure_long_pages(self, adm):
+        """Lane allocation: map pool pages covering the positions `adm`'s
+        NEXT chunk writes (plus the decode tail when that chunk is the
+        last).  False when the chunk cannot run this round: a stall
+        (rows will retire and free pages), or, when the replica is
+        otherwise idle and even the valve cannot cover the need, a
+        KVOverflowError for the request (pool conserved)."""
+        item, row = adm["item"], adm["row"]
+        upto = adm["offset"] + adm["sizes"][adm["i"]]
+        if upto >= len(item["prompt"]):
+            need = self._pages_needed(len(item["prompt"]), item["max_new"])
+        else:
+            need = -(-upto // self.kv_page_size)
+        have = len(self._row_pages[row] or [])
+        if need <= have:
+            return True
+        k = need - have
+        if len(self._free_pages) < k:
+            self._overflow_reclaim(k - len(self._free_pages))
+        if len(self._free_pages) < k:
+            if (all(s is None for s in self._slots)
+                    and len(self._admissions) <= 1
+                    and self._parked is None):
+                # nothing left to retire or evict: no later round can do
+                # better, so fail typed instead of wedging the lane
+                self._admissions.remove(adm)
+                self._free_row(row)
+                item["h"]._fail(KVOverflowError(
+                    f"mega-prompt needs {k} more kv pages but only "
+                    f"{len(self._free_pages)} are free with the replica "
+                    "otherwise idle; raise --generate_kv_pages"))
+            return False
+        fresh = [self._free_pages.pop() for _ in range(k)]
+        try:
+            pages = self._assert_no_sink((self._row_pages[row] or []) + fresh)
+            self._map_row(row, pages)
+        except BaseException:
+            self._free_pages.extend(fresh)   # conserve the pool
+            raise
         self._row_pages[row] = pages
         return True
 
+    def _try_allocate(self, row, item, lazy=False):
+        """Reserve `item`'s page need for `row`, sharing cached prefix
+        pages where the prompt matches, or False when the pool (after LRU
+        eviction of refcount-0 cached pages) cannot cover the rest (the
+        caller parks the item).  ``lazy`` (the lane) maps only the shared
+        pages now; `_ensure_long_pages` maps the rest chunk by chunk."""
+        prompt = item["prompt"]
+        need = self._pages_needed(len(prompt), item["max_new"])
+        shared, keys = self._prefix_lookup(prompt)
+        # hold refs BEFORE any eviction: our own shared pages at rc 0
+        # would otherwise be evictable by our eviction pass and end up
+        # mapped twice in this row's table
+        for page in shared:
+            self._page_rc[page] = self._page_rc.get(page, 0) + 1
+        if lazy:
+            need = len(shared)
+        fresh_need = need - len(shared)
+        if len(self._free_pages) < fresh_need:
+            self._evict_cached_pages(fresh_need - len(self._free_pages))
+        if len(self._free_pages) < fresh_need:
+            for page in shared:                  # roll back before parking
+                self._page_rc[page] -= 1
+            return False
+        fresh = [self._free_pages.pop() for _ in range(fresh_need)]
+        try:
+            pages = self._assert_no_sink(shared + fresh)
+            self._map_row(row, pages)
+        except BaseException:
+            # conservation: free + owned + cached + sink stays the pool
+            self._free_pages.extend(fresh)
+            for page in shared:
+                self._page_rc[page] -= 1
+            raise
+        self._row_pages[row] = pages
+        self._row_shared_n[row] = len(shared)
+        self._row_prefix_keys[row] = keys    # registered after the prefill
+        self.prefill_tokens_shared += len(shared) * self.kv_page_size
+        if shared:
+            self.counters.inc("prefix_hits", len(shared))
+        if len(keys) > len(shared):
+            self.counters.inc("prefix_misses", len(keys) - len(shared))
+        return True
+
+    def _register_prefix_pages(self, row):
+        """After `row`'s prefill, publish its freshly computed full-prefix
+        pages so later prompts can share them.  A page is prefix-managed
+        iff it is in ``_page_rc``; the count is its LIVE rows.  A twin
+        that lost the registration race keeps its copy to itself."""
+        keys = self._row_prefix_keys[row] or []
+        pages = self._row_pages[row] or []
+        for i, key in enumerate(keys[:len(pages)]):
+            if i < self._row_shared_n[row]:
+                continue                 # already managed and held by us
+            if key not in self._prefix:
+                self._prefix[key] = pages[i]
+                self._lru_tick += 1
+                self._prefix_lru[key] = self._lru_tick
+                self._page_rc[pages[i]] = 1   # this row's live reference
+
     def _free_row(self, row):
-        """Retire `row`: its pages go back to the free list and its table
-        points at the sink, so its garbage decode never writes pages a
-        later owner holds."""
+        """Retire `row` (device thread only): cached prefix pages drop a
+        reference (and stay cached at 0), owned pages go back to the free
+        list, and the table points at the sink, so the row's garbage
+        decode never writes pages a later owner holds."""
         s = self._slots[row]
         if s is not None and s["filtered"]:
             self._n_filtered -= 1
         self._slots[row] = None
         self._temps[row] = 0.0           # free rows decode greedily
         self._topks[row], self._topps[row], self._minps[row] = 0, 1.0, 0.0
-        if self._row_pages[row] is not None:
-            self._free_pages.extend(self._row_pages[row])
+        if self.kv_page_size and self._row_pages[row] is not None:
+            for page in self._row_pages[row]:
+                if page in self._page_rc:
+                    self._page_rc[page] -= 1
+                else:
+                    self._free_pages.append(page)
             self._row_pages[row] = None
+            self._row_shared_n[row] = 0
+            self._row_prefix_keys[row] = None
             decode_mod.set_row_page_table(self._cache, row,
                                           self._sink_entries)
 
@@ -506,28 +878,71 @@ class ContinuousBatcher:
         return sizes
 
     def _start_admission(self, row, item):
+        faults.check("serve.admission")
         h, prompt = item["h"], item["prompt"]
         if h.cancelled.is_set():        # client gone before admission
             h._finish(list(prompt))
             return
-        if not self._try_allocate(row, item):
+        if self.kv_page_size and not self._try_allocate(
+                row, item, lazy=item["long"]):
             self._parked = (row, item)  # wait for pages (FIFO)
             return
+        # shared pages already hold their kv: the prefill starts after
+        # them, page-aligned
+        shared = (self._row_shared_n[row] * self.kv_page_size
+                  if self.kv_page_size else 0)
         self._admissions.append({
-            "row": row, "item": item, "offset": 0, "i": 0,
-            "sizes": self._prefill_chunk_sizes(len(prompt))})
+            "row": row, "item": item, "offset": shared, "i": 0,
+            "sizes": self._prefill_chunk_sizes(len(prompt) - shared)})
+
+    def _admit_one(self, row, item):
+        """One admission, the handle tied to its fate: a raise here comes
+        after the item left the queues and maybe before it joined
+        `_admissions`, where `_die` would not find it."""
+        try:
+            self._start_admission(row, item)
+        except BaseException as e:
+            item["h"]._fail(e)
+            raise
+
+    def _drain_ingress(self, block=False):
+        """Move what waits on the thread-safe ingress queue into the
+        admission queues (the lane's or the normal one).  `block` waits
+        briefly for the first item (the idle engine's wake-up) unless
+        one already waits."""
+        if block and (self._waiting or self._longq):
+            block = False
+        while True:
+            try:
+                item = self._pending.get(timeout=0.05 if block else 0)
+            except queue_mod.Empty:
+                return
+            block = False
+            (self._longq if item["long"] else self._waiting).append(item)
+
+    def _long_admitting(self):
+        return sum(1 for adm in self._admissions if adm["item"]["long"])
+
+    def _next_item(self):
+        """The next admission: while normal requests wait, up to
+        `_LONG_CREDIT` of them run per mega-prompt, and a waiting
+        mega-prompt admits at once when nothing else waits; at most one
+        is mid-prefill at a time."""
+        if self._longq and not self._long_admitting() and (
+                self._long_credit >= _LONG_CREDIT or not self._waiting):
+            self._long_credit = 0
+            return self._longq.popleft()
+        if not self._waiting:
+            return None
+        if self._longq:
+            self._long_credit += 1
+        return self._waiting.popleft()
 
     def _admit(self, block=False):
         """Pull waiting requests into the admission pipeline until it is
-        `prefill_rows` wide (or rows / requests run out)."""
-        while True:
-            try:
-                item = self._pending.get(
-                    timeout=0.05 if block and not self._waiting else 0)
-            except queue_mod.Empty:
-                break
-            block = False
-            self._waiting.append(item)
+        `prefill_rows` wide (or rows / requests run out).  A row is free
+        when no slot occupies it and no admission prefills it."""
+        self._drain_ingress(block=block)
         claimed = {adm["row"] for adm in self._admissions}
 
         def free_row_index():
@@ -543,31 +958,57 @@ class ContinuousBatcher:
                 if row is None:
                     self._parked = (0, item)
                     return
-            self._start_admission(row, item)
+            self._admit_one(row, item)
             if self._parked is not None:
                 return      # still starved: nothing else admits (FIFO)
             claimed.add(row)
-        while len(self._admissions) < self.prefill_rows and self._waiting:
+        while len(self._admissions) < self.prefill_rows:
             row = free_row_index()
             if row is None:
                 return
-            self._start_admission(row, self._waiting.popleft())
-            if self._parked is not None:
+            item = self._next_item()
+            if item is None:
                 return
+            self._admit_one(row, item)
+            if self._parked is not None:
+                return      # pool starved: later arrivals wait (FIFO)
             claimed.add(row)
 
     def _select_prefill(self):
         """This round's admissions: the head always (a budget caps
         batching, it never blocks progress), then FIFO while the summed
-        chunk lengths fit the budget and the width `prefill_rows`."""
-        selected, spent = [], 0
-        for adm in self._admissions:
+        chunk lengths fit the budget and the width `prefill_rows`.  Lane
+        admissions rank after the normal ones, at most
+        `long_chunk_quota` a round, each only once its chunk's pages are
+        mapped (a page-starved lane head is the one exception to the
+        head rule)."""
+        if not self._admissions:
+            return []
+        head = self._admissions[0]
+        if head["item"]["long"] and not self._ensure_long_pages(head):
+            head = None
+        pool = list(self._admissions)   # the lane may have failed the head
+        if head is not None and head not in pool:
+            head = None
+        rest = [a for a in pool if a is not head]
+        order = ([head] if head is not None else [])
+        order += [a for a in rest if not a["item"]["long"]]
+        order += [a for a in rest if a["item"]["long"]]
+        selected, spent, long_picked = [], 0, 0
+        for adm in order:
+            is_long = adm["item"]["long"]
+            if is_long:
+                if long_picked >= self.long_chunk_quota:
+                    continue
+                if adm is not head and not self._ensure_long_pages(adm):
+                    continue
             size = adm["sizes"][adm["i"]]
             if selected and (len(selected) >= self.prefill_rows
                              or spent + size > self.prefill_budget):
                 break
             selected.append(adm)
             spent += size
+            long_picked += is_long
         return selected
 
     def _run_prefill_round(self):
@@ -594,19 +1035,23 @@ class ContinuousBatcher:
             adm["i"] += 1
             if adm["offset"] >= len(adm["item"]["prompt"]):
                 finishing.append(adm)
+            if adm["item"]["long"]:
+                self.counters.inc("long_chunks_dispatched")
         bucket = _bucket_len(max(len(c) for _, c, _ in entries),
                              self.prefill_chunk)
         width = _pow2_width(len(entries))
-        pad = (sum(bucket - len(c) for _, c, _ in entries)
-               + (width - len(entries)) * bucket)
-        if pad:      # bucket overshoot and pad rows write into the sink
-            self.counters.inc("kv_sink_writes", pad)
+        if self.kv_page_size:
+            # bucket overshoot and pad rows write into the sink
+            pad = (sum(bucket - len(c) for _, c, _ in entries)
+                   + (width - len(entries)) * bucket)
+            if pad:
+                self.counters.inc("kv_sink_writes", pad)
         chunks, rows, starts, n_valids = decode_mod.build_prefill_batch(
             entries, width, bucket, self.n_slots, self.device)
         with torch.no_grad():
             logits = decode_mod.slot_prefill_many(
                 self.model, self._cache, chunks, rows, starts, n_valids,
-                self._sink)
+                self._sink if self.kv_page_size else 0)
         self.counters.inc("prefill_dispatches")
         for i, adm in enumerate(selected):
             if adm in finishing:
@@ -615,20 +1060,24 @@ class ContinuousBatcher:
         return True
 
     def _finish_admission(self, adm, logits_row):
-        """Final chunk done: pick the first token (ordinal 0 of the
-        request's noise), record TTFT, occupy the row for decode."""
+        """Final chunk done: publish the row's prefix pages, pick the
+        first token (ordinal 0 of the request's noise), record TTFT,
+        deliver it and occupy the row for decode."""
         item, row = adm["item"], adm["row"]
         h, prompt, max_new = item["h"], item["prompt"], item["max_new"]
+        if self.kv_page_size:
+            self._register_prefix_pages(row)
         filt = bool(item["temp"] > 0 and (item["topk"] or item["topp"] < 1.0
                                           or item["minp"] > 0.0))
         fkw = ({"topks": [item["topk"]], "topps": [item["topp"]],
                 "minps": [item["minp"]]} if filt else {})
+        # deliberate readback: the first token is needed as an int before
+        # the row joins the decode chain (one per admission, not per step)
         tok = int(decode_mod.pick_tokens(
             logits_row[None], [item["temp"]], [item["seed"]], [0],
             **fkw)[0])
-        with self._ttft_lock:
-            self._ttft.append(time.monotonic() - item["t_submit"])
-            del self._ttft[:-1024]        # a bounded recent window
+        self._ttft.record(time.monotonic() - item["t_submit"])
+        h.tokens.put([tok])
         seq = prompt + [tok]
         eos = item["eos"]
         if max_new <= 1 or (eos is not None and tok == eos):
@@ -640,6 +1089,9 @@ class ContinuousBatcher:
         # a fresh tensor: pending readback entries still hold the old one
         self._toks = self._toks.clone()
         self._toks[row] = tok
+        self._rems[row] = max_new - 1
+        self._eoss[row] = eos if eos is not None else 0
+        self._eos_on[row] = eos is not None
         self._temps[row] = item["temp"]
         self._seeds[row] = item["seed"]
         self._ords[row] = 1
@@ -649,45 +1101,137 @@ class ContinuousBatcher:
         if filt:
             self._n_filtered += 1
         self._slots[row] = {"handle": h, "seq": seq, "remaining": max_new - 1,
-                            "eos": eos, "filtered": filt}
+                            "filtered": filt, "item": item}
 
-    # ---- decode and readback ----------------------------------------------
+    # ---- decode, readback and the two engines ------------------------------
 
     def _dispatch(self):
-        """One decode step for every row (free rows write the sink)."""
-        idle = sum(s is None for s in self._slots)
-        if idle:
-            self.counters.inc("kv_sink_writes", idle)
+        """One decode step for every row (free rows write the sink or
+        past their window).  Returns the readback entry (tokens, done
+        plane, generation snapshot); nothing here waits for the card."""
+        if self.kv_page_size:
+            idle = sum(s is None for s in self._slots)
+            if idle:
+                self.counters.inc("kv_sink_writes", idle)
         fkw = ({"topks": self._topks, "topps": self._topps,
                 "minps": self._minps} if self._n_filtered else {})
         with torch.no_grad():
-            self._toks = decode_mod.slot_step(
+            self._toks, self._rems, done = decode_mod.slot_step(
                 self.model, self._cache, self._toks, self._temps,
-                self._seeds, self._ords, **fkw)
+                self._seeds, self._ords, rems=self._rems, eoss=self._eoss,
+                eos_on=self._eos_on, **fkw)
         self._ords = [o + 1 for o in self._ords]
         self._steps += 1
-        return self._toks, tuple(self._gen)
+        return self._toks, done, tuple(self._gen)
 
-    def _process(self, reads):
-        """Read a chunk of steps back and commit its tokens; retire rows
-        that were cancelled, ran out of budget or emitted eos."""
-        block = torch.stack([t for t, _ in reads]).cpu().tolist()
-        for row_toks, (_, gens) in zip(block, reads):
+    def _flush(self, reads):
+        """Stack a chunk's tokens and done planes and START their copy
+        into a free pair of host buffers (pinned on the card), with an
+        event recorded after the copy.  The chunk is processed later,
+        after a wait on that event."""
+        k = len(reads)
+        toks, done = self._bufs.take()
+        toks[:k].copy_(torch.stack([e[0] for e in reads]), non_blocking=True)
+        done[:k].copy_(torch.stack([e[1] for e in reads]), non_blocking=True)
+        event = None
+        if self.device.type == "cuda":
+            # a blocking-sync event: the waiting host thread sleeps
+            # instead of spinning beside the launching device thread
+            event = torch.cuda.Event(blocking=True)
+            event.record()
+        return (toks, done, k, event, [e[2] for e in reads])
+
+    def _process_batch(self, batch):
+        """One flushed chunk -> token commits, stream deliveries and
+        retirements, in dispatch order (the host side of the pipeline).
+        The wait is on the chunk's copy event (which releases the GIL);
+        the device-computed done plane decides retirement.  Each stream
+        gets the chunk's tokens in one put."""
+        toks, done, k, event, gens_list = batch
+        if event is not None:
+            event.synchronize()
+        block, done_rows = toks[:k].tolist(), done[:k].tolist()
+        self._bufs.give((toks, done))
+        pend = {}     # row -> tokens committed this tick
+
+        def retire(r, s, gen):
+            toks_r = pend.pop(r, None)
+            if toks_r:
+                s["handle"].tokens.put(toks_r)
+            self._retire(r, gen)         # before the handle finishes
+            s["handle"]._finish(s["seq"])
+            self.counters.inc("requests_served")
+
+        for gens, row_toks, row_done in zip(gens_list, block, done_rows):
             for r, s in enumerate(self._slots):
                 if s is None or self._gen[r] != gens[r]:
                     continue      # freed or re-occupied since dispatch
-                if not s["handle"].cancelled.is_set():
-                    tok = row_toks[r]
-                    s["seq"].append(tok)
-                    s["remaining"] -= 1
-                    if s["remaining"] > 0 and tok != s["eos"]:
-                        continue
-                self._free_row(r)
-                s["handle"]._finish(s["seq"])
-                self.counters.inc("requests_served")
+                if s["handle"].cancelled.is_set():
+                    retire(r, s, gens[r])
+                    continue
+                s["seq"].append(row_toks[r])
+                s["remaining"] -= 1
+                pend.setdefault(r, []).append(row_toks[r])
+                if row_done[r]:
+                    retire(r, s, gens[r])
+        for r, s in enumerate(self._slots):
+            if s is not None and r in pend:
+                s["handle"].tokens.put(pend.pop(r))
         self.counters.inc("host_ticks")
 
+    def _retire(self, row, gen):
+        """Retire `row` (occupant generation `gen`).  `_free_row` writes
+        device state, so only the device thread runs it; from the host
+        thread this posts a request and blocks on its ack."""
+        if threading.current_thread() is self._thread:
+            if self._slots[row] is not None and self._gen[row] == gen:
+                self._free_row(row)
+            return
+        ev = threading.Event()
+        self._retire_q.put((row, gen, ev))
+        while not ev.wait(0.05):
+            if self._stop.is_set() or self._dead is not None:
+                return      # device thread gone: stop()/_die drain acks
+
+    def _apply_retirements(self, timeout=0.0):
+        """Device thread: apply the posted operations and retirements and
+        ack each; with `timeout`, wait that long for the first
+        retirement (the nothing-to-dispatch path)."""
+        while True:
+            try:
+                _, box, ev = self._ops_q.get_nowait()
+            except queue_mod.Empty:
+                break
+            box["n"] = self._evict_cached_pages(self._total_pages)
+            ev.set()
+        while True:
+            try:
+                row, gen, ev = (self._retire_q.get(timeout=timeout)
+                                if timeout else self._retire_q.get_nowait())
+            except queue_mod.Empty:
+                return
+            timeout = 0
+            if self._slots[row] is not None and self._gen[row] == gen:
+                self._free_row(row)
+            ev.set()
+
+    def _host_loop(self):
+        """Host side of the async pipeline: drain flushed chunks."""
+        try:
+            while not self._stop.is_set():
+                try:
+                    batch = self._ready.get(timeout=0.05)
+                except queue_mod.Empty:
+                    continue
+                self._process_batch(batch)
+                self._depth.add(-batch[2])
+        except BaseException as e:
+            self._die(e, "continuous batcher host thread died")
+
     def _flush_due(self, n_reads, active):
+        """Whether the reads flush now: a full chunk, nothing left to
+        dispatch, or a live slot within `n_reads` tokens of its end
+        (rows already at zero only wait for retirement)."""
         if not n_reads:
             return False
         if n_reads >= self.read_chunk or not active:
@@ -696,37 +1240,127 @@ class ContinuousBatcher:
                     if s is not None and s["remaining"] > 0), default=None)
         return near is not None and near <= n_reads
 
+    def _step_round(self, reads, idle):
+        """Admission, one prefill round and one decode step; returns
+        (active, clean): whether a row decodes, and whether the round was
+        decode-only (no prefill, no idle wait)."""
+        self._admit(block=idle)
+        prefilled = self._run_prefill_round()
+        active = any(s is not None for s in self._slots)
+        if active:
+            reads.append(self._dispatch())
+            self._depth.add(1)
+        return active, not (prefilled or idle)
+
+    def _mark_flush(self, mark, clean, n_reads):
+        """Record a decode-only chunk's ms per step; returns the new
+        flush mark."""
+        now = time.monotonic()
+        if clean:
+            self._step_ms.append((now - mark) * 1000.0 / n_reads)
+        return now
+
     def _loop(self):
+        if self.engine == "async":
+            self._loop_async()
+        else:
+            self._loop_serial()
+
+    def _loop_serial(self):
+        """The one-thread reference engine: dispatch, flush, and process
+        the PREVIOUS chunk inline while the current one computes (its
+        copy rode under this chunk's compute).  The inline host work
+        counts as device wait."""
+        try:
+            reads, inflight = [], None
+            mark, clean = time.monotonic(), False
+            while not self._stop.is_set():
+                self._apply_retirements()
+                idle = (all(s is None for s in self._slots)
+                        and not self._admissions and self._parked is None
+                        and not reads and inflight is None)
+                active, decode_only = self._step_round(reads, idle)
+                clean = clean and decode_only
+                if self._flush_due(len(reads), active):
+                    n = len(reads)
+                    prev, inflight = inflight, self._flush(reads)
+                    reads = []
+                    if prev is not None:
+                        t0 = time.monotonic()
+                        self._process_batch(prev)
+                        self._depth.add(-prev[2])
+                        self.counters.inc("device_wait_ms",
+                                          (time.monotonic() - t0) * 1000.0)
+                    mark, clean = self._mark_flush(mark, clean, n), True
+                elif inflight is not None and not active and not reads:
+                    self._process_batch(inflight)   # nothing more to step
+                    self._depth.add(-inflight[2])
+                    inflight = None
+        except BaseException as e:     # device failure: fail everything
+            self._die(e, "continuous batcher died")
+
+    def _loop_async(self):
+        """Device side of the async pipeline: admission and dispatch
+        only.  Flushed chunks go to the host thread through the bounded
+        `_ready` queue; the only wait on host progress is a full queue,
+        counted as device wait."""
         try:
             reads = []
             mark, clean = time.monotonic(), False
             while not self._stop.is_set():
+                self._apply_retirements()
                 idle = (all(s is None for s in self._slots)
                         and not self._admissions and self._parked is None
-                        and not reads)
-                self._admit(block=idle)
-                if self._run_prefill_round() or idle:
-                    clean = False
-                active = any(s is not None for s in self._slots)
-                if active:
-                    reads.append(self._dispatch())
+                        and not reads and self._depth.value == 0)
+                active, decode_only = self._step_round(reads, idle)
+                clean = clean and decode_only
                 if self._flush_due(len(reads), active):
-                    self._process(reads)
-                    now = time.monotonic()
-                    if clean:
-                        self._step_ms.append(
-                            (now - mark) * 1000.0 / len(reads))
-                    mark, clean = now, True
+                    n = len(reads)
+                    chunk = self._flush(reads)
                     reads = []
+                    t0, waited = time.monotonic(), False
+                    while not self._stop.is_set():
+                        try:
+                            self._ready.put(chunk, timeout=0.05)
+                            break
+                        except queue_mod.Full:
+                            # the host is behind: keep acks flowing (it
+                            # may be blocked on a retirement)
+                            waited = True
+                            self._apply_retirements()
+                    if waited:
+                        self.counters.inc("device_wait_ms",
+                                          (time.monotonic() - t0) * 1000.0)
+                    mark, clean = self._mark_flush(mark, clean, n), True
+                elif not active and not reads:
+                    self._apply_retirements(timeout=0.002)
         except BaseException as e:     # device failure: fail everything
-            logger.exception("continuous batcher died")
-            self._dead = e
-            self._stop.set()
-            self._fail_all(e)
+            self._die(e, "continuous batcher died")
+
+    def _die(self, e, msg):
+        """Terminal failure of either engine thread: record the cause,
+        stop the other thread, fail every queued, in-flight and
+        mid-admission request, and release the retirement waiters."""
+        logger.exception(msg)
+        self._dead = e
+        self._stop.set()
+        self._fail_all(e)
+
+    def _ack_retire_waiters(self):
+        """Release every waiter on a device-thread ack once that thread
+        is gone: their rows are already failed."""
+        for q in (self._retire_q, self._ops_q):
+            while True:
+                try:
+                    entry = q.get_nowait()
+                except queue_mod.Empty:
+                    break
+                entry[-1].set()
 
     def _drain_pending(self, err):
-        while self._waiting:
-            self._waiting.popleft()["h"]._fail(err)
+        for q in (self._waiting, self._longq):
+            while q:
+                q.popleft()["h"]._fail(err)
         while True:
             try:
                 item = self._pending.get_nowait()
@@ -746,12 +1380,12 @@ class ContinuousBatcher:
                 s["handle"]._fail(err)
         self._slots = [None] * self.n_slots
         self._drain_pending(err)
+        self._ack_retire_waiters()
 
 
 # request fields of the JAX package's :generate whose feature is not
 # ported: (field, predicate of "asked for", ROADMAP item)
 _UNPORTED_FIELDS = (
-    ("stream", bool, _ASYNC),
     ("stop", bool, "LoRA and speculation"),
     ("repetition_penalty", lambda v: v != 1.0, "LoRA and speculation"),
     ("adapter", lambda v: v is not None, "LoRA and speculation"),
@@ -765,14 +1399,15 @@ class GenerateService:
     export onto the device, optionally quantises its projections
     (``quantize_mode`` int8 / int4), stores the other floating leaves at
     the model's compute width and serves every request through one
-    ContinuousBatcher (over an int8 kv pool with ``kv_dtype="int8"``)."""
+    ContinuousBatcher (over an int8 kv cache with ``kv_dtype="int8"``)."""
 
     _I32 = 1 << 31
 
     def __init__(self, export_dir, max_new_tokens_limit=512, slots=8,
                  read_chunk=8, prefill_chunk=512, prefill_rows=4,
                  prefill_budget=0, request_timeout_s=None, kv_page_size=0,
-                 kv_pages=0, kv_dtype="auto", engine="serial",
+                 kv_pages=0, kv_dtype="auto", engine="async",
+                 pipeline_depth=2, long_prompt_threshold=0,
                  quantize_mode="none", device=None):
         from tensorflowonspark_tpu_torch import export as export_mod
         from tensorflowonspark_tpu_torch.models.transformer import (
@@ -807,7 +1442,8 @@ class GenerateService:
             prefill_chunk=prefill_chunk, prefill_rows=prefill_rows,
             prefill_budget=prefill_budget, kv_page_size=kv_page_size,
             kv_pages=kv_pages, kv_dtype=kv_dtype, engine=engine,
-            device=self.device)
+            pipeline_depth=pipeline_depth,
+            long_prompt_threshold=long_prompt_threshold, device=self.device)
         self.limit = max_new_tokens_limit
         self.timeout_s = request_timeout_s or max(
             600.0, 2.0 * max_new_tokens_limit)
@@ -859,6 +1495,37 @@ class GenerateService:
             with self._seed_lock:
                 return [next(self._auto_seed) for _ in range(n)]
         return [0] * n
+
+    def stream(self, req):
+        """Events of a one-prompt generation: ``{"token": t}`` per decoded
+        token, then ``{"done": true, "output": [...]}``.  The request is
+        validated and submitted before the first event, so a malformed
+        one raises before any byte is sent."""
+        (inputs, max_new, temperature, eos_id, seed, top_k, top_p,
+         min_p) = self._validate(req)
+        if len(inputs) != 1:
+            raise ValueError('"stream": true serves exactly one prompt per '
+                             "request")
+        seed = self._prompt_seeds(1, seed, temperature)[0]
+        h = self.batcher.submit(inputs[0], max_new, temperature=temperature,
+                                eos_id=eos_id, seed=seed, top_k=top_k,
+                                top_p=top_p, min_p=min_p)
+
+        def events():
+            try:
+                while True:
+                    batch = h.tokens.get(timeout=self.timeout_s)
+                    if batch is None:
+                        break
+                    for tok in batch:       # one batch per host tick
+                        yield {"token": tok}
+                yield {"done": True, "output": h.result(timeout=0)}
+            finally:
+                # consumer gone or done: free the slot instead of decoding
+                # to max_new for nobody
+                h.cancel()
+
+        return events()
 
     def generate(self, req):
         (inputs, max_new, temperature, eos_id, seed, top_k, top_p,
@@ -912,6 +1579,8 @@ class ModelService:
                     kv_pages=a.generate_kv_pages,
                     kv_dtype=a.generate_kv_dtype,
                     engine=a.generate_engine,
+                    pipeline_depth=a.generate_pipeline_depth,
+                    long_prompt_threshold=a.generate_long_prompt_threshold,
                     quantize_mode=a.generate_quantize,
                     device=self.device)
             return self._gen
@@ -977,15 +1646,51 @@ class _Handler(BaseHTTPRequestHandler):
             req = json.loads(body or b"{}")
             if not isinstance(req, dict):
                 raise ValueError("request body must be a JSON object")
-            outs = self.service.generate_service().generate(req)
-            self._send(200, {"outputs": outs})
+            gen = self.service.generate_service()
+            if req.get("stream"):
+                self._stream_events(gen.stream(req))
+            else:
+                self._send(200, {"outputs": gen.generate(req)})
         except NotImplementedError as e:
             self._send(501, {"error": str(e), "type": "not_ported"})
         except (ValueError, KeyError, TypeError) as e:
             self._send(400, {"error": str(e) or type(e).__name__})
+        except KVOverflowError as e:
+            # well-formed, but this replica's kv pool cannot hold it:
+            # retryable elsewhere
+            self._send(503, {"error": str(e), "type": "kv_overflow"})
         except Exception as e:   # keep the server alive on model errors
             logger.exception("generate failed")
             self._send(500, {"error": f"{type(e).__name__}: {e}"})
+
+    def _stream_events(self, events):
+        """Newline-delimited JSON events in chunked framing, one chunk per
+        event, so clients see tokens as they decode."""
+        self.send_response(200)
+        self.send_header("Content-Type", "application/x-ndjson")
+        self.send_header("Transfer-Encoding", "chunked")
+        self.end_headers()
+
+        def chunk(data):
+            self.wfile.write(f"{len(data):X}\r\n".encode() + data + b"\r\n")
+            self.wfile.flush()
+
+        try:
+            for ev in events:
+                chunk(json.dumps(ev).encode() + b"\n")
+        except Exception as e:   # mid-stream: an error event, a clean end
+            logger.exception("stream failed")
+            try:
+                chunk(json.dumps(
+                    {"error": f"{type(e).__name__}: {e}"}).encode() + b"\n")
+            except OSError:
+                pass
+        finally:
+            events.close()
+        try:
+            self.wfile.write(b"0\r\n\r\n")
+        except OSError:
+            pass
 
     def log_message(self, fmt, *args):
         logger.debug("http: " + fmt, *args)
@@ -1003,14 +1708,14 @@ def make_server(args):
                 f"(ROADMAP: {item})")
     if getattr(args, "generate_slots", 8) < 1:
         raise ValueError("--generate_slots must be >= 1")
-    if not getattr(args, "generate_kv_page_size", 0):
-        raise NotImplementedError(
-            f"the dense slot cache is not ported yet (ROADMAP: {_ASYNC}); "
-            "serve the paged cache with --generate_kv_page_size and "
-            "--generate_kv_pages")
-    if getattr(args, "generate_kv_pages", 0) < 1:
+    paged = getattr(args, "generate_kv_page_size", 0) > 0
+    if paged and getattr(args, "generate_kv_pages", 0) < 1:
         raise ValueError("--generate_kv_page_size needs "
                          "--generate_kv_pages >= 1 (the shared pool size)")
+    if getattr(args, "generate_long_prompt_threshold", 0) > 0 and not paged:
+        raise ValueError("--generate_long_prompt_threshold needs the paged "
+                         "kv cache (--generate_kv_page_size): the lane maps "
+                         "pages chunk by chunk")
     if getattr(args, "generate_prefill_rows", 4) < 1:
         raise ValueError("--generate_prefill_rows must be >= 1")
     if getattr(args, "generate_prefill_budget", 0) < 0:

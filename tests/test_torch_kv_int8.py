@@ -450,9 +450,13 @@ def test_http_int8_kv_matches_solo_generate(weights, tmp_path):
             "paged_attention_int8", "page_write_int8", "prefill_read_int8"}
         batcher = service.generate_service().batcher
         free = list(batcher._free_pages)
-        owned = [p for pages in batcher._row_pages if pages for p in pages]
+        # the prefix cache keeps full prompt pages at refcount 0
+        cached = list(batcher._prefix.values())
+        owned = [p for pages in batcher._row_pages if pages for p in pages
+                 if p not in batcher._page_rc]
         assert len(set(free)) == len(free) and batcher._sink not in free
-        assert sorted(free + owned) == list(range(batcher._total_pages))
+        assert sorted(free + owned + cached) == list(
+            range(batcher._total_pages))
     finally:
         server.shutdown()
         server.server_close()

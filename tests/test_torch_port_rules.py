@@ -272,11 +272,11 @@ def test_kernel_sources_exist_and_are_built():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--generate_engine", "async"], ["--generate_preempt_ms", "5"], ["--spec_draft", "ngram"],
+    ["--draft_export_dir", "d"], ["--generate_preempt_ms", "5"], ["--spec_draft", "ngram"],
     ["--generate_lora_rank", "2"], ["--generate_host_cache_mb", "4"],
     # the JAX server's flags the port's parser lacked
     ["--generate_lora", "a=b.npz"], ["--generate_lora_capacity", "8"],
-    ["--draft_k", "4"], ["--generate_pipeline_depth", "2"],
+    ["--draft_k", "4"], ["--fleet", "127.0.0.1:1"],
     ["--generate_priority_weight", "4"], ["--generate_park_capacity", "8"],
     ["--generate_trace_ring", "4096"],
     ["--generate_trace_decode_sample", "16"],

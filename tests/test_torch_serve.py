@@ -98,8 +98,13 @@ def test_quiesced_pool_conserves_pages(batcher):
     free = list(batcher._free_pages)
     assert len(set(free)) == len(free)             # no duplicates
     assert batcher._sink not in free
-    owned = [p for pages in batcher._row_pages if pages for p in pages]
-    assert sorted(free + owned) == list(range(batcher._total_pages))
+    # the prefix cache keeps full prompt pages at refcount 0
+    cached = list(batcher._prefix.values())
+    owned = [p for pages in batcher._row_pages if pages for p in pages
+             if p not in batcher._page_rc]
+    assert sorted(free + owned + cached) == list(range(batcher._total_pages))
+    assert cached and batcher.stats()["kv_pages_used"] == len(cached)
+    assert batcher.drop_prefix_cache() == len(cached)
     assert batcher.stats()["kv_pages_used"] == 0
 
 
@@ -130,7 +135,7 @@ def test_http_generate_roundtrip(lm, tmp_path):
             "paged_attention", "page_write", "prefill_read"}
         bad = urllib.request.Request(
             base + ":generate", data=json.dumps(
-                {"inputs": [[1, 2]], "stream": True}).encode())
+                {"inputs": [[1, 2]], "stop": [[3]]}).encode())
         with pytest.raises(urllib.error.HTTPError) as err:
             urllib.request.urlopen(bad, timeout=30)
         assert err.value.code == 501        # not ported: never ignored
@@ -225,6 +230,7 @@ def test_concurrent_submitters_stress(lm, batcher):
         sys.setswitchinterval(old)
     assert not errors and not any(t.is_alive() for t in threads)
     assert all(results[i] == want[i % len(PROMPTS)] for i in range(12))
+    batcher.drop_prefix_cache()            # cached pages back to the list
     assert sorted(batcher._free_pages) == list(range(batcher._total_pages))
 
 
