@@ -1252,6 +1252,8 @@ def phase_main_path(torch, dev, cfg, export_dir, quantize="none",
         burst_s=burst_s, burst_new_tokens_per_s=new_tokens / burst_s,
         ttft_mean_ms=stats["ttft_avg_ms"],
         decode_step_ms=stats["decode_step_ms_mean"],
+        decode_step_ms_p50=stats["decode_step_ms_p50"],
+        decode_step_ms_max=stats["decode_step_ms_max"],
         decode_steps=stats["decode_steps"],
         prefill_dispatches=stats["prefill_dispatches"],
         requests_served=stats["requests_served"], launches=launches,
@@ -1363,6 +1365,8 @@ def engine_run(torch, srv, prompts):
         burst_new_tokens_per_s=len(prompts) * ENGINE_NEW / burst_s,
         ttft_mean_ms=st["ttft_avg_ms"],
         decode_step_ms=st["decode_step_ms_mean"],
+        decode_step_ms_p50=st["decode_step_ms_p50"],
+        decode_step_ms_max=st["decode_step_ms_max"],
         decode_steps=st["decode_steps"],
         prefill_dispatches=st["prefill_dispatches"],
         pipeline_depth_peak=st["pipeline_depth_peak"],
@@ -1607,7 +1611,7 @@ def phase_serving_engine(torch, dev, cfg, export_dir, card):
 def engine_summary(phase):
     """Serial against async: the four numbers of each, per cache."""
     keys = ("burst_new_tokens_per_s", "ttft_mean_ms", "decode_step_ms",
-            "solo_device_idle_share")
+            "decode_step_ms_p50", "solo_device_idle_share")
     return {cache: {engine: {k: phase["runs"][f"{cache}_{engine}"][k]
                              for k in keys}
                     for engine in ("serial", "async")}

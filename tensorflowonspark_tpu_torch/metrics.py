@@ -51,12 +51,6 @@ class Gauge:
                 self._peak = self._value
             return self._value
 
-    def set(self, value):
-        with self._lock:
-            self._value = value
-            if value > self._peak:
-                self._peak = value
-
     @property
     def value(self):
         with self._lock:
@@ -108,7 +102,7 @@ class LatencyWindow:
     def histogram(self):
         """Prometheus-style cumulative histogram: ``le`` upper bounds
         (``"+Inf"`` last), cumulative ``counts``, monotone ``count`` /
-        ``sum_ms``.  Merge replicas with :meth:`merge_histograms`."""
+        ``sum_ms``."""
         with self._lock:
             counts, total = list(self._bucket_counts), self._sum_ms
             n = self._count
@@ -118,57 +112,6 @@ class LatencyWindow:
             cum.append(acc)
         return {"le": [*self.BUCKETS_MS, "+Inf"], "counts": cum,
                 "count": n, "sum_ms": round(total, 3)}
-
-    @staticmethod
-    def merge_histograms(hists):
-        """Elementwise-sum histograms from :meth:`histogram` (same
-        bucket layout); entries with a foreign layout are skipped."""
-        out = None
-        for h in hists:
-            if not (isinstance(h, dict) and isinstance(h.get("le"), list)
-                    and isinstance(h.get("counts"), list)
-                    and len(h["le"]) == len(h["counts"])):
-                continue
-            if out is None:
-                out = {"le": list(h["le"]),
-                       "counts": list(h["counts"]),
-                       "count": int(h.get("count", 0)),
-                       "sum_ms": float(h.get("sum_ms", 0.0))}
-                continue
-            if h["le"] != out["le"]:
-                continue
-            out["counts"] = [a + b for a, b in
-                             zip(out["counts"], h["counts"])]
-            out["count"] += int(h.get("count", 0))
-            out["sum_ms"] += float(h.get("sum_ms", 0.0))
-        if out is not None:
-            out["sum_ms"] = round(out["sum_ms"], 3)
-        return out
-
-    @staticmethod
-    def quantile_from_histogram(hist, q):
-        """histogram_quantile-style estimate: linear interpolation
-        inside the bucket holding rank ``q``; the overflow bucket
-        reports its lower bound (same convention as Prometheus)."""
-        if not hist or not hist.get("counts"):
-            return 0.0
-        cum, les = hist["counts"], hist["le"]
-        total = cum[-1]
-        if total <= 0:
-            return 0.0
-        rank = q * total
-        prev_cum = 0
-        for i, c in enumerate(cum):
-            if c >= rank:
-                lo = 0.0 if i == 0 else float(les[i - 1])
-                if les[i] == "+Inf":
-                    return round(lo, 3)
-                hi = float(les[i])
-                in_bucket = c - prev_cum
-                frac = ((rank - prev_cum) / in_bucket) if in_bucket else 1.0
-                return round(lo + (hi - lo) * frac, 3)
-            prev_cum = c
-        return round(float(les[-2]) if len(les) > 1 else 0.0, 3)
 
     @staticmethod
     def _percentile(sorted_ms, q):

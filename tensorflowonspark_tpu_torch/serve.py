@@ -361,7 +361,7 @@ class ContinuousBatcher:
                  prefill_chunk=512, prefill_rows=4, prefill_budget=0,
                  kv_page_size=0, kv_pages=0, kv_dtype=None,
                  engine="async", pipeline_depth=2, long_prompt_threshold=0,
-                 long_chunk_quota=1, device=None):
+                 device=None):
         if engine not in ("async", "serial"):
             raise ValueError(f"engine={engine!r} not in ('async', 'serial')")
         if n_slots < 1:
@@ -377,7 +377,6 @@ class ContinuousBatcher:
                 "long_prompt_threshold > 0 requires a paged kv cache "
                 "(--generate_kv_page_size): the mega-prompt lane allocates "
                 "pages lazily as chunks land")
-        self.long_chunk_quota = max(1, int(long_chunk_quota or 1))
         self.device = device_mod.resolve(device)
         param_dev = next(model.parameters()).device
         if param_dev.type != self.device.type:
@@ -516,7 +515,7 @@ class ContinuousBatcher:
         """Operational snapshot: occupancy, queue depth, dispatch counts,
         the pipeline, pool and prefix-cache state, TTFT and the kernels'
         launch counts (monitoring reads; momentary skew is fine)."""
-        step_ms = list(self._step_ms)
+        step_ms = sorted(self._step_ms)
         elapsed_ms = (time.monotonic() - self._t0) * 1000.0
         wait_ms = self.counters.get("device_wait_ms")
         out = {
@@ -542,9 +541,15 @@ class ContinuousBatcher:
                 else 0.0),
             "device": str(self.device),
             # host-clock ms per decode step between flushes of chunks with
-            # no prefill or idle wait in them
+            # no prefill or idle wait in them.  Such a chunk can still
+            # wait on earlier work (a prefill's device time, behind a full
+            # pipeline), and a short one then skews the mean: the median
+            # resists it, the max shows it
             "decode_step_ms_mean": (sum(step_ms) / len(step_ms)
                                     if step_ms else 0.0),
+            "decode_step_ms_p50": (step_ms[len(step_ms) // 2]
+                                   if step_ms else 0.0),
+            "decode_step_ms_max": step_ms[-1] if step_ms else 0.0,
             "kv_pool_bytes": self.kv_pool_bytes,
             "kernel_launches": ops.launch_counts(self.kernels),
             "long_prompt_threshold": self.long_prompt_threshold,
@@ -891,6 +896,15 @@ class ContinuousBatcher:
         # them, page-aligned
         shared = (self._row_shared_n[row] * self.kv_page_size
                   if self.kv_page_size else 0)
+        if self.kv_page_size:
+            # the row steps with the free rows until its first chunk
+            # runs (a later round under the budget or a lane stall): its
+            # write cursor moves past the shared pages, so that junk
+            # lands in its own first fresh page, which the prefill
+            # overwrites, or the sink, never in a page other rows read
+            decode_mod.set_row_indices(
+                self._cache, decode_mod.to_device([row], self.device),
+                decode_mod.to_device([shared], self.device))
         self._admissions.append({
             "row": row, "item": item, "offset": shared, "i": 0,
             "sizes": self._prefill_chunk_sizes(len(prompt) - shared)})
@@ -977,11 +991,10 @@ class ContinuousBatcher:
     def _select_prefill(self):
         """This round's admissions: the head always (a budget caps
         batching, it never blocks progress), then FIFO while the summed
-        chunk lengths fit the budget and the width `prefill_rows`.  Lane
-        admissions rank after the normal ones, at most
-        `long_chunk_quota` a round, each only once its chunk's pages are
-        mapped (a page-starved lane head is the one exception to the
-        head rule)."""
+        chunk lengths fit the budget and the width `prefill_rows`.  The
+        lane admission (at most one: `_next_item`) ranks after the normal
+        ones, and only once its chunk's pages are mapped (a page-starved
+        lane head is the one exception to the head rule)."""
         if not self._admissions:
             return []
         head = self._admissions[0]
@@ -994,21 +1007,17 @@ class ContinuousBatcher:
         order = ([head] if head is not None else [])
         order += [a for a in rest if not a["item"]["long"]]
         order += [a for a in rest if a["item"]["long"]]
-        selected, spent, long_picked = [], 0, 0
+        selected, spent = [], 0
         for adm in order:
-            is_long = adm["item"]["long"]
-            if is_long:
-                if long_picked >= self.long_chunk_quota:
-                    continue
-                if adm is not head and not self._ensure_long_pages(adm):
-                    continue
+            if (adm["item"]["long"] and adm is not head
+                    and not self._ensure_long_pages(adm)):
+                continue
             size = adm["sizes"][adm["i"]]
             if selected and (len(selected) >= self.prefill_rows
                              or spent + size > self.prefill_budget):
                 break
             selected.append(adm)
             spent += size
-            long_picked += is_long
         return selected
 
     def _run_prefill_round(self):

@@ -24,7 +24,11 @@ counters equal exactly.
   the threshold gives the normal path's tokens, greedy and seeded, grows
   the table and reclaims a cold prefix page; with the reclaim denied it
   fails with KVOverflowError, the pool is conserved and the engine
-  serves on; the threshold needs the paged cache.
+  serves on; the threshold needs the paged cache;
+- an admission that shares prefix pages but waits a round for its first
+  chunk (behind the budget, normal or in the lane) steps with the free
+  rows meanwhile, and its junk writes never reach the shared pages that
+  a live row beside it reads: every token equals a run without a cache.
 """
 import numpy as np
 import pytest
@@ -288,3 +292,33 @@ def test_long_threshold_requires_paged_cache(lm, tmp_path):
         "--generate_long_prompt_threshold", "24"])
     with pytest.raises(ValueError, match="paged"):
         serve.make_server(args)
+
+
+PREFIX4 = np.random.RandomState(5).randint(1, 64, 34).tolist()  # 4 pages + 2
+
+
+@pytest.mark.parametrize("lane", [False, True])
+def test_waiting_share_writes_no_junk_into_shared_pages(lm, lane):
+    pm = lm[2]
+    # a budget of one token: each round prefills the head's chunk only
+    b = serve.ContinuousBatcher(
+        pm, device="cpu", n_slots=3, read_chunk=1, prefill_chunk=8,
+        prefill_budget=1, kv_page_size=8, kv_pages=40,
+        long_prompt_threshold=len(PREFIX4) - 1 if lane else 0)
+    try:
+        live = b.submit(PREFIX4, 40)           # registers 4 prefix pages
+        assert live.tokens.get(timeout=300)    # and decodes across them
+        gate = _long_prompt(32, seed=3)        # four rounds at the head
+        h_gate = b.submit(gate, 4)
+        late = PREFIX4 + [5, 6]                # shares the 4 pages, waits
+        h_late = b.submit(late, 6)
+        assert h_late.result(timeout=300) == _solo(pm, late, 6)
+        assert live.result(timeout=300) == _solo(pm, PREFIX4, 40)
+        assert h_gate.result(timeout=300) == _solo(pm, gate, 4)
+        st = b.stats()
+        assert st["prefill_tokens_shared"] == 32
+        assert st["long_chunks_dispatched"] == (
+            -(-len(PREFIX4) // 8) + 1 if lane else 0)
+        assert _conserved(b)
+    finally:
+        b.stop()
