@@ -174,6 +174,29 @@ caught and reported as passed):
    true`` request (NDJSON), its tokens equal to the plain answer; and
    kernel 1 at table width 8 and 32 and kernel 3 at offset 1024 against
    their plain versions at this phase's shapes;
+13. (after 11) the ``sharded_main_path`` line: ``cluster.run(
+   LocalBackend(n, start_method="spawn"), sharded_train_fn, num_chips=1)``
+   with n = ``torch.cuda.device_count()``, one rank per GPU (each node
+   calls ``ctx.init_distributed()``: nccl; a world of one makes no group
+   and every collective short-circuits), trains the full-depth flagship
+   (B 8 x S 1024 global, B / n rows a rank, seeded batches; a warm-up
+   step and 2 windows of 3) built with ``create_train_state(model, opt,
+   mesh, shardings)`` and ``make_train_step(loss_fn, opt, mesh)`` on
+   ``MeshSpec(dp=-1)`` (adamw_fused), ``MeshSpec(dp=-1, fsdp=n)``
+   (adamw_fused, ``infer_param_shardings(fsdp=True)``) and that fsdp
+   mesh with ``adamw8bit`` over ``layouts_for_shardings``; the fsdp
+   mesh then steps over partitions of 3 + i local batches fed through
+   the shm ring, voting with ``feed_consensus`` (every rank stops after
+   3, the rest of the feed read and counted).  Per mesh: step ms (the
+   slowest rank's best window), tokens/s, per-rank peak and resident
+   memory, optimizer-state and parameter bytes, the first two losses
+   (one for adamw8bit) against the direct one-process step on the same
+   global batches within 1% (phase 7's card tolerance), the ranks'
+   losses equal, dp replicas equal, 16 launches of each flash kernel and
+   131 of kernel 7 a step with their split by local shard shape, and
+   kernel 7 against its plain version at the rank's shard of ``wi``
+   (phase 6's tolerances, bitwise reported); fsdp's optimizer state a
+   rank at most 1.01 / n of dp's;
 9. the ``launch_split`` line (the serving kernels' launches by shape,
    each from its own main path); the ``kernels`` line (launches from
    each kernel's own main path: the
@@ -2956,6 +2979,384 @@ def phase_pipeline(torch, dev, direct_step_ms):
         node_device=fed["device"])
 
 
+# phase 13: the flagship trained across GPUs, one rank per GPU
+SHARDED_WINDOWS, SHARDED_WINDOW = 2, 3     # after a warm-up step
+SHARDED_STEPS = 1 + SHARDED_WINDOWS * SHARDED_WINDOW
+SHARDED_FEED_BATCHES = 3        # partition i holds 3 + i local batches
+SHARDED_PROBE_S = (300.0, 10.0)  # the feed probe: first batch, later ones
+# (label, fsdp over every rank (else dp), optimizer); the fsdp meshes
+# shard by the JAX rules with fsdp=True, the 8-bit one with
+# layouts_for_shardings
+SHARDED_MESHES = (("dp", False, "adamw_fused"),
+                  ("fsdp", True, "adamw_fused"),
+                  ("fsdp_adamw8bit", True, "adamw8bit"))
+# every loss of a mesh against the one-process step's with the same
+# optimizer, the last after 6 updates: four H100s (700 W) measured 4e-6
+# at the second; 1e-4 is 25x that, and a hundredth of the 1% by which
+# six updates move the last loss (10.877 -> 10.759)
+SHARDED_LOSS_RTOL = 1e-4
+
+
+def _state_bytes(torch, tree):
+    """Bytes of every tensor in an optimizer state."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(_state_bytes(torch, v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(_state_bytes(torch, v) for v in tree)
+    return 0
+
+
+def _flagship_train(torch, dev, opt_name, mesh=None):
+    """The full-depth flagship (seed 0, as make_flagship_step builds it),
+    its optimizer (lr 3e-4), state and step: on ``mesh`` sharded by the
+    JAX rules (fsdp where the mesh has it; adamw8bit with
+    layouts_for_shardings), else in one process.  Returns ``(model,
+    shardings, state, step)``."""
+    from tensorflowonspark_tpu_torch import optim, optim8bit
+    from tensorflowonspark_tpu_torch.benchmarks import (FLAGSHIP_LM_V2,
+                                                        FLAGSHIP_MU_DTYPE)
+    from tensorflowonspark_tpu_torch.models.transformer import (
+        Transformer, TransformerConfig, lm_loss)
+    from tensorflowonspark_tpu_torch.parallel import sharding as sharding_mod
+    from tensorflowonspark_tpu_torch.parallel import train as train_mod
+
+    with torch.device(dev):
+        model = Transformer(TransformerConfig(**FLAGSHIP_LM_V2))
+    model.reset_parameters(torch.Generator(dev).manual_seed(0))
+    shardings = layouts = None
+    if mesh is not None:
+        shardings = sharding_mod.infer_param_shardings(
+            model, mesh, fsdp=mesh.shape["fsdp"] > 1)
+    if opt_name == "adamw8bit":
+        if mesh is not None:
+            layouts = optim8bit.layouts_for_shardings(model, shardings)
+        opt, _ = optim.make_optimizer(opt_name, learning_rate=3e-4,
+                                      layouts=layouts)
+    else:
+        opt, _ = optim.make_optimizer(opt_name, learning_rate=3e-4,
+                                      mu_dtype=FLAGSHIP_MU_DTYPE)
+    state = train_mod.create_train_state(model, opt, mesh, shardings)
+    step = train_mod.make_train_step(
+        lambda m, b, r: lm_loss(m(b[:, :-1]), b[:, 1:]), opt, mesh,
+        layouts=layouts)
+    return model, shardings, state, step
+
+
+def _sharded_mesh_run(torch, dev, args, label, fsdp, opt_name, world, df):
+    """One mesh of phase 13 in one rank: the full-depth flagship
+    (:func:`_flagship_train`) sharded on the mesh, a warm-up step and the
+    windows over this rank's rows of seeded global batches; on the fsdp
+    mesh with adamw_fused, then the fed steps (each rank its own
+    partition through the shm ring, stopping by feed_consensus)."""
+    from collections import Counter
+
+    from tensorflowonspark_tpu_torch import ops
+    from tensorflowonspark_tpu_torch.benchmarks import (FLAGSHIP_LM_V2,
+                                                        FLAGSHIP_MU_DTYPE)
+    from tensorflowonspark_tpu_torch.ops import fused_optim as fo
+    from tensorflowonspark_tpu_torch.parallel import mesh as mesh_mod
+
+    mesh = mesh_mod.build_mesh(mesh_mod.MeshSpec(dp=-1,
+                                                 fsdp=world if fsdp else 1))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    model, shardings, state, step = _flagship_train(torch, dev, opt_name,
+                                                    mesh)
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+    sh = mesh_mod.batch_sharding(mesh)
+    rows = cluster_rows(args["seed"], args["batch"] * SHARDED_STEPS,
+                        FLAGSHIP_LM_V2["vocab_size"],
+                        FLAGSHIP_LM_V2["max_seq_len"])
+    B = args["batch"]
+    batches = [mesh_mod.put_batch(mesh_mod.local_rows(
+        rows[i * B:(i + 1) * B], mesh), sh).long()
+        for i in range(SHARDED_STEPS)]
+    ops.reset_launch_counts()
+    state, m = step(state, batches[0], None)             # warm-up
+    losses = [m["loss"]]
+    times = []
+    for w in range(SHARDED_WINDOWS):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        for i in range(SHARDED_WINDOW):
+            state, m = step(state, batches[1 + w * SHARDED_WINDOW + i], None)
+            losses.append(m["loss"])
+        m["loss"].item()              # the readback closes the window
+        times.append((time.monotonic() - t) * 1000.0 / SHARDED_WINDOW)
+    launches = ops.launch_counts(ops.TRAINING_KERNELS)
+    local = dict(state.params.named_parameters())
+    out = dict(
+        label=label, mesh=mesh.shape, coords=mesh.coords,
+        optimizer=opt_name, setup_s=setup_s, window_step_ms=times,
+        step_ms=min(times), losses=[x.item() for x in losses],
+        launches=launches, n_leaves=len(local),
+        adamw_by_shape={"x".join(map(str, s)): c * SHARDED_STEPS
+                        for s, c in Counter(tuple(p.shape)
+                                            for p in local.values()).items()}
+        if opt_name == "adamw_fused" else {},
+        sharded_leaves=sum(1 for n, p in local.items()
+                           if shardings[n].shard_dim(p.ndim)),
+        param_bytes=_state_bytes(torch, list(local.values())),
+        opt_state_bytes=_state_bytes(torch, state.opt_state),
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        memory_allocated_gb=torch.cuda.memory_allocated() / 1e9,
+        checksum=sum(p.double().sum().item() for p in local.values()))
+    if label == "fsdp":
+        # kernel 7 at this rank's local shard of wi against its plain
+        # version on the card (phase 6's tolerances; bitwise reported)
+        name = "layer_0.mlp.wi.weight"
+        p = local[name].detach()
+        gen = torch.Generator(dev).manual_seed(SEED + 13)
+        g = torch.randn(p.shape, device=dev, generator=gen)
+        mu = (0.1 * g).to(getattr(torch, FLAGSHIP_MU_DTYPE))
+        nu = 0.01 * g * g
+        scal = fo._scalars(lambda c: torch.full_like(c, 3e-4,
+                                                     dtype=torch.float32),
+                           torch.zeros((), dtype=torch.int32, device=dev),
+                           None, 0.9, 0.999, {name: g})
+        kw = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.0, write_param=True)
+        want = fo.adamw_plain(g, p, mu.clone(), nu.clone(), scal, **kw)
+        got_p, got_mu, got_nu = p.clone(), mu.clone(), nu.clone()
+        fo._adamw(g, got_p, got_mu, got_nu, scal, got_p, **kw)
+        torch.cuda.synchronize()
+        pairs = ((got_p, want[0]), (got_mu, want[1]), (got_nu, want[2]))
+        for (a, b), rtol in zip(pairs, (1e-6, 8e-3, 1e-6)):
+            if not torch.allclose(a.float(), b.float(), atol=1e-6,
+                                  rtol=rtol):
+                raise AssertionError(f"kernel 7 disagrees at the {name} "
+                                     f"shard {tuple(p.shape)}")
+        out["adamw_shard_check"] = dict(
+            leaf=name, shape=list(p.shape),
+            max_abs_err=(got_p - want[0]).abs().max().item(),
+            bitwise=all(torch.equal(a, b.to(a.dtype)) for a, b in pairs))
+        del g, mu, nu, want, got_p, got_mu, got_nu
+        out["feed"] = _sharded_feed(torch, args, mesh, step, state, df)
+    del state, step, batches, model, local
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sharded_feed(torch, args, mesh, step, state, df):
+    """Steps over this rank's partition of the feed, each vote of
+    ``feed_consensus`` first: every rank stops on the step where the
+    shortest partition ends.  The rest of the feed is then read to its
+    end and counted.  Timed on the host clock: ``wait_ms`` from the probe to the vote's answer,
+    ``step_ms`` from ``put_batch`` to the loss's readback."""
+    from tensorflowonspark_tpu_torch.parallel import mesh as mesh_mod
+    from tensorflowonspark_tpu_torch.parallel import train as train_mod
+
+    b = args["batch"] // mesh.extent(mesh_mod.BATCH_AXES)
+    sh = mesh_mod.batch_sharding(mesh)
+    steps, rows, losses, wait_ms, step_ms = 0, 0, [], [], []
+    while True:
+        t0 = time.monotonic()
+        batch = None if df.should_stop() else df.next_numpy_batch(
+            b, timeout=SHARDED_PROBE_S[min(steps, 1)])
+        has = batch is not None and len(batch) == b
+        if not train_mod.feed_consensus(has):
+            break
+        t1 = time.monotonic()
+        state, m = step(state, mesh_mod.put_batch(batch, sh).long(), None)
+        losses.append(m["loss"].item())
+        wait_ms.append((t1 - t0) * 1000.0)
+        step_ms.append((time.monotonic() - t1) * 1000.0)
+        steps += 1
+        rows += len(batch)
+    left = 0 if batch is None else len(batch)
+    left += sum(len(x) for x in df.iter_batches(b, numpy=True))
+    return dict(steps=steps, rows=rows, rows_after=left, losses=losses,
+                wait_ms=wait_ms, step_ms=step_ms)
+
+
+def sharded_train_fn(args, ctx):
+    """Phase 13's map_fun, one rank per GPU: joins the training world
+    (nccl over more than one GPU; a world of one makes no group, and
+    every collective short-circuits), then trains each mesh of
+    ``SHARDED_MESHES`` in turn.  Writes ``sharded_rank<r>.json`` in the
+    executor's working dir."""
+    import torch
+    import torch.distributed as dist
+
+    from tensorflowonspark_tpu_torch.device import resolve
+
+    _card_flags(torch)
+    t0 = time.time()
+    grouped = ctx.init_distributed(timeout=600)
+    world = dist.get_world_size() if grouped else 1
+    out = dict(rank=dist.get_rank() if grouped else 0, world=world,
+               backend=dist.get_backend() if grouped else None,
+               process_id=ctx.process_id, executor_id=ctx.executor_id,
+               device=torch.cuda.get_device_name(0),
+               cuda_visible_devices=os.environ.get("CUDA_VISIBLE_DEVICES"),
+               init_s=time.time() - t0)
+    dev = resolve()
+    df = ctx.get_data_feed()
+    out["meshes"] = [
+        _sharded_mesh_run(torch, dev, args, label, fsdp, opt, world, df)
+        for label, fsdp, opt in SHARDED_MESHES]
+    if grouped:
+        dist.barrier()
+        dist.destroy_process_group()
+    with open(os.path.join(ctx.working_dir,
+                           f"sharded_rank{out['rank']}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_sharded(torch, dev):
+    """Phase 13: ``cluster.run(LocalBackend(n, spawn), num_chips=1)`` with
+    one executor per GPU trains the full-width flagship as one cluster on
+    a dp mesh, an fsdp mesh and the fsdp mesh with adamw8bit
+    (:func:`sharded_train_fn`); the fsdp mesh also takes uneven
+    partitions through the shm ring.  Held to the direct one-process
+    step on the same global batches; a failure aborts the cluster."""
+    from tensorflowonspark_tpu_torch import backend, cluster
+    from tensorflowonspark_tpu_torch.benchmarks import (FLAGSHIP_BATCH,
+                                                        FLAGSHIP_LM_V2)
+
+    n = torch.cuda.device_count()
+    B, S = FLAGSHIP_BATCH, FLAGSHIP_LM_V2["max_seq_len"]
+    vocab, layers = FLAGSHIP_LM_V2["vocab_size"], FLAGSHIP_LM_V2["n_layers"]
+    if B % n:
+        raise AssertionError(f"batch {B} does not split over {n} GPUs")
+    b = B // n
+    fed = cluster_rows(SEED + 14, b * sum(SHARDED_FEED_BATCHES + i
+                                          for i in range(n)), vocab, S)
+    parts, off = [], 0
+    for i in range(n):
+        k = b * (SHARDED_FEED_BATCHES + i)
+        parts.append(list(fed[off:off + k]))
+        off += k
+    root = os.path.join(HERE, "build", "chip_smoke", "sharded")
+    shutil.rmtree(root, ignore_errors=True)
+    args = dict(batch=B, seed=SEED + 13)
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    c = cluster.run(
+        backend.LocalBackend(n, workdir=root, start_method="spawn"),
+        sharded_train_fn, args, num_executors=n,
+        input_mode=cluster.InputMode.SPARK, num_chips=1,
+        reservation_timeout=300)
+    try:
+        c.train(parts, feed_timeout=900)
+        c.shutdown(timeout=900)
+    except BaseException:
+        c.abort()
+        raise
+    wall_s = time.time() - t0
+    ranks = []
+    for i in range(n):
+        for f in os.listdir(os.path.join(root, f"executor-{i}")):
+            if f.startswith("sharded_rank"):
+                with open(os.path.join(root, f"executor-{i}", f)) as fh:
+                    ranks.append(json.load(fh))
+    ranks.sort(key=lambda r: r["rank"])
+    if [r["rank"] for r in ranks] != list(range(n)):
+        raise AssertionError(f"ranks {[r['rank'] for r in ranks]} of {n}")
+    if n > 1 and {r["backend"] for r in ranks} != {"nccl"}:
+        raise AssertionError(f"backends {[r['backend'] for r in ranks]}")
+
+    # the one-process step of each optimizer on the same global batches
+    rows = cluster_rows(SEED + 13, B * SHARDED_STEPS, vocab, S)
+    direct = {}
+    for opt_name in sorted({o for _, _, o in SHARDED_MESHES}):
+        model, _, state, step = _flagship_train(torch, dev, opt_name)
+        losses = []
+        for i in range(SHARDED_STEPS):
+            state, m = step(state, torch.from_numpy(
+                rows[i * B:(i + 1) * B]).to(dev).long(), None)
+            losses.append(m["loss"])
+        direct[opt_name] = [x.item() for x in losses]
+        del model, step, state, m, losses
+        torch.cuda.empty_cache()
+
+    meshes = {}
+    for j, (label, _, opt_name) in enumerate(SHARDED_MESHES):
+        runs = [r["meshes"][j] for r in ranks]
+        losses = runs[0]["losses"]
+        if any(r["losses"] != losses for r in runs):
+            raise AssertionError(f"{label}: the ranks' losses differ: "
+                                 f"{[r['losses'] for r in runs]}")
+        if not all(x == x and abs(x) < float("inf") for x in losses):
+            raise AssertionError(f"{label}: loss not finite: {losses}")
+        ref = direct[opt_name]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+        if len(losses) != SHARDED_STEPS or max(rel) > SHARDED_LOSS_RTOL:
+            raise AssertionError(f"{label}: losses {losses} against the "
+                                 f"one-process step's {ref} (relative "
+                                 f"{rel}, tolerance {SHARDED_LOSS_RTOL})")
+        want = {k: layers * SHARDED_STEPS for k in
+                ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        want.update(lion=0, adamw=runs[0]["n_leaves"] * SHARDED_STEPS
+                    if opt_name == "adamw_fused" else 0)
+        for r in runs:
+            if r["launches"] != want:
+                raise AssertionError(f"{label}: launches {r['launches']}, "
+                                     f"want {want}")
+            if opt_name == "adamw_fused" and sum(
+                    r["adamw_by_shape"].values()) != r["launches"]["adamw"]:
+                raise AssertionError(f"{label}: AdamW launches by shape "
+                                     f"{r['adamw_by_shape']} do not add up")
+        if label == "dp" and len({r["checksum"] for r in runs}) != 1:
+            raise AssertionError(f"dp replicas drifted apart: "
+                                 f"{[r['checksum'] for r in runs]}")
+        meshes[label] = dict(
+            mesh=runs[0]["mesh"], optimizer=opt_name,
+            step_ms=max(r["step_ms"] for r in runs),
+            window_step_ms=[r["window_step_ms"] for r in runs],
+            tokens_per_s=B * S / (max(r["step_ms"] for r in runs) / 1000.0),
+            setup_s=[r["setup_s"] for r in runs], losses=losses,
+            direct_losses=ref, loss_rel_diff=rel,
+            loss_rtol=SHARDED_LOSS_RTOL,
+            max_memory_allocated_gb=[r["max_memory_allocated_gb"]
+                                     for r in runs],
+            memory_allocated_gb=[r["memory_allocated_gb"] for r in runs],
+            opt_state_bytes=[r["opt_state_bytes"] for r in runs],
+            param_bytes=[r["param_bytes"] for r in runs],
+            sharded_leaves=runs[0]["sharded_leaves"],
+            n_leaves=runs[0]["n_leaves"], launches=runs[0]["launches"],
+            adamw_by_shape=runs[0]["adamw_by_shape"])
+        if label == "fsdp":
+            meshes[label]["adamw_shard_check"] = [r["adamw_shard_check"]
+                                                  for r in runs]
+            feeds = [r["feed"] for r in runs]
+            stop = SHARDED_FEED_BATCHES
+            for i, f in enumerate(feeds):
+                if f["steps"] != stop:
+                    raise AssertionError(f"rank {i} stopped after "
+                                         f"{f['steps']} fed steps, not "
+                                         f"{stop}: {feeds}")
+            if sorted(f["rows"] + f["rows_after"] for f in feeds) != sorted(
+                    len(p) for p in parts):
+                raise AssertionError(f"fed rows {feeds} against partitions "
+                                     f"{[len(p) for p in parts]}")
+            if any(f["losses"] != feeds[0]["losses"] for f in feeds):
+                raise AssertionError("the ranks' fed losses differ")
+            meshes[label]["feed"] = dict(
+                partitions=[len(p) for p in parts], local_batch=b,
+                steps=[f["steps"] for f in feeds],
+                rows_after=[f["rows_after"] for f in feeds],
+                losses=feeds[0]["losses"],
+                wait_ms=[f["wait_ms"] for f in feeds],
+                step_ms=[f["step_ms"] for f in feeds])
+    dp, fs = meshes["dp"], meshes["fsdp"]
+    ratio = max(fs["opt_state_bytes"]) / max(dp["opt_state_bytes"])
+    if n > 1 and ratio > 1.01 / n:
+        raise AssertionError(f"fsdp optimizer state {fs['opt_state_bytes']}"
+                             f" is not 1/{n} of dp's {dp['opt_state_bytes']}")
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(
+        config="FLAGSHIP_LM_V2", world=n, batch=B, local_batch=b, seq=S,
+        steps=SHARDED_STEPS, wall_s=wall_s,
+        init_s=[r["init_s"] for r in ranks],
+        backend=ranks[0]["backend"], devices=[r["device"] for r in ranks],
+        cuda_visible_devices=[r["cuda_visible_devices"] for r in ranks],
+        fsdp_over_dp_opt_state=ratio, direct_losses=direct, meshes=meshes)
+
+
 def main():
     try:
         import torch
@@ -3138,6 +3539,9 @@ def main():
     torch.cuda.empty_cache()
     emit("pipeline_main_path", nvidia_smi=card,
          **phase_pipeline(torch, dev, train_main["step_ms"]))
+    torch.cuda.empty_cache()
+    emit("sharded_main_path", nvidia_smi=card,
+         phase8_step_ms=train_main["step_ms"], **phase_sharded(torch, dev))
     torch.cuda.empty_cache()
 
     # the serving kernels' launches by shape, each from its own main path

@@ -17,6 +17,11 @@ scales unchanged where the port stores the leaf as JAX does, and a Dense
 kernel's moments dequantised, transposed and quantised again in the
 port's layout (its blocks run along the other axis).
 
+``flax_path`` maps a port name to its flax path (what the sharding rules
+match); ``shard_of`` / ``join_shards`` cut a full tensor into its fsdp
+slices and join them again, so that a JAX state on a mesh and the port's
+per-rank states can be held leaf by leaf.
+
 ``qparams_from_jax`` / ``qparams_to_jax`` do the same for a quantised
 tree (``quantize.quantize_tree``): a quantised kernel keeps the JAX
 ``[in, out]`` storage layout and bytes on both sides, as the ``q`` /
@@ -69,6 +74,41 @@ def _port_name(path):
     return ".".join(path), False
 
 
+def flax_path(name, ndim):
+    """The port's dotted parameter name -> ``(its '/'-joined flax path,
+    True for a 2-D Dense kernel, which the port stores transposed)``:
+    the inverse of :func:`_port_name`."""
+    parts = name.split(".")
+    module, leaf = parts[:-1], parts[-1]
+    if leaf == "weight" and module:
+        if module[-1] in _EMBEDS:
+            leaf = "embedding"
+        elif module[-1] in _NORMS:
+            leaf = "scale"
+        else:
+            return "/".join(module + ["kernel"]), ndim == 2
+    return "/".join(module + [leaf]), False
+
+
+def shard_of(t, sharding, index):
+    """Slice ``index`` (an fsdp index) of the full port tensor ``t`` under
+    ``sharding`` (a ``parallel.mesh.NamedSharding``), contiguous; ``t``
+    itself when the sharding replicates it."""
+    split = sharding.shard_dim(t.ndim)
+    if split is None:
+        return t
+    dim, axes = split
+    size = t.shape[dim] // sharding.mesh.extent(axes)
+    return t.narrow(dim, index * size, size).contiguous()
+
+
+def join_shards(shards, sharding):
+    """The full tensor from its slices in fsdp index order (the inverse
+    of :func:`shard_of`)."""
+    split = sharding.shard_dim(shards[0].ndim)
+    return shards[0] if split is None else torch.cat(shards, dim=split[0])
+
+
 def _tensor(arr):
     # numpy has no bf16 of its own (JAX arrays come back as ml_dtypes'
     # bfloat16); f32 holds every bf16 value exactly
@@ -82,20 +122,13 @@ def params_to_jax(state_dict):
     JAX package's layout (float32)."""
     tree = {}
     for name, t in state_dict.items():
-        parts = name.split(".")
         arr = t.detach().to("cpu", torch.float32).numpy()
-        module, leaf = parts[-2], parts[-1]
-        if leaf == "weight":
-            if module in _EMBEDS:
-                leaf = "embedding"
-            elif module in _NORMS:
-                leaf = "scale"
-            else:
-                arr, leaf = arr.T, "kernel"
+        path, transposed = flax_path(name, arr.ndim)
+        parts = path.split("/")
         node = tree
         for p in parts[:-1]:
             node = node.setdefault(p, {})
-        node[leaf] = np.ascontiguousarray(arr)
+        node[parts[-1]] = np.ascontiguousarray(arr.T if transposed else arr)
     return tree
 
 

@@ -644,8 +644,8 @@ class Dataset:
         """Terminal stage: batches as tensors on ``device`` (``cuda``
         unless the caller asks for the CPU; without CUDA it raises) with
         `depth` host->device copies in flight (`feed.device_prefetch`).
-        ``sharding`` (a batch spread over several GPUs) raises
-        NotImplementedError."""
+        ``sharding`` (``parallel.mesh.batch_sharding``): each rank's own
+        rows, checked and placed as ``feed.device_prefetch`` does."""
         from .feed import device_prefetch
         return device_prefetch(iter(self), sharding=sharding, depth=depth,
                                device=device)

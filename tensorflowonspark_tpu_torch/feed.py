@@ -23,9 +23,6 @@ from . import shm as shm_mod
 logger = logging.getLogger(__name__)
 
 
-_SHARDING = ("sharding= (placing a batch over several GPUs) is not ported "
-             "yet (ROADMAP: multi-GPU sharding)")
-
 
 def _map_batch(fn, batch):
     """Apply ``fn`` to every array of a batch (one array, or a tuple,
@@ -63,14 +60,40 @@ def device_prefetch(batch_iter: Iterable, sharding: Any = None,
     (SURVEY.md §7; `marker.PackedChunk` and the shm ring fixed the IPC
     half).
 
-    ``sharding`` (a batch spread over several GPUs) raises
-    NotImplementedError.
+    ``sharding`` (``parallel.mesh.batch_sharding(mesh)``) routes each
+    batch through ``parallel.mesh.put_batch``'s contract: every rank
+    passes ITS rows, and the copy goes to the mesh's device (unless
+    ``device`` says otherwise).  The first batch's local shapes are
+    checked equal across the batch group, once; every later batch must
+    have them too, which is checked on this rank alone (ValueError
+    otherwise: pad a ragged tail, as ``iter_device_batches`` does), so
+    no collective stands between the copies in flight and the step.
     """
-    if sharding is not None:
-        raise NotImplementedError(_SHARDING)
     from .device import resolve
 
+    if sharding is not None:
+        from .parallel import mesh as mesh_mod
+
+        if device is None:
+            device = mesh_mod.sharding_mesh(sharding).device
+        batch_iter = _checked(batch_iter, sharding)
     return _prefetch(batch_iter, max(1, int(depth)), resolve(device))
+
+
+def _checked(batch_iter, sharding):
+    from .parallel import mesh as mesh_mod
+
+    first = None
+    for batch in batch_iter:
+        shapes = mesh_mod.local_shapes(batch)
+        if first is None:
+            mesh_mod.check_local_batch(batch, sharding)
+            first = shapes
+        elif shapes != first:
+            raise ValueError(
+                f"a sharded prefetch keeps the first batch's local shapes "
+                f"{first}; got {shapes} (pad a ragged tail: feed.pad_batch)")
+        yield batch
 
 
 def _prefetch(batch_iter, depth, dev):
@@ -487,15 +510,16 @@ class DataFeed:
             yield batch
 
     def iter_device_batches(self, batch_size, sharding=None, depth=2,
-                            pad=False, device=None):
+                            pad=None, device=None):
         """Generator over device-resident batches (tensors on ``device``,
         ``cuda`` unless the caller asks for the CPU) with `depth`
         host->device copies kept in flight (see `device_prefetch`).
 
         `pad` repeat-pads ragged tail batches (end-of-feed / partition
         boundaries) up to `batch_size` so the step keeps one static
-        shape.  ``sharding`` raises NotImplementedError (ROADMAP:
-        multi-GPU sharding).
+        shape.  Defaults to True when ``sharding`` is given (each rank's
+        rows, see `device_prefetch`): every rank must pass the same
+        local shape.
 
         NOTE (multi-process training): padding fixes ragged *shapes*
         only.  When per-process feeds can yield different batch
@@ -505,12 +529,13 @@ class DataFeed:
         each step (see examples/mnist/mnist_common.py), not this
         generator.
         """
-        if sharding is not None:
-            raise NotImplementedError(_SHARDING)
+        if pad is None:
+            pad = sharding is not None
         batches = self.iter_batches(batch_size, numpy=True)
         if pad:
             batches = (pad_batch(b, batch_size) for b in batches)
-        return device_prefetch(batches, depth=depth, device=device)
+        return device_prefetch(batches, sharding=sharding, depth=depth,
+                               device=device)
 
     def should_stop(self):
         """True once the end-of-feed sentinel was consumed (reference: TFNode.py:290)."""

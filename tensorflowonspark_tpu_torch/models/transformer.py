@@ -86,10 +86,11 @@ _UNPORTED = (
     ("num_experts", lambda v: v > 0,
      "MoE layers (ROADMAP: the zoo and the rest)"),
     ("ring_attention_axis", bool,
-     "context-parallel attention (ROADMAP: the zoo and the rest)"),
+     "context-parallel attention (ROADMAP: multi-GPU sharding, A3b)"),
     ("ulysses_axis", bool,
-     "context-parallel attention (ROADMAP: the zoo and the rest)"),
-    ("sp_axis", bool, "sequence parallelism (ROADMAP: the zoo and the rest)"),
+     "context-parallel attention (ROADMAP: multi-GPU sharding, A3b)"),
+    ("sp_axis", bool,
+     "sequence parallelism (ROADMAP: multi-GPU sharding, A3b)"),
     ("paged_attn_impl", lambda v: v != "kernel",
      "a selectable reference read path (the kernel is the only card path)"),
     ("paged_prefill_impl", lambda v: v != "kernel",

@@ -22,6 +22,8 @@ convention: ``lr = schedule(count)`` before the count's increment) and
 return an f32 tensor on the count's device, so a step on the card reads
 its learning rate without a host sync.
 """
+import contextlib
+import contextvars
 import logging
 import math
 from typing import Any, Callable, NamedTuple
@@ -123,6 +125,9 @@ def make_schedule(learning_rate, schedule="constant", warmup_steps=0,
 class GradientTransformation(NamedTuple):
     init: Callable
     update: Callable
+    # reads statistics of a whole leaf (adafactor's factored moments and
+    # block-rms clip): it cannot run on one rank's fsdp shard of it
+    whole_leaf: bool = False
 
 
 class ScaleByAdamState(NamedTuple):
@@ -182,7 +187,8 @@ def chain(*transforms):
             updates, s = t.update(updates, s, params)
             new_state.append(s)
         return updates, tuple(new_state)
-    return GradientTransformation(init_fn, update_fn)
+    return GradientTransformation(init_fn, update_fn, any(
+        getattr(t, "whole_leaf", False) for t in transforms))
 
 
 def scale_by_adam(b1=0.9, b2=0.999, eps=1e-8, mu_dtype=None):
@@ -372,7 +378,7 @@ def adafactor(learning_rate):
                  clip_by_block_rms(1.0),
                  scale_by_learning_rate(learning_rate, flip_sign=False),
                  scale_by_param_block_rms(),
-                 scale(-1.0))
+                 scale(-1.0))._replace(whole_leaf=True)
 
 
 def trace(decay):
@@ -386,10 +392,29 @@ def trace(decay):
     return GradientTransformation(init_fn, update_fn)
 
 
+# the norm of the whole gradient, where the updates are one rank's fsdp
+# shards of it (set by the sharded train step around ``update``)
+_GLOBAL_NORM = contextvars.ContextVar("global_norm", default=None)
+
+
+@contextlib.contextmanager
+def whole_gradient_norm(norm):
+    """Inside, :func:`clip_by_global_norm` clips by ``norm``, the norm of
+    the whole gradient, in place of the norm of the updates it is
+    handed."""
+    token = _GLOBAL_NORM.set(norm)
+    try:
+        yield
+    finally:
+        _GLOBAL_NORM.reset(token)
+
+
 def clip_by_global_norm(max_norm):
     """``optax.clip_by_global_norm``."""
     def update_fn(updates, state, params=None):
-        g_norm = global_norm(list(updates.values()))
+        g_norm = _GLOBAL_NORM.get()
+        if g_norm is None:
+            g_norm = global_norm(list(updates.values()))
         trigger = g_norm < max_norm
         return {n: torch.where(trigger, t, (t / g_norm.to(t.dtype)) * max_norm)
                 for n, t in updates.items()}, state
@@ -422,8 +447,8 @@ def make_optimizer(name="adamw", learning_rate=1e-3, schedule="constant",
     norms.  ``clip_norm`` prepends global-norm clipping (folded into the
     kernel for ``adamw_fused``).  ``b1``/``b2`` default to each
     optimizer's published defaults.  ``mu_dtype`` (``"bfloat16"``)
-    stores the first moment narrower.  ``layouts`` (adamw8bit's sharded
-    state) raises NotImplementedError."""
+    stores the first moment narrower.  ``layouts`` (adamw8bit's
+    shard-aligned blocks, ``optim8bit.layouts_for_shardings``)."""
     if isinstance(mu_dtype, str):
         mu_dtype = getattr(torch, mu_dtype)
     if mu_dtype is not None and name not in ("adam", "adamw", "lion") + _FUSED:

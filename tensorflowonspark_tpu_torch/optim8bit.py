@@ -23,8 +23,15 @@ expression order (``b1 * mu + (1 - b1) * g``, bias corrections ``b **
 count`` in f32, a count that increments without saturation); every
 division is by a tensor, so the card divides exactly as the CPU does,
 and square roots go through :func:`sqrt`, which rounds as the CPU does.
-Shard-aligned block layouts (the JAX ``layouts=``) wait for multi-GPU
-sharding and raise NotImplementedError.
+Shard-aligned block layouts (the JAX ``layouts=``): with a
+:class:`Layout` from :func:`layouts_for_shardings`, blocks are computed
+over each logical shard's own elements (shard-major flatten, per-shard
+padding), in the JAX package's dim order (a ``Dense`` weight is
+quantised through its flax ``[in, out]`` transpose), so the payload
+bytes are JAX's.  A layout serves a full tensor (the shard-major payload
+of every shard) and a rank's local shard alike (that shard's rows): under
+fsdp each rank quantises its own shard, and the shards' payloads,
+concatenated in rank order, are JAX's aligned payload.
 """
 import math
 from typing import Any, NamedTuple
@@ -33,8 +40,16 @@ import torch
 import torch.nn.functional as F
 
 DEFAULT_BLOCK = 256
-_LAYOUTS = ("shard-aligned quantisation layouts are not ported yet "
-            "(ROADMAP: multi-GPU sharding)")
+
+
+class Layout(NamedTuple):
+    """A shard-aligned block layout.  ``counts`` is the JAX package's
+    layout (per-dim shard counts) and ``shape`` the parameter's full
+    shape, both in the JAX package's dim order; ``transposed``: the port
+    stores the parameter transposed (a ``Dense`` weight)."""
+    counts: tuple
+    shape: tuple
+    transposed: bool = False
 
 
 class Quantized(NamedTuple):
@@ -49,14 +64,83 @@ def _const(value, like):
     return torch.tensor(value, dtype=torch.float32, device=like.device)
 
 
+def _shard_major(x, layout):
+    """Reshape ``x`` to ``[n_shards, elems_per_shard]``, shard-major: row k
+    holds the elements of shard k (dim-major shard order, as GSPMD
+    numbers them)."""
+    r = x.dim()
+    split = []
+    for d, n in zip(x.shape, layout):
+        split.extend((n, d // n))
+    perm = [2 * i for i in range(r)] + [2 * i + 1 for i in range(r)]
+    return x.reshape(split).permute(perm).reshape(math.prod(layout), -1)
+
+
+def _shard_major_inverse(flat, shape, layout):
+    """Invert :func:`_shard_major`: ``[n_shards, elems_per_shard]`` ->
+    ``shape``."""
+    r = len(shape)
+    sub = tuple(d // n for d, n in zip(shape, layout))
+    perm = []
+    for i in range(r):
+        perm.extend((i, r + i))
+    return flat.reshape(tuple(layout) + sub).permute(perm).reshape(shape)
+
+
+def _check_layout(layout, shape):
+    """Validate ``layout`` against ``shape``; normalise all-ones to None."""
+    if layout is None:
+        return None
+    if len(layout) != len(shape) or any(
+            d % n for d, n in zip(shape, layout)):
+        raise ValueError(f"layout {tuple(layout)} does not tile shape "
+                         f"{tuple(shape)}")
+    return None if all(n == 1 for n in layout) else tuple(layout)
+
+
+def _resolve(layout, shape):
+    """``(transposed, counts)`` of a tensor of the port's ``shape`` under
+    ``layout``: a plain tuple is a JAX layout over ``shape`` itself; a
+    :class:`Layout` serves the full tensor (its counts) or one shard of
+    it (None: the shard is one block run)."""
+    if not isinstance(layout, Layout):
+        return False, _check_layout(layout, shape)
+    shape = tuple(shape)
+    if layout.transposed:
+        shape = shape[::-1]
+    if shape == tuple(layout.shape):
+        return layout.transposed, _check_layout(layout.counts, shape)
+    local = tuple(d // n for d, n in zip(layout.shape, layout.counts))
+    if shape == local:
+        return layout.transposed, None
+    raise ValueError(f"layout {tuple(layout.counts)} of shape "
+                     f"{tuple(layout.shape)} fits neither that shape nor its "
+                     f"shard {local}: got {shape}")
+
+
+def expected_blocks(shape, layout, block):
+    """Block-row count of a payload quantised with ``layout`` (per-shard
+    padding: each shard's elements round up to whole blocks)."""
+    n_shards = math.prod(layout)
+    per_shard = math.prod(shape) // n_shards
+    return n_shards * (-(-per_shard // block))
+
+
 def quantize(x, block=DEFAULT_BLOCK, signed=True, layout=None):
     """A float tensor -> :class:`Quantized`, linear absmax per block of
     its row-major flatten (zero-padded to whole blocks).  ``signed``:
     symmetric int8 in [-127, 127]; unsigned (for nonnegative tensors):
-    ``round(x / s * 254) - 127``."""
-    if layout is not None:
-        raise NotImplementedError(_LAYOUTS)
-    flat = x.reshape(1, -1).float()
+    ``round(x / s * 254) - 127``.  ``layout`` (a :class:`Layout`, or a
+    JAX layout tuple over ``x``'s own dims): blocks over each shard's
+    own elements, in the JAX dim order (see the module doc); pass the
+    same ``layout`` to :func:`dequantize`."""
+    transposed, counts = _resolve(layout, x.shape)
+    if transposed:
+        x = x.t()
+    if counts is None:
+        flat = x.reshape(1, -1).float()
+    else:
+        flat = _shard_major(x.float(), counts)
     pad = (-flat.shape[1]) % block
     if pad:
         flat = F.pad(flat, (0, pad))
@@ -72,14 +156,26 @@ def quantize(x, block=DEFAULT_BLOCK, signed=True, layout=None):
 
 
 def dequantize(qt, shape, dtype=torch.float32, signed=True, layout=None):
-    """:class:`Quantized` -> a tensor of ``shape`` in ``dtype``."""
-    if layout is not None:
-        raise NotImplementedError(_LAYOUTS)
+    """:class:`Quantized` -> a tensor of ``shape`` in ``dtype`` (the
+    port's shape; ``layout`` as given to :func:`quantize`)."""
     if signed:
         flat = qt.q.float() * (qt.scale / _const(127.0, qt.scale))
     else:
         flat = (qt.q.float() + 127.0) * (qt.scale / _const(254.0, qt.scale))
-    return flat.reshape(-1)[:math.prod(shape)].reshape(shape).to(dtype)
+    transposed, counts = _resolve(layout, shape)
+    shape = tuple(shape)[::-1] if transposed else tuple(shape)
+    if counts is None:
+        out = flat.reshape(-1)[:math.prod(shape)].reshape(shape)
+    else:
+        n_shards, block = math.prod(counts), qt.q.shape[-1]
+        if qt.q.shape[0] != expected_blocks(shape, counts, block):
+            raise ValueError(
+                f"payload {tuple(qt.q.shape)} was not quantized with layout "
+                f"{counts} for shape {shape} (expected "
+                f"{expected_blocks(shape, counts, block)} blocks)")
+        flat = flat.reshape(n_shards, -1)[:, :math.prod(shape) // n_shards]
+        out = _shard_major_inverse(flat, shape, counts)
+    return (out.t() if transposed else out).to(dtype)
 
 
 def sqrt(x):
@@ -92,13 +188,38 @@ def sqrt(x):
 
 
 def shard_layout(shape, sharding):
-    """Not ported: per-dim shard counts of a sharded parameter."""
-    raise NotImplementedError(_LAYOUTS)
+    """The :class:`Layout` of a parameter of the port's ``shape`` (its
+    full shape) under ``sharding`` (a ``parallel.mesh.NamedSharding``),
+    or None: unsharded, scalar, indivisible, or no mesh."""
+    mesh = getattr(sharding, "mesh", None)
+    if mesh is None or not shape:
+        return None
+    transposed = bool(getattr(sharding, "transposed", False))
+    shape = tuple(shape)[::-1] if transposed else tuple(shape)
+    spec = tuple(getattr(sharding, "spec", ()) or ())
+    counts = []
+    for i, d in enumerate(shape):
+        entry = spec[i] if i < len(spec) else None
+        names = (() if entry is None
+                 else entry if isinstance(entry, tuple) else (entry,))
+        n = math.prod(mesh.shape.get(a, 1) for a in names)
+        if n > 1 and d % n:
+            return None
+        counts.append(n)
+    if all(n == 1 for n in counts):
+        return None
+    return Layout(tuple(counts), shape, transposed)
 
 
 def layouts_for_shardings(params, shardings):
-    """Not ported: the ``layouts=`` tree of a sharded parameter tree."""
-    raise NotImplementedError(_LAYOUTS)
+    """``{name: shard_layout}`` of a parameter tree (an ``nn.Module`` or a
+    dict of tensors, at their FULL shapes: build the optimizer before
+    ``create_train_state`` shards them) under ``shardings``, for the
+    ``layouts=`` of :func:`adamw8bit` and of ``make_train_step``."""
+    tensors = (dict(params.named_parameters())
+               if hasattr(params, "named_parameters") else params)
+    return {n: shard_layout(tuple(t.shape), shardings[n])
+            for n, t in tensors.items()}
 
 
 class Adam8bitState(NamedTuple):
@@ -110,21 +231,23 @@ class Adam8bitState(NamedTuple):
 def scale_by_adam_8bit(b1=0.9, b2=0.999, eps=1e-8, block_size=DEFAULT_BLOCK,
                        layouts=None):
     """``optax.scale_by_adam`` with int8 blockwise moments (see the
-    module doc)."""
+    module doc).  ``layouts`` (``{name: Layout or None}``, from
+    :func:`layouts_for_shardings`) aligns each parameter's blocks to its
+    shards; the update math is the same."""
     from tensorflowonspark_tpu_torch.optim import GradientTransformation
 
-    if layouts is not None:
-        raise NotImplementedError(_LAYOUTS)
+    lay = (lambda n: None) if layouts is None else (  # noqa: E731
+        lambda n: layouts.get(n))
 
     def init_fn(params):
-        def zeros(p, signed):
+        def zeros(n, p, signed):
             return quantize(torch.zeros(p.shape, device=p.device),
-                            block_size, signed=signed)
+                            block_size, signed=signed, layout=lay(n))
         first = next(iter(params.values()))
         return Adam8bitState(
             torch.zeros((), dtype=torch.int32, device=first.device),
-            {n: zeros(p, True) for n, p in params.items()},
-            {n: zeros(p, False) for n, p in params.items()})
+            {n: zeros(n, p, True) for n, p in params.items()},
+            {n: zeros(n, p, False) for n, p in params.items()})
 
     def update_fn(updates, state, params=None):
         count = state.count + 1
@@ -133,15 +256,16 @@ def scale_by_adam_8bit(b1=0.9, b2=0.999, eps=1e-8, block_size=DEFAULT_BLOCK,
         c2 = 1 - torch.pow(b2, t)
         out, mu_q, nu_q = {}, {}, {}
         for n, g in updates.items():
-            g = g.float()
-            mu = dequantize(state.mu[n], g.shape)
-            v = dequantize(state.nu_sqrt[n], g.shape, signed=False)
+            g, lo = g.float(), lay(n)
+            mu = dequantize(state.mu[n], g.shape, layout=lo)
+            v = dequantize(state.nu_sqrt[n], g.shape, signed=False,
+                           layout=lo)
             v = v * v
             mu = b1 * mu + (1 - b1) * g
             v = b2 * v + (1 - b2) * g * g
             out[n] = (mu / c1) / (sqrt(v / c2) + eps)
-            mu_q[n] = quantize(mu, block_size)
-            nu_q[n] = quantize(sqrt(v), block_size, signed=False)
+            mu_q[n] = quantize(mu, block_size, layout=lo)
+            nu_q[n] = quantize(sqrt(v), block_size, signed=False, layout=lo)
         return out, Adam8bitState(count, mu_q, nu_q)
 
     return GradientTransformation(init_fn, update_fn)

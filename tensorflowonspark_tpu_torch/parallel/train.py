@@ -1,8 +1,8 @@
 """Train-step harness — counterpart of ``tensorflowonspark_tpu/parallel/
-train.py`` on one card.
+train.py``, on one card or over a mesh of ranks (one GPU each).
 
-    state = create_train_state(model, optimizer)
-    step = make_train_step(loss_fn, optimizer, grad_accum=2)
+    state = create_train_state(model, optimizer, mesh)
+    step = make_train_step(loss_fn, optimizer, mesh, grad_accum=2)
     state, metrics = step(state, batch, rng)
 
 Where the JAX harness passes a params pytree, here ``loss_fn(params,
@@ -14,27 +14,39 @@ of the float parameters, so nothing accumulates in ``.grad``.
 JAX's step is a pure function whose state buffers jit donates; the port
 updates the parameters and the optimizer state IN PLACE (the fused
 AdamW kernel writes them in its one pass) and returns a new
-``TrainState`` that holds the same tensors.  Meshes and explicit
-shardings wait for multi-GPU sharding; :func:`feed_consensus` votes over
-the ``torch.distributed`` group the cluster runtime's
-``NodeContext.init_distributed`` makes.
+``TrainState`` that holds the same tensors (``donate=False`` copies the
+state first).
+
+On a mesh (``parallel.mesh``; dp and fsdp axes) the sharding lives in
+the step, with explicit collectives that run alike under gloo and nccl:
+parameters and optimizer state are sharded at rest by the JAX rules
+(``TrainState.shardings``), each rank's ``loss_fn`` sees its own rows,
+the fsdp-sharded parameters are all-gathered for the forward, and the
+gradients are averaged over the batch axes (all-reduced, or
+reduce-scattered back to their shard).  The optimizer then runs on the
+local shards, clipped by the norm of the whole gradient.
+:func:`feed_consensus` votes over the default process group.
 """
+import copy
+import math
 from typing import Any, NamedTuple
 
 import torch
 from torch import nn
 
-from tensorflowonspark_tpu_torch.ops.fused_optim import global_norm
-from tensorflowonspark_tpu_torch.optim import apply_updates
-
-_MESH = ("a mesh and explicit shardings are not ported yet (ROADMAP: "
-         "multi-GPU sharding)")
+from tensorflowonspark_tpu_torch.optim import (apply_updates,
+                                               whole_gradient_norm)
+from tensorflowonspark_tpu_torch.parallel import collectives
+from tensorflowonspark_tpu_torch.parallel import sharding as sharding_mod
 
 
 class TrainState(NamedTuple):
     step: Any
     params: Any
     opt_state: Any
+    # {name: parallel.mesh.NamedSharding} of a state on a mesh (a JAX
+    # array carries its placement; a local shard here does not)
+    shardings: Any = None
 
 
 def _tensors(params):
@@ -44,32 +56,56 @@ def _tensors(params):
     return {n: t for n, t in params.items() if t.is_floating_point()}
 
 
+def _mesh_of(shardings):
+    return next(iter(shardings.values())).mesh if shardings else None
+
+
 def create_train_state(params, optimizer, mesh=None, param_shardings=None):
     """TrainState of an ``nn.Module`` (or a dict of tensors, whose float
     leaves are marked ``requires_grad``), its optimizer state, and the
-    step count 0 on the parameters' device."""
-    if mesh is not None or param_shardings is not None:
-        raise NotImplementedError(_MESH)
+    step count 0 on the parameters' device.
+
+    On a mesh the parameters are sharded first (``param_shardings``,
+    default ``infer_param_shardings(params, mesh)``; a module in place)
+    and the optimizer state is built over the local shards, so every
+    moment shards exactly like its parameter."""
+    if mesh is None and param_shardings:
+        mesh = _mesh_of(param_shardings)
+    if mesh is not None:
+        if param_shardings is None:
+            param_shardings = sharding_mod.infer_param_shardings(params, mesh)
+        params = sharding_mod.shard_params(params, param_shardings)
     tensors = _tensors(params)
     if not isinstance(params, nn.Module):
         for t in tensors.values():
             t.requires_grad_(True)
     dev = next(iter(tensors.values())).device
     return TrainState(step=torch.zeros((), dtype=torch.int32, device=dev),
-                      params=params, opt_state=optimizer.init(tensors))
+                      params=params, opt_state=optimizer.init(tensors),
+                      shardings=param_shardings)
 
 
-class _BoundLoss(nn.Module):
-    """``loss_fn`` over a module, as a module, so that
-    ``torch.func.functional_call`` can hand it cast parameters."""
+class _Bound(nn.Module):
+    """``fn(module, *args)`` as a module, so that
+    ``torch.func.functional_call`` can hand it other tensors."""
 
-    def __init__(self, module, loss_fn):
+    def __init__(self, module, fn):
         super().__init__()
         self.module = module
-        self.loss_fn = loss_fn
+        self.fn = fn
 
-    def forward(self, batch, rng):
-        return self.loss_fn(self.module, batch, rng)
+    def forward(self, *args):
+        return self.fn(self.module, *args)
+
+
+def _call_with(fn, params, tensors, *args):
+    """``fn(params, *args)`` with ``tensors`` in place of the parameters
+    of the same names (gathered, cast)."""
+    if isinstance(params, nn.Module):
+        return torch.func.functional_call(
+            _Bound(params, fn), {"module." + n: t for n, t in tensors.items()},
+            args)
+    return fn(dict(params, **tensors), *args)
 
 
 def _split(batch, n):
@@ -87,60 +123,179 @@ def _split(batch, n):
     raise TypeError(f"cannot split a batch of type {type(batch).__name__}")
 
 
+def _clone(tree):
+    """A copy of an optimizer state: its tensors cloned, its containers
+    rebuilt."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_clone(v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_clone(v) for v in tree)
+    return tree
+
+
+def _copy_state(state):
+    """A state that shares no tensor with ``state`` (for donate=False)."""
+    params = state.params
+    if isinstance(params, nn.Module):
+        params = copy.deepcopy(params)
+    else:
+        params = {n: t.detach().clone().requires_grad_(t.requires_grad)
+                  for n, t in params.items()}
+    return state._replace(step=state.step.clone(), params=params,
+                          opt_state=_clone(state.opt_state))
+
+
+def _states_8bit(tree):
+    """The ``Adam8bitState`` s inside an optimizer state."""
+    from tensorflowonspark_tpu_torch.optim8bit import Adam8bitState
+
+    if isinstance(tree, Adam8bitState):
+        return [tree]
+    if isinstance(tree, (tuple, list)):
+        return [s for t in tree for s in _states_8bit(t)]
+    return []
+
+
+def _check_layouts(layouts, state, tensors, dims, example_params):
+    """JAX's checks of a declared 8-bit layout (``_quantized_shardings``):
+    it must be the layout of the parameter's sharding, and the payload
+    must have been built with it (this rank's shard of it)."""
+    from tensorflowonspark_tpu_torch.optim8bit import (expected_blocks,
+                                                       shard_layout)
+
+    full = {}
+    for n, t in tensors.items():
+        shape = list(t.shape)
+        if n in dims:
+            sh = state.shardings[n]
+            shape[dims[n]] *= sh.mesh.extent(sh.shard_dim(t.ndim)[1])
+        full[n] = tuple(shape)
+    if example_params is not None:
+        for n, t in sharding_mod.named_tensors(example_params).items():
+            if n in full and tuple(t.shape) != full[n]:
+                raise ValueError(f"example_params[{n!r}] has shape "
+                                 f"{tuple(t.shape)}, the state {full[n]}")
+    q_states = _states_8bit(state.opt_state)
+    for n, layout in layouts.items():
+        if layout is None or all(c == 1 for c in layout.counts):
+            continue
+        shape = full[n]
+        sharding = (state.shardings or {}).get(n)
+        if layout != shard_layout(shape, sharding):
+            raise ValueError(
+                f"declared quantized-state layout {tuple(layout.counts)} "
+                f"does not match sharding {getattr(sharding, 'spec', None)} "
+                f"for param shape {shape} (build both from "
+                "optim8bit.layouts_for_shardings with the same shardings)")
+        for qs in q_states:
+            q = qs.mu[n].q
+            want = expected_blocks(layout.shape, layout.counts, q.shape[1])
+            if n in dims:      # this rank holds one shard's blocks
+                want //= math.prod(layout.counts)
+            if q.shape[0] != want:
+                raise ValueError(
+                    f"quantized payload {tuple(q.shape)} for param shape "
+                    f"{shape} was not built with layout "
+                    f"{tuple(layout.counts)} (pass the same layouts= to the "
+                    "optimizer and make_train_step)")
+
+
 def make_train_step(loss_fn, optimizer, mesh=None, param_shardings=None,
-                    grad_accum=1, compute_dtype=None, donate=True):
+                    grad_accum=1, compute_dtype=None, donate=True,
+                    example_params=None, layouts=None):
     """Build ``train_step(state, batch, rng) -> (state, metrics)``.
 
-    ``loss_fn(params, batch, rng) -> scalar loss`` (the mean over the
-    batch).  ``grad_accum > 1`` splits the batch's leading axis into that
-    many micro-batches, sums their losses and gradients, then divides, as
-    the JAX step's scan does.  ``compute_dtype`` casts the float
-    parameters for the loss (gradients flow back to the masters).  An
-    optimizer with a single-pass ``apply`` (``adamw_fused``) takes that
-    path; others run ``update`` then :func:`optim.apply_updates`.
-    ``metrics = {"loss", "grad_norm"}``, device tensors.
+    ``loss_fn(params, batch, rng) -> scalar loss``, the mean over the
+    batch it is given: on a mesh, this rank's rows.  ``grad_accum > 1``
+    splits the batch's leading axis into that many micro-batches, sums
+    their losses and gradients, then divides, as the JAX step's scan
+    does.  ``compute_dtype`` casts the float parameters for the loss
+    (gradients flow back to the masters).  An optimizer with a
+    single-pass ``apply`` (``adamw_fused``) takes that path; others run
+    ``update`` then :func:`optim.apply_updates`.  ``metrics = {"loss",
+    "grad_norm"}``, device tensors: on a mesh the global-batch mean loss
+    and the norm of the whole gradient, the same on every rank.
 
-    ``donate=True`` is the only mode: the step updates the state in
-    place, as the JAX step donates it."""
-    if mesh is not None or param_shardings is not None:
-        raise NotImplementedError(_MESH)
-    if not donate:
-        raise NotImplementedError(
-            "a train step that keeps its input state is not ported (ROADMAP: "
-            "training compute); the port updates the state in place")
+    ``mesh`` / ``param_shardings`` (default: the state's shardings): the
+    sharded step of the module doc; the mesh is taken from the shardings
+    when not given (at each call, from the state's, when neither is).
+    ``layouts`` — the SAME tree ``adamw8bit`` was built
+    with (``optim8bit.layouts_for_shardings``) — is checked against the
+    shardings and the state's payloads at the first step, as are the
+    shapes of ``example_params`` (full-shape parameters) when given.
+
+    ``donate=True`` updates the state in place, as the JAX step donates
+    it; ``donate=False`` copies the state first and leaves it as it
+    was."""
     if isinstance(compute_dtype, str):
         compute_dtype = getattr(torch, compute_dtype)
+    if mesh is None and param_shardings:
+        mesh = _mesh_of(param_shardings)
+    if mesh is not None:
+        mesh.check_placeable()
+    checked = []
 
-    def _loss(params, batch, rng):
-        if compute_dtype is None:
+    def _loss(params, full, swap, batch, rng):
+        if compute_dtype is not None:
+            full = {n: t.to(compute_dtype) for n, t in full.items()}
+        elif not swap:
             return loss_fn(params, batch, rng)
-        cast = {n: t.to(compute_dtype) for n, t in _tensors(params).items()}
-        if isinstance(params, nn.Module):
-            return torch.func.functional_call(
-                _BoundLoss(params, loss_fn),
-                {"module." + n: t for n, t in cast.items()}, (batch, rng))
-        return loss_fn(dict(params, **cast), batch, rng)
+        return _call_with(loss_fn, params, full, batch, rng)
 
-    def _value_and_grad(params, tensors, batch, rng):
-        loss = _loss(params, batch, rng)
-        grads = torch.autograd.grad(loss, list(tensors.values()))
-        return loss.detach(), dict(zip(tensors, grads))
+    def _value_and_grad(params, full, swap, batch, rng):
+        loss = _loss(params, full, swap, batch, rng)
+        grads = torch.autograd.grad(loss, list(full.values()))
+        return loss.detach(), dict(zip(full, grads))
 
     def train_step(state, batch, rng=None):
+        if not donate:
+            state = _copy_state(state)
         params = state.params
         tensors = _tensors(params)
+        shardings = param_shardings or state.shardings
+        # a step built without a mesh, given a sharded state, takes the
+        # state's mesh: it is still the global step
+        step_mesh = mesh if mesh is not None else _mesh_of(shardings)
+        if step_mesh is not None and mesh is None:
+            step_mesh.check_placeable()
+        dims = collectives.sharded_dims(tensors, shardings)
+        if dims and getattr(optimizer, "whole_leaf", False):
+            raise NotImplementedError(
+                "an optimizer that reads whole leaves (adafactor) over "
+                "fsdp-sharded parameters is not ported yet (ROADMAP: "
+                "multi-GPU sharding, A3a's open items)")
+        if layouts is not None and shardings and not checked:
+            _check_layouts(layouts, state._replace(shardings=shardings),
+                           tensors, dims, example_params)
+            checked.append(True)
+        full, gathered = tensors, None
+        if dims:     # the fsdp-sharded parameters, whole, for the forward
+            gathered = collectives.gather_full(
+                {n: tensors[n].detach() for n in dims}, shardings)
+            full = {n: (gathered[n].requires_grad_(True) if n in dims
+                        else t) for n, t in tensors.items()}
+        swap = bool(dims)
         if grad_accum > 1:
             loss, grads = 0.0, None
             for mb in _split(batch, grad_accum):
-                mb_loss, mb_grads = _value_and_grad(params, tensors, mb, rng)
+                mb_loss, mb_grads = _value_and_grad(params, full, swap, mb,
+                                                    rng)
                 loss = loss + mb_loss
                 grads = mb_grads if grads is None else {
                     n: grads[n] + g for n, g in mb_grads.items()}
             loss = loss / grad_accum
             grads = {n: g / grad_accum for n, g in grads.items()}
         else:
-            loss, grads = _value_and_grad(params, tensors, batch, rng)
-        grad_norm = global_norm(list(grads.values()))
+            loss, grads = _value_and_grad(params, full, swap, batch, rng)
+        del full, gathered
+        if step_mesh is not None:
+            grads, loss = collectives.reduce_gradients(grads, dims,
+                                                       step_mesh, loss)
+        grad_norm = collectives.global_grad_norm(grads, dims, step_mesh)
         fused_apply = getattr(optimizer, "apply", None)
         with torch.no_grad():
             if callable(fused_apply):
@@ -149,25 +304,34 @@ def make_train_step(loss_fn, optimizer, mesh=None, param_shardings=None,
                 _, opt_state = fused_apply(grads, state.opt_state, tensors,
                                            grad_norm=grad_norm)
             else:
-                updates, opt_state = optimizer.update(grads, state.opt_state,
-                                                      tensors)
+                with whole_gradient_norm(grad_norm if dims else None):
+                    updates, opt_state = optimizer.update(
+                        grads, state.opt_state, tensors)
                 apply_updates(tensors, updates)
-        new_state = TrainState(step=state.step + 1, params=params,
-                               opt_state=opt_state)
+        new_state = state._replace(step=state.step + 1, opt_state=opt_state,
+                                   shardings=shardings)
         return new_state, {"loss": loss, "grad_norm": grad_norm}
 
     return train_step
 
 
-def make_eval_step(forward_fn, mesh=None):
+def make_eval_step(forward_fn, mesh=None, param_shardings=None):
     """``eval_step(params, batch) -> forward_fn(params, batch)`` without
-    autograd."""
+    autograd.  On a mesh each rank runs the forward on its own rows and
+    gets its own output; ``param_shardings`` (a sharded state's
+    ``shardings``) gathers the fsdp-sharded parameters for it."""
+    if mesh is None and param_shardings:
+        mesh = _mesh_of(param_shardings)
     if mesh is not None:
-        raise NotImplementedError(_MESH)
+        mesh.check_placeable()
 
     def eval_step(params, batch):
         with torch.no_grad():
-            return forward_fn(params, batch)
+            if not param_shardings:
+                return forward_fn(params, batch)
+            tensors = _tensors(params)
+            full = collectives.gather_full(tensors, param_shardings)
+            return _call_with(forward_fn, params, full, batch)
     return eval_step
 
 

@@ -23,6 +23,7 @@ import torch
 from tensorflowonspark_tpu import data as jax_data
 from tensorflowonspark_tpu import tfrecord as jax_tfr
 from tensorflowonspark_tpu_torch import data as port_data
+from tensorflowonspark_tpu_torch.parallel import mesh as mesh_mod
 
 
 @pytest.fixture(scope="module")
@@ -115,8 +116,11 @@ def test_prefetch_to_device_cpu_and_device_rule(shards, monkeypatch):
                    for t in g)
         for t, a in zip(g, w):
             np.testing.assert_array_equal(t.numpy(), a)
-    with pytest.raises(NotImplementedError, match="multi-GPU sharding"):
-        ds.prefetch_to_device(sharding=object(), device="cpu")
+    # sharding= on a mesh of one rank: this rank's rows are every row
+    sh = mesh_mod.batch_sharding(mesh_mod.build_mesh(device="cpu"))
+    for g, w in zip(ds.prefetch_to_device(sharding=sh), want, strict=True):
+        for t, a in zip(g, w):
+            np.testing.assert_array_equal(t.numpy(), a)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ds.prefetch_to_device()

@@ -23,8 +23,16 @@ at the card's backward tolerance (atol 4e-2, rtol 1e-2).
 Tolerances: f32 1e-5 (f32 math on both sides; summation order differs);
 bf16 2e-2 (f32 math on both sides, then outputs and gradients rounded
 to bf16, where one ulp is 2^-8 relative).
+
+On a mismatch the forward-and-gradients test saves its evidence under
+``build/flake_evidence/`` of the checkout (its inputs and both sides'
+outputs, ``.npz``; the xdist worker and the names of the tests that
+process ran before it, ``.json``) and names the files in its failure.
 """
 import importlib
+import json
+import os
+import re
 
 import numpy as np
 import pytest
@@ -56,12 +64,41 @@ def _np(x):
     return np.asarray(jnp.asarray(x, jnp.float32))
 
 
+EVIDENCE_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "build", "flake_evidence")
+
+
+@pytest.fixture
+def evidence(request):
+    """``save(**arrays) -> path``: writes the arrays and this process's
+    test history: ``PYTEST_XDIST_WORKER`` and the node ids of the tests
+    it ran before this one (the collected items pytest has run and torn
+    down, in collection order), for a mismatch seen once in many full
+    runs."""
+    ran = [item.nodeid for item in request.session.items
+           if getattr(item, "_request", None) is False]
+
+    def save(**arrays):
+        os.makedirs(EVIDENCE_DIR, exist_ok=True)
+        stem = os.path.join(EVIDENCE_DIR, "{}-{}-{}".format(
+            re.sub(r"[^\w.-]+", "_", request.node.name),
+            os.environ.get("PYTEST_XDIST_WORKER", "main"), os.getpid()))
+        np.savez(stem + ".npz", **arrays)
+        with open(stem + ".json", "w") as f:
+            json.dump({"test": request.node.nodeid,
+                       "worker": os.environ.get("PYTEST_XDIST_WORKER"),
+                       "pid": os.getpid(), "tests_before": ran}, f, indent=1)
+        return stem
+    return save
+
+
 @pytest.mark.parametrize("causal,S,group,dtype", [
     (True, 40, 1, "float32"), (True, 40, 2, "float32"),
     (True, 40, 4, "float32"), (False, 40, 2, "float32"),
     (True, 32, 4, "float32"), (False, 32, 1, "float32"),
     (True, 40, 2, "bfloat16"), (False, 40, 4, "bfloat16")])
-def test_forward_and_grads_match_jax_interpret(causal, S, group, dtype):
+def test_forward_and_grads_match_jax_interpret(causal, S, group, dtype,
+                                              evidence):
     q, k, v, g = _inputs(S + group, S, group)
     jdt = jnp.dtype(dtype)
 
@@ -77,11 +114,20 @@ def test_forward_and_grads_match_jax_interpret(causal, S, group, dtype):
     pout = port_fa.flash_attention(*leaves, causal=causal)
     got = [pout] + list(torch.autograd.grad(
         pout, leaves, torch.from_numpy(g).to(tdt)))
-    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
-        assert a.dtype == tdt and tuple(a.shape) == b.shape, name
-        np.testing.assert_allclose(a.detach().float().numpy(), _np(b),
-                                   atol=TOL[dtype], rtol=TOL[dtype],
-                                   err_msg=name)
+    names = ("out", "dq", "dk", "dv")
+    try:
+        for name, a, b in zip(names, got, want):
+            assert a.dtype == tdt and tuple(a.shape) == b.shape, name
+            np.testing.assert_allclose(a.detach().float().numpy(), _np(b),
+                                       atol=TOL[dtype], rtol=TOL[dtype],
+                                       err_msg=name)
+    except AssertionError as e:
+        arrays = dict(q=q, k=k, v=v, g=g)
+        for name, a, b in zip(names, got, want):
+            arrays["port_" + name] = a.detach().float().numpy()
+            arrays["jax_" + name] = _np(b)
+        raise AssertionError(f"{e}\nevidence: {evidence(**arrays)}."
+                             "{npz,json}") from e
 
 
 @pytest.mark.parametrize("causal", [True, False])

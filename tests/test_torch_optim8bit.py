@@ -10,7 +10,9 @@
 - A JAX 8-bit state carried across by ``convert.adam8bit_state_from_jax``
   for a tree with a Dense kernel (which the port stores transposed), and
   two more steps from it.
-- ``layouts=`` and the sharding helpers raise NotImplementedError.
+- shard-aligned ``layouts=``: payloads bitwise JAX's and back, the
+  updates of ``adamw8bit(layouts=)`` as JAX's, and the helpers' errors
+  (the sharded forms: ``test_torch_sharding.py``).
 
 Tolerances: payloads and scales bitwise (the same f32 divisions, round
 half to even on both sides); updates 1e-5 relative (the bias
@@ -195,13 +197,56 @@ def test_adamw8bit_resumes_from_a_carried_jax_state():
 
 
 def test_layouts_and_sharding_helpers_raise():
-    with pytest.raises(NotImplementedError, match="multi-GPU sharding"):
-        port_optim.make_optimizer("adamw8bit", layouts={"w": (2, 1)})
-    with pytest.raises(NotImplementedError, match="multi-GPU sharding"):
-        optim8bit.quantize(torch.zeros(4, 4), layout=(2, 1))
-    with pytest.raises(NotImplementedError, match="multi-GPU sharding"):
-        optim8bit.layouts_for_shardings({}, {})
-    with pytest.raises(NotImplementedError, match="multi-GPU sharding"):
-        optim8bit.shard_layout((4, 4), None)
+    """The layout helpers refuse what JAX's refuse: a layout that does not
+    tile the tensor, a payload built without it, and ``mu_dtype``."""
+    with pytest.raises(ValueError, match="does not tile"):
+        optim8bit.quantize(torch.zeros(4, 4), layout=(3, 1))
+    q = optim8bit.quantize(torch.ones(4, 4), 4)
+    with pytest.raises(ValueError, match="was not quantized with layout"):
+        optim8bit.dequantize(q._replace(q=q.q[:2], scale=q.scale[:2]),
+                             (4, 4), layout=(2, 1))
+    with pytest.raises(ValueError) as e:
+        jax_8bit.quantize(jnp.zeros((4, 4)), layout=(3, 1))
+    assert "does not tile" in str(e.value)
+    assert optim8bit.shard_layout((4, 4), None) is None
+    assert optim8bit.layouts_for_shardings({}, {}) == {}
     with pytest.raises(ValueError, match="mu_dtype"):
         port_optim.make_optimizer("adamw8bit", mu_dtype="bfloat16")
+
+
+def test_layouts_round_trip_and_equal_jax():
+    """A layout tuple over the tensor's own dims: payload and scales
+    bitwise JAX's, and back; ``adamw8bit(layouts=)`` updates as JAX's
+    over the tree of the three-step test."""
+    rng = np.random.RandomState(11)
+    x = rng.randn(8, 96).astype(np.float32)
+    for layout in ((2, 1), (4, 3), (1, 2)):
+        want = jax_8bit.quantize(jnp.asarray(x), 64, layout=layout)
+        got = optim8bit.quantize(torch.from_numpy(x), 64, layout=layout)
+        np.testing.assert_array_equal(got.q.numpy(), np.asarray(want.q))
+        np.testing.assert_array_equal(got.scale.numpy(),
+                                      np.asarray(want.scale))
+        np.testing.assert_array_equal(
+            optim8bit.dequantize(got, x.shape, layout=layout).numpy(),
+            np.asarray(jax_8bit.dequantize(want, x.shape, layout=layout)))
+    params = {"w": x, "b": rng.randn(96).astype(np.float32)}
+    grads = {k: rng.randn(*v.shape).astype(np.float32)
+             for k, v in params.items()}
+    lay = {"w": (4, 1), "b": None}
+    jopt, _ = jax_optim.make_optimizer("adamw8bit", layouts=lay, **KW)
+    popt, _ = port_optim.make_optimizer("adamw8bit", layouts=lay, **KW)
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    pp = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+    js, ps = jopt.init(jp), popt.init(pp)
+    for _ in range(2):
+        ju, js = jopt.update({k: jnp.asarray(v) for k, v in grads.items()},
+                             js, jp)
+        pu, ps = popt.update({k: torch.from_numpy(v) for k, v in
+                              grads.items()}, ps, pp)
+        for k in params:
+            np.testing.assert_allclose(pu[k].numpy(), np.asarray(ju[k]),
+                                       rtol=1e-5, atol=1e-8)
+    # chain(clip, chain(scale_by_adam_8bit, decay, lr)) on both sides
+    for field in ("mu", "nu_sqrt"):
+        got, want = getattr(ps[1][0], field)["w"], getattr(js[1][0], field)["w"]
+        np.testing.assert_array_equal(got.q.numpy(), np.asarray(want.q))

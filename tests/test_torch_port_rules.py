@@ -31,6 +31,8 @@ from tensorflowonspark_tpu_torch.ops import layernorm as port_ln
 from tensorflowonspark_tpu_torch.ops import paged_attention as port_pa
 from tensorflowonspark_tpu_torch.ops import paged_prefill as port_pp
 from tensorflowonspark_tpu_torch.ops import quant_matmul as port_qm
+from tensorflowonspark_tpu_torch.parallel import mesh as port_mesh
+from tensorflowonspark_tpu_torch.parallel import sharding as port_sharding
 from tensorflowonspark_tpu_torch.parallel import train as port_train
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -302,17 +304,55 @@ def test_training_entry_points_raise_without_cuda(monkeypatch):
         benchmarks.make_flagship_step(2, 16)
 
 
+def _lm_loss(m, b, r):
+    return port_tf.lm_loss(m(b[:, :-1]), b[:, 1:])
+
+
 @pytest.mark.parametrize("kw", [{"mesh": object()},
                                 {"param_shardings": {}},
                                 {"donate": False}])
 def test_unported_train_step_options_raise(kw):
+    """A dp / fsdp mesh (of one rank here) and its ``param_shardings``
+    build a state and a step, ``donate=False`` keeps its input state;
+    a tp=2 mesh and the context-parallel config fields still raise,
+    naming A3b."""
     opt, _ = optim.make_optimizer("adamw_fused")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port_train.make_train_step(lambda m, b, r: 0.0, opt, **kw)
-    if "donate" not in kw:
-        model = port_tf.build_transformer(**TINY)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            port_train.create_train_state(model, opt, **kw)
+    model = port_tf.build_transformer(**TINY)
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(0, 32,
+                                                               (2, 9)))
+    mesh = port_mesh.build_mesh(port_mesh.MeshSpec(fsdp=1), device="cpu")
+    if "mesh" in kw:
+        state = port_train.create_train_state(model, opt, mesh)
+        step = port_train.make_train_step(_lm_loss, opt, mesh)
+        tp = port_mesh.Mesh(port_mesh.MeshSpec(dp=1, tp=2).resolve(2))
+        for call in (lambda: port_train.make_train_step(_lm_loss, opt, tp),
+                     lambda: port_train.create_train_state(model, opt, tp),
+                     lambda: port_train.make_eval_step(_lm_loss, tp)):
+            with pytest.raises(NotImplementedError,
+                               match=r"multi-GPU sharding \(ROADMAP A3b\)"):
+                call()
+    elif "param_shardings" in kw:
+        sh = port_sharding.infer_param_shardings(model, mesh, fsdp=True)
+        state = port_train.create_train_state(model, opt,
+                                              param_shardings=sh)
+        step = port_train.make_train_step(_lm_loss, opt, param_shardings=sh)
+        assert state.shardings is sh
+        for field in ("ring_attention_axis", "ulysses_axis", "sp_axis"):
+            with pytest.raises(NotImplementedError,
+                               match=r"multi-GPU sharding, A3b"):
+                port_tf.build_transformer(**dict(TINY, **{field: "tp"}))
+    else:
+        state = port_train.create_train_state(model, opt)
+        step = port_train.make_train_step(_lm_loss, opt, donate=False)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    new, metrics = step(state, tokens, None)
+    assert torch.isfinite(metrics["loss"]) and int(new.step) == 1
+    kept = all(torch.equal(p, before[n]) for n, p in
+               state.params.named_parameters())
+    assert kept == ("donate" in kw)
+    if "donate" in kw:
+        assert int(state.step) == 0 and int(state.opt_state.count) == 0
+        assert new.params is not state.params
 
 
 def test_convert_roundtrip_keeps_the_jax_layout():

@@ -28,6 +28,7 @@ from tensorflowonspark_tpu_torch import (backend, compat, feed, gpu_info,
                                          manager, marker, node, reservation,
                                          shm, util)
 from tensorflowonspark_tpu_torch.ops import _build
+from tensorflowonspark_tpu_torch.parallel import mesh as mesh_mod
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -412,10 +413,22 @@ def test_datafeed_through_ring_and_device_half(monkeypatch):
     out = list(feed.device_prefetch(iter(batches), depth=3, device="cpu"))
     assert isinstance(out[0], tuple) and out[0][0].shape == (2, 3)
     assert isinstance(out[1], dict) and out[1]["x"].dtype == torch.float64
-    with pytest.raises(NotImplementedError, match="multi-GPU sharding"):
-        feed.device_prefetch(iter(batches), sharding=object())
-    with pytest.raises(NotImplementedError, match="multi-GPU sharding"):
-        feed.DataFeed(None).iter_device_batches(4, sharding=object())
+    # sharding= on a mesh of one rank: that rank's rows (all of them),
+    # the ragged tail padded by default as JAX pads it for a mesh
+    sh = mesh_mod.batch_sharding(mesh_mod.build_mesh(device="cpu"))
+    out = list(feed.device_prefetch(iter(batches[:1]), sharding=sh))
+    np.testing.assert_array_equal(out[0][0].numpy(), batches[0][0])
+    mgr = manager.start(uuid.uuid4().bytes, ["input", "output", "error"])
+    try:
+        q = mgr.get_queue("input")
+        for i in range(10):
+            q.put((np.float32(i), i))
+        q.put(None)
+        got = list(feed.DataFeed(mgr).iter_device_batches(8, sharding=sh))
+        assert [tuple(b[1].shape) for b in got] == [(8,), (8,)]
+        assert got[1][1].tolist() == [8, 9, 9, 9, 9, 9, 9, 9]
+    finally:
+        mgr.shutdown()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         feed.device_prefetch(iter(batches))
