@@ -197,6 +197,30 @@ caught and reported as passed):
    kernel 7 against its plain version at the rank's shard of ``wi``
    (phase 6's tolerances, bitwise reported); fsdp's optimizer state a
    rank at most 1.01 / n of dp's;
+14. (after 13) the ``model_parallel_main_path`` line: on the card, the
+   ring's per-step merge over 4 blocks of one full-width layer (B 2, S
+   1024, 16 / 8 heads, D 128, bf16) forward and backward through kernels
+   4-6 against ``flash_attention`` over the whole sequence (phase 6's
+   tolerances, 10 launches of each kernel), ``PipelinedLM(n_stages=1,
+   n_micro=4)`` against the Transformer it came from (2 full-width layers
+   in f32, B 4: logits and gradients within PIPE_RTOL, 8 launches of
+   each flash kernel) and the vocab-parallel loss at tp=1 against
+   ``lm_loss``; then, over n >= 2 GPUs (``cluster.run(LocalBackend(n,
+   spawn), model_parallel_train_fn, num_chips=1)``, nccl), the
+   full-depth flagship with its forward split, B 8 x S 1024 global, a
+   warm-up step and 2 windows of 3, on each mesh form n cards hold
+   (others skipped with a printed reason): ``MeshSpec(tp=n)``,
+   ``MeshSpec(dp=n/2, tp=2)`` with ``sp_axis="tp"``,
+   ``ring_attention_axis="tp"`` and ``ulysses_axis="tp"`` on
+   ``MeshSpec(tp=n)`` (parameters replicated, each rank its sequence
+   block), ``PipelinedLM(n_stages=n)`` on ``MeshSpec(pp=n)``, all with
+   adamw_fused, and ``MeshSpec(tp=n)`` with adamw8bit.  Per form: the
+   step ms (the slowest rank's best window) and each rank's, tokens/s,
+   per-rank peak and resident memory, parameter and optimizer-state
+   bytes, all 7 losses of every rank equal and within SHARDED_LOSS_RTOL
+   of phase 13's one-process step, kernels 4-7's launches a step and
+   kernels 4-6's by local shape; kernel 4 at a ring block's shape and
+   kernel 7 at a tp shard of ``wi`` against their plain versions;
 9. the ``launch_split`` line (the serving kernels' launches by shape,
    each from its own main path); the ``kernels`` line (launches from
    each kernel's own main path: the
@@ -2995,6 +3019,10 @@ SHARDED_MESHES = (("dp", False, "adamw_fused"),
 # at the second; 1e-4 is 25x that, and a hundredth of the 1% by which
 # six updates move the last loss (10.877 -> 10.759)
 SHARDED_LOSS_RTOL = 1e-4
+# PipelinedLM(n_stages=1) against its Transformer in f32 (phase 14): the
+# micro-batches' matmuls take other shapes, so sums run in other orders;
+# one H100 (700 W) measured 3.2e-6 on the logits, 6.1e-6 on a gradient
+PIPE_RTOL = 5e-5
 
 
 def _state_bytes(torch, tree):
@@ -3357,6 +3385,520 @@ def phase_sharded(torch, dev):
         fsdp_over_dp_opt_state=ratio, direct_losses=direct, meshes=meshes)
 
 
+# phase 14: the flagship's forward split across GPUs (tp, sp, cp, pp)
+# (label, MeshSpec fields of n cards, config overrides, kind,
+# optimizer): "tp" shards by the JAX rules, "cp" replicates the
+# parameters and gives each rank its sequence block, "pp" holds one
+# PipelinedLM stage a rank
+def model_parallel_forms(n):
+    return (("tp", dict(dp=1, tp=n), {}, "tp", "adamw_fused"),
+            ("dp_tp_sp", dict(dp=n // 2, tp=2), {"sp_axis": "tp"}, "tp",
+             "adamw_fused"),
+            ("ring", dict(dp=1, tp=n), {"ring_attention_axis": "tp"}, "cp",
+             "adamw_fused"),
+            ("ulysses", dict(dp=1, tp=n), {"ulysses_axis": "tp"}, "cp",
+             "adamw_fused"),
+            ("pp", dict(dp=1, pp=n), {}, "pp", "adamw_fused"),
+            ("tp_adamw8bit", dict(dp=1, tp=n), {}, "tp", "adamw8bit"))
+
+
+def model_parallel_skip(form, n, cfg, batch):
+    """Why ``n`` cards cannot hold a mesh form, or None."""
+    label, spec = form[0], form[1]
+    if any(v < 1 for v in spec.values()) or (
+            spec.get("dp", 1) * spec.get("tp", 1) * spec.get("pp", 1) != n):
+        return f"{label} needs a card count its mesh factors into"
+    tp, pp = spec.get("tp", 1), spec.get("pp", 1)
+    for what, dim, by in (("n_heads", cfg["n_heads"], tp),
+                          ("d_ff", cfg["d_ff"], tp),
+                          ("vocab_size", cfg["vocab_size"], tp),
+                          ("max_seq_len", cfg["max_seq_len"], tp),
+                          ("n_layers", cfg["n_layers"], pp),
+                          ("batch", batch // spec.get("dp", 1), pp)):
+        if dim % by:
+            return f"{label}: {what}={dim} does not split over {by}"
+    return None
+
+
+def _flagship_split(torch, dev, form, mesh):
+    """The full-depth flagship (seed 0, phase 13's weights) of a mesh form,
+    its shardings, optimizer, state and step on ``mesh``."""
+    from tensorflowonspark_tpu_torch import optim, optim8bit
+    from tensorflowonspark_tpu_torch.benchmarks import (FLAGSHIP_LM_V2,
+                                                        FLAGSHIP_MU_DTYPE)
+    from tensorflowonspark_tpu_torch.models.pipelined import PipelinedLM
+    from tensorflowonspark_tpu_torch.models.transformer import (
+        Transformer, TransformerConfig, lm_loss)
+    from tensorflowonspark_tpu_torch.parallel import sharding as sharding_mod
+    from tensorflowonspark_tpu_torch.parallel import train as train_mod
+
+    _, _, over, kind, opt_name = form
+    cfg = TransformerConfig(**dict(FLAGSHIP_LM_V2, **over))
+    with torch.device(dev):
+        model = Transformer(cfg)
+    model.reset_parameters(torch.Generator(dev).manual_seed(0))
+    if kind == "pp":
+        with torch.device(dev):
+            seq = model
+            model = PipelinedLM(cfg, n_stages=mesh.shape["pp"])
+        model.from_transformer(seq)
+        del seq
+    rules = () if kind == "cp" else sharding_mod.DEFAULT_RULES
+    shardings = sharding_mod.infer_param_shardings(model, mesh, rules=rules)
+    layouts = None
+    if opt_name == "adamw8bit":
+        layouts = optim8bit.layouts_for_shardings(model, shardings)
+        opt, _ = optim.make_optimizer(opt_name, learning_rate=3e-4,
+                                      layouts=layouts)
+    else:
+        opt, _ = optim.make_optimizer(opt_name, learning_rate=3e-4,
+                                      mu_dtype=FLAGSHIP_MU_DTYPE)
+    state = train_mod.create_train_state(model, opt, mesh, shardings)
+    step = train_mod.make_train_step(
+        lambda m, b, r: lm_loss(m(b[0]), b[1]), opt, mesh, layouts=layouts)
+    return model, shardings, state, step
+
+
+class _Counted:
+    """A kernel wrapper that also counts its calls by local shape; its
+    ``launches`` is the wrapper's own (which the wrapper, looking itself
+    up by name, increments)."""
+
+    def __init__(self, fn, name, seen):
+        self.fn, self.name, self.seen = fn, name, seen
+
+    def __call__(self, q, k, *args, **kw):
+        self.seen[self.name, "x".join(map(str, q.shape)),
+                  "x".join(map(str, k.shape))] += 1
+        return self.fn(q, k, *args, **kw)
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.fn.launches = value
+
+
+class _FlashShapes:
+    """Counts kernels 4-6's launches by local shape while entered."""
+
+    def __init__(self):
+        from collections import Counter
+
+        from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+
+        self.fa, self.seen, self.saved = fa, Counter(), {}
+
+    def __enter__(self):
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            self.saved[name] = getattr(self.fa, name)
+            setattr(self.fa, name, _Counted(self.saved[name], name,
+                                            self.seen))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.fa, name, fn)
+
+    def by_shape(self):
+        return [dict(kernel=k, q=q, kv=kv, launches=c)
+                for (k, q, kv), c in sorted(self.seen.items())]
+
+
+def _model_parallel_run(torch, dev, args, form):
+    """One mesh form of phase 14 in one rank: the full-depth flagship split
+    on its mesh, a warm-up step and the windows over this rank's block of
+    phase 13's seeded global batches; kernel 4 at a ring block and kernel
+    7 at a tp shard against their plain versions."""
+    from collections import Counter
+
+    from tensorflowonspark_tpu_torch import ops
+    from tensorflowonspark_tpu_torch.benchmarks import (FLAGSHIP_LM_V2,
+                                                        FLAGSHIP_MU_DTYPE)
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+    from tensorflowonspark_tpu_torch.ops import fused_optim as fo
+    from tensorflowonspark_tpu_torch.parallel import mesh as mesh_mod
+
+    label, spec, _, kind, opt_name = form
+    mesh = mesh_mod.build_mesh(mesh_mod.MeshSpec(**spec))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    model, shardings, state, step = _flagship_split(torch, dev, form, mesh)
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+    seq = "tp" if kind == "cp" else None
+    sh = mesh_mod.batch_sharding(mesh, seq)
+    rows = cluster_rows(args["seed"], args["batch"] * SHARDED_STEPS,
+                        FLAGSHIP_LM_V2["vocab_size"],
+                        FLAGSHIP_LM_V2["max_seq_len"])
+    B = args["batch"]
+    batches = []
+    for i in range(SHARDED_STEPS):
+        r = rows[i * B:(i + 1) * B]
+        local = mesh_mod.local_rows((r[:, :-1], r[:, 1:]), mesh,
+                                    seq_axis=seq)
+        batches.append(tuple(t.long() for t in mesh_mod.put_batch(local,
+                                                                  sh)))
+    ops.reset_launch_counts()
+    with _FlashShapes() as shapes:
+        state, m = step(state, batches[0], None)             # warm-up
+        losses = [m["loss"]]
+        times = []
+        for w in range(SHARDED_WINDOWS):
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            for i in range(SHARDED_WINDOW):
+                state, m = step(state, batches[1 + w * SHARDED_WINDOW + i],
+                                None)
+                losses.append(m["loss"])
+            m["loss"].item()              # the readback closes the window
+            times.append((time.monotonic() - t) * 1000.0 / SHARDED_WINDOW)
+    launches = ops.launch_counts(ops.TRAINING_KERNELS)
+    local = dict(state.params.named_parameters())
+    out = dict(
+        label=label, mesh=mesh.shape, coords=mesh.coords, optimizer=opt_name,
+        setup_s=setup_s, window_step_ms=times, step_ms=min(times),
+        losses=[x.item() for x in losses], launches=launches,
+        launches_per_step={k: v / SHARDED_STEPS for k, v in launches.items()},
+        flash_by_shape=shapes.by_shape(), n_leaves=len(local),
+        local_batch=[list(t.shape) for t in batches[0]],
+        adamw_by_shape={"x".join(map(str, s)): c * SHARDED_STEPS
+                        for s, c in Counter(tuple(p.shape)
+                                            for p in local.values()).items()}
+        if opt_name == "adamw_fused" else {},
+        split_leaves=sum(1 for n, p in local.items()
+                         if shardings[n].shard_dim(p.ndim)),
+        param_bytes=_state_bytes(torch, list(local.values())),
+        opt_state_bytes=_state_bytes(torch, state.opt_state),
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        memory_allocated_gb=torch.cuda.memory_allocated() / 1e9)
+    if label == "ring":
+        # kernel 4 at a ring block's shape (past: non-causal; diagonal:
+        # causal) against its plain version, phase 6's tolerance
+        blk = batches[0][0].shape
+        H, n_kv = FLAGSHIP_LM_V2["n_heads"], FLAGSHIP_LM_V2["n_kv_heads"]
+        D = FLAGSHIP_LM_V2["d_model"] // H
+        gen = torch.Generator().manual_seed(SEED + 14)
+        q, k, v = (torch.randn((blk[0], blk[1], h, D), generator=gen)
+                   .to(dev, torch.bfloat16) for h in (H, n_kv, n_kv))
+        errs = {}
+        for causal in (False, True):
+            got, got_lse = fa.flash_fwd(q, k, v, causal)
+            ref, ref_lse = fa.flash_fwd_plain(q, k, v, causal)
+            torch.cuda.synchronize()
+            for what, a, b in (("out", got, ref), ("lse", got_lse, ref_lse)):
+                if not torch.allclose(a.float(), b.float(), atol=TOL,
+                                      rtol=TOL):
+                    raise AssertionError(f"kernel 4 at the ring block "
+                                         f"{list(q.shape)} ({what})")
+            errs["causal" if causal else "past"] = (
+                got.float() - ref.float()).abs().max().item()
+        out["flash_block_check"] = dict(q=list(q.shape), k=list(k.shape),
+                                        max_abs_err=errs, tol=TOL)
+    if label == "tp":
+        # kernel 7 at this rank's tp shard of wi against its plain version
+        name = "layer_0.mlp.wi.weight"
+        p = local[name].detach()
+        gen = torch.Generator(dev).manual_seed(SEED + 15)
+        g = torch.randn(p.shape, device=dev, generator=gen)
+        mu = (0.1 * g).to(getattr(torch, FLAGSHIP_MU_DTYPE))
+        nu = 0.01 * g * g
+        scal = fo._scalars(lambda c: torch.full_like(c, 3e-4,
+                                                     dtype=torch.float32),
+                           torch.zeros((), dtype=torch.int32, device=dev),
+                           None, 0.9, 0.999, {name: g})
+        kw = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.0, write_param=True)
+        want = fo.adamw_plain(g, p, mu.clone(), nu.clone(), scal, **kw)
+        got_p, got_mu, got_nu = p.clone(), mu.clone(), nu.clone()
+        fo._adamw(g, got_p, got_mu, got_nu, scal, got_p, **kw)
+        torch.cuda.synchronize()
+        pairs = ((got_p, want[0]), (got_mu, want[1]), (got_nu, want[2]))
+        for (a, b), rtol in zip(pairs, (1e-6, 8e-3, 1e-6)):
+            if not torch.allclose(a.float(), b.float(), atol=1e-6,
+                                  rtol=rtol):
+                raise AssertionError(f"kernel 7 disagrees at the {name} "
+                                     f"tp shard {tuple(p.shape)}")
+        out["adamw_shard_check"] = dict(
+            leaf=name, shape=list(p.shape),
+            max_abs_err=(got_p - want[0]).abs().max().item(),
+            bitwise=all(torch.equal(a, b.to(a.dtype)) for a, b in pairs))
+    del state, step, batches, model, local
+    torch.cuda.empty_cache()
+    return out
+
+
+def model_parallel_train_fn(args, ctx):
+    """Phase 14's map_fun, one rank per GPU: joins the training world
+    (nccl), then trains each mesh form of ``args["forms"]`` in turn.
+    Writes ``model_parallel_rank<r>.json`` in the executor's working
+    dir."""
+    import torch
+    import torch.distributed as dist
+
+    from tensorflowonspark_tpu_torch.device import resolve
+
+    _card_flags(torch)
+    grouped = ctx.init_distributed(timeout=600)
+    rank = dist.get_rank() if grouped else 0
+    out = dict(rank=rank, backend=dist.get_backend() if grouped else None,
+               device=torch.cuda.get_device_name(0))
+    dev = resolve()
+    out["forms"] = [_model_parallel_run(torch, dev, args, tuple(form))
+                    for form in args["forms"]]
+    if grouped:
+        dist.barrier()
+        dist.destroy_process_group()
+    with open(os.path.join(ctx.working_dir,
+                           f"model_parallel_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def model_parallel_one_card(torch, dev):
+    """Phase 14's checks on one card: the ring's per-step merge over 4
+    blocks of one full-width layer through kernels 4-6 against flash
+    attention over the whole sequence; PipelinedLM(n_stages=1, n_micro=4)
+    against the Transformer it came from; the vocab-parallel loss at tp=1
+    against lm_loss."""
+    from tensorflowonspark_tpu_torch import ops
+    from tensorflowonspark_tpu_torch.benchmarks import FLAGSHIP_LM_V2
+    from tensorflowonspark_tpu_torch.models import transformer as tf_mod
+    from tensorflowonspark_tpu_torch.models.pipelined import PipelinedLM
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+    from tensorflowonspark_tpu_torch.parallel import collectives as coll
+    from tensorflowonspark_tpu_torch.parallel import ring_attention as ring
+
+    out = {}
+    # --- the ring's merge: 4 blocks of one layer, forward and backward ---
+    B, S, n = 2, FLAGSHIP_LM_V2["max_seq_len"], 4
+    H, n_kv = FLAGSHIP_LM_V2["n_heads"], FLAGSHIP_LM_V2["n_kv_heads"]
+    D = FLAGSHIP_LM_V2["d_model"] // H
+    gen = torch.Generator().manual_seed(SEED + 16)
+    q, k, v = (torch.randn((B, S, h, D), generator=gen).to(
+        dev, torch.bfloat16).requires_grad_(True) for h in (H, n_kv, n_kv))
+    do = torch.randn((B, S, H, D), generator=gen).to(dev, torch.bfloat16)
+    s = S // n
+    blocks = [(k[:, i * s:(i + 1) * s], v[:, i * s:(i + 1) * s])
+              for i in range(n)]
+    ops.reset_launch_counts()
+    got = torch.cat([ring.ring_merge(
+        q[:, r * s:(r + 1) * s],
+        [((r - j) % n,) + blocks[(r - j) % n] for j in range(n)], r, True)
+        for r in range(n)], dim=1)
+    grads = torch.autograd.grad(got, (q, k, v), do)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts(("flash_fwd", "flash_bwd_dq",
+                                  "flash_bwd_dkv"))
+    ref = fa.flash_attention(q, k, v, causal=True)
+    want = torch.autograd.grad(ref, (q, k, v), do)
+    errs = {}
+    for name, a, b, atol in (("out", got, ref, TOL),
+                             ("dq", grads[0], want[0], GRAD_ATOL),
+                             ("dk", grads[1], want[1], GRAD_ATOL),
+                             ("dv", grads[2], want[2], GRAD_ATOL)):
+        errs[name] = (a.float() - b.float()).abs().max().item()
+        if not torch.allclose(a.float(), b.float(), atol=atol, rtol=TOL):
+            raise AssertionError(f"ring merge: {name} disagrees with flash "
+                                 f"attention ({errs[name]})")
+    # causal: query block r merges blocks 0..r (n(n+1)/2 launches each way)
+    want_launches = n * (n + 1) // 2
+    if any(c != want_launches for c in launches.values()):
+        raise AssertionError(f"ring merge launches {launches}, want "
+                             f"{want_launches} of each")
+    out["ring_merge"] = dict(B=B, S=S, blocks=n, H=H, n_kv=n_kv, D=D,
+                             dtype="bfloat16", launches=launches,
+                             max_abs_err=errs, tol=dict(out=TOL,
+                                                        grads=GRAD_ATOL,
+                                                        rtol=TOL))
+    del q, k, v, do, got, grads, ref, want, blocks
+    torch.cuda.empty_cache()
+
+    # --- PipelinedLM(n_stages=1, n_micro=4) against its Transformer ------
+    cfg = tf_mod.TransformerConfig(**dict(FLAGSHIP_LM_V2, n_layers=2,
+                                          dtype="float32"))
+    with torch.device(dev):
+        seq_model = tf_mod.Transformer(cfg)
+        pipe = PipelinedLM(cfg, n_stages=1, n_micro=4)
+    seq_model.reset_parameters(torch.Generator(dev).manual_seed(0))
+    pipe.from_transformer(seq_model)
+    tokens = torch.from_numpy(cluster_rows(SEED + 17, 4, cfg.vocab_size,
+                                           cfg.max_seq_len)).to(dev).long()
+    errs = {}
+    ops.reset_launch_counts()
+    logits = pipe(tokens[:, :-1])
+    p_grads = torch.autograd.grad(tf_mod.lm_loss(logits, tokens[:, 1:]),
+                                  list(pipe.parameters()))
+    torch.cuda.synchronize()
+    launches = ops.launch_counts(("flash_fwd", "flash_bwd_dq",
+                                  "flash_bwd_dkv"))
+    ref = seq_model(tokens[:, :-1])
+    s_grads = torch.autograd.grad(tf_mod.lm_loss(ref, tokens[:, 1:]),
+                                  list(seq_model.parameters()))
+    errs["logits"] = ((logits - ref).abs().max() / ref.abs().max()).item()
+    errs["grads"] = max(((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+                        for a, b in zip(p_grads, s_grads))
+    if errs["logits"] > PIPE_RTOL or errs["grads"] > PIPE_RTOL:
+        raise AssertionError(f"PipelinedLM(n_stages=1) against its "
+                             f"Transformer: {errs}")
+    if any(c != 2 * 4 for c in launches.values()):
+        raise AssertionError(f"PipelinedLM launches {launches}: want 8 of "
+                             "each (2 layers x 4 micro-batches)")
+    out["pipelined_one_stage"] = dict(
+        layers=cfg.n_layers, batch=4, seq=cfg.max_seq_len, n_micro=4,
+        dtype="float32", launches=launches, rel_err=errs, rtol=PIPE_RTOL)
+    del seq_model, pipe, logits, ref, p_grads, s_grads
+    torch.cuda.empty_cache()
+
+    # --- the vocab-parallel loss at tp=1 against lm_loss -----------------
+    gen = torch.Generator(dev).manual_seed(SEED + 18)
+    V = FLAGSHIP_LM_V2["vocab_size"]
+    lg = (4 * torch.randn((2, S, V), device=dev, generator=gen)).to(
+        torch.bfloat16).requires_grad_(True)
+    tg = torch.randint(0, V, (2, S), device=dev, generator=gen)
+    tg[0, :16] = -1
+    split = tf_mod.LogitsSplit(coll.SOLO, 0, V, coll.SOLO)
+    got = tf_mod.vocab_parallel_lm_loss(lg, tg, split)
+    want = tf_mod.lm_loss(lg, tg)
+    g_got, = torch.autograd.grad(got, lg)
+    g_want, = torch.autograd.grad(want, lg)
+    loss_err = abs(got.item() - want.item()) / abs(want.item())
+    grad_err = (g_got.float() - g_want.float()).abs().max().item()
+    if loss_err > 1e-6 or grad_err > 1e-6:
+        raise AssertionError(f"vocab-parallel loss at tp=1: {loss_err}, "
+                             f"gradient {grad_err}")
+    out["vocab_parallel_loss"] = dict(shape=list(lg.shape), loss=got.item(),
+                                      lm_loss=want.item(),
+                                      rel_err=loss_err,
+                                      grad_max_abs_err=grad_err)
+    return out
+
+
+def model_parallel_summary(ranks, forms, direct, tokens):
+    """Phase 14's per-form checks and numbers from the ranks' results:
+    every rank's 7 losses equal and within SHARDED_LOSS_RTOL of
+    ``direct`` (the one-process step's), every kernel of the path
+    launched, the flash launches by shape adding up; the step ms of the
+    slowest rank's best window and ``tokens`` a step over it.  Every
+    form is summed up before a failure raises (all of them named)."""
+    meshes, failed = {}, []
+    for j, (label, _, _, kind, opt_name) in enumerate(forms):
+        runs = [r["forms"][j] for r in ranks]
+        losses = runs[0]["losses"]
+        # the global mean loss on every rank: the tp / pp / cp replicas
+        # and the dp ranks alike
+        if any(r["losses"] != losses for r in runs):
+            failed.append(f"{label}: the ranks' losses differ: "
+                          f"{[r['losses'] for r in runs]}")
+        ref = direct[opt_name]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+        if len(losses) != SHARDED_STEPS or not all(
+                x == x for x in losses) or max(rel) > SHARDED_LOSS_RTOL:
+            failed.append(f"{label}: losses {losses} against the "
+                          f"one-process step's {ref} (relative {rel}, "
+                          f"tolerance {SHARDED_LOSS_RTOL})")
+        for r in runs:
+            used = ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"] + (
+                ["adamw"] if opt_name == "adamw_fused" else [])
+            if any(r["launches"][k] == 0 for k in used):
+                failed.append(f"{label}: a kernel of the path was not "
+                              f"launched: {r['launches']}")
+            flash = sum(x["launches"] for x in r["flash_by_shape"]
+                        if x["kernel"] == "flash_fwd")
+            if flash != r["launches"]["flash_fwd"]:
+                failed.append(f"{label}: flash launches by shape "
+                              f"{r['flash_by_shape']} do not add up")
+        meshes[label] = dict(
+            mesh=runs[0]["mesh"], kind=kind, optimizer=opt_name,
+            step_ms=max(r["step_ms"] for r in runs),
+            rank_step_ms=[r["step_ms"] for r in runs],
+            window_step_ms=[r["window_step_ms"] for r in runs],
+            tokens_per_s=tokens / (max(r["step_ms"] for r in runs) / 1000.0),
+            setup_s=[r["setup_s"] for r in runs], losses=losses,
+            direct_losses=ref, loss_rel_diff=rel,
+            loss_rtol=SHARDED_LOSS_RTOL,
+            max_memory_allocated_gb=[r["max_memory_allocated_gb"]
+                                     for r in runs],
+            memory_allocated_gb=[r["memory_allocated_gb"] for r in runs],
+            opt_state_bytes=[r["opt_state_bytes"] for r in runs],
+            param_bytes=[r["param_bytes"] for r in runs],
+            split_leaves=runs[0]["split_leaves"],
+            n_leaves=[r["n_leaves"] for r in runs],
+            local_batch=[r["local_batch"] for r in runs],
+            launches_per_step=[r["launches_per_step"] for r in runs],
+            flash_by_shape=[r["flash_by_shape"] for r in runs],
+            adamw_by_shape=runs[0]["adamw_by_shape"])
+        for key in ("flash_block_check", "adamw_shard_check"):
+            if key in runs[0]:
+                meshes[label][key] = [r[key] for r in runs]
+    if failed:
+        emit("model_parallel_failed", meshes=meshes)
+        raise AssertionError("; ".join(failed))
+    return meshes
+
+
+def phase_model_parallel(torch, dev, direct):
+    """Phase 14: the one-card checks (:func:`model_parallel_one_card`),
+    then, over every visible GPU (one executor each, nccl), the
+    full-width flagship trained on each mesh form of
+    :func:`model_parallel_forms` that the cards can hold, its 7 losses
+    held to ``direct`` (phase 13's one-process losses on the same global
+    batches) within SHARDED_LOSS_RTOL."""
+    from tensorflowonspark_tpu_torch import backend, cluster
+    from tensorflowonspark_tpu_torch.benchmarks import (FLAGSHIP_BATCH,
+                                                        FLAGSHIP_LM_V2)
+
+    out = dict(one_card=model_parallel_one_card(torch, dev))
+    n = torch.cuda.device_count()
+    out["world"] = n
+    if n < 2:
+        return out
+    B, S = FLAGSHIP_BATCH, FLAGSHIP_LM_V2["max_seq_len"]
+    forms, skipped = [], {}
+    for form in model_parallel_forms(n):
+        why = model_parallel_skip(form, n, FLAGSHIP_LM_V2, B)
+        if why:
+            skipped[form[0]] = why
+            print(f"phase 14: skipping {form[0]}: {why}", flush=True)
+        else:
+            forms.append(form)
+    root = os.path.join(HERE, "build", "chip_smoke", "model_parallel")
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    c = cluster.run(
+        backend.LocalBackend(n, workdir=root, start_method="spawn"),
+        model_parallel_train_fn, dict(batch=B, seed=SEED + 13, forms=forms),
+        num_executors=n, input_mode=cluster.InputMode.SPARK,
+        num_chips=1, reservation_timeout=300)
+    try:
+        # the map_fun reads no feed: shutdown's end-of-feed waits for it
+        c.shutdown(timeout=1800)
+    except BaseException:
+        c.abort()
+        raise
+    wall_s = time.time() - t0
+    ranks = []
+    for i in range(n):
+        for f in os.listdir(os.path.join(root, f"executor-{i}")):
+            if f.startswith("model_parallel_rank"):
+                with open(os.path.join(root, f"executor-{i}", f)) as fh:
+                    ranks.append(json.load(fh))
+    ranks.sort(key=lambda r: r["rank"])
+    if [r["rank"] for r in ranks] != list(range(n)):
+        raise AssertionError(f"ranks {[r['rank'] for r in ranks]} of {n}")
+    if {r["backend"] for r in ranks} != {"nccl"}:
+        raise AssertionError(f"backends {[r['backend'] for r in ranks]}")
+    meshes = model_parallel_summary(ranks, forms, direct, B * S)
+    shutil.rmtree(root, ignore_errors=True)
+    out.update(config="FLAGSHIP_LM_V2", batch=B, seq=S,
+               steps=SHARDED_STEPS, wall_s=wall_s,
+               devices=[r["device"] for r in ranks], skipped=skipped,
+               meshes=meshes)
+    return out
+
+
 def main():
     try:
         import torch
@@ -3540,8 +4082,12 @@ def main():
     emit("pipeline_main_path", nvidia_smi=card,
          **phase_pipeline(torch, dev, train_main["step_ms"]))
     torch.cuda.empty_cache()
+    sharded = phase_sharded(torch, dev)
     emit("sharded_main_path", nvidia_smi=card,
-         phase8_step_ms=train_main["step_ms"], **phase_sharded(torch, dev))
+         phase8_step_ms=train_main["step_ms"], **sharded)
+    torch.cuda.empty_cache()
+    emit("model_parallel_main_path", nvidia_smi=card,
+         **phase_model_parallel(torch, dev, sharded["direct_losses"]))
     torch.cuda.empty_cache()
 
     # the serving kernels' launches by shape, each from its own main path

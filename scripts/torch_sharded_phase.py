@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Phase 13 of ``chip_smoke.py`` alone: the full-width flagship trained
-as one cluster, one rank per visible GPU (``cluster.run`` over
+"""Phases 13 and 14 of ``chip_smoke.py`` alone: the full-width flagship
+trained as one cluster, one rank per visible GPU (``cluster.run`` over
 ``LocalBackend(n, start_method="spawn")``, nccl), on a dp mesh, an fsdp
-mesh and the fsdp mesh with adamw8bit, held to the direct one-process
-step; without the other phases.
+mesh and the fsdp mesh with adamw8bit (phase 13), then with its forward
+split over tp, tp + sp, ring and Ulysses context parallelism and a
+pipeline, and tp with adamw8bit (phase 14), held to the direct
+one-process step; without the other phases.
 
     python3 scripts/torch_sharded_phase.py
 
@@ -11,9 +13,9 @@ Prints the cards' names and power limits, ``nvidia-smi topo -m`` (the
 links between the cards; where it fails, ``nvidia-smi nvlink
 --status``) and a ``peer_access`` line (``torch.cuda.
 can_device_access_peer`` between every two cards), builds the kernels
-from a clean build directory, then prints the ``sharded_main_path``
-JSON line.  Needs a CUDA device;
-exits 2 without one.
+from a clean build directory, then prints the ``sharded_main_path`` and
+``model_parallel_main_path`` JSON lines.  Needs a CUDA device; exits 2
+without one.
 """
 import os
 import shutil
@@ -56,8 +58,12 @@ def main():
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
     info = _build.build(force=True)
     chip_smoke.emit("build", seconds=info["seconds"])
-    chip_smoke.emit("sharded_main_path", nvidia_smi=card,
-                    **chip_smoke.phase_sharded(torch, torch.device("cuda")))
+    dev = torch.device("cuda")
+    sharded = chip_smoke.phase_sharded(torch, dev)
+    chip_smoke.emit("sharded_main_path", nvidia_smi=card, **sharded)
+    chip_smoke.emit("model_parallel_main_path", nvidia_smi=card,
+                    **chip_smoke.phase_model_parallel(
+                        torch, dev, sharded["direct_losses"]))
     return 0
 
 

@@ -19,8 +19,11 @@ port's layout (its blocks run along the other axis).
 
 ``flax_path`` maps a port name to its flax path (what the sharding rules
 match); ``shard_of`` / ``join_shards`` cut a full tensor into its fsdp
-slices and join them again, so that a JAX state on a mesh and the port's
-per-rank states can be held leaf by leaf.
+and tp slices (one dim or two) and join them again, so that a JAX state
+on a mesh and the port's per-rank states can be held leaf by leaf.
+``pipelined_from_jax`` / ``pipelined_to_jax`` map the JAX
+``PipelinedLM`` layout (stacked ``[n_stages, layers/stage, ...]``
+blocks) to the port's ``PipelinedLM`` and back.
 
 ``qparams_from_jax`` / ``qparams_to_jax`` do the same for a quantised
 tree (``quantize.quantize_tree``): a quantised kernel keeps the JAX
@@ -90,23 +93,125 @@ def flax_path(name, ndim):
     return "/".join(module + [leaf]), False
 
 
-def shard_of(t, sharding, index):
-    """Slice ``index`` (an fsdp index) of the full port tensor ``t`` under
-    ``sharding`` (a ``parallel.mesh.NamedSharding``), contiguous; ``t``
-    itself when the sharding replicates it."""
-    split = sharding.shard_dim(t.ndim)
-    if split is None:
+def _shard_grid(sharding, ndim):
+    """``[(dim, axes, extent)]`` of the dims ``sharding`` splits."""
+    return [(d, axes, sharding.mesh.extent(axes))
+            for d, axes in sharding.shard_dim(ndim)]
+
+
+def _dim_index(axes, coords, mesh):
+    i = 0
+    for a in axes:
+        i = i * mesh.shape[a] + coords[a]
+    return i
+
+
+def shard_of(t, sharding, coords):
+    """This rank's slice of the full port tensor ``t`` under ``sharding``
+    (a ``parallel.mesh.NamedSharding``), contiguous; ``t`` itself when
+    the sharding replicates it.  ``coords``: the rank's ``{axis:
+    index}`` (``Mesh.coords``), or, for a tensor split over one axis, its
+    index along it."""
+    grid = _shard_grid(sharding, t.ndim)
+    if not grid:
         return t
-    dim, axes = split
-    size = t.shape[dim] // sharding.mesh.extent(axes)
-    return t.narrow(dim, index * size, size).contiguous()
+    if not isinstance(coords, dict):
+        if len(grid) != 1 or len(grid[0][1]) != 1:
+            raise ValueError(f"spec {sharding.spec} splits over "
+                             f"{[g[1] for g in grid]}: pass coords")
+        coords = {grid[0][1][0]: int(coords)}
+    for dim, axes, n in grid:
+        size = t.shape[dim] // n
+        t = t.narrow(dim, _dim_index(axes, coords, sharding.mesh) * size,
+                     size)
+    return t.contiguous()
 
 
 def join_shards(shards, sharding):
-    """The full tensor from its slices in fsdp index order (the inverse
-    of :func:`shard_of`)."""
-    split = sharding.shard_dim(shards[0].ndim)
-    return shards[0] if split is None else torch.cat(shards, dim=split[0])
+    """The full tensor from its slices (the inverse of :func:`shard_of`):
+    one slice per combination of the split axes' indices, in row-major
+    order over those axes in ``parallel.mesh.ALL_AXES`` order (for one
+    split axis: its index order)."""
+    import itertools
+
+    from tensorflowonspark_tpu_torch.parallel.mesh import ALL_AXES
+
+    grid = _shard_grid(sharding, shards[0].ndim)
+    if not grid:
+        return shards[0]
+    mesh = sharding.mesh
+    axes = [a for a in ALL_AXES if any(a in g[1] for g in grid)]
+    shape = list(shards[0].shape)
+    for dim, _, n in grid:
+        shape[dim] *= n
+    full = shards[0].new_empty(shape)
+    combos = list(itertools.product(*(range(mesh.shape[a]) for a in axes)))
+    if len(combos) != len(shards):
+        raise ValueError(f"{len(shards)} shards for a split over {axes} "
+                         f"of {len(combos)}")
+    for shard, idx in zip(shards, combos):
+        coords = dict(zip(axes, idx))
+        view = full
+        for dim, split_axes, _ in grid:
+            size = shard.shape[dim]
+            view = view.narrow(
+                dim, _dim_index(split_axes, coords, mesh) * size, size)
+        view.copy_(shard)
+    return full
+
+
+def pipelined_from_jax(tree, n_stages):
+    """A JAX ``PipelinedLM`` parameter tree (``{"embed": {token_embed,
+    pos_embed}, "blocks": leaves [n_stages, layers/stage, ...], "head":
+    {ln_f, lm_head}}``, numpy) -> the port's ``state_dict`` of a
+    ``models.pipelined.PipelinedLM``, which names its parameters as the
+    sequential ``Transformer`` does (``layer_<i>`` for layer ``i =
+    stage * layers_per_stage + j``)."""
+    if isinstance(tree, dict) and set(tree) == {"params"}:
+        tree = tree["params"]
+    flat = dict(tree["embed"])
+    flat.update(tree["head"])
+
+    def unstack(node, s, j):
+        if isinstance(node, dict):
+            return {k: unstack(v, s, j) for k, v in node.items()}
+        arr = np.asarray(node)
+        if arr.shape[0] != n_stages:
+            raise ValueError(f"a blocks leaf of shape {arr.shape} does not "
+                             f"lead with n_stages={n_stages}")
+        return arr[s, j]
+
+    leaf = tree["blocks"]
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    per_stage = np.asarray(leaf).shape[1]
+    for s in range(n_stages):
+        for j in range(per_stage):
+            flat[f"layer_{s * per_stage + j}"] = unstack(tree["blocks"], s, j)
+    return params_from_jax(flat)
+
+
+def pipelined_to_jax(state_dict, n_stages):
+    """The inverse of :func:`pipelined_from_jax`: a ``PipelinedLM`` (or
+    ``Transformer``) ``state_dict`` -> the JAX ``PipelinedLM`` tree."""
+    tree = params_to_jax(state_dict)
+    layers = sorted((k for k in tree if k.startswith("layer_")),
+                    key=lambda k: int(k.split("_")[1]))
+    if len(layers) % n_stages:
+        raise ValueError(f"{len(layers)} layers do not split into "
+                         f"{n_stages} stages")
+    per_stage = len(layers) // n_stages
+
+    def stack(nodes):
+        if isinstance(nodes[0], dict):
+            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
+        return np.stack(nodes)
+
+    stages = [stack([tree[layers[s * per_stage + j]]
+                     for j in range(per_stage)]) for s in range(n_stages)]
+    embed = {k: tree[k] for k in _EMBEDS if k in tree}
+    return {"embed": embed, "blocks": stack(stages),
+            "head": {"ln_f": tree["ln_f"], "lm_head": tree["lm_head"]}}
 
 
 def _tensor(arr):

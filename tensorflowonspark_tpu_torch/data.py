@@ -645,9 +645,17 @@ class Dataset:
         unless the caller asks for the CPU; without CUDA it raises) with
         `depth` host->device copies in flight (`feed.device_prefetch`).
         ``sharding`` (``parallel.mesh.batch_sharding``): each rank's own
-        rows, checked and placed as ``feed.device_prefetch`` does."""
+        rows, checked and placed as ``feed.device_prefetch`` does; under
+        a sequence axis each batch is cut to the rank's sequence block
+        first, as ``DataFeed.iter_device_batches`` cuts it."""
         from .feed import device_prefetch
-        return device_prefetch(iter(self), sharding=sharding, depth=depth,
+
+        batches = iter(self)
+        if sharding is not None:
+            from .parallel import mesh as mesh_mod
+
+            batches = (mesh_mod.seq_block(b, sharding) for b in batches)
+        return device_prefetch(batches, sharding=sharding, depth=depth,
                                device=device)
 
     def take(self, n):

@@ -62,7 +62,8 @@ def device_prefetch(batch_iter: Iterable, sharding: Any = None,
 
     ``sharding`` (``parallel.mesh.batch_sharding(mesh)``) routes each
     batch through ``parallel.mesh.put_batch``'s contract: every rank
-    passes ITS rows, and the copy goes to the mesh's device (unless
+    passes ITS block (its rows; under a sequence axis, its sequence block
+    of them, as ``local_rows`` cuts it), and the copy goes to the mesh's device (unless
     ``device`` says otherwise).  The first batch's local shapes are
     checked equal across the batch group, once; every later batch must
     have them too, which is checked on this rank alone (ValueError
@@ -519,7 +520,10 @@ class DataFeed:
         boundaries) up to `batch_size` so the step keeps one static
         shape.  Defaults to True when ``sharding`` is given (each rank's
         rows, see `device_prefetch`): every rank must pass the same
-        local shape.
+        local shape.  Under a sharding with a sequence axis
+        (``batch_sharding(mesh, seq_axis)``) each batch of this rank's
+        rows is cut to its sequence block ``[b, S / cp]``; the ranks that
+        differ only along tp or pp must be fed the same rows.
 
         NOTE (multi-process training): padding fixes ragged *shapes*
         only.  When per-process feeds can yield different batch
@@ -534,6 +538,10 @@ class DataFeed:
         batches = self.iter_batches(batch_size, numpy=True)
         if pad:
             batches = (pad_batch(b, batch_size) for b in batches)
+        if sharding is not None:
+            from .parallel import mesh as mesh_mod
+
+            batches = (mesh_mod.seq_block(b, sharding) for b in batches)
         return device_prefetch(batches, sharding=sharding, depth=depth,
                                device=device)
 

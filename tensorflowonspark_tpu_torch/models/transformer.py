@@ -20,11 +20,38 @@ recomputes each block in the backward
 (``torch.utils.checkpoint``).  :func:`lm_loss` is the causal-LM loss the
 train step uses.  Fields of the config whose feature is not ported raise
 ``NotImplementedError`` naming the ROADMAP item when they are set.
+
+Split over GPUs (the forward reads its mesh from
+``parallel.mesh.use_mesh``, which the train and eval steps enter; the
+collectives are ``parallel.collectives``):
+
+- **tp** (parameters sharded by the JAX rules, ``parallel.sharding``):
+  ``query`` / ``key`` / ``value`` / ``wi`` are column-parallel at local
+  head counts, entered through ``copy_to_tp``; ``out`` / ``wo`` are
+  row-parallel, left through ``reduce_from_tp`` (the bias added after
+  it); ``token_embed`` / ``pos_embed`` are split over d_model (the local
+  columns looked up, then gathered); ``lm_head`` is split over the
+  vocabulary and returns this rank's vocabulary slice of the logits,
+  which :func:`lm_loss` reduces without forming the whole.  A kv
+  projection that tp splits mid-head (``n_kv_heads % tp``) is gathered
+  and the kv heads this rank's q heads read are taken from it.
+- **sp** (``sp_axis="tp"``, Megatron-SP where JAX puts ``_sp_constrain``):
+  the residual stream between blocks is split over the sequence; each
+  norm runs on its block, ``gather_seq`` precedes the column-parallel
+  projections and ``scatter_seq`` replaces ``reduce_from_tp``.
+- **cp** (``ring_attention_axis`` / ``ulysses_axis``, on the tp axis,
+  parameters replicated over it): every rank's tokens are its sequence
+  block (``parallel.mesh.batch_sharding(mesh, seq_axis)``), positions are
+  global, and attention runs ``parallel.ring_attention`` or
+  ``parallel.ulysses``.
+
+:meth:`Transformer.grad_axes` names the leaves whose gradient a rank
+holds only part of, which the train step sums.
 """
 import dataclasses
 import logging
 import math
-from typing import Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +65,9 @@ from tensorflowonspark_tpu_torch.ops.paged_attention import paged_attention
 from tensorflowonspark_tpu_torch.ops.paged_prefill import (
     _write_pages_int8, kv_dequantize, kv_quantize, paged_prefill)
 from tensorflowonspark_tpu_torch.ops.quant_matmul import quant_matmul
+from tensorflowonspark_tpu_torch.parallel import collectives as coll
+from tensorflowonspark_tpu_torch.parallel.mesh import (AXIS_TP,
+                                                       active_mesh)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,8 +91,8 @@ class TransformerConfig:
     moe_capacity_factor: float = 1.25
     remat: bool = False           # recompute each block in the backward
     ring_attention_axis: Optional[str] = None   # context parallelism
-    ulysses_axis: Optional[str] = None          # (not ported)
-    sp_axis: Optional[str] = None
+    ulysses_axis: Optional[str] = None          # (the tp axis)
+    sp_axis: Optional[str] = None               # Megatron-SP (the tp axis)
     attention_impl: str = "auto"  # auto | flash (CUDA kernels) | dense
     use_bias: bool = False
     ln_eps: float = 1e-6
@@ -85,12 +115,12 @@ class TransformerConfig:
 _UNPORTED = (
     ("num_experts", lambda v: v > 0,
      "MoE layers (ROADMAP: the zoo and the rest)"),
-    ("ring_attention_axis", bool,
-     "context-parallel attention (ROADMAP: multi-GPU sharding, A3b)"),
-    ("ulysses_axis", bool,
-     "context-parallel attention (ROADMAP: multi-GPU sharding, A3b)"),
-    ("sp_axis", bool,
-     "sequence parallelism (ROADMAP: multi-GPU sharding, A3b)"),
+    ("ring_attention_axis", lambda v: v not in (None, AXIS_TP),
+     "context parallelism on another axis than tp (ROADMAP A3c)"),
+    ("ulysses_axis", lambda v: v not in (None, AXIS_TP),
+     "context parallelism on another axis than tp (ROADMAP A3c)"),
+    ("sp_axis", lambda v: v not in (None, AXIS_TP),
+     "sequence parallelism on another axis than tp (ROADMAP A3c)"),
     ("paged_attn_impl", lambda v: v != "kernel",
      "a selectable reference read path (the kernel is the only card path)"),
     ("paged_prefill_impl", lambda v: v != "kernel",
@@ -113,6 +143,14 @@ def check_ported(cfg):
     if cfg.attention_impl not in ("auto", "flash", "dense"):
         raise ValueError(f"attention_impl={cfg.attention_impl!r} not in "
                          "('auto', 'flash', 'dense')")
+    if cfg.ring_attention_axis and cfg.ulysses_axis:
+        raise ValueError(
+            "ring_attention_axis and ulysses_axis are mutually exclusive "
+            "context-parallel strategies")
+    if cfg.sp_axis and (cfg.ring_attention_axis or cfg.ulysses_axis):
+        raise NotImplementedError(
+            "sequence parallelism together with context parallelism on "
+            "one axis is not ported yet (ROADMAP A3c)")
     if cfg.norm_type not in ("layernorm", "rmsnorm"):
         raise ValueError(
             f"norm_type={cfg.norm_type!r} not in ('layernorm', 'rmsnorm')")
@@ -162,6 +200,30 @@ def apply_rope(x, positions, theta=10000.0):
                      dim=-1).to(x.dtype)
 
 
+class _Par(NamedTuple):
+    """Where a forward runs: the tp group, whether the residual stream is
+    split over the sequence on it (sp), and the context-parallel group
+    (cp) with its kind."""
+    tp: Any
+    sp: bool
+    cp: Any
+    cp_kind: Optional[str]
+
+
+def _par(cfg):
+    mesh = active_mesh()
+    tp = coll.axis_group(mesh, AXIS_TP)
+    cp_axis = cfg.ring_attention_axis or cfg.ulysses_axis
+    return _Par(tp, bool(cfg.sp_axis) and tp.size > 1,
+                coll.axis_group(mesh, cp_axis) if cp_axis else coll.SOLO,
+                "ring" if cfg.ring_attention_axis
+                else "ulysses" if cfg.ulysses_axis else None)
+
+
+def _a3c(what):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP A3c)")
+
+
 class Dense(nn.Module):
     """The JAX package's ``QuantDense``.  A float weight (``[out, in]``;
     flax keeps ``[in, out]``) has ``nn.Dense`` semantics: input, weight
@@ -208,6 +270,13 @@ class Dense(nn.Module):
         self.register_buffer("scale", scale)
         self.quant, self.group_size = mode, group
 
+    def local_shape(self):
+        """``(out, in)`` of the weight this rank holds (tp splits one of
+        them; a quantised weight is whole)."""
+        if self.quant is not None:
+            return self.out_features, self.in_features
+        return tuple(self.weight.shape)
+
     def quantized_leaf(self):
         """The quantised weight as ``ops.quant_matmul`` takes it."""
         if self.quant == "int8":
@@ -218,8 +287,14 @@ class Dense(nn.Module):
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(self.dtype)
         if self.quant is None:
-            return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
-                            bias)
+            w = self.weight
+            if bias is not None and bias.shape[0] != w.shape[0]:
+                # column-parallel: this rank's slice of the replicated
+                # bias (its gradient all-reduced, so whole on every rank)
+                tp = coll.axis_group(active_mesh(), AXIS_TP)
+                bias = coll.copy_to_tp(bias, tp).narrow(
+                    0, tp.index * w.shape[0], w.shape[0])
+            return F.linear(x.to(self.dtype), w.to(self.dtype), bias)
         y = quant_matmul(x.to(self.dtype), self.quantized_leaf())
         return y if bias is None else y + bias
 
@@ -316,18 +391,85 @@ class Attention(nn.Module):
         self.value = Dense(cfg.d_model, kv, cfg.use_bias, dt)
         self.out = Dense(cfg.d_model, cfg.d_model, cfg.use_bias, dt)
 
+    def split(self):
+        """True when tp splits this layer's heads (the query projection is
+        column-parallel)."""
+        return self.query.local_shape()[0] < self.cfg.d_model
+
+    def _kv(self, dense, h, par, n_local_q):
+        """k or v ``[B, S, heads, Dh]`` for this rank's q heads: the
+        local heads of a column-parallel projection, or, where tp splits
+        the projection mid-head (or leaves it whole), the heads read from
+        the gathered weight (repeated to one per q head where this rank's
+        q heads do not group evenly over them)."""
+        B, S = h.shape[0], h.shape[1]
+        hd, n_kv, tp = self.head_dim, self.n_kv, par.tp
+        w = dense.weight
+        if w.shape[0] < n_kv * hd and n_kv % tp.size == 0:
+            return dense(h).reshape(B, S, n_kv // tp.size, hd)
+        # every rank reads its own rows of the whole weight: the gather's
+        # backward reduce-scatters, a replicated weight's all-reduces
+        w = (coll.gather_seq(w, tp, dim=0) if w.shape[0] < n_kv * hd
+             else coll.copy_to_tp(w, tp))
+        group = self.cfg.n_heads // n_kv
+        heads = [(tp.index * n_local_q + i) // group
+                 for i in range(n_local_q)]
+        first, n_sel = heads[0], heads[-1] - heads[0] + 1
+        rows = slice(first * hd, (first + n_sel) * hd)
+        bias = (None if dense.bias is None else
+                coll.copy_to_tp(dense.bias, tp)[rows].to(dense.dtype))
+        out = F.linear(h.to(dense.dtype), w[rows].to(dense.dtype), bias)
+        out = out.reshape(B, S, n_sel, hd)
+        per = n_local_q // n_sel
+        if n_local_q % n_sel or any(heads[i] - first != i // per
+                                    for i in range(n_local_q)):
+            out = out[:, :, [i - first for i in heads]]
+        return out
+
     def forward(self, x, cache=None, layer=0, mask=None):
         cfg = self.cfg
+        par = _par(cfg)
+        split = self.split()
+        if split and par.cp.size > 1:
+            raise _a3c("context parallelism over an axis that also splits "
+                       "the parameters (tp-sharded attention)")
+        if cache is not None and (par.cp_kind or split):
+            raise (NotImplementedError(
+                "decode mode with sequence-parallel attention is not "
+                "supported; decode on a tp/dp mesh instead") if par.cp_kind
+                else _a3c("decoding on a tp mesh"))
+        if par.sp and not split:
+            raise _a3c("sequence parallelism over attention that tp does "
+                       "not split")
+        if split:
+            # column-parallel in-projections from the replicated (or, under
+            # sp, the gathered) stream
+            x = (coll.gather_seq(x, par.tp) if par.sp
+                 else coll.copy_to_tp(x, par.tp))
         B, S = x.shape[0], x.shape[1]
-        q = self.query(x).reshape(B, S, cfg.n_heads, self.head_dim)
-        k = self.key(x).reshape(B, S, self.n_kv, self.head_dim)
-        v = self.value(x).reshape(B, S, self.n_kv, self.head_dim)
+        q = self.query(x)
+        if q.shape[-1] % self.head_dim:
+            raise _a3c(f"a tp split of {cfg.n_heads} query heads over "
+                       f"{par.tp.size} ranks")
+        H = q.shape[-1] // self.head_dim
+        q = q.reshape(B, S, H, self.head_dim)
+        if split:
+            k = self._kv(self.key, x, par, H)
+            v = self._kv(self.value, x, par, H)
+        else:
+            k = self.key(x).reshape(B, S, self.n_kv, self.head_dim)
+            v = self.value(x).reshape(B, S, self.n_kv, self.head_dim)
         if cfg.rope:
             pos = torch.arange(S, device=x.device)
             if cache is not None:           # per-row positions: [B, S]
                 pos = cache.cache_index.long()[:, None] + pos[None, :]
+            elif par.cp.size > 1:
+                # this rank's sequence block: rotate with global positions
+                pos = pos + par.cp.index * S
             q = apply_rope(q, pos, cfg.rope_theta)
             k = apply_rope(k, pos, cfg.rope_theta)
+        flash = cfg.attention_impl == "flash" or (
+            cfg.attention_impl == "auto" and q.is_cuda)
         if cache is not None:
             if not cfg.causal:
                 raise NotImplementedError(
@@ -339,8 +481,15 @@ class Attention(nn.Module):
             out = (_paged_attention_body(q, k, v, cache, layer)
                    if hasattr(cache, "page_table")
                    else _slot_attention_body(q, k, v, cache, layer))
-        elif mask is None and (cfg.attention_impl == "flash" or (
-                cfg.attention_impl == "auto" and q.is_cuda)):
+        elif par.cp_kind:
+            if mask is not None:
+                raise NotImplementedError(
+                    "key-padding masks are not supported with "
+                    "sequence-parallel attention; pad/pack sequences to "
+                    "full length, or unset ring_attention_axis/"
+                    "ulysses_axis to use non-sequence-parallel attention")
+            out = _seqpar_dispatch(q, k, v, cfg, par.cp, flash)
+        elif mask is None and flash:
             # GQA-native kernels: narrow k/v go straight in (no repeated
             # kv on the card, dk/dv come back narrow)
             out = flash_attention(q, k, v, causal=cfg.causal)
@@ -356,7 +505,33 @@ class Attention(nn.Module):
                     "back to dense O(S^2) attention")
             out = dot_product_attention(q, kf, vf, causal=cfg.causal,
                                         mask=mask)
-        return self.out(out.reshape(B, S, cfg.d_model))
+        out = out.reshape(B, S, H * self.head_dim)
+        return _row_parallel(self.out, out, par) if split else self.out(out)
+
+
+def _row_parallel(dense, x, par):
+    """A row-parallel projection: this rank's partial sums, summed over tp
+    (``reduce_from_tp``; under sp ``scatter_seq``, which also leaves this
+    rank's sequence block), then the replicated bias, added once."""
+    y = F.linear(x.to(dense.dtype), dense.weight.to(dense.dtype))
+    y = (coll.scatter_seq(y, par.tp) if par.sp
+         else coll.reduce_from_tp(y, par.tp))
+    return y if dense.bias is None else y + dense.bias.to(dense.dtype)
+
+
+def _seqpar_dispatch(q, k, v, cfg, group, flash):
+    """Ring or Ulysses context-parallel attention over this rank's
+    sequence block (JAX ``_seqpar_dispatch``, under an enclosing
+    ``shard_map``): GQA kv travel narrow; ``attention_impl="dense"`` (or
+    "auto" off the card) takes the plain cores."""
+    if cfg.ring_attention_axis:
+        from tensorflowonspark_tpu_torch.parallel.ring_attention import (
+            ring_local)
+        return ring_local(q, k, v, group, cfg.causal, use_flash=flash)
+    from tensorflowonspark_tpu_torch.parallel.ulysses import (
+        dense_core, ulysses_local)
+    return ulysses_local(q, k, v, group, cfg.causal,
+                         None if flash else dense_core)
 
 
 def _paged_attention_body(q, k, v, cache, layer):
@@ -486,12 +661,20 @@ class DenseMLP(nn.Module):
         self.wo = Dense(cfg.d_ff, cfg.d_model, cfg.use_bias, dt)
 
     def forward(self, x):
+        par = _par(self.cfg)
+        split = self.wo.local_shape()[1] < self.cfg.d_ff
+        if par.sp and not split:
+            raise _a3c("sequence parallelism over an MLP that tp does not "
+                       "split")
+        if split:
+            x = (coll.gather_seq(x, par.tp) if par.sp
+                 else coll.copy_to_tp(x, par.tp))
         if self.cfg.mlp_style == "gated":
             h = (_activation(self.wi_gate(x), self.cfg.activation)
                  * self.wi_up(x))
         else:
             h = _activation(self.wi(x), self.cfg.activation)
-        return self.wo(h)
+        return _row_parallel(self.wo, h, par) if split else self.wo(h)
 
 
 class Block(nn.Module):
@@ -557,23 +740,34 @@ class Transformer(nn.Module):
     def forward(self, tokens, cache=None):
         cfg = self.cfg
         dt = torch_dtype(cfg)
+        par = _par(cfg)
         x = F.embedding(tokens, self.token_embed.weight).to(dt)
         S = tokens.shape[1]
         if not cfg.rope:
             pos = torch.arange(S, device=tokens.device)
             if cache is not None:          # per-row positions: [B, S]
                 pos = cache.cache_index.long()[:, None] + pos[None, :]
-            elif S > cfg.max_seq_len:
+            elif S * par.cp.size > cfg.max_seq_len:
                 # the JAX gather fills NaN past the table: a too-long
                 # batch must not train on clamped positions
-                raise ValueError(f"sequence length {S} exceeds max_seq_len "
-                                 f"{cfg.max_seq_len} (learned positions)")
+                raise ValueError(f"sequence length {S * par.cp.size} "
+                                 f"exceeds max_seq_len {cfg.max_seq_len} "
+                                 "(learned positions)")
             else:
-                pos = pos[None]
+                # under cp, this rank's block of the global positions
+                pos = (pos + par.cp.index * S)[None]
             # free rows keep stepping past max_seq_len; the lookup clips
             # (their tokens are discarded)
             pos = pos.clamp(0, cfg.max_seq_len - 1)
             x = x + F.embedding(pos, self.pos_embed.weight).to(dt)
+        if x.shape[-1] < cfg.d_model:
+            # tp splits the tables over d_model: this rank's columns,
+            # gathered (under sp: exchanged for this rank's sequence block)
+            x = (coll.all_to_all(x, par.tp, split_dim=1, concat_dim=2)
+                 if par.sp else
+                 coll.gather_seq(x, par.tp, dim=2, reduce_grad=False))
+        elif par.sp:
+            x = coll.split_seq(x, par.tp)
         remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for i, name in enumerate(self.layer_names):
             block = getattr(self, name)
@@ -583,21 +777,124 @@ class Transformer(nn.Module):
                 x = checkpoint(block, x, None, i, use_reentrant=False)
             else:
                 x = block(x, cache, i)
-        logits = self.lm_head(self.ln_f(x))
+        logits = _head(self.ln_f, self.lm_head, x, par, cfg.vocab_size)
         if cache is not None:
             cache.cache_index = cache.cache_index + S
         return logits
 
+    def grad_axes(self, mesh):
+        """``(partial, distinct)``, each ``{name: axes}``: ``partial``
+        names the leaves whose gradient a rank holds only part of on
+        ``mesh``, summed over those axes by the train step: every leaf
+        under context parallelism (a rank sees its sequence block), and
+        under sp the leaves replicated over tp that act on a sequence
+        block (the norms, the row-parallel biases).  ``distinct`` is
+        empty: the split leaves are told by their shardings."""
+        cfg = self.cfg
+        cp_axis = cfg.ring_attention_axis or cfg.ulysses_axis
+        shape = mesh.shape if mesh is not None else {}
+        partial = {}
+        for name, _ in self.named_parameters():
+            parts = name.split(".")
+            if cp_axis and shape.get(cp_axis, 1) > 1:
+                partial[name] = (cp_axis,)
+            elif cfg.sp_axis and shape.get(AXIS_TP, 1) > 1 and (
+                    parts[-2] in ("ln1", "ln2", "ln_f")
+                    or parts[-2] in ("out", "wo") and parts[-1] == "bias"):
+                partial[name] = (AXIS_TP,)
+        return partial, {}
+
+
+def _head(ln_f, lm_head, x, par, vocab):
+    """``lm_head(ln_f(x))``; a vocab-split ``lm_head`` (tp) gives this
+    rank's slice of the vocabulary, and the logits carry the split
+    (:class:`LogitsSplit`) for :func:`lm_loss`."""
+    h = ln_f(x)
+    vsplit = lm_head.local_shape()[0] < vocab
+    if par.sp:
+        h = coll.gather_seq(h, par.tp, reduce_grad=vsplit)
+    elif vsplit:
+        h = coll.copy_to_tp(h, par.tp)
+    logits = lm_head(h)
+    if par.tp.size > 1 or par.cp.size > 1:
+        logits.logits_split = LogitsSplit(
+            par.tp if vsplit else coll.SOLO,
+            par.tp.index * logits.shape[-1] if vsplit else 0, vocab,
+            par.cp)
+    return logits
+
+
+class LogitsSplit(NamedTuple):
+    """How a forward's logits lie over the ranks: ``vocab`` (the group
+    over whose ranks the vocabulary is split, this rank's slice starting
+    at ``start`` of ``size``) and ``seq`` (the group over which the
+    sequence is split)."""
+    vocab: Any
+    start: int
+    size: int
+    seq: Any
+
 
 def lm_loss(logits, targets, ignore_id=-1):
     """Causal-LM cross entropy: f32 logsumexp minus the gold logit, the
-    mean over targets that are not ``ignore_id``."""
+    mean over targets that are not ``ignore_id``.  Logits that a split
+    forward made (:class:`LogitsSplit`) take :func:`vocab_parallel_lm_loss`:
+    the mean over the whole sequence and vocabulary, the same on every
+    rank of the split."""
+    split = getattr(logits, "logits_split", None)
+    if split is not None:
+        return vocab_parallel_lm_loss(logits, targets, split, ignore_id)
+    mesh = active_mesh()
+    if mesh is not None and mesh.shape.get(AXIS_TP, 1) > 1:
+        raise ValueError(
+            "logits on a tp mesh must come straight from the model's "
+            "forward (they carry its vocabulary and sequence split)")
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets.clamp_min(0).long()[..., None])
     mask = (targets != ignore_id).float()
     return (torch.sum((logz - gold[..., 0]) * mask)
             / torch.clamp_min(torch.sum(mask), 1.0))
+
+
+def vocab_parallel_lm_loss(logits, targets, split, ignore_id=-1):
+    """:func:`lm_loss` of logits split over ranks (the JAX one-hot form
+    for a vocab-sharded ``lm_head``, written out): each rank's max, its
+    sum of exponentials and the gold logit where the target lies in its
+    vocabulary slice, combined by all-reduce over the vocab group; under
+    context parallelism the token sum and count all-reduced over the
+    sequence group.  The whole ``[B, S, vocab]`` logits never form."""
+    import torch.distributed as dist
+
+    lg = logits.float()
+    vg = split.vocab
+    m = lg.detach().amax(-1)
+    if vg.size > 1:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=vg.pg)
+    sumexp = coll.reduce_from_tp(torch.exp(lg - m[..., None]).sum(-1), vg)
+    logz = torch.log(sumexp) + m
+    local = targets.clamp_min(0).long() - split.start
+    inside = (local >= 0) & (local < lg.shape[-1])
+    gold = torch.gather(lg, -1, local.clamp(0, lg.shape[-1] - 1)[..., None])
+    gold = coll.reduce_from_tp(gold[..., 0] * inside, vg)
+    mask = (targets != ignore_id).float()
+    total = coll.reduce_from_tp(torch.sum((logz - gold) * mask), split.seq)
+    count = torch.sum(mask)
+    if split.seq.size > 1:
+        count = count.clone()
+        dist.all_reduce(count, group=split.seq.pg)
+    return total / torch.clamp_min(count, 1.0)
+
+
+def gather_vocab(logits):
+    """The whole-vocabulary logits of a split forward's (this rank's
+    sequence block of them), all-gathered over the vocab group: for
+    checks on small models only."""
+    split = getattr(logits, "logits_split", None)
+    if split is None or split.vocab.size == 1:
+        return logits
+    return coll.gather_seq(logits, split.vocab, dim=logits.dim() - 1,
+                           reduce_grad=False)
 
 
 def build_transformer(**kwargs):

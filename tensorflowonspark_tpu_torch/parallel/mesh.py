@@ -17,10 +17,14 @@ a process group of its own.  With no process group, or a world of 1, the
 mesh has size 1 and every collective short-circuits.  The port never
 starts a process group of its own.
 
-Meshes whose ``pp`` or ``tp`` extent is above 1 can be built and their
-shardings computed, but placing parameters or batches on them raises
-NotImplementedError (ROADMAP A3b).
+On a ``tp`` axis parameters are split Megatron-style and the model's
+forward runs its collectives itself (``models.transformer``); a ``pp``
+axis holds one pipeline stage a rank (``models.pipelined``).  The model
+finds the mesh it runs on through :func:`use_mesh`, the counterpart of
+JAX's ambient mesh: the train and eval steps enter it around the
+forward.
 """
+import contextlib
 import dataclasses
 import logging
 import math
@@ -40,7 +44,7 @@ ALL_AXES = (AXIS_DP, AXIS_FSDP, AXIS_PP, AXIS_TP)
 # Axes over which a data batch is split (per-rank feeds, gradient mean).
 BATCH_AXES = (AXIS_DP, AXIS_FSDP)
 
-A3B = "multi-GPU sharding (ROADMAP A3b)"
+A3C = "ROADMAP A3c"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,14 +151,17 @@ class Mesh:
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
         return self._groups.get(axes) or _Group(None, 1, (0,))
 
+    def neighbor(self, axis, shift):
+        """The global rank ``shift`` steps along ``axis`` from this rank
+        (cyclic), the other coordinates kept."""
+        pos = [self.coords[a] for a in ALL_AXES]
+        i = ALL_AXES.index(axis)
+        pos[i] = (pos[i] + shift) % self.shape[axis]
+        return int(self.devices[tuple(pos)])
+
     def check_placeable(self):
-        """Raise unless tensors can be placed on this mesh: ``pp`` / ``tp``
-        above 1 wait for A3b, and an abstract mesh holds no ranks."""
-        for axis in (AXIS_PP, AXIS_TP):
-            if self.shape[axis] > 1:
-                raise NotImplementedError(
-                    f"placing tensors on a mesh with {axis}="
-                    f"{self.shape[axis]} is not ported yet ({A3B})")
+        """Raise unless tensors can be placed on this mesh: an abstract
+        mesh holds no ranks."""
         if self.abstract and self.size > 1:
             raise ValueError(f"{self!r} is abstract (built from a spec, no "
                              "ranks): build it with build_mesh to place "
@@ -333,33 +340,67 @@ class NamedSharding:
         return out
 
     def shard_dim(self, ndim):
-        """``(dim, axes)`` of the one dim split over the mesh, or None
-        for a replicated tensor.  Only fsdp splits parameters here: a
-        spec that splits over tp or pp waits for A3b; one over dp (the
-        JAX package's expert rule) for MoE layers (A8)."""
+        """``[(dim, axes), ...]`` of the dims split over the mesh, in dim
+        order (empty for a replicated tensor): fsdp and tp splits, one
+        dim each or two (JAX's ``_add_fsdp`` puts fsdp on a dim that tp
+        left whole).  A spec over dp (the JAX package's expert rule)
+        waits for MoE layers (A8); one over pp, for a stage layout the
+        port keeps as a module a rank (``models.pipelined``)."""
         split = [(d, axes) for d, axes in enumerate(self.dim_axes(ndim))
                  if axes]
         for _, axes in split:
             for a in axes:
-                if a in (AXIS_PP, AXIS_TP):
+                if a == AXIS_PP:
                     raise NotImplementedError(
-                        f"a {a}-sharded tensor (spec {self.spec}) is not "
-                        f"ported yet ({A3B})")
-                if a != AXIS_FSDP:
+                        f"a pp-sharded tensor (spec {self.spec}): the port "
+                        "holds a pipeline stage as its own module "
+                        f"(models.pipelined), not as a split ({A3C})")
+                if a not in (AXIS_FSDP, AXIS_TP):
                     raise NotImplementedError(
                         f"a {a}-sharded parameter (spec {self.spec}) is not "
                         "ported yet (ROADMAP A8: MoE layers)")
-        if len(split) > 1:
-            raise NotImplementedError(
-                f"spec {self.spec} splits more than one dim ({A3B})")
-        return split[0] if split else None
+        return split
+
+    def split_axes(self, ndim):
+        """The mesh axes (of extent above 1) that split the tensor."""
+        return tuple(a for _, axes in self.shard_dim(ndim) for a in axes)
 
 
-def batch_sharding(mesh):
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Run the enclosed forward on ``mesh``: the model's layers read it
+    (:func:`active_mesh`) for their process groups, as the JAX model
+    reads its ambient mesh.  The train and eval steps enter it."""
+    _ACTIVE.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _ACTIVE.pop()
+
+
+# a stack shared by the process's threads: the backward (where remat
+# recomputes a block's forward) may run on the autograd engine's thread
+_ACTIVE = []
+
+
+def active_mesh():
+    """The innermost :func:`use_mesh` mesh, or None."""
+    return _ACTIVE[-1] if _ACTIVE else None
+
+
+def batch_sharding(mesh, seq_axis=None):
     """The sharding of a ``[batch, ...]`` input: the batch split over the
     mesh's batch axes, row block ``dp_index * fsdp + fsdp_index`` to each
-    rank (JAX ``P(("dp", "fsdp"))``)."""
+    rank (JAX ``P(("dp", "fsdp"))``).  With ``seq_axis`` (context
+    parallelism) a ``[batch, seq, ...]`` input is also split over that
+    axis along dim 1 (JAX ``P(("dp", "fsdp"), "tp")``).  Ranks that differ
+    only along other axes (tp, pp) hold the same block."""
     axes = tuple(a for a in BATCH_AXES if a in mesh.axis_names)
+    if seq_axis is not None:
+        if seq_axis in BATCH_AXES or seq_axis not in mesh.axis_names:
+            raise ValueError(f"seq_axis={seq_axis!r} must be a mesh axis "
+                             "outside the batch axes")
+        return NamedSharding(mesh, (axes or None, seq_axis))
     return NamedSharding(mesh, (axes,) if axes else ())
 
 
@@ -381,33 +422,33 @@ def local_shapes(tree):
 
 def check_local_batch(tree, sharding):
     """Check the multi-process contract of ``put_batch``: every rank of
-    the batch group passes the same local shapes (JAX's
+    the mesh passes the same local shapes (JAX's
     ``make_array_from_process_local_data``).  One ``all_gather_object``
-    over the batch group when it holds more than one rank (under nccl
-    its readback waits for the device work queued before it); a
-    difference raises ValueError naming each rank's shapes."""
+    over the mesh's ranks when it holds more than one (under nccl its
+    readback waits for the device work queued before it); a difference
+    raises ValueError naming each rank's shapes."""
     mesh = sharding_mesh(sharding)
     mesh.check_placeable()
-    group = mesh.group(BATCH_AXES)
-    if group.pg is None:
+    if mesh.size == 1 or _dist() is None:
         return
     import torch.distributed as dist
 
     shapes = local_shapes(tree)
-    got = [None] * group.size
-    dist.all_gather_object(got, shapes, group=group.pg)
+    got = [None] * mesh.size
+    dist.all_gather_object(got, shapes)
     if any(s != shapes for s in got):
         raise ValueError(
-            "every rank must pass the same local batch shapes; by rank "
-            f"of the batch group: {got}")
+            f"every rank must pass the same local batch shapes; by rank: "
+            f"{got}")
 
 
 def put_batch(tree, sharding, device=None):
     """Place a rank-local batch (numpy arrays or tensors: one, or a
     tuple, list or dict of them) on this rank's device, as tensors.
 
-    Each rank passes ITS rows (the row block :func:`local_rows` picks
-    from a global batch) and gets them back on its device: the global
+    Each rank passes ITS block (the one :func:`local_rows` picks from a
+    global batch: its rows, and under a ``seq_axis`` sharding its
+    sequence block of them) and gets it back on its device: the global
     batch of the JAX package's ``put_batch`` is the concatenation of the
     ranks' blocks in batch-index order.  Every rank must pass the same
     local shapes; pad a ragged tail (``feed.pad_batch``).  Checked at
@@ -432,10 +473,11 @@ def put_batch(tree, sharding, device=None):
     return _map_batch(put, tree)
 
 
-def local_rows(tree, mesh):
-    """This rank's rows of a global batch under :func:`batch_sharding`:
+def local_rows(tree, mesh, seq_axis=None):
+    """This rank's block of a global batch under :func:`batch_sharding`:
     row block ``dp_index * fsdp + fsdp_index`` of ``B / (dp * fsdp)``
-    rows, from every array of the tree."""
+    rows, from every array of the tree; with ``seq_axis``, of those rows
+    the sequence block (dim 1) at this rank's index along that axis."""
     n = mesh.extent(BATCH_AXES)
     i = mesh.index(BATCH_AXES)
 
@@ -446,4 +488,27 @@ def local_rows(tree, mesh):
         b = a.shape[0] // n
         return a[i * b:(i + 1) * b]
 
-    return _map_batch(rows, tree)
+    out = _map_batch(rows, tree)
+    if seq_axis is not None:
+        out = seq_block(out, batch_sharding(mesh, seq_axis))
+    return out
+
+
+def seq_block(tree, sharding):
+    """This rank's sequence block (dim 1) of every array of a batch of its
+    rows under a ``seq_axis`` sharding; the batch itself without one."""
+    axis = sharding.spec[1] if len(sharding.spec) > 1 else None
+    if axis is None:
+        return tree
+    mesh = sharding_mesh(sharding)
+    n, i = mesh.shape[axis], mesh.coords[axis]
+
+    def block(a):
+        if a.ndim < 2 or a.shape[1] % n:
+            raise ValueError(
+                f"sequence of {tuple(a.shape)[1:2]} must be divisible by "
+                f"the {axis!r} axis size {n}")
+        s = a.shape[1] // n
+        return a[:, i * s:(i + 1) * s]
+
+    return _map_batch(block, tree)

@@ -22,7 +22,7 @@ import logging
 import re
 
 from tensorflowonspark_tpu_torch.convert import flax_path, shard_of
-from tensorflowonspark_tpu_torch.parallel.mesh import AXIS_FSDP, NamedSharding
+from tensorflowonspark_tpu_torch.parallel.mesh import AXIS_PP, NamedSharding
 
 logger = logging.getLogger(__name__)
 
@@ -135,18 +135,23 @@ def _add_fsdp(spec, shape, fsdp_size):
 def shard_params(params, shardings):
     """Give this rank its slice of every sharded parameter.  An
     ``nn.Module`` is sharded in place (each parameter's ``data`` becomes
-    the local slice; its forward then runs only through the train
-    step, which gathers them) and returned; a dict comes back as a new
-    dict.  Every rank must pass the same full parameters."""
+    the local slice; its forward then runs only through the train and
+    eval steps, which gather the fsdp slices and enter the mesh for the
+    tp ones) and returned; a dict comes back as a new dict.  A module
+    with ``keep_stage`` (``models.pipelined.PipelinedLM``) on a mesh
+    with a pp axis first drops every other stage's layers.  Every rank
+    must pass the same full parameters."""
     mesh = next(iter(shardings.values())).mesh if shardings else None
     if mesh is not None:
         mesh.check_placeable()
+        if hasattr(params, "keep_stage") and mesh.shape[AXIS_PP] > 1:
+            params.keep_stage(mesh.coords[AXIS_PP])
     tensors = named_tensors(params)
     dev = mesh.device if mesh is not None else None
     out = {}
     for name, t in tensors.items():
         local = shard_of(t.detach(), shardings[name],
-                         shardings[name].mesh.coords[AXIS_FSDP])
+                         shardings[name].mesh.coords)
         if dev is not None:
             local = local.to(dev)
         if hasattr(params, "named_parameters"):
@@ -159,9 +164,9 @@ def shard_params(params, shardings):
 def gather_params(params, shardings):
     """The full tensors of sharded ``params`` (an ``nn.Module`` or a
     dict, as :func:`shard_params` left them): ``{name: tensor}``, the
-    sharded ones all-gathered over fsdp (a collective: every rank calls
-    it), the replicated ones as they are."""
+    sharded ones all-gathered over fsdp and tp (a collective: every rank
+    calls it), the replicated ones as they are."""
     from tensorflowonspark_tpu_torch.parallel.collectives import gather_full
 
     tensors = {n: t.detach() for n, t in named_tensors(params).items()}
-    return gather_full(tensors, shardings)
+    return gather_full(tensors, shardings, axes=("fsdp", "tp"))

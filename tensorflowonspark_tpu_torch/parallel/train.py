@@ -17,16 +17,22 @@ AdamW kernel writes them in its one pass) and returns a new
 ``TrainState`` that holds the same tensors (``donate=False`` copies the
 state first).
 
-On a mesh (``parallel.mesh``; dp and fsdp axes) the sharding lives in
-the step, with explicit collectives that run alike under gloo and nccl:
-parameters and optimizer state are sharded at rest by the JAX rules
-(``TrainState.shardings``), each rank's ``loss_fn`` sees its own rows,
-the fsdp-sharded parameters are all-gathered for the forward, and the
-gradients are averaged over the batch axes (all-reduced, or
-reduce-scattered back to their shard).  The optimizer then runs on the
-local shards, clipped by the norm of the whole gradient.
-:func:`feed_consensus` votes over the default process group.
+On a mesh (``parallel.mesh``) the sharding lives in the step, with
+explicit collectives that run alike under gloo and nccl: parameters and
+optimizer state are sharded at rest by the JAX rules
+(``TrainState.shardings``), each rank's ``loss_fn`` sees its own rows
+(and, under context parallelism, its sequence block of them), the
+fsdp-sharded parameters are all-gathered for the forward, and the
+forward runs inside ``parallel.mesh.use_mesh`` so that a model split
+over tp, sp, cp or pp runs its own collectives.  The gradients that a
+rank holds only part of (the model's ``grad_axes``) are summed over
+their axes, then all gradients are averaged over the batch axes
+(all-reduced, or reduce-scattered back to their fsdp shard).  The
+optimizer then runs on the local shards, clipped by the norm of the
+whole gradient.  :func:`feed_consensus` votes over the default process
+group.
 """
+import contextlib
 import copy
 import math
 from typing import Any, NamedTuple
@@ -37,6 +43,7 @@ from torch import nn
 from tensorflowonspark_tpu_torch.optim import (apply_updates,
                                                whole_gradient_norm)
 from tensorflowonspark_tpu_torch.parallel import collectives
+from tensorflowonspark_tpu_torch.parallel import mesh as mesh_mod
 from tensorflowonspark_tpu_torch.parallel import sharding as sharding_mod
 
 
@@ -58,6 +65,13 @@ def _tensors(params):
 
 def _mesh_of(shardings):
     return next(iter(shardings.values())).mesh if shardings else None
+
+
+def _grad_axes(params, mesh):
+    """The model's ``(partial, distinct)`` gradient axes on ``mesh``
+    (``Transformer.grad_axes``); none for a dict of tensors."""
+    fn = getattr(params, "grad_axes", None)
+    return fn(mesh) if fn is not None and mesh is not None else ({}, {})
 
 
 def create_train_state(params, optimizer, mesh=None, param_shardings=None):
@@ -160,19 +174,20 @@ def _states_8bit(tree):
     return []
 
 
-def _check_layouts(layouts, state, tensors, dims, example_params):
+def _check_layouts(layouts, state, tensors, example_params):
     """JAX's checks of a declared 8-bit layout (``_quantized_shardings``):
     it must be the layout of the parameter's sharding, and the payload
     must have been built with it (this rank's shard of it)."""
     from tensorflowonspark_tpu_torch.optim8bit import (expected_blocks,
                                                        shard_layout)
 
-    full = {}
+    full, split = {}, set()
     for n, t in tensors.items():
         shape = list(t.shape)
-        if n in dims:
-            sh = state.shardings[n]
-            shape[dims[n]] *= sh.mesh.extent(sh.shard_dim(t.ndim)[1])
+        sh = (state.shardings or {}).get(n)
+        for d, axes in (sh.shard_dim(t.ndim) if sh is not None else ()):
+            shape[d] *= sh.mesh.extent(axes)
+            split.add(n)
         full[n] = tuple(shape)
     if example_params is not None:
         for n, t in sharding_mod.named_tensors(example_params).items():
@@ -194,7 +209,7 @@ def _check_layouts(layouts, state, tensors, dims, example_params):
         for qs in q_states:
             q = qs.mu[n].q
             want = expected_blocks(layout.shape, layout.counts, q.shape[1])
-            if n in dims:      # this rank holds one shard's blocks
+            if n in split:     # this rank holds one shard's blocks
                 want //= math.prod(layout.counts)
             if q.shape[0] != want:
                 raise ValueError(
@@ -263,14 +278,18 @@ def make_train_step(loss_fn, optimizer, mesh=None, param_shardings=None,
         if step_mesh is not None and mesh is None:
             step_mesh.check_placeable()
         dims = collectives.sharded_dims(tensors, shardings)
-        if dims and getattr(optimizer, "whole_leaf", False):
+        axes = collectives.split_axes(tensors, shardings)
+        if any(axes.values()) and getattr(optimizer, "whole_leaf", False):
             raise NotImplementedError(
                 "an optimizer that reads whole leaves (adafactor) over "
-                "fsdp-sharded parameters is not ported yet (ROADMAP: "
+                "fsdp- or tp-sharded parameters is not ported yet (ROADMAP: "
                 "multi-GPU sharding, A3a's open items)")
+        partial, distinct = _grad_axes(params, step_mesh)
+        for n, extra in distinct.items():
+            axes[n] = tuple(axes.get(n, ())) + tuple(extra)
         if layouts is not None and shardings and not checked:
             _check_layouts(layouts, state._replace(shardings=shardings),
-                           tensors, dims, example_params)
+                           tensors, example_params)
             checked.append(True)
         full, gathered = tensors, None
         if dims:     # the fsdp-sharded parameters, whole, for the forward
@@ -279,6 +298,34 @@ def make_train_step(loss_fn, optimizer, mesh=None, param_shardings=None,
             full = {n: (gathered[n].requires_grad_(True) if n in dims
                         else t) for n, t in tensors.items()}
         swap = bool(dims)
+        ctx = (mesh_mod.use_mesh(step_mesh) if step_mesh is not None
+               else contextlib.nullcontext())
+        with ctx:
+            loss, grads = _accumulate(params, full, swap, batch, rng)
+        del full, gathered
+        if step_mesh is not None:
+            grads, loss = collectives.reduce_gradients(grads, dims,
+                                                       step_mesh, loss,
+                                                       partial)
+        grad_norm = collectives.global_grad_norm(grads, axes, step_mesh)
+        fused_apply = getattr(optimizer, "apply", None)
+        with torch.no_grad():
+            if callable(fused_apply):
+                # single pass: the parameter write is fused into the
+                # kernel's pass over grad and moments
+                _, opt_state = fused_apply(grads, state.opt_state, tensors,
+                                           grad_norm=grad_norm)
+            else:
+                with whole_gradient_norm(
+                        grad_norm if any(axes.values()) else None):
+                    updates, opt_state = optimizer.update(
+                        grads, state.opt_state, tensors)
+                apply_updates(tensors, updates)
+        new_state = state._replace(step=state.step + 1, opt_state=opt_state,
+                                   shardings=shardings)
+        return new_state, {"loss": loss, "grad_norm": grad_norm}
+
+    def _accumulate(params, full, swap, batch, rng):
         if grad_accum > 1:
             loss, grads = 0.0, None
             for mb in _split(batch, grad_accum):
@@ -291,43 +338,30 @@ def make_train_step(loss_fn, optimizer, mesh=None, param_shardings=None,
             grads = {n: g / grad_accum for n, g in grads.items()}
         else:
             loss, grads = _value_and_grad(params, full, swap, batch, rng)
-        del full, gathered
-        if step_mesh is not None:
-            grads, loss = collectives.reduce_gradients(grads, dims,
-                                                       step_mesh, loss)
-        grad_norm = collectives.global_grad_norm(grads, dims, step_mesh)
-        fused_apply = getattr(optimizer, "apply", None)
-        with torch.no_grad():
-            if callable(fused_apply):
-                # single pass: the parameter write is fused into the
-                # kernel's pass over grad and moments
-                _, opt_state = fused_apply(grads, state.opt_state, tensors,
-                                           grad_norm=grad_norm)
-            else:
-                with whole_gradient_norm(grad_norm if dims else None):
-                    updates, opt_state = optimizer.update(
-                        grads, state.opt_state, tensors)
-                apply_updates(tensors, updates)
-        new_state = state._replace(step=state.step + 1, opt_state=opt_state,
-                                   shardings=shardings)
-        return new_state, {"loss": loss, "grad_norm": grad_norm}
+        return loss, grads
 
     return train_step
 
 
 def make_eval_step(forward_fn, mesh=None, param_shardings=None):
     """``eval_step(params, batch) -> forward_fn(params, batch)`` without
-    autograd.  On a mesh each rank runs the forward on its own rows and
-    gets its own output; ``param_shardings`` (a sharded state's
-    ``shardings``) gathers the fsdp-sharded parameters for it."""
+    autograd.  On a mesh each rank runs the forward on its own rows (its
+    sequence block under cp) inside ``parallel.mesh.use_mesh`` and gets
+    its own output (a tp-split model's logits: its vocabulary slice,
+    ``models.transformer.gather_vocab`` joins them);
+    ``param_shardings`` (a sharded state's ``shardings``) gathers the
+    fsdp-sharded parameters for it."""
     if mesh is None and param_shardings:
         mesh = _mesh_of(param_shardings)
     if mesh is not None:
         mesh.check_placeable()
 
     def eval_step(params, batch):
-        with torch.no_grad():
-            if not param_shardings:
+        ctx = (mesh_mod.use_mesh(mesh) if mesh is not None
+               else contextlib.nullcontext())
+        with torch.no_grad(), ctx:
+            if not collectives.sharded_dims(_tensors(params),
+                                            param_shardings or {}):
                 return forward_fn(params, batch)
             tensors = _tensors(params)
             full = collectives.gather_full(tensors, param_shardings)

@@ -111,10 +111,21 @@ def test_abstract_mesh_rows_and_placement():
     assert mesh_mod.replicated_sharding(m).spec == ()
     with pytest.raises(ValueError, match="abstract"):
         m.check_placeable()
-    tp = mesh_mod.Mesh(mesh_mod.MeshSpec(dp=4, tp=2).resolve(8))
-    with pytest.raises(NotImplementedError,
-                       match=r"multi-GPU sharding \(ROADMAP A3b\)"):
+    # a tp mesh places like any other once it has ranks; abstract, it
+    # holds none
+    tp = mesh_mod.Mesh(mesh_mod.MeshSpec(dp=4, tp=2).resolve(8), rank=5)
+    with pytest.raises(ValueError, match="abstract"):
         tp.check_placeable()
+    assert tp.coords == {"dp": 2, "fsdp": 0, "pp": 0, "tp": 1}
+    assert tp.neighbor("tp", 1) == 4 and tp.neighbor("dp", -1) == 3
+    # tp ranks hold the same rows; a sequence axis also splits dim 1
+    np.testing.assert_array_equal(mesh_mod.local_rows(rows, tp), rows[8:12])
+    seq = np.arange(16 * 8).reshape(16, 8)
+    np.testing.assert_array_equal(
+        mesh_mod.local_rows(seq, tp, seq_axis="tp"), seq[8:12, 4:])
+    assert mesh_mod.batch_sharding(tp, "tp").spec == (("dp", "fsdp"), "tp")
+    with pytest.raises(ValueError, match="divisible by"):
+        mesh_mod.local_rows(np.zeros((16, 7)), tp, seq_axis="tp")
     with pytest.raises(ValueError, match="does not split over 8"):
         mesh_mod.local_rows(np.zeros((4, 2)), m)
 

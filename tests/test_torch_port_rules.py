@@ -313,9 +313,11 @@ def _lm_loss(m, b, r):
                                 {"donate": False}])
 def test_unported_train_step_options_raise(kw):
     """A dp / fsdp mesh (of one rank here) and its ``param_shardings``
-    build a state and a step, ``donate=False`` keeps its input state;
-    a tp=2 mesh and the context-parallel config fields still raise,
-    naming A3b."""
+    build a state and a step, ``donate=False`` keeps its input state.  A
+    tp=2 mesh places once it has ranks (abstract, it raises for lack of
+    them), and the context- and sequence-parallel config fields build a
+    model; what stays unported (those fields on another axis than tp,
+    sp with cp) raises naming A3c."""
     opt, _ = optim.make_optimizer("adamw_fused")
     model = port_tf.build_transformer(**TINY)
     tokens = torch.from_numpy(np.random.RandomState(0).randint(0, 32,
@@ -328,8 +330,7 @@ def test_unported_train_step_options_raise(kw):
         for call in (lambda: port_train.make_train_step(_lm_loss, opt, tp),
                      lambda: port_train.create_train_state(model, opt, tp),
                      lambda: port_train.make_eval_step(_lm_loss, tp)):
-            with pytest.raises(NotImplementedError,
-                               match=r"multi-GPU sharding \(ROADMAP A3b\)"):
+            with pytest.raises(ValueError, match="abstract"):
                 call()
     elif "param_shardings" in kw:
         sh = port_sharding.infer_param_shardings(model, mesh, fsdp=True)
@@ -338,9 +339,21 @@ def test_unported_train_step_options_raise(kw):
         step = port_train.make_train_step(_lm_loss, opt, param_shardings=sh)
         assert state.shardings is sh
         for field in ("ring_attention_axis", "ulysses_axis", "sp_axis"):
-            with pytest.raises(NotImplementedError,
-                               match=r"multi-GPU sharding, A3b"):
-                port_tf.build_transformer(**dict(TINY, **{field: "tp"}))
+            # on one rank the split forward computes the plain one (the
+            # ring's online softmax sums in another order)
+            split = port_tf.build_transformer(**dict(TINY, **{field: "tp"}))
+            split.load_state_dict(model.state_dict())
+            with port_mesh.use_mesh(mesh), torch.no_grad():
+                torch.testing.assert_close(split(tokens), model(tokens),
+                                           rtol=1e-5, atol=1e-5)
+            with pytest.raises(NotImplementedError, match=r"ROADMAP A3c"):
+                port_tf.build_transformer(**dict(TINY, **{field: "dp"}))
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            port_tf.build_transformer(**dict(
+                TINY, ring_attention_axis="tp", ulysses_axis="tp"))
+        with pytest.raises(NotImplementedError, match=r"ROADMAP A3c"):
+            port_tf.build_transformer(**dict(
+                TINY, ring_attention_axis="tp", sp_axis="tp"))
     else:
         state = port_train.create_train_state(model, opt)
         step = port_train.make_train_step(_lm_loss, opt, donate=False)

@@ -80,15 +80,25 @@ def test_every_flagship_leaf_spec_matches_jax(flax_params, mesh, fsdp):
         # ([in, out] -> out), which is the port's dim 0
         q = got["layer_0.attn.query.weight"]
         assert q.spec == (None, "fsdp")
-        assert q.shard_dim(2) == (0, ("fsdp",))
-        assert got["layer_0.mlp.wo.weight"].shard_dim(2) == (1, ("fsdp",))
+        assert q.shard_dim(2) == [(0, ("fsdp",))]
+        assert got["layer_0.mlp.wo.weight"].shard_dim(2) == [(1, ("fsdp",))]
 
 
 def test_placing_tp_specs_raises_naming_a3b(flax_params):
+    """tp specs now place (column-parallel splits the port's dim 0, row-
+    parallel its dim 1, the tables d_model); what still raises names its
+    ROADMAP item: a pp-split leaf (the port keeps a stage as a module,
+    A3c) and a dp-split one (MoE experts, A8)."""
     _, got = _port(flax_params, MESHES["dp4tp2"], False)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A3b"):
-        got["layer_0.attn.query.weight"].shard_dim(2)
-    assert got["layer_0.ln1.weight"].shard_dim(1) is None
+    assert got["layer_0.attn.query.weight"].shard_dim(2) == [(0, ("tp",))]
+    assert got["layer_0.attn.out.weight"].shard_dim(2) == [(1, ("tp",))]
+    assert got["token_embed.weight"].shard_dim(2) == [(1, ("tp",))]
+    assert got["lm_head.weight"].shard_dim(2) == [(0, ("tp",))]
+    assert got["layer_0.ln1.weight"].shard_dim(1) == []
+    mesh = mesh_mod.Mesh(mesh_mod.MeshSpec(dp=4, pp=2).resolve(8))
+    for spec, item in ((("pp",), r"ROADMAP A3c"), (("dp",), r"ROADMAP A8")):
+        with pytest.raises(NotImplementedError, match=item):
+            mesh_mod.NamedSharding(mesh, spec).shard_dim(1)
 
 
 def test_odd_leaves_and_fsdp_largest_dim_match_jax():

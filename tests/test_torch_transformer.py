@@ -185,7 +185,7 @@ def test_filter_top_k_p_matches_jax(top_k, top_p, min_p):
 
 
 def test_unported_config_fields_raise():
-    for kw in ({"num_experts": 2}, {"ring_attention_axis": "tp"},
+    for kw in ({"num_experts": 2}, {"ring_attention_axis": "dp"},
                {"paged_attn_impl": "einsum"}):
         with pytest.raises(NotImplementedError, match="not ported"):
             port_tf.build_transformer(**dict(BASE, **kw))
