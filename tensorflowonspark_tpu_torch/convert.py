@@ -25,6 +25,13 @@ on a mesh and the port's per-rank states can be held leaf by leaf.
 ``PipelinedLM`` layout (stacked ``[n_stages, layers/stage, ...]``
 blocks) to the port's ``PipelinedLM`` and back.
 
+``port_builder`` maps a JAX export's builder spec to the port's (a
+fixed table, :data:`JAX_BUILDERS`); ``params_to_flax`` gives the flax
+tree of a ``state_dict`` as CPU tensors in their own dtype (what the
+port writes into a JAX-format ``params.msgpack``).  The ``*_from_jax``
+readers take numpy arrays or torch tensors (a ``params.msgpack`` read by
+``serialization`` holds tensors, bf16 ones included).
+
 ``qparams_from_jax`` / ``qparams_to_jax`` do the same for a quantised
 tree (``quantize.quantize_tree``): a quantised kernel keeps the JAX
 ``[in, out]`` storage layout and bytes on both sides, as the ``q`` /
@@ -39,6 +46,26 @@ from tensorflowonspark_tpu_torch.ops.fused_optim import (FusedAdamWState,
 
 _EMBEDS = ("token_embed", "pos_embed")
 _NORMS = ("ln1", "ln2", "ln_f")
+_JAX_PREFIX = "tensorflowonspark_tpu."
+# the JAX package's builder specs the port rebuilds, and the port's
+# counterpart of each
+JAX_BUILDERS = {
+    "tensorflowonspark_tpu.models.transformer:build_transformer":
+        "tensorflowonspark_tpu_torch.models.transformer:build_transformer",
+}
+
+
+def port_builder(spec):
+    """The port's builder spec for ``spec``: a JAX builder through
+    :data:`JAX_BUILDERS`, the port's own unchanged.  A JAX builder
+    without a counterpart (bert, the zoo) raises NotImplementedError."""
+    if spec in JAX_BUILDERS:
+        return JAX_BUILDERS[spec]
+    if spec.startswith(_JAX_PREFIX):
+        raise NotImplementedError(
+            f"builder {spec!r} of the JAX package has no counterpart in the "
+            "port yet (ROADMAP A8: the zoo and the rest)")
+    return spec
 
 
 def params_from_jax(tree):
@@ -53,14 +80,14 @@ def params_from_jax(tree):
             for key, child in node.items():
                 walk(child, path + (key,))
             return
-        arr = np.asarray(node)
+        t = _tensor(node)
         name, kernel = _port_name(path)
         if kernel:
-            if arr.ndim != 2:
+            if t.dim() != 2:
                 raise ValueError(f"{'/'.join(path)}: expected a 2-D Dense "
-                                 f"kernel, got shape {arr.shape}")
-            arr = arr.T
-        out[name] = _tensor(arr)
+                                 f"kernel, got shape {tuple(t.shape)}")
+            t = t.t().contiguous()
+        out[name] = t
 
     walk(tree, ())
     return out
@@ -214,12 +241,33 @@ def pipelined_to_jax(state_dict, n_stages):
             "head": {"ln_f": tree["ln_f"], "lm_head": tree["lm_head"]}}
 
 
-def _tensor(arr):
+def _tensor(node):
+    """A leaf as a CPU tensor: a tensor as it is (a read export's leaf
+    stays over its buffer), a numpy array copied."""
+    if isinstance(node, torch.Tensor):
+        return node
+    arr = np.asarray(node)
     # numpy has no bf16 of its own (JAX arrays come back as ml_dtypes'
     # bfloat16); f32 holds every bf16 value exactly
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
     return torch.from_numpy(np.ascontiguousarray(arr).copy())
+
+
+def params_to_flax(state_dict):
+    """The port's ``state_dict`` -> the JAX package's parameter tree
+    (nested dicts, flax paths) of contiguous CPU tensors in their own
+    dtype; Dense kernels transposed to flax's ``[in, out]``."""
+    tree = {}
+    for name, t in state_dict.items():
+        t = t.detach().to("cpu")
+        path, transposed = flax_path(name, t.dim())
+        parts = path.split("/")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = (t.t() if transposed else t).contiguous()
+    return tree
 
 
 def params_to_jax(state_dict):
@@ -242,7 +290,7 @@ def _is_jax_qleaf(node):
     (``q``, ``scale``, ``in_dim``, ``group_size``) of either package."""
     if isinstance(node, dict):
         return (set(node) == {"q", "scale"}
-                and np.asarray(node["q"]).dtype == np.int8)
+                and str(node["q"].dtype).rsplit(".", 1)[-1] == "int8")
     return all(hasattr(node, a) for a in ("q", "scale", "in_dim",
                                           "group_size"))
 
@@ -269,9 +317,8 @@ def qparams_from_jax(qtree):
             q, scale = ((node["q"], node["scale"]) if isinstance(node, dict)
                         else (node.q, node.scale))
             prefix = ".".join(path[:-1])
-            quantised[prefix + ".q"] = _tensor(np.asarray(q))
-            quantised[prefix + ".scale"] = _tensor(
-                np.asarray(scale, np.float32))
+            quantised[prefix + ".q"] = _tensor(q)
+            quantised[prefix + ".scale"] = _tensor(scale).float()
             return None
         return node
 

@@ -3,13 +3,19 @@
 
 The artifact keeps the JAX package's layout: ``tfos_model.json`` holds
 the builder spec (``"module:callable"`` + JSON kwargs) and named
-signatures, so the same tooling reads both.  Parameters are stored with
-``torch.save`` in ``params.pt`` (the JAX package writes
-``params.msgpack``; reading those needs msgpack and waits for a later
-slice — ROADMAP: reading JAX params.msgpack exports).  Files go through
-`fsio`, so an export dir may be any path `fsio` opens.
+signatures, so the same tooling reads both.  The port stores its
+parameters with ``torch.save`` in ``params.pt``; an export of the JAX
+package (``params.msgpack``, a flax tree) loads too: its builder maps
+to the port's through ``convert.port_builder`` (a JAX builder without
+a counterpart raises NotImplementedError), and ``serialization`` reads
+the tree, ``convert`` names it the port's way.  A stored int8 export
+(``quantize_int8=True``; ``"quantized": "int8"`` and ``dequant_dtype``
+in the spec, as the JAX package records them) keeps each quantised
+kernel as the int8 ``q`` / f32 ``scale`` of the quantised ``Dense``.
+Files go through `fsio`, so an export dir may be any path `fsio` opens.
 
-- `export_saved_model` writes the artifact (chief only);
+- `export_saved_model` writes the port's artifact (chief only),
+  `export_jax_saved_model` the JAX package's (``params.msgpack``);
 - `load_model` rebuilds the module itself (serving's decode re-enters it
   per token);
 - `load_saved_model` gives the signature's forward as a callable on
@@ -23,7 +29,7 @@ import importlib
 import json
 import logging
 
-from . import fsio
+from . import convert, fsio, serialization
 
 logger = logging.getLogger(__name__)
 
@@ -37,18 +43,17 @@ _PORT_PREFIX = "tensorflowonspark_tpu_torch."
 
 
 def _resolve_builder(spec):
-    """Import ``"module:callable"`` -> the callable.  Only the port's own
-    builders resolve: an export naming another package's module is not
-    loadable here."""
-    mod_name, _, attr = spec.partition(":")
-    if not attr:
+    """Import ``"module:callable"`` -> the callable.  The port's builders
+    resolve, and the JAX package's through ``convert.port_builder``; any
+    other package's module is not loadable here."""
+    if ":" not in spec or not spec.partition(":")[2]:
         raise ValueError(f"builder spec {spec!r} must look like "
                          "'module:callable'")
+    mod_name, _, attr = convert.port_builder(spec).partition(":")
     if not mod_name.startswith(_PORT_PREFIX):
         raise NotImplementedError(
-            f"builder {spec!r} is not a module of the port; loading JAX "
-            "exports is not ported yet (ROADMAP: reading JAX params.msgpack "
-            "exports)")
+            f"builder {spec!r} is a module of neither the port nor the JAX "
+            "package")
     obj = importlib.import_module(mod_name)
     for part in attr.split("."):
         obj = getattr(obj, part)
@@ -63,13 +68,16 @@ def export_saved_model(export_dir, state_dict, builder=DEFAULT_BUILDER,
     (``state_dict`` saved as given, on the CPU).
 
     Non-chief processes write nothing and return None, like the
-    reference's chief-only export.  ``quantize_int8`` (a stored int8
-    export) and ``aot_batch_sizes`` / ``aot_platforms`` (compiled
-    artifacts for the native runner) raise NotImplementedError."""
-    if quantize_int8 or quantize_kwargs:
-        raise NotImplementedError(
-            "export_saved_model(quantize_int8=) is not ported yet (ROADMAP "
-            "A5: the stored int8 export)")
+    reference's chief-only export.  ``quantize_int8`` stores the Dense
+    kernels that ``quantize.quantize_tree`` selects (``quantize_kwargs``
+    forwards ``targets`` / ``min_elements`` / ``axis``) as int8 ``q``
+    ``[in, out]`` / f32 ``scale`` entries, and records ``"quantized":
+    "int8"`` and the narrowest float dtype of ``state_dict`` as
+    ``dequant_dtype``, as the JAX export does.  ``aot_batch_sizes`` /
+    ``aot_platforms`` (compiled artifacts for the native runner) raise
+    NotImplementedError."""
+    if quantize_kwargs and not quantize_int8:
+        raise ValueError("quantize_kwargs needs quantize_int8=True")
     if aot_batch_sizes or aot_platforms:
         raise NotImplementedError(
             "export_saved_model(aot_batch_sizes=) is not ported yet (ROADMAP "
@@ -80,6 +88,34 @@ def export_saved_model(export_dir, state_dict, builder=DEFAULT_BUILDER,
     import torch
 
     _resolve_builder(builder)  # fail fast on a bad spec
+    state, quant = {k: v.detach() for k, v in state_dict.items()}, None
+    if quantize_int8:    # on the tensors' device, then to the CPU
+        state, quant = _quantize_state(state, quantize_kwargs or {})
+    state = {k: v.cpu() for k, v in state.items()}
+    _write_spec(export_dir, builder, builder_kwargs, signatures, quant)
+    with fsio.fopen(fsio.join(export_dir, PARAMS_FILE), "wb") as f:
+        torch.save(state, f)
+    logger.info("exported saved model to %s", export_dir)
+    return export_dir
+
+
+def export_jax_saved_model(export_dir, state_dict, builder_kwargs=None,
+                           signatures=None, is_chief=True):
+    """Write the JAX package's artifact from the port's ``state_dict``:
+    the JAX builder spec of ``build_transformer`` and ``params.msgpack``
+    (``convert.params_to_flax``, each leaf in its own dtype, written by
+    ``serialization``).  Both packages load it."""
+    if not is_chief:
+        return None
+    builder = next(iter(convert.JAX_BUILDERS))
+    _write_spec(export_dir, builder, builder_kwargs, signatures, None)
+    serialization.save(fsio.join(export_dir, JAX_PARAMS_FILE),
+                       convert.params_to_flax(state_dict))
+    logger.info("exported JAX-format saved model to %s", export_dir)
+    return export_dir
+
+
+def _write_spec(export_dir, builder, builder_kwargs, signatures, quant):
     fsio.makedirs(export_dir)
     spec = {
         "format": "tfos-tpu-saved-model",
@@ -90,12 +126,50 @@ def export_saved_model(export_dir, state_dict, builder=DEFAULT_BUILDER,
             DEFAULT_SIGNATURE: {"inputs": {"input": {}},
                                 "outputs": ["output"]}},
     }
+    if quant is not None:
+        spec["quantized"] = "int8"
+        spec["dequant_dtype"] = quant
     with fsio.fopen(fsio.join(export_dir, MODEL_SPEC), "w") as f:
         json.dump(spec, f, indent=2)
-    with fsio.fopen(fsio.join(export_dir, PARAMS_FILE), "wb") as f:
-        torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, f)
-    logger.info("exported saved model to %s", export_dir)
-    return export_dir
+
+
+def _quantize_state(state, quantize_kwargs):
+    """``(state with the selected kernels as <module>.q / .scale,
+    dequant dtype name)``: ``quantize.quantize_tree`` over the state's
+    flax paths (kernels as ``[in, out]`` views, on the state's device),
+    so the selection (regex over flax paths, element floor, axis) and the
+    bytes are the JAX export's."""
+    from . import quantize
+
+    floats = {str(t.dtype).rsplit(".", 1)[-1] for t in state.values()
+              if t.is_floating_point()}
+    dequant = next((d for d in ("bfloat16", "float16") if d in floats),
+                   "float32")
+    tree, names = {}, {}
+    for name, t in state.items():
+        path, transposed = convert.flax_path(name, t.dim())
+        parts = path.split("/")
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = t.t() if transposed else t
+        names[path] = name
+    qtree = quantize.quantize_tree(tree, **quantize_kwargs)
+    out = dict(state)
+
+    def walk(node, path):
+        for key, child in node.items():
+            sub = f"{path}/{key}" if path else key
+            if quantize.is_int8_leaf(child):
+                prefix = names[sub].rsplit(".", 1)[0]
+                del out[names[sub]]
+                out[prefix + ".q"] = child["q"]
+                out[prefix + ".scale"] = child["scale"]
+            elif isinstance(child, dict):
+                walk(child, sub)
+
+    walk(qtree, "")
+    return out, dequant
 
 
 def _read_spec(export_dir):
@@ -120,36 +194,78 @@ def read_signature(export_dir, signature_def_key=None):
             f"{sorted(spec['signatures'])}") from None
 
 
-def _load(export_dir, spec, dev):
+def _read_state(export_dir, dev):
+    """The stored parameters under the port's names, on ``dev``:
+    ``params.pt``, else the JAX package's ``params.msgpack`` (a sole
+    ``{"params": ...}`` envelope unwrapped, as the JAX loader does; the
+    tree moved to ``dev`` before its kernels are transposed)."""
     import torch
 
     path = fsio.join(export_dir, PARAMS_FILE)
-    if not fsio.exists(path):
-        if fsio.exists(fsio.join(export_dir, JAX_PARAMS_FILE)):
-            raise NotImplementedError(
-                f"{export_dir} holds a JAX params.msgpack; reading it is not "
-                "ported yet (ROADMAP: reading JAX params.msgpack exports)")
+    if fsio.exists(path):
+        with fsio.fopen(path, "rb") as f:
+            return torch.load(f, map_location=dev, weights_only=True)
+    jax_path = fsio.join(export_dir, JAX_PARAMS_FILE)
+    if not fsio.exists(jax_path):
         raise FileNotFoundError(path)
+    tree = serialization.load(jax_path)
+    if isinstance(tree, dict) and set(tree) == {"params"}:
+        tree = tree["params"]
+
+    def move(node):
+        if isinstance(node, dict):
+            return {k: move(v) for k, v in node.items()}
+        if not isinstance(node, torch.Tensor):
+            raise ValueError(f"{jax_path}: a parameter leaf of type "
+                             f"{type(node).__name__}")
+        return node.to(dev)
+
+    return convert.qparams_from_jax(move(tree))
+
+
+def _load(export_dir, spec, dev, dequantize=True):
+    import torch
+
+    from . import quantize
+
     builder = _resolve_builder(spec["builder"])
+    state = _read_state(export_dir, dev)
     with torch.device("meta"):
         model = builder(**spec["builder_kwargs"])
-    with fsio.fopen(path, "rb") as f:
-        state = torch.load(f, map_location=dev, weights_only=True)
+    stored = sorted(k[:-len(".q")] for k in state if k.endswith(".q"))
+    deq = getattr(torch, spec.get("dequant_dtype") or "float32")
+    for prefix in stored:
+        leaf = {"q": state[prefix + ".q"].contiguous(),
+                "scale": state[prefix + ".scale"].contiguous()}
+        # a per-output-channel int8 kernel serves as it is stored; any
+        # other (dequantize=True, or a scale along another axis) is
+        # rebuilt in the recorded dtype
+        if dequantize or tuple(leaf["scale"].shape) != (
+                1, leaf["q"].shape[1]):
+            del state[prefix + ".q"], state[prefix + ".scale"]
+            state[prefix + ".weight"] = quantize.dequantize_leaf(
+                leaf, deq).t().contiguous()
+        else:
+            model.get_submodule(prefix).set_quantized(leaf)
     model.load_state_dict(state, strict=True, assign=True)
     return model
 
 
-def load_model(export_dir, device=None):
-    """Rebuild ``(model, spec)`` from an export dir: the builder's module
-    with the stored parameters loaded onto ``device`` (``cuda`` unless
-    the caller asks for the CPU; `device.resolve`), in their stored
-    dtype.  The module is built on the meta device first, so no
-    throwaway initialisation runs."""
+def load_model(export_dir, device=None, dequantize=True):
+    """Rebuild ``(model, spec)`` from an export dir (the port's or the
+    JAX package's): the builder's module with the stored parameters
+    loaded onto ``device`` (``cuda`` unless the caller asks for the CPU;
+    `device.resolve`), in their stored dtype.  The module is built on
+    the meta device first, so no throwaway initialisation runs.
+
+    A stored int8 export dequantises into ``dequant_dtype`` by default;
+    ``dequantize=False`` keeps its quantised kernels as the quantised
+    ``Dense`` (``q`` / ``scale`` buffers, served through kernel 9)."""
     from .device import resolve
 
     dev = resolve(device)
     spec = _read_spec(export_dir)
-    return _load(export_dir, spec, dev), spec
+    return _load(export_dir, spec, dev, dequantize), spec
 
 
 class SavedModel:
@@ -182,7 +298,9 @@ class SavedModel:
 
 
 def load_saved_model(export_dir, signature_def_key=None, device=None):
-    """Load ``(predict, signature)`` from an export dir: ``predict`` is a
+    """Load ``(predict, signature)`` from an export dir (the port's or
+    the JAX package's; a stored int8 export dequantised into its
+    ``dequant_dtype``, as the JAX loader does): ``predict`` is a
     `SavedModel` over the rebuilt module on ``device`` (``cuda`` unless
     the caller asks for the CPU; without CUDA it raises).  Maps the
     reference's ``tf.saved_model.load`` + signature lookup

@@ -20,10 +20,20 @@ non-blocking copies (:func:`to_device`), so a dispatch never waits for
 the card.
 
 Sampling is counter-based: the noise of row b for new-token ordinal t
-is a pure function of ``(seed_b, t)``, drawn from an explicit
-``torch.Generator`` seeded with both (:func:`sample_noise`), so a
-request reproduces its tokens whatever batch it rides in and on any
-device.  It does not reproduce JAX's threefry bits.
+is a pure function of ``(seed_b, t)`` (:func:`counter_uniform`, an
+integer hash computed where the logits are, so the seeds and ordinals
+stay on the device), so a request reproduces its tokens whatever batch
+it rides in and on any device.  It does not reproduce JAX's threefry
+bits.  Speculative rounds (:func:`spec_round`) draw their draft,
+acceptance and resample noise from streams of their own, tagged, per
+position ordinal, as the JAX package's spec v2 schedule does.
+
+Also here, as in the JAX package: the repetition penalty
+(:func:`apply_repetition_penalty` over a device ``seen`` table), per-row
+LoRA banks (``lora=(banks, ids)``, passed to the model's forward), the
+n-gram proposer (:func:`ngram_propose`), the rejection walk of sampled
+verification (:func:`spec_accept_sampled`) and
+:func:`speculative_generate`.
 """
 import dataclasses
 import math
@@ -269,7 +279,8 @@ def build_prefill_batch(entries, width, bucket, n_slots, device):
                                                 n_valids))
 
 
-def slot_prefill_many(model, cache, chunks, rows, starts, n_valids, sink):
+def slot_prefill_many(model, cache, chunks, rows, starts, n_valids, sink,
+                      lora=None):
     """Batched multi-row prefill (``_slot_prefill_many_body``): one
     forward writes one bucket-padded chunk for each of P rows, over a
     dense or a paged slot cache.
@@ -282,8 +293,10 @@ def slot_prefill_many(model, cache, chunks, rows, starts, n_valids, sink):
     writeback is DROPPED.  A paged chunk's table is widened by sink
     entries for the bucket, so bucket-pad overshoot past a row's table
     lands in the sink (the JAX kernel's clip would park it in the row's
-    last page).  Rows must be distinct.  Returns the last-valid-position
-    logits [P, V]; stores, pools and ``cache_index`` update in place."""
+    last page).  Rows must be distinct.  ``lora = (banks, adapter_ids
+    [P])`` prefills each row under its adapter (pad rows: 0, the null
+    adapter).  Returns the last-valid-position logits [P, V]; stores,
+    pools and ``cache_index`` update in place."""
     n_slots = cache.cache_index.shape[0]
     rows = rows.long()
     if isinstance(cache, SlotCache):
@@ -298,7 +311,7 @@ def slot_prefill_many(model, cache, chunks, rows, starts, n_valids, sink):
             (table.shape[0], tail), int(sink), dtype=table.dtype,
             device=table.device)], dim=1)
         sub = cache.rows_view(table, starts.to(torch.int32))
-    logits = model(chunks.long(), sub)
+    logits = model(chunks.long(), sub, lora=lora)
     set_row_indices(cache, rows, starts + n_valids)
     pick = (n_valids.long() - 1).clamp(0, chunks.shape[1] - 1)
     return logits[torch.arange(logits.shape[0], device=logits.device), pick]
@@ -333,55 +346,139 @@ def filter_top_k_p(logits, top_k, top_p, min_p=None):
                        torch.full_like(logits, -math.inf))
 
 
-def sample_noise(seed, ordinal, vocab):
-    """Gumbel noise ``[vocab]`` for new-token ``ordinal`` of a request
-    seeded ``seed``: a pure function of the pair, drawn on the CPU from a
-    ``torch.Generator`` seeded with both (so it is the same on every
-    device and in every batch)."""
-    g = torch.Generator()
-    g.manual_seed(((int(seed) & 0xFFFFFFFF) << 32)
-                  | (int(ordinal) & 0xFFFFFFFF))
-    u = torch.rand(vocab, generator=g)
-    return -torch.log(-torch.log(u))
+_M32 = 0xFFFFFFFF
+# the tags of the noise streams: plain picks, and a speculative round's
+# draft proposals, acceptance tests and residual resamples
+TAG_PICK, TAG_DRAFT, TAG_ACCEPT, TAG_RESAMPLE = 0, 1, 2, 3
+
+
+def _mul32(a, c):
+    """``a * c mod 2**32`` for int64 tensors ``a`` in [0, 2**32) and a
+    constant ``c`` (split in halves so no product leaves int64)."""
+    lo = a * (c & 0xFFFF)
+    hi = ((a * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _mix32(x):
+    """A 32-bit avalanche hash (lowbias32) of int64 tensors in [0,
+    2**32)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def counter_uniform(seeds, ords, tag, n):
+    """``[rows, n]`` f32 uniforms in (0, 1): element j of row b is a
+    pure function of ``(seeds[b], ords[b], tag, j)`` (an integer hash, on
+    the tensors' device).  ``seeds`` / ``ords`` are ``[rows]`` integer
+    tensors."""
+    seeds = seeds.long() & _M32
+    ords = ords.long()
+    k = _mix32(seeds ^ _mul32(torch.full_like(seeds, tag + 1), 0x9E3779B9))
+    k = _mix32(k ^ (ords & _M32))
+    k = _mix32(k ^ ((ords >> 32) & _M32))
+    j = _mul32(torch.arange(n, device=seeds.device), 0x85EBCA6B)
+    h = _mix32(k[:, None] ^ j[None, :])
+    h = _mix32((h + k[:, None]) & _M32)
+    return ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))
+
+
+def sample_noise(seeds, ords, vocab, tag=TAG_PICK):
+    """Gumbel noise ``[rows, vocab]`` of :func:`counter_uniform`: the
+    categorical draw of row b at ordinal ``ords[b]`` is
+    ``argmax(logits + noise)``."""
+    return -torch.log(-torch.log(counter_uniform(seeds, ords, tag, vocab)))
+
+
+def _on(x, dev, dtype):
+    """A per-row control (a host sequence or a tensor) as a tensor of
+    ``dtype`` on ``dev``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev, dtype)
+    return to_device(torch.tensor(list(x), dtype=dtype), dev)
+
+
+def _filter_args(topks, topps, minps, dev):
+    return (_on(topks, dev, torch.int64), _on(topps, dev, torch.float32),
+            None if minps is None else _on(minps, dev, torch.float32))
 
 
 def pick_tokens(logits, temps, seeds, ords, topks=None, topps=None,
-                minps=None):
+                minps=None, sampled=None):
     """Per-row token pick, shared by every decode path: greedy argmax
     where ``temps[b] == 0``, else a categorical draw from the
     temperature-scaled (and, with ``topks``, filtered) logits by the
     Gumbel-max rule with :func:`sample_noise` of ``(seeds[b], ords[b])``.
-    ``temps``/``seeds``/``ords``/filters are per-row host sequences.
-    Returns [n] int64 on the logits' device."""
+    The controls are per-row host sequences or device tensors;
+    ``sampled=False`` promises no row samples (the noise is skipped; by
+    default host sequences are looked at, tensors are not).  Returns
+    [n] int64 on the logits' device."""
     logits = logits.float()
     greedy = torch.argmax(logits, dim=-1)
-    sampled = [i for i, t in enumerate(temps) if t > 0]
+    if sampled is None:
+        sampled = (isinstance(temps, torch.Tensor)
+                   or any(t > 0 for t in temps))
     if not sampled:
         return greedy
     dev = logits.device
-    t = to_device(torch.tensor([max(float(x), 1e-6) for x in temps]), dev)
-    scaled = logits / t[:, None]
+    t = _on(temps, dev, torch.float32)
+    scaled = logits / t.clamp_min(1e-6)[:, None]
     if topks is not None:
-        scaled = filter_top_k_p(
-            scaled, to_device(torch.tensor(list(topks)), dev),
-            to_device(torch.tensor(list(topps), dtype=torch.float32), dev),
-            None if minps is None else to_device(torch.tensor(
-                list(minps), dtype=torch.float32), dev))
-    noise = torch.zeros(logits.shape)
-    for i in sampled:
-        noise[i] = sample_noise(seeds[i], ords[i], logits.shape[-1])
-    pick = torch.argmax(scaled + to_device(noise, dev), dim=-1)
-    use = to_device(torch.tensor([x > 0 for x in temps]), dev)
-    return torch.where(use, pick, greedy)
+        scaled = filter_top_k_p(scaled,
+                                *_filter_args(topks, topps, minps, dev))
+    noise = sample_noise(_on(seeds, dev, torch.int64),
+                         _on(ords, dev, torch.int64), logits.shape[-1])
+    pick = torch.argmax(scaled + noise, dim=-1)
+    return torch.where(t > 0, pick, greedy)
+
+
+def apply_repetition_penalty(logits, seen, rep):
+    """HF-style repetition penalty, shared by every decode path: logits
+    of tokens already seen (``seen [n, V]`` nonzero) divide by ``rep``
+    where positive and multiply where negative (``rep [n]`` f32; 1.0
+    disables).  Applied to the RAW logits, before temperature and the
+    filters, so it moves greedy picks too."""
+    pen = torch.where(logits > 0, logits / rep[:, None],
+                      logits * rep[:, None])
+    return torch.where(seen > 0, pen, logits)
+
+
+def seen_from_prompt(prompt, vocab_size):
+    """``[B, V]`` int8 presence table of the prompt tokens ``[B, T]`` (a
+    tensor; the table lands on its device): the initial ``seen`` of
+    :func:`apply_repetition_penalty`."""
+    B = prompt.shape[0]
+    seen = torch.zeros((B, vocab_size), dtype=torch.int8,
+                       device=prompt.device)
+    seen.scatter_(1, prompt.long(), 1)
+    return seen
+
+
+def check_penalty(repetition_penalty):
+    """Validate a repetition penalty; True when active.  The finite cap
+    matters: rep = inf times a zero-valued seen logit is NaN."""
+    if not 0 < repetition_penalty <= 1e6:
+        raise ValueError(
+            f"repetition_penalty={repetition_penalty!r} must be in "
+            "(0, 1e6] (1.0 disables; >1 discourages repeats)")
+    return repetition_penalty != 1.0
 
 
 def slot_step(model, cache, toks, temps, seeds, ords, topks=None,
-              topps=None, minps=None, rems=None, eoss=None, eos_on=None):
+              topps=None, minps=None, rems=None, eoss=None, eos_on=None,
+              seen=None, reps=None, lora=None, sampled=None):
     """One decode step over ALL slots (``_slot_step_body``): feed each
     row its current token ``toks [n]`` (a device tensor, the previous
     step's pick), then pick per row (:func:`pick_tokens`).  Free rows
     step too; their writes land in the sink page (paged) or past their
     window.  Returns the picks [n]; the cache advances in place.
+
+    ``seen`` / ``reps`` ([n, V] int8, [n] f32): the repetition penalty;
+    the fed token joins ``seen`` (in place) before the penalty applies.
+    ``lora = (banks, ids)``: per-row adapters (``Transformer.forward``).
 
     With ``rems`` / ``eoss`` / ``eos_on`` ([n] device tensors: remaining
     budget, eos id, whether an eos is set) the stop decision runs on the
@@ -389,8 +486,13 @@ def slot_step(model, cache, toks, temps, seeds, ords, topks=None,
     raised when row b's budget hits zero or it picked its eos, so the
     serving engine reads the verdict back with the tokens and never
     inspects token values to decide whether to keep dispatching."""
-    logits = model(toks.long()[:, None], cache)[:, -1]
-    pick = pick_tokens(logits, temps, seeds, ords, topks, topps, minps)
+    logits = model(toks.long()[:, None], cache, lora=lora)[:, -1]
+    if seen is not None:
+        seen[torch.arange(toks.shape[0], device=toks.device),
+             toks.long()] = 1
+        logits = apply_repetition_penalty(logits, seen, reps)
+    pick = pick_tokens(logits, temps, seeds, ords, topks, topps, minps,
+                       sampled)
     if rems is None:
         return pick
     rems = rems - 1
@@ -419,14 +521,16 @@ def _solo_page_size(max_seq_len):
 
 def generate(model, prompt, max_new_tokens, temperature=0.0, seed=None,
              eos_id=None, top_k=0, top_p=1.0, min_p=0.0, device=None,
-             kv_dtype=None):
+             kv_dtype=None, repetition_penalty=1.0):
     """Generate continuations of ``prompt`` [B, T0] -> [B, T0 +
     max_new_tokens] through the paged slot path (one slot per row).
 
     ``temperature == 0`` is greedy argmax; > 0 samples, optionally top-k
     / top-p / min-p filtered, with row b drawing from seed ``seed + b``
     (required when sampling).  With ``eos_id``, rows that emit it keep
-    emitting it.  ``device`` follows the port's device rule (default
+    emitting it.  ``repetition_penalty`` > 1 discourages tokens of the
+    prompt and of the output so far (:func:`apply_repetition_penalty`,
+    on the raw logits).  ``device`` follows the port's device rule (default
     ``cuda``; raises without one unless ``device="cpu"``); the model's
     parameters must live there.  ``kv_dtype="int8"`` decodes on an int8
     paged pool, as the batcher serves it (None: the config's).  Returns
@@ -438,6 +542,7 @@ def generate(model, prompt, max_new_tokens, temperature=0.0, seed=None,
             dev.index is not None and param_dev.index != dev.index):
         raise ValueError(f"model parameters are on {param_dev}, not {dev}")
     check_pick_args(temperature, top_k, top_p, min_p)
+    penalized = check_penalty(repetition_penalty)
     if temperature > 0 and seed is None:
         raise ValueError("sampling (temperature > 0) requires `seed`")
     prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.int64)
@@ -470,16 +575,309 @@ def generate(model, prompt, max_new_tokens, temperature=0.0, seed=None,
             model, cache, prompt.to(dev), torch.arange(B, device=dev),
             torch.zeros(B, dtype=torch.int32, device=dev),
             torch.full((B,), T0, dtype=torch.int32, device=dev), sink)
+        pkw = {}
+        if penalized:
+            pkw = {"seen": seen_from_prompt(prompt.to(dev), cfg.vocab_size),
+                   "reps": torch.full((B,), float(repetition_penalty),
+                                      device=dev)}
+            last = apply_repetition_penalty(last, pkw["seen"], pkw["reps"])
         tok = pick_tokens(last, temps, seeds, [0] * B, **fkw)
         done = torch.zeros(B, dtype=torch.bool, device=dev)
         if eos_id is not None:
             done = tok == eos_id
         out = [tok]
         for t in range(1, max_new_tokens):
-            nxt = slot_step(model, cache, tok, temps, seeds, [t] * B, **fkw)
+            nxt = slot_step(model, cache, tok, temps, seeds, [t] * B, **fkw,
+                            **pkw)
             if eos_id is not None:
                 nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
                 done = done | (nxt == eos_id)
             out.append(nxt)
             tok = nxt
     return torch.cat([prompt.to(dev), torch.stack(out, dim=1)], dim=1)
+
+
+# ---- speculative decoding ---------------------------------------------------
+
+def _first_false(mask):
+    """Index of the first False of each row of ``mask [n, k]`` (k where
+    every entry is True)."""
+    k = mask.shape[1]
+    miss = ~mask
+    return torch.where(miss.any(dim=1), miss.int().argmax(dim=1),
+                       torch.full_like(mask[:, 0], k, dtype=torch.int64))
+
+
+def ngram_propose(ctx, ctx_len, k, max_match=3):
+    """Model-free draft (prompt-lookup decoding): ``k`` continuation
+    tokens per row by suffix-matching the row's own context.
+
+    ``ctx [n, C]`` holds each row's committed tokens (prompt + delivered
+    output), ``ctx_len [n]`` the valid length; ``ctx[r, ctx_len[r] - 1]``
+    is the token fed this round.  Each position re-matches the
+    block-so-far suffix (up to ``max_match`` tokens, longest match wins,
+    the most recent site breaks ties) against the context with the
+    earlier proposals virtually appended, so proposal i is a pure
+    function of the committed prefix at that ordinal.  A row with no
+    match repeats its last token."""
+    n, C = ctx.shape
+    ctx_len = ctx_len.long()
+    pos = torch.arange(C, device=ctx.device)[None, :]
+    ctx_v = ctx.long().clone()
+    props = []
+    for i in range(k):
+        len_v = ctx_len + i
+        tail = [ctx_v.gather(1, (len_v - 1 - g).clamp(0, C - 1)[:, None])[:, 0]
+                for g in range(max_match)]
+        score = torch.zeros((n, C), dtype=torch.int64, device=ctx.device)
+        chain = torch.ones((n, C), dtype=torch.bool, device=ctx.device)
+        shifted = ctx_v
+        for g in range(max_match):
+            chain = (chain & (shifted == tail[g][:, None])
+                     & (len_v >= g + 1)[:, None])
+            score = score + chain.long()
+            # compare position j-(g+1) next: shift right, j=0 invalid
+            shifted = torch.cat([torch.full_like(shifted[:, :1], -1),
+                                 shifted[:, :-1]], dim=1)
+        # a candidate j needs its continuation inside the valid region
+        # (j <= len - 2, which also rules out the trivial self-match)
+        valid = pos <= (len_v - 2)[:, None]
+        rank = torch.where(valid & (score >= 1), score * (C + 1) + pos,
+                           torch.full_like(score, -1))
+        j_star = rank.argmax(dim=1)
+        found = rank.gather(1, j_star[:, None])[:, 0] >= 0
+        cont = ctx_v.gather(1, (j_star + 1).clamp(0, C - 1)[:, None])[:, 0]
+        prop = torch.where(found, cont, tail[0])
+        props.append(prop)
+        # virtual append; a full row keeps its last column
+        at = len_v.clamp(max=C - 1)[:, None]
+        ctx_v.scatter_(1, at, torch.where(
+            (len_v < C)[:, None], prop[:, None], ctx_v.gather(1, at)))
+    return torch.stack(props, dim=1)
+
+
+def ngram_append(ctx, ctx_len, c_tok, n_del):
+    """Commit a round's deliverable tokens into the n-gram table, in
+    place: ``c_tok[r, :n_del[r]]`` lands at ``ctx_len[r]``.  ``ctx`` is
+    ``[n, C + 1]``: masked and overflowing writes go to the spare last
+    column.  Returns the new ``ctx_len``."""
+    n, k = c_tok.shape
+    C = ctx.shape[1] - 1
+    j = torch.arange(k, device=ctx.device)[None, :]
+    pos = ctx_len.long()[:, None] + j
+    pos = torch.where(j < n_del.long()[:, None], pos.clamp(max=C),
+                      torch.full_like(pos, C))
+    ctx.scatter_(1, pos, c_tok.to(ctx.dtype))
+    return ctx_len + n_del.to(ctx_len.dtype)
+
+
+def set_row_ctx(ctx, ctx_len, row, toks):
+    """Install one row's committed tokens into the n-gram table (at
+    admission), in place."""
+    t = torch.as_tensor(toks, dtype=ctx.dtype)
+    ctx[row, :t.shape[0]] = to_device(t, ctx.device)
+    ctx_len[row] = t.shape[0]
+
+
+def spec_accept_sampled(t_logits, props, temps, seeds, ords, topks=None,
+                        topps=None, minps=None, q_logits=None):
+    """The speculative-sampling acceptance walk (Leviathan et al.; Chen
+    et al.) over one verify block, as the JAX package's
+    ``spec_accept_sampled``.
+
+    ``t_logits [n, k, V]`` are the target's raw logits at the k block
+    positions, ``props [n, k]`` the proposals, ``q_logits`` the
+    proposer's scaled (and filtered) logits or None for point-mass
+    proposals (n-gram, greedy drafts).  Position i accepts with
+    probability min(1, p_i(x_i) / q_i(x_i)), computed as ``u * q < p``;
+    the first rejection resamples from the residual max(p - q, 0) (for a
+    point mass: p with the proposal zeroed), renormalised.  Chained over
+    positions this reproduces the target's sampling distribution.  The
+    uniforms and the resample noise come from the ``TAG_ACCEPT`` /
+    ``TAG_RESAMPLE`` streams at each position's ordinal ``ords + i``.
+
+    Returns ``(c_tok [n, k], commit [n])``: row r commits
+    ``c_tok[r, :commit[r]]``."""
+    n, k, V = t_logits.shape
+    dev = t_logits.device
+    temps = _on(temps, dev, torch.float32)
+    seeds = _on(seeds, dev, torch.int64)
+    ords = _on(ords, dev, torch.int64)
+    scaled = t_logits.float() / temps.clamp_min(1e-6)[:, None, None]
+    if topks is not None:
+        fargs = _filter_args(topks, topps, minps, dev)
+        p_sl = torch.stack([filter_top_k_p(scaled[:, i], *fargs)
+                            for i in range(k)], dim=1)
+    else:
+        p_sl = scaled
+    p_probs = torch.softmax(p_sl, dim=-1)
+    props = props.long()
+    p_prop = p_probs.gather(-1, props[..., None])[..., 0]
+    if q_logits is None:
+        q_probs = None
+        q_prop = torch.ones_like(p_prop)
+    else:
+        q_probs = torch.softmax(q_logits.float(), dim=-1)
+        q_prop = q_probs.gather(-1, props[..., None])[..., 0]
+    u = torch.stack([counter_uniform(seeds, ords + i, TAG_ACCEPT, 1)[:, 0]
+                     for i in range(k)], dim=1)
+    accept = u * q_prop < p_prop
+    j = _first_false(accept)
+    if q_probs is None:
+        res = p_probs.scatter(-1, props[..., None], 0.0)
+    else:
+        res = (p_probs - q_probs).clamp_min(0.0)
+    # a degenerate residual (p == q to float precision) falls back to p
+    res_ok = res.sum(dim=-1, keepdim=True) > 1e-9
+    res_l = torch.where(res_ok, torch.where(
+        res > 0, torch.log(res), torch.full_like(res, -math.inf)), p_sl)
+    y = torch.stack([torch.argmax(res_l[:, i] + sample_noise(
+        seeds, ords + i, V, TAG_RESAMPLE), dim=-1) for i in range(k)], dim=1)
+    commit = j.clamp(max=k - 1) + 1
+    ii = torch.arange(k, device=dev)[None, :]
+    c_tok = torch.where(ii == j[:, None], y, props)
+    return c_tok, commit
+
+
+def spec_round(model, cache, toks, temps, seeds, ords, rems, eoss, eos_on,
+               k, draft=None, d_cache=None, ctx=None, ctx_len=None,
+               lora=None, topks=None, topps=None, minps=None, sampled=True):
+    """One speculative round over ALL slots, the JAX package's fused
+    round v2, with no host sync: k proposals per row (``draft`` slot
+    steps on ``d_cache``, or, without a draft, :func:`ngram_propose`
+    over ``ctx [n, C + 1]`` / ``ctx_len``), ONE target pass over the
+    ``[n, k]`` block, and each row commits 1..k tokens:
+
+    - greedy rows (``temps <= 0``) take the longest prefix of proposals
+      equal to the target's argmax plus the target's next argmax: every
+      committed token is the target's own greedy choice;
+    - sampled rows run :func:`spec_accept_sampled` on the same scaled
+      and filtered logits the plain step samples from (``sampled=False``
+      promises there are none).
+
+    ``lora`` applies the per-row adapters to the verify pass only (the
+    draft runs on base weights).  Both caches, and the n-gram table,
+    advance per row by the commit; the budget / eos walk runs over the
+    committed tokens.  Returns ``(new_toks, c_tok [n, k], commit, n_del,
+    done, rems_new, ords_new, ctx_len_new)`` (``ctx_len_new`` None in
+    model mode); caches and ``ctx`` update in place."""
+    dev = toks.device
+    idx = cache.cache_index
+    is_g = temps <= 0
+    toks = toks.long()
+
+    def scaled(logits):
+        s = logits.float() / temps.clamp_min(1e-6)[:, None]
+        if topks is not None:
+            s = filter_top_k_p(s, topks, topps, minps)
+        return s
+
+    q_sl = None
+    if draft is None:
+        props = ngram_propose(ctx[:, :-1], ctx_len, k)
+    else:
+        d_tok, plist, qlist = toks, [], []
+        for i in range(k):
+            dl = draft(d_tok[:, None], d_cache)[:, -1].float()
+            greedy = torch.argmax(dl, dim=-1)
+            if sampled:
+                d_sc = scaled(dl)
+                drawn = torch.argmax(d_sc + sample_noise(
+                    seeds, ords + i, dl.shape[-1], TAG_DRAFT), dim=-1)
+                d_tok = torch.where(is_g, greedy, drawn)
+                qlist.append(d_sc)
+            else:
+                d_tok = greedy
+            plist.append(d_tok)
+        props = torch.stack(plist, dim=1)
+        if sampled:
+            q_sl = torch.stack(qlist, dim=1)
+    block = torch.cat([toks[:, None], props[:, :-1]], dim=1)
+    t_logits = model(block, cache, lora=lora)
+    t_pick = torch.argmax(t_logits, dim=-1)
+    commit = _first_false(props == t_pick).clamp(max=k - 1) + 1
+    c_tok = t_pick
+    if sampled:
+        c_s, commit_s = spec_accept_sampled(
+            t_logits, props, temps, seeds, ords, topks, topps, minps,
+            q_logits=q_sl)
+        commit = torch.where(is_g, commit, commit_s)
+        c_tok = torch.where(is_g[:, None], t_pick, c_s)
+    new_toks = c_tok.gather(1, (commit - 1)[:, None])[:, 0]
+    cache.cache_index = (idx + commit).to(torch.int32)
+    if d_cache is not None:
+        d_cache.cache_index = (idx + commit).to(torch.int32)
+    # deliverable: committed, within budget, not past the first eos
+    ii = torch.arange(k, device=dev)[None, :]
+    is_eos = eos_on[:, None] & (c_tok == eoss[:, None]) & (
+        ii < commit[:, None])
+    j_eos = _first_false(~is_eos)
+    n_del = torch.minimum(commit, torch.minimum(rems.clamp_min(0).long(),
+                                                j_eos + 1))
+    rems_new = rems - n_del.to(rems.dtype)
+    done = (rems_new <= 0) | (j_eos < n_del)
+    ctx_len_new = None
+    if draft is None:
+        ctx_len_new = ngram_append(ctx, ctx_len, c_tok, n_del)
+    return (new_toks, c_tok, commit, n_del, done, rems_new,
+            ords + commit, ctx_len_new)
+
+
+def speculative_generate(model, draft_model, prompt, max_new_tokens, k=4,
+                         device=None):
+    """Greedy generation with draft-model speculation: exactly the tokens
+    of ``generate(model, prompt, max_new_tokens)``, from fewer target
+    passes when the draft agrees.  Each round the draft proposes ``m <=
+    k`` tokens, one target pass verifies them, and every row advances by
+    the batch's shortest accepted prefix plus the target's own next
+    token (the JAX package's grouped ``speculative_generate``); rejected
+    kv is discarded by rewinding ``cache_index``.  Both models run on
+    dense slot caches with ``k`` positions of headroom."""
+    dev = device_mod.resolve(device)
+    if k < 1:
+        raise ValueError(f"k={k} must be >= 1")
+    prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.int64)
+    if max_new_tokens <= 0:
+        return prompt.to(dev)
+    B, T0 = prompt.shape
+    if model.cfg.vocab_size != draft_model.cfg.vocab_size:
+        raise ValueError(f"target vocab {model.cfg.vocab_size} != draft "
+                         f"vocab {draft_model.cfg.vocab_size}")
+    for cfg in (model.cfg, draft_model.cfg):
+        if T0 + max_new_tokens + k > cfg.max_seq_len:
+            raise ValueError(
+                f"prompt {T0} + max_new_tokens {max_new_tokens} + k {k} "
+                f"exceeds max_seq_len {cfg.max_seq_len}")
+    _, t_cache = init_slot_cache(model, B)
+    _, d_cache = init_slot_cache(draft_model, B)
+    rows = torch.arange(B, device=dev)
+    zero = torch.zeros(B, dtype=torch.int32, device=dev)
+    full = torch.full((B,), T0, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        last = torch.argmax(slot_prefill_many(
+            model, t_cache, prompt.to(dev), rows, zero, full, 0), dim=-1)
+        slot_prefill_many(draft_model, d_cache, prompt.to(dev), rows, zero,
+                          full, 0)
+        committed = [last]
+        base = T0
+        while len(committed) < max_new_tokens:
+            m = min(k, max_new_tokens - len(committed))
+            d_tok, props = last, []
+            for _ in range(m):
+                d_tok = torch.argmax(
+                    draft_model(d_tok[:, None], d_cache)[:, -1], dim=-1)
+                props.append(d_tok)
+            props = torch.stack(props, dim=1)
+            block = torch.cat([last[:, None], props[:, :-1]], dim=1)
+            t_next = torch.argmax(model(block, t_cache), dim=-1)
+            # the batch's shortest agreement (a deliberate host read:
+            # every row advances by it)
+            a = min(int(_first_false(props == t_next).min()), m - 1)
+            committed.extend(props[:, j] for j in range(a))
+            last = t_next[:, a]
+            committed.append(last)
+            base += 1 + a
+            for c in (t_cache, d_cache):
+                c.cache_index = torch.full_like(c.cache_index, base)
+    new = torch.stack(committed[:max_new_tokens], dim=1)
+    return torch.cat([prompt.to(dev), new], dim=1)

@@ -426,10 +426,30 @@ class Attention(nn.Module):
             out = out[:, :, [i - first for i in heads]]
         return out
 
-    def forward(self, x, cache=None, layer=0, mask=None):
+    def _proj(self, dense, x, lora, name):
+        """One projection, with the optional PER-ROW LoRA delta (the
+        JAX ``Attention._proj``): ``lora = (banks, ids)`` holds this
+        layer's ``{name}_a [L, d_in, r]`` / ``{name}_b [L, r, d_out]``
+        banks (the scale folded into b; index 0 the all-zero null
+        adapter) and ``ids [B]``, each row's bank index.  Row n computes
+        ``x_n @ W + (x_n @ A[ids_n]) @ B[ids_n]`` in f32, cast to y's
+        dtype, for any S (a decode step, a prefill chunk, a verify
+        block)."""
+        y = dense(x)
+        if lora is None:
+            return y
+        banks, ids = lora
+        a = banks[f"{name}_a"][ids]                 # [B, d_in, r]
+        b = banks[f"{name}_b"][ids]                 # [B, r, d_out]
+        delta = torch.bmm(torch.bmm(x.float(), a.float()), b.float())
+        return y + delta.to(y.dtype)
+
+    def forward(self, x, cache=None, layer=0, mask=None, lora=None):
         cfg = self.cfg
         par = _par(cfg)
         split = self.split()
+        if lora is not None and (split or par.cp_kind):
+            raise _a3c("LoRA adapters on a split layer")
         if split and par.cp.size > 1:
             raise _a3c("context parallelism over an axis that also splits "
                        "the parameters (tp-sharded attention)")
@@ -447,7 +467,7 @@ class Attention(nn.Module):
             x = (coll.gather_seq(x, par.tp) if par.sp
                  else coll.copy_to_tp(x, par.tp))
         B, S = x.shape[0], x.shape[1]
-        q = self.query(x)
+        q = self._proj(self.query, x, lora, "query")
         if q.shape[-1] % self.head_dim:
             raise _a3c(f"a tp split of {cfg.n_heads} query heads over "
                        f"{par.tp.size} ranks")
@@ -457,8 +477,10 @@ class Attention(nn.Module):
             k = self._kv(self.key, x, par, H)
             v = self._kv(self.value, x, par, H)
         else:
-            k = self.key(x).reshape(B, S, self.n_kv, self.head_dim)
-            v = self.value(x).reshape(B, S, self.n_kv, self.head_dim)
+            k = self._proj(self.key, x, lora, "key").reshape(
+                B, S, self.n_kv, self.head_dim)
+            v = self._proj(self.value, x, lora, "value").reshape(
+                B, S, self.n_kv, self.head_dim)
         if cfg.rope:
             pos = torch.arange(S, device=x.device)
             if cache is not None:           # per-row positions: [B, S]
@@ -506,7 +528,9 @@ class Attention(nn.Module):
             out = dot_product_attention(q, kf, vf, causal=cfg.causal,
                                         mask=mask)
         out = out.reshape(B, S, H * self.head_dim)
-        return _row_parallel(self.out, out, par) if split else self.out(out)
+        if split:
+            return _row_parallel(self.out, out, par)
+        return self._proj(self.out, out, lora, "out")
 
 
 def _row_parallel(dense, x, par):
@@ -688,12 +712,12 @@ class Block(nn.Module):
         self.attn = Attention(cfg)
         self.mlp = DenseMLP(cfg)
 
-    def forward(self, x, cache=None, layer=0, mask=None):
+    def forward(self, x, cache=None, layer=0, mask=None, lora=None):
         if self.cfg.norm_style == "pre":
-            x = x + self.attn(self.ln1(x), cache, layer, mask)
+            x = x + self.attn(self.ln1(x), cache, layer, mask, lora)
             return x + self.mlp(self.ln2(x))
         dt = torch_dtype(self.cfg)
-        x = self.ln1(x + self.attn(x, cache, layer, mask)).to(dt)
+        x = self.ln1(x + self.attn(x, cache, layer, mask, lora)).to(dt)
         return self.ln2(x + self.mlp(x)).to(dt)
 
 
@@ -701,7 +725,10 @@ class Transformer(nn.Module):
     """Token ids -> logits.  With ``cache`` (a dense or a paged slot
     cache from ``models.decode``) the forward is one prefill chunk or
     decode step at each row's ``cache_index``, and advances the index by
-    S."""
+    S.  ``lora = (banks, ids)`` adds per-row adapters to the attention
+    projections (``Attention._proj``): ``banks`` maps each layer name to
+    its ``{proj}_a`` / ``{proj}_b`` banks, ``ids [B]`` each row's bank
+    index."""
 
     def __init__(self, cfg):
         super().__init__()
@@ -737,7 +764,7 @@ class Transformer(nn.Module):
                     if isinstance(mod, LayerNorm):
                         mod.bias.zero_()
 
-    def forward(self, tokens, cache=None):
+    def forward(self, tokens, cache=None, lora=None):
         cfg = self.cfg
         dt = torch_dtype(cfg)
         par = _par(cfg)
@@ -776,7 +803,8 @@ class Transformer(nn.Module):
                 # its activations in the backward
                 x = checkpoint(block, x, None, i, use_reentrant=False)
             else:
-                x = block(x, cache, i)
+                x = block(x, cache, i, None, None if lora is None
+                          else (lora[0][name], lora[1]))
         logits = _head(self.ln_f, self.lm_head, x, par, cfg.vocab_size)
         if cache is not None:
             cache.cache_index = cache.cache_index + S

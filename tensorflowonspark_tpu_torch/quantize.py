@@ -24,12 +24,14 @@ Quantise from the f32 masters, then :func:`cast_float_leaves` to the
 compute width: it skips the scales, which must stay f32.
 """
 import logging
+import re
 
 import torch
 
 logger = logging.getLogger(__name__)
 
 DEFAULT_GROUP_SIZE = 128
+DEFAULT_TARGETS = r"kernel$"
 MODES = ("int8", "int4")
 
 
@@ -60,6 +62,12 @@ def is_int8_leaf(node):
     float dict that happens to use those keys)."""
     return (isinstance(node, dict) and set(node) == {"q", "scale"}
             and getattr(node["q"], "dtype", None) == torch.int8)
+
+
+def is_quantized_leaf(node):
+    """Either quantised-leaf form: an int8 ``{"q", "scale"}`` dict or an
+    :class:`Int4Weight`."""
+    return is_int8_leaf(node) or isinstance(node, Int4Weight)
 
 
 def _true_div(t, divisor):
@@ -126,6 +134,59 @@ def dequantize_leaf(node, dtype=None):
     if isinstance(node, Int4Weight):
         return int4_unpack(node).to(target)
     raise TypeError(f"not a quantized leaf: {type(node)!r}")
+
+
+def quantize_tree(params, targets=DEFAULT_TARGETS, min_elements=4096,
+                  axis=-1):
+    """Replace every matching float leaf of at least 2 dims and
+    ``min_elements`` elements of a flax-path tree (nested dicts of
+    tensors, ``"layer_0/attn/query/kernel"`` paths matched by the regex
+    ``targets``) with an int8 ``{"q", "scale"}`` leaf, ``scale`` per
+    slice along ``axis`` (the output channel of an ``[in, out]``
+    kernel): the JAX package's ``quantize_tree`` in its int8 mode, the
+    one stored exports use.  Raises when nothing matched."""
+    pat = re.compile(targets)
+    n_quant = [0]
+
+    def walk(node, path):
+        if isinstance(node, dict) and not is_quantized_leaf(node):
+            return {k: walk(v, f"{path}/{k}" if path else k)
+                    for k, v in node.items()}
+        t = node if isinstance(node, torch.Tensor) else None
+        if (t is None or t.dim() < 2 or not t.is_floating_point()
+                or t.numel() < min_elements or not pat.search(path)):
+            return node
+        n_quant[0] += 1
+        w = t.detach().float().contiguous()      # q comes out row-major
+        keep = axis % w.dim()
+        amax = w.abs().amax(dim=tuple(i for i in range(w.dim())
+                                      if i != keep), keepdim=True)
+        scale = _true_div(amax.clamp_min(1e-12), 127.0)
+        q = torch.round(w / scale).clamp(-127, 127).to(torch.int8)
+        return {"q": q, "scale": scale}
+
+    out = walk(params, "")
+    if not n_quant[0]:
+        raise ValueError(f"no kernels matched targets={targets!r} with "
+                         f">= {min_elements} elements")
+    return out
+
+
+def dequantize_tree(qtree, dtype=None):
+    """The float tree of a quantised one: each quantised leaf becomes
+    ``q * scale`` in ``dtype`` (a torch dtype or its name, as an export
+    records it; None keeps f32)."""
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+
+    def walk(node):
+        if is_quantized_leaf(node):
+            return dequantize_leaf(node, dtype)
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return node
+
+    return walk(qtree)
 
 
 def _dense_modules(model):

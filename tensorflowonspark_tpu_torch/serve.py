@@ -5,11 +5,14 @@
         [--generate_kv_page_size 64 --generate_kv_pages N] \\
         [--generate_engine async|serial] [--generate_pipeline_depth 2] \\
         [--generate_long_prompt_threshold T] \\
-        [--generate_quantize int8|int4] [--generate_kv_dtype int8]
+        [--generate_quantize int8|int4] [--generate_kv_dtype int8] \\
+        [--generate_lora_rank R --generate_lora NAME=PATH ...] \\
+        [--spec_draft model|ngram --draft_export_dir D2 --draft_k K]
 
     POST /v1/models/<name>:generate
         {"inputs": [[ids..]], "max_new_tokens": n, "temperature": t,
-         "seed": s, "eos_id": e, "top_k": k, "top_p": p, "min_p": m}
+         "seed": s, "eos_id": e, "top_k": k, "top_p": p, "min_p": m,
+         "stop": [[ids..]], "repetition_penalty": r, "adapter": "NAME"}
         -> {"outputs": [prompt + new tokens, ...]}
         with "stream": true (one prompt): chunked application/x-ndjson,
         {"token": t} per token, then {"done": true, "output": [...]}
@@ -27,13 +30,28 @@ the prefix cache, the mega-prompt lane above
 serves weight-only quantised projections (W8A16 / W4A16) through kernels
 9 and 10; ``--generate_kv_dtype int8`` keeps the kv cache in int8 with
 f32 per-(token, head) scales (the int8 branch of kernels 1-3 over a
-paged pool).  Runs on ``cuda`` unless ``--device cpu`` is given; without
+paged pool).  An export may be the port's or the JAX package's
+(``params.msgpack``); a stored int8 export served with
+``--generate_quantize int8`` keeps its stored bytes.
+
+As in the JAX server: stop sequences and a repetition penalty per
+request (the penalty's ``seen`` table on the device); a bank of LoRA
+adapters (``--generate_lora_rank``, ``--generate_lora NAME=PATH``, the
+``adapter`` field; rows of several tenants share one batched step, and
+prefix-cache keys are rooted at the adapter's registration, so kv
+prefilled under one adapter never serves another); speculative decoding
+(``--spec_draft model`` with ``--draft_export_dir``, or ``ngram``): k
+proposals a row, one target pass over the ``[n, k]`` block, 1..k
+committed tokens a row (greedy rows: the target's own argmax; sampled
+rows: the rejection walk), the draft k adapted from each row's
+acceptance.  Runs on ``cuda`` unless ``--device cpu`` is given; without
 a CUDA device and without that request it raises.  Flags and request
 fields whose feature is not ported raise NotImplementedError (HTTP 501)
 naming the ROADMAP item; none is ignored.
 """
 import argparse
 import collections
+import itertools
 import json
 import logging
 import queue as queue_mod
@@ -41,6 +59,7 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+import numpy as np
 import torch
 
 from tensorflowonspark_tpu_torch import device as device_mod
@@ -115,9 +134,31 @@ def build_argparser():
                         "(W4A16, per-128-row group scales), served through "
                         "the fused-dequant matmul kernels")
     p.add_argument("--spec_draft", choices=["model", "ngram", "off"],
-                   default=None)
-    p.add_argument("--draft_export_dir", default=None)
-    p.add_argument("--generate_lora_rank", type=int, default=0)
+                   default=None,
+                   help="speculative draft source: 'model' runs the "
+                        "--draft_export_dir LM, 'ngram' proposes by "
+                        "suffix-matching the row's own context, 'off' "
+                        "disables speculation; default: 'model' when "
+                        "--draft_export_dir is set, else 'off'")
+    p.add_argument("--draft_export_dir", default=None,
+                   help="a smaller decoder-LM export proposing the "
+                        "speculative draft (greedy outputs identical, "
+                        "sampled ones distribution-preserving)")
+    p.add_argument("--draft_k", type=int, default=4,
+                   help="max draft tokens proposed per verify pass (each "
+                        "row's acceptance adapts the round's k between 1 "
+                        "and this)")
+    p.add_argument("--generate_lora_rank", type=int, default=0,
+                   help=">0 enables a multi-adapter LoRA bank: requests "
+                        "pick a registered adapter by name "
+                        "({\"adapter\": \"x\"}); rows without one run the "
+                        "base model exactly")
+    p.add_argument("--generate_lora_capacity", type=int, default=8,
+                   help="max adapters resident in the bank")
+    p.add_argument("--generate_lora", action="append", default=None,
+                   metavar="NAME=PATH",
+                   help="register adapter NAME from a lora.save_adapters "
+                        "file at startup (repeatable)")
     p.add_argument("--generate_host_cache_mb", type=int, default=0)
     p.add_argument("--generate_long_prompt_threshold", type=int, default=0,
                    help=">0 routes prompts longer than this many tokens "
@@ -137,13 +178,9 @@ def build_argparser():
 
 _ZOO = "the zoo and the rest"
 _FLEET = "migration, host tier and fleet"
-_LORA = "LoRA and speculation"
 # (flag, argparse keywords) of the JAX server's flags the port lacks;
 # each defaults to None, "not asked for"
 _JAX_ONLY_FLAGS = (
-    ("--generate_lora", dict(action="append", metavar="NAME=PATH")),
-    ("--generate_lora_capacity", dict(type=int)),
-    ("--draft_k", dict(type=int)),
     ("--generate_priority_weight", dict(type=int)),
     ("--generate_park_capacity", dict(type=int)),
     ("--generate_trace_ring", dict(type=int)),
@@ -169,18 +206,9 @@ def _given(v):
 
 # (flag, predicate of "asked for" a value other than None, ROADMAP item)
 _UNPORTED_FLAGS = (
-    ("spec_draft", lambda v: v in ("model", "ngram"),
-     "LoRA and speculation"),
-    ("draft_export_dir", bool, "LoRA and speculation"),
-    ("generate_lora_rank", lambda v: v > 0, "LoRA and speculation"),
-    ("generate_host_cache_mb", lambda v: v > 0,
-     "migration, host tier and fleet"),
-    ("generate_preempt_ms", lambda v: v > 0,
-     "migration, host tier and fleet"),
-    ("fleet", bool, "migration, host tier and fleet"),
-    ("generate_lora", bool, _LORA),
-    ("generate_lora_capacity", _given, _LORA),
-    ("draft_k", _given, _LORA),
+    ("generate_host_cache_mb", lambda v: v > 0, _FLEET),
+    ("generate_preempt_ms", lambda v: v > 0, _FLEET),
+    ("fleet", bool, _FLEET),
     ("generate_priority_weight", _given, _FLEET),
     ("generate_park_capacity", _given, _FLEET),
     ("generate_trace_ring", _given, _FLEET),
@@ -266,6 +294,7 @@ class SlotHandle:
         self._outcome_lock = threading.Lock()
         self._seq = None
         self._err = None
+        self._on_done = None    # run once at the outcome (adapter refs)
 
     def cancel(self):
         """Stop decoding for this request: the batcher retires its slot
@@ -273,20 +302,21 @@ class SlotHandle:
         self.cancelled.set()
 
     def _finish(self, seq):
-        with self._outcome_lock:
-            if self._done.is_set():
-                return
-            self._seq = seq
-            self._done.set()
-            self.tokens.put(None)
+        self._settle(seq, None)
 
     def _fail(self, err):
+        self._settle(None, err)
+
+    def _settle(self, seq, err):
         with self._outcome_lock:
             if self._done.is_set():
                 return
-            self._err = err
+            self._seq, self._err = seq, err
+            on_done, self._on_done = self._on_done, None
             self._done.set()
             self.tokens.put(None)
+        if on_done is not None:
+            on_done()
 
     def result(self, timeout=None):
         if not self._done.wait(timeout):
@@ -298,13 +328,16 @@ class SlotHandle:
 
 class _HostBuffers:
     """Host buffers of flushed readback chunks: a ``[read_chunk,
-    n_slots]`` token plane and done plane, pinned on the card so that
-    the copy runs without blocking.  A buffer goes back to the free list
+    n_slots, width]`` token plane (width 1, or ``draft_k`` when rounds
+    speculate), a ``[read_chunk, n_slots]`` count plane (tokens a row
+    delivers per entry) and done plane, pinned on the card so that the
+    copy runs without blocking.  A buffer goes back to the free list
     only after its chunk was processed, so no copy lands in a buffer the
     host still reads."""
 
-    def __init__(self, read_chunk, n_slots, device):
+    def __init__(self, read_chunk, n_slots, device, width=1):
         self._shape = (read_chunk, n_slots)
+        self._width = width
         self._pin = device.type == "cuda"
         self._free = queue_mod.SimpleQueue()
 
@@ -312,7 +345,9 @@ class _HostBuffers:
         try:
             return self._free.get_nowait()
         except queue_mod.Empty:
-            return (torch.empty(self._shape, dtype=torch.int64,
+            return (torch.empty(self._shape + (self._width,),
+                                dtype=torch.int64, pin_memory=self._pin),
+                    torch.empty(self._shape, dtype=torch.int64,
                                 pin_memory=self._pin),
                     torch.empty(self._shape, dtype=torch.bool,
                                 pin_memory=self._pin))
@@ -355,17 +390,45 @@ class ContinuousBatcher:
     Greedy rows decode exactly the tokens of a solo ``decode.generate``
     (with the same ``kv_dtype``); sampled rows draw the counter-based
     noise of (seed, ordinal), so a seeded request reproduces itself.
+    The per-row sampling controls live on the device.
+
+    ``lora_rank > 0``: a bank of ``lora_capacity`` adapters plus the
+    null adapter 0 (``register_adapter``); a request names its adapter
+    and its row decodes with that adapter's delta.  ``spec_draft``
+    ("model" with ``draft_model``, "ngram", "off"; None: "model" when a
+    draft is given): speculative rounds (``decode.spec_round``) of up to
+    ``draft_k`` proposals; the draft keeps a dense slot cache of its
+    own, the n-gram table lives on the device, and each request
+    reserves ``draft_k`` positions of verify headroom.  A penalised row
+    gates speculation off while it runs, as in the JAX batcher.
     """
 
     def __init__(self, model, n_slots=8, max_pending=1024, read_chunk=8,
                  prefill_chunk=512, prefill_rows=4, prefill_budget=0,
                  kv_page_size=0, kv_pages=0, kv_dtype=None,
                  engine="async", pipeline_depth=2, long_prompt_threshold=0,
-                 device=None):
+                 draft_model=None, draft_k=4, spec_draft=None, lora_rank=0,
+                 lora_capacity=8, device=None):
         if engine not in ("async", "serial"):
             raise ValueError(f"engine={engine!r} not in ('async', 'serial')")
         if n_slots < 1:
             raise ValueError("n_slots must be >= 1")
+        mode = spec_draft
+        if mode is None:
+            mode = "model" if draft_model is not None else "off"
+        if mode not in ("model", "ngram", "off"):
+            raise ValueError(
+                f"spec_draft={mode!r} not in ('model', 'ngram', 'off')")
+        if mode == "model" and draft_model is None:
+            raise ValueError("spec_draft='model' requires a draft model "
+                             "(--draft_export_dir)")
+        if mode == "ngram" and draft_model is not None:
+            raise ValueError("spec_draft='ngram' is model-free — drop the "
+                             "draft model (or pick spec_draft='model')")
+        if mode != "off" and int(draft_k) < 1:
+            raise ValueError(f"draft_k={draft_k} must be >= 1")
+        if mode == "off":
+            draft_model = None
         self.kv_page_size = int(kv_page_size or 0)
         if self.kv_page_size and int(kv_pages) < 1:
             raise ValueError("kv_page_size > 0 requires kv_pages >= 1")
@@ -390,6 +453,39 @@ class ContinuousBatcher:
         self.vocab_size = model.cfg.vocab_size
         self.counters = Counters()
         kv_dtype = None if kv_dtype == "auto" else kv_dtype
+        self.spec_mode = mode
+        self.draft_model = draft_model
+        self.draft_k = int(draft_k)
+        if draft_model is not None:
+            if draft_model.cfg.vocab_size != self.vocab_size:
+                raise ValueError(
+                    f"draft vocab {draft_model.cfg.vocab_size} != target "
+                    f"vocab {self.vocab_size}")
+            # both caches hold the sequence
+            self.max_seq = min(self.max_seq, draft_model.cfg.max_seq_len)
+            _, self._d_cache = decode_mod.init_slot_cache(
+                draft_model, n_slots, kv_dtype=kv_dtype)
+        if mode == "ngram":
+            # the rows' committed tokens (prompt + delivered output), one
+            # spare column for dropped writes: proposals and appends stay
+            # on the device
+            self._spec_ctx = torch.zeros((n_slots, self.max_seq + 1),
+                                         dtype=torch.int64,
+                                         device=self.device)
+            self._spec_ctx_len = torch.zeros((n_slots,), dtype=torch.int64,
+                                             device=self.device)
+        # adaptive draft length: the host thread keeps per-row acceptance
+        # averages and publishes a round width through _speck_q; the
+        # device thread adopts the latest at dispatch
+        self._spec_k = self.draft_k       # device-thread-owned
+        self._spec_k_sum = 0
+        self._spec_rounds = 0
+        self._speck_q = queue_mod.Queue(8)
+        self._spec_ewma = [1.0] * n_slots     # host-thread-owned
+        self._spec_k_pub = self.draft_k       # host-thread-owned
+        self.lora_rank = int(lora_rank or 0)
+        if self.lora_rank:
+            self._init_lora_bank(int(lora_capacity))
         if self.kv_page_size:
             self._sink = int(kv_pages)
             self._total_pages = int(kv_pages)
@@ -455,27 +551,30 @@ class ContinuousBatcher:
         # graftcheck: disable-next-line=thread-race
         self._admissions = []        # in-flight chunked admissions
         self._ttft = LatencyWindow()   # submit -> first token
-        # per-row decode state: the previous pick and the stop registers
-        # on the device, the sampling controls on the host (free rows:
-        # greedy, no filter)
-        self._toks = torch.zeros((n_slots,), dtype=torch.int64,
-                                 device=self.device)
-        self._rems = torch.zeros((n_slots,), dtype=torch.int32,
-                                 device=self.device)
-        self._eoss = torch.zeros((n_slots,), dtype=torch.int64,
-                                 device=self.device)
-        self._eos_on = torch.zeros((n_slots,), dtype=torch.bool,
-                                   device=self.device)
-        self._temps = [0.0] * n_slots
-        self._seeds = [0] * n_slots
-        self._ords = [0] * n_slots
-        self._topks = [0] * n_slots
-        self._topps = [1.0] * n_slots
-        self._minps = [0.0] * n_slots
-        self._n_filtered = 0
+        # per-row decode state on the device: the previous pick, the stop
+        # registers, the sampling controls (free rows: greedy, no
+        # filter) and the penalty's presence table; the host counts the
+        # rows that sample, filter and penalise
+        def zeros(dtype, fill=0, shape=(n_slots,)):
+            return torch.full(shape, fill, dtype=dtype, device=self.device)
+
+        self._toks = zeros(torch.int64)
+        self._rems = zeros(torch.int32)
+        self._eoss = zeros(torch.int64)
+        self._eos_on = zeros(torch.bool)
+        self._temps = zeros(torch.float32)
+        self._seeds = zeros(torch.int64)
+        self._ords = zeros(torch.int64)
+        self._topks = zeros(torch.int64)
+        self._topps = zeros(torch.float32, 1.0)
+        self._minps = zeros(torch.float32)
+        self._reps = zeros(torch.float32, 1.0)
+        self._seen = zeros(torch.int8, shape=(n_slots, self.vocab_size))
+        self._n_sampled = self._n_filtered = self._n_penalized = 0
         self._steps = 0
         self._step_ms = collections.deque(maxlen=1024)   # decode-only chunks
-        self._bufs = _HostBuffers(self.read_chunk, n_slots, self.device)
+        self._bufs = _HostBuffers(self.read_chunk, n_slots, self.device,
+                                  self.draft_k if mode != "off" else 1)
         # device->host handoff: flushed chunks ride here; the bound IS the
         # pipeline depth (backpressure when the host falls behind)
         self._ready = queue_mod.Queue(self.pipeline_depth)
@@ -528,6 +627,8 @@ class ContinuousBatcher:
             "prefill_budget": self.prefill_budget,
             "requests_served": self.counters.get("requests_served"),
             "decode_steps": self._steps,
+            "spec_rounds": self._spec_rounds,
+            "spec_mode": self.spec_mode,
             "engine": self.engine,
             "pipeline_depth": self.pipeline_depth,
             # high-water mark of dispatched-but-unprocessed steps: > 1 is
@@ -554,6 +655,22 @@ class ContinuousBatcher:
             "kernel_launches": ops.launch_counts(self.kernels),
             "long_prompt_threshold": self.long_prompt_threshold,
         }
+        for key in ("spec_tokens_proposed", "spec_tokens_accepted",
+                    "spec_draft_fallbacks"):
+            out[key] = self.counters.get(key)
+        proposed = out["spec_tokens_proposed"]
+        out["spec_accept_rate"] = (
+            round(out["spec_tokens_accepted"] / proposed, 4) if proposed
+            else 0.0)
+        out["spec_k_current"] = self._spec_k
+        out["spec_k_mean"] = (round(self._spec_k_sum / self._spec_rounds, 4)
+                              if self._spec_rounds else 0.0)
+        if self.lora_rank:
+            out["lora_rank"] = self.lora_rank
+            # registration threads resize the registry: read it locked
+            with self._lora_lock:
+                out["lora_adapters"] = sorted(self._adapters)
+                out["lora_capacity_free"] = len(self._free_lora)
         out.update(self._ttft.stats("ttft"))
         if self.kv_page_size:
             free = len(self._free_pages)
@@ -582,9 +699,13 @@ class ContinuousBatcher:
         return out
 
     def submit(self, prompt, max_new, temperature=0.0, eos_id=None, seed=0,
-               top_k=0, top_p=1.0, min_p=0.0):
+               top_k=0, top_p=1.0, min_p=0.0, adapter=None, stop=None,
+               repetition_penalty=1.0):
         if self._dead is not None:
             raise RuntimeError(f"batcher died: {self._dead}")
+        if adapter is not None and not self.lora_rank:
+            raise ValueError("this server has no LoRA bank (start it with "
+                             "--generate_lora_rank and --generate_lora)")
         decode_mod.check_pick_args(temperature, top_k, top_p, min_p)
         if not prompt or max_new < 1:
             raise ValueError("need a non-empty prompt and max_new >= 1")
@@ -593,11 +714,28 @@ class ContinuousBatcher:
         if not all(0 <= t < self.vocab_size for t in prompt):
             raise ValueError(f"prompt token ids must lie in [0, "
                              f"{self.vocab_size})")
-        if len(prompt) + max_new > self.max_seq:
-            raise ValueError(f"prompt {len(prompt)} + max_new_tokens "
-                             f"{max_new} exceeds max_seq_len {self.max_seq}")
+        stops = []
+        for st in (stop or []):
+            if (not isinstance(st, (list, tuple)) or not st
+                    or not all(_is_int(t) for t in st)):
+                raise ValueError('"stop" must be a list of non-empty '
+                                 "token-id lists")
+            stops.append(list(st))
+        if len(stops) > 16 or any(len(st) > 32 for st in stops):
+            raise ValueError("at most 16 stop sequences of at most 32 "
+                             "tokens each")
+        decode_mod.check_penalty(repetition_penalty)
+        # speculating requests reserve draft_k positions for the verify
+        # block's overshoot; penalised ones never speculate
+        headroom = self._headroom(repetition_penalty)
+        if len(prompt) + max_new + headroom > self.max_seq:
+            raise ValueError(
+                f"prompt {len(prompt)} + max_new_tokens {max_new}"
+                + (f" + speculation headroom {headroom}" if headroom else "")
+                + f" exceeds max_seq_len {self.max_seq}")
         if self.kv_page_size:
-            need = self._pages_needed(len(prompt), max_new)
+            need = self._pages_needed(len(prompt), max_new,
+                                      repetition_penalty)
             if need > self._total_pages:
                 # a request the whole pool cannot hold would wait forever
                 # at the head of the line, wedging every later admission
@@ -605,7 +743,19 @@ class ContinuousBatcher:
                     f"request needs {need} kv pages but the pool only has "
                     f"{self._total_pages}; raise --generate_kv_pages or "
                     "shorten the request")
+        # the adapter last: its in-flight reference is taken only once
+        # every check passed (a refused request must not leak one)
+        aidx = 0
+        if adapter is not None:
+            with self._lora_lock:
+                if adapter not in self._adapters:
+                    raise ValueError(f"unknown adapter {adapter!r}; "
+                                     f"registered: {sorted(self._adapters)}")
+                aidx = self._adapters[adapter]
+                self._adapter_refs[aidx] = self._adapter_refs.get(aidx, 0) + 1
         h = SlotHandle()
+        if aidx:
+            h._on_done = lambda idx=aidx: self._release_adapter(idx)
         # the lane flag is decided once, here: every later hop keys off it
         is_long = bool(self.long_prompt_threshold
                        and len(prompt) > self.long_prompt_threshold)
@@ -613,6 +763,7 @@ class ContinuousBatcher:
             "h": h, "prompt": list(prompt), "max_new": int(max_new),
             "temp": float(temperature), "eos": eos_id, "seed": int(seed),
             "topk": int(top_k), "topp": float(top_p), "minp": float(min_p),
+            "aidx": aidx, "stops": stops, "rep": float(repetition_penalty),
             "long": is_long, "t_submit": time.monotonic()})
         if self._dead is not None:
             # the loop may have died between the check and the put
@@ -652,29 +803,159 @@ class ContinuousBatcher:
                     f"prefix-cache drop did not land in {timeout_s:.1f}s")
         return box.get("n", 0)
 
+    # ---- the LoRA adapter bank ---------------------------------------------
+
+    def _init_lora_bank(self, capacity):
+        """Per-layer banks ``{proj}_a [L, d_in, r]`` / ``{proj}_b [L, r,
+        d_out]`` (f32, L = capacity + 1; index 0 the all-zero null
+        adapter) for the attention projections, and each row's bank
+        index.  Registration writes an index no live row uses."""
+        cfg = self.model.cfg
+        head_dim = cfg.d_model // cfg.n_heads
+        n_kv = cfg.n_heads if cfg.n_kv_heads is None else cfg.n_kv_heads
+        self._lora_dims = {
+            "query": (cfg.d_model, cfg.d_model),
+            "key": (cfg.d_model, n_kv * head_dim),
+            "value": (cfg.d_model, n_kv * head_dim),
+            "out": (cfg.d_model, cfg.d_model)}
+        L, r = capacity + 1, self.lora_rank
+        self._lora_banks = {
+            f"layer_{i}": {
+                **{f"{p}_a": torch.zeros((L, di, r), device=self.device)
+                   for p, (di, _) in self._lora_dims.items()},
+                **{f"{p}_b": torch.zeros((L, r, do), device=self.device)
+                   for p, (_, do) in self._lora_dims.items()}}
+            for i in range(cfg.n_layers)}
+        self._lora_ids = torch.zeros((self.n_slots,), dtype=torch.int64,
+                                     device=self.device)
+        self._adapters = {}            # name -> bank index
+        self._free_lora = list(range(1, L))
+        self._adapter_refs = {}        # index -> requests in flight
+        # prefix-cache identity of each index: a never-reused token per
+        # registration, so pages cached under an earlier tenant of the
+        # index never serve a later one
+        self._adapter_token = {0: 0}
+        self._token_counter = itertools.count(1)
+        self._lora_lock = threading.Lock()
+
+    def register_adapter(self, name, adapters, scale=1.0):
+        """Install a LoRA adapter under `name` (requests select it with
+        ``submit(..., adapter=name)``).  `adapters` is the `lora.init`
+        tree ``{"layer_<i>/attn/<proj>/kernel": {"a", "b"}}`` (attention
+        projections only); `scale` folds into the stored b.  Paths the
+        adapter does not cover stay zero.  Thread-safe; visible from the
+        engine's next dispatch.  Returns the bank index."""
+        if not self.lora_rank:
+            raise ValueError("no LoRA bank configured (lora_rank=0; pass "
+                             "lora_rank / --generate_lora_rank)")
+        by_slot = {}
+        for path, ab in adapters.items():
+            parts = path.split("/")
+            if (len(parts) != 4 or parts[1] != "attn"
+                    or parts[0] not in self._lora_banks
+                    or parts[2] not in self._lora_dims
+                    or parts[3] != "kernel"):
+                raise ValueError(
+                    f"adapter path {path!r} is not an attention projection "
+                    "of this model (expected layer_<i>/attn/"
+                    "<query|key|value|out>/kernel)")
+            a, b = (x if isinstance(x, torch.Tensor) else
+                    torch.from_numpy(np.array(x, np.float32))
+                    for x in (ab["a"], ab["b"]))
+            di, do = self._lora_dims[parts[2]]
+            if (tuple(a.shape) != (di, self.lora_rank)
+                    or tuple(b.shape) != (self.lora_rank, do)):
+                raise ValueError(
+                    f"adapter {path!r} shapes a{tuple(a.shape)} "
+                    f"b{tuple(b.shape)} do not match bank "
+                    f"([{di}, {self.lora_rank}], [{self.lora_rank}, {do}])")
+            by_slot[(parts[0], parts[2])] = (a, b)
+        with self._lora_lock:
+            if name in self._adapters:
+                raise ValueError(f"adapter {name!r} already registered")
+            if not self._free_lora:
+                raise ValueError(
+                    f"adapter bank full ({len(self._adapters)} registered; "
+                    "raise lora_capacity / --generate_lora_capacity)")
+            idx = self._free_lora.pop()
+            try:
+                with torch.no_grad():
+                    for layer, bank in self._lora_banks.items():
+                        for proj in self._lora_dims:
+                            a, b = by_slot.get((layer, proj), (None, None))
+                            if a is None:
+                                bank[f"{proj}_a"][idx].zero_()
+                                bank[f"{proj}_b"][idx].zero_()
+                            else:
+                                bank[f"{proj}_a"][idx].copy_(a.float())
+                                bank[f"{proj}_b"][idx].copy_(
+                                    b.float() * float(scale))
+            except BaseException:
+                self._free_lora.append(idx)   # the index stays in the pool
+                raise
+            self._adapters[name] = idx
+            self._adapter_refs.setdefault(idx, 0)
+            self._adapter_token[idx] = next(self._token_counter)
+        logger.info("registered LoRA adapter %r at bank index %d (%d paths, "
+                    "scale %.3g)", name, idx, len(adapters), scale)
+        return idx
+
+    def unregister_adapter(self, name):
+        """Remove `name`; refuses while requests using it are in flight."""
+        with self._lora_lock:
+            idx = self._adapters.get(name)
+            if idx is None:
+                raise ValueError(f"adapter {name!r} is not registered")
+            if self._adapter_refs.get(idx, 0) > 0:
+                raise ValueError(f"adapter {name!r} has "
+                                 f"{self._adapter_refs[idx]} requests in "
+                                 "flight")
+            del self._adapters[name]
+            self._free_lora.append(idx)
+
+    def _release_adapter(self, idx):
+        with self._lora_lock:
+            self._adapter_refs[idx] = max(0,
+                                          self._adapter_refs.get(idx, 0) - 1)
+
+    def _lora_prefix_root(self, aidx):
+        """Prefix-key root of bank index `aidx`: () for the base model,
+        the registration's token otherwise."""
+        if not self.lora_rank or not aidx:
+            return ()
+        with self._lora_lock:
+            return ("lora", self._adapter_token.get(aidx, -1))
+
     # ---- pool, page tables and the prefix cache ----------------------------
 
-    def _pages_needed(self, prompt_len, max_new):
-        return -(-(prompt_len + max_new) // self.kv_page_size)
+    def _headroom(self, rep):
+        """Verify-overshoot positions a request reserves: ``draft_k``
+        when rounds speculate and it is not penalised."""
+        return self.draft_k if (self.spec_mode != "off"
+                                and rep == 1.0) else 0
 
-    def _prefix_keys(self, prompt, upto_tokens):
+    def _pages_needed(self, prompt_len, max_new, rep=1.0):
+        return -(-(prompt_len + max_new + self._headroom(rep))
+                 // self.kv_page_size)
+
+    def _prefix_keys(self, prompt, upto_tokens, root=()):
         """Cumulative-prefix keys of each FULL page within `upto_tokens`:
         nested tuples ``(prev_key, page_tokens)``, so a lookup is exact
         (two prefixes never serve each other's kv) and each key shares
-        its predecessor's structure.  The root is ``()``: the base
-        model's keys (LoRA roots are A6's)."""
+        its predecessor's structure.  ``root`` is the request's adapter
+        identity (``_lora_prefix_root``): () for the base model."""
         P = self.kv_page_size
-        keys, k = [], ()
+        keys, k = [], root
         for i in range(upto_tokens // P):
             k = (k, tuple(prompt[i * P:(i + 1) * P]))
             keys.append(k)
         return keys
 
-    def _prefix_lookup(self, prompt):
+    def _prefix_lookup(self, prompt, root=()):
         """(shared pages, keys of every full page): the longest cached
         run of full prompt pages, within len(prompt) - 1 tokens (the last
         prompt token must run through prefill for the first logits)."""
-        keys = self._prefix_keys(prompt, len(prompt) - 1)
+        keys = self._prefix_keys(prompt, len(prompt) - 1, root)
         shared = []
         for key in keys:
             page = self._prefix.get(key)
@@ -756,9 +1037,12 @@ class ContinuousBatcher:
         otherwise idle and even the valve cannot cover the need, a
         KVOverflowError for the request (pool conserved)."""
         item, row = adm["item"], adm["row"]
+        if adm["di"] < len(adm["d_sizes"]):
+            return True      # draft catch-up: the dense draft cache
         upto = adm["offset"] + adm["sizes"][adm["i"]]
         if upto >= len(item["prompt"]):
-            need = self._pages_needed(len(item["prompt"]), item["max_new"])
+            need = self._pages_needed(len(item["prompt"]), item["max_new"],
+                                      item["rep"])
         else:
             need = -(-upto // self.kv_page_size)
         have = len(self._row_pages[row] or [])
@@ -797,8 +1081,9 @@ class ContinuousBatcher:
         caller parks the item).  ``lazy`` (the lane) maps only the shared
         pages now; `_ensure_long_pages` maps the rest chunk by chunk."""
         prompt = item["prompt"]
-        need = self._pages_needed(len(prompt), item["max_new"])
-        shared, keys = self._prefix_lookup(prompt)
+        need = self._pages_needed(len(prompt), item["max_new"], item["rep"])
+        shared, keys = self._prefix_lookup(
+            prompt, self._lora_prefix_root(item["aidx"]))
         # hold refs BEFORE any eviction: our own shared pages at rc 0
         # would otherwise be evictable by our eviction pass and end up
         # mapped twice in this row's table
@@ -855,11 +1140,19 @@ class ContinuousBatcher:
         list, and the table points at the sink, so the row's garbage
         decode never writes pages a later owner holds."""
         s = self._slots[row]
-        if s is not None and s["filtered"]:
-            self._n_filtered -= 1
+        if s is not None:
+            self._n_filtered -= s["filtered"]
+            self._n_sampled -= s["sampled"]
+            self._n_penalized -= s["pen"]
         self._slots[row] = None
-        self._temps[row] = 0.0           # free rows decode greedily
-        self._topks[row], self._topps[row], self._minps[row] = 0, 1.0, 0.0
+        if s is not None:
+            # free rows decode greedily, unfiltered, unpenalised, on the
+            # base model (device writes, no sync)
+            self._temps[row] = 0.0
+            self._topks[row], self._topps[row] = 0, 1.0
+            self._minps[row], self._reps[row] = 0.0, 1.0
+            if self.lora_rank:
+                self._lora_ids[row] = 0
         if self.kv_page_size and self._row_pages[row] is not None:
             for page in self._row_pages[row]:
                 if page in self._page_rc:
@@ -905,9 +1198,15 @@ class ContinuousBatcher:
             decode_mod.set_row_indices(
                 self._cache, decode_mod.to_device([row], self.device),
                 decode_mod.to_device([shared], self.device))
+        # the draft's dense cache shares nothing: it catches up over the
+        # shared positions first, chunk by chunk, in rounds of its own
         self._admissions.append({
             "row": row, "item": item, "offset": shared, "i": 0,
-            "sizes": self._prefill_chunk_sizes(len(prompt) - shared)})
+            "sizes": self._prefill_chunk_sizes(len(prompt) - shared),
+            "d_off": 0, "di": 0,
+            "d_sizes": (self._prefill_chunk_sizes(shared)
+                        if shared and self.draft_model is not None
+                        else [])})
 
     def _admit_one(self, row, item):
         """One admission, the handle tied to its fate: a raise here comes
@@ -1012,13 +1311,31 @@ class ContinuousBatcher:
             if (adm["item"]["long"] and adm is not head
                     and not self._ensure_long_pages(adm)):
                 continue
-            size = adm["sizes"][adm["i"]]
+            size = self._next_chunk_len(adm)
             if selected and (len(selected) >= self.prefill_rows
                              or spent + size > self.prefill_budget):
                 break
             selected.append(adm)
             spent += size
         return selected
+
+    def _next_chunk_len(self, adm):
+        """The length of the chunk `adm` runs next (a draft catch-up
+        chunk counts against the budget like any other)."""
+        if adm["di"] < len(adm["d_sizes"]):
+            return adm["d_sizes"][adm["di"]]
+        return adm["sizes"][adm["i"]]
+
+    def _prefill_batch(self, entries):
+        """``(bucket, width, tensors)`` of one round's ``(row, chunk,
+        start)`` entries: rows padded to a power of two, chunks to a
+        power-of-two bucket capped at the prefill chunk
+        (``decode.build_prefill_batch``)."""
+        bucket = _bucket_len(max(len(c) for _, c, _ in entries),
+                             self.prefill_chunk)
+        width = _pow2_width(len(entries))
+        return bucket, width, decode_mod.build_prefill_batch(
+            entries, width, bucket, self.n_slots, self.device)
 
     def _run_prefill_round(self):
         """One batched prefill dispatch over the admission queue; each
@@ -1035,6 +1352,22 @@ class ContinuousBatcher:
         selected = self._select_prefill()
         if not selected:
             return False
+        # draft catch-up rounds run apart: they advance the draft cache
+        # over shared positions the target never recomputes
+        catchup = [a for a in selected if a["di"] < len(a["d_sizes"])]
+        if catchup:
+            entries = []
+            for adm in catchup:
+                size, off = adm["d_sizes"][adm["di"]], adm["d_off"]
+                entries.append((adm["row"],
+                                adm["item"]["prompt"][off:off + size], off))
+                adm["d_off"], adm["di"] = off + size, adm["di"] + 1
+            with torch.no_grad():
+                decode_mod.slot_prefill_many(
+                    self.draft_model, self._d_cache,
+                    *self._prefill_batch(entries)[2], 0)
+            self.counters.inc("prefill_dispatches")
+            return True
         entries, finishing = [], []
         for adm in selected:
             off, size = adm["offset"], adm["sizes"][adm["i"]]
@@ -1046,21 +1379,26 @@ class ContinuousBatcher:
                 finishing.append(adm)
             if adm["item"]["long"]:
                 self.counters.inc("long_chunks_dispatched")
-        bucket = _bucket_len(max(len(c) for _, c, _ in entries),
-                             self.prefill_chunk)
-        width = _pow2_width(len(entries))
+        bucket, width, batch = self._prefill_batch(entries)
         if self.kv_page_size:
             # bucket overshoot and pad rows write into the sink
             pad = (sum(bucket - len(c) for _, c, _ in entries)
                    + (width - len(entries)) * bucket)
             if pad:
                 self.counters.inc("kv_sink_writes", pad)
-        chunks, rows, starts, n_valids = decode_mod.build_prefill_batch(
-            entries, width, bucket, self.n_slots, self.device)
+        lora = None
+        if self.lora_rank:
+            aidxs = [adm["item"]["aidx"] for adm in selected]
+            lora = (self._lora_banks, decode_mod.to_device(
+                aidxs + [0] * (width - len(aidxs)), self.device))
         with torch.no_grad():
             logits = decode_mod.slot_prefill_many(
-                self.model, self._cache, chunks, rows, starts, n_valids,
-                self._sink if self.kv_page_size else 0)
+                self.model, self._cache, *batch,
+                self._sink if self.kv_page_size else 0, lora=lora)
+            if self.draft_model is not None:
+                # the draft's dense cache mirrors every target chunk
+                decode_mod.slot_prefill_many(self.draft_model, self._d_cache,
+                                             *batch, 0)
         self.counters.inc("prefill_dispatches")
         for i, adm in enumerate(selected):
             if adm in finishing:
@@ -1080,6 +1418,14 @@ class ContinuousBatcher:
                                           or item["minp"] > 0.0))
         fkw = ({"topks": [item["topk"]], "topps": [item["topp"]],
                 "minps": [item["minp"]]} if filt else {})
+        pen = item["rep"] != 1.0
+        if pen:
+            # the first pick's penalty sees the prompt tokens
+            seen = decode_mod.seen_from_prompt(decode_mod.to_device(
+                [prompt], self.device), self.vocab_size)
+            logits_row = decode_mod.apply_repetition_penalty(
+                logits_row[None], seen, decode_mod.to_device(
+                    [item["rep"]], self.device))[0]
         # deliberate readback: the first token is needed as an int before
         # the row joins the decode chain (one per admission, not per step)
         tok = int(decode_mod.pick_tokens(
@@ -1089,7 +1435,8 @@ class ContinuousBatcher:
         h.tokens.put([tok])
         seq = prompt + [tok]
         eos = item["eos"]
-        if max_new <= 1 or (eos is not None and tok == eos):
+        if (max_new <= 1 or (eos is not None and tok == eos)
+                or self._hit_stop(seq, item["stops"], len(prompt))):
             self._free_row(row)
             h._finish(seq)
             self.counters.inc("requests_served")
@@ -1107,60 +1454,148 @@ class ContinuousBatcher:
         self._topks[row] = item["topk"]
         self._topps[row] = item["topp"]
         self._minps[row] = item["minp"]
-        if filt:
-            self._n_filtered += 1
+        if self.lora_rank:
+            self._lora_ids[row] = item["aidx"]
+        if pen:
+            self._seen[row] = seen[0]
+            self._reps[row] = item["rep"]
+        sampled = item["temp"] > 0
+        self._n_filtered += filt
+        self._n_sampled += sampled
+        self._n_penalized += pen
         self._slots[row] = {"handle": h, "seq": seq, "remaining": max_new - 1,
-                            "filtered": filt, "item": item}
+                            "filtered": filt, "sampled": sampled, "pen": pen,
+                            "stops": item["stops"], "plen": len(prompt),
+                            "item": item}
+        if self.spec_mode == "ngram":
+            decode_mod.set_row_ctx(self._spec_ctx, self._spec_ctx_len, row,
+                                   seq)
+
+    @staticmethod
+    def _hit_stop(seq, stops, gen_start):
+        """True when `seq` ends with one of the request's stop sequences
+        lying wholly in the generated region (a stop across the prompt
+        boundary does not count); the stop's tokens stay in the
+        output, as an eos does."""
+        return any(len(seq) - len(st) >= gen_start
+                   and seq[-len(st):] == st for st in stops)
 
     # ---- decode, readback and the two engines ------------------------------
 
     def _dispatch(self):
-        """One decode step for every row (free rows write the sink or
-        past their window).  Returns the readback entry (tokens, done
-        plane, generation snapshot); nothing here waits for the card."""
+        """One decode advance for every row (free rows write the sink or
+        past their window): a speculative round (``decode.spec_round``)
+        unless speculation is off or a penalised row is active, else one
+        plain step.  Returns the readback entry (tokens ``[n]`` or ``[n,
+        k]``, deliverable counts or None, done plane, generation
+        snapshot, the round's k or None); nothing here waits for the
+        card."""
         if self.kv_page_size:
             idle = sum(s is None for s in self._slots)
             if idle:
                 self.counters.inc("kv_sink_writes", idle)
         fkw = ({"topks": self._topks, "topps": self._topps,
                 "minps": self._minps} if self._n_filtered else {})
+        use_spec = self.spec_mode != "off" and not self._n_penalized
+        if use_spec:
+            try:
+                faults.check("serve.spec_verify")
+            except Exception:
+                # a failed round falls back to a plain step: greedy rows
+                # give the same tokens, sampled ones the same distribution
+                self.counters.inc("spec_draft_fallbacks")
+                use_spec = False
+        lora = (self._lora_banks, self._lora_ids) if self.lora_rank else None
+        if use_spec:
+            return self._dispatch_spec(fkw, lora)
+        pkw = ({"seen": self._seen, "reps": self._reps}
+               if self._n_penalized else {})
         with torch.no_grad():
             self._toks, self._rems, done = decode_mod.slot_step(
                 self.model, self._cache, self._toks, self._temps,
                 self._seeds, self._ords, rems=self._rems, eoss=self._eoss,
-                eos_on=self._eos_on, **fkw)
-        self._ords = [o + 1 for o in self._ords]
+                eos_on=self._eos_on, lora=lora,
+                sampled=self._n_sampled > 0, **fkw, **pkw)
+        self._ords = self._ords + 1
         self._steps += 1
-        return self._toks, done, tuple(self._gen)
+        return self._toks, None, done, tuple(self._gen), None
+
+    def _dispatch_spec(self, fkw, lora):
+        """One speculative round at the adaptive k (the host thread's
+        latest suggestion, through `_speck_q`)."""
+        try:
+            while True:
+                self._spec_k = self._speck_q.get_nowait()
+        except queue_mod.Empty:
+            pass
+        k = self._spec_k
+        if self.spec_mode == "ngram":
+            skw = {"ctx": self._spec_ctx, "ctx_len": self._spec_ctx_len}
+        else:
+            skw = {"draft": self.draft_model, "d_cache": self._d_cache}
+        with torch.no_grad():
+            (self._toks, c_tok, _, n_del, done, self._rems, self._ords,
+             ctx_len) = decode_mod.spec_round(
+                self.model, self._cache, self._toks, self._temps,
+                self._seeds, self._ords, self._rems, self._eoss,
+                self._eos_on, k, lora=lora, sampled=self._n_sampled > 0,
+                **skw, **fkw)
+        if ctx_len is not None:
+            self._spec_ctx_len = ctx_len
+        self._spec_rounds += 1
+        self._spec_k_sum += k
+        self.counters.inc("spec_tokens_proposed",
+                          k * sum(s is not None for s in self._slots))
+        return c_tok, n_del, done, tuple(self._gen), k
 
     def _flush(self, reads):
-        """Stack a chunk's tokens and done planes and START their copy
-        into a free pair of host buffers (pinned on the card), with an
-        event recorded after the copy.  The chunk is processed later,
-        after a wait on that event."""
-        k = len(reads)
-        toks, done = self._bufs.take()
-        toks[:k].copy_(torch.stack([e[0] for e in reads]), non_blocking=True)
-        done[:k].copy_(torch.stack([e[1] for e in reads]), non_blocking=True)
+        """Stack a chunk's tokens, counts and done planes and START their
+        copy into free host buffers (pinned on the card), with an event
+        recorded after the copy.  A plain step's tokens fill column 0
+        with count 1; a round of k < width pads.  The chunk is processed
+        later, after a wait on that event."""
+        n = len(reads)
+        toks, counts, done = self._bufs.take()
+        width = toks.shape[2]
+
+        def wide(e):
+            t = e[0] if e[0].dim() == 2 else e[0][:, None]
+            return torch.nn.functional.pad(t, (0, width - t.shape[1]))
+
+        toks[:n].copy_(torch.stack([wide(e) for e in reads]),
+                       non_blocking=True)
+        if any(e[1] is not None for e in reads):
+            ones = torch.ones_like(self._toks)
+            counts[:n].copy_(torch.stack([
+                ones if e[1] is None else e[1] for e in reads]),
+                non_blocking=True)
+        else:
+            counts[:n].fill_(1)
+        done[:n].copy_(torch.stack([e[2] for e in reads]), non_blocking=True)
         event = None
         if self.device.type == "cuda":
             # a blocking-sync event: the waiting host thread sleeps
             # instead of spinning beside the launching device thread
             event = torch.cuda.Event(blocking=True)
             event.record()
-        return (toks, done, k, event, [e[2] for e in reads])
+        return (toks, counts, done, n, event, [e[3] for e in reads],
+                [e[4] for e in reads])
 
     def _process_batch(self, batch):
         """One flushed chunk -> token commits, stream deliveries and
         retirements, in dispatch order (the host side of the pipeline).
         The wait is on the chunk's copy event (which releases the GIL);
-        the device-computed done plane decides retirement.  Each stream
-        gets the chunk's tokens in one put."""
-        toks, done, k, event, gens_list = batch
+        the device-computed done plane decides retirement, the host
+        checks the requests' stop sequences.  Each stream gets the
+        chunk's tokens in one put.  Speculative entries also feed the
+        adaptive draft length: per-row acceptance averages, and a new
+        suggested k to the device thread through `_speck_q`."""
+        toks, counts, done, k, event, gens_list, ks_list = batch
         if event is not None:
             event.synchronize()
-        block, done_rows = toks[:k].tolist(), done[:k].tolist()
-        self._bufs.give((toks, done))
+        block, count_rows = toks[:k].tolist(), counts[:k].tolist()
+        done_rows = done[:k].tolist()
+        self._bufs.give((toks, counts, done))
         pend = {}     # row -> tokens committed this tick
 
         def retire(r, s, gen):
@@ -1171,21 +1606,47 @@ class ContinuousBatcher:
             s["handle"]._finish(s["seq"])
             self.counters.inc("requests_served")
 
-        for gens, row_toks, row_done in zip(gens_list, block, done_rows):
+        for gens, row_toks, row_counts, row_done, k_e in zip(
+                gens_list, block, count_rows, done_rows, ks_list):
             for r, s in enumerate(self._slots):
                 if s is None or self._gen[r] != gens[r]:
                     continue      # freed or re-occupied since dispatch
                 if s["handle"].cancelled.is_set():
                     retire(r, s, gens[r])
                     continue
-                s["seq"].append(row_toks[r])
-                s["remaining"] -= 1
-                pend.setdefault(r, []).append(row_toks[r])
-                if row_done[r]:
+                c = row_counts[r]
+                if k_e:           # acceptance feedback (adaptive k)
+                    acc = k_e if c >= k_e else max(0, c - 1)
+                    self.counters.inc("spec_tokens_accepted", acc)
+                    w = self._spec_ewma
+                    w[r] = 0.5 * w[r] + 0.5 * (acc / k_e)
+                ended = False
+                for tok in row_toks[r][:c]:
+                    s["seq"].append(tok)
+                    s["remaining"] -= 1
+                    pend.setdefault(r, []).append(tok)
+                    if self._hit_stop(s["seq"], s["stops"], s["plen"]):
+                        ended = True
+                        break
+                if ended or row_done[r]:
                     retire(r, s, gens[r])
         for r, s in enumerate(self._slots):
             if s is not None and r in pend:
                 s["handle"].tokens.put(pend.pop(r))
+        if any(ks_list):
+            # the next round's width: the largest of the rows' desired
+            # lengths, in pow2 steps up to draft_k (the tokens do not
+            # depend on when the device adopts it)
+            desired = max([1] + [
+                1 + round(self._spec_ewma[r] * (self.draft_k - 1))
+                for r, s in enumerate(self._slots) if s is not None])
+            k_next = min(_pow2_width(desired), self.draft_k)
+            if k_next != self._spec_k_pub:
+                try:
+                    self._speck_q.put_nowait(k_next)
+                    self._spec_k_pub = k_next
+                except queue_mod.Full:
+                    pass
         self.counters.inc("host_ticks")
 
     def _retire(self, row, gen):
@@ -1233,7 +1694,7 @@ class ContinuousBatcher:
                 except queue_mod.Empty:
                     continue
                 self._process_batch(batch)
-                self._depth.add(-batch[2])
+                self._depth.add(-batch[3])
         except BaseException as e:
             self._die(e, "continuous batcher host thread died")
 
@@ -1297,13 +1758,13 @@ class ContinuousBatcher:
                     if prev is not None:
                         t0 = time.monotonic()
                         self._process_batch(prev)
-                        self._depth.add(-prev[2])
+                        self._depth.add(-prev[3])
                         self.counters.inc("device_wait_ms",
                                           (time.monotonic() - t0) * 1000.0)
                     mark, clean = self._mark_flush(mark, clean, n), True
                 elif inflight is not None and not active and not reads:
                     self._process_batch(inflight)   # nothing more to step
-                    self._depth.add(-inflight[2])
+                    self._depth.add(-inflight[3])
                     inflight = None
         except BaseException as e:     # device failure: fail everything
             self._die(e, "continuous batcher died")
@@ -1395,20 +1856,50 @@ class ContinuousBatcher:
 # request fields of the JAX package's :generate whose feature is not
 # ported: (field, predicate of "asked for", ROADMAP item)
 _UNPORTED_FIELDS = (
-    ("stop", bool, "LoRA and speculation"),
-    ("repetition_penalty", lambda v: v != 1.0, "LoRA and speculation"),
-    ("adapter", lambda v: v is not None, "LoRA and speculation"),
-    ("priority", lambda v: v is not None, "migration, host tier and fleet"),
-    ("trace", lambda v: v is not None, "migration, host tier and fleet"),
+    ("priority", lambda v: v is not None, _FLEET),
+    ("trace", lambda v: v is not None, _FLEET),
 )
 
 
+def _load_lm(export_dir, quantize_mode, device):
+    """An export's decoder LM ready to serve on ``device``: quantised by
+    ``quantize_mode`` (int8 / int4) from its stored weights, its other
+    floating leaves at the model's compute width.  A stored int8 export
+    served with int8 keeps its stored bytes (no dequantise / requantise
+    round trip); served otherwise it dequantises into its
+    ``dequant_dtype`` first, as the JAX service does."""
+    from tensorflowonspark_tpu_torch import export as export_mod
+    from tensorflowonspark_tpu_torch.models.transformer import (
+        Transformer, torch_dtype)
+
+    model, spec = export_mod.load_model(
+        export_dir, device=device, dequantize=quantize_mode != "int8")
+    if not isinstance(model, Transformer):
+        raise TypeError(f"export builder rebuilds {type(model).__name__}, "
+                        "not a Transformer — :generate serves decoder LMs "
+                        "only")
+    stored = quantize_mode == "int8" and spec.get("quantized") == "int8"
+    if quantize_mode != "none" and not stored:
+        # quantise the stored (f32 master) weights BEFORE the compute-width
+        # cast, as the JAX service does: scales derive from the masters,
+        # not from rounded copies
+        quantize_mod.quantize_module(model, quantize_mode)
+    # serving reads every weight once per token: keep the float leaves at
+    # the model's compute width; quantisation scales stay f32
+    model = quantize_mod.cast_float_leaves(model,
+                                           torch_dtype(model.cfg)).eval()
+    return model.requires_grad_(False)
+
+
 class GenerateService:
-    """Autoregressive generation over an exported decoder LM: loads the
-    export onto the device, optionally quantises its projections
-    (``quantize_mode`` int8 / int4), stores the other floating leaves at
-    the model's compute width and serves every request through one
-    ContinuousBatcher (over an int8 kv cache with ``kv_dtype="int8"``)."""
+    """Autoregressive generation over an exported decoder LM (the port's
+    export or the JAX package's): loads it onto the device, optionally
+    quantises its projections (``quantize_mode`` int8 / int4), stores
+    the other floating leaves at the model's compute width and serves
+    every request through one ContinuousBatcher (over an int8 kv cache
+    with ``kv_dtype="int8"``).  ``draft_export_dir`` loads the
+    speculative draft (quantised with the target); ``lora_adapters``
+    ``{name: path}`` registers adapter files at start-up."""
 
     _I32 = 1 << 31
 
@@ -1417,42 +1908,45 @@ class GenerateService:
                  prefill_budget=0, request_timeout_s=None, kv_page_size=0,
                  kv_pages=0, kv_dtype="auto", engine="async",
                  pipeline_depth=2, long_prompt_threshold=0,
-                 quantize_mode="none", device=None):
-        from tensorflowonspark_tpu_torch import export as export_mod
-        from tensorflowonspark_tpu_torch.models.transformer import (
-            Transformer, torch_dtype)
-
+                 quantize_mode="none", draft_export_dir=None, draft_k=4,
+                 spec_draft=None, lora_rank=0, lora_capacity=8,
+                 lora_adapters=None, device=None):
         if quantize_mode not in QUANTIZE_MODES:
             raise ValueError(f"quantize_mode={quantize_mode!r} not in "
                              f"{QUANTIZE_MODES}")
         self.device = device_mod.resolve(device)
-        model, _ = export_mod.load_model(export_dir, device=self.device)
-        if not isinstance(model, Transformer):
-            raise TypeError(f"export builder rebuilds {type(model).__name__}"
-                            ", not a Transformer — :generate serves decoder "
-                            "LMs only")
+        self.model = _load_lm(export_dir, quantize_mode, self.device)
         self.quantize_mode = quantize_mode
         self.weight_bytes = self.float_equivalent_bytes = 0
         if quantize_mode != "none":
-            # quantise the stored (f32 master) weights BEFORE the
-            # compute-width cast, as the JAX service does: scales derive
-            # from the masters, not from rounded copies
-            quantize_mod.quantize_module(model, quantize_mode)
             # sizes computed once here; metadata reads them per probe
             self.weight_bytes, self.float_equivalent_bytes = (
-                quantize_mod.quantized_bytes(model))
-        # serving reads every weight once per token: keep the float leaves
-        # at the model's compute width; quantisation scales stay f32
-        self.model = quantize_mod.cast_float_leaves(
-            model, torch_dtype(model.cfg)).eval()
-        self.model.requires_grad_(False)
+                quantize_mod.quantized_bytes(self.model))
+        draft = None
+        if draft_export_dir and spec_draft != "off":
+            # the draft only proposes: its quantisation moves the
+            # acceptance rate, never the tokens
+            draft = _load_lm(draft_export_dir, quantize_mode, self.device)
         self.batcher = ContinuousBatcher(
             self.model, n_slots=slots or 8, read_chunk=read_chunk,
             prefill_chunk=prefill_chunk, prefill_rows=prefill_rows,
             prefill_budget=prefill_budget, kv_page_size=kv_page_size,
             kv_pages=kv_pages, kv_dtype=kv_dtype, engine=engine,
             pipeline_depth=pipeline_depth,
-            long_prompt_threshold=long_prompt_threshold, device=self.device)
+            long_prompt_threshold=long_prompt_threshold, draft_model=draft,
+            draft_k=draft_k, spec_draft=spec_draft, lora_rank=lora_rank,
+            lora_capacity=lora_capacity, device=self.device)
+        try:
+            from tensorflowonspark_tpu_torch import lora as lora_mod
+
+            for name, path in (lora_adapters or {}).items():
+                adapters, scale = lora_mod.load_adapters(path)
+                self.batcher.register_adapter(name, adapters, scale=scale)
+        except BaseException:
+            # the engine threads already run: a failed registration must
+            # not leak them behind the error
+            self.batcher.stop()
+            raise
         self.limit = max_new_tokens_limit
         self.timeout_s = request_timeout_s or max(
             600.0, 2.0 * max_new_tokens_limit)
@@ -1493,7 +1987,27 @@ class GenerateService:
         top_p = float(req.get("top_p", 1.0))
         min_p = float(req.get("min_p", 0.0))
         decode_mod.check_pick_args(temperature, top_k, top_p, min_p)
-        return inputs, max_new, temperature, eos_id, seed, top_k, top_p, min_p
+        adapter = req.get("adapter")
+        if adapter is not None and not isinstance(adapter, str):
+            raise ValueError('"adapter" must be a registered adapter name '
+                             "(string)")
+        stop = req.get("stop")
+        if stop is not None and (
+                not isinstance(stop, list) or len(stop) > 16
+                or not all(isinstance(st, list) and st and len(st) <= 32
+                           and all(_is_int(t) and -self._I32 <= t < self._I32
+                                   for t in st) for st in stop)):
+            raise ValueError('"stop" must be a list (<= 16) of non-empty '
+                             "token-id lists (<= 32 tokens each)")
+        rep = req.get("repetition_penalty", 1.0)
+        if not (isinstance(rep, (int, float)) and not isinstance(rep, bool)
+                and 0 < rep <= 1e6):
+            raise ValueError('"repetition_penalty" must be a number in '
+                             "(0, 1e6] (1.0 disables)")
+        kw = dict(temperature=temperature, eos_id=eos_id, top_k=top_k,
+                  top_p=top_p, min_p=min_p, adapter=adapter, stop=stop,
+                  repetition_penalty=float(rep))
+        return inputs, max_new, seed, kw
 
     def _prompt_seeds(self, n, seed, temperature):
         """Explicit seed s -> s, s+1, ...; unseeded sampling -> a fresh
@@ -1510,15 +2024,12 @@ class GenerateService:
         token, then ``{"done": true, "output": [...]}``.  The request is
         validated and submitted before the first event, so a malformed
         one raises before any byte is sent."""
-        (inputs, max_new, temperature, eos_id, seed, top_k, top_p,
-         min_p) = self._validate(req)
+        inputs, max_new, seed, kw = self._validate(req)
         if len(inputs) != 1:
             raise ValueError('"stream": true serves exactly one prompt per '
                              "request")
-        seed = self._prompt_seeds(1, seed, temperature)[0]
-        h = self.batcher.submit(inputs[0], max_new, temperature=temperature,
-                                eos_id=eos_id, seed=seed, top_k=top_k,
-                                top_p=top_p, min_p=min_p)
+        seed = self._prompt_seeds(1, seed, kw["temperature"])[0]
+        h = self.batcher.submit(inputs[0], max_new, seed=seed, **kw)
 
         def events():
             try:
@@ -1537,15 +2048,12 @@ class GenerateService:
         return events()
 
     def generate(self, req):
-        (inputs, max_new, temperature, eos_id, seed, top_k, top_p,
-         min_p) = self._validate(req)
-        seeds = self._prompt_seeds(len(inputs), seed, temperature)
+        inputs, max_new, seed, kw = self._validate(req)
+        seeds = self._prompt_seeds(len(inputs), seed, kw["temperature"])
         handles = []
         try:
             for p, s in zip(inputs, seeds):
-                handles.append(self.batcher.submit(
-                    p, max_new, temperature=temperature, eos_id=eos_id,
-                    seed=s, top_k=top_k, top_p=top_p, min_p=min_p))
+                handles.append(self.batcher.submit(p, max_new, seed=s, **kw))
             outs = [h.result(timeout=self.timeout_s) for h in handles]
         except Exception:
             # a failed request must not leave its other prompts decoding
@@ -1569,6 +2077,13 @@ class ModelService:
         self.export_dir = args.export_dir
         self.model_name = getattr(args, "model_name", "default")
         self.desc = f"torch-{self.device.type}"
+        self._lora = {}
+        for spec in (getattr(args, "generate_lora", None) or []):
+            name, sep, path = spec.partition("=")
+            if not sep or not name or not path:
+                raise ValueError(f"--generate_lora {spec!r} must be "
+                                 "NAME=PATH")
+            self._lora[name] = path
         self._gen = None
         self._gen_lock = threading.Lock()
 
@@ -1591,7 +2106,11 @@ class ModelService:
                     pipeline_depth=a.generate_pipeline_depth,
                     long_prompt_threshold=a.generate_long_prompt_threshold,
                     quantize_mode=a.generate_quantize,
-                    device=self.device)
+                    draft_export_dir=a.draft_export_dir, draft_k=a.draft_k,
+                    spec_draft=a.spec_draft,
+                    lora_rank=a.generate_lora_rank,
+                    lora_capacity=a.generate_lora_capacity,
+                    lora_adapters=self._lora, device=self.device)
             return self._gen
 
     def metadata(self):
@@ -1729,6 +2248,22 @@ def make_server(args):
         raise ValueError("--generate_prefill_rows must be >= 1")
     if getattr(args, "generate_prefill_budget", 0) < 0:
         raise ValueError("--generate_prefill_budget must be >= 0")
+    if getattr(args, "generate_lora", None) and \
+            not getattr(args, "generate_lora_rank", 0):
+        raise ValueError("--generate_lora needs --generate_lora_rank > 0 "
+                         "(the bank's adapter rank)")
+    spec, draft_dir = (getattr(args, "spec_draft", None),
+                       getattr(args, "draft_export_dir", None))
+    if spec == "model" and not draft_dir:
+        raise ValueError("--spec_draft model needs --draft_export_dir (the "
+                         "draft LM to propose with); use --spec_draft ngram "
+                         "for model-free speculation")
+    if spec == "ngram" and draft_dir:
+        raise ValueError("--spec_draft ngram is model-free — drop "
+                         "--draft_export_dir (or pick --spec_draft model)")
+    if (spec in ("model", "ngram") or draft_dir) and spec != "off" and \
+            getattr(args, "draft_k", 4) < 1:
+        raise ValueError("--draft_k must be >= 1")
     service = ModelService(args)
     handler = type("BoundHandler", (_Handler,), {"service": service})
 

@@ -135,7 +135,7 @@ def test_http_generate_roundtrip(lm, tmp_path):
             "paged_attention", "page_write", "prefill_read"}
         bad = urllib.request.Request(
             base + ":generate", data=json.dumps(
-                {"inputs": [[1, 2]], "stop": [[3]]}).encode())
+                {"inputs": [[1, 2]], "priority": "batch"}).encode())
         with pytest.raises(urllib.error.HTTPError) as err:
             urllib.request.urlopen(bad, timeout=30)
         assert err.value.code == 501        # not ported: never ignored

@@ -13,8 +13,10 @@ equal exactly.
   JAX server's keys); ``prompt + tokens`` equals the done event's output
   and the non-stream ``outputs[0]``.  A malformed stream request (two
   prompts, a bad ``max_new_tokens``) gets 400 before any body.
-- The flags and fields this slice ports no longer raise; those of A6
-  and A7 still raise (HTTP 501) naming their ROADMAP item.
+- The flags and fields this slice ports no longer raise; those of A7
+  still raise (HTTP 501) naming their ROADMAP item (A6's fields serve:
+  ``tests/test_torch_sampling_controls.py``,
+  ``tests/test_torch_lora_serving.py``).
 """
 import http.client
 import json
@@ -177,9 +179,6 @@ def test_ported_flags_serve(exported, flags):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("stop", [[3]], "LoRA and speculation"),
-    ("repetition_penalty", 1.2, "LoRA and speculation"),
-    ("adapter", "a", "LoRA and speculation"),
     ("priority", "batch", "migration, host tier and fleet"),
     ("trace", "abc", "migration, host tier and fleet")])
 def test_a6_and_a7_fields_still_raise(exported, field, value, item):
