@@ -9,8 +9,10 @@ TFRecords) and scoring with the export, the serving engine the way
 the JAX server serves by default (async over the dense slot cache) and
 paged (growable tables, the prefix cache, the mega-prompt lane,
 streaming), JAX-format and stored int8 exports, stop sequences, the
-repetition penalty, LoRA tenants and fine-tuning, and speculative
-decoding — on one NVIDIA GPU.
+repetition penalty, LoRA tenants and fine-tuning, speculative decoding,
+and two replicas moving live sessions between them (kv migration, the
+host page tier, preemption, tracing and the scrape) — on one NVIDIA
+GPU.
 
     python3 chip_smoke.py
 
@@ -255,6 +257,36 @@ caught and reported as passed):
    sampled (seeded), the spec counters and acceptance rates, tokens/s
    and decode step medians beside the burst without speculation; the
    target as its own draft accepts every greedy proposal;
+17. (after 16, on phase 5's export) the ``replicas_main_path`` line:
+   two replicas A and B of the full-depth flagship in this process on
+   127.0.0.1 (``make_server`` each, a host tick every 2 steps), for the
+   paged pool in bf16 (A ``--role prefill``, B ``--role decode``) and
+   int8 and for the dense cache: 4 greedy prompts (1016, 330, 620, 240
+   tokens) and 4 seeded sampled ones, 200 new tokens, each as one
+   request on A, then again on A with every session moved to B
+   mid-decode by ``POST /v1/kv:export`` (the serving kernels' launch
+   counts set to 0 just before and read just after): every
+   session lands (no rollback, none completed locally), its tokens equal
+   the run without migration, pools conserved; each migration's
+   freeze-to-ack ms, and the largest session's bytes and MB/s.  On the
+   paged bf16 pair: two streams (64 new tokens) handed off through
+   ``X-Fleet-Migrate-To`` equal A's own answers; phase 12's burst
+   untraced and traced (``"trace"``), twice each (tokens equal, tokens/s
+   of each), ``GET /v1/trace/<id>`` (submit, queue, admit, prefill,
+   decode, retire) and ``GET /metrics``.  Then a two-turn conversation
+   (a 1024-token turn 1, 64 user tokens) over a 40-page pool with
+   ``--generate_host_cache_mb``: a 2000-token filler evicts turn 1's
+   device pages, replica D pulls turn 2's prefix from C's host tier
+   (``X-Fleet-KV-Peer``), C promotes it from its own: host hits,
+   prefill tokens saved, both equal to the cold run's tokens; the mixed
+   load (8 batch-class sessions of 256 tokens on every row, then 8
+   interactive requests) with ``--generate_preempt_ms 50`` and without:
+   parked sessions equal their run without preemption, park accounting
+   back to zero, interactive queue delay p50 / p95; demote and promote
+   times per page (gather + pinned copy; stack + scatter); kernel 1 on a
+   migration snapshot's pages and kernel 3 reading a promoted prefix at
+   its offset (bf16 and int8 pools, shuffled page ids) against their
+   plain versions;
 16c. (after 8b) the ``lora_train_main_path`` line: ``make_lora_loss`` on
    the flagship step's model (B 8 x S 1024), adamw_fused over the rank-8
    adapters: a warm-up step and a window of 5, kernels 4-6 16 launches
@@ -266,7 +298,7 @@ caught and reported as passed):
    each kernel's own main path: the
    quantised kernels from their serving run, the int8 kv kernels from the
    int8 kv run with bf16 weights, kernel 11 from the fused LayerNorm
-   run, kernel 8 from phase 8b; phases 15 and 16 add their runs'
+   run, kernel 8 from phase 8b; phases 15, 16 and 17 add their runs'
    launches); the ``engine_serial_vs_async`` line
    (phase 12's four numbers of each engine, dense and paged, beside the
    card's name and power limit); then the card line and, last, the
@@ -1371,11 +1403,11 @@ def engine_prompts(torch, vocab, lens=ENGINE_LENS, seed=SEED + 1):
             for n in lens]
 
 
-def post_stream(url, payload, timeout=600):
+def post_stream(url, payload, timeout=600, headers=None):
     """(content type, events) of a ``"stream": true`` request."""
     req = urllib.request.Request(
         url, data=json.dumps(dict(payload, stream=True)).encode(),
-        headers={"Content-Type": "application/json"})
+        headers={"Content-Type": "application/json", **(headers or {})})
     with urllib.request.urlopen(req, timeout=timeout) as resp:
         ctype = resp.headers.get("Content-Type")
         return ctype, [json.loads(line) for line in resp.read().splitlines()]
@@ -1400,8 +1432,9 @@ class EngineServer:
         self.thread = threading.Thread(target=self.server.serve_forever,
                                        daemon=True)
         self.thread.start()
-        self.url = (f"http://127.0.0.1:{self.server.server_address[1]}"
-                    "/v1/models/default:generate")
+        self.port = self.server.server_address[1]
+        self.base = f"http://127.0.0.1:{self.port}"
+        self.url = self.base + "/v1/models/default:generate"
         return self
 
     def generate(self, prompts, max_new=ENGINE_NEW, **kw):
@@ -4657,6 +4690,564 @@ def phase_lora_train(torch, dev, direct_step_ms, card):
     return out, launches
 
 
+# ---- phase 17: live sessions between two replicas (A7a) --------------------
+
+REPLICA_GREEDY = (1016, 330, 620, 240)   # the 1016-token one: ~1024 at its cut
+REPLICA_SAMPLED = (180, 470, 760, 90)
+REPLICA_NEW = 200
+REPLICA_TEMP = 0.8
+HANDOFF_NEW = 64     # a handoff moves at the first tick
+REPLICA_PAGE = 64                        # phase 12's paged pool
+REPLICA_POOL = 512
+# the two-turn conversation: a pool of 40 pages that a 2000-token filler
+# must evict from, a host tier behind it
+CONVERSATION = dict(turn1=1024, user=64, new=32, filler=2000, pages=40,
+                    host_mb=1024)
+# the mixed load: 8 batch sessions hold every row, then 8 interactive
+# requests arrive
+PREEMPT = dict(batch_len=200, batch_new=256, inter_len=100, inter_new=16,
+               inter_n=8, preempt_ms=50)
+TRACE_ID = "a7a0c0ffee"
+
+
+def get_text(url, timeout=60):
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        return resp.headers.get("Content-Type"), resp.read().decode()
+
+
+def seeded_prompts(torch, vocab, lens, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randint(0, vocab, (n,), generator=gen).tolist()
+            for n in lens]
+
+
+def in_thread(fn, *args, **kw):
+    """Run ``fn`` in a thread; the returned ``join()`` gives its result or
+    raises its error (``join.thread`` is the thread)."""
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn(*args, **kw)
+        except BaseException as e:     # re-raised by join
+            box["err"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+
+    def join(timeout=900):
+        t.join(timeout)
+        if t.is_alive():
+            raise TimeoutError(f"{fn.__name__} did not return")
+        if "err" in box:
+            raise box["err"]
+        return box["out"]
+    join.thread = t
+    return join
+
+
+def wait_live(batcher, n, join, min_new=4, timeout=600):
+    """Until ``n`` rows decode with at least ``min_new`` committed tokens
+    each (a racy read of the slots, as a monitor reads them), while the
+    request's thread (``join``) runs."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        rows = [s for s in list(batcher._slots) if s is not None]
+        if len(rows) >= n and all(len(s["seq"]) - s["plen"] >= min_new
+                                  for s in rows):
+            return
+        if not join.thread.is_alive():
+            join()                       # raises the request's error
+            raise AssertionError(f"the request ended before {n} sessions "
+                                 "decoded together")
+        time.sleep(0.002)
+    raise TimeoutError(f"{n} sessions never decoded together")
+
+
+def migrated_burst(src, dst, prompts, **kw):
+    """``prompts`` as one request on ``src``, every session moved to
+    ``dst`` mid-decode through ``POST /v1/kv:export``: (outputs, the
+    export's summary).  The source's prefix cache is dropped first, so
+    its prefills run cold, as in the reference run (a chunk after shared
+    pages rounds other bits than a whole-prompt chunk, and after int8
+    pages attends to dequantised context)."""
+    src.batcher.drop_prefix_cache()
+    join = in_thread(src.generate, prompts, REPLICA_NEW, **kw)
+    wait_live(src.batcher, len(prompts), join)
+    res = post_json(src.base + "/v1/kv:export", {
+        "dest": {"host": "127.0.0.1", "port": dst.port}, "timeout_s": 120})
+    return join(), res
+
+
+def first_mismatch(got, want):
+    """The first index where two token lists differ (None: equal)."""
+    got = list(got or [])
+    for i, (x, y) in enumerate(zip(got, want)):
+        if x != y:
+            return i
+    return None if len(got) == len(want) else min(len(got), len(want))
+
+
+def migration_numbers(results):
+    """Per export summary list: every session landed, and the largest
+    session's freeze-to-ack time, bytes and MB/s."""
+    details = [d for res in results for d in res["details"]]
+    failed = sum(res["failed"] for res in results)
+    local = sum(res["completed_locally"] for res in results)
+    sessions = sum(res["sessions"] for res in results)
+    landed = [d for d in details if d.get("migrated")]
+    big = max(landed, key=lambda d: d["bytes"]) if landed else None
+    return dict(
+        sessions=sessions, migrated=len(landed), failed=failed,
+        completed_locally=local,
+        freeze_to_ack_ms=[d["freeze_to_ack_ms"] for d in landed],
+        largest=None if big is None else dict(
+            pages=big["pages"], bytes=big["bytes"],
+            freeze_to_ack_ms=big["freeze_to_ack_ms"],
+            mb_per_s=big["bytes"] / big["freeze_to_ack_ms"] / 1e3))
+
+
+def snapshot_of(srv, prompt, new=64):
+    """A live greedy session frozen after a few ticks, its snapshot
+    flattened (``kvtransfer.wire_snapshot``), then rolled back to finish
+    in place: (meta, host blocks)."""
+    from tensorflowonspark_tpu_torch import kvtransfer
+
+    b = srv.batcher
+    h = b.submit(prompt, new)
+    h.tokens.get(timeout=600)
+    h.tokens.get(timeout=600)
+    frozen = b.freeze_session(h, timeout_s=120)
+    if frozen is None:
+        raise AssertionError("the session ended before its freeze")
+    meta, blocks = kvtransfer.wire_snapshot(frozen, "default",
+                                            b.kv_page_size)
+    blocks = {k: v.clone() for k, v in blocks.items()}
+    if not b.rollback_migration(frozen):
+        raise AssertionError("a rollback did not land")
+    h.result(timeout=600)
+    return meta, blocks
+
+
+def traced_runs(torch, srv, prompts):
+    """The burst untraced and traced, twice each: tokens equal, tokens/s
+    of each; then the trace's spans and the scrape."""
+    runs = {"untraced": [], "traced": []}
+    outs = {}
+    for i in range(2):
+        for kind in ("untraced", "traced"):
+            kw = {"trace": f"{TRACE_ID}{i}"} if kind == "traced" else {}
+            srv.batcher.drop_prefix_cache()      # every run prefills cold
+            t0 = time.monotonic()
+            outs[kind] = srv.generate(prompts, ENGINE_NEW, **kw)
+            runs[kind].append(len(prompts) * ENGINE_NEW
+                              / (time.monotonic() - t0))
+    if outs["traced"] != outs["untraced"]:
+        raise AssertionError("traced tokens differ from untraced ones")
+    spans = get_json(f"{srv.base}/v1/trace/{TRACE_ID}1")["spans"]
+    names = sorted({s["name"] for s in spans})
+    for name in ("submit", "queue", "admit", "prefill", "decode",
+                 "retire"):
+        if name not in names:
+            raise AssertionError(f"trace lacks {name}: {names}")
+    ctype, text = get_text(srv.base + "/metrics")
+    for line in ("tfospark_replica_requests_served ",
+                 "# TYPE tfospark_replica_ttft histogram",
+                 "tfospark_replica_trace_spans_recorded ",
+                 "tfospark_kernel_paged_attention_launches "):
+        if line not in text:
+            raise AssertionError(f"/metrics lacks {line!r}")
+    return dict(tokens_per_s=runs, tokens_equal=True, spans=len(spans),
+                span_names=names, metrics_content_type=ctype,
+                metrics_lines=len(text.splitlines()))
+
+
+def replica_layouts():
+    """(name, argv) of the three layouts: a host tick every 2 steps, so
+    a freeze lands soon after it is asked for."""
+    tick = ("--generate_read_chunk", "2")
+    paged = tick + ("--generate_kv_page_size", str(REPLICA_PAGE),
+                    "--generate_kv_pages", str(REPLICA_POOL))
+    return (("paged_bf16", paged),
+            ("paged_int8", paged + ("--generate_kv_dtype", "int8")),
+            ("dense", tick))
+
+
+def layout_run(torch, dev, export_dir, vocab, layout, argv):
+    """One layout: replica A serves the reference bursts (greedy and
+    sampled); then the same bursts on A, every session moved to B
+    mid-decode, give the same tokens, with no rollback.  (B's tables
+    grow to A's width when it installs the first session, the largest:
+    kernel 1 splits a row's pages by the table's width.)  The paged bf16
+    layout adds the prefill -> decode handoff, the traced burst and the
+    scrape; the paged ones a snapshot for the kernel checks."""
+    from tensorflowonspark_tpu_torch import ops
+
+    greedy = seeded_prompts(torch, vocab, REPLICA_GREEDY, SEED + 17)
+    sampled = seeded_prompts(torch, vocab, REPLICA_SAMPLED, SEED + 18)
+    skw = dict(temperature=REPLICA_TEMP, seed=SEED % 100000)
+    roles = ((("--role", "prefill"), ("--role", "decode"))
+             if layout == "paged_bf16" else ((), ()))
+    out = {}
+    with EngineServer(export_dir, dev, *argv, *roles[0]) as a, \
+            EngineServer(export_dir, dev, *argv, *roles[1]) as b:
+        refs = [(a.generate(greedy, REPLICA_NEW),
+                 a.generate(sampled, REPLICA_NEW, **skw))]
+        ops.reset_launch_counts()
+        t0 = time.monotonic()
+        g_out, g_res = migrated_burst(a, b, greedy)
+        s_out, s_res = migrated_burst(a, b, sampled, **skw)
+        out["wall_s"] = time.monotonic() - t0
+        launches = ops.launch_counts(a.batcher.kernels)
+        if (g_out, s_out) != refs[0]:
+            bad = [i for i, (x, y) in enumerate(zip(g_out + s_out,
+                                                    refs[0][0] + refs[0][1]))
+                   if x != y]
+            raise AssertionError(f"{layout}: migrated sessions {bad} differ "
+                                 "from the runs without migration")
+        numbers = migration_numbers([g_res, s_res])
+        sa = a.batcher.stats()
+        if (numbers["migrated"] != numbers["sessions"]
+                or numbers["sessions"] != len(greedy) + len(sampled)
+                or sa["migrations_failed"] or sa["migrations_completed"]
+                != numbers["sessions"]
+                or b.batcher.counters.get("migrations_resumed")
+                != numbers["sessions"]):
+            raise AssertionError(f"{layout}: a planned migration did not "
+                                 f"land: {numbers}")
+        if a.batcher.kv_page_size:
+            if not (pool_conserved(a.batcher) and pool_conserved(b.batcher)):
+                raise AssertionError(f"{layout}: a pool lost pages")
+            if dev.type == "cuda" and min(launches.values()) < 1:
+                raise AssertionError(f"{layout}: a kernel never launched: "
+                                     f"{launches}")
+        out.update(numbers, launches=launches,
+                   kv_pages_exported=sa["kv_pages_exported"],
+                   kv_pages_imported=b.batcher.counters.get(
+                       "kv_pages_imported"),
+                   tokens_equal_unmigrated=True)
+        if layout == "paged_bf16":
+            out["handoff"] = handoff_run(a, b, greedy[1], sampled[1], skw)
+            out["trace"] = traced_runs(torch, a, greedy)
+        if a.batcher.kv_page_size:
+            out["snapshot"] = snapshot_of(a, greedy[0])
+    return out
+
+
+def handoff_run(a, b, greedy, sampled, skw):
+    """``--role prefill`` A hands each stream to ``--role decode`` B
+    through ``X-Fleet-Migrate-To``: the streams equal A's own answers."""
+    before = b.batcher.counters.get("migrations_resumed")
+    hdr = {"X-Fleet-Migrate-To": f"127.0.0.1:{b.port}"}
+    for prompt, kw in ((greedy, {}), (sampled, skw)):
+        # both prefills cold: a chunk after shared pages rounds other bf16
+        # bits than the same positions inside a whole-prompt chunk
+        a.batcher.drop_prefix_cache()
+        _, events = post_stream(a.url, dict(
+            {"inputs": [prompt], "max_new_tokens": HANDOFF_NEW}, **kw),
+            headers=hdr)
+        toks = [e["token"] for e in events if "token" in e]
+        a.batcher.drop_prefix_cache()
+        want = a.generate([prompt], HANDOFF_NEW, **kw)[0]
+        got = events[-1].get("output")
+        if got != want or prompt + toks != want:
+            raise AssertionError(
+                f"a handed-off stream ({'sampled' if kw else 'greedy'}) "
+                f"differs from the replica's own answer: output at "
+                f"{first_mismatch(got, want)}, events at "
+                f"{first_mismatch(prompt + toks, want)} of {len(want)}; "
+                f"last event {events[-1].get('error')}")
+    moved = b.batcher.counters.get("migrations_resumed") - before
+    if moved != 2 or a.batcher.stats()["migrations_failed"]:
+        raise AssertionError(f"the prefill -> decode handoff moved {moved}")
+    meta = get_json(a.base + "/v1/models/default")["model"]
+    return dict(streams=2, moved=moved, role=meta["role"], equal=True)
+
+
+def conversation_run(torch, dev, export_dir, vocab):
+    """Turn 1 on C (a 40-page pool behind a host tier) retires into the
+    tier; a filler evicts its device pages; D pulls the prefix from C's
+    tier (``X-Fleet-KV-Peer``) and C promotes it from its own: turn 2's
+    tokens equal the cold run's (D, both tiers empty)."""
+    cv = CONVERSATION
+    argv = ("--generate_kv_page_size", str(REPLICA_PAGE),
+            "--generate_kv_pages", str(cv["pages"]),
+            "--generate_host_cache_mb", str(cv["host_mb"]))
+    turn1 = seeded_prompts(torch, vocab, (cv["turn1"],), SEED + 19)[0]
+    user, filler = seeded_prompts(torch, vocab, (cv["user"], cv["filler"]),
+                                  SEED + 20)
+    with EngineServer(export_dir, dev, *argv) as c, \
+            EngineServer(export_dir, dev, *argv) as d:
+        out1 = c.generate([turn1], cv["new"])[0]
+        c.generate([filler], cv["new"])     # evicts turn 1's device pages
+        c.batcher._host_tier.flush(60)
+        st = c.batcher.stats()
+        turn2 = out1 + user
+        cold = d.generate([turn2], cv["new"])[0]
+        d.batcher.drop_prefix_cache()       # D cold again: both tiers
+        d.batcher._host_tier.flush(60)
+        d.batcher._host_tier.clear()
+        peer = c.service.migration_engine().prefix_addr()
+        req = urllib.request.Request(
+            d.url, data=json.dumps({"inputs": [turn2],
+                                    "max_new_tokens": cv["new"]}).encode(),
+            headers={"Content-Type": "application/json",
+                     "X-Fleet-KV-Peer": peer})
+        d0 = d.batcher.stats()
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            via_peer = json.loads(resp.read())["outputs"][0]
+        d1 = d.batcher.stats()
+        c0 = c.batcher.stats()
+        turn2_out = c.generate([turn2], cv["new"])[0]
+        c1 = c.batcher.stats()
+        if not (pool_conserved(c.batcher) and pool_conserved(d.batcher)):
+            raise AssertionError("a host-tier pool lost pages")
+        # turn 2's retirement demoted its pages again (the promotion took
+        # them out of the tier): the kernel checks read them
+        c.batcher._host_tier.flush(60)
+        prefix = c.batcher.host_prefix_provider(turn2, REPLICA_PAGE)
+        if prefix[0]["n_pages"] < cv["turn1"] // REPLICA_PAGE:
+            raise AssertionError(f"turn 2 did not demote: {prefix[0]}")
+    saved = c1["prefill_tokens_shared"] - c0["prefill_tokens_shared"]
+    res = dict(
+        turn1_tokens=len(turn1), turn2_tokens=len(turn2),
+        host_demotions=st["host_demotions"],
+        host_evictions_before_turn2=st["host_evictions"],
+        host_pages_cached=st["host_pages_cached"],
+        host_demotions_dropped=st.get("host_demotions_dropped", 0),
+        turn2_host_hits=c1["host_hits"] - c0["host_hits"],
+        turn2_device_hits=c1["prefix_hits"] - c0["prefix_hits"],
+        turn2_prefill_tokens_saved=saved,
+        peer_pull_pages=(d1.get("prefix_pull_pages", 0)
+                         - d0.get("prefix_pull_pages", 0)),
+        peer_host_hits=d1["host_hits"] - d0["host_hits"],
+        turn2_equals_cold=turn2_out == cold,
+        peer_equals_cold=via_peer == cold,
+        host_demote_apply_p50_ms=st.get("host_demote_apply_p50_ms"))
+    full = cv["turn1"] // REPLICA_PAGE
+    if (res["turn2_host_hits"] < full or saved < cv["turn1"]
+            or res["host_demotions_dropped"]):
+        raise AssertionError(f"turn 2 did not promote: {res}")
+    if res["peer_pull_pages"] < full:
+        raise AssertionError(f"the peer pull did not land: {res}")
+    if not (res["turn2_equals_cold"] and res["peer_equals_cold"]):
+        raise AssertionError(f"promoted turn 2 differs from cold: {res}")
+    return res, prefix
+
+
+def preempt_run(torch, dev, export_dir, vocab, armed):
+    """The mixed load with ``--generate_preempt_ms`` armed or not: batch
+    sessions (greedy, then seeded sampled, each request admitted alone)
+    hold every row, then interactive requests arrive one per thread."""
+    pr = PREEMPT
+    greedy = seeded_prompts(torch, vocab, (pr["batch_len"],) * 4, SEED + 21)
+    sampled = seeded_prompts(torch, vocab, (pr["batch_len"],) * 4, SEED + 22)
+    inter = seeded_prompts(torch, vocab, (pr["inter_len"],) * pr["inter_n"],
+                           SEED + 23)
+    argv = replica_layouts()[0][1] + (
+        ("--generate_preempt_ms", str(pr["preempt_ms"])) if armed else ())
+    with EngineServer(export_dir, dev, *argv) as srv:
+        jg = in_thread(srv.generate, greedy, pr["batch_new"],
+                       priority="batch")
+        wait_live(srv.batcher, 4, jg, min_new=2)
+        js = in_thread(srv.generate, sampled, pr["batch_new"],
+                       priority="batch", temperature=REPLICA_TEMP,
+                       seed=SEED % 100000)
+        wait_live(srv.batcher, 8, js, min_new=2)
+        t0 = time.monotonic()
+        joins = [in_thread(srv.generate, [p], pr["inter_new"])
+                 for p in inter]
+        inter_out = [j()[0] for j in joins]
+        inter_s = time.monotonic() - t0
+        batch_out = jg() + js()
+        st = srv.batcher.stats()
+        if not pool_conserved(srv.batcher):
+            raise AssertionError("the preemption run lost pages")
+    if st["parked_sessions"] or st["sessions_unparked"] != st[
+            "sessions_parked"]:
+        raise AssertionError(f"park accounting did not return to zero: {st}")
+    return batch_out, inter_out, dict(
+        preempt_ms=st["preempt_ms"], interactive_wall_s=inter_s,
+        qdelay_interactive_p95_ms=st["qdelay_interactive_p95_ms"],
+        qdelay_interactive_p50_ms=st["qdelay_interactive_p50_ms"],
+        ttft_interactive_p95_ms=st["ttft_interactive_p95_ms"],
+        qdelay_batch_p95_ms=st["qdelay_batch_p95_ms"],
+        sessions_parked=st["sessions_parked"],
+        sessions_unparked=st["sessions_unparked"],
+        parked_sessions_peak=st["parked_sessions_peak"],
+        park_spills=st["park_spills"])
+
+
+def tier_copy_times(torch, dev, cfg, kv_dtype=None, n=16, reps=5):
+    """Demote and promote of ``n`` pool pages at the flagship's shape,
+    the batcher's own steps: ``decode.gather_pages`` then a non-blocking
+    copy into pinned host memory waited on through an event (demote);
+    per-page host blocks stacked and ``decode.scatter_pages`` (promote).
+    Best of ``reps``, ms per page."""
+    from tensorflowonspark_tpu_torch.models import decode
+    from tensorflowonspark_tpu_torch.models.transformer import (
+        TransformerConfig)
+
+    _, cache = decode.init_paged_slot_cache(
+        TransformerConfig(**cfg), 1, REPLICA_PAGE, n + 1, kv_dtype=kv_dtype,
+        device=dev)
+    ids = list(range(n))
+    demote, promote, nbytes = [], [], 0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kv = decode.gather_pages(cache, ids)
+        host = {}
+        for name, t in kv.items():
+            host[name] = torch.empty(t.shape, dtype=t.dtype,
+                                     pin_memory=True).copy_(
+                t, non_blocking=True)
+        ev = torch.cuda.Event(blocking=True)
+        ev.record()
+        ev.synchronize()
+        demote.append((time.perf_counter() - t0) * 1000.0 / n)
+        pages = [{k: v[i].clone() for k, v in host.items()}
+                 for i in range(n)]
+        nbytes = sum(v.numel() * v.element_size() for v in host.values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blocks = {k: torch.stack([p[k] for p in pages]) for k in pages[0]}
+        decode.scatter_pages(cache, ids, blocks)
+        torch.cuda.synchronize()
+        promote.append((time.perf_counter() - t0) * 1000.0 / n)
+    del cache
+    return dict(pages=n, page_bytes=nbytes // n,
+                demote_ms_per_page=min(demote),
+                promote_ms_per_page=min(promote),
+                demote_gb_per_s=nbytes / n / min(demote) / 1e6,
+                promote_gb_per_s=nbytes / n / min(promote) / 1e6)
+
+
+def replica_kernel_checks(torch, dev, cfg, snaps, prefix):
+    """Kernel 1 on a resumed row's pages (a migration snapshot scattered
+    at shuffled page ids, as ``_install_resume`` scatters it) and kernel
+    3 reading a promoted prefix (host-tier pages scattered as
+    ``_promote_scatter`` does; for the int8 pool a snapshot's full pages)
+    at its offset, each against its plain version, per pool dtype."""
+    from tensorflowonspark_tpu_torch import kvtier
+    from tensorflowonspark_tpu_torch.models import decode
+    from tensorflowonspark_tpu_torch.models.transformer import (
+        TransformerConfig)
+    from tensorflowonspark_tpu_torch.ops import paged_attention as pa
+    from tensorflowonspark_tpu_torch.ops import paged_prefill as pp
+
+    H, n_kv = cfg["n_heads"], cfg["n_kv_heads"]
+    Dh = cfg["d_model"] // H
+    gen = torch.Generator().manual_seed(SEED + 24)
+    out = {}
+
+    def pool_with(blocks, n, kv_dtype, extra=4, width=32):
+        NP = n + extra + 1
+        _, cache = decode.init_paged_slot_cache(
+            TransformerConfig(**cfg), 1, REPLICA_PAGE, NP,
+            kv_dtype=kv_dtype, device=dev)
+        ids = torch.randperm(NP - 1, generator=gen)[:n + extra].tolist()
+        decode.scatter_pages(cache, ids[:n], blocks)
+        table = torch.tensor([ids + [NP - 1] * (width - len(ids))],
+                             dtype=torch.int32, device=dev)
+        sc = {}
+        if cache.key_scales is not None:
+            sc = dict(key_scales=cache.key_scales[0],
+                      value_scales=cache.value_scales[0])
+        return cache.pages_key[0], cache.pages_value[0], table, sc
+
+    def check(name, got, want, **shape):
+        err = (got.float() - want.float()).abs().max().item()
+        if not torch.allclose(got.float(), want.float(), atol=TOL, rtol=TOL):
+            raise AssertionError(f"{name} disagrees with its plain version: "
+                                 f"{err}")
+        out[name] = dict(max_abs_err=err, tol=TOL, **shape)
+
+    bf16 = torch.bfloat16
+    for dtype, (meta, blocks) in snaps.items():
+        kv_dtype = "int8" if dtype == "int8" else None
+        n, n_pos = meta["n_pages"], len(meta["seq"]) - 1
+        pk, pv, table, sc = pool_with(blocks, n, kv_dtype)
+        q = torch.randn((1, 1, H, Dh), generator=gen).to(dev, bf16)
+        lengths = torch.tensor([n_pos], dtype=torch.int32, device=dev)
+        check(f"paged_attention_resumed_{dtype}",
+              pa.paged_attention(q, pk, pv, table, lengths, **sc),
+              pa.paged_attention_plain(q, pk, pv, table, lengths, **sc),
+              pages=n, positions=n_pos, page_ids=table[0, :n].tolist())
+    S = CONVERSATION["user"] + 32
+    prefixes = {"bf16": [dict(p) for p in kvtier.split_prefix_blocks(
+        *prefix)]}
+    meta, blocks = snaps["int8"]
+    full = (len(meta["seq"]) - 1) // REPLICA_PAGE
+    prefixes["int8"] = [{k: v[i] for k, v in blocks.items()}
+                        for i in range(full)]
+    for dtype, pages in prefixes.items():
+        n = len(pages)
+        stacked = {k: torch.stack([torch.as_tensor(p[k]) for p in pages])
+                   for k in pages[0]}
+        pk, pv, table, sc = pool_with(stacked, n,
+                                      "int8" if dtype == "int8" else None)
+        start = n * REPLICA_PAGE
+        starts = torch.tensor([start], dtype=torch.int32, device=dev)
+        q = torch.randn((1, S, H, Dh), generator=gen).to(dev, bf16)
+        k = torch.randn((1, S, n_kv, Dh), generator=gen).to(dev, bf16)
+        v = torch.randn((1, S, n_kv, Dh), generator=gen).to(dev, bf16)
+        check(f"prefill_read_promoted_{dtype}",
+              pp._read_attention(q, k, v, pk, pv, table, starts, **sc),
+              pp.read_attention_plain(q, k, v, pk, pv, table, starts, **sc),
+              pages=n, start=start, S=S)
+    return out
+
+
+def phase_replicas(torch, dev, cfg, export_dir, card):
+    """Phase 17: two replicas of the full-depth flagship in one process
+    on one card: live sessions move between them (three layouts), the
+    prefill -> decode handoff, a traced burst and the scrape, a two-turn
+    conversation through the host tier and a peer pull, the mixed load
+    with preemption armed and disarmed, demote / promote times, and
+    kernels 1 and 3 on resumed and promoted pages.  Returns (numbers,
+    launches of the migration runs)."""
+    vocab = cfg["vocab_size"]
+    out, launches, snaps = {}, {}, {}
+    for layout, argv in replica_layouts():
+        res = layout_run(torch, dev, export_dir, vocab, layout, argv)
+        snap = res.pop("snapshot", None)
+        if snap is not None:
+            snaps["int8" if "int8" in layout else "bf16"] = snap
+        launched = res.pop("launches")
+        add_launches(launches, launched)
+        out[layout] = res
+        emit("replicas_layout", layout=layout, launches=launched, **res)
+        torch.cuda.empty_cache()
+    out["conversation"], prefix = conversation_run(torch, dev, export_dir,
+                                                   vocab)
+    emit("replicas_conversation", **out["conversation"])
+    torch.cuda.empty_cache()
+    runs = {}
+    for armed in (False, True):
+        runs[armed] = preempt_run(torch, dev, export_dir, vocab, armed)
+        torch.cuda.empty_cache()
+    if runs[True][0] != runs[False][0]:
+        raise AssertionError("parked batch sessions differ from their runs "
+                             "without preemption")
+    if runs[True][2]["sessions_parked"] < 1:
+        raise AssertionError("the armed controller parked nothing")
+    out["preemption"] = dict(
+        disarmed=runs[False][2], armed=runs[True][2],
+        parked_equal_unparked=True,
+        interactive_equal=runs[True][1] == runs[False][1])
+    emit("replicas_preemption", **out["preemption"])
+    if dev.type == "cuda":
+        out["tier_copy"] = {d: tier_copy_times(torch, dev, cfg, kv)
+                            for d, kv in (("bf16", None), ("int8", "int8"))}
+        torch.cuda.empty_cache()
+    out["kernel_checks"] = replica_kernel_checks(torch, dev, cfg, snaps,
+                                                 prefix)
+    torch.cuda.empty_cache()
+    out["nvidia_smi"] = card
+    return out, launches
+
+
 def main():
     try:
         import torch
@@ -4792,7 +5383,12 @@ def main():
         spec, spec_launches = phase_spec(torch, dev, cfg, bf16_dir, base,
                                          prompts, card)
         emit("spec_main_path", **spec)
-        for extra in (x_launches, a6_launches, spec_launches):
+        torch.cuda.empty_cache()
+        # phase 17 on phase 5's export: two replicas on this card
+        replicas, r_launches = phase_replicas(torch, dev, cfg, export_dir,
+                                              card)
+        emit("replicas_main_path", **replicas)
+        for extra in (x_launches, a6_launches, spec_launches, r_launches):
             add_launches(launches, extra)
         torch.cuda.empty_cache()
     finally:

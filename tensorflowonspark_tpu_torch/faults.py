@@ -1,8 +1,9 @@
 """Deterministic fault injection for the serving/coordination plane —
 a copy of ``tensorflowonspark_tpu/faults.py`` (the port's ``reservation``
-probes ``reservation.dial`` / ``.rpc`` / ``.heartbeat``; the serving and
-fleet sites stay registered so plans written for the JAX package arm
-here unchanged).
+probes ``reservation.dial`` / ``.rpc`` / ``.heartbeat``, its serving
+replica the ``serve.*``, ``kvtransfer.*`` and ``trace.export`` sites; the
+fleet gateway's and jobs' sites stay registered so plans written for the
+JAX package arm here unchanged).
 
 Crash-tolerance claims are only as good as the failures they were tested
 against, and "unplug a replica by hand" does not compose into CI.  This

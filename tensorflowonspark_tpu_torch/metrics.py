@@ -1,8 +1,16 @@
 """Host-side serving counters, gauges and latency windows: copies of
 the JAX package's ``metrics.Counters``, ``Gauge`` and ``LatencyWindow``
 (the port imports nothing from that package).  The continuous batcher
-reads its pipeline depth from a :class:`Gauge` and its TTFT from a
-:class:`LatencyWindow`."""
+reads its pipeline depth and park-pool depth from a :class:`Gauge` and
+its TTFT and per-class queue delays from a :class:`LatencyWindow`.
+
+The scrape surface lives here too, as in the JAX package:
+:func:`prometheus_text` renders the flat ``stats()`` dicts of the
+serving plane into Prometheus text exposition (gauges for numeric keys,
+``_bucket`` / ``_sum`` / ``_count`` triplets for
+:meth:`LatencyWindow.histogram` dicts), so ``GET /metrics`` is
+generated, not hand-maintained.  Imports no torch: a control-plane
+process (the fleet gateway) reads it too."""
 import bisect
 import threading
 
@@ -50,6 +58,12 @@ class Gauge:
             if self._value > self._peak:
                 self._peak = self._value
             return self._value
+
+    def set(self, value):
+        with self._lock:
+            self._value = value
+            if value > self._peak:
+                self._peak = value
 
     @property
     def value(self):
@@ -102,7 +116,7 @@ class LatencyWindow:
     def histogram(self):
         """Prometheus-style cumulative histogram: ``le`` upper bounds
         (``"+Inf"`` last), cumulative ``counts``, monotone ``count`` /
-        ``sum_ms``."""
+        ``sum_ms``.  Merge replicas with :meth:`merge_histograms`."""
         with self._lock:
             counts, total = list(self._bucket_counts), self._sum_ms
             n = self._count
@@ -112,6 +126,57 @@ class LatencyWindow:
             cum.append(acc)
         return {"le": [*self.BUCKETS_MS, "+Inf"], "counts": cum,
                 "count": n, "sum_ms": round(total, 3)}
+
+    @staticmethod
+    def merge_histograms(hists):
+        """Elementwise-sum histograms from :meth:`histogram` (same
+        bucket layout); entries with a foreign layout are skipped."""
+        out = None
+        for h in hists:
+            if not (isinstance(h, dict) and isinstance(h.get("le"), list)
+                    and isinstance(h.get("counts"), list)
+                    and len(h["le"]) == len(h["counts"])):
+                continue
+            if out is None:
+                out = {"le": list(h["le"]),
+                       "counts": list(h["counts"]),
+                       "count": int(h.get("count", 0)),
+                       "sum_ms": float(h.get("sum_ms", 0.0))}
+                continue
+            if h["le"] != out["le"]:
+                continue
+            out["counts"] = [a + b for a, b in
+                             zip(out["counts"], h["counts"])]
+            out["count"] += int(h.get("count", 0))
+            out["sum_ms"] += float(h.get("sum_ms", 0.0))
+        if out is not None:
+            out["sum_ms"] = round(out["sum_ms"], 3)
+        return out
+
+    @staticmethod
+    def quantile_from_histogram(hist, q):
+        """histogram_quantile-style estimate: linear interpolation
+        inside the bucket holding rank ``q``; the overflow bucket
+        reports its lower bound (same convention as Prometheus)."""
+        if not hist or not hist.get("counts"):
+            return 0.0
+        cum, les = hist["counts"], hist["le"]
+        total = cum[-1]
+        if total <= 0:
+            return 0.0
+        rank = q * total
+        prev_cum = 0
+        for i, c in enumerate(cum):
+            if c >= rank:
+                lo = 0.0 if i == 0 else float(les[i - 1])
+                if les[i] == "+Inf":
+                    return round(lo, 3)
+                hi = float(les[i])
+                in_bucket = c - prev_cum
+                frac = ((rank - prev_cum) / in_bucket) if in_bucket else 1.0
+                return round(lo + (hi - lo) * frac, 3)
+            prev_cum = c
+        return round(float(les[-2]) if len(les) > 1 else 0.0, 3)
 
     @staticmethod
     def _percentile(sorted_ms, q):
@@ -137,3 +202,78 @@ class LatencyWindow:
             f"{prefix}_p95_ms": round(self._percentile(recent, 0.95), 3),
             f"{prefix}_hist": self.histogram(),
         }
+
+
+def _prom_name(name):
+    """Sanitize a stats key into a Prometheus metric name."""
+    out = []
+    for ch in str(name):
+        out.append(ch if (ch.isascii() and (ch.isalnum() or ch == "_"))
+                   else "_")
+    s = "".join(out)
+    return ("_" + s) if s[:1].isdigit() else (s or "_")
+
+
+def _prom_labels(labels):
+    if not labels:
+        return ""
+    body = ",".join(
+        '%s="%s"' % (_prom_name(k),
+                     str(v).replace("\\", r"\\").replace('"', r'\"'))
+        for k, v in sorted(labels.items()))
+    return "{%s}" % body
+
+
+def _prom_value(v):
+    if isinstance(v, bool):
+        return "1" if v else "0"
+    if isinstance(v, float):
+        return repr(v)
+    return str(v)
+
+
+def prometheus_text(groups, namespace="tfospark"):
+    """Render ``[(subsystem, labels, stats_dict), ...]`` into the
+    Prometheus text exposition format (version 0.0.4).
+
+    Numeric values become gauges; dicts shaped like
+    :meth:`LatencyWindow.histogram` become ``_bucket``/``_sum``/
+    ``_count`` histogram triplets; strings/lists/None are skipped.
+    ``# TYPE`` headers are emitted once per metric name even when the
+    same name repeats with different labels (per-replica export)."""
+    lines = []
+    typed = set()
+
+    def emit_type(full, kind):
+        if full not in typed:
+            typed.add(full)
+            lines.append(f"# TYPE {full} {kind}")
+
+    for subsystem, labels, stats in groups:
+        base = namespace + ("_" + _prom_name(subsystem)
+                            if subsystem else "")
+        lab = _prom_labels(labels)
+        for key in sorted(stats or {}):
+            val = stats[key]
+            full = f"{base}_{_prom_name(key)}"
+            if isinstance(val, dict):
+                if not (isinstance(val.get("le"), list)
+                        and isinstance(val.get("counts"), list)):
+                    continue
+                stem = full[:-5] if full.endswith("_hist") else full
+                emit_type(stem, "histogram")
+                for le, c in zip(val["le"], val["counts"]):
+                    le_lab = dict(labels or {})
+                    le_lab["le"] = le
+                    lines.append(f"{stem}_bucket{_prom_labels(le_lab)}"
+                                 f" {c}")
+                lines.append(f"{stem}_sum{lab}"
+                             f" {_prom_value(float(val.get('sum_ms', 0.0)))}")
+                lines.append(f"{stem}_count{lab}"
+                             f" {int(val.get('count', 0))}")
+                continue
+            if isinstance(val, (int, float)):
+                emit_type(full, "gauge")
+                lines.append(f"{full}{lab} {_prom_value(val)}")
+    return "\n".join(lines) + "\n"
+

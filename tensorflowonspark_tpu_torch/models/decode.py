@@ -249,6 +249,85 @@ def set_row_indices(cache, rows, values):
     cache.cache_index = index[:n_slots]
 
 
+# ---- kv migration and the host page tier --------------------------------
+# A migrating row's committed kv leaves the card once (a gather into
+# fresh tensors on the source) and re-enters once (a scatter into freshly
+# allocated pages or the destination row).  These are the JAX package's
+# ``jnp.take`` / ``.at[].set`` helpers, not kernels: ``index_select`` and
+# ``index_copy_``.  Blocks are keyed by the JAX cache tree's path strings,
+# so both packages build and read the same ``(meta, blocks)``.
+
+
+def kv_leaves(cache):
+    """``{block name: store}`` of every kv leaf of ``cache``: the pools
+    (``layer_<i>/attn/pages_key``, ``pages_value`` and, for an int8
+    pool, ``pages_key_scale`` / ``pages_value_scale``, dim 0 = pool
+    pages) or the dense stores (``cached_key`` ... , dim 0 = rows)."""
+    if isinstance(cache, PagedCache):
+        names, stores = ("pages_key", "pages_value"), (cache.pages_key,
+                                                       cache.pages_value)
+    else:
+        names, stores = ("cached_key", "cached_value"), (cache.keys,
+                                                         cache.values)
+    out = {}
+    for i in range(len(stores[0])):
+        for name, store in zip(names, stores):
+            out[f"layer_{i}/attn/{name}"] = store[i]
+        if cache.key_scales is not None:
+            out[f"layer_{i}/attn/{names[0]}_scale"] = cache.key_scales[i]
+            out[f"layer_{i}/attn/{names[1]}_scale"] = cache.value_scales[i]
+    return out
+
+
+def _index(ids, device):
+    if isinstance(ids, torch.Tensor):
+        return ids.to(device=device, dtype=torch.int64)
+    return to_device(np.asarray(ids, np.int64), device)
+
+
+def _block_on(block, leaf):
+    """A host or device block (tensor or array) on ``leaf``'s device in
+    its dtype (host blocks ride a pinned, non-blocking copy)."""
+    if not (isinstance(block, torch.Tensor) and block.device == leaf.device):
+        block = to_device(block, leaf.device)
+    return block.to(leaf.dtype)
+
+
+def gather_pages(cache, ids):
+    """Pool pages ``ids`` of every pool leaf, ``{name: [n, page, ...]}``
+    in fresh tensors (the port of ``_jitted_gather_pages``): the pool
+    pages may be reused as soon as this returns."""
+    leaves = kv_leaves(cache)
+    idx = _index(ids, next(iter(leaves.values())).device)
+    return {name: leaf.index_select(0, idx) for name, leaf in leaves.items()}
+
+
+def scatter_pages(cache, ids, blocks):
+    """Write ``blocks`` (``{name: [n, page, ...]}``, one per pool leaf,
+    on any device) into pool pages ``ids``, in place (the port of
+    ``_jitted_scatter_pages``)."""
+    leaves = kv_leaves(cache)
+    idx = _index(ids, next(iter(leaves.values())).device)
+    for name, leaf in leaves.items():
+        leaf.index_copy_(0, idx, _block_on(blocks[name], leaf))
+
+
+def gather_row_kv(cache, row):
+    """Row ``row``'s whole window of every dense kv leaf, ``{name:
+    [max_seq_len, ...]}`` in fresh tensors (the port of
+    ``_jitted_gather_row_kv``: positions past the row's index hold
+    garbage the causal mask never shows)."""
+    return {name: leaf[int(row)].clone()
+            for name, leaf in kv_leaves(cache).items()}
+
+
+def scatter_row_kv(cache, row, blocks):
+    """Install ``blocks`` (from :func:`gather_row_kv`) at dense row
+    ``row``, in place (the port of ``_jitted_scatter_row_kv``)."""
+    for name, leaf in kv_leaves(cache).items():
+        leaf[int(row)].copy_(_block_on(blocks[name], leaf))
+
+
 def build_prefill_batch(entries, width, bucket, n_slots, device):
     """Host-side slot builder for one batched prefill dispatch.
 

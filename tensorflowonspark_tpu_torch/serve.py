@@ -7,17 +7,29 @@
         [--generate_long_prompt_threshold T] \\
         [--generate_quantize int8|int4] [--generate_kv_dtype int8] \\
         [--generate_lora_rank R --generate_lora NAME=PATH ...] \\
-        [--spec_draft model|ngram --draft_export_dir D2 --draft_k K]
+        [--spec_draft model|ngram --draft_export_dir D2 --draft_k K] \\
+        [--generate_host_cache_mb MB] [--role mixed|prefill|decode] \\
+        [--generate_priority_weight W --generate_preempt_ms MS \\
+         --generate_park_capacity N] \\
+        [--generate_trace_ring N --generate_trace_decode_sample N]
 
     POST /v1/models/<name>:generate
         {"inputs": [[ids..]], "max_new_tokens": n, "temperature": t,
          "seed": s, "eos_id": e, "top_k": k, "top_p": p, "min_p": m,
-         "stop": [[ids..]], "repetition_penalty": r, "adapter": "NAME"}
+         "stop": [[ids..]], "repetition_penalty": r, "adapter": "NAME",
+         "priority": "interactive"|"batch", "trace": "<hex id>"}
         -> {"outputs": [prompt + new tokens, ...]}
         with "stream": true (one prompt): chunked application/x-ndjson,
         {"token": t} per token, then {"done": true, "output": [...]}
+        (headers: X-Priority, X-Trace-Id, Idempotency-Key,
+        X-Fleet-Migrate-To: host:port, X-Fleet-KV-Peer: host:port)
+    POST /v1/models/<name>:resume   {"meta", "pull"} or {"replay"}:
+        ndjson, the first event {"resumed": true} (the splice ack)
+    POST /v1/kv:export              {"dest": {"host", "port"}} or "dests"
+    POST /v1/fleet:drain            fence admissions, wait for idle
     GET  /v1/models/<name>   -> engine stats and kernel launch counts
-    GET  /healthz, /readyz
+    GET  /metrics, /v1/metrics (Prometheus text), /v1/trace/<id>
+    GET  /healthz, /readyz (503 + Retry-After while draining)
 
 Every request runs through the ContinuousBatcher, as in the JAX server:
 slot-based continuous batching with batched multi-row prefill rounds
@@ -44,10 +56,23 @@ prefilled under one adapter never serves another); speculative decoding
 proposals a row, one target pass over the ``[n, k]`` block, 1..k
 committed tokens a row (greedy rows: the target's own argmax; sampled
 rows: the rejection walk), the draft k adapted from each row's
-acceptance.  Runs on ``cuda`` unless ``--device cpu`` is given; without
-a CUDA device and without that request it raises.  Flags and request
-fields whose feature is not ported raise NotImplementedError (HTTP 501)
-naming the ROADMAP item; none is ignored.
+acceptance.
+
+The replica side of the fleet, as in the JAX server: live sessions move
+between replicas (``kvtransfer``: a freeze at a committed host tick, the
+pages over a socket, ``:resume`` on the destination, the source's stream
+relayed), which ``--role prefill`` uses to hand sessions to a decode
+replica (``X-Fleet-Migrate-To``); a host-memory page tier behind the
+pool (``--generate_host_cache_mb``, ``kvtier``: evicted and retired
+prefix pages demote and promote back on a later hit, and peers pull
+them, ``X-Fleet-KV-Peer``); priority classes with weighted-fair
+admission and a preemption controller that parks batch sessions
+host-side while interactive work waits (``--generate_preempt_ms``);
+request tracing (``trace``) and a Prometheus scrape.  Runs on ``cuda``
+unless ``--device cpu`` is given; without a CUDA device and without
+that request it raises.  Flags and request fields whose feature is not
+ported raise NotImplementedError (HTTP 501) naming the ROADMAP item;
+none is ignored.
 """
 import argparse
 import collections
@@ -55,6 +80,7 @@ import itertools
 import json
 import logging
 import queue as queue_mod
+import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -63,7 +89,7 @@ import numpy as np
 import torch
 
 from tensorflowonspark_tpu_torch import device as device_mod
-from tensorflowonspark_tpu_torch import faults, ops
+from tensorflowonspark_tpu_torch import faults, ops, trace
 from tensorflowonspark_tpu_torch import quantize as quantize_mod
 from tensorflowonspark_tpu_torch.metrics import Counters, Gauge, LatencyWindow
 from tensorflowonspark_tpu_torch.models import decode as decode_mod
@@ -72,6 +98,8 @@ logger = logging.getLogger(__name__)
 
 # weight-only quantisation modes of --generate_quantize
 QUANTIZE_MODES = ("none",) + quantize_mod.MODES
+# :generate priority classes (the "priority" field / X-Priority header)
+PRIORITY_CLASSES = ("interactive", "batch")
 
 
 def build_argparser():
@@ -159,15 +187,52 @@ def build_argparser():
                    metavar="NAME=PATH",
                    help="register adapter NAME from a lora.save_adapters "
                         "file at startup (repeatable)")
-    p.add_argument("--generate_host_cache_mb", type=int, default=0)
+    p.add_argument("--generate_host_cache_mb", type=int, default=0,
+                   help=">0 puts a host-memory page tier of this many MiB "
+                        "behind the paged pool: evicted and retired prefix "
+                        "pages demote there and promote back on a later "
+                        "prefix hit instead of prefilling (requires "
+                        "--generate_kv_page_size)")
     p.add_argument("--generate_long_prompt_threshold", type=int, default=0,
                    help=">0 routes prompts longer than this many tokens "
                         "through the mega-prompt lane: they admit one at a "
                         "time and map kv pages chunk by chunk, evicting "
                         "cold prefix pages when the pool runs dry "
                         "(requires --generate_kv_page_size)")
-    p.add_argument("--generate_preempt_ms", type=float, default=0.0)
+    p.add_argument("--role", choices=["mixed", "prefill", "decode"],
+                   default="mixed",
+                   help="disaggregated serving role, advertised in the "
+                        "metadata: \"prefill\" replicas hand each session to "
+                        "a decode replica once its first tokens flush "
+                        "(X-Fleet-Migrate-To), \"decode\" replicas receive "
+                        "them; advisory, every replica serves every "
+                        "endpoint")
+    p.add_argument("--advertise_host", default=None,
+                   help="host peers dial this replica's kv page server on "
+                        "(default: --host; set when binding 0.0.0.0)")
+    p.add_argument("--generate_priority_weight", type=int, default=4,
+                   help="weighted-fair admission: up to N interactive "
+                        "admissions per batch-class admission while both "
+                        "classes wait (and N normal admissions per "
+                        "mega-prompt admission)")
+    p.add_argument("--generate_preempt_ms", type=float, default=0.0,
+                   help=">0 enables the preemption controller: when the "
+                        "oldest waiting interactive admission has queued "
+                        "longer than this, the batch session with the most "
+                        "work left is PARKED (its snapshot held host-side, "
+                        "its pages freed) and resumed with the same tokens "
+                        "when interactive pressure drops")
+    p.add_argument("--generate_park_capacity", type=int, default=8,
+                   help="the park pool's bound: at capacity further "
+                        "preemptions are skipped (park_spills)")
+    p.add_argument("--generate_trace_ring", type=int, default=4096,
+                   help="span ring capacity of request tracing; old spans "
+                        "fall off the back, recording never blocks serving")
+    p.add_argument("--generate_trace_decode_sample", type=int, default=16,
+                   help="a decode span every Nth committed host tick of a "
+                        "traced row (0 disables decode spans)")
     p.add_argument("--fleet", default=None, metavar="HOST:PORT")
+    p.add_argument("--fleet_heartbeat_s", type=float, default=None)
     p.add_argument("--verbose", action="store_true")
     # the JAX server's other flags: parsed so that its command lines reach
     # the NotImplementedError that names their ROADMAP item
@@ -177,19 +242,12 @@ def build_argparser():
 
 
 _ZOO = "the zoo and the rest"
-_FLEET = "migration, host tier and fleet"
+_FLEET = "A7b, the fleet gateway"
 # (flag, argparse keywords) of the JAX server's flags the port lacks;
 # each defaults to None, "not asked for"
 _JAX_ONLY_FLAGS = (
-    ("--generate_priority_weight", dict(type=int)),
-    ("--generate_park_capacity", dict(type=int)),
-    ("--generate_trace_ring", dict(type=int)),
-    ("--generate_trace_decode_sample", dict(type=int)),
     ("--generate_paged_attn", dict(choices=["kernel", "einsum"])),
     ("--generate_paged_prefill", dict(choices=["kernel", "blend"])),
-    ("--role", dict(choices=["mixed", "prefill", "decode"])),
-    ("--advertise_host", {}),
-    ("--fleet_heartbeat_s", dict(type=float)),
     ("--engine", dict(choices=["auto", "native", "jax", "builder"])),
     ("--batch_size", dict(type=int)),
     ("--batch_wait_ms", dict(type=float)),
@@ -206,19 +264,11 @@ def _given(v):
 
 # (flag, predicate of "asked for" a value other than None, ROADMAP item)
 _UNPORTED_FLAGS = (
-    ("generate_host_cache_mb", lambda v: v > 0, _FLEET),
-    ("generate_preempt_ms", lambda v: v > 0, _FLEET),
     ("fleet", bool, _FLEET),
-    ("generate_priority_weight", _given, _FLEET),
-    ("generate_park_capacity", _given, _FLEET),
-    ("generate_trace_ring", _given, _FLEET),
-    ("generate_trace_decode_sample", _given, _FLEET),
+    ("fleet_heartbeat_s", _given, _FLEET),
     # "kernel" is what the port runs; the plain XLA read paths are not
     ("generate_paged_attn", lambda v: v == "einsum", _ZOO),
     ("generate_paged_prefill", lambda v: v == "blend", _ZOO),
-    ("role", lambda v: v in ("prefill", "decode"), _FLEET),
-    ("advertise_host", _given, _FLEET),
-    ("fleet_heartbeat_s", _given, _FLEET),
     ("engine", lambda v: v in ("native", "jax", "builder"),
      _ZOO + " (aot and the native runner)"),
     # the :predict endpoint's flags
@@ -257,9 +307,6 @@ def max_table_pages(max_seq_len, kv_page_size):
 # grow geometrically (decode.grow_page_table) only when an admission
 # needs more, as in the JAX package.
 _INIT_TABLE_PAGES = 8
-# normal admissions per mega-prompt admission while both wait (the JAX
-# package's default --generate_priority_weight, whose flag is A7's)
-_LONG_CREDIT = 4
 
 
 class KVOverflowError(RuntimeError):
@@ -285,7 +332,8 @@ class SlotHandle:
     decode (one list per host tick, then the None sentinel);
     ``.result()`` blocks for the full sequence."""
 
-    def __init__(self):
+    def __init__(self, prompt=()):
+        self.prompt = list(prompt)
         self.tokens = queue_mod.Queue()
         self.cancelled = threading.Event()
         self._done = threading.Event()
@@ -295,6 +343,14 @@ class SlotHandle:
         self._seq = None
         self._err = None
         self._on_done = None    # run once at the outcome (adapter refs)
+        # kv migration: the engine sets migrate_requested; the host thread
+        # makes the freeze cut at its next commit for this row, leaves the
+        # snapshot in `frozen` and sets freeze_done.  The row then emits
+        # nothing until complete or rollback decides which replica owns
+        # the continuation.
+        self.migrate_requested = threading.Event()
+        self.freeze_done = threading.Event()
+        self.frozen = None
 
     def cancel(self):
         """Stop decoding for this request: the batcher retires its slot
@@ -401,6 +457,20 @@ class ContinuousBatcher:
     own, the n-gram table lives on the device, and each request
     reserves ``draft_k`` positions of verify headroom.  A penalised row
     gates speculation off while it runs, as in the JAX batcher.
+
+    The replica side of the fleet, as in the JAX batcher.  Migration:
+    ``freeze_session`` cuts a live row at a committed host tick and
+    gathers its kv (pages or its dense window) into fresh tensors
+    copied to pinned host memory; ``submit_resume`` admits such a
+    snapshot elsewhere without prefill (``submit_replay`` re-prefills a
+    token record), ``complete_migration`` / ``rollback_migration``
+    settle the source.  ``host_cache_mb``: the host page tier
+    (``kvtier``) behind the prefix cache.  Priority classes
+    (``PRIORITY_CLASSES``) queue apart and admit weighted-fair
+    (``prio_weight``); ``preempt_ms > 0`` starts the preemption
+    controller, which parks batch sessions (at most ``park_capacity``)
+    while interactive work waits past it.  ``trace``: a span ring
+    (``trace.Recorder``) fed at the JAX package's sites.
     """
 
     def __init__(self, model, n_slots=8, max_pending=1024, read_chunk=8,
@@ -408,7 +478,11 @@ class ContinuousBatcher:
                  kv_page_size=0, kv_pages=0, kv_dtype=None,
                  engine="async", pipeline_depth=2, long_prompt_threshold=0,
                  draft_model=None, draft_k=4, spec_draft=None, lora_rank=0,
-                 lora_capacity=8, device=None):
+                 lora_capacity=8, host_cache_mb=0, prio_weight=4,
+                 preempt_ms=0.0, park_capacity=8,
+                 trace_ring=trace.DEFAULT_RING,
+                 trace_decode_sample=trace.DEFAULT_DECODE_SAMPLE,
+                 trace_recorder=None, device=None):
         if engine not in ("async", "serial"):
             raise ValueError(f"engine={engine!r} not in ('async', 'serial')")
         if n_slots < 1:
@@ -440,6 +514,31 @@ class ContinuousBatcher:
                 "long_prompt_threshold > 0 requires a paged kv cache "
                 "(--generate_kv_page_size): the mega-prompt lane allocates "
                 "pages lazily as chunks land")
+        if int(host_cache_mb or 0) < 0:
+            raise ValueError("host_cache_mb must be >= 0")
+        if int(host_cache_mb or 0) and not self.kv_page_size:
+            raise ValueError("host_cache_mb > 0 requires a paged kv cache "
+                             "(--generate_kv_page_size): the host tier "
+                             "holds demoted pool pages")
+        if int(prio_weight) < 1:
+            raise ValueError("prio_weight must be >= 1")
+        self.prio_weight = int(prio_weight)
+        self.preempt_ms = float(preempt_ms or 0.0)
+        if self.preempt_ms < 0:
+            raise ValueError("preempt_ms must be >= 0")
+        if self.preempt_ms and mode == "model":
+            raise ValueError(
+                "preempt_ms > 0 does not compose with draft speculation "
+                "(freeze_session cannot cut a row through the draft "
+                "cache) — drop --draft_export_dir or --generate_preempt_ms")
+        self.park_capacity = int(park_capacity)
+        if self.park_capacity < 1:
+            raise ValueError("park_capacity must be >= 1")
+        # request tracing: a span ring on the host clock (recording never
+        # reads a device value); a shared recorder lets in-process tests
+        # pair batchers on one ring
+        self.trace = trace_recorder or trace.Recorder(
+            capacity=trace_ring, decode_sample=trace_decode_sample)
         self.device = device_mod.resolve(device)
         param_dev = next(model.parameters()).device
         if param_dev.type != self.device.type:
@@ -520,6 +619,14 @@ class ContinuousBatcher:
         else:
             _, self._cache = decode_mod.init_slot_cache(model, n_slots,
                                                         kv_dtype=kv_dtype)
+        # the host page tier behind the prefix cache (kvtier): the batcher
+        # gathers and scatters on the device thread, the tier only holds
+        # host copies
+        self._host_tier = None
+        if int(host_cache_mb or 0):
+            from tensorflowonspark_tpu_torch import kvtier
+
+            self._host_tier = kvtier.HostPageTier(int(host_cache_mb) << 20)
         # "auto" (the CLI default) and None leave the model config's
         # choice; stats() reports what the cache holds
         self.kv_dtype = "int8" if self._cache.key_scales else None
@@ -535,13 +642,19 @@ class ContinuousBatcher:
         self.prefill_budget = (int(prefill_budget or 0)
                                or self.prefill_rows * self.prefill_chunk)
         self._pending = queue_mod.Queue(max_pending)
-        # device-thread-owned admission queues (the one priority class
-        # until A7, and the mega-prompt lane); stats() only len()s them
+        # device-thread-owned admission queues (one per priority class,
+        # and the mega-prompt lane); stats() only len()s them
         # graftcheck: disable-next-line=thread-race
-        self._waiting = collections.deque()
+        self._classq = {c: collections.deque() for c in PRIORITY_CLASSES}
+        self._batch_credit = 0   # interactive picks since the last batch
         # graftcheck: disable-next-line=thread-race
         self._longq = collections.deque()
         self._long_credit = 0    # normal picks since the last long pick
+        # the preemption controller's parked sessions: host-side snapshots
+        # holding no device state, shared with the teardown sweeps
+        self._park_pool = collections.deque()
+        self._park_lock = threading.Lock()
+        self._park_depth = Gauge()
         # cells are rebound, never resized; the generation counter makes
         # stale readback entries self-invalidating
         # graftcheck: disable-next-line=thread-race
@@ -551,6 +664,10 @@ class ContinuousBatcher:
         # graftcheck: disable-next-line=thread-race
         self._admissions = []        # in-flight chunked admissions
         self._ttft = LatencyWindow()   # submit -> first token
+        # per class: TTFT, and the queue delay (submit -> admission pick)
+        # the preemption controller watches
+        self._ttft_cls = {c: LatencyWindow() for c in PRIORITY_CLASSES}
+        self._qdelay = {c: LatencyWindow() for c in PRIORITY_CLASSES}
         # per-row decode state on the device: the previous pick, the stop
         # registers, the sampling controls (free rows: greedy, no
         # filter) and the penalty's presence table; the host counts the
@@ -584,7 +701,8 @@ class ContinuousBatcher:
         # always sees consistent pool accounting
         self._retire_q = queue_mod.Queue()
         # other device-thread operations posted from any thread, acked
-        # the same way (drop_prefix_cache)
+        # the same way (drop_prefix_cache, the migration freeze and its
+        # rollback)
         self._ops_q = queue_mod.Queue()
         self._depth = Gauge()   # steps dispatched but not host-processed
         self._t0 = time.monotonic()   # device_idle_fraction time base
@@ -606,6 +724,15 @@ class ContinuousBatcher:
             self._host_thread = threading.Thread(
                 target=self._host_loop, name="slot-host", daemon=True)
             self._host_thread.start()
+        # the preemption controller has a thread of its own: freezing and
+        # resuming block on device-thread acks, which an engine loop
+        # cannot wait for
+        self._preempt_thread = None
+        if self.preempt_ms > 0:
+            self._preempt_thread = threading.Thread(
+                target=self._preempt_loop, name="preempt-controller",
+                daemon=True)
+            self._preempt_thread.start()
         self._thread.start()
 
     # ---- public surface -------------------------------------------------
@@ -619,7 +746,8 @@ class ContinuousBatcher:
         wait_ms = self.counters.get("device_wait_ms")
         out = {
             "slots_busy": sum(s is not None for s in self._slots),
-            "pending": (self._pending.qsize() + len(self._waiting)
+            "pending": (self._pending.qsize()
+                        + sum(len(q) for q in self._classq.values())
                         + len(self._longq)),
             "admitting": bool(self._admissions),
             "admissions_inflight": len(self._admissions),
@@ -681,8 +809,18 @@ class ContinuousBatcher:
             out["admission_waiting_for_pages"] = self._parked is not None
             out["prefix_pages_cached"] = len(self._prefix)
             out["prefill_tokens_shared"] = self.prefill_tokens_shared
-            for key in ("prefix_hits", "prefix_misses", "kv_sink_writes"):
+            for key in ("prefix_hits", "prefix_misses", "host_hits",
+                        "kv_sink_writes"):
                 out[key] = self.counters.get(key)
+            # the host tier's gauges, present at zero with the tier off
+            tier = self._host_tier
+            tstats = tier.stats() if tier is not None else {}
+            for key in ("host_cache_bytes", "host_pages_cached",
+                        "host_demotions", "host_evictions"):
+                out[key] = int(tstats.get(key, 0))
+            for k, v in tstats.items():
+                if k.startswith("host_demote_apply"):
+                    out[k] = v
             out["kv_table_width"] = self._table_width
             out["kv_table_cap"] = self._table_cap
         if self.kv_dtype:
@@ -695,14 +833,38 @@ class ContinuousBatcher:
             + sum(1 for adm in list(self._admissions) if adm["item"]["long"])
             + sum(1 for s in list(self._slots)
                   if s is not None and s["item"]["long"]))
+        # migration, scheduling and preemption, present at zero
+        for key in ("migrations_started", "migrations_completed",
+                    "migrations_failed", "kv_pages_exported"):
+            out[key] = self.counters.get(key)
+        out["priority_weight"] = self.prio_weight
+        out["preempt_ms"] = self.preempt_ms
+        out["park_capacity"] = self.park_capacity
+        with self._park_lock:
+            out["parked_sessions"] = len(self._park_pool)
+        out["parked_sessions_peak"] = self._park_depth.peak
+        for key in ("sessions_parked", "sessions_unparked", "park_spills",
+                    "park_restore_failures"):
+            out[key] = self.counters.get(key)
+        for cls in PRIORITY_CLASSES:
+            out.update(self._ttft_cls[cls].stats(f"ttft_{cls}"))
+            out.update(self._qdelay[cls].stats(f"qdelay_{cls}"))
+        out.update(self.trace.stats())
         out.update(self.counters.snapshot())
         return out
 
     def submit(self, prompt, max_new, temperature=0.0, eos_id=None, seed=0,
                top_k=0, top_p=1.0, min_p=0.0, adapter=None, stop=None,
-               repetition_penalty=1.0):
+               repetition_penalty=1.0, priority=None, trace_id=None):
         if self._dead is not None:
             raise RuntimeError(f"batcher died: {self._dead}")
+        # tracing is best-effort: a malformed id is dropped here rather
+        # than refusing a generation that would otherwise succeed
+        tid = trace_id if trace.valid_id(trace_id) else None
+        cls = priority or "interactive"
+        if cls not in PRIORITY_CLASSES:
+            raise ValueError(f"priority={priority!r} not in "
+                             f"{PRIORITY_CLASSES}")
         if adapter is not None and not self.lora_rank:
             raise ValueError("this server has no LoRA bank (start it with "
                              "--generate_lora_rank and --generate_lora)")
@@ -753,7 +915,7 @@ class ContinuousBatcher:
                                      f"registered: {sorted(self._adapters)}")
                 aidx = self._adapters[adapter]
                 self._adapter_refs[aidx] = self._adapter_refs.get(aidx, 0) + 1
-        h = SlotHandle()
+        h = SlotHandle(prompt)
         if aidx:
             h._on_done = lambda idx=aidx: self._release_adapter(idx)
         # the lane flag is decided once, here: every later hop keys off it
@@ -763,45 +925,63 @@ class ContinuousBatcher:
             "h": h, "prompt": list(prompt), "max_new": int(max_new),
             "temp": float(temperature), "eos": eos_id, "seed": int(seed),
             "topk": int(top_k), "topp": float(top_p), "minp": float(min_p),
-            "aidx": aidx, "stops": stops, "rep": float(repetition_penalty),
-            "long": is_long, "t_submit": time.monotonic()})
+            "aidx": aidx, "adapter": adapter, "stops": stops,
+            "rep": float(repetition_penalty), "cls": cls, "long": is_long,
+            "trace": tid, "t_submit": time.monotonic()})
+        self.trace.event(tid, "submit", cls=cls, prompt_len=len(prompt),
+                         max_new=max_new)
         if self._dead is not None:
             # the loop may have died between the check and the put
             self._drain_pending(RuntimeError(f"batcher died: {self._dead}"))
         return h
 
     def stop(self, timeout=30):
-        """Shut both engine threads down; queued, in-flight and
-        mid-admission requests fail with RuntimeError."""
+        """Shut the engine threads (and the preemption controller) down;
+        queued, in-flight, mid-admission and parked requests fail with
+        RuntimeError; the host tier closes."""
         self._stop.set()
         self._thread.join(timeout)
         if self._host_thread is not None:
             self._host_thread.join(timeout)
+        if self._preempt_thread is not None:
+            self._preempt_thread.join(timeout)
         err = RuntimeError("batcher stopped")
         self._dead = self._dead or err
         self._fail_all(err)
+        if self._host_tier is not None:
+            self._host_tier.close()
 
     def drop_prefix_cache(self, timeout_s=30.0):
-        """Evict every refcount-0 page of the prefix cache (pages still
-        shared with live rows stay).  From any thread: posts a device
-        thread operation and waits for its ack.  Returns the number of
-        pages evicted (0 for the dense cache)."""
+        """Evict every refcount-0 page of the prefix cache (each demotes
+        to the host tier first when it is armed; pages still shared with
+        live rows stay).  From any thread: posts a device thread
+        operation and waits for its ack.  Returns the number of pages
+        evicted (0 for the dense cache)."""
         if not self.kv_page_size:
             return 0
         if self._dead is not None:
             raise RuntimeError(f"batcher died: {self._dead}")
         if threading.current_thread() is self._thread:
             return self._evict_cached_pages(self._total_pages)
-        box, ev = {}, threading.Event()
-        self._ops_q.put(("drop_prefix", box, ev))
-        deadline = time.monotonic() + timeout_s
+        box = {}
+        if not self._device_op(("drop_prefix", box), timeout_s):
+            return 0    # device thread gone: stop()/_die drain acks
+        return box.get("n", 0)
+
+    def _device_op(self, op, timeout_s=None):
+        """Post ``op`` (a tuple the device thread applies in
+        `_apply_ops`) and wait for its ack.  False when the device
+        thread is gone first; TimeoutError past ``timeout_s``."""
+        ev = threading.Event()
+        self._ops_q.put(op + (ev,))
+        deadline = None if timeout_s is None else time.monotonic() + timeout_s
         while not ev.wait(0.05):
             if self._stop.is_set() or self._dead is not None:
-                return 0    # device thread gone: stop()/_die drain acks
-            if time.monotonic() > deadline:
-                raise TimeoutError(
-                    f"prefix-cache drop did not land in {timeout_s:.1f}s")
-        return box.get("n", 0)
+                return False
+            if deadline is not None and time.monotonic() > deadline:
+                raise TimeoutError(f"device-thread {op[0]} did not land in "
+                                   f"{timeout_s:.1f}s")
+        return True
 
     # ---- the LoRA adapter bank ---------------------------------------------
 
@@ -968,18 +1148,165 @@ class ContinuousBatcher:
 
     def _evict_cached_pages(self, want):
         """Free up to `want` pages by evicting refcount-0 cached prefix
-        pages, least recently used first.  Returns the number freed."""
+        pages, least recently used first.  Returns the number freed.
+        With the host tier armed the victims DEMOTE first: the gather
+        copies their bytes out before the pool pages are reused."""
         evictable = sorted(
             (k for k, p in self._prefix.items()
              if self._page_rc.get(p, 0) == 0),
             key=lambda k: self._prefix_lru.get(k, 0))
         victims = [(k, self._prefix[k]) for k in evictable[:max(0, want)]]
+        if not victims:
+            return 0
+        self._demote_pages([k for k, _ in victims], [p for _, p in victims])
         for key, page in victims:
             self._prefix.pop(key)
             self._prefix_lru.pop(key, None)
             self._page_rc.pop(page, None)
             self._free_pages.append(page)
         return len(victims)
+
+    # ---- the host page tier ---------------------------------------------------
+
+    def _copy_to_host(self, kv):
+        """Start the copy of device tensors ``kv`` ({name: tensor}) into
+        host memory: pinned buffers filled without blocking, a CUDA event
+        recorded after.  Returns ``(host dict, event)``; on the CPU the
+        tensors are host memory already (event None)."""
+        if self.device.type != "cuda":
+            return kv, None
+        host = {}
+        for name, t in kv.items():
+            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            buf.copy_(t, non_blocking=True)
+            host[name] = buf
+        event = torch.cuda.Event(blocking=True)
+        event.record()
+        return host, event
+
+    def _demote_pages(self, keys, pages):
+        """Device thread: snapshot `pages` (still valid: the caller frees
+        them only after this returns) into the host tier.  One gather
+        into fresh tensors covers every victim, its copy to pinned host
+        memory runs under the continuing decode steps, and the tier's
+        worker waits on its event.  Best-effort by design: a denied or
+        failed demotion (counted as ``host_demotions_dropped``) means
+        those prefixes run cold later."""
+        tier = self._host_tier
+        if tier is None or not keys:
+            return
+        todo = [(k, p) for k, p in zip(keys, pages) if not tier.contains(k)]
+        if not todo:
+            return
+        if faults.deny("serve.host_demote"):
+            self.counters.inc("host_demotions_dropped", len(todo))
+            return
+        try:
+            kv = decode_mod.gather_pages(self._cache, [p for _, p in todo])
+            host, event = self._copy_to_host(kv)
+        except Exception:
+            logger.warning("host-tier demote gather failed", exc_info=True)
+            self.counters.inc("host_demotions_dropped", len(todo))
+            return
+        tier.demote([k for k, _ in todo], host, len(todo), event=event,
+                    keep=kv)
+
+    def _host_tier_lookup(self, keys, start):
+        """The contiguous run of host-tier pages extending a device
+        prefix-cache run of `start` pages: ``[(key, blocks), ...]``.  The
+        entries stay cached until the promote COMMITS (peek, not pop):
+        an admission that waits for pages must not strand them outside
+        both tiers."""
+        tier = self._host_tier
+        if tier is None or start >= len(keys):
+            return []
+        run = []
+        for key in keys[start:]:
+            blocks = tier.peek(key)
+            if blocks is None:
+                break
+            run.append((key, blocks))
+        if run and faults.deny("serve.host_promote"):
+            return []        # the tier reads as cold; prefill runs normally
+        return run
+
+    def host_prefix_provider(self, tokens, page_size):
+        """``kv:prefix`` pull path (the PageServer's callback): the
+        longest host-tier run of full-page prefixes of `tokens` as wire
+        blocks.  Base-model keys only: LoRA roots are replica-local
+        registration tokens, so adapter pages never match across
+        replicas."""
+        from tensorflowonspark_tpu_torch import kvtier
+
+        meta = {"kind": "prefix", "page_size": int(self.kv_page_size),
+                "n_pages": 0}
+        tier = self._host_tier
+        if (tier is None or not self.kv_page_size
+                or int(page_size) != self.kv_page_size):
+            return meta, {}
+        keys = self._prefix_keys(list(tokens), len(tokens))
+        blocks, n = {}, 0
+        for i, key in enumerate(keys):
+            page = tier.peek(key)
+            if page is None:
+                break
+            for path, arr in page.items():
+                blocks[kvtier.block_name(i, path)] = arr
+            n += 1
+        meta["n_pages"] = n
+        return meta, blocks
+
+    def prefetch_prefix(self, peer, prompt, trace_id=None):
+        """HTTP-thread warm-up for a kv peer (``X-Fleet-KV-Peer``): pull
+        the prefix pages the local host tier lacks from the peer's page
+        server and insert them, so this request's admission promotes
+        them instead of prefilling.  Any failure (or a cold peer) inserts
+        nothing and admission prefills.  Returns the pages inserted."""
+        tier = self._host_tier
+        if tier is None or not self.kv_page_size or not peer:
+            return 0
+        host, _, port = str(peer).rpartition(":")
+        if not host or not port.isdigit():
+            logger.warning("ignoring malformed X-Fleet-KV-Peer %r", peer)
+            return 0
+        keys = self._prefix_keys(prompt, len(prompt) - 1)
+        start = 0
+        for key in keys:       # skip the locally warm head of the run
+            if not tier.contains(key):
+                break
+            start += 1
+        if start >= len(keys):
+            return 0
+        from tensorflowonspark_tpu_torch import kvtransfer
+
+        t0 = time.monotonic()
+        try:
+            _, pages = kvtransfer.pull_prefix(
+                (host, int(port)), prompt[:len(keys) * self.kv_page_size],
+                self.kv_page_size)
+        except (OSError, ValueError) as e:
+            self.counters.inc("prefix_pull_failures")
+            self.trace.span_at(trace_id, "prefix_pull", t0, time.monotonic(),
+                               peer=str(peer), failed=True)
+            logger.debug("kv peer prefix pull failed: %s", e)
+            return 0
+        n = 0
+        for i, page in enumerate(pages[:len(keys)]):
+            if tier.put(keys[i], page):
+                n += 1
+        if n:
+            self.counters.inc("prefix_pull_pages", n)
+        self.trace.span_at(trace_id, "prefix_pull", t0, time.monotonic(),
+                           peer=str(peer), pages=n)
+        return n
+
+    def _promote_scatter(self, promo, host_run):
+        """Device thread: upload `host_run`'s tier blocks into the freshly
+        allocated pool pages `promo`, bit for bit (the blocks are gather
+        copies at the pool's dtype)."""
+        blocks = {path: torch.stack([blk[path] for _, blk in host_run])
+                  for path in host_run[0][1]}
+        decode_mod.scatter_pages(self._cache, promo, blocks)
 
     def _assert_no_sink(self, pages):
         """Every allocation passes here: the sink absorbs garbage writes,
@@ -1000,6 +1327,7 @@ class ContinuousBatcher:
         (at least doubling) capped at the full-sequence width.  The new
         tail entries name the sink, so no mapped page changes.  Callers
         keep it inside their allocation rollback."""
+        faults.check("serve.table_grow")
         new_w = min(self._table_cap,
                     max(_pow2_width(need), 2 * self._table_width))
         if new_w <= self._table_width:
@@ -1020,8 +1348,10 @@ class ContinuousBatcher:
 
     def _overflow_reclaim(self, want):
         """The mega-prompt lane's overflow valve: free up to `want` pool
-        pages by evicting cold (refcount-0) prefix pages, LRU first (no
-        demotion: the host tier is A7's).  Returns the number freed."""
+        pages by evicting cold (refcount-0) prefix pages, LRU first; with
+        the host tier armed they demote first (`_evict_cached_pages`).
+        Returns the number freed (0 under a ``serve.overflow_demote``
+        fault: the lane then stalls or fails typed)."""
         if want <= 0 or faults.deny("serve.overflow_demote"):
             return 0
         freed = self._evict_cached_pages(want)
@@ -1040,7 +1370,7 @@ class ContinuousBatcher:
         if adm["di"] < len(adm["d_sizes"]):
             return True      # draft catch-up: the dense draft cache
         upto = adm["offset"] + adm["sizes"][adm["i"]]
-        if upto >= len(item["prompt"]):
+        if upto >= len(adm["src"]):
             need = self._pages_needed(len(item["prompt"]), item["max_new"],
                                       item["rep"])
         else:
@@ -1076,10 +1406,13 @@ class ContinuousBatcher:
 
     def _try_allocate(self, row, item, lazy=False):
         """Reserve `item`'s page need for `row`, sharing cached prefix
-        pages where the prompt matches, or False when the pool (after LRU
-        eviction of refcount-0 cached pages) cannot cover the rest (the
-        caller parks the item).  ``lazy`` (the lane) maps only the shared
+        pages where the prompt matches and promoting the host tier's run
+        that extends them, or False when the pool (after LRU eviction of
+        refcount-0 cached pages) cannot cover the rest (the caller parks
+        the item).  ``lazy`` (the lane) maps only the shared and promoted
         pages now; `_ensure_long_pages` maps the rest chunk by chunk."""
+        if faults.deny("serve.alloc"):
+            return False
         prompt = item["prompt"]
         need = self._pages_needed(len(prompt), item["max_new"], item["rep"])
         shared, keys = self._prefix_lookup(
@@ -1089,8 +1422,12 @@ class ContinuousBatcher:
         # mapped twice in this row's table
         for page in shared:
             self._page_rc[page] = self._page_rc.get(page, 0) + 1
+        # host-tier promotion: demoted pages extending the device run
+        # fill fresh pool pages from their host copies instead of
+        # prefilling, and re-enter the prefix cache at refcount 1
+        host_run = self._host_tier_lookup(keys, len(shared))
         if lazy:
-            need = len(shared)
+            need = len(shared) + len(host_run)
         fresh_need = need - len(shared)
         if len(self._free_pages) < fresh_need:
             self._evict_cached_pages(fresh_need - len(self._free_pages))
@@ -1099,23 +1436,49 @@ class ContinuousBatcher:
                 self._page_rc[page] -= 1
             return False
         fresh = [self._free_pages.pop() for _ in range(fresh_need)]
+        promo = fresh[:len(host_run)]
         try:
             pages = self._assert_no_sink(shared + fresh)
             self._map_row(row, pages)
+            if host_run:
+                self._promote_scatter(promo, host_run)
         except BaseException:
             # conservation: free + owned + cached + sink stays the pool
             self._free_pages.extend(fresh)
             for page in shared:
                 self._page_rc[page] -= 1
             raise
+        # promoted pages publish into the prefix cache now (rc 1, this
+        # row): their kv is resident and key-exact; the host copy retires
+        for (key, _), page in zip(host_run, promo):
+            self._host_tier.discard(key)
+            stale = self._prefix.get(key)
+            if stale is not None:
+                if self._page_rc.get(stale, 0):
+                    continue     # held elsewhere: the promoted page is ours
+                # a device copy that outlived an evicted predecessor (the
+                # run broke before it): the promoted page replaces it, and
+                # it goes back to the pool instead of being stranded (the
+                # JAX batcher remaps the key and leaks the page)
+                self._page_rc.pop(stale)
+                self._free_pages.append(stale)
+            self._prefix[key] = page
+            self._lru_tick += 1
+            self._prefix_lru[key] = self._lru_tick
+            self._page_rc[page] = 1
+        n_shared = len(shared) + len(host_run)
         self._row_pages[row] = pages
-        self._row_shared_n[row] = len(shared)
+        self._row_shared_n[row] = n_shared
         self._row_prefix_keys[row] = keys    # registered after the prefill
-        self.prefill_tokens_shared += len(shared) * self.kv_page_size
+        self.prefill_tokens_shared += n_shared * self.kv_page_size
         if shared:
             self.counters.inc("prefix_hits", len(shared))
-        if len(keys) > len(shared):
-            self.counters.inc("prefix_misses", len(keys) - len(shared))
+        if host_run:
+            self.counters.inc("host_hits", len(host_run))
+            self.trace.event(item.get("trace"), "promote", row=row,
+                             pages=len(host_run))
+        if len(keys) > n_shared:
+            self.counters.inc("prefix_misses", len(keys) - n_shared)
         return True
 
     def _register_prefix_pages(self, row):
@@ -1154,6 +1517,8 @@ class ContinuousBatcher:
             if self.lora_rank:
                 self._lora_ids[row] = 0
         if self.kv_page_size and self._row_pages[row] is not None:
+            if self._host_tier is not None and s is not None:
+                self._demote_retiring(row, s)
             for page in self._row_pages[row]:
                 if page in self._page_rc:
                     self._page_rc[page] -= 1
@@ -1164,6 +1529,27 @@ class ContinuousBatcher:
             self._row_prefix_keys[row] = None
             decode_mod.set_row_page_table(self._cache, row,
                                           self._sink_entries)
+
+    def _demote_retiring(self, row, s):
+        """Cross-turn demotion: the retiring session's full pages (prompt
+        AND generated tokens: kv committed for positions [0, len(seq) -
+        1), the freeze's cut) go to the host tier while the table is
+        still valid, so the conversation's next turn promotes them.  A
+        migrated-in row's kv was computed elsewhere: like the prefix
+        cache, the tier publishes only pages this replica computed."""
+        try:
+            item = s.get("item") or {}
+            if "kv" in (item.get("resume") or {}):
+                return
+            seq = s.get("seq") or []
+            rkeys = self._prefix_keys(
+                seq, len(seq) - 1, self._lora_prefix_root(item.get("aidx",
+                                                                   0)))
+            owned = self._row_pages[row]
+            n = min(len(rkeys), len(owned))
+            self._demote_pages(rkeys[:n], owned[:n])
+        except Exception:
+            logger.warning("retirement demote failed", exc_info=True)
 
     # ---- admission and batched prefill ------------------------------------
 
@@ -1181,10 +1567,23 @@ class ContinuousBatcher:
         if h.cancelled.is_set():        # client gone before admission
             h._finish(list(prompt))
             return
+        if "kv" in (item.get("resume") or {}):
+            # a migrated-in session: no prefill; upload its kv and occupy
+            # the row mid-sequence (waits for pages like any admission)
+            if not self._install_resume(row, item):
+                self._parked = (row, item)
+            return
+        # a kv-less resume is a REPLAY: the committed sequence minus its
+        # last token prefills here, then the row state installs as a
+        # migration's would
+        src = item["resume"]["seq"][:-1] if "resume" in item else prompt
         if self.kv_page_size and not self._try_allocate(
                 row, item, lazy=item["long"]):
             self._parked = (row, item)  # wait for pages (FIFO)
             return
+        if item["long"]:
+            self.trace.event(item.get("trace"), "long.admit", row=row,
+                             prompt_len=len(prompt))
         # shared pages already hold their kv: the prefill starts after
         # them, page-aligned
         shared = (self._row_shared_n[row] * self.kv_page_size
@@ -1202,7 +1601,8 @@ class ContinuousBatcher:
         # shared positions first, chunk by chunk, in rounds of its own
         self._admissions.append({
             "row": row, "item": item, "offset": shared, "i": 0,
-            "sizes": self._prefill_chunk_sizes(len(prompt) - shared),
+            "src": src, "t_admit": time.monotonic(),
+            "sizes": self._prefill_chunk_sizes(len(src) - shared),
             "d_off": 0, "di": 0,
             "d_sizes": (self._prefill_chunk_sizes(shared)
                         if shared and self.draft_model is not None
@@ -1220,10 +1620,12 @@ class ContinuousBatcher:
 
     def _drain_ingress(self, block=False):
         """Move what waits on the thread-safe ingress queue into the
-        admission queues (the lane's or the normal one).  `block` waits
-        briefly for the first item (the idle engine's wake-up) unless
-        one already waits."""
-        if block and (self._waiting or self._longq):
+        class queues (or the lane's).  Runs every `_admit`, even with no
+        row free, so the class queues (the preemption controller's
+        pressure signal) show what waits.  `block` waits briefly for the
+        first item (the idle engine's wake-up) unless one already
+        waits."""
+        if block and (any(self._classq.values()) or self._longq):
             block = False
         while True:
             try:
@@ -1231,25 +1633,48 @@ class ContinuousBatcher:
             except queue_mod.Empty:
                 return
             block = False
-            (self._longq if item["long"] else self._waiting).append(item)
+            if item["long"]:
+                self._longq.append(item)
+            else:
+                self._classq[item.get("cls") or "interactive"].append(item)
 
     def _long_admitting(self):
         return sum(1 for adm in self._admissions if adm["item"]["long"])
 
     def _next_item(self):
-        """The next admission: while normal requests wait, up to
-        `_LONG_CREDIT` of them run per mega-prompt, and a waiting
+        """Weighted-fair pick across the class queues: while both classes
+        wait, up to `prio_weight` interactive admissions run per batch
+        admission (batch alone drains freely).  The lane rides the same
+        credit one level up: while normal requests wait, up to
+        `prio_weight` of them run per mega-prompt, and a waiting
         mega-prompt admits at once when nothing else waits; at most one
-        is mid-prefill at a time."""
+        is mid-prefill at a time.  Records the picked item's queue
+        delay."""
+        inter, batch = self._classq["interactive"], self._classq["batch"]
         if self._longq and not self._long_admitting() and (
-                self._long_credit >= _LONG_CREDIT or not self._waiting):
+                self._long_credit >= self.prio_weight
+                or not (inter or batch)):
             self._long_credit = 0
-            return self._longq.popleft()
-        if not self._waiting:
+            item = self._longq.popleft()
+        elif inter and batch:
+            if self._batch_credit >= self.prio_weight:
+                self._batch_credit = 0
+                item = batch.popleft()
+            else:
+                self._batch_credit += 1
+                item = inter.popleft()
+        elif inter:
+            item = inter.popleft()
+        elif batch:
+            self._batch_credit = 0
+            item = batch.popleft()
+        else:
             return None
-        if self._longq:
+        if self._longq and not item["long"]:
             self._long_credit += 1
-        return self._waiting.popleft()
+        self._qdelay[item.get("cls") or "interactive"].record(
+            time.monotonic() - item["t_submit"])
+        return item
 
     def _admit(self, block=False):
         """Pull waiting requests into the admission pipeline until it is
@@ -1289,7 +1714,8 @@ class ContinuousBatcher:
 
     def _select_prefill(self):
         """This round's admissions: the head always (a budget caps
-        batching, it never blocks progress), then FIFO while the summed
+        batching, it never blocks progress), then interactive before
+        batch-class admissions (FIFO within a class) while the summed
         chunk lengths fit the budget and the width `prefill_rows`.  The
         lane admission (at most one: `_next_item`) ranks after the normal
         ones, and only once its chunk's pages are mapped (a page-starved
@@ -1304,7 +1730,10 @@ class ContinuousBatcher:
             head = None
         rest = [a for a in pool if a is not head]
         order = ([head] if head is not None else [])
-        order += [a for a in rest if not a["item"]["long"]]
+        order += [a for a in rest if not a["item"]["long"]
+                  and a["item"].get("cls") != "batch"]
+        order += [a for a in rest if not a["item"]["long"]
+                  and a["item"].get("cls") == "batch"]
         order += [a for a in rest if a["item"]["long"]]
         selected, spent = [], 0
         for adm in order:
@@ -1367,18 +1796,29 @@ class ContinuousBatcher:
                     self.draft_model, self._d_cache,
                     *self._prefill_batch(entries)[2], 0)
             self.counters.inc("prefill_dispatches")
+            for (row, chunk, off), adm in zip(entries, catchup):
+                self.trace.event(adm["item"].get("trace"), "prefill",
+                                 row=row, chunk=len(chunk), offset=off,
+                                 draft_catchup=True)
             return True
         entries, finishing = [], []
         for adm in selected:
             off, size = adm["offset"], adm["sizes"][adm["i"]]
-            chunk = adm["item"]["prompt"][off:off + size]
+            # "src": the prompt, or a replay's committed tokens but the last
+            chunk = adm["src"][off:off + size]
             entries.append((adm["row"], chunk, off))
             adm["offset"] = off + len(chunk)
             adm["i"] += 1
-            if adm["offset"] >= len(adm["item"]["prompt"]):
+            if adm["offset"] >= len(adm["src"]):
                 finishing.append(adm)
+            tid = adm["item"].get("trace")
             if adm["item"]["long"]:
                 self.counters.inc("long_chunks_dispatched")
+                self.trace.event(tid, "long.chunk", row=adm["row"],
+                                 chunk=len(chunk), offset=off)
+            else:
+                self.trace.event(tid, "prefill", row=adm["row"],
+                                 chunk=len(chunk), offset=off)
         bucket, width, batch = self._prefill_batch(entries)
         if self.kv_page_size:
             # bucket overshoot and pad rows write into the sink
@@ -1410,6 +1850,11 @@ class ContinuousBatcher:
         """Final chunk done: publish the row's prefix pages, pick the
         first token (ordinal 0 of the request's noise), record TTFT,
         deliver it and occupy the row for decode."""
+        if "resume" in adm["item"]:
+            # a replay: the final chunk's logits are for a token the lost
+            # replica already emitted; no pick, the row state installs
+            self._finish_replay(adm)
+            return
         item, row = adm["item"], adm["row"]
         h, prompt, max_new = item["h"], item["prompt"], item["max_new"]
         if self.kv_page_size:
@@ -1431,7 +1876,16 @@ class ContinuousBatcher:
         tok = int(decode_mod.pick_tokens(
             logits_row[None], [item["temp"]], [item["seed"]], [0],
             **fkw)[0])
-        self._ttft.record(time.monotonic() - item["t_submit"])
+        now = time.monotonic()
+        t0 = item["t_submit"]
+        self._ttft.record(now - t0)
+        self._ttft_cls[item.get("cls") or "interactive"].record(now - t0)
+        tid = item.get("trace")
+        if tid:
+            t_adm = adm.get("t_admit", now)
+            self.trace.span_at(tid, "queue", t0, t_adm)
+            self.trace.span_at(tid, "admit", t_adm, now, row=row,
+                               prompt_len=len(prompt))
         h.tokens.put([tok])
         seq = prompt + [tok]
         eos = item["eos"]
@@ -1440,6 +1894,7 @@ class ContinuousBatcher:
             self._free_row(row)
             h._finish(seq)
             self.counters.inc("requests_served")
+            self.trace.event(tid, "retire", row=row, reason="first_token")
             return
         self._gen[row] += 1
         # a fresh tensor: pending readback entries still hold the old one
@@ -1479,6 +1934,561 @@ class ContinuousBatcher:
         output, as an eos does."""
         return any(len(seq) - len(st) >= gen_start
                    and seq[-len(st):] == st for st in stops)
+
+    # ---- kv migration (the kvtransfer.MigrationEngine substrate) ------------
+    # A live session moves replicas in three acts, as in the JAX batcher.
+    # FREEZE (source): the host thread stops committing the row's tokens
+    # at a tick, and the device thread bumps its generation (work in
+    # flight drops; the destination regenerates it) and gathers its
+    # committed kv into fresh tensors copied to pinned host memory.
+    # RESUME (destination): an admission without prefill allocates fresh
+    # pages, scatters the blocks, maps the table and rebuilds every
+    # resident register from the committed sequence.  Then COMPLETE (the
+    # source frees the row once the destination acks) or ROLLBACK (the
+    # source reinstalls its own registers and decodes on).  Pages are
+    # owned by exactly one replica at every instant.
+
+    def _freeze_row(self, row, s):
+        """Host-tick side of the freeze cut for `row` (slot dict `s`):
+        delegate the device half, then publish the frozen record on the
+        handle.  The committed ``seq`` at this instant IS the resume
+        point."""
+        h = s["handle"]
+        box = {}
+        if threading.current_thread() is self._thread:
+            self._apply_freeze(row, box)     # serial engine: inline
+        elif not self._device_op(("freeze", row, box)):
+            return
+        if not box.get("ok"):
+            return
+        s["frozen"] = True
+        h.frozen = {"row": row, "gen": self._gen[row],
+                    "seq": list(s["seq"]), "plen": s["plen"],
+                    "remaining": s["remaining"], "item": s["item"],
+                    "kind": "paged" if self.kv_page_size else "dense",
+                    "kv": box["kv"], "event": box["event"],
+                    "keep": box["keep"], "n_pages": box.get("n_pages", 0)}
+        self.trace.event(s["item"].get("trace"), "freeze", row=row,
+                         committed=len(s["seq"]),
+                         n_pages=box.get("n_pages", 0))
+        h.freeze_done.set()
+
+    def _apply_freeze(self, row, box):
+        """Device thread: bump `row`'s generation and gather its committed
+        kv (its first pages, or its dense window) into fresh tensors
+        whose copy to pinned host memory starts now.  The pool keeps
+        stepping: the garbage the frozen row writes lands past the cut
+        (its own pages' tail or the sink), which neither continuation
+        reads before overwriting."""
+        s = self._slots[row]
+        if s is None:
+            return
+        self._gen[row] += 1
+        n_pos = len(s["seq"]) - 1   # kv positions [0, n_pos) committed;
+        # position n_pos is written again by the fed token on resume
+        if self.kv_page_size:
+            owned = self._row_pages[row] or []
+            n_have = min(max(1, -(-n_pos // self.kv_page_size)), len(owned))
+            kv = decode_mod.gather_pages(self._cache, owned[:n_have])
+            box["n_pages"] = n_have
+        else:
+            kv = decode_mod.gather_row_kv(self._cache, row)
+        box["kv"], box["event"] = self._copy_to_host(kv)
+        box["keep"] = kv     # alive until the copy's event fires
+        box["ok"] = True
+
+    def _apply_rollback(self, row, frozen, box):
+        """Device thread: the migration failed before the ack; reinstall
+        the row's registers from the frozen cut and let it decode on.
+        Its pages never left the row, so the pool is untouched."""
+        s = self._slots[row]
+        if s is None or self._gen[row] != frozen["gen"]:
+            return      # stop() or a death already tore the row down
+        self._gen[row] += 1   # drop the frozen period's work in flight
+        self._install_row_state(row, frozen["seq"], frozen["plen"],
+                                frozen["remaining"], frozen["item"])
+        s["frozen"] = False
+        box["ok"] = True
+
+    def _install_row_state(self, row, seq, plen, remaining, item):
+        """Rebuild every resident device register of `row` from a
+        committed sequence (a rollback on the source, a resume or replay
+        on the destination): the write cursor at the next position, the
+        fed token the last committed one, and the ordinal, budget and
+        seen table a row that never moved would hold, so the row goes on
+        with its own tokens, sampled ones too ((seed, ordinal) noise)."""
+        eos = item["eos"]
+        decode_mod.set_row_indices(
+            self._cache, decode_mod.to_device([row], self.device),
+            decode_mod.to_device([len(seq) - 1], self.device))
+        # a fresh tensor: pending readback entries still hold the old one
+        self._toks = self._toks.clone()
+        self._toks[row] = seq[-1]
+        self._rems[row] = remaining
+        self._eoss[row] = eos if eos is not None else 0
+        self._eos_on[row] = eos is not None
+        self._temps[row] = item["temp"]
+        self._seeds[row] = item["seed"]
+        self._ords[row] = len(seq) - plen
+        self._topks[row] = item["topk"]
+        self._topps[row] = item["topp"]
+        self._minps[row] = item["minp"]
+        if item["rep"] != 1.0:
+            # the seen table holds everything but the fed token: the step
+            # adds it before its pick, as after an admission
+            self._seen[row] = decode_mod.seen_from_prompt(
+                decode_mod.to_device([seq[:-1]], self.device),
+                self.vocab_size)[0]
+            self._reps[row] = item["rep"]
+        if self.spec_mode == "ngram":
+            decode_mod.set_row_ctx(self._spec_ctx, self._spec_ctx_len, row,
+                                   seq)
+
+    def _occupy(self, row, item, seq, remaining):
+        """Occupy `row` mid-sequence (a resume or a replay): the row
+        state, the adapter, the engine's row counts and the slot."""
+        self._gen[row] += 1
+        self._install_row_state(row, seq, len(item["prompt"]), remaining,
+                                item)
+        if self.lora_rank:
+            self._lora_ids[row] = item["aidx"]
+        filt = bool(item["temp"] > 0 and (item["topk"] or item["topp"] < 1.0
+                                          or item["minp"] > 0.0))
+        sampled = item["temp"] > 0
+        pen = item["rep"] != 1.0
+        self._n_filtered += filt
+        self._n_sampled += sampled
+        self._n_penalized += pen
+        self._slots[row] = {"handle": item["h"], "seq": list(seq),
+                            "remaining": remaining, "filtered": filt,
+                            "sampled": sampled, "pen": pen,
+                            "stops": item["stops"],
+                            "plen": len(item["prompt"]), "item": item}
+
+    def _finish_replay(self, adm):
+        """The final replay chunk is done: the row's cache holds kv for
+        every committed position but the last token's (the first decode
+        step writes it, as after a migration); occupy the row.  Nothing
+        is emitted: the lost replica delivered the last token."""
+        item, row = adm["item"], adm["row"]
+        res = item["resume"]
+        self.trace.event(item.get("trace"), "replay", row=row,
+                         committed=len(res["seq"]),
+                         remaining=res["remaining"])
+        if self.kv_page_size:
+            self._register_prefix_pages(row)
+        self._occupy(row, item, res["seq"], res["remaining"])
+        self.counters.inc("replays_resumed")
+        res["installed"].set()
+
+    def _install_resume(self, row, item):
+        """Device thread: allocate fresh pages (growing the tables first
+        when they are too narrow), scatter the migrated kv into them (or
+        the dense row), and occupy `row` mid-sequence.  False when the
+        pool cannot hold it yet (it waits like any admission).  No prefix
+        sharing either way: the prefix cache publishes only pages this
+        replica computed."""
+        faults.check("serve.resume_install")
+        res = item["resume"]
+        if self.kv_page_size:
+            n_have = res["n_pages"]
+            need = max(n_have, self._pages_needed(
+                len(item["prompt"]), item["max_new"], item["rep"]))
+            if len(self._free_pages) < need:
+                self._evict_cached_pages(need - len(self._free_pages))
+            if len(self._free_pages) < need:
+                return False
+            pages = [self._free_pages.pop() for _ in range(need)]
+            try:
+                self._assert_no_sink(pages)
+                self._map_row(row, pages)
+                decode_mod.scatter_pages(self._cache, pages[:n_have],
+                                         res["kv"])
+            except BaseException:
+                # conservation, as in _try_allocate
+                self._free_pages.extend(pages)
+                raise
+            self._row_pages[row] = pages
+            self._row_shared_n[row] = 0
+            self._row_prefix_keys[row] = None
+        else:
+            decode_mod.scatter_row_kv(self._cache, row, res["kv"])
+        self._occupy(row, item, res["seq"], res["remaining"])
+        res["kv"] = None     # installed: the host blocks may go
+        self.counters.inc("migrations_resumed")
+        self.counters.inc("kv_pages_imported", res["n_pages"])
+        self.trace.event(item.get("trace"), "resume", row=row,
+                         committed=len(res["seq"]), n_pages=res["n_pages"])
+        res["installed"].set()
+        return True
+
+    def freeze_session(self, h, timeout_s=10.0):
+        """Cut a live session for migration: ask the host thread to stop
+        committing at its next tick for the row, and return the frozen
+        record (the committed seq and its kv on its way to host memory).
+        None when the session completed before the cut landed;
+        TimeoutError when no cut lands in `timeout_s`, the session
+        running on untouched."""
+        if self._dead is not None:
+            raise RuntimeError(f"batcher died: {self._dead}")
+        if self.draft_model is not None:
+            raise ValueError(
+                "kv migration does not compose with speculative decoding "
+                "from a draft model (its cache is not shipped)")
+        h.migrate_requested.set()
+        if not h.freeze_done.wait(timeout_s):
+            h.migrate_requested.clear()
+            # the cut may have landed concurrently with the clear
+            if not h.freeze_done.wait(0.2):
+                if h._done.is_set():
+                    return None      # finished first: nothing to move
+                raise TimeoutError(
+                    f"freeze did not land within {timeout_s:.1f}s")
+        return h.frozen
+
+    def complete_migration(self, frozen):
+        """The destination acked the splice: free the source row through
+        the normal retirement path; each side frees only its own
+        pages."""
+        self._retire(frozen["row"], frozen["gen"])
+        self.counters.inc("migrations_completed")
+        self.counters.inc("kv_pages_exported", frozen.get("n_pages", 0))
+
+    def rollback_migration(self, frozen):
+        """The migration failed before the ack: reinstall the row's
+        registers from the frozen cut and decode on HERE; the client's
+        stream goes on as if nothing happened.  False only when the
+        engine is stopping (the handle then fails through the death
+        path)."""
+        h = frozen["item"]["h"]
+        box = {}
+        if threading.current_thread() is self._thread:
+            self._apply_rollback(frozen["row"], frozen, box)
+        elif not self._device_op(("rollback", frozen["row"], frozen, box)):
+            return False
+        # clear migrate_requested FIRST: with it down, the host thread
+        # cannot enter the freeze branch between the two clears
+        h.migrate_requested.clear()
+        h.freeze_done.clear()
+        h.frozen = None
+        return bool(box.get("ok"))
+
+    def live_handles(self):
+        """Handles of the sessions occupying rows (the drain-by-migration
+        snapshot; a row finishing meanwhile yields a handle whose
+        migration reports completed_locally)."""
+        return [s["handle"] for s in list(self._slots)
+                if s is not None and not s.get("frozen")]
+
+    def _resume_item(self, meta, what):
+        """Validate a resume or replay ``meta`` (wire_snapshot's keys) on
+        the caller's thread and build its admission item (without the
+        ``resume`` record)."""
+        if self._dead is not None:
+            raise RuntimeError(f"batcher died: {self._dead}")
+        if self.draft_model is not None:
+            raise ValueError(f"this replica runs speculative decoding "
+                             f"from a draft model; it cannot {what} "
+                             "sessions")
+        seq = [int(t) for t in (meta.get("seq") or ())]
+        plen = int(meta.get("plen") or 0)
+        max_new = int(meta.get("max_new") or 0)
+        remaining = int(meta.get("remaining") or 0)
+        if not 0 < plen < len(seq):
+            raise ValueError(f"{what} needs a prompt and at least one "
+                             "decoded token")
+        if any(not 0 <= t < self.vocab_size for t in seq):
+            raise ValueError(f"sequence token out of vocab range "
+                             f"{self.vocab_size}")
+        if remaining <= 0 or remaining != max_new - (len(seq) - plen):
+            raise ValueError(
+                f"inconsistent budget: remaining={remaining} with "
+                f"{len(seq) - plen} of max_new={max_new} decoded")
+        if len(seq) + remaining > self.max_seq:
+            raise ValueError(
+                f"the {what}d sequence needs {len(seq) + remaining} "
+                f"positions; this replica's max_seq_len is {self.max_seq}")
+        temp = float(meta.get("temp") or 0.0)
+        topk, topp = int(meta.get("topk") or 0), float(meta.get("topp", 1.0))
+        minp, rep = float(meta.get("minp") or 0.0), float(meta.get("rep",
+                                                                   1.0))
+        decode_mod.check_pick_args(temp, topk, topp, minp)
+        decode_mod.check_penalty(rep)
+        if (self.kv_page_size
+                and self._pages_needed(plen, max_new, rep)
+                > self._total_pages):
+            raise ValueError(f"the {what}d request does not fit this "
+                             "replica's kv pool; raise --generate_kv_pages")
+        eos = meta.get("eos")
+        stops = [list(map(int, st)) for st in (meta.get("stops") or ())]
+        adapter = meta.get("adapter")
+        aidx = 0
+        if adapter is not None:
+            if not self.lora_rank:
+                raise ValueError(f"session uses adapter {adapter!r} but "
+                                 "this replica has no LoRA bank")
+            with self._lora_lock:
+                if adapter not in self._adapters:
+                    raise ValueError(f"unknown adapter {adapter!r} on this "
+                                     "replica")
+                aidx = self._adapters[adapter]
+                self._adapter_refs[aidx] = self._adapter_refs.get(aidx, 0) + 1
+        h = SlotHandle(seq[:plen])
+        if aidx:
+            h._on_done = lambda idx=aidx: self._release_adapter(idx)
+        prio = meta.get("priority")
+        return {
+            "h": h, "prompt": seq[:plen], "max_new": max_new, "temp": temp,
+            "eos": int(eos) if eos is not None else None,
+            "seed": int(meta.get("seed") or 0), "aidx": aidx,
+            "adapter": adapter, "topk": topk, "topp": topp, "minp": minp,
+            "stops": stops, "rep": rep,
+            "cls": prio if prio in PRIORITY_CLASSES else "interactive",
+            "long": False,
+            "trace": (meta.get("trace") if trace.valid_id(meta.get("trace"))
+                      else None),
+            "t_submit": time.monotonic()}, seq, remaining
+
+    def _enqueue_resume(self, item):
+        self._pending.put(item)
+        if self._dead is not None:
+            self._drain_pending(RuntimeError(f"batcher died: {self._dead}"))
+        return item["h"], item["resume"]["installed"]
+
+    def submit_resume(self, meta, blocks):
+        """An admission that SKIPS prefill: occupy a row with a migrated
+        session's committed sequence and kv blocks.  Validates eagerly
+        (the caller's thread), so a malformed snapshot raises
+        ValueError instead of killing the device loop.  Returns
+        ``(handle, installed)``: the event sets once the row is live
+        (the :resume surface's splice ack)."""
+        kind = "paged" if self.kv_page_size else "dense"
+        if meta.get("kind") != kind:
+            raise ValueError(
+                f"kv layout mismatch: the snapshot is {meta.get('kind')!r}, "
+                f"this replica serves {kind!r} caches")
+        if (self.kv_page_size
+                and int(meta.get("page_size") or 0) != self.kv_page_size):
+            raise ValueError(
+                f"page size mismatch: the snapshot uses "
+                f"{meta.get('page_size')}, this replica {self.kv_page_size}")
+        item, seq, remaining = self._resume_item(meta, "resume")
+        try:
+            n_pages = int(meta.get("n_pages") or 0)
+            if self.kv_page_size:
+                expect = max(1, -(-(len(seq) - 1) // self.kv_page_size))
+                if n_pages != expect:
+                    raise ValueError(
+                        f"snapshot ships {n_pages} pages; {len(seq) - 1} "
+                        f"committed positions need {expect}")
+            leaves = decode_mod.kv_leaves(self._cache)
+            missing = sorted(set(leaves) - set(blocks))
+            if missing:
+                raise ValueError(f"snapshot is missing kv blocks {missing}")
+            kv = {}
+            for name, leaf in leaves.items():
+                want = (((n_pages,) if self.kv_page_size else ())
+                        + tuple(leaf.shape[1:]))
+                a = torch.as_tensor(blocks[name])
+                if tuple(a.shape) != want:
+                    raise ValueError(
+                        f"kv block {name!r} has shape {tuple(a.shape)}; "
+                        f"this replica expects {want}")
+                kv[name] = a.contiguous()
+        except BaseException:
+            item["h"]._fail(RuntimeError("resume refused"))   # adapter ref
+            raise
+        item["resume"] = {"seq": seq, "remaining": remaining,
+                          "n_pages": n_pages, "kv": kv,
+                          "installed": threading.Event()}
+        return self._enqueue_resume(item)
+
+    def submit_replay(self, meta):
+        """An admission that REBUILDS a lost session from its token record
+        alone (no kv: the lost replica's pages are gone): the committed
+        sequence prefills here and the row state installs as a
+        migration's would, so decode goes on with the same tokens.
+        ``meta`` uses wire_snapshot's keys minus the kv layout, so a
+        record works against any layout.  Returns ``(handle,
+        installed)`` like :meth:`submit_resume`."""
+        item, seq, remaining = self._resume_item(meta, "replay")
+        # no "kv" key: _start_admission reads that as "prefill again"
+        item["resume"] = {"seq": seq, "remaining": remaining,
+                          "installed": threading.Event()}
+        return self._enqueue_resume(item)
+
+    # ---- the preemption controller (park / resume) -------------------------
+    # Parking reuses the migration machinery end to end: freeze_session
+    # cuts the victim at a commit, wire_snapshot flattens the cut
+    # host-side, complete_migration frees the row AND its pages (a parked
+    # session holds no device state), and submit_resume admits it again
+    # with the same tokens when pressure drops.  Parks ride the migration
+    # counters too; sessions_parked / _unparked count the preemption
+    # traffic itself.
+
+    def _park_gather(self, h):
+        """Cut a running session and pull its snapshot host-side.  On
+        success the row and its pages are freed and the returned entry
+        OWNS the session: it reaches exactly one of `_park_restore` or
+        `_park_discard`.  None when the session finished before the cut
+        landed; on a snapshot failure the session decodes on in place."""
+        from tensorflowonspark_tpu_torch import kvtransfer
+
+        frozen = self.freeze_session(h)
+        if frozen is None:
+            return None
+        try:
+            faults.check("serve.park_gather")
+            meta, blocks = kvtransfer.wire_snapshot(frozen, "parked",
+                                                    self.kv_page_size)
+        except BaseException:
+            self.rollback_migration(frozen)
+            raise
+        self.complete_migration(frozen)
+        self.counters.inc("sessions_parked")
+        self.trace.event(meta.get("trace"), "park",
+                         committed=len(meta["seq"]),
+                         n_pages=meta.get("n_pages", 0))
+        return {"h": h, "meta": meta, "blocks": blocks,
+                "t_parked": time.monotonic()}
+
+    def _park_restore(self, entry):
+        """Resume a parked session through the :resume admission and
+        splice the resumed stream into the original handle, which never
+        learns its tokens crossed a park."""
+        faults.check("serve.park_restore")
+        h2, _ = self.submit_resume(entry["meta"], entry["blocks"])
+        self.counters.inc("sessions_unparked")
+        self.trace.event(
+            entry["meta"].get("trace"), "unpark",
+            parked_ms=round((time.monotonic() - entry["t_parked"]) * 1000.0,
+                            3))
+        threading.Thread(target=self._pump_resumed, args=(entry["h"], h2),
+                         name="park-splice", daemon=True).start()
+        return h2
+
+    def _park_discard(self, entry, err=None):
+        """Drop a parked session without resuming it: fail its handle
+        (teardown) or finish it at its parked sequence (the client
+        cancelled while parked)."""
+        h = entry["h"]
+        if err is not None:
+            h._fail(err)
+        else:
+            h._finish([int(t) for t in entry["meta"]["seq"]])
+
+    def _sweep_park_pool(self, err):
+        """stop() / _die(): every parked snapshot dies with the engine."""
+        with self._park_lock:
+            entries = list(self._park_pool)
+            self._park_pool.clear()
+        for entry in entries:
+            self._park_discard(entry, err)
+
+    def _pump_resumed(self, h, h2):
+        """Forward the resumed handle's stream into the original (one
+        thread per restore; it ends with the resumed stream)."""
+        try:
+            while True:
+                if h.cancelled.is_set():
+                    h2.cancel()
+                try:
+                    batch = h2.tokens.get(timeout=0.1)
+                except queue_mod.Empty:
+                    continue
+                if batch is None:
+                    break
+                h.tokens.put(batch)
+            h._finish(h2.result(timeout=10.0))
+        except BaseException as e:
+            h._fail(e)
+
+    def _pick_victim(self):
+        """The batch-class running session with the most work left (a racy
+        scan: the device thread owns the slots; a stale pick only makes
+        freeze_session return None)."""
+        victim, most = None, -1
+        for s in list(self._slots):
+            if s is None or s.get("frozen"):
+                continue
+            if (s["item"].get("cls") or "interactive") != "batch":
+                continue
+            h = s["handle"]
+            if h.migrate_requested.is_set() or h._done.is_set():
+                continue
+            if s["remaining"] > most:
+                victim, most = h, s["remaining"]
+        return victim
+
+    def _preempt_loop(self):
+        """The controller thread: freeze_session and submit_resume both
+        wait on device-thread acks, so preemption watches from here."""
+        while not self._stop.is_set():
+            try:
+                self._preempt_tick()
+            except BaseException:
+                if self._stop.is_set() or self._dead is not None:
+                    return
+                logger.warning("preemption tick failed", exc_info=True)
+            self._stop.wait(0.02)
+
+    def _preempt_tick(self):
+        """One controller decision: park when the oldest waiting
+        interactive admission has queued past `preempt_ms`; resume the
+        oldest parked session when no interactive work waits and a row
+        is free.  The class queues and the slots are read racily (the
+        device thread owns them): a stale view shifts a decision by one
+        20 ms tick."""
+        now = time.monotonic()
+        try:
+            head = self._classq["interactive"][0]
+        except IndexError:
+            head = None
+        if head is not None:
+            if (now - head["t_submit"]) * 1000.0 <= self.preempt_ms:
+                return
+            with self._park_lock:
+                if len(self._park_pool) >= self.park_capacity:
+                    self.counters.inc("park_spills")
+                    return
+            victim = self._pick_victim()
+            if victim is None:
+                return
+            try:
+                entry = self._park_gather(victim)
+            except TimeoutError:
+                return      # no commit landed in time; the session runs on
+            except BaseException:
+                self.counters.inc("park_failures")
+                logger.warning("park failed; session continues",
+                               exc_info=True)
+                return
+            if entry is None:
+                return      # finished before the cut landed
+            with self._park_lock:
+                self._park_pool.append(entry)
+                self._park_depth.set(len(self._park_pool))
+            return
+        # no interactive pressure: resume the oldest into a free row
+        if not any(s is None for s in list(self._slots)):
+            return
+        with self._park_lock:
+            if not self._park_pool:
+                return
+            entry = self._park_pool.popleft()
+            self._park_depth.set(len(self._park_pool))
+        if entry["h"].cancelled.is_set():
+            self._park_discard(entry)   # the client left while parked
+            return
+        try:
+            self._park_restore(entry)
+        except BaseException:
+            self.counters.inc("park_restore_failures")
+            logger.warning("park restore failed; session stays parked",
+                           exc_info=True)
+            with self._park_lock:
+                self._park_pool.appendleft(entry)
+                self._park_depth.set(len(self._park_pool))
 
     # ---- decode, readback and the two engines ------------------------------
 
@@ -1596,23 +2606,62 @@ class ContinuousBatcher:
         block, count_rows = toks[:k].tolist(), counts[:k].tolist()
         done_rows = done[:k].tolist()
         self._bufs.give((toks, counts, done))
-        pend = {}     # row -> tokens committed this tick
+        pend = {}       # row -> tokens committed this tick
+        spec_pend = {}  # row -> [rounds, accepted, k] this tick
 
-        def retire(r, s, gen):
+        def emit(r, s):
             toks_r = pend.pop(r, None)
-            if toks_r:
-                s["handle"].tokens.put(toks_r)
+            sp = spec_pend.pop(r, None)
+            if not toks_r:
+                return
+            s["handle"].tokens.put(toks_r)
+            tid = s["item"].get("trace")
+            n = self.trace.decode_sample
+            if tid and n:
+                # sampled decode spans, recorded here at commit time: the
+                # device thread never sees tracing
+                s["_trace_ticks"] = s.get("_trace_ticks", 0) + 1
+                if (s["_trace_ticks"] - 1) % n == 0:
+                    self.trace.event(tid, "decode", row=r,
+                                     tokens=len(toks_r),
+                                     seq_len=len(s["seq"]),
+                                     tick=s["_trace_ticks"])
+                    if sp:
+                        self.trace.event(tid, "spec.round", row=r,
+                                         rounds=sp[0], accepted=sp[1],
+                                         k=sp[2])
+
+        def retire(r, s, gen, reason):
+            emit(r, s)
             self._retire(r, gen)         # before the handle finishes
             s["handle"]._finish(s["seq"])
             self.counters.inc("requests_served")
+            self.trace.event(s["item"].get("trace"), "retire", row=r,
+                             reason=reason, seq_len=len(s["seq"]))
 
         for gens, row_toks, row_counts, row_done, k_e in zip(
                 gens_list, block, count_rows, done_rows, ks_list):
             for r, s in enumerate(self._slots):
                 if s is None or self._gen[r] != gens[r]:
                     continue      # freed or re-occupied since dispatch
-                if s["handle"].cancelled.is_set():
-                    retire(r, s, gens[r])
+                if s.get("frozen"):
+                    # mid-migration: chunks dispatched after the freeze's
+                    # generation bump match it again, but their tokens
+                    # continue a cut the destination (or a rollback) owns;
+                    # a cancel waits for the relay or the rollback too
+                    continue
+                h = s["handle"]
+                if (h.migrate_requested.is_set()
+                        and not h.freeze_done.is_set()
+                        and s["remaining"] > 0):
+                    # the freeze cut: deliver what this tick committed,
+                    # then snapshot, so the committed seq IS the resume
+                    # point
+                    emit(r, s)
+                    self._freeze_row(r, s)
+                    continue
+                if h.cancelled.is_set():
+                    retire(r, s, gens[r], "cancelled")
                     continue
                 c = row_counts[r]
                 if k_e:           # acceptance feedback (adaptive k)
@@ -1620,6 +2669,10 @@ class ContinuousBatcher:
                     self.counters.inc("spec_tokens_accepted", acc)
                     w = self._spec_ewma
                     w[r] = 0.5 * w[r] + 0.5 * (acc / k_e)
+                    sp = spec_pend.setdefault(r, [0, 0, k_e])
+                    sp[0] += 1
+                    sp[1] += acc
+                    sp[2] = k_e
                 ended = False
                 for tok in row_toks[r][:c]:
                     s["seq"].append(tok)
@@ -1629,10 +2682,10 @@ class ContinuousBatcher:
                         ended = True
                         break
                 if ended or row_done[r]:
-                    retire(r, s, gens[r])
+                    retire(r, s, gens[r], "stop")
         for r, s in enumerate(self._slots):
             if s is not None and r in pend:
-                s["handle"].tokens.put(pend.pop(r))
+                emit(r, s)
         if any(ks_list):
             # the next round's width: the largest of the rows' desired
             # lengths, in pow2 steps up to draft_k (the tokens do not
@@ -1663,17 +2716,27 @@ class ContinuousBatcher:
             if self._stop.is_set() or self._dead is not None:
                 return      # device thread gone: stop()/_die drain acks
 
+    def _apply_ops(self):
+        """Device thread: apply the posted operations (a prefix-cache
+        drop, a migration freeze or its rollback) and ack each."""
+        while True:
+            try:
+                op = self._ops_q.get_nowait()
+            except queue_mod.Empty:
+                return
+            if op[0] == "drop_prefix":
+                op[1]["n"] = self._evict_cached_pages(self._total_pages)
+            elif op[0] == "freeze":
+                self._apply_freeze(op[1], op[2])
+            else:
+                self._apply_rollback(op[1], op[2], op[3])
+            op[-1].set()
+
     def _apply_retirements(self, timeout=0.0):
         """Device thread: apply the posted operations and retirements and
         ack each; with `timeout`, wait that long for the first
         retirement (the nothing-to-dispatch path)."""
-        while True:
-            try:
-                _, box, ev = self._ops_q.get_nowait()
-            except queue_mod.Empty:
-                break
-            box["n"] = self._evict_cached_pages(self._total_pages)
-            ev.set()
+        self._apply_ops()
         while True:
             try:
                 row, gen, ev = (self._retire_q.get(timeout=timeout)
@@ -1684,6 +2747,7 @@ class ContinuousBatcher:
             if self._slots[row] is not None and self._gen[row] == gen:
                 self._free_row(row)
             ev.set()
+            self._apply_ops()
 
     def _host_loop(self):
         """Host side of the async pipeline: drain flushed chunks."""
@@ -1809,8 +2873,9 @@ class ContinuousBatcher:
 
     def _die(self, e, msg):
         """Terminal failure of either engine thread: record the cause,
-        stop the other thread, fail every queued, in-flight and
-        mid-admission request, and release the retirement waiters."""
+        stop the other thread, fail every queued, in-flight,
+        mid-admission and parked request, and release the waiters on
+        device-thread acks."""
         logger.exception(msg)
         self._dead = e
         self._stop.set()
@@ -1828,7 +2893,7 @@ class ContinuousBatcher:
                 entry[-1].set()
 
     def _drain_pending(self, err):
-        for q in (self._waiting, self._longq):
+        for q in (*self._classq.values(), self._longq):
             while q:
                 q.popleft()["h"]._fail(err)
         while True:
@@ -1850,15 +2915,8 @@ class ContinuousBatcher:
                 s["handle"]._fail(err)
         self._slots = [None] * self.n_slots
         self._drain_pending(err)
+        self._sweep_park_pool(err)
         self._ack_retire_waiters()
-
-
-# request fields of the JAX package's :generate whose feature is not
-# ported: (field, predicate of "asked for", ROADMAP item)
-_UNPORTED_FIELDS = (
-    ("priority", lambda v: v is not None, _FLEET),
-    ("trace", lambda v: v is not None, _FLEET),
-)
 
 
 def _load_lm(export_dir, quantize_mode, device):
@@ -1899,7 +2957,8 @@ class GenerateService:
     every request through one ContinuousBatcher (over an int8 kv cache
     with ``kv_dtype="int8"``).  ``draft_export_dir`` loads the
     speculative draft (quantised with the target); ``lora_adapters``
-    ``{name: path}`` registers adapter files at start-up."""
+    ``{name: path}`` registers adapter files at start-up.  The host
+    tier, priority, preemption and trace options pass to the batcher."""
 
     _I32 = 1 << 31
 
@@ -1910,7 +2969,11 @@ class GenerateService:
                  pipeline_depth=2, long_prompt_threshold=0,
                  quantize_mode="none", draft_export_dir=None, draft_k=4,
                  spec_draft=None, lora_rank=0, lora_capacity=8,
-                 lora_adapters=None, device=None):
+                 lora_adapters=None, host_cache_mb=0, prio_weight=4,
+                 preempt_ms=0.0, park_capacity=8,
+                 trace_ring=trace.DEFAULT_RING,
+                 trace_decode_sample=trace.DEFAULT_DECODE_SAMPLE,
+                 device=None):
         if quantize_mode not in QUANTIZE_MODES:
             raise ValueError(f"quantize_mode={quantize_mode!r} not in "
                              f"{QUANTIZE_MODES}")
@@ -1935,7 +2998,10 @@ class GenerateService:
             pipeline_depth=pipeline_depth,
             long_prompt_threshold=long_prompt_threshold, draft_model=draft,
             draft_k=draft_k, spec_draft=spec_draft, lora_rank=lora_rank,
-            lora_capacity=lora_capacity, device=self.device)
+            lora_capacity=lora_capacity, host_cache_mb=host_cache_mb,
+            prio_weight=prio_weight, preempt_ms=preempt_ms,
+            park_capacity=park_capacity, trace_ring=trace_ring,
+            trace_decode_sample=trace_decode_sample, device=self.device)
         try:
             from tensorflowonspark_tpu_torch import lora as lora_mod
 
@@ -1952,13 +3018,15 @@ class GenerateService:
             600.0, 2.0 * max_new_tokens_limit)
         self._auto_seed = iter(range(1 << 20, 1 << 31))
         self._seed_lock = threading.Lock()
+        # Idempotency-Key: the live session of each key, and when keys
+        # finished (kept _idem_ttl_s)
+        self._idem_lock = threading.Lock()
+        self._idem_live = {}
+        self._idem_done = {}
+        self._idem_ttl_s = 120.0
+        self.requests = 0
 
     def _validate(self, req):
-        for field, asked, item in _UNPORTED_FIELDS:
-            if field in req and asked(req[field]):
-                raise NotImplementedError(
-                    f'request field "{field}" is not ported yet (ROADMAP: '
-                    f"{item})")
         inputs = req.get("inputs")
         vocab = self.model.cfg.vocab_size
         if (not isinstance(inputs, list) or not inputs
@@ -2004,10 +3072,50 @@ class GenerateService:
                 and 0 < rep <= 1e6):
             raise ValueError('"repetition_penalty" must be a number in '
                              "(0, 1e6] (1.0 disables)")
+        priority = req.get("priority")
+        if priority is not None and priority not in PRIORITY_CLASSES:
+            raise ValueError(
+                f'"priority" must be one of {list(PRIORITY_CLASSES)}')
+        trace_id = req.get("trace")
+        if trace_id is not None and not trace.valid_id(trace_id):
+            raise ValueError(
+                '"trace" must be a hex (dashes allowed) trace id of at '
+                f"most {trace.MAX_ID_LEN} chars")
         kw = dict(temperature=temperature, eos_id=eos_id, top_k=top_k,
                   top_p=top_p, min_p=min_p, adapter=adapter, stop=stop,
-                  repetition_penalty=float(rep))
+                  repetition_penalty=float(rep), priority=priority,
+                  trace_id=trace_id)
         return inputs, max_new, seed, kw
+
+    def _idem_claim(self, key, h):
+        """Register `h` as the live session of Idempotency-Key `key`,
+        cancelling an earlier live session under the same key: its
+        consumer is gone (a re-driven stream), and decoding it on would
+        generate twice."""
+        if key is None:
+            return
+        with self._idem_lock:
+            now = time.monotonic()
+            for k in [k for k, t in self._idem_done.items()
+                      if now - t > self._idem_ttl_s]:
+                del self._idem_done[k]
+            prior = self._idem_live.get(key)
+            if prior is not None and prior is not h:
+                self.batcher.counters.inc("idempotency_cancels")
+                prior.cancel()
+            if key in self._idem_done:
+                self.batcher.counters.inc("idempotency_reruns")
+            self._idem_live[key] = h
+
+    def _idem_finish(self, key, h):
+        """The stream is over: retire the live entry (if still ours) and
+        remember the key as recently finished."""
+        if key is None:
+            return
+        with self._idem_lock:
+            if self._idem_live.get(key) is h:
+                del self._idem_live[key]
+            self._idem_done[key] = time.monotonic()
 
     def _prompt_seeds(self, n, seed, temperature):
         """Explicit seed s -> s, s+1, ...; unseeded sampling -> a fresh
@@ -2019,17 +3127,32 @@ class GenerateService:
                 return [next(self._auto_seed) for _ in range(n)]
         return [0] * n
 
-    def stream(self, req):
+    def stream(self, req, on_handle=None, idem_key=None, kv_peer=None):
         """Events of a one-prompt generation: ``{"token": t}`` per decoded
-        token, then ``{"done": true, "output": [...]}``.  The request is
+        token, then ``{"done": true, "output": [...]}`` (with the trace's
+        summary under ``"trace"`` for a traced request).  The request is
         validated and submitted before the first event, so a malformed
-        one raises before any byte is sent."""
+        one raises before any byte is sent.  ``on_handle`` (the
+        disaggregation hook) gets the submitted handle first; ``kv_peer``
+        (``host:port``) prefetches the prompt's prefix pages from a
+        peer's host tier."""
         inputs, max_new, seed, kw = self._validate(req)
         if len(inputs) != 1:
             raise ValueError('"stream": true serves exactly one prompt per '
                              "request")
+        if kv_peer:
+            self.batcher.prefetch_prefix(kv_peer, inputs[0],
+                                         trace_id=kw["trace_id"])
         seed = self._prompt_seeds(1, seed, kw["temperature"])[0]
         h = self.batcher.submit(inputs[0], max_new, seed=seed, **kw)
+        self._idem_claim(idem_key, h)
+        self.requests += 1
+        if on_handle is not None:
+            try:
+                on_handle(h)
+            except Exception:
+                logger.warning("stream on_handle hook failed", exc_info=True)
+        trace_id = kw["trace_id"]
 
         def events():
             try:
@@ -2039,28 +3162,119 @@ class GenerateService:
                         break
                     for tok in batch:       # one batch per host tick
                         yield {"token": tok}
-                yield {"done": True, "output": h.result(timeout=0)}
+                done = {"done": True, "output": h.result(timeout=0)}
+                if trace_id:
+                    # the summary rides the final event only: the token
+                    # events equal an untraced stream's
+                    summ = self.batcher.trace.summary(trace_id)
+                    if summ is not None:
+                        done["trace"] = summ
+                yield done
             finally:
                 # consumer gone or done: free the slot instead of decoding
                 # to max_new for nobody
                 h.cancel()
+                self._idem_finish(idem_key, h)
 
         return events()
 
-    def generate(self, req):
+    def generate(self, req, kv_peer=None, idem_key=None):
         inputs, max_new, seed, kw = self._validate(req)
+        if kv_peer:
+            for p in inputs:
+                self.batcher.prefetch_prefix(kv_peer, p,
+                                             trace_id=kw["trace_id"])
         seeds = self._prompt_seeds(len(inputs), seed, kw["temperature"])
-        handles = []
+        handles, claims = [], []
         try:
-            for p, s in zip(inputs, seeds):
-                handles.append(self.batcher.submit(p, max_new, seed=s, **kw))
+            for i, (p, s) in enumerate(zip(inputs, seeds)):
+                h = self.batcher.submit(p, max_new, seed=s, **kw)
+                handles.append(h)
+                if idem_key is not None:
+                    # a duplicate dispatch under the same key cancels its
+                    # orphaned twin instead of generating twice
+                    k = idem_key if len(inputs) == 1 else f"{idem_key}/{i}"
+                    self._idem_claim(k, h)
+                    claims.append((k, h))
             outs = [h.result(timeout=self.timeout_s) for h in handles]
         except Exception:
             # a failed request must not leave its other prompts decoding
             for h in handles:
                 h.cancel()
             raise
+        finally:
+            for k, h in claims:
+                self._idem_finish(k, h)
+        self.requests += 1
         return outs
+
+    def resume(self, req, idem_key=None):
+        """``POST :resume``: go on with a session that left its replica.
+        With ``meta`` + ``pull`` (a migration) the kv snapshot is pulled
+        from the source's page server and installed without prefill;
+        with ``replay`` (recovery) the journaled token record prefills
+        here.  Either way the FIRST event, ``{"resumed": true}``, is the
+        ack the caller keys off.  Validation and the pull run before any
+        response byte, so a bad snapshot gets a 400."""
+        from tensorflowonspark_tpu_torch import kvtransfer
+
+        replay = req.get("replay")
+        if replay is not None:
+            if not isinstance(replay, dict):
+                raise ValueError('":resume" "replay" must be a meta object')
+            h, installed = self.batcher.submit_replay(replay)
+            self._idem_claim(idem_key, h)
+            self.requests += 1
+            return self._resume_events(h, installed, idem_key)
+        meta, pull = req.get("meta"), req.get("pull")
+        if not isinstance(meta, dict) or not isinstance(pull, dict):
+            raise ValueError(':resume needs "meta" and "pull" objects (or '
+                             '"replay")')
+        if (not pull.get("host") or not _is_int(pull.get("port"))
+                or not pull.get("ticket")):
+            raise ValueError('"pull" must carry host, port and ticket')
+        _, blocks = kvtransfer.pull_snapshot(
+            (str(pull["host"]), int(pull["port"])), str(pull["ticket"]),
+            timeout=min(60.0, self.timeout_s or 60.0))
+        # the HTTP meta is canonical; the pulled copy comes from the same
+        # frozen record
+        h, installed = self.batcher.submit_resume(meta, blocks)
+        self.requests += 1
+        return self._resume_events(h, installed, None)
+
+    def _resume_events(self, h, installed, idem_key):
+        def resume_events():
+            try:
+                deadline = time.monotonic() + min(60.0,
+                                                  self.timeout_s or 60.0)
+                while not installed.wait(0.1):
+                    if h._done.is_set():
+                        # failed or cancelled before the row went live
+                        try:
+                            h.result(timeout=0)
+                            yield {"error": "resume admission ended before "
+                                            "install"}
+                        except Exception as e:
+                            yield {"error": f"{type(e).__name__}: {e}"}
+                        return
+                    if time.monotonic() >= deadline:
+                        h.cancel()
+                        yield {"error": "resume install timed out"}
+                        return
+                yield {"resumed": True}   # the splice ack: the source
+                # frees its copy of the pages on reading it
+                while True:
+                    batch = h.tokens.get()
+                    if batch is None:
+                        break
+                    for tok in batch:
+                        yield {"token": tok}
+                yield {"done": True, "output": h.result()}
+            finally:
+                h.cancel()
+                self._idem_finish(idem_key, h)
+
+        return resume_events()
 
     def close(self):
         self.batcher.stop()
@@ -2069,13 +3283,15 @@ class GenerateService:
 class ModelService:
     """The served model: resolves the device at construction (raising
     without CUDA unless the CPU was asked for) and builds the
-    GenerateService lazily on the first :generate."""
+    GenerateService lazily on the first :generate; its migration engine
+    (page server, relays), the drain fence and the scrape surface."""
 
     def __init__(self, args):
         self.args = args
         self.device = device_mod.resolve(getattr(args, "device", None))
         self.export_dir = args.export_dir
         self.model_name = getattr(args, "model_name", "default")
+        self.role = getattr(args, "role", None) or "mixed"
         self.desc = f"torch-{self.device.type}"
         self._lora = {}
         for spec in (getattr(args, "generate_lora", None) or []):
@@ -2084,8 +3300,12 @@ class ModelService:
                 raise ValueError(f"--generate_lora {spec!r} must be "
                                  "NAME=PATH")
             self._lora[name] = path
+        self._bind_host = getattr(args, "host", "127.0.0.1")
+        self._advertise_host = getattr(args, "advertise_host", None)
         self._gen = None
         self._gen_lock = threading.Lock()
+        self._migrator = None
+        self._draining = threading.Event()
 
     def generate_service(self):
         with self._gen_lock:
@@ -2110,17 +3330,119 @@ class ModelService:
                     spec_draft=a.spec_draft,
                     lora_rank=a.generate_lora_rank,
                     lora_capacity=a.generate_lora_capacity,
-                    lora_adapters=self._lora, device=self.device)
+                    lora_adapters=self._lora,
+                    host_cache_mb=a.generate_host_cache_mb,
+                    prio_weight=a.generate_priority_weight,
+                    preempt_ms=a.generate_preempt_ms,
+                    park_capacity=a.generate_park_capacity,
+                    trace_ring=a.generate_trace_ring,
+                    trace_decode_sample=a.generate_trace_decode_sample,
+                    device=self.device)
             return self._gen
+
+    def migration_engine(self):
+        """The lazily built kvtransfer.MigrationEngine of this replica
+        (its page server binds on first use)."""
+        gen = self.generate_service()
+        with self._gen_lock:
+            if self._migrator is None:
+                from tensorflowonspark_tpu_torch import kvtransfer
+
+                host = self._bind_host
+                if host in ("", "0.0.0.0", "::"):
+                    host = "0.0.0.0"
+                self._migrator = kvtransfer.MigrationEngine(
+                    gen.batcher, model_name=self.model_name, host=host,
+                    advertise_host=(self._advertise_host
+                                    or ("127.0.0.1" if host == "0.0.0.0"
+                                        else host)),
+                    # kv:prefix pulls read the batcher's host tier (an
+                    # empty answer when the tier is off or cold)
+                    prefix_provider=gen.batcher.host_prefix_provider)
+            return self._migrator
+
+    def kv_export(self, body):
+        """``POST /v1/kv:export``: move live sessions to the given
+        replica(s).  Body: ``{"dest": {"host", "port"}}`` or ``{"dests":
+        [...]}``, optional ``timeout_s`` / ``max_sessions``."""
+        raw = body.get("dests") or ([body["dest"]] if body.get("dest")
+                                    else [])
+        dests = []
+        for d in raw:
+            if (not isinstance(d, dict) or not d.get("host")
+                    or not _is_int(d.get("port"))):
+                raise ValueError(
+                    '"dest(s)" entries must be {"host": ..., "port": ...}')
+            dests.append((str(d["host"]), int(d["port"])))
+        if not dests:
+            raise ValueError('kv:export needs "dest" or "dests"')
+        timeout_s = body.get("timeout_s")
+        if timeout_s is not None and not (
+                isinstance(timeout_s, (int, float))
+                and not isinstance(timeout_s, bool) and timeout_s > 0):
+            raise ValueError('"timeout_s" must be a positive number')
+        max_sessions = body.get("max_sessions")
+        if max_sessions is not None and not _is_int(max_sessions):
+            raise ValueError('"max_sessions" must be an int')
+        return self.migration_engine().migrate_all(
+            dests, max_sessions=max_sessions, timeout_s=timeout_s)
+
+    def auto_migrate_hook(self, dest_spec):
+        """The per-request handoff of ``X-Fleet-Migrate-To: host:port``
+        (planted by the gateway on a prefill-role replica): the session
+        migrates to the named decode replica as soon as its first decode
+        tokens commit.  None (logged) for a malformed spec: the session
+        stays here."""
+        host, _, port = str(dest_spec).rpartition(":")
+        if not host or not port.isdigit():
+            logger.warning("ignoring malformed X-Fleet-Migrate-To %r",
+                           dest_spec)
+            return None
+        eng = self.migration_engine()
+
+        def kick(handle):
+            eng.migrate_async(handle, (host, int(port)))
+        return kick
+
+    @property
+    def draining(self):
+        return self._draining.is_set()
+
+    def begin_drain(self):
+        """Fence admissions: :generate answers 503 (with Retry-After) and
+        /readyz 503, while sessions in flight decode to completion."""
+        self._draining.set()
+
+    def drain(self, timeout_s=60.0, poll_s=0.05):
+        """``POST /v1/fleet:drain``: fence admissions, then wait until the
+        engine is idle (no busy slots, nothing queued, admitting or
+        parked).  Returns ``{"drained": bool, "waited_s": s, ...}``."""
+        self.begin_drain()
+        t0 = time.monotonic()
+        deadline = t0 + float(timeout_s)
+        with self._gen_lock:
+            gen = self._gen      # never build an engine just to watch it
+        pending = 0
+        while gen is not None:
+            st = gen.batcher.stats()
+            pending = (st["slots_busy"] + st["pending"]
+                       + int(st["admitting"]) + int(st["parked_sessions"]))
+            if pending == 0 or time.monotonic() >= deadline:
+                break
+            time.sleep(poll_s)
+        return {"drained": pending == 0, "draining": True,
+                "in_flight": pending,
+                "waited_s": round(time.monotonic() - t0, 3)}
 
     def metadata(self):
         out = {"model": {"export_dir": self.export_dir, "engine": self.desc,
-                         "device": str(self.device)},
-               "status": "ok"}
+                         "device": str(self.device), "role": self.role},
+               "status": "draining" if self.draining else "ok"}
         with self._gen_lock:
             gen = self._gen
         if gen is not None:
             out["model"]["generate"] = "available"
+            out["model"]["requests_served"] = gen.requests
             out["model"]["generate_slots"] = gen.batcher.n_slots
             out["model"]["generate_stats"] = gen.batcher.stats()
             if gen.quantize_mode != "none":
@@ -2132,9 +3454,43 @@ class ModelService:
             ops.SERVING_KERNELS if gen is None else gen.batcher.kernels)
         return out
 
+    def metrics_text(self):
+        """``GET /metrics``: Prometheus text generated from the same
+        ``stats()`` the metadata reports (every counter, gauge and
+        latency window, histograms as triplets).  Never builds the
+        :generate engine."""
+        from tensorflowonspark_tpu_torch import metrics
+
+        groups = [("replica", None, {"draining": self.draining})]
+        with self._gen_lock:
+            gen = self._gen
+        if gen is not None:
+            groups[0][2]["http_requests"] = gen.requests
+            stats = dict(gen.batcher.stats())
+            stats.pop("kernel_launches", None)
+            groups.append(("replica", None, stats))
+            groups.append(("kernel", None, {
+                f"{k}_launches": v
+                for k, v in ops.launch_counts(gen.batcher.kernels).items()}))
+        return metrics.prometheus_text(groups)
+
+    def trace_spans(self, trace_id):
+        """``GET /v1/trace/<id>``: this replica's retained spans of a
+        trace (empty when :generate never ran here)."""
+        with self._gen_lock:
+            gen = self._gen
+        return [] if gen is None else gen.batcher.trace.spans(trace_id)
+
     def close(self):
         with self._gen_lock:
             gen, self._gen = self._gen, None
+            migrator, self._migrator = self._migrator, None
+        if migrator is not None:
+            try:
+                migrator.close()
+            except Exception:
+                logger.warning("migration engine close failed",
+                               exc_info=True)
         if gen is not None:
             gen.close()
 
@@ -2143,19 +3499,65 @@ class _Handler(BaseHTTPRequestHandler):
     service = None   # injected by make_server
     protocol_version = "HTTP/1.1"
 
-    def _send(self, code, payload):
+    def _send(self, code, payload, headers=()):
         body = json.dumps(payload).encode()
         self.send_response(code)
         self.send_header("Content-Type", "application/json")
         self.send_header("Content-Length", str(len(body)))
+        for k, v in headers:
+            self.send_header(k, v)
         self.end_headers()
         self.wfile.write(body)
+
+    def _send_text(self, code, text):
+        body = text.encode()
+        self.send_response(code)
+        self.send_header("Content-Type",
+                         "text/plain; version=0.0.4; charset=utf-8")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    @staticmethod
+    def _json(raw):
+        body = json.loads(raw or b"{}")
+        if not isinstance(body, dict):
+            raise ValueError("request body must be a JSON object")
+        return body
 
     def do_GET(self):
         name = self.service.model_name
         path = self.path.rstrip("/") or "/"
-        if path in ("/healthz", "/readyz"):
-            self._send(200, {"status": "ok"})
+        if path == "/healthz":
+            self._send(200, {"status": "ok"})      # liveness
+        elif path == "/readyz":
+            # readiness: a draining replica takes no new work
+            if self.service.draining:
+                self._send(503, {"status": "draining"},
+                           headers=[("Retry-After", "1")])
+            else:
+                self._send(200, {"status": "ok"})
+        elif path in ("/metrics", "/v1/metrics"):
+            # an injected trace.export fault fails the SCRAPE only
+            try:
+                faults.check("trace.export")
+                text = self.service.metrics_text()
+            except Exception as e:
+                self._send(500, {"error": f"{type(e).__name__}: {e}"})
+                return
+            self._send_text(200, text)
+        elif path.startswith("/v1/trace/"):
+            tid = path[len("/v1/trace/"):]
+            if not trace.valid_id(tid):
+                self._send(400, {"error": "malformed trace id"})
+                return
+            try:
+                faults.check("trace.export")
+                spans = self.service.trace_spans(tid)
+            except Exception as e:
+                self._send(500, {"error": f"{type(e).__name__}: {e}"})
+                return
+            self._send(200, {"id": tid, "spans": spans})
         elif path == "/" or path == f"/v1/models/{name}":
             self._send(200, self.service.metadata())
         else:
@@ -2163,22 +3565,67 @@ class _Handler(BaseHTTPRequestHandler):
 
     def do_POST(self):
         name = self.service.model_name
+        path = self.path.rstrip("/")
         length = int(self.headers.get("Content-Length", 0))
-        body = self.rfile.read(length) if length else b""
-        if self.path != f"/v1/models/{name}:generate":
+        raw = self.rfile.read(length) if length else b""
+        if path == "/v1/fleet:drain":
+            self._send(200, self.service.drain())
+            return
+        if path == "/v1/kv:export":
+            # not fenced on draining: a draining replica is the one that
+            # exports its sessions
+            try:
+                self._send(200, self.service.kv_export(self._json(raw)))
+            except (ValueError, KeyError, TypeError) as e:
+                self._send(400, {"error": f"{type(e).__name__}: {e}"})
+            except Exception as e:
+                logger.exception("kv:export failed")
+                self._send(500, {"error": f"{type(e).__name__}: {e}"})
+            return
+        if path == "/v1/debug:profile":
+            self._send(501, {"error": "/v1/debug:profile is not ported yet "
+                                      "(ROADMAP: A8, utils/profiling)",
+                             "type": "not_ported"})
+            return
+        is_generate = self.path == f"/v1/models/{name}:generate"
+        is_resume = self.path == f"/v1/models/{name}:resume"
+        if not (is_generate or is_resume):
             self._send(404, {"error": f"unknown path {self.path} (serving "
                              f"model {name!r}; the port serves :generate "
-                             "only)"})
+                             "and :resume)"})
+            return
+        if self.service.draining:
+            self._send(503, {"error": "replica is draining",
+                             "type": "draining"},
+                       headers=[("Retry-After", "1")])
             return
         try:
-            req = json.loads(body or b"{}")
-            if not isinstance(req, dict):
-                raise ValueError("request body must be a JSON object")
+            req = self._json(raw)
             gen = self.service.generate_service()
+            idem_key = self.headers.get("Idempotency-Key")
+            if is_resume:
+                # always streams: the first event is the splice ack
+                self._stream_events(gen.resume(req, idem_key=idem_key))
+                return
+            prio = self.headers.get("X-Priority")
+            if prio and "priority" not in req:
+                req["priority"] = prio   # validated like the body field
+            tid = self.headers.get("X-Trace-Id")
+            if tid and "trace" not in req:
+                req["trace"] = tid
+            kv_peer = self.headers.get("X-Fleet-KV-Peer")
             if req.get("stream"):
-                self._stream_events(gen.stream(req))
+                on_handle = None
+                migrate_to = self.headers.get("X-Fleet-Migrate-To")
+                if migrate_to:
+                    # this replica prefills, the named replica decodes
+                    on_handle = self.service.auto_migrate_hook(migrate_to)
+                self._stream_events(gen.stream(
+                    req, on_handle=on_handle, idem_key=idem_key,
+                    kv_peer=kv_peer))
             else:
-                self._send(200, {"outputs": gen.generate(req)})
+                self._send(200, {"outputs": gen.generate(
+                    req, kv_peer=kv_peer, idem_key=idem_key)})
         except NotImplementedError as e:
             self._send(501, {"error": str(e), "type": "not_ported"})
         except (ValueError, KeyError, TypeError) as e:
@@ -2244,6 +3691,13 @@ def make_server(args):
         raise ValueError("--generate_long_prompt_threshold needs the paged "
                          "kv cache (--generate_kv_page_size): the lane maps "
                          "pages chunk by chunk")
+    if getattr(args, "generate_host_cache_mb", 0) < 0:
+        raise ValueError("--generate_host_cache_mb must be >= 0 (0 disables "
+                         "the host page tier)")
+    if getattr(args, "generate_host_cache_mb", 0) and not paged:
+        raise ValueError("--generate_host_cache_mb needs "
+                         "--generate_kv_page_size > 0 (the host tier holds "
+                         "demoted pages of the paged kv cache)")
     if getattr(args, "generate_prefill_rows", 4) < 1:
         raise ValueError("--generate_prefill_rows must be >= 1")
     if getattr(args, "generate_prefill_budget", 0) < 0:
@@ -2264,11 +3718,41 @@ def make_server(args):
     if (spec in ("model", "ngram") or draft_dir) and spec != "off" and \
             getattr(args, "draft_k", 4) < 1:
         raise ValueError("--draft_k must be >= 1")
+    model_draft = bool(draft_dir) and spec in (None, "model")
+    if getattr(args, "role", "mixed") not in ("mixed", "prefill", "decode"):
+        raise ValueError("--role must be 'mixed', 'prefill' or 'decode'")
+    if getattr(args, "role", "mixed") != "mixed" and model_draft:
+        raise ValueError("--role prefill/decode does not compose with "
+                         "--draft_export_dir (kv migration cannot ship the "
+                         "draft model's cache); --spec_draft ngram keeps no "
+                         "draft cache and composes")
+    if getattr(args, "generate_priority_weight", 4) < 1:
+        raise ValueError("--generate_priority_weight must be >= 1 "
+                         "(interactive admissions per batch admission)")
+    if getattr(args, "generate_preempt_ms", 0.0) < 0:
+        raise ValueError("--generate_preempt_ms must be >= 0 (0 disables "
+                         "the preemption controller)")
+    if getattr(args, "generate_preempt_ms", 0.0) and model_draft:
+        raise ValueError("--generate_preempt_ms does not compose with "
+                         "--draft_export_dir (freeze_session cannot cut a "
+                         "row through the draft cache); --spec_draft ngram "
+                         "composes")
+    if getattr(args, "generate_park_capacity", 8) < 1:
+        raise ValueError("--generate_park_capacity must be >= 1 (the "
+                         "preemption controller's park pool bound)")
     service = ModelService(args)
     handler = type("BoundHandler", (_Handler,), {"service": service})
 
     class _Server(ThreadingHTTPServer):
         daemon_threads = True
+
+        def handle_error(self, request, client_address):
+            # a relay that read its stream's last event closes without the
+            # chunked terminator: a reset, not a fault
+            if isinstance(sys.exc_info()[1], ConnectionError):
+                logger.debug("client %s went away", client_address)
+                return
+            super().handle_error(request, client_address)
 
         def server_close(self):
             super().server_close()

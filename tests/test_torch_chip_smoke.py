@@ -132,3 +132,57 @@ def test_pipeline_phase_records_and_bit_checks():
     assert len(sink) == 3 and all(t >= 0 for t in sink)
     with pytest.raises(RuntimeError):          # fewer items than asked
         list(chip_smoke._timed(iter(range(2)), 3, []))
+
+
+def test_replica_phase_bookkeeping():
+    # an export summary per burst: every session landed, the largest
+    # (most bytes) session's freeze-to-ack time and rate
+    results = [
+        {"sessions": 4, "migrated": 4, "failed": 0, "completed_locally": 0,
+         "details": [{"migrated": True, "pages": 17, "bytes": 71303168,
+                      "freeze_to_ack_ms": 250.0},
+                     {"migrated": True, "pages": 6, "bytes": 25165824,
+                      "freeze_to_ack_ms": 90.0}]},
+        {"sessions": 2, "migrated": 1, "failed": 0, "completed_locally": 1,
+         "details": [{"migrated": True, "pages": 3, "bytes": 12582912,
+                      "freeze_to_ack_ms": 60.0},
+                     {"migrated": False, "completed_locally": True}]}]
+    got = chip_smoke.migration_numbers(results)
+    assert (got["sessions"], got["migrated"], got["failed"],
+            got["completed_locally"]) == (6, 3, 0, 1)
+    assert got["freeze_to_ack_ms"] == [250.0, 90.0, 60.0]
+    assert got["largest"]["pages"] == 17
+    assert got["largest"]["mb_per_s"] == pytest.approx(71303168 / 250e3)
+    assert chip_smoke.migration_numbers([])["largest"] is None
+    # the layouts: a host tick every 2 steps, the paged pool at phase 12's
+    # page size, the int8 pool, the dense cache
+    layouts = dict(chip_smoke.replica_layouts())
+    assert list(layouts) == ["paged_bf16", "paged_int8", "dense"]
+    assert layouts["dense"] == ("--generate_read_chunk", "2")
+    assert layouts["paged_int8"][-2:] == ("--generate_kv_dtype", "int8")
+    assert "64" in layouts["paged_bf16"] and "512" in layouts["paged_bf16"]
+    # seeded prompts are the same on every call
+    a = chip_smoke.seeded_prompts(torch, 32000, (5, 9), 3)
+    assert [len(p) for p in a] == [5, 9]
+    assert a == chip_smoke.seeded_prompts(torch, 32000, (5, 9), 3)
+
+
+def test_replica_phase_waits_on_live_rows_and_request_errors():
+    class _Batcher:
+        _slots = [None, {"seq": [1, 2, 3, 4, 5, 6], "plen": 1}]
+
+    join = chip_smoke.in_thread(lambda: 7)
+    assert join() == 7
+    chip_smoke.wait_live(_Batcher(), 1, join, min_new=5, timeout=5)
+
+    def boom():
+        raise KeyError("refused")
+
+    failed = chip_smoke.in_thread(boom)
+    failed.thread.join(5)
+    with pytest.raises(KeyError, match="refused"):
+        chip_smoke.wait_live(_Batcher(), 2, failed, timeout=5)
+    ended = chip_smoke.in_thread(lambda: None)
+    ended.thread.join(5)
+    with pytest.raises(AssertionError, match="ended before 2 sessions"):
+        chip_smoke.wait_live(_Batcher(), 2, ended, timeout=5)

@@ -9,7 +9,9 @@
   (the launch counts stay 0); each kernel's CUDA source exists, names
   the TPU function it replaces and is built by ``ops/_build.py``.
 - Unported flags (every JAX serve flag the port lacks), fields and
-  train-step options raise instead of being ignored.
+  train-step options raise instead of being ignored; the replica's
+  fleet flags (host tier, roles, priorities, preemption, tracing) are
+  ported and build a server.
 """
 import ast
 import os
@@ -41,13 +43,14 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "cloudpickle",
              "tensorflowonspark_tpu")
 # the cluster runtime, the data layer and the pipeline API: executors
 # and feeders import these without torch (a process that never loaded
-# torch forks a clean node process)
+# torch forks a clean node process); tracing and the metrics a fleet
+# gateway reads too
 TORCH_FREE = ("util", "faults", "marker", "gpu_info", "reservation",
               "manager", "shm", "feed", "node", "backend", "cluster",
               "parallel_runner", "compat", "fsio", "schema", "tfrecord",
               "data", "minispark", "minispark.executor", "minispark.sql",
               "minispark.sql.types", "minispark.ml", "minispark.streaming",
-              "dfutil", "pipeline", "pipeline_ml")
+              "dfutil", "pipeline", "pipeline_ml", "trace", "metrics")
 TINY = dict(vocab_size=32, d_model=64, n_heads=4, n_kv_heads=2, n_layers=1,
             d_ff=64, max_seq_len=32, dtype="float32", rope=True)
 
@@ -70,6 +73,8 @@ def _module_names():
 
 def test_imports_with_jax_blocked():
     assert "tensorflowonspark_tpu_torch.optim8bit" in _module_names()
+    for mod in ("kvtier", "kvtransfer", "trace"):
+        assert f"tensorflowonspark_tpu_torch.{mod}" in _module_names()
     code = (
         "import sys\n"
         f"for name in {FORBIDDEN!r}:\n"
@@ -274,15 +279,10 @@ def test_kernel_sources_exist_and_are_built():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--generate_preempt_ms", "5"], ["--generate_host_cache_mb", "4"],
+    ["--fleet", "127.0.0.1:1"], ["--fleet_heartbeat_s", "2.0"],
     # the JAX server's flags the port's parser lacked
-    ["--fleet", "127.0.0.1:1"],
-    ["--generate_priority_weight", "4"], ["--generate_park_capacity", "8"],
-    ["--generate_trace_ring", "4096"],
-    ["--generate_trace_decode_sample", "16"],
     ["--generate_paged_attn", "einsum"],
-    ["--generate_paged_prefill", "blend"], ["--role", "prefill"],
-    ["--advertise_host", "10.0.0.1"], ["--fleet_heartbeat_s", "2.0"],
+    ["--generate_paged_prefill", "blend"],
     ["--engine", "native"], ["--batch_size", "64"],
     ["--batch_wait_ms", "5"], ["--input_mapping", "x"],
     ["--output_mapping", "y"], ["--signature_def_key", "serving_default"]])
@@ -294,6 +294,32 @@ def test_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError,
                        match=f"--{name}=.* not ported yet \\(ROADMAP: "):
         serve.make_server(args)
+
+
+def test_fleet_flags_name_a7b():
+    args = serve.build_argparser().parse_args([
+        "--export_dir", "unused", "--device", "cpu", "--fleet", "h:1"])
+    with pytest.raises(NotImplementedError, match="ROADMAP: A7b"):
+        serve.make_server(args)
+
+
+@pytest.mark.parametrize("flag", [
+    ["--generate_preempt_ms", "5"], ["--generate_host_cache_mb", "4"],
+    ["--generate_priority_weight", "4"], ["--generate_park_capacity", "8"],
+    ["--generate_trace_ring", "4096"],
+    ["--generate_trace_decode_sample", "16"], ["--role", "prefill"],
+    ["--advertise_host", "10.0.0.1"]])
+def test_replica_fleet_flags_are_ported(flag):
+    args = serve.build_argparser().parse_args([
+        "--export_dir", "unused", "--device", "cpu",
+        "--generate_kv_page_size", "8", "--generate_kv_pages", "8", *flag])
+    server, service = serve.make_server(args)
+    try:
+        name = flag[0].lstrip("-")
+        assert getattr(args, name) == type(getattr(args, name))(flag[1])
+        assert service.role == args.role
+    finally:
+        server.server_close()
 
 
 def test_training_entry_points_raise_without_cuda(monkeypatch):

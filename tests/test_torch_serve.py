@@ -133,12 +133,19 @@ def test_http_generate_roundtrip(lm, tmp_path):
         assert meta["generate_stats"]["requests_served"] == 3
         assert set(meta["kernel_launches"]) == {
             "paged_attention", "page_write", "prefill_read"}
+        # a priority class is served (the batch class queues apart)
+        batch = urllib.request.Request(
+            base + ":generate", data=json.dumps(
+                {"inputs": PROMPTS, "max_new_tokens": MAX_NEW,
+                 "temperature": 0.0, "priority": "batch"}).encode())
+        with urllib.request.urlopen(batch, timeout=120) as resp:
+            assert json.loads(resp.read())["outputs"] == want
         bad = urllib.request.Request(
             base + ":generate", data=json.dumps(
-                {"inputs": [[1, 2]], "priority": "batch"}).encode())
+                {"inputs": [[1, 2]], "priority": "urgent"}).encode())
         with pytest.raises(urllib.error.HTTPError) as err:
             urllib.request.urlopen(bad, timeout=30)
-        assert err.value.code == 501        # not ported: never ignored
+        assert err.value.code == 400        # an unknown class: never ignored
     finally:
         server.shutdown()
         server.server_close()

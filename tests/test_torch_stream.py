@@ -178,21 +178,31 @@ def test_ported_flags_serve(exported, flags):
         _close(server, thread)
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("priority", "batch", "migration, host tier and fleet"),
-    ("trace", "abc", "migration, host tier and fleet")])
-def test_a6_and_a7_fields_still_raise(exported, field, value, item):
-    d, _ = exported
+@pytest.mark.parametrize("field,value,bad", [
+    ("priority", "batch", "urgent"),
+    ("trace", "abc", "not a hex id")])
+def test_a6_and_a7_fields_still_raise(exported, field, value, bad):
+    # the A7 fields are ported: a valid value serves the plain tokens (a
+    # trace adds its summary to the last stream event), a malformed one
+    # is a 400, never ignored
+    d, want = exported
     server, service, thread = _serve(["--export_dir", d, "--port", "0",
                                       "--device", "cpu"])
     port = server.server_address[1]
     try:
         for stream in (False, True):
             status, _, body = _post(port, {"inputs": [PROMPTS[0]],
+                                           "max_new_tokens": MAX_NEW,
                                            field: value, "stream": stream})
-            assert status == 501
-            err = json.loads(body)
-            assert err["type"] == "not_ported"
-            assert f"(ROADMAP: {item})" in err["error"]
+            assert status == 200
+            if stream:
+                events = [json.loads(line) for line in body.splitlines()]
+                assert events[-1]["output"] == want[0]
+                assert ("trace" in events[-1]) == (field == "trace")
+            else:
+                assert json.loads(body)["outputs"] == [want[0]]
+            status, _, body = _post(port, {"inputs": [PROMPTS[0]],
+                                           field: bad, "stream": stream})
+            assert status == 400
     finally:
         _close(server, thread)
