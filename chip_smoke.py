@@ -12,7 +12,8 @@ streaming), JAX-format and stored int8 exports, stop sequences, the
 repetition penalty, LoRA tenants and fine-tuning, speculative decoding,
 and two replicas moving live sessions between them (kv migration, the
 host page tier, preemption, tracing and the scrape) — on one NVIDIA
-GPU.
+GPU, and the fleet gateway, its client and bulk jobs in front of two of
+them.
 
     python3 chip_smoke.py
 
@@ -257,8 +258,9 @@ caught and reported as passed):
    sampled (seeded), the spec counters and acceptance rates, tokens/s
    and decode step medians beside the burst without speculation; the
    target as its own draft accepts every greedy proposal;
-17. (after 16, on phase 5's export) the ``replicas_main_path`` line:
-   two replicas A and B of the full-depth flagship in this process on
+17. (after 16, on its own export of the flagship at full width and
+   REPLICA_LAYERS = 4 of its 16 layers) the ``replicas_main_path`` line:
+   two replicas A and B of that flagship in this process on
    127.0.0.1 (``make_server`` each, a host tick every 2 steps), for the
    paged pool in bf16 (A ``--role prefill``, B ``--role decode``) and
    int8 and for the dense cache: 4 greedy prompts (1016, 330, 620, 240
@@ -283,10 +285,36 @@ caught and reported as passed):
    interactive requests) with ``--generate_preempt_ms 50`` and without:
    parked sessions equal their run without preemption, park accounting
    back to zero, interactive queue delay p50 / p95; demote and promote
-   times per page (gather + pinned copy; stack + scatter); kernel 1 on a
+   times per page of the full depth (gather + pinned copy; stack +
+   scatter); kernel 1 on a
    migration snapshot's pages and kernel 3 reading a promoted prefix at
    its offset (bf16 and int8 pools, shuffled page ids) against their
    plain versions;
+18. (after 17, on phase 5's export) the ``fleet_main_path`` line, one
+   ``fleet_leg`` line a leg before it: the port's gateway in process
+   (``fleet.make_gateway``, ``--jobs_dir``) in front of two full-depth
+   replicas that join through ``serve``'s ``--fleet`` path (0.2 s
+   heartbeats; the gateway ejects after two sweeps over 1 s).  On a
+   ``--role prefill`` / ``decode`` pair: four streams through the
+   gateway (two greedy, two seeded sampled) handed off A -> B by the
+   planted ``X-Fleet-Migrate-To``, each equal to A's own answer; the
+   first one's ``GET /v1/trace/<id>`` stitches the gateway's and both
+   replicas' spans, and the gateway's ``GET /metrics`` carries the
+   fleet totals; ``POST /v1/fleet:migrate`` of A with two live
+   sessions: both listed and landed, tokens equal to the unmoved run.
+   On a mixed pair: eight streams sharing a two-page prefix all land on
+   its HRW replica (prefix hits rise) and equal the same eight sent
+   directly, with the median TTFT and tokens/s of each way (the
+   gateway's cost); ``POST /v1/jobs`` of 64 jsonl records in 4
+   partitions beside 8 interactive requests: ``output.jsonl`` holds
+   every record once, each equal to its direct scoring, records/s;
+   four streams decoding on the HRW replica when its heartbeat stops
+   and its engine and server close: ejection time, every stream
+   re-driven to the survivor through ``:resume`` with ``replay``, the
+   time from the kill to the first re-driven token.  A token run that
+   parts from its reference must part first at a bf16 near tie (top-2
+   margin <= SPEC_MARGIN, reported) or the run fails.  Then kernels 1
+   and 3 on a re-driven row's pages against their plain versions;
 16c. (after 8b) the ``lora_train_main_path`` line: ``make_lora_loss`` on
    the flagship step's model (B 8 x S 1024), adamw_fused over the rank-8
    adapters: a warm-up step and a window of 5, kernels 4-6 16 launches
@@ -298,8 +326,8 @@ caught and reported as passed):
    each kernel's own main path: the
    quantised kernels from their serving run, the int8 kv kernels from the
    int8 kv run with bf16 weights, kernel 11 from the fused LayerNorm
-   run, kernel 8 from phase 8b; phases 15, 16 and 17 add their runs'
-   launches); the ``engine_serial_vs_async`` line
+   run, kernel 8 from phase 8b; phases 15, 16, 17 and 18 add their
+   runs' launches); the ``engine_serial_vs_async`` line
    (phase 12's four numbers of each engine, dense and paged, beside the
    card's name and power limit); then the card line and, last, the
    ``ok`` line.
@@ -311,6 +339,7 @@ import json
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import threading
@@ -318,6 +347,7 @@ import time
 import urllib.request
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+T0 = time.monotonic()
 SEED = 20261016
 PEAK_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
@@ -337,7 +367,11 @@ GRAD_ROW_RTOL = 2e-2
 
 
 def emit(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line of a phase, with the seconds since this module
+    loaded (``at_s``: where the run's time goes)."""
+    print(json.dumps({"phase": phase, **kw,
+                      "at_s": round(time.monotonic() - T0, 1)}),
+          flush=True)
 
 
 def nvidia_smi():
@@ -4699,6 +4733,10 @@ REPLICA_TEMP = 0.8
 HANDOFF_NEW = 64     # a handoff moves at the first tick
 REPLICA_PAGE = 64                        # phase 12's paged pool
 REPLICA_POOL = 512
+# phase 17 serves the flagship at full width cut to 4 of its 16 layers
+# (its host launches scale with depth; the whole run must stay inside
+# its time limit); phase 18 serves it at full depth
+REPLICA_LAYERS = 4
 # the two-turn conversation: a pool of 40 pages that a 2000-token filler
 # must evict from, a host tier behind it
 CONVERSATION = dict(turn1=1024, user=64, new=32, filler=2000, pages=40,
@@ -5123,12 +5161,15 @@ def tier_copy_times(torch, dev, cfg, kv_dtype=None, n=16, reps=5):
                 promote_gb_per_s=nbytes / n / min(promote) / 1e6)
 
 
-def replica_kernel_checks(torch, dev, cfg, snaps, prefix):
+def replica_kernel_checks(torch, dev, cfg, snaps, prefix=None,
+                          tag="resumed"):
     """Kernel 1 on a resumed row's pages (a migration snapshot scattered
     at shuffled page ids, as ``_install_resume`` scatters it) and kernel
     3 reading a promoted prefix (host-tier pages scattered as
-    ``_promote_scatter`` does; for the int8 pool a snapshot's full pages)
-    at its offset, each against its plain version, per pool dtype."""
+    ``_promote_scatter`` does; for the int8 pool, or without ``prefix``,
+    a snapshot's full pages) at its offset, each against its plain
+    version, per pool dtype.  ``tag`` names the snapshots' rows (a
+    migration's resumed rows, a journal's re-driven ones)."""
     from tensorflowonspark_tpu_torch import kvtier
     from tensorflowonspark_tpu_torch.models import decode
     from tensorflowonspark_tpu_torch.models.transformer import (
@@ -5170,17 +5211,21 @@ def replica_kernel_checks(torch, dev, cfg, snaps, prefix):
         pk, pv, table, sc = pool_with(blocks, n, kv_dtype)
         q = torch.randn((1, 1, H, Dh), generator=gen).to(dev, bf16)
         lengths = torch.tensor([n_pos], dtype=torch.int32, device=dev)
-        check(f"paged_attention_resumed_{dtype}",
+        check(f"paged_attention_{tag}_{dtype}",
               pa.paged_attention(q, pk, pv, table, lengths, **sc),
               pa.paged_attention_plain(q, pk, pv, table, lengths, **sc),
               pages=n, positions=n_pos, page_ids=table[0, :n].tolist())
     S = CONVERSATION["user"] + 32
-    prefixes = {"bf16": [dict(p) for p in kvtier.split_prefix_blocks(
-        *prefix)]}
-    meta, blocks = snaps["int8"]
-    full = (len(meta["seq"]) - 1) // REPLICA_PAGE
-    prefixes["int8"] = [{k: v[i] for k, v in blocks.items()}
-                        for i in range(full)]
+    prefixes = {}
+    if prefix is not None:
+        prefixes["bf16"] = [dict(p) for p in kvtier.split_prefix_blocks(
+            *prefix)]
+    for dtype, (meta, blocks) in snaps.items():
+        if dtype not in prefixes:
+            full = (len(meta["seq"]) - 1) // REPLICA_PAGE
+            prefixes[dtype] = [{k: v[i] for k, v in blocks.items()}
+                               for i in range(full)]
+    read = "promoted" if prefix is not None else tag
     for dtype, pages in prefixes.items():
         n = len(pages)
         stacked = {k: torch.stack([torch.as_tensor(p[k]) for p in pages])
@@ -5192,21 +5237,23 @@ def replica_kernel_checks(torch, dev, cfg, snaps, prefix):
         q = torch.randn((1, S, H, Dh), generator=gen).to(dev, bf16)
         k = torch.randn((1, S, n_kv, Dh), generator=gen).to(dev, bf16)
         v = torch.randn((1, S, n_kv, Dh), generator=gen).to(dev, bf16)
-        check(f"prefill_read_promoted_{dtype}",
+        check(f"prefill_read_{read}_{dtype}",
               pp._read_attention(q, k, v, pk, pv, table, starts, **sc),
               pp.read_attention_plain(q, k, v, pk, pv, table, starts, **sc),
               pages=n, start=start, S=S)
     return out
 
 
-def phase_replicas(torch, dev, cfg, export_dir, card):
-    """Phase 17: two replicas of the full-depth flagship in one process
-    on one card: live sessions move between them (three layouts), the
+def phase_replicas(torch, dev, cfg, export_dir, card, tier_cfg=None):
+    """Phase 17: two replicas of the flagship (``cfg``: full width, its
+    depth cut to REPLICA_LAYERS in chip_smoke's run) in one process on
+    one card: live sessions move between them (three layouts), the
     prefill -> decode handoff, a traced burst and the scrape, a two-turn
     conversation through the host tier and a peer pull, the mixed load
-    with preemption armed and disarmed, demote / promote times, and
-    kernels 1 and 3 on resumed and promoted pages.  Returns (numbers,
-    launches of the migration runs)."""
+    with preemption armed and disarmed, demote / promote times of pages
+    of ``tier_cfg`` (default ``cfg``), and kernels 1 and 3 on resumed
+    and promoted pages.  Returns (numbers, launches of the migration
+    runs)."""
     vocab = cfg["vocab_size"]
     out, launches, snaps = {}, {}, {}
     for layout, argv in replica_layouts():
@@ -5238,12 +5285,607 @@ def phase_replicas(torch, dev, cfg, export_dir, card):
         interactive_equal=runs[True][1] == runs[False][1])
     emit("replicas_preemption", **out["preemption"])
     if dev.type == "cuda":
-        out["tier_copy"] = {d: tier_copy_times(torch, dev, cfg, kv)
+        out["tier_copy"] = {d: tier_copy_times(torch, dev,
+                                               tier_cfg or cfg, kv)
                             for d, kv in (("bf16", None), ("int8", "int8"))}
         torch.cuda.empty_cache()
     out["kernel_checks"] = replica_kernel_checks(torch, dev, cfg, snaps,
                                                  prefix)
     torch.cuda.empty_cache()
+    out["nvidia_smi"] = card
+    return out, launches
+
+
+
+# phase 18: the fleet gateway in front of two flagship replicas.  The
+# replicas heartbeat every 0.2 s; the gateway ejects one after two sweeps
+# over its 1 s window.
+FLEET = dict(heartbeat_s=0.2, heartbeat_timeout_s=1.0,
+             affinity_n=8, suffix=32, affinity_new=16,
+             handoff=(330, 620), handoff_sampled=(180, 470), handoff_new=32,
+             migrate=(240, 760), migrate_new=96,
+             death=(300, 400, 500, 600), death_new=64, death_min=4,
+             job_records=64, job_partitions=4, job_lens=(16, 96),
+             job_new=8, interactive_n=8, interactive_len=100,
+             interactive_new=16)
+FLEET_TRACE = "a7b0c0ffee"
+
+
+def stream_timed(url, payload, headers=None, timeout=600):
+    """(events, arrival time of each event, TTFT s, wall s) of a
+    ``"stream": true`` request."""
+    req = urllib.request.Request(
+        url, data=json.dumps(dict(payload, stream=True)).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    events, stamps, ttft = [], [], None
+    t0 = time.monotonic()
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        for line in resp:
+            if not line.strip():
+                continue
+            now = time.monotonic()
+            ev = json.loads(line)
+            if ttft is None and "token" in ev:
+                ttft = now - t0
+            events.append(ev)
+            stamps.append(now)
+    return events, stamps, ttft, time.monotonic() - t0
+
+
+def stream_output(events, prompt):
+    """The ``done`` output of a stream, checked against its token
+    events."""
+    last = events[-1] if events else {}
+    if not last.get("done"):
+        raise AssertionError(f"a stream ended without its done event: {last}")
+    toks = [e["token"] for e in events if "token" in e]
+    if last["output"] != prompt + toks:
+        raise AssertionError("a stream's token events differ from its done "
+                             "output")
+    return last["output"]
+
+
+def tie_or_equal(torch, model, prompt, want, got, what):
+    """None when ``got`` equals ``want``; else the first divergent
+    position and its top-2 margin, which must lie at or below
+    SPEC_MARGIN (a bf16 near tie that another path to the same logits
+    may break the other way), or the run fails."""
+    if len(got) != len(want) or got[:len(prompt)] != prompt:
+        raise AssertionError(f"{what}: {len(got)} tokens against "
+                             f"{len(want)}, or another prompt")
+    d = divergence(torch, model, prompt, want, got)
+    if d is not None and d["margin"] > SPEC_MARGIN:
+        raise AssertionError(f"{what} diverged from the unmoved run at a "
+                             f"top-2 margin of {d['margin']}: {d}")
+    return d
+
+
+class FleetMember(EngineServer):
+    """An EngineServer that joins the gateway at ``registry`` the way
+    ``serve``'s ``main`` does with ``--fleet HOST:PORT`` (REG, the
+    heartbeat thread), and says BYE on exit; ``kill`` stops its beats and
+    closes it without one."""
+
+    def __init__(self, export_dir, dev, registry, *argv):
+        super().__init__(export_dir, dev, *argv, "--fleet",
+                         "%s:%d" % tuple(registry), "--fleet_heartbeat_s",
+                         str(FLEET["heartbeat_s"]))
+        self.registration = None
+        self.dead = False
+
+    def __enter__(self):
+        from tensorflowonspark_tpu_torch import serve
+
+        super().__enter__()
+        self.id = f"127.0.0.1:{self.port}"
+        try:
+            self.registration = serve._register_with_fleet(
+                self.args, self.server, self.service)
+        except BaseException:
+            super().__exit__(None, None, None)
+            raise
+        return self
+
+    def kill(self):
+        """The crash: beats stop, the engine dies (its streams fail at
+        once), then the server goes; no BYE."""
+        self.registration.stop_heartbeat()
+        self.dead = True
+        self.service.close()
+        super().__exit__(None, None, None)
+
+    def __exit__(self, *exc):
+        if self.dead:
+            return False
+        self.dead = True
+        self.registration.deregister()
+        return super().__exit__(*exc)
+
+
+def fleet_gateway(jobs_dir):
+    """The port's gateway, in process, built as ``python -m
+    tensorflowonspark_tpu_torch.fleet`` builds it."""
+    from tensorflowonspark_tpu_torch import fleet
+
+    args = fleet.build_argparser().parse_args([
+        "--host", "127.0.0.1", "--port", "0", "--registry_port", "0",
+        "--heartbeat_timeout_s", str(FLEET["heartbeat_timeout_s"]),
+        "--ejection_misses", "2", "--redrive_deadline_s", "120",
+        "--replica_timeout_s", "900", "--jobs_dir", jobs_dir,
+        "--job_workers", str(FLEET["job_partitions"]),
+        "--job_checkpoint_every", "8"])
+    return fleet.make_gateway(args)
+
+
+def wait_joined(gw, members, timeout=120):
+    ids = {m.id for m in members}
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if ids <= set(gw.fleet_stats(probe=False)["replicas"]):
+            return
+        time.sleep(0.05)
+    raise TimeoutError(f"replicas {ids} never joined the gateway")
+
+
+def gateway_url(gw, path="/v1/models/default:generate"):
+    return "http://%s:%d%s" % (*gw.http_addr, path)
+
+
+def handoff_leg(torch, gw, a, b, vocab):
+    """Leg 2: four streams (two greedy, two seeded sampled) through the
+    gateway land on ``--role prefill`` A, which hands each to ``--role
+    decode`` B at its first tick (the gateway plants
+    ``X-Fleet-Migrate-To``): each equals A's own answer, both runs cold.
+    The first carries ``X-Trace-Id``."""
+    fl = FLEET
+    greedy = seeded_prompts(torch, vocab, fl["handoff"], SEED + 30)
+    sampled = seeded_prompts(torch, vocab, fl["handoff_sampled"], SEED + 31)
+    skw = dict(temperature=REPLICA_TEMP, seed=SEED % 100000)
+    before = b.batcher.counters.get("migrations_resumed") or 0
+    runs = [(p, {}) for p in greedy] + [(p, skw) for p in sampled]
+    for i, (prompt, kw) in enumerate(runs):
+        a.batcher.drop_prefix_cache()
+        events, _, _, _ = stream_timed(
+            gateway_url(gw), dict({"inputs": [prompt],
+                                   "max_new_tokens": fl["handoff_new"]},
+                                  **kw),
+            headers={"X-Trace-Id": FLEET_TRACE} if i == 0 else None)
+        got = stream_output(events, prompt)
+        a.batcher.drop_prefix_cache()
+        want = a.generate([prompt], fl["handoff_new"], **kw)[0]
+        if got != want:
+            raise AssertionError(
+                f"stream {i} ({'sampled' if kw else 'greedy'}) moved by the "
+                f"gateway differs from A's own answer at "
+                f"{first_mismatch(got, want)} of {len(want)}")
+    moved = (b.batcher.counters.get("migrations_resumed") or 0) - before
+    sa = a.batcher.stats()
+    if moved != len(runs) or sa["migrations_failed"]:
+        raise AssertionError(f"the gateway's handoffs moved {moved} of "
+                             f"{len(runs)} sessions: {sa}")
+    return dict(streams=len(runs), moved=moved, equal_unmoved=True,
+                sampled=len(sampled), new_tokens=fl["handoff_new"])
+
+
+def observability_leg(gw, members):
+    """Leg 6: the traced stream's stitched timeline and the gateway's
+    scrape."""
+    tl = get_json(gateway_url(gw, f"/v1/trace/{FLEET_TRACE}"))
+    want = {"gateway", *(m.id for m in members)}
+    if not want <= set(tl["sources"]):
+        raise AssertionError(f"the timeline lacks a source: {tl['sources']}")
+    for stage in ("gateway.route", "gateway.relay", "submit", "prefill",
+                  "decode"):
+        if stage not in tl["stages"]:
+            raise AssertionError(f"the timeline lacks {stage}: "
+                                 f"{tl['stages']}")
+    ctype, text = get_text(gateway_url(gw, "/metrics"))
+    for line in ("tfospark_gateway_registrations ",
+                 "tfospark_fleet_migrations_completed ",
+                 "tfospark_fleet_kv_pages_exported ",
+                 "tfospark_fleet_slots ",
+                 "# TYPE tfospark_fleet_ttft histogram",
+                 'tfospark_replica_decode_steps{replica="'):
+        if line not in text:
+            raise AssertionError(f"the gateway's /metrics lacks {line!r}")
+    return dict(spans=len(tl["spans"]), sources=tl["sources"],
+                stages=tl["stages"], metrics_content_type=ctype,
+                metrics_lines=len(text.splitlines()))
+
+
+def migrate_leg(torch, gw, a, b, vocab):
+    """Leg 4: two live sessions on A (a direct request), then ``POST
+    /v1/fleet:migrate?replica=A``: the report lists both, they land on
+    B, their tokens equal the unmoved run's (both cold), and A leaves
+    the fleet."""
+    fl = FLEET
+    prompts = seeded_prompts(torch, vocab, fl["migrate"], SEED + 32)
+    a.batcher.drop_prefix_cache()
+    want = a.generate(prompts, fl["migrate_new"])
+    a.batcher.drop_prefix_cache()
+    before = b.batcher.counters.get("migrations_resumed") or 0
+    join = in_thread(a.generate, prompts, fl["migrate_new"])
+    wait_live(a.batcher, len(prompts), join)
+    t0 = time.monotonic()
+    res = post_json(gateway_url(gw, "/v1/fleet:migrate?replica="
+                                + a.id.replace(":", "%3A")
+                                + "&timeout_s=300"), {})
+    drain_s = time.monotonic() - t0
+    got = join()
+    if got != want:
+        at = [first_mismatch(g, w) for g, w in zip(got, want)]
+        raise AssertionError(f"sessions moved by /v1/fleet:migrate differ "
+                             f"from the unmoved run at {at}")
+    rep = res.get("migration") or {}
+    moved = (b.batcher.counters.get("migrations_resumed") or 0) - before
+    if (not res.get("drained") or rep.get("sessions") != len(prompts)
+            or rep.get("migrated") != len(prompts) or rep.get("failed")
+            or moved != len(prompts)):
+        raise AssertionError(f"/v1/fleet:migrate did not move every live "
+                             f"session: {res}")
+    if a.id in gw.fleet_stats(probe=False)["replicas"]:
+        raise AssertionError("a migrated replica stayed in the fleet")
+    return dict(sessions=rep["sessions"], migrated=rep["migrated"],
+                equal_unmoved=True, drain_s=drain_s,
+                freeze_to_ack_ms=[d["freeze_to_ack_ms"] for d in
+                                  rep.get("details", [])
+                                  if d.get("migrated")])
+
+
+def affinity_leg(torch, gw, members, vocab):
+    """Leg 1 and the gateway's cost: eight streams sharing a two-page
+    prefix through the gateway, one after another, all on the prefix's
+    HRW replica (its prefix-cache hits rise); then the same eight
+    directly on that replica from the same cache state (dropped before
+    the first of each run): the same tokens, and median TTFT and
+    tokens/s of each way."""
+    from tensorflowonspark_tpu_torch import fleet
+
+    fl = FLEET
+    shared = seeded_prompts(torch, vocab, (2 * REPLICA_PAGE,), SEED + 33)[0]
+    tails = seeded_prompts(torch, vocab, (fl["suffix"],) * fl["affinity_n"],
+                           SEED + 34)
+    prompts = [shared + t for t in tails]
+    key = gw.prefix_key({"inputs": [prompts[0]]})
+    hrw = max(members, key=lambda m: fleet._hrw(m.id, key))
+    others = [m for m in members if m is not hrw]
+    served_before = {m.id: m.service.generate_service().requests
+                     for m in members}
+    hits_before = gw.counters.get("affinity_hits") or 0
+    runs = {}
+    for way, url in (("gateway", gateway_url(gw)), ("direct", hrw.url)):
+        for m in members:
+            m.batcher.drop_prefix_cache()
+        st0 = hrw.batcher.stats()
+        outs, ttft, tps = [], [], []
+        for p in prompts:
+            events, _, t_first, wall = stream_timed(
+                url, {"inputs": [p], "max_new_tokens": fl["affinity_new"]})
+            outs.append(stream_output(events, p))
+            ttft.append(t_first * 1000.0)
+            tps.append(fl["affinity_new"] / wall)
+        st1 = hrw.batcher.stats()
+        runs[way] = dict(outs=outs, ttft_ms_p50=statistics.median(ttft),
+                         tokens_per_s_p50=statistics.median(tps), ttft_ms=ttft,
+                         prefix_hits=st1["prefix_hits"] - st0["prefix_hits"],
+                         prefill_tokens_shared=(
+                             st1["prefill_tokens_shared"]
+                             - st0["prefill_tokens_shared"]))
+        if way == "gateway":
+            served = {m.id: m.service.generate_service().requests
+                      - served_before[m.id] for m in members}
+    if (gw.counters.get("affinity_hits") or 0) - hits_before != len(prompts) \
+            or served[hrw.id] != len(prompts) \
+            or any(served[m.id] for m in others):
+        raise AssertionError(f"the gateway did not keep the shared prefix on "
+                             f"its HRW replica: {served}")
+    want_hits = 2 * (len(prompts) - 1)
+    if runs["gateway"]["prefix_hits"] < want_hits:
+        raise AssertionError(f"prefix-cache hits on the HRW replica rose by "
+                             f"{runs['gateway']['prefix_hits']}, not "
+                             f"{want_hits}")
+    if runs["gateway"]["outs"] != runs["direct"]["outs"]:
+        raise AssertionError("tokens through the gateway differ from the "
+                             "same requests sent directly")
+    for r in runs.values():
+        del r["outs"]
+    return dict(requests=len(prompts), hrw=hrw.id, affinity_hits=len(prompts),
+                equal_direct=True, **runs)
+
+
+def write_job_input(path, prompts):
+    with open(path, "w", encoding="utf-8") as f:
+        for p in prompts:
+            f.write(json.dumps(p) + "\n")
+
+
+def job_leg(torch, gw, members, vocab, workdir):
+    """Leg 5: ``POST /v1/jobs`` of 64 jsonl records in 4 partitions while
+    8 interactive requests run through the gateway.  ``output.jsonl``
+    holds each record once, in input order within each partition, each
+    equal to the record's direct scoring (one burst on a replica, cold);
+    ``jobs_completed`` is 1.  Records/s of the job."""
+    from tensorflowonspark_tpu_torch import fleet_client, jobs
+
+    fl = FLEET
+    gen = torch.Generator().manual_seed(SEED + 35)
+    lens = torch.randint(fl["job_lens"][0], fl["job_lens"][1],
+                         (fl["job_records"],), generator=gen).tolist()
+    records = seeded_prompts(torch, vocab, lens, SEED + 36)
+    inter = seeded_prompts(torch, vocab, (fl["interactive_len"],)
+                           * fl["interactive_n"], SEED + 37)
+    path = os.path.join(workdir, "records.jsonl")
+    write_job_input(path, records)
+    ref = members[0]
+    ref.batcher.drop_prefix_cache()
+    want = dict(zip(map(tuple, records),
+                    ref.generate(records, fl["job_new"])))
+    ref.batcher.drop_prefix_cache()
+    want_inter = ref.generate(inter, fl["interactive_new"])
+    for m in members:
+        m.batcher.drop_prefix_cache()
+    cli = fleet_client.FleetClient(*gw.http_addr, timeout=900)
+    t0 = time.monotonic()
+    code, st = cli.submit_job(path, request={"max_new_tokens": fl["job_new"]},
+                              partitions=fl["job_partitions"],
+                              workers=fl["job_partitions"])
+    if code != 200:
+        raise AssertionError(f"POST /v1/jobs answered {code}: {st}")
+    joins = [in_thread(cli.generate, [p], max_new_tokens=fl["interactive_new"])
+             for p in inter]
+    inter_out = []
+    for j in joins:
+        status, body = j()
+        if status != 200:
+            raise AssertionError(f"an interactive request beside the job "
+                                 f"answered {status}: {body}")
+        inter_out.append(body["outputs"][0])
+    final = cli.wait_job(st["id"], timeout_s=600)
+    wall = time.monotonic() - t0
+    if final.get("state") != "completed" or final["records_done"] != len(
+            records) or final["records_failed"]:
+        raise AssertionError(f"the job did not complete: {final}")
+    if gw.counters.get("jobs_completed") != 1:
+        raise AssertionError("jobs_completed is not 1")
+    order = [(p, off) for p, (s, e) in enumerate(
+        jobs.split_file(path, fl["job_partitions"]))
+        for off, _, _ in jobs.iter_partition(path, s, e)]
+    with open(final["output"], encoding="utf-8") as f:
+        lines = [json.loads(line) for line in f]
+    if [(ln["p"], ln["offset"]) for ln in lines] != order:
+        raise AssertionError("output.jsonl does not hold each record once, "
+                             "in order")
+    model = ref.batcher.model
+    diverged = {}
+    for i, (rec, ln) in enumerate(zip(records, lines)):
+        d = tie_or_equal(torch, model, rec, want[tuple(rec)],
+                         ln["outputs"][0], f"job record {i}")
+        if d is not None:
+            diverged[i] = d
+    inter_div = {}
+    for i, (p, w, g) in enumerate(zip(inter, want_inter, inter_out)):
+        d = tie_or_equal(torch, model, p, w, g, f"interactive request {i}")
+        if d is not None:
+            inter_div[i] = d
+    return dict(records=len(records), partitions=fl["job_partitions"],
+                records_equal_direct=len(records) - len(diverged),
+                records_divergent_at_ties=diverged,
+                interactive=len(inter),
+                interactive_equal_direct=len(inter) - len(inter_div),
+                interactive_divergent_at_ties=inter_div,
+                wall_s=wall, records_per_s=len(records) / wall,
+                status_records_per_s=final["records_per_s"],
+                jobs_completed=1)
+
+
+def affine_prompts(torch, gw, victim, lens, vocab, seed):
+    """One seeded prompt per length whose prefix key hashes to
+    ``victim`` among the fleet's replicas."""
+    from tensorflowonspark_tpu_torch import fleet
+
+    with gw._lock:
+        ids = list(gw._replicas)
+    out, k = [], 0
+    for n in lens:
+        while True:
+            p = seeded_prompts(torch, vocab, (n,), seed + k)[0]
+            k += 1
+            key = gw.prefix_key({"inputs": [p]})
+            if max(ids, key=lambda rid: fleet._hrw(rid, key)) == victim.id:
+                out.append(p)
+                break
+    return out
+
+
+def death_leg(torch, gw, victim, survivor, vocab):
+    """Leg 3: four greedy streams through the gateway decode on the
+    victim; its heartbeat stops and its server closes.  The gateway
+    ejects it within its window and re-drives each journal to the
+    survivor through ``:resume`` with ``replay``: every client stream
+    completes with the unmoved run's tokens (the survivor's, cold), or
+    parts from them first at a bf16 near tie (the replay prefills what
+    the victim decoded).  The time from the kill to the first re-driven
+    token.  Returns (numbers, one killed journal's body and tokens)."""
+    fl = FLEET
+    prompts = affine_prompts(torch, gw, victim, fl["death"], vocab,
+                             SEED + 40)
+    survivor.batcher.drop_prefix_cache()
+    want = survivor.generate(prompts, fl["death_new"])
+    survivor.batcher.drop_prefix_cache()
+    victim.batcher.drop_prefix_cache()
+    before = {k: gw.counters.get(k) or 0 for k in (
+        "session_redrives", "sessions_recovered", "ejections")}
+    replays = survivor.batcher.counters.get("replays_resumed") or 0
+    tids = [f"{FLEET_TRACE}d{i}" for i in range(len(prompts))]
+    joins = [in_thread(stream_timed, gateway_url(gw),
+                       {"inputs": [p], "max_new_tokens": fl["death_new"]},
+                       headers={"X-Trace-Id": tid})
+             for p, tid in zip(prompts, tids)]
+    deadline = time.monotonic() + 600
+    while True:
+        entries = list(gw.journal._entries.values())
+        if len(entries) == len(prompts) and all(
+                len(e["tokens"]) >= fl["death_min"] for e in entries):
+            break
+        if time.monotonic() > deadline or not all(j.thread.is_alive()
+                                                  for j in joins):
+            raise AssertionError("the streams never decoded together on "
+                                 "the victim")
+        time.sleep(0.002)
+    if victim.batcher.stats()["slots_busy"] != len(prompts):
+        raise AssertionError("the streams did not all decode on the victim")
+    killed = {"body": dict(entries[0]["body"]),
+              "tokens": list(entries[0]["tokens"])}
+    at_kill = sorted(len(e["tokens"]) for e in entries)
+    t_kill = time.monotonic()
+    victim.kill()
+    eject_s = None
+    while time.monotonic() < t_kill + 60:
+        if (gw.counters.get("ejections") or 0) > before["ejections"]:
+            eject_s = time.monotonic() - t_kill
+            break
+        time.sleep(0.01)
+    if eject_s is None:
+        raise AssertionError("the gateway never ejected the killed replica")
+    results = [j() for j in joins]
+    model = survivor.batcher.model
+    diverged, first_tok, journaled = {}, [], []
+    for i, ((events, stamps, _, _), p, w, tid) in enumerate(
+            zip(results, prompts, want, tids)):
+        got = stream_output(events, p)
+        d = tie_or_equal(torch, model, p, w, got, f"re-driven stream {i}")
+        if d is not None:
+            diverged[i] = d
+        # the gateway's replay event says how many tokens the victim had
+        # sent: the next token event is the first re-driven one
+        replay = [sp for sp in gw.trace.spans(tid)
+                  if sp["name"] == "gateway.replay"]
+        if len(replay) != 1:
+            raise AssertionError(f"stream {i} was re-driven {len(replay)} "
+                                 "times")
+        k = replay[0]["attrs"]["tokens_journaled"]
+        journaled.append(k)
+        tok_stamps = [t for t, ev in zip(stamps, events) if "token" in ev]
+        if k < len(tok_stamps):
+            first_tok.append(tok_stamps[k] - t_kill)
+    got_c = {k: (gw.counters.get(k) or 0) - before[k] for k in before}
+    got_r = (survivor.batcher.counters.get("replays_resumed") or 0) - replays
+    if (got_c["session_redrives"] != len(prompts)
+            or got_c["sessions_recovered"] != len(prompts)
+            or got_r != len(prompts)):
+        raise AssertionError(f"not every stream was re-driven once: {got_c}, "
+                             f"replays {got_r}")
+    if gw.fleet_stats(probe=False)["replicas"][victim.id]["state"] \
+            != "ejected":
+        raise AssertionError("the killed replica is not marked ejected")
+    if len(gw.journal):
+        raise AssertionError("journal entries outlived their streams")
+    if survivor.batcher.kv_page_size and not pool_conserved(survivor.batcher):
+        raise AssertionError("the survivor's pool lost pages")
+    return dict(streams=len(prompts), new_tokens=fl["death_new"],
+                tokens_at_kill=at_kill, tokens_journaled_at_redrive=journaled,
+                equal_unmoved=len(prompts) - len(diverged),
+                divergent_at_ties=diverged, eject_s=eject_s,
+                kill_to_first_redriven_token_s=min(first_tok),
+                kill_to_redriven_token_s=first_tok,
+                replays_resumed=got_r), killed
+
+
+def redriven_snapshot(gw, srv, killed):
+    """A killed journal re-driven once more on ``srv`` (``submit_replay``
+    of the gateway's replay meta), frozen after two ticks, flattened and
+    rolled back: (meta, host blocks) of a re-driven row's pages."""
+    from tensorflowonspark_tpu_torch import kvtransfer
+
+    b = srv.batcher
+    h, installed = b.submit_replay(gw._replay_meta(killed["body"],
+                                                   killed["tokens"]))
+    if not installed.wait(600):
+        raise AssertionError("a replay never installed")
+    h.tokens.get(timeout=600)
+    h.tokens.get(timeout=600)
+    frozen = b.freeze_session(h, timeout_s=120)
+    if frozen is None:
+        raise AssertionError("the re-driven session ended before its freeze")
+    meta, blocks = kvtransfer.wire_snapshot(frozen, "default",
+                                            b.kv_page_size)
+    blocks = {k: v.clone() for k, v in blocks.items()}
+    if not b.rollback_migration(frozen):
+        raise AssertionError("a rollback did not land")
+    h.result(timeout=600)
+    return meta, blocks
+
+
+def phase_fleet(torch, dev, cfg, export_dir, card):
+    """Phase 18: the port's gateway (in process, with ``--jobs_dir``) in
+    front of two full-depth flagship replicas on this card that join
+    through ``serve``'s ``--fleet`` path: gateway-driven disaggregation
+    and the trace on a prefill / decode pair, ``/v1/fleet:migrate``; then
+    on a mixed pair affinity and the gateway's cost, a bulk job beside
+    interactive traffic, a replica's death mid-stream; kernels 1 and 3
+    on a re-driven row's pages.  Returns (numbers, launches of the
+    legs)."""
+    from tensorflowonspark_tpu_torch import ops
+
+    vocab = cfg["vocab_size"]
+    paged = replica_layouts()[0][1]
+    workdir = os.path.join(HERE, "build", "chip_smoke", "fleet")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    gw = fleet_gateway(os.path.join(workdir, "jobs"))
+    reg = gw.registry_addr
+    out = {}
+    try:
+        ops.reset_launch_counts()
+        t0 = time.monotonic()
+        with FleetMember(export_dir, dev, reg, *paged, "--role",
+                         "prefill") as a, \
+                FleetMember(export_dir, dev, reg, *paged, "--role",
+                            "decode") as b:
+            wait_joined(gw, [a, b])
+            out["handoff"] = handoff_leg(torch, gw, a, b, vocab)
+            emit("fleet_leg", leg="handoff", nvidia_smi=card,
+                 **out["handoff"])
+            out["observability"] = observability_leg(gw, [a, b])
+            emit("fleet_leg", leg="observability", nvidia_smi=card,
+                 **out["observability"])
+            out["fleet_migrate"] = migrate_leg(torch, gw, a, b, vocab)
+            emit("fleet_leg", leg="fleet_migrate", nvidia_smi=card,
+                 **out["fleet_migrate"])
+        torch.cuda.empty_cache()
+        with FleetMember(export_dir, dev, reg, *paged) as c, \
+                FleetMember(export_dir, dev, reg, *paged) as d:
+            wait_joined(gw, [c, d])
+            if set(gw.fleet_stats(probe=False)["replicas"]) != {c.id, d.id}:
+                raise AssertionError("the first pair did not leave the fleet")
+            out["affinity"] = affinity_leg(torch, gw, [c, d], vocab)
+            emit("fleet_leg", leg="affinity", nvidia_smi=card,
+                 **out["affinity"])
+            out["job"] = job_leg(torch, gw, [c, d], vocab, workdir)
+            emit("fleet_leg", leg="job", nvidia_smi=card, **out["job"])
+            totals = gw.fleet_stats()["totals"]
+            victim = next(m for m in (c, d) if m.id == out["affinity"]["hrw"])
+            survivor = d if victim is c else c
+            out["death"], killed = death_leg(torch, gw, victim, survivor,
+                                             vocab)
+            emit("fleet_leg", leg="death", nvidia_smi=card, **out["death"])
+            out["wall_s"] = time.monotonic() - t0
+            launches = ops.launch_counts(ops.SERVING_KERNELS)
+            snap = redriven_snapshot(gw, survivor, killed)
+        out["fleet_totals"] = {k: totals[k] for k in (
+            "migrations_completed", "kv_pages_exported", "prefix_hits",
+            "ttft_count", "ttft_avg_ms", "jobs_records_done")}
+        out["counters"] = gw.counters.snapshot()
+        if dev.type == "cuda" and min(launches.values()) < 1:
+            raise AssertionError(f"a serving kernel never launched in phase "
+                                 f"18: {launches}")
+        out["kernel_checks"] = replica_kernel_checks(
+            torch, dev, cfg, {"bf16": snap}, tag="redriven")
+        torch.cuda.empty_cache()
+    finally:
+        gw.stop()
+        shutil.rmtree(workdir, ignore_errors=True)
+    out["launches"] = launches
     out["nvidia_smi"] = card
     return out, launches
 
@@ -5384,17 +6026,28 @@ def main():
                                          prompts, card)
         emit("spec_main_path", **spec)
         torch.cuda.empty_cache()
-        # phase 17 on phase 5's export: two replicas on this card
-        replicas, r_launches = phase_replicas(torch, dev, cfg, export_dir,
-                                              card)
-        emit("replicas_main_path", **replicas)
-        for extra in (x_launches, a6_launches, spec_launches, r_launches):
+        # phase 17 on a REPLICA_LAYERS-deep export: two replicas on this
+        # card (tier copies at the full depth's page size)
+        r_cfg, r_dir, _ = make_flagship_export(
+            torch, dev, name="export_replicas", n_layers=REPLICA_LAYERS)
+        replicas, r_launches = phase_replicas(torch, dev, r_cfg, r_dir,
+                                              card, tier_cfg=cfg)
+        emit("replicas_main_path", n_layers=REPLICA_LAYERS, **replicas)
+        shutil.rmtree(r_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+        # phase 18 on the same export: the gateway in front of them
+        fleet_out, f_launches = phase_fleet(torch, dev, cfg, export_dir,
+                                            card)
+        emit("fleet_main_path", **fleet_out)
+        for extra in (x_launches, a6_launches, spec_launches, r_launches,
+                      f_launches):
             add_launches(launches, extra)
         torch.cuda.empty_cache()
     finally:
         for d in (export_dir, *(os.path.join(HERE, "build", "chip_smoke", n)
                                 for n in ("export_jax_bf16", "export_int8",
-                                          "export_draft_2layer"))):
+                                          "export_draft_2layer",
+                                          "export_replicas"))):
             shutil.rmtree(d, ignore_errors=True)
 
     # FLAGSHIP_LM (LayerNorm) at full depth with the fused LayerNorm

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Phase 17 of ``chip_smoke.py`` alone, on one card: two replicas of the
-full-depth flagship in one process move live sessions between them (the
+flagship (full width, ``REPLICA_LAYERS`` of its layers, as chip_smoke
+runs it) in one process move live sessions between them (the
 paged pool in bf16 and int8, the dense cache), hand streams from a
 prefill replica to a decode replica, serve a traced burst and the
 scrape, a two-turn conversation through the host page tier and a peer
@@ -42,9 +43,14 @@ def main():
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
     info = _build.build(force=True)
     cs.emit("build", seconds=info["seconds"])
-    cfg, export_dir, _ = cs.make_flagship_export(torch, dev)
+    from tensorflowonspark_tpu_torch.benchmarks import FLAGSHIP_LM_V2
+
+    cfg, export_dir, _ = cs.make_flagship_export(
+        torch, dev, n_layers=cs.REPLICA_LAYERS)
     try:
-        out, launches = cs.phase_replicas(torch, dev, cfg, export_dir, card)
+        out, launches = cs.phase_replicas(
+            torch, dev, cfg, export_dir, card,
+            tier_cfg=dict(cfg, n_layers=FLAGSHIP_LM_V2["n_layers"]))
         cs.emit("replicas_main_path", **out)
         cs.emit("replicas_launches", nvidia_smi=card, kernels=launches)
     finally:

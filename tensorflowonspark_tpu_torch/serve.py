@@ -11,7 +11,8 @@
         [--generate_host_cache_mb MB] [--role mixed|prefill|decode] \\
         [--generate_priority_weight W --generate_preempt_ms MS \\
          --generate_park_capacity N] \\
-        [--generate_trace_ring N --generate_trace_decode_sample N]
+        [--generate_trace_ring N --generate_trace_decode_sample N] \\
+        [--fleet HOST:PORT --fleet_heartbeat_s S]
 
     POST /v1/models/<name>:generate
         {"inputs": [[ids..]], "max_new_tokens": n, "temperature": t,
@@ -68,7 +69,10 @@ prefix pages demote and promote back on a later hit, and peers pull
 them, ``X-Fleet-KV-Peer``); priority classes with weighted-fair
 admission and a preemption controller that parks batch sessions
 host-side while interactive work waits (``--generate_preempt_ms``);
-request tracing (``trace``) and a Prometheus scrape.  Runs on ``cuda``
+request tracing (``trace``) and a Prometheus scrape.  ``--fleet
+HOST:PORT`` registers the replica with a port gateway (``fleet``,
+``fleet_client``), heartbeats every ``--fleet_heartbeat_s`` and says
+BYE at shutdown.  Runs on ``cuda``
 unless ``--device cpu`` is given; without a CUDA device and without
 that request it raises.  Flags and request fields whose feature is not
 ported raise NotImplementedError (HTTP 501) naming the ROADMAP item;
@@ -231,8 +235,14 @@ def build_argparser():
     p.add_argument("--generate_trace_decode_sample", type=int, default=16,
                    help="a decode span every Nth committed host tick of a "
                         "traced row (0 disables decode spans)")
-    p.add_argument("--fleet", default=None, metavar="HOST:PORT")
-    p.add_argument("--fleet_heartbeat_s", type=float, default=None)
+    p.add_argument("--fleet", default=None, metavar="HOST:PORT",
+                   help="register this replica with a fleet gateway's "
+                        "registry (python -m tensorflowonspark_tpu_torch."
+                        "fleet) over the reservation protocol, and "
+                        "heartbeat until shutdown")
+    p.add_argument("--fleet_heartbeat_s", type=float, default=2.0,
+                   help="replica->gateway heartbeat interval (keep well "
+                        "under the gateway's --heartbeat_timeout_s)")
     p.add_argument("--verbose", action="store_true")
     # the JAX server's other flags: parsed so that its command lines reach
     # the NotImplementedError that names their ROADMAP item
@@ -242,7 +252,6 @@ def build_argparser():
 
 
 _ZOO = "the zoo and the rest"
-_FLEET = "A7b, the fleet gateway"
 # (flag, argparse keywords) of the JAX server's flags the port lacks;
 # each defaults to None, "not asked for"
 _JAX_ONLY_FLAGS = (
@@ -264,8 +273,6 @@ def _given(v):
 
 # (flag, predicate of "asked for" a value other than None, ROADMAP item)
 _UNPORTED_FLAGS = (
-    ("fleet", bool, _FLEET),
-    ("fleet_heartbeat_s", _given, _FLEET),
     # "kernel" is what the port runs; the plain XLA read paths are not
     ("generate_paged_attn", lambda v: v == "einsum", _ZOO),
     ("generate_paged_prefill", lambda v: v == "blend", _ZOO),
@@ -3761,6 +3768,73 @@ def make_server(args):
     return _Server((args.host, args.port), handler), service
 
 
+def _register_with_fleet(args, server, service=None):
+    """Join the fleet gateway named by ``--fleet HOST:PORT``: REG this
+    replica's advertised endpoint and capacity over the reservation
+    plane and start the liveness heartbeat (the JAX server's
+    ``_register_with_fleet``, its ``features`` key for key).  Returns the
+    live registration; the caller ``deregister()``s it at shutdown so
+    the gateway drops the replica at once instead of waiting out the
+    heartbeat window."""
+    from tensorflowonspark_tpu_torch import fleet_client
+
+    ghost, _, gport = args.fleet.rpartition(":")
+    if not ghost or not gport.isdigit():
+        raise ValueError(f"--fleet must be HOST:PORT, got {args.fleet!r}")
+    features = {}
+    if getattr(args, "generate_kv_page_size", 0):
+        # the gateway sizes its :generate prefix-affinity hash off this,
+        # aligning routing keys with the replica prefix-cache page unit
+        features["kv_page_size"] = args.generate_kv_page_size
+        features["kv_pages"] = args.generate_kv_pages
+        # the port's paged reads are always its CUDA kernels (the plain
+        # XLA paths of the JAX server are not ported)
+        features["paged_attn_impl"] = "kernel"
+        features["paged_prefill_impl"] = "kernel"
+    if getattr(args, "generate_host_cache_mb", 0) and \
+            getattr(args, "generate_kv_page_size", 0):
+        # the host tier's kv:prefix pull endpoint, so the gateway can
+        # point spilled requests at this replica's tier (REG features
+        # are static: the page server binds now)
+        features["host_cache_mb"] = args.generate_host_cache_mb
+        eng = service.migration_engine() if service is not None else None
+        if eng is not None:
+            features["kv_prefix_addr"] = eng.prefix_addr()
+    if getattr(args, "generate_long_prompt_threshold", 0):
+        # mega-prompt lane: the gateway routes prompts above this to the
+        # lane-capable replica with the most kv headroom
+        features["long_prompt_threshold"] = (
+            args.generate_long_prompt_threshold)
+    # speculation: the resolved draft mode, as ContinuousBatcher
+    # resolves it (None: "model" with a draft export, else "off")
+    spec = getattr(args, "spec_draft", None)
+    if spec is None:
+        spec = "model" if getattr(args, "draft_export_dir", None) else "off"
+    if spec != "off":
+        features["speculative"] = spec
+        features["draft_k"] = getattr(args, "draft_k", 4)
+    if getattr(args, "generate_quantize", "none") != "none":
+        features["quantize"] = args.generate_quantize
+    if getattr(args, "generate_lora_rank", 0):
+        features["lora_rank"] = args.generate_lora_rank
+    features["prefill_rows"] = getattr(args, "generate_prefill_rows",
+                                       4) or 4
+    features["engine"] = getattr(args, "generate_engine", "async") or "async"
+    # disaggregation: the gateway routes :generate admissions by role and
+    # plants the migrate-to header for prefill replicas
+    features["role"] = getattr(args, "role", "mixed") or "mixed"
+    if getattr(args, "generate_preempt_ms", 0.0):
+        features["preempt_ms"] = args.generate_preempt_ms
+    return fleet_client.register_replica(
+        (ghost, int(gport)),
+        getattr(args, "advertise_host", None) or args.host,
+        server.server_address[1],
+        model_name=getattr(args, "model_name", "default"),
+        n_slots=getattr(args, "generate_slots", 8) or 8,
+        features=features,
+        heartbeat_interval_s=getattr(args, "fleet_heartbeat_s", 2.0))
+
+
 def main(argv=None):
     args = build_argparser().parse_args(argv)
     logging.basicConfig(
@@ -3769,11 +3843,16 @@ def main(argv=None):
     server, service = make_server(args)
     host, port = server.server_address[:2]
     print(f"serving on http://{host}:{port} ({service.desc})", flush=True)
+    registration = None
     try:
+        if getattr(args, "fleet", None):
+            registration = _register_with_fleet(args, server, service)
         server.serve_forever()
     except KeyboardInterrupt:
         pass
     finally:
+        if registration is not None:
+            registration.deregister()
         server.server_close()
 
 

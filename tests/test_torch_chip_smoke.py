@@ -17,6 +17,13 @@ shape, checked on the CPU.
   differ (one flipped bit of an f32 logit, a -0.0 against 0.0, a NaN
   payload, a missing array); ``_timed`` yields exactly ``n`` items and
   times each.
+- phase 18's helpers: ``stream_output`` takes a stream's ``done``
+  output only when its token events spell it; ``tie_or_equal`` passes
+  equal runs and divergences at a near tie and fails the rest;
+  ``fleet_gateway`` builds the port's gateway with its ejection window
+  and the jobs surface; ``affine_prompts`` picks prompts whose prefix
+  hashes to the named replica; the legs' sizes are the ones the phase
+  reports.
 """
 import importlib.util
 import os
@@ -25,7 +32,7 @@ import numpy as np
 import pytest
 import torch
 
-from tensorflowonspark_tpu_torch import quantize
+from tensorflowonspark_tpu_torch import fleet, quantize
 from tensorflowonspark_tpu_torch.models import transformer as port_tf
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -186,3 +193,65 @@ def test_replica_phase_waits_on_live_rows_and_request_errors():
     ended.thread.join(5)
     with pytest.raises(AssertionError, match="ended before 2 sessions"):
         chip_smoke.wait_live(_Batcher(), 2, ended, timeout=5)
+
+
+def test_fleet_phase_stream_and_tie_bookkeeping(monkeypatch):
+    prompt = [5, 6, 7]
+    events = [{"token": 1}, {"token": 2},
+              {"done": True, "output": prompt + [1, 2]}]
+    assert chip_smoke.stream_output(events, prompt) == prompt + [1, 2]
+    with pytest.raises(AssertionError, match="without its done"):
+        chip_smoke.stream_output(events[:2] + [{"error": "boom"}], prompt)
+    with pytest.raises(AssertionError, match="differ from its done"):
+        chip_smoke.stream_output(events[:1] + events[2:], prompt)
+    want = prompt + [1, 2, 3]
+    assert chip_smoke.tie_or_equal(torch, None, prompt, want, list(want),
+                                   "x") is None
+    with pytest.raises(AssertionError, match="tokens against"):
+        chip_smoke.tie_or_equal(torch, None, prompt, want, want[:-1], "x")
+    with pytest.raises(AssertionError, match="tokens against"):
+        chip_smoke.tie_or_equal(torch, None, prompt, want,
+                                [9] + want[1:], "x")
+    for margin, ok in ((0.0, True), (chip_smoke.SPEC_MARGIN, True),
+                       (chip_smoke.SPEC_MARGIN + 0.01, False)):
+        monkeypatch.setattr(chip_smoke, "divergence",
+                            lambda *a, m=margin: dict(position=1, margin=m))
+        got = prompt + [1, 4, 4]
+        if ok:
+            assert chip_smoke.tie_or_equal(torch, None, prompt, want, got,
+                                           "x")["margin"] == margin
+        else:
+            with pytest.raises(AssertionError, match="top-2 margin"):
+                chip_smoke.tie_or_equal(torch, None, prompt, want, got, "x")
+
+
+def test_fleet_phase_gateway_and_affine_prompts(tmp_path):
+    fl = chip_smoke.FLEET
+    assert (fl["affinity_n"], fl["job_records"], fl["job_partitions"],
+            fl["interactive_n"], len(fl["death"])) == (8, 64, 4, 8, 4)
+    assert len(fl["handoff"]) + len(fl["handoff_sampled"]) == 4
+    assert fl["heartbeat_s"] * 4 <= fl["heartbeat_timeout_s"]
+    gw = chip_smoke.fleet_gateway(str(tmp_path / "jobs"))
+    try:
+        assert gw.heartbeat_timeout_s == fl["heartbeat_timeout_s"]
+        assert gw.ejection_misses == 2 and gw.jobs is not None
+        assert gw.jobs.default_workers == fl["job_partitions"]
+        assert gw.http_addr[0] == "127.0.0.1"
+        members = []
+        for port in (8501, 8502, 8503):
+            gw._admit({"replica_id": f"127.0.0.1:{port}",
+                       "host": "127.0.0.1", "port": port,
+                       "features": {"kv_page_size": 64}})
+            members.append(type("M", (), {"id": f"127.0.0.1:{port}"})())
+        for victim in members:
+            prompts = chip_smoke.affine_prompts(torch, gw, victim, (70, 90),
+                                                32000, 11)
+            assert [len(p) for p in prompts] == [70, 90]
+            for p in prompts:
+                key = gw.prefix_key({"inputs": [p]})
+                assert max(members, key=lambda m: fleet._hrw(
+                    m.id, key)) is victim
+        assert chip_smoke.gateway_url(gw, "/metrics") == \
+            "http://%s:%d/metrics" % gw.http_addr
+    finally:
+        gw.stop()

@@ -11,7 +11,9 @@
 - Unported flags (every JAX serve flag the port lacks), fields and
   train-step options raise instead of being ignored; the replica's
   fleet flags (host tier, roles, priorities, preemption, tracing) are
-  ported and build a server.
+  ported and build a server; ``--fleet`` and ``--fleet_heartbeat_s``
+  register the replica with a port gateway, announcing the features
+  the JAX server announces, key for key.
 """
 import ast
 import os
@@ -22,8 +24,9 @@ import numpy as np
 import pytest
 import torch
 
-from tensorflowonspark_tpu_torch import (benchmarks, convert, export, ops,
-                                         optim, quantize, serve)
+from tensorflowonspark_tpu_torch import (benchmarks, convert, export, fleet,
+                                         fleet_client, ops, optim, quantize,
+                                         serve)
 from tensorflowonspark_tpu_torch.models import decode as port_decode
 from tensorflowonspark_tpu_torch.models import transformer as port_tf
 from tensorflowonspark_tpu_torch.ops import _build
@@ -44,13 +47,14 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "cloudpickle",
 # the cluster runtime, the data layer and the pipeline API: executors
 # and feeders import these without torch (a process that never loaded
 # torch forks a clean node process); tracing and the metrics a fleet
-# gateway reads too
+# gateway reads too; the fleet gateway, its client and bulk jobs
 TORCH_FREE = ("util", "faults", "marker", "gpu_info", "reservation",
               "manager", "shm", "feed", "node", "backend", "cluster",
               "parallel_runner", "compat", "fsio", "schema", "tfrecord",
               "data", "minispark", "minispark.executor", "minispark.sql",
               "minispark.sql.types", "minispark.ml", "minispark.streaming",
-              "dfutil", "pipeline", "pipeline_ml", "trace", "metrics")
+              "dfutil", "pipeline", "pipeline_ml", "trace", "metrics",
+              "fleet", "fleet_client", "jobs")
 TINY = dict(vocab_size=32, d_model=64, n_heads=4, n_kv_heads=2, n_layers=1,
             d_ff=64, max_seq_len=32, dtype="float32", rope=True)
 
@@ -279,13 +283,13 @@ def test_kernel_sources_exist_and_are_built():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--fleet", "127.0.0.1:1"], ["--fleet_heartbeat_s", "2.0"],
     # the JAX server's flags the port's parser lacked
     ["--generate_paged_attn", "einsum"],
     ["--generate_paged_prefill", "blend"],
     ["--engine", "native"], ["--batch_size", "64"],
     ["--batch_wait_ms", "5"], ["--input_mapping", "x"],
-    ["--output_mapping", "y"], ["--signature_def_key", "serving_default"]])
+    ["--output_mapping", "y"], ["--signature_def_key", "serving_default"],
+    ["--engine", "jax"], ["--engine", "builder"]])
 def test_unported_flags_raise(flag):
     args = serve.build_argparser().parse_args([
         "--export_dir", "unused", "--device", "cpu",
@@ -296,11 +300,84 @@ def test_unported_flags_raise(flag):
         serve.make_server(args)
 
 
-def test_fleet_flags_name_a7b():
+@pytest.mark.parametrize("flag", [[], ["--fleet_heartbeat_s", "0.3"]])
+def test_fleet_flags_register_a_replica(flag):
+    """``--fleet`` (with the default heartbeat of 2 s, or a given one)
+    builds a server and registers it with a port gateway; BYE drops it."""
+    gw = fleet.Gateway(heartbeat_timeout_s=30.0)
+    gw.start()
     args = serve.build_argparser().parse_args([
-        "--export_dir", "unused", "--device", "cpu", "--fleet", "h:1"])
-    with pytest.raises(NotImplementedError, match="ROADMAP: A7b"):
-        serve.make_server(args)
+        "--export_dir", "unused", "--device", "cpu",
+        "--generate_kv_page_size", "8", "--generate_kv_pages", "8",
+        "--fleet", "%s:%d" % gw.registry_addr, *flag])
+    server, service = serve.make_server(args)
+    reg = None
+    try:
+        reg = serve._register_with_fleet(args, server, service)
+        assert reg.heartbeat_interval_s == (float(flag[1]) if flag else 2.0)
+        rid = "127.0.0.1:%d" % server.server_address[1]
+        replicas = gw.fleet_stats(probe=False)["replicas"]
+        assert list(replicas) == [rid]
+        assert replicas[rid]["features"]["kv_page_size"] == 8
+        assert replicas[rid]["role"] == "mixed"
+        reg.deregister()
+        assert gw.counters.get("deregistrations") == 1
+        assert gw.fleet_stats(probe=False)["replicas"] == {}
+    finally:
+        if reg is not None:
+            reg.deregister()
+        server.server_close()
+        gw.stop()
+
+
+class _FakeEngine:
+    def prefix_addr(self):
+        return "10.0.0.1:7400"
+
+
+class _FakeService:
+    def migration_engine(self):
+        return _FakeEngine()
+
+
+def test_fleet_features_match_the_jax_servers(monkeypatch):
+    """The meta a replica registers with (id, slots, heartbeat and the
+    ``features`` dict, key for key) is the JAX server's for the same
+    flags; a malformed ``--fleet`` raises in both."""
+    from tensorflowonspark_tpu import fleet_client as jax_fleet_client
+    from tensorflowonspark_tpu import serve as jax_serve
+
+    seen = {}
+    for name, mod in (("jax", jax_fleet_client), ("port", fleet_client)):
+        monkeypatch.setattr(
+            mod, "register_replica",
+            lambda addr, host, port, _n=name, **kw: seen.setdefault(
+                _n, []).append((addr, host, port, kw)))
+    server = type("S", (), {"server_address": ("127.0.0.1", 8501)})()
+    common = ["--export_dir", "unused", "--port", "0", "--fleet", "gw:8400"]
+    for extra in (
+            [],
+            ["--generate_kv_page_size", "8", "--generate_kv_pages", "64",
+             "--generate_host_cache_mb", "4",
+             "--generate_long_prompt_threshold", "64",
+             "--spec_draft", "ngram", "--draft_k", "3",
+             "--generate_quantize", "int8", "--generate_lora_rank", "4",
+             "--generate_prefill_rows", "2", "--role", "prefill",
+             "--generate_preempt_ms", "5", "--advertise_host", "10.0.0.9",
+             "--generate_slots", "6", "--fleet_heartbeat_s", "0.5"],
+            ["--draft_export_dir", "d", "--generate_engine", "serial",
+             "--role", "decode", "--model_name", "m"]):
+        for name, mod in (("jax", jax_serve), ("port", serve)):
+            args = mod.build_argparser().parse_args(common + extra)
+            mod._register_with_fleet(args, server, _FakeService())
+        assert seen["port"][-1] == seen["jax"][-1], extra
+    assert seen["port"][1][3]["features"]["kv_prefix_addr"] == \
+        "10.0.0.1:7400"
+    for mod in (jax_serve, serve):
+        args = mod.build_argparser().parse_args(
+            ["--export_dir", "unused", "--fleet", "no-port"])
+        with pytest.raises(ValueError, match="HOST:PORT"):
+            mod._register_with_fleet(args, server)
 
 
 @pytest.mark.parametrize("flag", [

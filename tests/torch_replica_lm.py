@@ -68,6 +68,7 @@ class Replica:
         args = serve.build_argparser().parse_args([
             "--export_dir", export_dir, "--port", "0", "--device", "cpu",
             *argv])
+        self.args = args
         self.server, self.service = serve.make_server(args)
         self.port = self.server.server_address[1]
         self.thread = threading.Thread(target=self.server.serve_forever,
