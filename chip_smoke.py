@@ -12,8 +12,9 @@ streaming), JAX-format and stored int8 exports, stop sequences, the
 repetition penalty, LoRA tenants and fine-tuning, speculative decoding,
 and two replicas moving live sessions between them (kv migration, the
 host page tier, preemption, tracing and the scrape) — on one NVIDIA
-GPU, and the fleet gateway, its client and bulk jobs in front of two of
-them.
+GPU, the fleet gateway, its client and bulk jobs in front of two of
+them, and the model zoo (MnistMLP, MnistCNN, ResNet-56, ResNet-50, UNet,
+DeepLabV3, ViT-B/16, BERT-base) and the MoE flagship trained on it.
 
     python3 chip_smoke.py
 
@@ -284,7 +285,10 @@ caught and reported as passed):
    load (8 batch-class sessions of 256 tokens on every row, then 8
    interactive requests) with ``--generate_preempt_ms 50`` and without:
    parked sessions equal their run without preemption, park accounting
-   back to zero, interactive queue delay p50 / p95; demote and promote
+   back to zero, interactive queue delay p50 / p95, and each interactive
+   answer of the armed run equal to the disarmed run's or parting first
+   at a top-2 margin <= SPEC_MARGIN (reported; in f32 on the CPU they
+   are equal); demote and promote
    times per page of the full depth (gather + pinned copy; stack +
    scatter); kernel 1 on a
    migration snapshot's pages and kernel 3 reading a promoted prefix at
@@ -315,6 +319,35 @@ caught and reported as passed):
    parts from its reference must part first at a bf16 near tie (top-2
    margin <= SPEC_MARGIN, reported) or the run fails.  Then kernels 1
    and 3 on a re-driven row's pages against their plain versions;
+19. (after 14) the ``zoo_main_path`` line, one ``zoo_model`` line a
+   model before it: each zoo model at full width and its published
+   depth, random weights from a seed, through ``make_train_step`` with
+   ``adamw_fused`` (lr 3e-4, bf16 mu; bf16 compute over f32 masters): a
+   warm-up step and a window of ZOO_WINDOW = 5 steps of MnistMLP and
+   MnistCNN (B 128), ResNet-56 (CIFAR, 32², B 128), ResNet-50 (224², B
+   64, ``norm="none"``), UNet (128² x 3 -> 3 classes, B 32), DeepLabV3
+   (ResNet-50 backbone, 21 classes, 512², B 8), ViT-B/16 (224², B 64)
+   and BERT-base (vocab 30522, B 32 x S 128, MLM + NSP), then one
+   ResNet-50 step with ``norm="batch"`` (its running statistics move):
+   step ms, peak memory, losses (finite), kernel 7 launched once a
+   parameter leaf a step, kernels 4-6 12 times a step by ViT and BERT
+   and never by the others; kernels 4-6 without the causal mask against
+   their plain versions at ViT's (64, 197, 12, 64) and BERT's (32, 128,
+   12, 64) shapes (phase 6's tolerances); each model cut to 2 blocks or
+   stages at full width, the same seeded weights in bf16 on the card
+   and in f32 on the CPU: logits within ZOO_LOGIT_RTOL of their scale,
+   the loss within phase 7's 1%;
+20. (after 19) the ``moe_main_path`` line: ``make_flagship_step(config=
+   "moe")`` (FLAGSHIP_MOE: 8 of the 16 layers 8 experts, top-2 at
+   capacity 1.25, about 2.75 B parameters; B 8 x S 1024): a warm-up step
+   and a window of 5, step ms beside phase 8's, peak memory, parameters,
+   the aux loss and the share of token slots dropped, kernels 4-6 16
+   launches a step and kernel 7 one a leaf a step; the 2-layer cut in
+   f32 on the card and on the CPU: every MoE layer's routing equal, then
+   the logits within MOE_LOGIT_RTOL; ``fused_unembed_xent`` against
+   ``lm_loss`` at B 8 x S 1024 x vocab 32000 (bf16 hidden states): the
+   loss within 1e-4, both gradients within XENT_GRAD_RTOL of their
+   scale, each one's peak memory over its inputs and its time;
 16c. (after 8b) the ``lora_train_main_path`` line: ``make_lora_loss`` on
    the flagship step's model (B 8 x S 1024), adamw_fused over the rank-8
    adapters: a warm-up step and a window of 5, kernels 4-6 16 launches
@@ -326,16 +359,22 @@ caught and reported as passed):
    each kernel's own main path: the
    quantised kernels from their serving run, the int8 kv kernels from the
    int8 kv run with bf16 weights, kernel 11 from the fused LayerNorm
-   run, kernel 8 from phase 8b; phases 15, 16, 17 and 18 add their
-   runs' launches); the ``engine_serial_vs_async`` line
+   run, kernel 8 from phase 8b; phases 15 to 20 add their runs'
+   launches); the ``engine_serial_vs_async`` line
    (phase 12's four numbers of each engine, dense and paged, beside the
    card's name and power limit); then the card line and, last, the
    ``ok`` line.
+
+The whole run, the kernels' build included, must end inside its 1,200
+s limit: phase 17 serves REPLICA_LAYERS of the flagship's 16 layers to
+stay there, and phases 19 and 20 take about 20 s on one H100 80GB
+(700 W).
 
 Exits 2 without a result when no CUDA device exists or when the port's
 package is not beside this file.
 """
 import json
+import math
 import os
 import re
 import shutil
@@ -5073,10 +5112,14 @@ def conversation_run(torch, dev, export_dir, vocab):
     return res, prefix
 
 
-def preempt_run(torch, dev, export_dir, vocab, armed):
+def preempt_run(torch, dev, export_dir, vocab, armed, want_inter=None):
     """The mixed load with ``--generate_preempt_ms`` armed or not: batch
     sessions (greedy, then seeded sampled, each request admitted alone)
-    hold every row, then interactive requests arrive one per thread."""
+    hold every row, then interactive requests arrive one per thread.
+    With ``want_inter`` (the other run's interactive outputs) each
+    interactive output that parts from it reports its first parting and
+    top-2 margin, and must part at a bf16 near tie (``tie_or_equal``:
+    margin <= SPEC_MARGIN) or the run fails."""
     pr = PREEMPT
     greedy = seeded_prompts(torch, vocab, (pr["batch_len"],) * 4, SEED + 21)
     sampled = seeded_prompts(torch, vocab, (pr["batch_len"],) * 4, SEED + 22)
@@ -5099,12 +5142,19 @@ def preempt_run(torch, dev, export_dir, vocab, armed):
         inter_s = time.monotonic() - t0
         batch_out = jg() + js()
         st = srv.batcher.stats()
+        partings = None
+        if want_inter is not None:
+            partings = [tie_or_equal(torch, srv.batcher.model, p, w, g,
+                                     f"interactive request {i}")
+                        for i, (p, w, g) in enumerate(zip(
+                            inter, want_inter, inter_out))]
         if not pool_conserved(srv.batcher):
             raise AssertionError("the preemption run lost pages")
     if st["parked_sessions"] or st["sessions_unparked"] != st[
             "sessions_parked"]:
         raise AssertionError(f"park accounting did not return to zero: {st}")
     return batch_out, inter_out, dict(
+        interactive_partings=partings,
         preempt_ms=st["preempt_ms"], interactive_wall_s=inter_s,
         qdelay_interactive_p95_ms=st["qdelay_interactive_p95_ms"],
         qdelay_interactive_p50_ms=st["qdelay_interactive_p50_ms"],
@@ -5272,17 +5322,26 @@ def phase_replicas(torch, dev, cfg, export_dir, card, tier_cfg=None):
     torch.cuda.empty_cache()
     runs = {}
     for armed in (False, True):
-        runs[armed] = preempt_run(torch, dev, export_dir, vocab, armed)
+        # the armed run holds its interactive tokens to the disarmed
+        # run's: a parting must be a bf16 near tie (ROADMAP §C; in f32
+        # on the CPU they are equal, tests/test_torch_preemption.py)
+        runs[armed] = preempt_run(torch, dev, export_dir, vocab, armed,
+                                  runs[False][1] if armed else None)
         torch.cuda.empty_cache()
     if runs[True][0] != runs[False][0]:
         raise AssertionError("parked batch sessions differ from their runs "
                              "without preemption")
     if runs[True][2]["sessions_parked"] < 1:
         raise AssertionError("the armed controller parked nothing")
+    partings = runs[True][2]["interactive_partings"]
     out["preemption"] = dict(
         disarmed=runs[False][2], armed=runs[True][2],
         parked_equal_unparked=True,
-        interactive_equal=runs[True][1] == runs[False][1])
+        interactive_equal=runs[True][1] == runs[False][1],
+        interactive_parted=sum(d is not None for d in partings),
+        interactive_max_margin=max((d["margin"] for d in partings
+                                    if d is not None), default=None),
+        spec_margin=SPEC_MARGIN)
     emit("replicas_preemption", **out["preemption"])
     if dev.type == "cuda":
         out["tier_copy"] = {d: tier_copy_times(torch, dev,
@@ -5890,6 +5949,453 @@ def phase_fleet(torch, dev, cfg, export_dir, card):
     return out, launches
 
 
+
+# phase 19: the model zoo trained on the card.  A model's logits on the
+# card (bf16 compute over f32 masters, kernels) against the CPU's (f32,
+# plain versions) from the same weights: the loss within phase 7's 1%,
+# the logits within ZOO_LOGIT_RTOL of their scale (bf16 keeps about 3
+# significant digits, and the error grows through the blocks).
+ZOO_WINDOW = 5
+ZOO_LOSS_RTOL = 1e-2
+ZOO_LOGIT_RTOL = 5e-2
+ZOO_LR = 3e-4
+
+
+def _zoo_images(torch, gen, B, size, classes, dev, channels=3):
+    x = torch.randn((B, size, size, channels), generator=gen).to(dev)
+    y = torch.randint(0, classes, (B,), generator=gen).to(dev)
+    return x, y
+
+
+def zoo_specs():
+    """The phase's models: ``name -> (build(dtype, cut), batch(torch,
+    gen, dev, cut), loss(model, batch), flash layers)``.  ``cut``: the
+    parity model (2 blocks or stages at full width) and its small CPU
+    batch."""
+    from tensorflowonspark_tpu_torch.models import bert, cnn, deeplab, mlp
+    from tensorflowonspark_tpu_torch.models import resnet, unet, vit
+
+    ce = mlp.cross_entropy_loss
+
+    def cls_loss(m, b):
+        return ce(m(b[0]), b[1])
+
+    def seg_batch(size, classes, B):
+        def make(torch, gen, dev, cut):
+            b = 2 if cut else B
+            s = size // 4 if cut else size
+            x = torch.randn((b, s, s, 3), generator=gen).to(dev)
+            y = torch.randint(0, classes, (b, s, s), generator=gen).to(dev)
+            return x, y
+        return make
+
+    def bert_batch(torch, gen, dev, cut):
+        import numpy as np
+        B, S = (2, 128) if cut else (32, 128)
+        rs = np.random.RandomState(SEED + 19)
+        tokens = rs.randint(0, 30522, (B, S))
+        corrupted, targets = bert.apply_mlm_masking(SEED, tokens, 103,
+                                                    30522)
+        nsp = rs.randint(0, 2, (B,))
+        return tuple(torch.from_numpy(a).to(dev)
+                     for a in (corrupted, targets, nsp))
+
+    def bert_loss(m, b):
+        mlm_logits, nsp_logits = m(b[0])
+        return bert.mlm_loss(mlm_logits, b[1]) + bert.nsp_loss(nsp_logits,
+                                                               b[2])
+
+    return {
+        "mnist_mlp": (lambda dt, cut: mlp.MnistMLP(),
+                      lambda torch, gen, dev, cut: _zoo_images(
+                          torch, gen, 2 if cut else 128, 28, 10, dev, 1),
+                      cls_loss, 0),
+        "mnist_cnn": (lambda dt, cut: cnn.MnistCNN(),
+                      lambda torch, gen, dev, cut: _zoo_images(
+                          torch, gen, 2 if cut else 128, 28, 10, dev, 1),
+                      cls_loss, 0),
+        "resnet56_cifar": (
+            lambda dt, cut: resnet.ResNet(
+                stage_sizes=(1, 1), num_classes=10, num_filters=16,
+                bottleneck=False, small_inputs=True, dtype=dt) if cut
+            else resnet.ResNet56Cifar(dtype=dt),
+            lambda torch, gen, dev, cut: _zoo_images(
+                torch, gen, 2 if cut else 128, 32, 10, dev),
+            cls_loss, 0),
+        "resnet50": (
+            lambda dt, cut: resnet.ResNet(
+                stage_sizes=(1, 1) if cut else (3, 4, 6, 3), norm="none",
+                dtype=dt),
+            lambda torch, gen, dev, cut: _zoo_images(
+                torch, gen, 2 if cut else 64, 224, 1000, dev),
+            cls_loss, 0),
+        "unet": (lambda dt, cut: unet.UNet(
+                     num_classes=3, dtype=dt,
+                     **({"features": (64, 128)} if cut else {})),
+                 seg_batch(128, 3, 32), cls_loss, 0),
+        "deeplabv3": (lambda dt, cut: deeplab.DeepLabV3(
+                          num_classes=21, dtype=dt,
+                          **({"stage_sizes": (1, 1)} if cut else {})),
+                      seg_batch(512, 21, 8), cls_loss, 0),
+        "vit_b16": (lambda dt, cut: vit.ViTBase(
+                        dtype=dt, **({"n_layers": 2} if cut else {})),
+                    lambda torch, gen, dev, cut: _zoo_images(
+                        torch, gen, 2 if cut else 64, 224, 1000, dev),
+                    cls_loss, 12),
+        "bert_base": (lambda dt, cut: bert.BertForPreTraining(
+                          bert.BertConfig(dtype=dt, **(
+                              {"n_layers": 2} if cut else {}))),
+                      bert_batch, bert_loss, 12),
+    }
+
+
+def zoo_train(torch, dev, name, build, make_batch, loss, steps=ZOO_WINDOW,
+              train=False):
+    """A warm-up step and a window of ``steps`` steps of ``name`` through
+    ``make_train_step`` with ``adamw_fused`` on the card, the launch
+    counts set to 0 just before and read just after."""
+    from tensorflowonspark_tpu_torch import ops
+    from tensorflowonspark_tpu_torch.optim import make_optimizer
+    from tensorflowonspark_tpu_torch.parallel import train as train_mod
+
+    gen = torch.Generator().manual_seed(SEED + 19)
+    t0 = time.monotonic()
+    torch.manual_seed(SEED)
+    with torch.device(dev):
+        model = build("bfloat16", False)
+    batch = make_batch(torch, gen, dev, False)
+    opt, _ = make_optimizer("adamw_fused", learning_rate=ZOO_LR,
+                            mu_dtype="bfloat16")
+    state = train_mod.create_train_state(model, opt)
+    fn = ((lambda m, b, r: loss(lambda x: m(x, train=True), b)) if train
+          else (lambda m, b, r: loss(m, b)))
+    step = train_mod.make_train_step(fn, opt, donate=True)
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t = time.monotonic()
+    state, m = step(state, batch, None)             # warm-up
+    losses = [m["loss"].item()]
+    first_ms = (time.monotonic() - t) * 1000.0
+    t = time.monotonic()
+    for _ in range(steps):
+        state, m = step(state, batch, None)
+        losses.append(m["loss"])
+    float(losses[-1])                 # the readback closes the window
+    step_ms = (time.monotonic() - t) * 1000.0 / steps if steps else None
+    launches = ops.launch_counts(ops.TRAINING_KERNELS)
+    losses = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{name}: training loss is not finite: "
+                             f"{losses}")
+    n_leaves = len(list(model.parameters()))
+    if launches["adamw"] != n_leaves * len(losses):
+        raise AssertionError(f"{name}: adamw {launches['adamw']} launches "
+                             f"in {len(losses)} steps of {n_leaves} leaves")
+    out = dict(params=sum(p.numel() for p in model.parameters()),
+               leaves=n_leaves, steps=len(losses), setup_s=setup_s,
+               first_step_ms=first_ms, step_ms=step_ms,
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+               / 1e9, losses=losses, launches=launches,
+               batch=[list(t.shape) for t in batch])
+    return out, model
+
+
+def zoo_parity(torch, dev, name, build, make_batch, loss):
+    """The 2-block cut of ``name`` at full width: the same seeded
+    weights in bf16 on the card and in f32 on the CPU, one forward each
+    on the same small batch: logits and loss."""
+    torch.manual_seed(SEED + 7)
+    cpu = build("float32", True)
+    with torch.device(dev):
+        card = build("bfloat16", True)
+    card.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(SEED + 20)
+    batch = make_batch(torch, gen, "cpu", True)
+    with torch.no_grad():
+        want = cpu(batch[0])
+        got = card(batch[0].to(dev))
+        pairs = list(zip(got, want)) if isinstance(want, tuple) else [
+            (got, want)]
+        errs = []
+        for g, w in pairs:
+            g = g.float().cpu()
+            err = (g - w).abs().max().item()
+            scale = max(1.0, w.abs().max().item())
+            if not err <= ZOO_LOGIT_RTOL * scale:
+                raise AssertionError(f"{name} parity: logits differ by "
+                                     f"{err} (scale {scale})")
+            errs.append(err / scale)
+        l_cpu = loss(lambda x: cpu(x), batch).item()
+        l_card = loss(lambda x: card(x), tuple(
+            t.to(dev) for t in batch)).item()
+    if abs(l_card - l_cpu) > ZOO_LOSS_RTOL * abs(l_cpu):
+        raise AssertionError(f"{name} parity: loss card/cpu {l_card} / "
+                             f"{l_cpu}")
+    return dict(logit_err_rel=max(errs), loss_card=l_card, loss_cpu=l_cpu,
+                tol=dict(logit_rel=ZOO_LOGIT_RTOL, loss_rel=ZOO_LOSS_RTOL))
+
+
+def flash_noncausal_checks(torch, dev):
+    """Kernels 4-6 without the causal mask against their plain versions
+    at the encoders' shapes: ViT-B/16 (B 64, 197 tokens: a ragged last
+    64-row tile) and BERT-base (B 32, S 128), 12 heads of 64, bf16 (phase
+    6's tolerances)."""
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+
+    out = {}
+    for label, (B, S) in (("vit_b16", (64, 197)), ("bert_base", (32, 128))):
+        gen = torch.Generator().manual_seed(SEED + S)
+        q, k, v, do = (torch.randn((B, S, 12, 64), generator=gen).to(
+            dev, torch.bfloat16) for _ in range(4))
+        got, lse = fa.flash_fwd(q, k, v, False)
+        ref, ref_lse = fa.flash_fwd_plain(q, k, v, False)
+        delta = torch.einsum("bshd,bshd->bhs", do.float(), ref.float())
+        dq = fa.flash_bwd_dq(q, k, v, do, ref_lse, delta, False)
+        want_dq = fa.flash_bwd_dq_plain(q, k, v, do, ref_lse, delta, False)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, ref_lse, delta, False)
+        want_dk, want_dv = fa.flash_bwd_dkv_plain(q, k, v, do, ref_lse,
+                                                  delta, False)
+        torch.cuda.synchronize()
+        errs = {}
+        for what, g, w, atol in (("out", got, ref, TOL),
+                                 ("lse", lse, ref_lse, TOL),
+                                 ("dq", dq, want_dq, GRAD_ATOL),
+                                 ("dk", dk, want_dk, GRAD_ATOL),
+                                 ("dv", dv, want_dv, GRAD_ATOL)):
+            errs[what] = (g.float() - w.float()).abs().max().item()
+            if not torch.allclose(g.float(), w.float(), atol=atol,
+                                  rtol=TOL):
+                raise AssertionError(f"flash {what} (non-causal, {label} "
+                                     f"{B}x{S}) disagrees: {errs[what]}")
+        out[label] = dict(shape=[B, S, 12, 64], causal=False,
+                          max_abs_errs=errs, tol=TOL, grad_atol=GRAD_ATOL)
+        del q, k, v, do, got, lse, ref, ref_lse, delta, dq, want_dq
+        del dk, dv, want_dk, want_dv
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_zoo(torch, dev, card):
+    """Phase 19: each zoo model at full width and its published depth
+    trained on the card (a warm-up step and a window of ZOO_WINDOW steps
+    of ``make_train_step`` with ``adamw_fused``), ResNet-50 also one
+    step with ``norm="batch"``; kernels 4-6 launched 12 times a step by
+    ViT-B/16 and BERT-base and checked at their non-causal shapes;
+    each model's 2-block cut against the CPU.  Returns (numbers,
+    launches)."""
+    from tensorflowonspark_tpu_torch.models import common, resnet
+
+    out, launches = {}, {}
+    for name, (build, make_batch, loss, flash_layers) in \
+            zoo_specs().items():
+        res, model = zoo_train(torch, dev, name, build, make_batch, loss)
+        del model
+        for kname in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            want = flash_layers * res["steps"]
+            if res["launches"][kname] != want:
+                raise AssertionError(f"{name}: {kname} launched "
+                                     f"{res['launches'][kname]} times, "
+                                     f"not {want}")
+        add_launches(launches, res["launches"])
+        torch.cuda.empty_cache()
+        res["parity"] = zoo_parity(torch, dev, name, build, make_batch,
+                                   loss)
+        emit("zoo_model", model=name, nvidia_smi=card, **res)
+        out[name] = res
+        torch.cuda.empty_cache()
+    # ResNet-50 with BatchNorm: one step in train mode moves the running
+    # statistics as flax's batch_stats move
+    _, make_batch, loss, _ = zoo_specs()["resnet50"]
+    res, model = zoo_train(
+        torch, dev, "resnet50_batchnorm",
+        lambda dt, cut: resnet.ResNet50(norm="batch", dtype=dt),
+        make_batch, loss, steps=0, train=True)
+    bn = [m for m in model.modules() if isinstance(m, common.BatchNorm)]
+    if not any(m.mean.abs().sum().item() > 0 for m in bn):
+        raise AssertionError("the BatchNorm step left its statistics at 0")
+    add_launches(launches, res["launches"])
+    out["resnet50_batchnorm"] = res
+    del model, bn
+    torch.cuda.empty_cache()
+    out["flash_noncausal"] = flash_noncausal_checks(torch, dev)
+    out["nvidia_smi"] = card
+    return out, launches
+
+
+# phase 20: the MoE flagship.  Parity runs the 2-layer cut in f32 on the
+# card and on the CPU, so that the routing compares exactly (bf16
+# activations would move near ties in the router): the routing first,
+# every choice equal; then the logits within MOE_LOGIT_RTOL of their
+# scale (f32 sums in other orders).
+MOE_LOGIT_RTOL = 1e-3
+XENT_GRAD_RTOL = 2e-2      # lm_loss's backward products run in bf16
+
+
+def moe_parity(torch, dev):
+    from tensorflowonspark_tpu_torch.benchmarks import FLAGSHIP_MOE
+    from tensorflowonspark_tpu_torch.models.transformer import (
+        build_transformer, lm_loss)
+
+    cfg = dict(FLAGSHIP_MOE, n_layers=2, dtype="float32",
+               attention_impl="flash")
+    cpu = build_transformer(**cfg)
+    cpu.reset_parameters(torch.Generator().manual_seed(SEED + 20))
+    with torch.device(dev):
+        card = build_transformer(**cfg)
+    card.load_state_dict(cpu.state_dict())
+    tokens = torch.randint(0, cfg["vocab_size"], (2, 129),
+                           generator=torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        want = cpu(tokens[:, :-1])
+        got = card(tokens[:, :-1].to(dev))
+    out = {"layers": 2, "batch": 2, "seq": 128, "dtype": "float32"}
+    for name, mc in cpu.moe_layers().items():
+        mg = card.moe_layers()[name]
+        ic, ig = mc.expert_index, mg.expert_index.cpu()
+        differ = (ic != ig).any(-1)
+        out[f"{name}_routes_differ"] = int(differ.sum())
+        if differ.any():
+            raise AssertionError(f"{name}: {int(differ.sum())} tokens "
+                                 "routed to other experts on the card")
+        out[f"{name}_dropped"] = [mc.dropped.item(), mg.dropped.item()]
+    err = (got.float().cpu() - want).abs().max().item()
+    scale = max(1.0, want.abs().max().item())
+    if not err <= MOE_LOGIT_RTOL * scale:
+        raise AssertionError(f"moe parity: logits differ by {err}")
+    out.update(logit_err_rel=err / scale,
+               loss_card=lm_loss(got, tokens[:, 1:].to(dev)).item(),
+               loss_cpu=lm_loss(want, tokens[:, 1:]).item(),
+               tol=dict(logit_rel=MOE_LOGIT_RTOL))
+    return out
+
+
+def xent_check(torch, dev, B=8, S=1024, V=32000, D=2048):
+    """``fused_unembed_xent`` against ``lm_loss`` of the full logits at
+    the flagship's head (B 8 x S 1024 x vocab 32000, bf16 hidden states,
+    the f32 ``lm_head`` master cast as ``Dense`` casts it): loss and both
+    gradients, the peak memory each adds to its inputs (the op is a
+    memory feature), and each one's forward + backward time."""
+    import torch.nn.functional as F
+
+    from tensorflowonspark_tpu_torch.models.transformer import lm_loss
+    from tensorflowonspark_tpu_torch.ops.xent import fused_unembed_xent
+
+    gen = torch.Generator(dev).manual_seed(SEED + 21)
+    h = torch.randn((B, S, D), generator=gen, device=dev).to(
+        torch.bfloat16).requires_grad_(True)
+    w = (torch.randn((V, D), generator=gen, device=dev)
+         * D ** -0.5).requires_grad_(True)
+    t = torch.randint(0, V, (B, S), generator=gen, device=dev)
+    t[:, :16] = -1                                   # ignored positions
+
+    def plain():
+        return lm_loss(F.linear(h, w.to(torch.bfloat16)), t)
+
+    def fused():
+        return fused_unembed_xent(h, w, t)
+
+    res = {}
+    for label, fn in (("lm_loss", plain), ("fused_unembed_xent", fused)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss = fn()
+        gh, gw = torch.autograd.grad(loss, (h, w))
+        torch.cuda.synchronize()
+        res[label] = dict(
+            loss=loss.item(), grads=(gh.float(), gw.float()),
+            peak_extra_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
+            ms=time_ms(lambda: torch.autograd.grad(fn(), (h, w)), reps=5,
+                       warmup=1))
+        del loss, gh, gw
+    ref, got = res["lm_loss"], res["fused_unembed_xent"]
+    if abs(got["loss"] - ref["loss"]) > 1e-4 * abs(ref["loss"]):
+        raise AssertionError(f"fused xent loss {got['loss']} against "
+                             f"{ref['loss']}")
+    errs = {}
+    for what, g, r in zip(("d_hidden", "d_weight"), got["grads"],
+                          ref["grads"]):
+        errs[what] = (g - r).abs().max().item() / r.abs().max().item()
+        if not errs[what] <= XENT_GRAD_RTOL:
+            raise AssertionError(f"fused xent {what} differs by "
+                                 f"{errs[what]} of its scale")
+    out = dict(shape=dict(B=B, S=S, V=V, D=D), grad_err_rel=errs,
+               tol=dict(loss_rel=1e-4, grad_rel=XENT_GRAD_RTOL))
+    for label in ("lm_loss", "fused_unembed_xent"):
+        out[label] = {k: res[label][k] for k in ("loss", "peak_extra_gb",
+                                                 "ms")}
+    del res, h, w, t
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe(torch, dev, card, phase8):
+    """Phase 20: ``make_flagship_step(config="moe")`` on the card (a
+    warm-up step and a window of 5), its step ms beside phase 8's, peak
+    memory, parameters, the aux loss and the share of token slots
+    dropped (the mean over the MoE layers of the window's last step),
+    kernels 4-7's launches; then the 2-layer parity and the fused
+    unembedding loss.  Returns (numbers, launches)."""
+    from tensorflowonspark_tpu_torch import ops
+    from tensorflowonspark_tpu_torch.benchmarks import (FLAGSHIP_MOE,
+                                                        make_flagship_step)
+
+    t0 = time.monotonic()
+    step, state, tokens, n_params = make_flagship_step(config="moe",
+                                                       device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+    B, S = tokens.shape[0], tokens.shape[1] - 1
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses = []
+    state, m = step(state, tokens, None)             # warm-up
+    losses.append(m["loss"].item())
+    t = time.monotonic()
+    for _ in range(ZOO_WINDOW):
+        state, m = step(state, tokens, None)
+        losses.append(m["loss"])
+    losses[-1].item()
+    step_ms = (time.monotonic() - t) * 1000.0 / ZOO_WINDOW
+    launches = ops.launch_counts(ops.TRAINING_KERNELS)
+    losses = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"moe: training loss is not finite: {losses}")
+    layers = FLAGSHIP_MOE["n_layers"]
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if launches[name] != layers * len(losses):
+            raise AssertionError(f"moe: {name} {launches[name]} launches in "
+                                 f"{len(losses)} steps of {layers} layers")
+    n_leaves = len(list(state.params.parameters()))
+    if launches["adamw"] != n_leaves * len(losses):
+        raise AssertionError(f"moe: adamw {launches['adamw']} launches in "
+                             f"{len(losses)} steps of {n_leaves} leaves")
+    moe = state.params.moe_layers()
+    out = dict(
+        config={k: FLAGSHIP_MOE[k] for k in (
+            "num_experts", "moe_every", "moe_router", "moe_top_k",
+            "moe_capacity_factor")},
+        params=n_params, moe_layers=len(moe), layers=layers, batch=B,
+        seq=S, setup_s=setup_s, steps=len(losses), step_ms=step_ms,
+        phase8_step_ms=phase8["step_ms"],
+        phase8_max_memory_allocated_gb=phase8["max_memory_allocated_gb"],
+        tokens_per_s=B * S / (step_ms / 1000.0),
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        losses=losses,
+        aux_loss=sum(x.aux_loss.item() for x in moe.values()) / len(moe),
+        dropped=sum(x.dropped.item() for x in moe.values()) / len(moe),
+        launches=launches)
+    del step, state, tokens, moe
+    torch.cuda.empty_cache()
+    out["parity"] = moe_parity(torch, dev)
+    torch.cuda.empty_cache()
+    out["xent"] = xent_check(torch, dev)
+    out["nvidia_smi"] = card
+    return out, launches
+
+
 def main():
     try:
         import torch
@@ -6125,6 +6631,16 @@ def main():
     torch.cuda.empty_cache()
     emit("model_parallel_main_path", nvidia_smi=card,
          **phase_model_parallel(torch, dev, sharded["direct_losses"]))
+    torch.cuda.empty_cache()
+
+    # phases 19 and 20: the zoo and the MoE flagship trained on the card
+    zoo, zoo_launches = phase_zoo(torch, dev, card)
+    emit("zoo_main_path", **zoo)
+    add_launches(launches, zoo_launches)
+    torch.cuda.empty_cache()
+    moe, moe_launches = phase_moe(torch, dev, card, train_main)
+    emit("moe_main_path", **moe)
+    add_launches(launches, moe_launches)
     torch.cuda.empty_cache()
 
     # the serving kernels' launches by shape, each from its own main path

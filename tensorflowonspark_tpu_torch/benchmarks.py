@@ -9,6 +9,11 @@ FLAGSHIP_LM = dict(
     rope=True, attention_impl="auto")
 # the same dims with RMSNorm: the configuration the port serves
 FLAGSHIP_LM_V2 = dict(FLAGSHIP_LM, norm_type="rmsnorm")
+# its MoE variant: every 2nd layer (8 of 16) 8 experts, top-2 routing at
+# capacity 1.25 (about 2.75 B parameters)
+FLAGSHIP_MOE = dict(FLAGSHIP_LM_V2, num_experts=8, moe_every=2,
+                    moe_router="topk", moe_top_k=2,
+                    moe_capacity_factor=1.25)
 # steady-state paged decode: 16 slots, page 64, rows filled to 2000 of 4096
 FLAGSHIP_DECODE = dict(n_slots=16, page_size=64, max_seq=4096, fill=2000)
 # steady-state batched paged prefill: 4 rows, chunk 256 at offset 2000
@@ -24,6 +29,7 @@ FLAGSHIP_QUANT_MATMUL = dict(K=2048, N=8192, decode_m=16, prefill_m=1024,
 FLAGSHIP_BATCH = 8
 FLAGSHIP_MU_DTYPE = "bfloat16"
 FLAGSHIP_OPTIMIZER = "adamw_fused"
+_CONFIGS = {"v2": FLAGSHIP_LM_V2, "v1": FLAGSHIP_LM, "moe": FLAGSHIP_MOE}
 
 
 def make_flagship_step(batch_size=None, seq_len=None, config="v2",
@@ -32,8 +38,9 @@ def make_flagship_step(batch_size=None, seq_len=None, config="v2",
     ``make_flagship_step`` builds it: returns ``(step, state, tokens,
     n_params)``; call as ``state, m = step(state, tokens, rng)``.
 
-    ``config``: "v2" (rmsnorm), "v1" (layernorm), or a dict of
-    TransformerConfig fields (a small model for the CPU).  ``optimizer``: None
+    ``config``: "v2" (rmsnorm), "v1" (layernorm), "moe"
+    (:data:`FLAGSHIP_MOE`), or a dict of TransformerConfig fields (a
+    small model for the CPU).  ``optimizer``: None
     -> FLAGSHIP_OPTIMIZER (adamw_fused, kernel 7); "lion_fused" -> the
     fused Lion (kernel 8); "adam", "adamw", "lion" -> their plain
     optax-semantics versions; "sgd0" -> zero-lr momentum-less SGD.  Every
@@ -58,8 +65,11 @@ def make_flagship_step(batch_size=None, seq_len=None, config="v2",
     dev = resolve(device)
     if isinstance(config, dict):
         cfg_kw = dict(config)
+    elif config in _CONFIGS:
+        cfg_kw = dict(_CONFIGS[config])
     else:
-        cfg_kw = dict(FLAGSHIP_LM_V2 if config == "v2" else FLAGSHIP_LM)
+        raise ValueError(f"config={config!r} not in {tuple(_CONFIGS)} or "
+                         "a dict")
     if seq_len:
         cfg_kw["max_seq_len"] = seq_len
     B = batch_size or FLAGSHIP_BATCH

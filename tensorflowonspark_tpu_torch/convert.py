@@ -1,11 +1,18 @@
 """Parameter-tree conversion between the JAX package and the port.
 
-``params_from_jax`` turns the JAX package's Transformer param tree, as
-nested dicts of numpy arrays (``{"layer_0": {"attn": {"query":
-{"kernel": ...}}}}``), into the port's ``state_dict``; ``params_to_jax``
-goes back.  Flax ``Dense`` kernels are ``[in, out]`` and the port's
-``Dense`` weights ``[out, in]``, so kernels transpose; ``embedding``
-(Embed) and ``scale`` (norms) become ``weight`` unchanged.
+``params_from_jax`` turns a JAX package parameter tree (the
+Transformer's, with its MoE layers, and every zoo model's), as nested
+dicts of numpy arrays (``{"layer_0": {"attn": {"query": {"kernel":
+...}}}}``), into the port's ``state_dict``; ``params_to_jax`` goes
+back, and ``variables_to_jax`` also gives a BatchNorm model's
+``batch_stats`` (the port's ``mean`` / ``var`` buffers).  Flax ``Dense``
+kernels are ``[in, out]`` and the port's ``Dense`` weights ``[out,
+in]``, so they transpose; conv kernels are HWIO in flax and OIHW in the
+port, so they permute; ``embedding`` (Embed) and ``scale`` (norms)
+become ``weight`` unchanged; raw leaves (``gain``, ``alpha``,
+``cls_token``, ViT's ``pos_embed``, ``mlm_bias``) keep their names, and
+an expert weight ``experts_wi/kernel`` (one flax name with a "/") is
+the port's ``experts_wi``.
 
 ``adamw_state_from_jax`` / ``adamw_state_to_jax`` carry a fused-AdamW
 state (``count`` and the ``mu`` / ``nu`` trees, which mirror the params)
@@ -44,35 +51,81 @@ from tensorflowonspark_tpu_torch import optim8bit, quantize
 from tensorflowonspark_tpu_torch.ops.fused_optim import (FusedAdamWState,
                                                          FusedLionState)
 
-_EMBEDS = ("token_embed", "pos_embed")
-_NORMS = ("ln1", "ln2", "ln_f")
+_EMBEDS = ("token_embed", "pos_embed", "type_embed")
+# modules whose ``weight`` is a norm's flax ``scale``: the transformer's
+# and BERT's LayerNorms, ChannelGroupNorm's ``gn``, the ResNet stem's and
+# projection's norms (BatchNorm; the group and identity norms keep theirs
+# under ``gn`` or have none) and flax's automatic ``BatchNorm_<i>``
+_NORMS = ("ln1", "ln2", "ln_f", "ln_embed", "mlm_ln", "gn", "norm_init",
+          "norm_proj")
+# leaves that keep their flax name: WSConv's gain, IdentityNorm's alpha,
+# ViT's raw cls_token / pos_embed, BERT's mlm_bias, biases
+_RAW = ("bias", "gain", "alpha", "cls_token", "pos_embed", "mlm_bias")
+# BatchNorm's running statistics (flax's ``batch_stats`` collection,
+# the port's buffers of the same names)
+_STATS = ("mean", "var")
+# MoE expert weights: one flax param whose NAME holds a "/"
+# (``experts_wi/kernel``), the port's parameter ``experts_wi``
+_EXPERTS = "/kernel"
 _JAX_PREFIX = "tensorflowonspark_tpu."
-# the JAX package's builder specs the port rebuilds, and the port's
+_ZOO = (("mlp", "MnistMLP"), ("cnn", "MnistCNN"), ("linear", "Linear"),
+        ("linear", "MLP"), ("resnet", "ResNet"), ("resnet", "ResNet50"),
+        ("resnet", "ResNet56Cifar"), ("unet", "UNet"),
+        ("deeplab", "DeepLabV3"), ("vit", "ViTTiny"), ("vit", "ViTBase"),
+        ("bert", "build_bert"), ("transformer", "build_transformer"))
+# the JAX package's model builders (its builder functions and the zoo
+# classes an export names, as examples/mnist does with
+# ``tensorflowonspark_tpu.models.cnn:MnistCNN``), and the port's
 # counterpart of each
 JAX_BUILDERS = {
-    "tensorflowonspark_tpu.models.transformer:build_transformer":
-        "tensorflowonspark_tpu_torch.models.transformer:build_transformer",
-}
+    f"tensorflowonspark_tpu.models.{mod}:{fn}":
+        f"tensorflowonspark_tpu_torch.models.{mod}:{fn}"
+    for mod, fn in _ZOO}
 
 
 def port_builder(spec):
     """The port's builder spec for ``spec``: a JAX builder through
-    :data:`JAX_BUILDERS`, the port's own unchanged.  A JAX builder
-    without a counterpart (bert, the zoo) raises NotImplementedError."""
+    :data:`JAX_BUILDERS`, the port's own unchanged.  A spec of the JAX
+    package that names no model builder raises NotImplementedError."""
     if spec in JAX_BUILDERS:
         return JAX_BUILDERS[spec]
     if spec.startswith(_JAX_PREFIX):
         raise NotImplementedError(
             f"builder {spec!r} of the JAX package has no counterpart in the "
-            "port yet (ROADMAP A8: the zoo and the rest)")
+            "port: JAX_BUILDERS maps every model builder of its models/")
     return spec
+
+
+def _kernel_to_port(t, path):
+    """A flax kernel in the port's layout: a Dense ``[in, out]``
+    transposed, a conv HWIO permuted to OIHW."""
+    if t.dim() == 2:
+        return t.t().contiguous()
+    if t.dim() == 4:
+        return t.permute(3, 2, 0, 1).contiguous()
+    raise ValueError(f"{'/'.join(path)}: expected a 2-D Dense or 4-D conv "
+                     f"kernel, got shape {tuple(t.shape)}")
+
+
+def _kernel_to_flax(t):
+    """The inverse of :func:`_kernel_to_port`."""
+    if t.dim() == 2:
+        return t.t()
+    if t.dim() == 4:
+        return t.permute(2, 3, 1, 0)
+    return t
 
 
 def params_from_jax(tree):
     """Nested dicts of arrays (a flax ``params`` tree, optionally under a
-    sole ``"params"`` key) -> ``{dotted name: torch.Tensor}``."""
-    if isinstance(tree, dict) and set(tree) == {"params"}:
-        tree = tree["params"]
+    sole ``"params"`` key, or flax variables ``{"params", "batch_stats"}``)
+    -> ``{dotted name: torch.Tensor}``, batch statistics as the
+    BatchNorm buffers ``mean`` / ``var``."""
+    if isinstance(tree, dict) and "params" in tree and set(tree) <= {
+            "params", "batch_stats"}:
+        out = params_from_jax(tree["params"])
+        out.update(params_from_jax(tree.get("batch_stats", {})))
+        return out
     out = {}
 
     def walk(node, path):
@@ -82,12 +135,7 @@ def params_from_jax(tree):
             return
         t = _tensor(node)
         name, kernel = _port_name(path)
-        if kernel:
-            if t.dim() != 2:
-                raise ValueError(f"{'/'.join(path)}: expected a 2-D Dense "
-                                 f"kernel, got shape {tuple(t.shape)}")
-            t = t.t().contiguous()
-        out[name] = t
+        out[name] = _kernel_to_port(t, path) if kernel else t
 
     walk(tree, ())
     return out
@@ -95,29 +143,47 @@ def params_from_jax(tree):
 
 def _port_name(path):
     """A JAX parameter path -> ``(the port's dotted name, True for a
-    Dense kernel, which the port stores transposed)``."""
+    Dense or conv kernel, which the port stores in its own layout)``."""
     leaf = path[-1]
     if leaf in ("kernel", "embedding", "scale"):
         return ".".join(path[:-1] + ("weight",)), leaf == "kernel"
-    if leaf != "bias":
+    if leaf.startswith("experts_") and leaf.endswith(_EXPERTS):
+        return ".".join(path[:-1] + (leaf[:-len(_EXPERTS)],)), False
+    if leaf not in _RAW + _STATS:
         raise ValueError(f"{'/'.join(path)}: unknown parameter {leaf!r}")
     return ".".join(path), False
+
+
+def _flax_keys(name, ndim):
+    """The port's dotted name -> ``(its flax keys, "dense" for a 2-D
+    Dense kernel, "conv" for a 4-D conv kernel, else None)``: the inverse
+    of :func:`_port_name`."""
+    parts = name.split(".")
+    module, leaf = parts[:-1], parts[-1]
+    if leaf.startswith("experts_"):
+        return tuple(module) + (leaf + _EXPERTS,), None
+    if leaf == "weight" and module:
+        if module[-1] in _EMBEDS:
+            leaf = "embedding"
+        elif module[-1] in _NORMS or module[-1].startswith("BatchNorm_"):
+            leaf = "scale"
+        else:
+            return (tuple(module) + ("kernel",),
+                    {2: "dense", 4: "conv"}.get(ndim))
+    return tuple(module) + (leaf,), None
 
 
 def flax_path(name, ndim):
     """The port's dotted parameter name -> ``(its '/'-joined flax path,
     True for a 2-D Dense kernel, which the port stores transposed)``:
-    the inverse of :func:`_port_name`."""
-    parts = name.split(".")
-    module, leaf = parts[:-1], parts[-1]
-    if leaf == "weight" and module:
-        if module[-1] in _EMBEDS:
-            leaf = "embedding"
-        elif module[-1] in _NORMS:
-            leaf = "scale"
-        else:
-            return "/".join(module + ["kernel"]), ndim == 2
-    return "/".join(module + [leaf]), False
+    the inverse of :func:`_port_name` (an expert weight's flax name holds
+    the "/" of ``experts_wi/kernel``, which the sharding rules match)."""
+    keys, layout = _flax_keys(name, ndim)
+    return "/".join(keys), layout == "dense"
+
+
+def _is_stat(name):
+    return name.rsplit(".", 1)[-1] in _STATS
 
 
 def _shard_grid(sharding, ndim):
@@ -254,35 +320,45 @@ def _tensor(node):
     return torch.from_numpy(np.ascontiguousarray(arr).copy())
 
 
+def _tree(state_dict, leaf_fn):
+    """Nested dicts (flax keys) of ``leaf_fn(tensor in flax layout)``."""
+    tree = {}
+    for name, t in state_dict.items():
+        keys, layout = _flax_keys(name, t.dim())
+        t = t.detach().to("cpu")
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = leaf_fn(_kernel_to_flax(t) if layout else t)
+    return tree
+
+
 def params_to_flax(state_dict):
     """The port's ``state_dict`` -> the JAX package's parameter tree
     (nested dicts, flax paths) of contiguous CPU tensors in their own
-    dtype; Dense kernels transposed to flax's ``[in, out]``."""
-    tree = {}
-    for name, t in state_dict.items():
-        t = t.detach().to("cpu")
-        path, transposed = flax_path(name, t.dim())
-        parts = path.split("/")
-        node = tree
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = (t.t() if transposed else t).contiguous()
-    return tree
+    dtype; kernels in flax's layout (Dense ``[in, out]``, conv HWIO).
+    BatchNorm statistics are not parameters (:func:`variables_to_jax`)."""
+    return _tree({n: t for n, t in state_dict.items() if not _is_stat(n)},
+                 lambda t: t.contiguous())
 
 
 def params_to_jax(state_dict):
     """The port's ``state_dict`` -> nested dicts of numpy arrays in the
-    JAX package's layout (float32)."""
-    tree = {}
-    for name, t in state_dict.items():
-        arr = t.detach().to("cpu", torch.float32).numpy()
-        path, transposed = flax_path(name, arr.ndim)
-        parts = path.split("/")
-        node = tree
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = np.ascontiguousarray(arr.T if transposed else arr)
-    return tree
+    JAX package's layout (float32); BatchNorm statistics are left out
+    (:func:`variables_to_jax` carries them)."""
+    return _tree({n: t for n, t in state_dict.items() if not _is_stat(n)},
+                 lambda t: np.ascontiguousarray(t.to(torch.float32).numpy()))
+
+
+def variables_to_jax(state_dict):
+    """The port's ``state_dict`` -> flax variables ``{"params": ...}``
+    and, for a model with BatchNorm, ``"batch_stats"`` (numpy, f32)."""
+    out = {"params": params_to_jax(state_dict)}
+    stats = {n: t for n, t in state_dict.items() if _is_stat(n)}
+    if stats:
+        out["batch_stats"] = _tree(
+            stats, lambda t: np.ascontiguousarray(t.float().numpy()))
+    return out
 
 
 def _is_jax_qleaf(node):

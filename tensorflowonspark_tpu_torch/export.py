@@ -40,6 +40,8 @@ DEFAULT_SIGNATURE = "serving_default"
 DEFAULT_BUILDER = ("tensorflowonspark_tpu_torch.models.transformer:"
                    "build_transformer")
 _PORT_PREFIX = "tensorflowonspark_tpu_torch."
+JAX_TRANSFORMER_BUILDER = ("tensorflowonspark_tpu.models.transformer:"
+                           "build_transformer")
 
 
 def _resolve_builder(spec):
@@ -107,7 +109,7 @@ def export_jax_saved_model(export_dir, state_dict, builder_kwargs=None,
     ``serialization``).  Both packages load it."""
     if not is_chief:
         return None
-    builder = next(iter(convert.JAX_BUILDERS))
+    builder = JAX_TRANSFORMER_BUILDER
     _write_spec(export_dir, builder, builder_kwargs, signatures, None)
     serialization.save(fsio.join(export_dir, JAX_PARAMS_FILE),
                        convert.params_to_flax(state_dict))

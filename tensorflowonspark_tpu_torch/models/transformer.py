@@ -4,7 +4,8 @@ transformer.py`` for the serving and training slices.
 The same ``TransformerConfig`` (field names and defaults), the same
 parameter tree under PyTorch names (``convert.params_from_jax`` maps
 one onto the other), and the same math: RoPE with split-half pairing,
-GQA attention with f32 softmax, plain or gated MLPs, RMSNorm or
+GQA attention with f32 softmax, plain or gated MLPs or MoE layers
+(:class:`MoEMLP`: the dense and the top-k capacity router), RMSNorm or
 LayerNorm (statistics in f32; ``fused_ln`` runs kernel 11), pre- or
 post-LN blocks.
 
@@ -18,8 +19,10 @@ cache (``_slot_attention_body``) plain products over each row's window,
 as the JAX package computes it in XLA.  ``remat``
 recomputes each block in the backward
 (``torch.utils.checkpoint``).  :func:`lm_loss` is the causal-LM loss the
-train step uses.  Fields of the config whose feature is not ported raise
-``NotImplementedError`` naming the ROADMAP item when they are set.
+train step uses; ``return_hidden=True`` gives the hidden states for
+``ops.xent.fused_unembed_xent`` instead.  Fields of the config whose
+feature is not ported raise ``NotImplementedError`` naming the ROADMAP
+item when they are set.
 
 Split over GPUs (the forward reads its mesh from
 ``parallel.mesh.use_mesh``, which the train and eval steps enter; the
@@ -84,11 +87,11 @@ class TransformerConfig:
     rope: bool = False            # rotary embeddings instead of a learned
     # absolute pos_embed table
     rope_theta: float = 10000.0
-    num_experts: int = 0          # >0 = MoE (not ported)
+    num_experts: int = 0          # >0 = MoE on every moe_every-th layer
     moe_every: int = 2
-    moe_router: str = "dense"
-    moe_top_k: int = 1
-    moe_capacity_factor: float = 1.25
+    moe_router: str = "dense"     # dense | topk (capacity dispatch)
+    moe_top_k: int = 1            # experts per token under topk
+    moe_capacity_factor: float = 1.25  # slots an expert = factor*k*T/E
     remat: bool = False           # recompute each block in the backward
     ring_attention_axis: Optional[str] = None   # context parallelism
     ulysses_axis: Optional[str] = None          # (the tp axis)
@@ -113,8 +116,6 @@ class TransformerConfig:
 
 
 _UNPORTED = (
-    ("num_experts", lambda v: v > 0,
-     "MoE layers (ROADMAP: the zoo and the rest)"),
     ("ring_attention_axis", lambda v: v not in (None, AXIS_TP),
      "context parallelism on another axis than tp (ROADMAP A3c)"),
     ("ulysses_axis", lambda v: v not in (None, AXIS_TP),
@@ -701,34 +702,163 @@ class DenseMLP(nn.Module):
         return _row_parallel(self.wo, h, par) if split else self.wo(h)
 
 
-class Block(nn.Module):
-    """One block: pre-LN ``x + f(ln(x))`` or post-LN ``ln(x + f(x))``."""
+def _stable_topk(p, k):
+    """``jax.lax.top_k`` over the last dim: the k largest, ties broken
+    toward the lower index (a stable descending sort; ``torch.topk``
+    promises no order among equal values)."""
+    vals, idx = torch.sort(p, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+class MoEMLP(nn.Module):
+    """Mixture-of-experts MLP — the JAX ``MoEMLP`` (Switch / GShard).
+
+    The router (``router``, an f32 Dense over the f32 stream) gives each
+    token a softmax over ``num_experts`` experts; the experts are
+    ``experts_wi`` ``[E, D, F]`` / ``experts_wo`` ``[E, F, D]`` (and, for
+    ``mlp_style="gated"``, ``experts_up``, the linear branch), run as
+    batched products in the activation dtype.
+
+    - ``dense``: each token through its argmax expert, the output times
+      that expert's probability (in the activation dtype, as JAX scales
+      it);
+    - ``topk``: each token picks its top ``moe_top_k`` experts (ties to
+      the lower index, as ``lax.top_k``); each expert has ``C = min(T,
+      ceil(capacity_factor * k * T / E))`` slots over the call's ``T =
+      B * S`` tokens, claimed in token order, all first choices before
+      second ones; a token past its expert's capacity contributes zero
+      (the residual carries it); for ``k > 1`` the combine weights are
+      renormalised over the chosen experts.
+
+    JAX computes the dispatch and combine as one-hot ``[T, E, C]``
+    einsums; here the same slots are index copies into an ``[E, C, D]``
+    buffer and gathers out of it (both exact).  After each forward,
+    ``aux_loss`` holds the Switch load-balancing loss ``E * sum(
+    frac_tokens * frac_probs)`` (``frac_tokens`` from the pre-drop first
+    choices), the value JAX ``sow``s and no step adds to a loss;
+    ``dropped`` the share of the ``k * T`` token-expert assignments that
+    overflowed; ``expert_index`` the chosen experts ``[B, S, k]``.  All
+    three are detached."""
 
     def __init__(self, cfg):
+        super().__init__()
+        if cfg.moe_router not in ("dense", "topk"):
+            raise ValueError(
+                f"moe_router={cfg.moe_router!r} not in ('dense', 'topk')")
+        E = cfg.num_experts
+        if cfg.moe_router == "topk" and not 1 <= cfg.moe_top_k <= E:
+            raise ValueError(f"moe_top_k={cfg.moe_top_k} must be in "
+                             f"[1, {E}]")
+        self.cfg = cfg
+        D, Fd = cfg.d_model, cfg.d_ff
+        self.router = Dense(D, E, False, torch.float32)
+        self.experts_wi = nn.Parameter(torch.empty(E, D, Fd))
+        self.experts_wo = nn.Parameter(torch.empty(E, Fd, D))
+        self.experts_up = (nn.Parameter(torch.empty(E, D, Fd))
+                           if cfg.mlp_style == "gated" else None)
+        self.aux_loss = self.dropped = self.expert_index = None
+
+    def forward(self, x):
+        cfg = self.cfg
+        par = _par(cfg)
+        if (par.tp.size > 1 or par.cp.size > 1
+                or self.experts_wi.shape[0] < cfg.num_experts
+                or self.experts_wi.shape[2] < cfg.d_ff):
+            raise _a3c("MoE layers split over a mesh (experts over ep, "
+                       "d_ff over tp, tokens over sp / cp)")
+        dt = torch_dtype(cfg)
+        B, S, D = x.shape
+        E = cfg.num_experts
+        dense = cfg.moe_router == "dense"
+        k = 1 if dense else cfg.moe_top_k
+        T = B * S
+        probs = torch.softmax(self.router(x.float()), dim=-1)   # f32
+        pt = probs.reshape(T, E)
+        top_p, idx = _stable_topk(pt, k)                        # [T, k]
+        if dense:
+            C = T
+        else:
+            C = min(int(max(1, -(-cfg.moe_capacity_factor * k * T // E))),
+                    T)
+            if k > 1:
+                top_p = top_p / torch.clamp_min(
+                    top_p.sum(-1, keepdim=True), 1e-9)
+        # slot c of each token: its place in its expert's queue (all
+        # first choices before second ones); row E*C is where overflow
+        # goes (sliced off, so its output reads as zero)
+        counts = torch.zeros(E, dtype=torch.long, device=x.device)
+        flat, keep = [], []
+        for c in range(k):
+            onehot = F.one_hot(idx[:, c], E)
+            pos = torch.cumsum(onehot, 0) - 1 + counts
+            counts = counts + onehot.sum(0)
+            p = pos.gather(1, idx[:, c:c + 1])[:, 0]
+            kept = p < C
+            flat.append(torch.where(kept, idx[:, c] * C + p, E * C))
+            keep.append(kept)
+        xt = x.reshape(T, D).to(dt)
+        expert_in = xt.new_zeros(E * C + 1, D).index_add(
+            0, torch.cat(flat), xt.repeat(k, 1))
+        out = self._experts(expert_in[:E * C].reshape(E, C, D), dt)
+        out = torch.cat([out.reshape(E * C, D), out.new_zeros(1, D)])
+        if dense:
+            y = out[flat[0]] * top_p.to(dt)
+        else:
+            y = sum(out[flat[c]].float()
+                    * (top_p[:, c] * keep[c])[:, None]
+                    for c in range(k)).to(dt)
+        with torch.no_grad():
+            frac_tokens = F.one_hot(idx[:, 0], E).float().mean(0)
+            frac_probs = probs.reshape(T, E).mean(0)
+            self.aux_loss = E * torch.sum(frac_tokens * frac_probs)
+            self.dropped = 1.0 - torch.stack(keep).float().mean()
+            self.expert_index = idx.reshape(B, S, k)
+        return y.reshape(B, S, D)
+
+    def _experts(self, xe, dt):
+        """[E, C, D] -> [E, C, D]: each expert's MLP over its slots."""
+        h = _activation(torch.bmm(xe, self.experts_wi.to(dt)),
+                        self.cfg.activation)
+        if self.experts_up is not None:
+            h = h * torch.bmm(xe, self.experts_up.to(dt))
+        return torch.bmm(h, self.experts_wo.to(dt))
+
+
+class Block(nn.Module):
+    """One block: pre-LN ``x + f(ln(x))`` or post-LN ``ln(x + f(x))``;
+    its MLP is ``mlp`` (:class:`DenseMLP`) or, with ``use_moe``, ``moe``
+    (:class:`MoEMLP`)."""
+
+    def __init__(self, cfg, use_moe=False):
         super().__init__()
         self.cfg = cfg
         self.ln1 = _make_ln(cfg)
         self.ln2 = _make_ln(cfg)
         self.attn = Attention(cfg)
-        self.mlp = DenseMLP(cfg)
+        if use_moe:
+            self.moe = MoEMLP(cfg)
+        else:
+            self.mlp = DenseMLP(cfg)
 
     def forward(self, x, cache=None, layer=0, mask=None, lora=None):
+        mlp = self.moe if hasattr(self, "moe") else self.mlp
         if self.cfg.norm_style == "pre":
             x = x + self.attn(self.ln1(x), cache, layer, mask, lora)
-            return x + self.mlp(self.ln2(x))
+            return x + mlp(self.ln2(x))
         dt = torch_dtype(self.cfg)
         x = self.ln1(x + self.attn(x, cache, layer, mask, lora)).to(dt)
-        return self.ln2(x + self.mlp(x)).to(dt)
+        return self.ln2(x + mlp(x)).to(dt)
 
 
 class Transformer(nn.Module):
-    """Token ids -> logits.  With ``cache`` (a dense or a paged slot
-    cache from ``models.decode``) the forward is one prefill chunk or
-    decode step at each row's ``cache_index``, and advances the index by
-    S.  ``lora = (banks, ids)`` adds per-row adapters to the attention
-    projections (``Attention._proj``): ``banks`` maps each layer name to
-    its ``{proj}_a`` / ``{proj}_b`` banks, ``ids [B]`` each row's bank
-    index."""
+    """Token ids -> logits (``return_hidden=True``: the post-``ln_f``
+    hidden states in the activation dtype instead).  With ``cache`` (a
+    dense or a paged slot cache from ``models.decode``) the forward is
+    one prefill chunk or decode step at each row's ``cache_index``, and
+    advances the index by S.  ``lora = (banks, ids)`` adds per-row
+    adapters to the attention projections (``Attention._proj``):
+    ``banks`` maps each layer name to its ``{proj}_a`` / ``{proj}_b``
+    banks, ``ids [B]`` each row's bank index."""
 
     def __init__(self, cfg):
         super().__init__()
@@ -738,8 +868,11 @@ class Transformer(nn.Module):
         if not cfg.rope:
             self.pos_embed = nn.Embedding(cfg.max_seq_len, cfg.d_model)
         self.layer_names = [f"layer_{i}" for i in range(cfg.n_layers)]
-        for name in self.layer_names:
-            self.add_module(name, Block(cfg))
+        for i, name in enumerate(self.layer_names):
+            # every moe_every-th layer is MoE (moe_every=1: every layer)
+            use_moe = cfg.num_experts > 0 and (
+                i % cfg.moe_every == cfg.moe_every - 1)
+            self.add_module(name, Block(cfg, use_moe=use_moe))
         self.ln_f = _make_ln(cfg)
         self.lm_head = Dense(cfg.d_model, cfg.vocab_size, False,
                              torch_dtype(cfg))
@@ -763,8 +896,22 @@ class Transformer(nn.Module):
                     mod.weight.fill_(1.0)
                     if isinstance(mod, LayerNorm):
                         mod.bias.zero_()
+                elif isinstance(mod, MoEMLP):
+                    # flax lecun_normal over [E, in, out]: fan_in E * in
+                    for w in (mod.experts_wi, mod.experts_wo,
+                              mod.experts_up):
+                        if w is not None:
+                            w.normal_(0.0, (w.shape[0] * w.shape[1]) ** -0.5,
+                                      generator=generator)
 
-    def forward(self, tokens, cache=None, lora=None):
+    def moe_layers(self):
+        """``{layer name: MoEMLP}`` of the MoE layers, in order (each
+        holds its last forward's ``aux_loss``, ``dropped`` and
+        ``expert_index``)."""
+        return {name: getattr(self, name).moe for name in self.layer_names
+                if hasattr(getattr(self, name), "moe")}
+
+    def forward(self, tokens, cache=None, lora=None, return_hidden=False):
         cfg = self.cfg
         dt = torch_dtype(cfg)
         par = _par(cfg)
@@ -805,10 +952,16 @@ class Transformer(nn.Module):
             else:
                 x = block(x, cache, i, None, None if lora is None
                           else (lora[0][name], lora[1]))
-        logits = _head(self.ln_f, self.lm_head, x, par, cfg.vocab_size)
         if cache is not None:
             cache.cache_index = cache.cache_index + S
-        return logits
+        if return_hidden:
+            # the post-ln_f stream for a loss that fuses the unembedding
+            # (ops.xent.fused_unembed_xent): lm_head.weight gets its
+            # gradient through that op
+            if par.tp.size > 1 or par.cp.size > 1:
+                raise _a3c("return_hidden on a tp / sp / cp mesh")
+            return self.ln_f(x).to(dt)
+        return _head(self.ln_f, self.lm_head, x, par, cfg.vocab_size)
 
     def grad_axes(self, mesh):
         """``(partial, distinct)``, each ``{name: axes}``: ``partial``

@@ -343,9 +343,10 @@ class NamedSharding:
         """``[(dim, axes), ...]`` of the dims split over the mesh, in dim
         order (empty for a replicated tensor): fsdp and tp splits, one
         dim each or two (JAX's ``_add_fsdp`` puts fsdp on a dim that tp
-        left whole).  A spec over dp (the JAX package's expert rule)
-        waits for MoE layers (A8); one over pp, for a stage layout the
-        port keeps as a module a rank (``models.pipelined``)."""
+        left whole).  A spec over dp (the JAX package's expert rule:
+        experts over ep, which rides dp) waits for expert parallelism
+        (A3c); one over pp, for a stage layout the port keeps as a module
+        a rank (``models.pipelined``)."""
         split = [(d, axes) for d, axes in enumerate(self.dim_axes(ndim))
                  if axes]
         for _, axes in split:
@@ -357,8 +358,9 @@ class NamedSharding:
                         f"(models.pipelined), not as a split ({A3C})")
                 if a not in (AXIS_FSDP, AXIS_TP):
                     raise NotImplementedError(
-                        f"a {a}-sharded parameter (spec {self.spec}) is not "
-                        "ported yet (ROADMAP A8: MoE layers)")
+                        f"a {a}-sharded parameter (spec {self.spec}; MoE "
+                        "experts over ep) is not ported yet (ROADMAP A3c: "
+                        "expert parallelism)")
         return split
 
     def split_axes(self, ndim):

@@ -21,7 +21,8 @@ The JAX package writes each export (its builder spec and
 - the batch CLI on a JAX export writes the JAX CLI's logits (1e-4);
 - the port writes a JAX-format export (``export_jax_saved_model``) that
   the JAX package loads;
-- a zoo builder raises NotImplementedError naming A8;
+- a JAX builder without a counterpart raises NotImplementedError (the
+  zoo's builders map to the port's);
 - remote paths: the port's ``fsio`` against JAX ``fsio`` over fsspec's
   ``memory://``, and a JAX export and an adapter file read from there.
 """
@@ -223,16 +224,22 @@ def test_port_writes_a_jax_format_export(jax_lm, tmp_path):
 
 
 def test_zoo_builder_raises_naming_a8(tmp_path):
+    """A JAX builder without a counterpart raises NotImplementedError
+    (the zoo's builders now map: bert's export loads its model)."""
     d = str(tmp_path / "zoo")
     os.makedirs(d)
     with open(os.path.join(d, export.MODEL_SPEC), "w") as f:
         json.dump({"format": "tfos-tpu-saved-model", "version": 1,
-                   "builder": "tensorflowonspark_tpu.models.bert:build_bert",
-                   "builder_kwargs": {}, "signatures": {}}, f)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+                   "builder": "tensorflowonspark_tpu.models.pipelined:"
+                   "PipelinedLM", "builder_kwargs": {}, "signatures": {}},
+                  f)
+    with pytest.raises(NotImplementedError, match="no counterpart"):
         export.load_model(d, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(NotImplementedError, match="no counterpart"):
         convert.port_builder("tensorflowonspark_tpu.models.zoo:resnet50")
+    assert convert.port_builder(
+        "tensorflowonspark_tpu.models.bert:build_bert") == (
+        "tensorflowonspark_tpu_torch.models.bert:build_bert")
 
 
 def test_fsio_memory_paths_match_jax_fsio(jax_lm):

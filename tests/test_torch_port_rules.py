@@ -77,6 +77,10 @@ def _module_names():
 
 def test_imports_with_jax_blocked():
     assert "tensorflowonspark_tpu_torch.optim8bit" in _module_names()
+    for mod in ("common", "mlp", "linear", "cnn", "resnet", "unet",
+                "deeplab", "vit", "bert"):
+        assert f"tensorflowonspark_tpu_torch.models.{mod}" in _module_names()
+    assert "tensorflowonspark_tpu_torch.ops.xent" in _module_names()
     for mod in ("kvtier", "kvtransfer", "trace"):
         assert f"tensorflowonspark_tpu_torch.{mod}" in _module_names()
     code = (

@@ -19,7 +19,10 @@ controller of the port's replica, against the JAX package's.
   draft model and composes with n-gram speculation); a live request
   whose ``Idempotency-Key`` a second request reuses is cancelled;
   ``POST /v1/fleet:drain`` fences admissions (503 with ``Retry-After``,
-  ``/readyz`` 503); ``/v1/debug:profile`` answers 501 naming A8.
+  ``/readyz`` 503); ``/v1/debug:profile`` answers 501 naming A8;
+- chip_smoke phase 17's load (every row a batch session, interactive
+  requests one per thread) gives the same interactive tokens with the
+  controller armed and disarmed, in f32 (ROADMAP §C).
 Tolerance: exact.
 """
 import collections
@@ -126,6 +129,54 @@ def test_parked_sessions_equal_their_runs_and_accounting_returns_to_zero(
     assert st["qdelay_batch_count"] >= 2
     assert base["sessions_parked"] == 0
     assert st["qdelay_interactive_p95_ms"] < base["qdelay_interactive_p95_ms"]
+
+
+def _phase17_load(pm, preempt_ms):
+    """chip_smoke phase 17's mixed load, small: batch sessions (greedy
+    and seeded sampled) on every row of a paged pool, then interactive
+    requests that arrive one per thread.  (interactive prompts, their
+    outputs, the batch outputs, stats)."""
+    b = serve.ContinuousBatcher(pm, device="cpu", n_slots=4, read_chunk=1,
+                                prefill_chunk=16, preempt_ms=preempt_ms,
+                                kv_page_size=8, kv_pages=64)
+    try:
+        bp = lm_mod.prompts(4, seed=71)
+        hb = [b.submit(p, BATCH_N, priority="batch",
+                       **({"temperature": 0.8, "seed": 5 + i} if i % 2
+                          else {})) for i, p in enumerate(bp)]
+        for h in hb:
+            h.tokens.get(timeout=300)
+        ip = lm_mod.prompts(4, seed=72)
+        inter = [None] * len(ip)
+
+        def run(i):
+            inter[i] = b.submit(ip[i], INTER_N).result(timeout=300)
+
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(len(ip))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads)
+        batch = [h.result(timeout=300) for h in hb]
+        assert lm_mod.conserved(b)
+        return ip, inter, batch, b.stats()
+    finally:
+        b.stop()
+
+
+def test_interactive_tokens_equal_with_the_controller_armed_and_disarmed():
+    """ROADMAP §C on the CPU in f32: the interactive tokens of phase
+    17's load do not depend on whether the controller parks batch
+    sessions (both equal the solo decodes), so a parting on the card is
+    a bf16 near tie, not a fault of the park / unpark path."""
+    _, _, pm = lm_mod.tiny_lm()
+    ip, armed, armed_batch, st = _phase17_load(pm, 1.0)
+    _, disarmed, base_batch, base = _phase17_load(pm, 0.0)
+    assert st["sessions_parked"] >= 1 and base["sessions_parked"] == 0
+    assert armed == disarmed == [lm_mod.solo(pm, p, INTER_N) for p in ip]
+    assert armed_batch == base_batch
 
 
 @pytest.fixture(scope="module")

@@ -88,7 +88,7 @@ def test_placing_tp_specs_raises_naming_a3b(flax_params):
     """tp specs now place (column-parallel splits the port's dim 0, row-
     parallel its dim 1, the tables d_model); what still raises names its
     ROADMAP item: a pp-split leaf (the port keeps a stage as a module,
-    A3c) and a dp-split one (MoE experts, A8)."""
+    A3c) and a dp-split one (MoE experts over ep, A3c)."""
     _, got = _port(flax_params, MESHES["dp4tp2"], False)
     assert got["layer_0.attn.query.weight"].shard_dim(2) == [(0, ("tp",))]
     assert got["layer_0.attn.out.weight"].shard_dim(2) == [(1, ("tp",))]
@@ -96,7 +96,7 @@ def test_placing_tp_specs_raises_naming_a3b(flax_params):
     assert got["lm_head.weight"].shard_dim(2) == [(0, ("tp",))]
     assert got["layer_0.ln1.weight"].shard_dim(1) == []
     mesh = mesh_mod.Mesh(mesh_mod.MeshSpec(dp=4, pp=2).resolve(8))
-    for spec, item in ((("pp",), r"ROADMAP A3c"), (("dp",), r"ROADMAP A8")):
+    for spec, item in ((("pp",), r"ROADMAP A3c"), (("dp",), r"ROADMAP A3c")):
         with pytest.raises(NotImplementedError, match=item):
             mesh_mod.NamedSharding(mesh, spec).shard_dim(1)
 

@@ -185,7 +185,10 @@ def test_filter_top_k_p_matches_jax(top_k, top_p, min_p):
 
 
 def test_unported_config_fields_raise():
-    for kw in ({"num_experts": 2}, {"ring_attention_axis": "dp"},
+    for kw in ({"ulysses_axis": "dp"}, {"ring_attention_axis": "dp"},
                {"paged_attn_impl": "einsum"}):
         with pytest.raises(NotImplementedError, match="not ported"):
             port_tf.build_transformer(**dict(BASE, **kw))
+    # MoE layers are ported: one device builds them whole
+    assert port_tf.build_transformer(**dict(BASE, num_experts=2)) \
+        .moe_layers()
