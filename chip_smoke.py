@@ -13,8 +13,10 @@ repetition penalty, LoRA tenants and fine-tuning, speculative decoding,
 and two replicas moving live sessions between them (kv migration, the
 host page tier, preemption, tracing and the scrape) — on one NVIDIA
 GPU, the fleet gateway, its client and bulk jobs in front of two of
-them, and the model zoo (MnistMLP, MnistCNN, ResNet-56, ResNet-50, UNet,
-DeepLabV3, ViT-B/16, BERT-base) and the MoE flagship trained on it.
+them, the model zoo (MnistMLP, MnistCNN, ResNet-56, ResNet-50, UNet,
+DeepLabV3, ViT-B/16, BERT-base) and the MoE flagship trained on it,
+HuggingFace checkpoints (TinyLlama, GPT-2, Mixtral, BERT) converted,
+served, fine-tuned and checkpointed, and the MNIST example.
 
     python3 chip_smoke.py
 
@@ -348,6 +350,42 @@ caught and reported as passed):
    ``lm_loss`` at B 8 x S 1024 x vocab 32000 (bf16 hidden states): the
    loss within 1e-4, both gradients within XENT_GRAD_RTOL of their
    scale, each one's peak memory over its inputs and its time;
+21. (after 20) the ``hf_main_path`` line, one ``hf_model`` line a model
+   before it: HuggingFace checkpoints at their published widths
+   (HF_CONFIGS, each named by its hub config), weights drawn normal(0,
+   0.02) from a seed under HF's own key names on the card and converted
+   by the port's ``from_hf_*`` as a ``(config, state_dict)`` pair.
+   TinyLlama-1.1B (22 layers, 32 q / 4 kv heads of 64): exported and
+   served by the paged server in bf16 (phase 5's 8 greedy prompts, 32
+   new; kernels 1-3 launched, the pool conserved), then fine-tuned
+   through ``make_train_step`` with ``adamw_fused`` (B 8 x S 1024; a
+   warm-up step and HF_TRAIN_STEPS, kernels 4-6 a layer a step and
+   kernel 7 a leaf a step; the losses through ``DeferredScalars`` into a
+   ``SummaryWriter``, read back by ``read_scalars``), an asynchronous
+   full-state checkpoint after step HF_SAVE_AT (write, read s and GB/s;
+   the state restored into a fresh one bit for bit equal to the saved
+   one, the following steps' losses equal to the uninterrupted run's;
+   HF_TRAIN_CUT layers when the disk lacks room), and
+   ``metrics.perplexity`` on a held-out batch; GPT-2 (12 heads of 64,
+   MHA, learned positions and biases, tied head) served over 8 prompts
+   of 100..900 tokens; Mixtral-8x7B at HF_MIXTRAL_LAYERS of its 32
+   layers (8 experts top-2 at capacity E/k, 32 q / 8 kv heads of 128)
+   served over 4 prompts, no token dropped, each expert's load;
+   bert-base-uncased in the ``BertForPreTraining`` layout, one forward
+   and HF_BERT_STEPS ``adamw_fused`` steps at B 32 x 128 (kernels 4-6
+   non-causal), its masked MLM accuracy (``metrics.accuracy``).  Kernels
+   1-3 at each served model's heads and kernels 4-6 at TinyLlama's
+   training shape against their plain versions; the 2-layer cuts of
+   TinyLlama and GPT-2, bf16 on the card against f32 on the CPU, within
+   ZOO_LOGIT_RTOL of their logits' scale;
+22. (after 21) the ``mnist_main_path`` line: the port's MNIST example as
+   a user runs it, in subprocesses: ``torch_mnist_data_setup.py`` (1000
+   examples), ``torch_mnist_spark.py --platform cuda --cluster_size 1
+   --batch_size 64`` with a model, export and log dir, then again (it
+   resumes from the first run's checkpoint and says so); the export
+   loaded by ``export.load_saved_model`` scores the 1000 examples
+   (``metrics.accuracy`` at least MNIST_MIN_ACCURACY), the event files
+   read back by ``read_scalars`` hold every step once;
 16c. (after 8b) the ``lora_train_main_path`` line: ``make_lora_loss`` on
    the flagship step's model (B 8 x S 1024), adamw_fused over the rank-8
    adapters: a warm-up step and a window of 5, kernels 4-6 16 launches
@@ -359,7 +397,7 @@ caught and reported as passed):
    each kernel's own main path: the
    quantised kernels from their serving run, the int8 kv kernels from the
    int8 kv run with bf16 weights, kernel 11 from the fused LayerNorm
-   run, kernel 8 from phase 8b; phases 15 to 20 add their runs'
+   run, kernel 8 from phase 8b; phases 15 to 21 add their runs'
    launches); the ``engine_serial_vs_async`` line
    (phase 12's four numbers of each engine, dense and paged, beside the
    card's name and power limit); then the card line and, last, the
@@ -367,8 +405,7 @@ caught and reported as passed):
 
 The whole run, the kernels' build included, must end inside its 1,200
 s limit: phase 17 serves REPLICA_LAYERS of the flagship's 16 layers to
-stay there, and phases 19 and 20 take about 20 s on one H100 80GB
-(700 W).
+stay there; phases 19 and 20 take about 20 s on one H100 80GB (700 W).
 
 Exits 2 without a result when no CUDA device exists or when the port's
 package is not beside this file.
@@ -6142,39 +6179,9 @@ def flash_noncausal_checks(torch, dev):
     at the encoders' shapes: ViT-B/16 (B 64, 197 tokens: a ragged last
     64-row tile) and BERT-base (B 32, S 128), 12 heads of 64, bf16 (phase
     6's tolerances)."""
-    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
-
-    out = {}
-    for label, (B, S) in (("vit_b16", (64, 197)), ("bert_base", (32, 128))):
-        gen = torch.Generator().manual_seed(SEED + S)
-        q, k, v, do = (torch.randn((B, S, 12, 64), generator=gen).to(
-            dev, torch.bfloat16) for _ in range(4))
-        got, lse = fa.flash_fwd(q, k, v, False)
-        ref, ref_lse = fa.flash_fwd_plain(q, k, v, False)
-        delta = torch.einsum("bshd,bshd->bhs", do.float(), ref.float())
-        dq = fa.flash_bwd_dq(q, k, v, do, ref_lse, delta, False)
-        want_dq = fa.flash_bwd_dq_plain(q, k, v, do, ref_lse, delta, False)
-        dk, dv = fa.flash_bwd_dkv(q, k, v, do, ref_lse, delta, False)
-        want_dk, want_dv = fa.flash_bwd_dkv_plain(q, k, v, do, ref_lse,
-                                                  delta, False)
-        torch.cuda.synchronize()
-        errs = {}
-        for what, g, w, atol in (("out", got, ref, TOL),
-                                 ("lse", lse, ref_lse, TOL),
-                                 ("dq", dq, want_dq, GRAD_ATOL),
-                                 ("dk", dk, want_dk, GRAD_ATOL),
-                                 ("dv", dv, want_dv, GRAD_ATOL)):
-            errs[what] = (g.float() - w.float()).abs().max().item()
-            if not torch.allclose(g.float(), w.float(), atol=atol,
-                                  rtol=TOL):
-                raise AssertionError(f"flash {what} (non-causal, {label} "
-                                     f"{B}x{S}) disagrees: {errs[what]}")
-        out[label] = dict(shape=[B, S, 12, 64], causal=False,
-                          max_abs_errs=errs, tol=TOL, grad_atol=GRAD_ATOL)
-        del q, k, v, do, got, lse, ref, ref_lse, delta, dq, want_dq
-        del dk, dv, want_dk, want_dv
-    torch.cuda.empty_cache()
-    return out
+    return flash_checks(torch, dev, [
+        ("vit_b16", (64, 197, 12, 12, 64), False),
+        ("bert_base", (32, 128, 12, 12, 64), False)])
 
 
 def phase_zoo(torch, dev, card):
@@ -6394,6 +6401,838 @@ def phase_moe(torch, dev, card, phase8):
     out["xent"] = xent_check(torch, dev)
     out["nvidia_smi"] = card
     return out, launches
+
+
+# phase 21: HuggingFace checkpoints on the card.  Each model is built from
+# a seeded generator under HF's own key names at its published widths
+# (weights normal(0, 0.02), norm scales 1) and converted by the port's
+# ``from_hf_*`` as a ``(config, state_dict)`` pair: nothing is fetched,
+# and the card's machine has no ``transformers``.
+HF_CONFIGS = {
+    # TinyLlama/TinyLlama-1.1B-intermediate-step-1431k-3T, config.json
+    "llama": dict(vocab_size=32000, hidden_size=2048,
+                  intermediate_size=5632, num_hidden_layers=22,
+                  num_attention_heads=32, num_key_value_heads=4,
+                  max_position_embeddings=2048, rms_norm_eps=1e-5,
+                  rope_theta=10000.0, hidden_act="silu", rope_scaling=None,
+                  tie_word_embeddings=False, attention_bias=False,
+                  attention_dropout=0.0),
+    # openai-community/gpt2, config.json
+    "gpt2": dict(vocab_size=50257, n_embd=768, n_layer=12, n_head=12,
+                 n_positions=1024, n_inner=None,
+                 activation_function="gelu_new", layer_norm_epsilon=1e-5,
+                 scale_attn_weights=True, tie_word_embeddings=True),
+    # mistralai/Mixtral-8x7B-v0.1, config.json (HF_MIXTRAL_LAYERS of its
+    # 32 layers: the whole model, ~93 GB in bf16, exceeds one card)
+    "mixtral": dict(vocab_size=32000, hidden_size=4096,
+                    intermediate_size=14336, num_hidden_layers=32,
+                    num_attention_heads=32, num_key_value_heads=8,
+                    num_local_experts=8, num_experts_per_tok=2,
+                    max_position_embeddings=32768, rms_norm_eps=1e-5,
+                    rope_theta=1e6, sliding_window=None, hidden_act="silu",
+                    tie_word_embeddings=False, attention_dropout=0.0),
+    # google-bert/bert-base-uncased, config.json (BertForPreTraining)
+    "bert": dict(vocab_size=30522, hidden_size=768, num_hidden_layers=12,
+                 num_attention_heads=12, intermediate_size=3072,
+                 max_position_embeddings=512, type_vocab_size=2,
+                 layer_norm_eps=1e-12, hidden_act="gelu",
+                 position_embedding_type="absolute"),
+}
+HF_LAYERS_KEY = {"llama": "num_hidden_layers", "gpt2": "n_layer",
+                 "mixtral": "num_hidden_layers", "bert": "num_hidden_layers"}
+HF_MIXTRAL_LAYERS = 2
+HF_PARITY_LAYERS = 2
+HF_NEW = 32
+HF_GPT2_LENS = (100, 214, 329, 443, 557, 671, 786, 900)
+HF_MIXTRAL_LENS = (100, 300, 500, 700)
+HF_TRAIN_STEPS, HF_SAVE_AT = 10, 5      # after a warm-up step
+HF_TRAIN_CUT = 4        # layers of the round trip when the disk is short
+HF_LR = 3e-4
+HF_BERT_STEPS = 2
+
+
+def hf_config(family, n_layers=None):
+    """The published config of ``family`` as a dict, at ``n_layers``
+    when given."""
+    c = dict(HF_CONFIGS[family])
+    if n_layers is not None:
+        c[HF_LAYERS_KEY[family]] = n_layers
+    return c
+
+
+def hf_layout(family, c):
+    """``{HF key: (shape, kind)}`` of a checkpoint of ``family``
+    (``LlamaForCausalLM``, ``GPT2LMHeadModel``, ``MixtralForCausalLM``,
+    ``BertForPreTraining``) at config ``c``; kind ``"w"`` (a weight or a
+    bias), ``"norm"`` (a norm's scale) or ``"tied:<key>"`` (the same
+    tensor as ``<key>``)."""
+    out = {}
+
+    def add(key, *shape, kind="w"):
+        out[key] = (tuple(shape), kind)
+
+    if family in ("llama", "mixtral"):
+        d, H = c["hidden_size"], c["num_attention_heads"]
+        Dh, kv, ff = d // H, c["num_key_value_heads"], c["intermediate_size"]
+        add("model.embed_tokens.weight", c["vocab_size"], d)
+        for i in range(c["num_hidden_layers"]):
+            p = f"model.layers.{i}."
+            add(p + "self_attn.q_proj.weight", H * Dh, d)
+            add(p + "self_attn.k_proj.weight", kv * Dh, d)
+            add(p + "self_attn.v_proj.weight", kv * Dh, d)
+            add(p + "self_attn.o_proj.weight", d, H * Dh)
+            if family == "llama":
+                add(p + "mlp.gate_proj.weight", ff, d)
+                add(p + "mlp.up_proj.weight", ff, d)
+                add(p + "mlp.down_proj.weight", d, ff)
+            else:
+                m = p + "block_sparse_moe."
+                add(m + "gate.weight", c["num_local_experts"], d)
+                for e in range(c["num_local_experts"]):
+                    add(m + f"experts.{e}.w1.weight", ff, d)
+                    add(m + f"experts.{e}.w2.weight", d, ff)
+                    add(m + f"experts.{e}.w3.weight", ff, d)
+            add(p + "input_layernorm.weight", d, kind="norm")
+            add(p + "post_attention_layernorm.weight", d, kind="norm")
+        add("model.norm.weight", d, kind="norm")
+        add("lm_head.weight", c["vocab_size"], d,
+            kind="tied:model.embed_tokens.weight"
+            if c["tie_word_embeddings"] else "w")
+    elif family == "gpt2":
+        d = c["n_embd"]
+        ff = c["n_inner"] or 4 * d
+        add("transformer.wte.weight", c["vocab_size"], d)
+        add("transformer.wpe.weight", c["n_positions"], d)
+        for i in range(c["n_layer"]):
+            p = f"transformer.h.{i}."
+            for ln in ("ln_1", "ln_2"):
+                add(p + ln + ".weight", d, kind="norm")
+                add(p + ln + ".bias", d)
+            # Conv1D: [in, out]
+            add(p + "attn.c_attn.weight", d, 3 * d)
+            add(p + "attn.c_attn.bias", 3 * d)
+            add(p + "attn.c_proj.weight", d, d)
+            add(p + "attn.c_proj.bias", d)
+            add(p + "mlp.c_fc.weight", d, ff)
+            add(p + "mlp.c_fc.bias", ff)
+            add(p + "mlp.c_proj.weight", ff, d)
+            add(p + "mlp.c_proj.bias", d)
+        add("transformer.ln_f.weight", d, kind="norm")
+        add("transformer.ln_f.bias", d)
+        add("lm_head.weight", c["vocab_size"], d,
+            kind="tied:transformer.wte.weight"
+            if c["tie_word_embeddings"] else "w")
+    else:
+        d, ff, V = c["hidden_size"], c["intermediate_size"], c["vocab_size"]
+
+        def dense(key, n_out, n_in):
+            add(key + ".weight", n_out, n_in)
+            add(key + ".bias", n_out)
+
+        def norm(key):
+            add(key + ".weight", d, kind="norm")
+            add(key + ".bias", d)
+
+        e = "bert.embeddings."
+        add(e + "word_embeddings.weight", V, d)
+        add(e + "position_embeddings.weight", c["max_position_embeddings"],
+            d)
+        add(e + "token_type_embeddings.weight", c["type_vocab_size"], d)
+        norm(e + "LayerNorm")
+        for i in range(c["num_hidden_layers"]):
+            p = f"bert.encoder.layer.{i}."
+            for name in ("query", "key", "value"):
+                dense(p + "attention.self." + name, d, d)
+            dense(p + "attention.output.dense", d, d)
+            norm(p + "attention.output.LayerNorm")
+            dense(p + "intermediate.dense", ff, d)
+            dense(p + "output.dense", d, ff)
+            norm(p + "output.LayerNorm")
+        dense("bert.pooler.dense", d, d)
+        add("cls.predictions.bias", V)
+        dense("cls.predictions.transform.dense", d, d)
+        norm("cls.predictions.transform.LayerNorm")
+        add("cls.predictions.decoder.weight", V, d,
+            kind="tied:" + e + "word_embeddings.weight")
+        add("cls.predictions.decoder.bias", V,
+            kind="tied:cls.predictions.bias")
+        dense("cls.seq_relationship", 2, d)
+    return out
+
+
+def hf_state_dict(torch, family, c, dev, gen, dtype=None):
+    """A seeded HF state dict of ``family`` at config ``c`` on ``dev``:
+    weights and biases drawn normal(0, 0.02) from ``gen`` (a generator
+    on ``dev``) in layout order, norm scales 1, tied keys the same
+    tensor."""
+    dtype = dtype or torch.float32
+    sd = {}
+    for key, (shape, kind) in hf_layout(family, c).items():
+        if kind.startswith("tied:"):
+            sd[key] = sd[kind[5:]]
+        elif kind == "norm":
+            sd[key] = torch.ones(shape, dtype=dtype, device=dev)
+        else:
+            sd[key] = torch.empty(shape, dtype=dtype, device=dev).normal_(
+                0.0, 0.02, generator=gen)
+    return sd
+
+
+def hf_convert(torch, family, dev, seed, n_layers=None, **over):
+    """Build ``family``'s seeded HF state dict on ``dev`` and convert it
+    with the port's ``from_hf_*`` as a ``(config dict, state_dict)``
+    pair.  Returns ``(cfg, state_dict, convert_s)``."""
+    from tensorflowonspark_tpu_torch import convert
+
+    c = hf_config(family, n_layers)
+    gen = torch.Generator(torch.device(dev)).manual_seed(seed)
+    sd = hf_state_dict(torch, family, c, dev, gen)
+    fn = {"llama": convert.from_hf_llama, "gpt2": convert.from_hf_gpt2,
+          "mixtral": convert.from_hf_mixtral,
+          "bert": convert.from_hf_bert}[family]
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.monotonic()
+    cfg, port_sd = fn((c, sd), **over)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+    return cfg, port_sd, time.monotonic() - t0
+
+
+def hf_parity(torch, dev, family):
+    """The ``HF_PARITY_LAYERS``-layer cut of ``family`` at full width:
+    the same seeded HF weights converted, in bf16 on the card and in f32
+    on the CPU, one forward each on the same tokens: logits within
+    ZOO_LOGIT_RTOL of their scale (phase 19's rule)."""
+    import dataclasses
+
+    from tensorflowonspark_tpu_torch.models.transformer import Transformer
+
+    cfg, sd, _ = hf_convert(torch, family, "cpu", SEED + 23,
+                            n_layers=HF_PARITY_LAYERS, dtype="float32",
+                            attention_impl="dense")
+    cpu = Transformer(cfg)
+    cpu.load_state_dict(sd, strict=True)
+    with torch.device(dev):
+        card = Transformer(dataclasses.replace(cfg, dtype="bfloat16",
+                                               attention_impl="auto"))
+    card.load_state_dict(sd, strict=True)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 128),
+                           generator=torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        want = cpu.eval()(tokens)
+        got = card.eval()(tokens.to(dev)).float().cpu()
+    err = (got - want).abs().max().item()
+    scale = max(1.0, want.abs().max().item())
+    if not err <= ZOO_LOGIT_RTOL * scale:
+        raise AssertionError(f"{family} parity: logits differ by {err} "
+                             f"(scale {scale})")
+    del cpu, card
+    return dict(layers=HF_PARITY_LAYERS, batch=2, seq=128,
+                logit_err_rel=err / scale, tol=ZOO_LOGIT_RTOL)
+
+
+def hf_export(torch, cfg, state_dict, name, dtype=None):
+    """Export a converted model for the server (``params.pt`` as given,
+    or cast to ``dtype``: the served model computes in bf16 either way).
+    Returns ``(export_dir, write_s, bytes)``."""
+    import dataclasses
+
+    from tensorflowonspark_tpu_torch import export
+
+    export_dir = os.path.join(HERE, "build", "chip_smoke", name)
+    shutil.rmtree(export_dir, ignore_errors=True)
+    if dtype is not None:
+        state_dict = {k: v.to(dtype) for k, v in state_dict.items()}
+    nbytes = sum(v.numel() * v.element_size() for v in state_dict.values())
+    t0 = time.monotonic()
+    export.export_saved_model(export_dir, state_dict,
+                              builder_kwargs=dataclasses.asdict(cfg))
+    return export_dir, time.monotonic() - t0, nbytes
+
+
+def hf_serve(torch, dev, export_dir, prompts):
+    """The prompts as one greedy request to the paged server over the
+    export (phase 12's paged flags), the serving kernels' launch counts
+    set to 0 just before it and read just after.  Returns (outputs,
+    numbers, launches, the batcher's model stats)."""
+    from tensorflowonspark_tpu_torch import ops
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    with EngineServer(export_dir, dev, *ENGINE_PAGED) as srv:
+        load_s = time.monotonic() - t0
+        b = srv.batcher
+        ops.reset_launch_counts()
+        t = time.monotonic()
+        outs = srv.generate(prompts, max_new=HF_NEW)
+        burst_s = time.monotonic() - t
+        launches = ops.launch_counts(ops.SERVING_KERNELS)
+        st = b.stats()
+        for p, o in zip(prompts, outs):
+            if o[:len(p)] != p or len(o) != len(p) + HF_NEW:
+                raise AssertionError("served output is not prompt + new")
+        for name, n in launches.items():
+            if not n:
+                raise AssertionError(f"{name} was never launched")
+        if not pool_conserved(b):
+            raise AssertionError("the page pool is not conserved")
+        extra = {}
+        moe = b.model.moe_layers() if hasattr(b.model, "moe_layers") else {}
+        if moe:
+            # the experts' load: the tokens each expert takes in a forward
+            # of each prompt alone, summed over the prompts, each layer
+            load = {name: 0 for name in moe}
+            dropped = {name: 0.0 for name in moe}
+            with torch.no_grad():
+                for p in prompts:
+                    b.model(torch.tensor([p], device=dev))
+                    for name, m in moe.items():
+                        load[name] = load[name] + torch.bincount(
+                            m.expert_index.reshape(-1),
+                            minlength=m.experts_wi.shape[0])
+                        dropped[name] = max(dropped[name], m.dropped.item())
+            extra["expert_load"] = {k: v.tolist() for k, v in load.items()}
+            extra["dropped"] = dropped
+    numbers = dict(
+        prompts=[len(p) for p in prompts], new=HF_NEW, load_s=load_s,
+        burst_s=burst_s,
+        burst_new_tokens_per_s=len(prompts) * HF_NEW / burst_s,
+        ttft_mean_ms=st["ttft_avg_ms"],
+        decode_step_ms_p50=st["decode_step_ms_p50"],
+        decode_steps=st["decode_steps"],
+        prefill_dispatches=st["prefill_dispatches"],
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        new_tokens=[o[len(p):] for p, o in zip(prompts, outs)],
+        launches=launches, **extra)
+    return outs, numbers, launches
+
+
+def hf_serving_kernel_checks(torch, dev, H, n_kv, Dh, lens):
+    """Kernels 1-3 against their plain versions at a served model's
+    heads (bf16, page 64): the decode over a shuffled 32-page table at
+    the burst's lengths, and a 256-token chunk written and read at
+    offset 512."""
+    from tensorflowonspark_tpu_torch.ops import paged_attention as pa
+    from tensorflowonspark_tpu_torch.ops import paged_prefill as pp
+
+    bf16, page, width = torch.bfloat16, 64, 32
+    B = len(lens)
+    NP = B * width + 1
+    gen = torch.Generator().manual_seed(SEED + H + n_kv + Dh)
+    pk, pv = (torch.randn((NP, page, n_kv, Dh), generator=gen).to(dev, bf16)
+              for _ in range(2))
+    out = {}
+
+    def check(name, got, want, **shape):
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if not torch.allclose(got.float(), want.float(), atol=TOL, rtol=TOL):
+            raise AssertionError(f"{name} at H {H} / {n_kv} kv, D {Dh} "
+                                 f"disagrees with its plain version: {err}")
+        out[name] = dict(max_abs_err=err, tol=TOL, **shape)
+
+    table = shuffled_table(torch, gen, B, width, NP, dev)
+    lengths = torch.tensor([n + HF_NEW for n in lens], dtype=torch.int32,
+                           device=dev)
+    q = torch.randn((B, 1, H, Dh), generator=gen).to(dev, bf16)
+    check("paged_attention", pa.paged_attention(q, pk, pv, table, lengths),
+          pa.paged_attention_plain(q, pk, pv, table, lengths),
+          B=B, H=H, n_kv=n_kv, Dh=Dh, lengths=lengths.tolist())
+    S, start = 256, 512
+    rows = min(B, 4)
+    table = table[:rows].contiguous()
+    starts = torch.full((rows,), start, dtype=torch.int32, device=dev)
+    q = torch.randn((rows, S, H, Dh), generator=gen).to(dev, bf16)
+    k, v = (torch.randn((rows, S, n_kv, Dh), generator=gen).to(dev, bf16)
+            for _ in range(2))
+    pk2, pv2 = pk.clone(), pv.clone()
+    pp._write_pages(k, v, pk, pv, table, starts)
+    pp.write_pages_plain(k, v, pk2, pv2, table, starts)
+    torch.cuda.synchronize()
+    nonsink = torch.arange(NP, device=dev) != NP - 1
+    if not (torch.equal(pk[nonsink], pk2[nonsink])
+            and torch.equal(pv[nonsink], pv2[nonsink])):
+        raise AssertionError(f"page write at H {H} / {n_kv} kv, D {Dh}: "
+                             "pools differ off the sink")
+    out["page_write"] = dict(max_abs_err=0.0, tol=0.0, B=rows, S=S,
+                             start=start, n_kv=n_kv, Dh=Dh)
+    check("prefill_read", pp._read_attention(q, k, v, pk, pv, table, starts),
+          pp.read_attention_plain(q, k, v, pk, pv, table, starts),
+          B=rows, S=S, start=start, H=H, n_kv=n_kv, Dh=Dh)
+    del pk, pv, pk2, pv2
+    torch.cuda.empty_cache()
+    return out
+
+
+def flash_checks(torch, dev, cases):
+    """Kernels 4-6 against their plain versions (phase 6's tolerances) at
+    each ``(label, (B, S, H, n_kv, Dh), causal)`` of ``cases``, bf16."""
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+
+    out = {}
+    for label, (B, S, H, n_kv, Dh), causal in cases:
+        gen = torch.Generator().manual_seed(SEED + S + H)
+        q, do = (torch.randn((B, S, H, Dh), generator=gen).to(
+            dev, torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn((B, S, n_kv, Dh), generator=gen).to(
+            dev, torch.bfloat16) for _ in range(2))
+        got, lse = fa.flash_fwd(q, k, v, causal)
+        ref, ref_lse = fa.flash_fwd_plain(q, k, v, causal)
+        delta = torch.einsum("bshd,bshd->bhs", do.float(), ref.float())
+        dq = fa.flash_bwd_dq(q, k, v, do, ref_lse, delta, causal)
+        want_dq = fa.flash_bwd_dq_plain(q, k, v, do, ref_lse, delta, causal)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, ref_lse, delta, causal)
+        want_dk, want_dv = fa.flash_bwd_dkv_plain(q, k, v, do, ref_lse,
+                                                  delta, causal)
+        torch.cuda.synchronize()
+        errs = {}
+        for what, g, w, atol in (("out", got, ref, TOL),
+                                 ("lse", lse, ref_lse, TOL),
+                                 ("dq", dq, want_dq, GRAD_ATOL),
+                                 ("dk", dk, want_dk, GRAD_ATOL),
+                                 ("dv", dv, want_dv, GRAD_ATOL)):
+            errs[what] = (g.float() - w.float()).abs().max().item()
+            if not torch.allclose(g.float(), w.float(), atol=atol,
+                                  rtol=TOL):
+                raise AssertionError(f"flash {what} ({label}, causal "
+                                     f"{causal}) disagrees: {errs[what]}")
+        out[label] = dict(shape=[B, S, H, n_kv, Dh], causal=causal,
+                          max_abs_errs=errs, tol=TOL, grad_atol=GRAD_ATOL)
+        del q, k, v, do, got, lse, ref, ref_lse, delta, dq, want_dq
+        del dk, dv, want_dk, want_dv
+        torch.cuda.empty_cache()
+    return out
+
+
+def hf_llama_train(torch, dev, cfg, state_dict, card):
+    """The converted TinyLlama fine-tuned on the card: ``make_train_step``
+    with ``adamw_fused`` (f32 moments, lr HF_LR) at B 8 x S 1024 (kernels
+    4-7), a warm-up step and HF_TRAIN_STEPS steps, the losses through
+    ``DeferredScalars`` into a ``SummaryWriter`` read back with
+    ``read_scalars``.  After step HF_SAVE_AT an asynchronous full-state
+    ``save_checkpoint`` (written while steps go on); the state restored
+    into a fresh one equals the saved one bit for bit and steps
+    HF_SAVE_AT+1.. again give the uninterrupted losses.  Then
+    ``metrics.perplexity`` over a held-out batch.  With too little free
+    disk for the state the round trip runs on HF_TRAIN_CUT layers of the
+    same widths.  Returns (numbers, launches)."""
+    import dataclasses
+
+    from tensorflowonspark_tpu_torch import metrics, ops
+    from tensorflowonspark_tpu_torch.models.transformer import (Transformer,
+                                                                lm_loss)
+    from tensorflowonspark_tpu_torch.optim import make_optimizer
+    from tensorflowonspark_tpu_torch.parallel import train as train_mod
+    from tensorflowonspark_tpu_torch.utils import checkpoint as ckpt
+    from tensorflowonspark_tpu_torch.utils import summary
+
+    root = os.path.join(HERE, "build", "chip_smoke", "hf_train")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    n_params = sum(t.numel() for t in state_dict.values())
+    state_bytes = 3 * 4 * n_params          # f32 params and two moments
+    free = shutil.disk_usage(root).free
+    layers = cfg.n_layers
+    if free < 1.5 * state_bytes:
+        layers = HF_TRAIN_CUT
+        keep = {f"layer_{i}." for i in range(layers)}
+        state_dict = {k: v for k, v in state_dict.items()
+                      if not k.startswith("layer_")
+                      or k[:k.index(".") + 1] in keep}
+    tcfg = dataclasses.replace(cfg, n_layers=layers, dtype="bfloat16",
+                               attention_impl="flash")
+
+    def fresh():
+        with torch.device(dev):
+            model = Transformer(tcfg)
+        model.load_state_dict(state_dict, strict=True)
+        opt, _ = make_optimizer("adamw_fused", learning_rate=HF_LR)
+        return opt, train_mod.create_train_state(model, opt)
+
+    def loss_fn(m, batch, rng):
+        return lm_loss(m(batch[:, :-1]), batch[:, 1:])
+
+    gen = torch.Generator().manual_seed(SEED + 24)
+    batches = [torch.randint(0, cfg.vocab_size, (8, 1025),
+                             generator=gen).to(dev)
+               for _ in range(HF_TRAIN_STEPS + 2)]   # warm-up .. held out
+    opt, state = fresh()
+    step = train_mod.make_train_step(loss_fn, opt, donate=True)
+    log_dir = os.path.join(root, "tb")
+    writer = summary.SummaryWriter(log_dir)
+    scalars = summary.DeferredScalars(sink=writer, every=64, prefix="train/")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t = time.monotonic()
+    state, m = step(state, batches[0], None)             # warm-up
+    scalars.append(m, 0)
+    losses = [m["loss"]]
+    first_ms = (time.monotonic() - t) * 1000.0
+    ckpt_dir = os.path.join(root, "ckpt")
+    window_ms, saved, save = [], None, {}
+    t = time.monotonic()
+    for i in range(1, HF_TRAIN_STEPS + 1):
+        state, m = step(state, batches[i], None)
+        scalars.append(m, i)
+        losses.append(m["loss"])
+        if i == HF_SAVE_AT:
+            losses[-1].item()
+            window_ms.append((time.monotonic() - t) * 1000.0 / HF_SAVE_AT)
+            # the state as saved, kept on the card for the comparison
+            saved = {k: v.detach().clone()
+                     for k, v in ckpt.state_tensors(state).items()}
+            t_save = time.monotonic()
+            ckpt.save_checkpoint(ckpt_dir, state, HF_SAVE_AT,
+                                 asynchronous=True)
+            save["returned_s"] = time.monotonic() - t_save
+            t = time.monotonic()
+    losses[-1].item()
+    window_ms.append((time.monotonic() - t) * 1000.0
+                     / (HF_TRAIN_STEPS - HF_SAVE_AT))
+    launches = ops.launch_counts(ops.TRAINING_KERNELS)
+    ckpt.wait_for_saves()
+    save["write_s"] = time.monotonic() - t_save
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    scalars.flush()
+    writer.close()
+    losses = [x.item() for x in losses]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"llama fine-tuning loss not finite: {losses}")
+    n_steps = HF_TRAIN_STEPS + 1
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if launches[name] != layers * n_steps:
+            raise AssertionError(f"llama: {name} {launches[name]} launches "
+                                 f"in {n_steps} steps of {layers} layers")
+    n_leaves = len(list(state.params.parameters()))
+    if launches["adamw"] != n_leaves * n_steps:
+        raise AssertionError(f"llama: adamw {launches['adamw']} launches")
+    logged = [v for _, tag, v in summary.read_scalars(writer.path)
+              if tag == "train/loss"]
+    if logged != [float(torch.tensor(x, dtype=torch.float32))
+                  for x in losses]:
+        raise AssertionError("the event file's losses are not the steps'")
+    ckpt_bytes = sum(v.numel() * v.element_size() for v in saved.values())
+    del state, step, m
+    torch.cuda.empty_cache()
+
+    # restore into a fresh state, then the steps after the save again
+    opt, state = fresh()
+    step = train_mod.make_train_step(loss_fn, opt, donate=True)
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    state, at = ckpt.restore_checkpoint(ckpt_dir, state)
+    torch.cuda.synchronize()
+    read_s = time.monotonic() - t
+    now = ckpt.state_tensors(state)
+    same = (sorted(now) == sorted(saved)
+            and all(torch.equal(now[k], saved[k]) for k in saved))
+    if at != HF_SAVE_AT or not same:
+        raise AssertionError(f"restored step {at}: equal to the saved "
+                             f"state {same}")
+    del saved, now
+    resumed = []
+    for i in range(HF_SAVE_AT + 1, HF_TRAIN_STEPS + 1):
+        state, m = step(state, batches[i], None)
+        resumed.append(m["loss"])
+    resumed = [x.item() for x in resumed]
+    straight = losses[HF_SAVE_AT + 1:]
+    if resumed != straight:
+        raise AssertionError(f"resumed losses {resumed} against the "
+                             f"uninterrupted run's {straight}")
+    with torch.no_grad():
+        held = batches[-1]
+        logits = state.params(held[:, :-1])
+        ppl = metrics.perplexity(logits, held[:, 1:]).item()
+    del state, step, logits
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    gb = ckpt_bytes / 1e9
+    return dict(
+        layers=layers, layers_published=cfg.n_layers,
+        cut_for_disk=layers != cfg.n_layers, free_disk_gb=free / 1e9,
+        params=sum(v.numel() for v in state_dict.values()), batch=8,
+        seq=1024, steps=n_steps, first_step_ms=first_ms,
+        step_ms=window_ms[0], step_ms_during_async_save=window_ms[1],
+        max_memory_allocated_gb=peak_gb, losses=losses,
+        checkpoint=dict(gb=gb, save_returned_s=save["returned_s"],
+                        write_s=save["write_s"],
+                        write_gb_per_s=gb / save["write_s"], read_s=read_s,
+                        read_gb_per_s=gb / read_s, read_cache="warm",
+                        restored_equals_saved=same),
+        resumed_losses=resumed, uninterrupted_losses=straight,
+        resumed_equal=resumed == straight,
+        held_out_perplexity=ppl, summary_losses_read_back=len(logged),
+        launches=launches, nvidia_smi=card), launches
+
+
+def hf_bert(torch, dev, card):
+    """bert-base-uncased's BertForPreTraining layout converted by
+    ``from_hf_bert``, one forward and HF_BERT_STEPS ``adamw_fused`` steps
+    at B 32 x 128 (kernels 4-6 non-causal, kernel 7); the MLM accuracy
+    at the masked positions (``metrics.accuracy`` with a mask) before and
+    after.  Returns (numbers, launches)."""
+    import numpy as np
+
+    from tensorflowonspark_tpu_torch import metrics, ops
+    from tensorflowonspark_tpu_torch.models import bert
+    from tensorflowonspark_tpu_torch.optim import make_optimizer
+    from tensorflowonspark_tpu_torch.parallel import train as train_mod
+
+    cfg, sd, convert_s = hf_convert(torch, "bert", dev, SEED + 25,
+                                    dtype="bfloat16", attention_impl="flash")
+    with torch.device(dev):
+        model = bert.BertForPreTraining(cfg)
+    model.load_state_dict(sd, strict=True)
+    del sd
+    B, S = 32, 128
+    rs = np.random.RandomState(SEED + 25)
+    tokens = rs.randint(0, cfg.vocab_size, (B, S))
+    corrupted, targets = bert.apply_mlm_masking(SEED, tokens, 103,
+                                                cfg.vocab_size)
+    nsp = rs.randint(0, 2, (B,))
+    batch = tuple(torch.from_numpy(a).to(dev)
+                  for a in (corrupted, targets, nsp))
+
+    def mlm_accuracy():
+        with torch.no_grad():
+            logits, _ = model(batch[0])
+        return metrics.accuracy(logits, batch[1], mask=batch[1] >= 0).item()
+
+    def loss_fn(m, b, rng):
+        mlm_logits, nsp_logits = m(b[0])
+        return bert.mlm_loss(mlm_logits, b[1]) + bert.nsp_loss(nsp_logits,
+                                                               b[2])
+
+    before = mlm_accuracy()
+    opt, _ = make_optimizer("adamw_fused", learning_rate=HF_LR)
+    state = train_mod.create_train_state(model, opt)
+    step = train_mod.make_train_step(loss_fn, opt, donate=True)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(HF_BERT_STEPS):
+        t = time.monotonic()
+        state, m = step(state, batch, None)
+        losses.append(m["loss"].item())
+        times.append((time.monotonic() - t) * 1000.0)
+    launches = ops.launch_counts(ops.TRAINING_KERNELS)
+    layers = cfg.n_layers
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if launches[name] != layers * HF_BERT_STEPS:
+            raise AssertionError(f"bert: {name} {launches[name]} launches")
+    n_leaves = len(list(model.parameters()))
+    if launches["adamw"] != n_leaves * HF_BERT_STEPS:
+        raise AssertionError(f"bert: adamw {launches['adamw']} launches")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"bert loss not finite: {losses}")
+    after = mlm_accuracy()
+    out = dict(layers=layers, params=sum(p.numel() for p in
+                                         model.parameters()),
+               convert_s=convert_s, batch=B, seq=S,
+               masked=int((batch[1] >= 0).sum()), losses=losses,
+               step_ms=times, mlm_accuracy_before=before,
+               mlm_accuracy_after=after,
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+               / 1e9, launches=launches, nvidia_smi=card)
+    del model, state, step, batch
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def phase_hf(torch, dev, card):
+    """Phase 21: TinyLlama-1.1B, GPT-2 and Mixtral-8x7B (HF_MIXTRAL_LAYERS
+    of its layers) converted from seeded HF state dicts and served by the
+    paged server in bf16 (kernels 1-3 at head_dim 64 group 8, head_dim 64
+    group 1 and head_dim 128 group 4, each also held to its plain
+    versions at those heads); TinyLlama fine-tuned with a checkpoint
+    round trip (kernels 4-7, held to their plain versions at its
+    training shape); BERT-base converted and trained; the 2-layer
+    parities.  Returns (numbers, launches)."""
+    out, launches = {"nvidia_smi": card}, {}
+    t0 = time.monotonic()
+
+    # TinyLlama: convert, export, serve, fine-tune with the round trip
+    cfg, sd, convert_s = hf_convert(torch, "llama", dev, SEED + 21,
+                                    dtype="bfloat16")
+    export_dir, write_s, nbytes = hf_export(torch, cfg, sd, "export_llama")
+    prompts = engine_prompts(torch, cfg.vocab_size)
+    _, served, got = hf_serve(torch, dev, export_dir, prompts)
+    shutil.rmtree(export_dir, ignore_errors=True)
+    add_launches(launches, got)
+    train, got = hf_llama_train(torch, dev, cfg, sd, card)
+    add_launches(launches, got)
+    del sd
+    torch.cuda.empty_cache()
+    H, kv = cfg.n_heads, cfg.n_kv_heads
+    Dh = cfg.d_model // H
+    out["llama"] = dict(
+        source="TinyLlama/TinyLlama-1.1B-intermediate-step-1431k-3T",
+        config=dict(layers=cfg.n_layers, d_model=cfg.d_model, heads=H,
+                    kv_heads=kv, head_dim=Dh, d_ff=cfg.d_ff,
+                    vocab=cfg.vocab_size, tied=False),
+        convert_s=convert_s, export_write_s=write_s, export_gb=nbytes / 1e9,
+        serve=served, train=train,
+        kernels_serving=hf_serving_kernel_checks(torch, dev, H, kv, Dh,
+                                                 ENGINE_LENS),
+        kernels_training=flash_checks(
+            torch, dev, [("llama_train", (8, 1024, H, kv, Dh), True)]),
+        parity=hf_parity(torch, dev, "llama"))
+    emit("hf_model", model="llama", at_s=time.monotonic() - t0,
+         **out["llama"])
+
+    # GPT-2: learned positions, biases, tied lm_head, MHA
+    cfg, sd, convert_s = hf_convert(torch, "gpt2", dev, SEED + 22,
+                                    dtype="bfloat16")
+    export_dir, write_s, nbytes = hf_export(torch, cfg, sd, "export_gpt2")
+    del sd
+    _, served, got = hf_serve(torch, dev, export_dir,
+                              engine_prompts(torch, cfg.vocab_size,
+                                             HF_GPT2_LENS))
+    shutil.rmtree(export_dir, ignore_errors=True)
+    add_launches(launches, got)
+    H = cfg.n_heads
+    out["gpt2"] = dict(
+        source="openai-community/gpt2",
+        config=dict(layers=cfg.n_layers, d_model=cfg.d_model, heads=H,
+                    kv_heads=H, head_dim=cfg.d_model // H, rope=cfg.rope,
+                    use_bias=cfg.use_bias, vocab=cfg.vocab_size),
+        convert_s=convert_s, export_write_s=write_s, export_gb=nbytes / 1e9,
+        serve=served,
+        kernels_serving=hf_serving_kernel_checks(
+            torch, dev, H, H, cfg.d_model // H, HF_GPT2_LENS),
+        parity=hf_parity(torch, dev, "gpt2"))
+    emit("hf_model", model="gpt2", at_s=time.monotonic() - t0,
+         **out["gpt2"])
+
+    # Mixtral at HF_MIXTRAL_LAYERS layers: an MoE model served
+    cfg, sd, convert_s = hf_convert(torch, "mixtral", dev, SEED + 26,
+                                    n_layers=HF_MIXTRAL_LAYERS,
+                                    dtype="bfloat16")
+    if cfg.moe_capacity_factor != cfg.num_experts / cfg.moe_top_k:
+        raise AssertionError("Mixtral's default capacity is not E/k")
+    export_dir, write_s, nbytes = hf_export(torch, cfg, sd, "export_mixtral",
+                                            dtype=torch.bfloat16)
+    n_params = sum(v.numel() for v in sd.values())
+    del sd
+    torch.cuda.empty_cache()
+    _, served, got = hf_serve(torch, dev, export_dir,
+                              engine_prompts(torch, cfg.vocab_size,
+                                             HF_MIXTRAL_LENS))
+    shutil.rmtree(export_dir, ignore_errors=True)
+    add_launches(launches, got)
+    if any(v for v in served["dropped"].values()):
+        raise AssertionError(f"Mixtral dropped tokens at capacity E/k: "
+                             f"{served['dropped']}")
+    H, kv = cfg.n_heads, cfg.n_kv_heads
+    out["mixtral"] = dict(
+        source="mistralai/Mixtral-8x7B-v0.1",
+        config=dict(layers=cfg.n_layers, layers_published=32,
+                    d_model=cfg.d_model, heads=H, kv_heads=kv,
+                    head_dim=cfg.d_model // H, experts=cfg.num_experts,
+                    top_k=cfg.moe_top_k,
+                    capacity_factor=cfg.moe_capacity_factor,
+                    rope_theta=cfg.rope_theta, max_seq_len=cfg.max_seq_len),
+        params=n_params, convert_s=convert_s, export_write_s=write_s,
+        export_gb=nbytes / 1e9, export_dtype="bfloat16", serve=served,
+        kernels_serving=hf_serving_kernel_checks(
+            torch, dev, H, kv, cfg.d_model // H, HF_MIXTRAL_LENS))
+    emit("hf_model", model="mixtral", at_s=time.monotonic() - t0,
+         **out["mixtral"])
+
+    out["bert"], got = hf_bert(torch, dev, card)
+    add_launches(launches, got)
+    emit("hf_model", model="bert", at_s=time.monotonic() - t0,
+         **out["bert"])
+    out["seconds"] = time.monotonic() - t0
+    out["launches"] = launches
+    return out, launches
+
+
+# phase 22: the MNIST example on the card
+MNIST_EXAMPLES = 1000
+MNIST_BATCH = 64
+MNIST_MIN_ACCURACY = 0.9
+
+
+def _example(script, *argv, timeout=600):
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(HERE, "examples", "mnist", script),
+         *argv], env=env, capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"{script} exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return proc.stdout, time.monotonic() - t
+
+
+def phase_mnist(torch, dev, card):
+    """Phase 22: ``torch_mnist_data_setup.py`` makes MNIST_EXAMPLES
+    examples, ``torch_mnist_spark.py --platform cuda --cluster_size 1``
+    trains MnistCNN from them (a checkpoint, the export, the event file),
+    a second run resumes from its checkpoint; the export loads with
+    ``export.load_saved_model`` and scores every example
+    (``metrics.accuracy``), and the event files read back with
+    ``read_scalars``."""
+    import glob
+
+    import numpy as np
+
+    from tensorflowonspark_tpu_torch import export, metrics
+    from tensorflowonspark_tpu_torch.utils import checkpoint as ckpt
+    from tensorflowonspark_tpu_torch.utils import summary
+
+    root = os.path.join(HERE, "build", "chip_smoke", "mnist")
+    shutil.rmtree(root, ignore_errors=True)
+    data = os.path.join(root, "data")
+    _, setup_s = _example("torch_mnist_data_setup.py", "--output", data,
+                          "--num_examples", str(MNIST_EXAMPLES))
+    argv = ["--platform", torch.device(dev).type, "--cluster_size", "1",
+            "--batch_size",
+            str(MNIST_BATCH), "--data_dir", data, "--model_dir",
+            os.path.join(root, "model"), "--export_dir",
+            os.path.join(root, "export"), "--log_dir",
+            os.path.join(root, "tb")]
+    first, first_s = _example("torch_mnist_spark.py", *argv)
+    steps = math.ceil(MNIST_EXAMPLES / MNIST_BATCH)
+    if ckpt.latest_step(os.path.join(root, "model")) != steps:
+        raise AssertionError(f"first run: checkpoints "
+                             f"{os.listdir(os.path.join(root, 'model'))}")
+    second, second_s = _example("torch_mnist_spark.py", *argv)
+    want = f"[chief:0] resumed from checkpoint step {steps}"
+    if want not in second:
+        raise AssertionError(f"second run did not resume: {second[-2000:]}")
+    if ckpt.latest_step(os.path.join(root, "model")) != 2 * steps:
+        raise AssertionError("second run: no checkpoint at its last step")
+    events = sorted(glob.glob(os.path.join(root, "tb", "events.*")),
+                    key=os.path.getmtime)
+    logged = [[s for s, tag, _ in summary.read_scalars(p)
+               if tag == "train/loss"] for p in events]
+    if logged != [list(range(1, steps + 1)),
+                  list(range(steps + 1, 2 * steps + 1))]:
+        raise AssertionError(f"event files hold steps {logged}")
+    predict, _ = export.load_saved_model(os.path.join(root, "export"),
+                                         device=dev)
+    images = np.loadtxt(os.path.join(data, "csv", "images.csv"),
+                        delimiter=",", dtype="float32")
+    labels = np.loadtxt(os.path.join(data, "csv", "labels.csv"),
+                        dtype="int64")
+    logits = predict((images / 255.0).reshape(-1, 28, 28, 1).astype(
+        "float32"))
+    acc = metrics.accuracy(torch.from_numpy(logits).to(dev),
+                           torch.from_numpy(labels).to(dev)).item()
+    if not acc >= MNIST_MIN_ACCURACY:
+        raise AssertionError(f"mnist export accuracy {acc}")
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(examples=MNIST_EXAMPLES, batch=MNIST_BATCH, steps_a_run=steps,
+                resumed_from=steps, setup_s=setup_s, first_run_s=first_s,
+                second_run_s=second_s, accuracy=acc,
+                min_accuracy=MNIST_MIN_ACCURACY,
+                logged_steps=[len(x) for x in logged], nvidia_smi=card)
 
 
 def main():
@@ -6641,6 +7480,14 @@ def main():
     moe, moe_launches = phase_moe(torch, dev, card, train_main)
     emit("moe_main_path", **moe)
     add_launches(launches, moe_launches)
+    torch.cuda.empty_cache()
+
+    # phases 21 and 22: HuggingFace checkpoints and the MNIST example
+    hf, hf_launches = phase_hf(torch, dev, card)
+    emit("hf_main_path", **hf)
+    add_launches(launches, hf_launches)
+    torch.cuda.empty_cache()
+    emit("mnist_main_path", **phase_mnist(torch, dev, card))
     torch.cuda.empty_cache()
 
     # the serving kernels' launches by shape, each from its own main path

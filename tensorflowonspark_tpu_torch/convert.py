@@ -507,3 +507,391 @@ def adam8bit_state_from_jax(state, params, device="cpu"):
         torch.tensor(int(np.asarray(count)), dtype=torch.int32,
                      device=device),
         carry(mu, True), carry(nu_sqrt, False))
+
+
+# --- HuggingFace checkpoints ------------------------------------------------
+#
+# ``from_hf_gpt2`` / ``from_hf_bert`` / ``from_hf_llama`` /
+# ``from_hf_mixtral`` map a HuggingFace model onto the port's models and
+# return ``(config, state_dict)``: the port's ``TransformerConfig`` or
+# ``BertConfig`` and f32 master copies under the port's names, exactly
+# the tensors ``params_from_jax`` gives for the JAX package's converted
+# tree.  Each takes a model (any object with ``.config`` and
+# ``.state_dict()``, as a ``transformers`` model has), a ``(config,
+# state_dict)`` pair (``config`` any object or dict with HF's field
+# names: no ``transformers`` needed), or a local directory, which imports
+# ``transformers`` and ``from_pretrained``s it.  Nothing is fetched.
+
+
+def _hf_source(model_or_path, loader):
+    """``(hf config, state dict, class name or None)`` of a converter's
+    input; ``loader(transformers, path)`` loads a directory."""
+    import os
+
+    if isinstance(model_or_path, (str, os.PathLike)):
+        try:
+            import transformers
+        except ImportError as e:
+            raise ImportError(
+                "loading a checkpoint directory needs the 'transformers' "
+                "package; pass a (config, state_dict) pair instead") from e
+        model = loader(transformers, os.fspath(model_or_path))
+        return model.config, model.state_dict(), type(model).__name__
+    if isinstance(model_or_path, (tuple, list)):
+        hf_cfg, sd = model_or_path
+        return _hf_fields(hf_cfg), sd, None
+    return (model_or_path.config, model_or_path.state_dict(),
+            type(model_or_path).__name__)
+
+
+def _hf_fields(hf_cfg):
+    """An HF config as an object with its fields as attributes (a dict's
+    keys become them)."""
+    if isinstance(hf_cfg, dict):
+        import types
+        return types.SimpleNamespace(**hf_cfg)
+    return hf_cfg
+
+
+def _f32(t):
+    """A float32 master copy of an HF tensor, on its device, contiguous
+    and sharing no storage with it."""
+    return t.detach().to(torch.float32, copy=True).contiguous()
+
+
+def _finalize(sd, label, n_layers):
+    import logging
+
+    n = sum(t.numel() for t in sd.values())
+    logging.getLogger(__name__).info(
+        "converted %s (%d layers, %.1fM params)", label, n_layers, n / 1e6)
+    return sd
+
+
+def gpt2_config(hf_cfg, **overrides):
+    """TransformerConfig matching a ``transformers.GPT2Config``."""
+    from tensorflowonspark_tpu_torch.models.transformer import (
+        TransformerConfig)
+
+    hf_cfg = _hf_fields(hf_cfg)
+    # refuse configs whose attention numerics would silently diverge;
+    # activations map onto the configurable MLP activation
+    act = getattr(hf_cfg, "activation_function", "gelu_new")
+    act_map = {"gelu_new": "gelu_tanh", "gelu_pytorch_tanh": "gelu_tanh",
+               "gelu": "gelu_exact", "relu": "relu", "silu": "silu"}
+    if act not in act_map:
+        raise ValueError(f"unsupported activation_function={act!r}")
+    for flag, bad in (("scale_attn_weights", False),
+                      ("scale_attn_by_inverse_layer_idx", True),
+                      ("reorder_and_upcast_attn", True)):
+        if getattr(hf_cfg, flag, not bad) == bad:
+            raise ValueError(f"unsupported GPT2Config {flag}={bad} "
+                             "(attention numerics would diverge)")
+    n_inner = getattr(hf_cfg, "n_inner", None)
+    kw = dict(
+        vocab_size=hf_cfg.vocab_size,
+        d_model=hf_cfg.n_embd,
+        n_heads=hf_cfg.n_head,
+        n_kv_heads=None,                     # GPT-2 is MHA
+        n_layers=hf_cfg.n_layer,
+        d_ff=n_inner if n_inner is not None else 4 * hf_cfg.n_embd,
+        max_seq_len=hf_cfg.n_positions,
+        causal=True,
+        rope=False,                          # learned absolute positions
+        use_bias=True,
+        ln_eps=hf_cfg.layer_norm_epsilon,
+        activation=act_map[act],
+    )
+    kw.update(overrides)
+    return TransformerConfig(**kw)
+
+
+def from_hf_gpt2(model_or_path, dtype="float32", **config_overrides):
+    """A GPT-2 LM (``GPT2LMHeadModel``, a ``(config, state_dict)`` pair
+    or a local directory) -> ``(TransformerConfig, state_dict)``.  HF's
+    ``Conv1D`` weights are ``[in, out]``: the port's ``Dense`` takes
+    ``[out, in]``, so they transpose (``c_attn`` split into q / k / v
+    first); ``lm_head.weight`` is used whether tied or not."""
+    hf_cfg, sd, _ = _hf_source(
+        model_or_path, lambda tf, p: tf.GPT2LMHeadModel.from_pretrained(p))
+    cfg = gpt2_config(hf_cfg, dtype=dtype, **config_overrides)
+    out = {"token_embed.weight": _f32(sd["transformer.wte.weight"]),
+           "pos_embed.weight": _f32(sd["transformer.wpe.weight"])}
+    for i in range(cfg.n_layers):
+        pre, dst = f"transformer.h.{i}.", f"layer_{i}."
+        wq, wk, wv = torch.chunk(sd[pre + "attn.c_attn.weight"], 3, dim=1)
+        bq, bk, bv = torch.chunk(sd[pre + "attn.c_attn.bias"], 3)
+        for ln in ("ln1", "ln2"):
+            src = pre + ("ln_1." if ln == "ln1" else "ln_2.")
+            out[dst + ln + ".weight"] = _f32(sd[src + "weight"])
+            out[dst + ln + ".bias"] = _f32(sd[src + "bias"])
+        for name, w, b in (("attn.query", wq, bq), ("attn.key", wk, bk),
+                           ("attn.value", wv, bv),
+                           ("attn.out", sd[pre + "attn.c_proj.weight"],
+                            sd[pre + "attn.c_proj.bias"]),
+                           ("mlp.wi", sd[pre + "mlp.c_fc.weight"],
+                            sd[pre + "mlp.c_fc.bias"]),
+                           ("mlp.wo", sd[pre + "mlp.c_proj.weight"],
+                            sd[pre + "mlp.c_proj.bias"])):
+            out[dst + name + ".weight"] = _f32(w.t())
+            out[dst + name + ".bias"] = _f32(b)
+    out["ln_f.weight"] = _f32(sd["transformer.ln_f.weight"])
+    out["ln_f.bias"] = _f32(sd["transformer.ln_f.bias"])
+    # lm_head.weight aliases wte when tied (the GPT-2 default) and is the
+    # real output projection when untied: use it either way
+    out["lm_head.weight"] = _f32(sd.get("lm_head.weight",
+                                        sd["transformer.wte.weight"]))
+    return cfg, _finalize(out, "GPT-2", cfg.n_layers)
+
+
+def bert_config(hf_cfg, **overrides):
+    """models.bert.BertConfig matching a ``transformers.BertConfig``."""
+    from tensorflowonspark_tpu_torch.models.bert import BertConfig
+
+    hf_cfg = _hf_fields(hf_cfg)
+    act = getattr(hf_cfg, "hidden_act", "gelu")
+    act_map = {"gelu": "gelu_exact", "gelu_new": "gelu_tanh",
+               "gelu_pytorch_tanh": "gelu_tanh", "relu": "relu"}
+    if act not in act_map:
+        raise ValueError(f"unsupported hidden_act={act!r}")
+    if getattr(hf_cfg, "position_embedding_type", "absolute") != "absolute":
+        raise ValueError("only absolute position embeddings are supported")
+    if getattr(hf_cfg, "is_decoder", False) or getattr(
+            hf_cfg, "add_cross_attention", False):
+        raise ValueError("decoder-style BERT (is_decoder/add_cross_attention)"
+                         " is not supported: models.bert is a bidirectional"
+                         " encoder with no cross-attention")
+    kw = dict(
+        vocab_size=hf_cfg.vocab_size,
+        d_model=hf_cfg.hidden_size,
+        n_heads=hf_cfg.num_attention_heads,
+        n_layers=hf_cfg.num_hidden_layers,
+        d_ff=hf_cfg.intermediate_size,
+        max_seq_len=hf_cfg.max_position_embeddings,
+        type_vocab_size=hf_cfg.type_vocab_size,
+        ln_eps=hf_cfg.layer_norm_eps,
+        activation=act_map[act],
+    )
+    kw.update(overrides)
+    return BertConfig(**kw)
+
+
+def _bert_loader(tf, path):
+    archs = getattr(tf.AutoConfig.from_pretrained(path), "architectures",
+                    None) or []
+    loader = (tf.AutoModelForPreTraining if "BertForPreTraining" in archs
+              else tf.AutoModel)
+    return loader.from_pretrained(path)
+
+
+def from_hf_bert(model_or_path, dtype="float32", **config_overrides):
+    """An HF BERT -> ``(BertConfig, state_dict)``.
+
+    ``BertModel`` keys (no prefix) give the ``BertEncoder``'s state dict;
+    ``BertForPreTraining`` keys (``bert.`` and its ``cls.`` heads) give
+    ``BertForPreTraining``'s: the encoder under ``encoder.`` with the MLM
+    and NSP heads and the pooler beside it.  An untied MLM decoder is
+    refused (the port's MLM logits are tied to the embedding)."""
+    hf_cfg, sd, kind = _hf_source(model_or_path, _bert_loader)
+    cfg = bert_config(hf_cfg, dtype=dtype, **config_overrides)
+    kind = kind or "state dict"
+    if "embeddings.word_embeddings.weight" in sd:
+        pre = ""
+    elif ("bert.embeddings.word_embeddings.weight" in sd
+          and "cls.seq_relationship.weight" in sd
+          and "cls.predictions.transform.dense.weight" in sd):
+        pre = "bert."
+    else:
+        raise ValueError(
+            f"unsupported model class {kind}: pass a BertModel (encoder) "
+            "or BertForPreTraining (encoder + MLM/NSP heads)")
+    dec = sd.get(pre and "cls.predictions.decoder.weight")
+    if dec is not None and not torch.equal(
+            dec, sd[pre + "embeddings.word_embeddings.weight"]):
+        raise ValueError(
+            "untied MLM decoder (tie_word_embeddings=False) is not "
+            "supported: models.bert ties MLM logits to the embedding")
+    enc = "encoder." if pre else ""
+    out = {}
+    for dst, src in (("token_embed.weight", "word_embeddings.weight"),
+                     ("pos_embed.weight", "position_embeddings.weight"),
+                     ("type_embed.weight", "token_type_embeddings.weight"),
+                     ("ln_embed.weight", "LayerNorm.weight"),
+                     ("ln_embed.bias", "LayerNorm.bias")):
+        out[enc + dst] = _f32(sd[pre + "embeddings." + src])
+    for i in range(cfg.n_layers):
+        lp, dst = f"{pre}encoder.layer.{i}.", f"{enc}layer_{i}."
+        # post-LN: ln1 follows attention, ln2 follows the MLP
+        for name, src in (("ln1", "attention.output.LayerNorm"),
+                          ("ln2", "output.LayerNorm"),
+                          ("attn.query", "attention.self.query"),
+                          ("attn.key", "attention.self.key"),
+                          ("attn.value", "attention.self.value"),
+                          ("attn.out", "attention.output.dense"),
+                          ("mlp.wi", "intermediate.dense"),
+                          ("mlp.wo", "output.dense")):
+            out[dst + name + ".weight"] = _f32(sd[lp + src + ".weight"])
+            out[dst + name + ".bias"] = _f32(sd[lp + src + ".bias"])
+    if pre:     # BertForPreTraining: heads + pooler around the encoder
+        for name, src in (("mlm_dense", "cls.predictions.transform.dense"),
+                          ("mlm_ln", "cls.predictions.transform.LayerNorm"),
+                          ("pooler", "bert.pooler.dense"),
+                          ("nsp_head", "cls.seq_relationship")):
+            out[name + ".weight"] = _f32(sd[src + ".weight"])
+            out[name + ".bias"] = _f32(sd[src + ".bias"])
+        out["mlm_bias"] = _f32(sd["cls.predictions.bias"])
+    return cfg, _finalize(out, f"BERT[{kind}]", cfg.n_layers)
+
+
+def llama_config(hf_cfg, **overrides):
+    """TransformerConfig matching a ``transformers.LlamaConfig`` (the
+    LLaMA / Mistral-style decoder family: RMSNorm, RoPE, GQA, SwiGLU)."""
+    from tensorflowonspark_tpu_torch.models.transformer import (
+        TransformerConfig)
+
+    hf_cfg = _hf_fields(hf_cfg)
+    act = getattr(hf_cfg, "hidden_act", "silu")
+    act_map = {"silu": "silu", "gelu": "gelu_exact",
+               "gelu_pytorch_tanh": "gelu_tanh"}
+    if act not in act_map:
+        raise ValueError(f"unsupported hidden_act={act!r}")
+    if getattr(hf_cfg, "rope_scaling", None):
+        raise ValueError("rope_scaling is not supported (plain RoPE only)")
+    if getattr(hf_cfg, "attention_dropout", 0.0):
+        raise ValueError("attention_dropout != 0 is not supported")
+    head_dim = getattr(hf_cfg, "head_dim", None)
+    if head_dim and head_dim * hf_cfg.num_attention_heads != \
+            hf_cfg.hidden_size:
+        raise ValueError(f"head_dim={head_dim} * num_attention_heads != "
+                         "hidden_size (non-standard head widths would "
+                         "change the q/k/v projection shapes)")
+    if getattr(hf_cfg, "attention_bias", False):
+        # TransformerConfig.use_bias covers attention AND MLP denses;
+        # attention-only bias (Qwen-style) is not expressible
+        raise ValueError("attention_bias=True is not supported")
+    if getattr(hf_cfg, "mlp_bias", False):
+        # silently dropping the bias tensors would convert to wrong logits
+        raise ValueError("mlp_bias=True is not supported")
+    kw = dict(
+        vocab_size=hf_cfg.vocab_size,
+        d_model=hf_cfg.hidden_size,
+        n_heads=hf_cfg.num_attention_heads,
+        n_kv_heads=getattr(hf_cfg, "num_key_value_heads",
+                           hf_cfg.num_attention_heads),
+        n_layers=hf_cfg.num_hidden_layers,
+        d_ff=hf_cfg.intermediate_size,
+        max_seq_len=hf_cfg.max_position_embeddings,
+        causal=True,
+        rope=True,
+        rope_theta=float(getattr(hf_cfg, "rope_theta", 10000.0)),
+        use_bias=False,
+        ln_eps=hf_cfg.rms_norm_eps,
+        norm_type="rmsnorm",
+        mlp_style="gated",
+        activation=act_map[act],
+    )
+    kw.update(overrides)
+    return TransformerConfig(**kw)
+
+
+def _llama_common(sd, n_layers):
+    """The LLaMA-layout tensors every decoder of the family shares:
+    embeddings, the final norm, the unembedding (the token table when
+    tied: HF then omits ``lm_head.weight``), each layer's norms and
+    attention projections (HF's ``[out, in]`` is the port's layout)."""
+    out = {"token_embed.weight": _f32(sd["model.embed_tokens.weight"])}
+    for i in range(n_layers):
+        pre, dst = f"model.layers.{i}.", f"layer_{i}."
+        out[dst + "ln1.weight"] = _f32(sd[pre + "input_layernorm.weight"])
+        out[dst + "ln2.weight"] = _f32(
+            sd[pre + "post_attention_layernorm.weight"])
+        for name, proj in (("query", "q_proj"), ("key", "k_proj"),
+                           ("value", "v_proj"), ("out", "o_proj")):
+            out[f"{dst}attn.{name}.weight"] = _f32(
+                sd[f"{pre}self_attn.{proj}.weight"])
+    out["ln_f.weight"] = _f32(sd["model.norm.weight"])
+    out["lm_head.weight"] = _f32(sd.get("lm_head.weight",
+                                        sd["model.embed_tokens.weight"]))
+    return out
+
+
+def from_hf_llama(model_or_path, dtype="float32", **config_overrides):
+    """A LLaMA-family causal LM (``LlamaForCausalLM``, a ``(config,
+    state_dict)`` pair or a local directory) -> ``(TransformerConfig,
+    state_dict)``.  RMSNorm -> ``norm_type='rmsnorm'``, SwiGLU ->
+    ``mlp_style='gated'`` (``gate_proj`` -> ``wi_gate``, ``up_proj`` ->
+    ``wi_up``, ``down_proj`` -> ``wo``), GQA -> ``n_kv_heads``, HF's
+    rotate-half RoPE is the port's."""
+    hf_cfg, sd, _ = _hf_source(
+        model_or_path, lambda tf, p: tf.LlamaForCausalLM.from_pretrained(p))
+    cfg = llama_config(hf_cfg, dtype=dtype, **config_overrides)
+    out = _llama_common(sd, cfg.n_layers)
+    for i in range(cfg.n_layers):
+        pre, dst = f"model.layers.{i}.mlp.", f"layer_{i}.mlp."
+        for name, proj in (("wi_gate", "gate_proj"), ("wi_up", "up_proj"),
+                           ("wo", "down_proj")):
+            out[f"{dst}{name}.weight"] = _f32(sd[f"{pre}{proj}.weight"])
+    return cfg, _finalize(out, "LLaMA", cfg.n_layers)
+
+
+def mixtral_config(hf_cfg, **overrides):
+    """TransformerConfig matching a ``transformers.MixtralConfig``
+    (LLaMA-style attention + a gated-expert MoE MLP in EVERY layer).
+
+    Router parity: Mixtral softmaxes the router logits, picks top-k, and
+    renormalizes over the chosen experts — exactly the port's
+    ``moe_router='topk'`` convention (softmax is monotonic, so top-k over
+    probabilities equals top-k over logits).  Mixtral drops no tokens, so
+    the default capacity factor here is E/k (capacity == every token);
+    lower it explicitly to fine-tune with GShard capacity bounds.
+    """
+    import dataclasses
+
+    from tensorflowonspark_tpu_torch.models.transformer import (
+        TransformerConfig)
+
+    hf_cfg = _hf_fields(hf_cfg)
+    E = hf_cfg.num_local_experts
+    k = hf_cfg.num_experts_per_tok
+    base = llama_config(hf_cfg)
+    # sliding-window attention is not implemented; HF only applies the
+    # window beyond `sliding_window` tokens, so sequences at or under it
+    # are numerics-identical — clamp max_seq_len to stay in that regime
+    window = getattr(hf_cfg, "sliding_window", None)
+    max_seq = base.max_seq_len if window is None \
+        else min(base.max_seq_len, int(window))
+    kw = dict(
+        dataclasses.asdict(base),
+        max_seq_len=max_seq,
+        num_experts=E,
+        moe_every=1,
+        moe_router="topk",
+        moe_top_k=k,
+        moe_capacity_factor=float(E) / float(k),
+    )
+    kw.update(overrides)
+    return TransformerConfig(**kw)
+
+
+def from_hf_mixtral(model_or_path, dtype="float32", **config_overrides):
+    """A Mixtral MoE causal LM (``MixtralForCausalLM``, a ``(config,
+    state_dict)`` pair or a local directory) -> ``(TransformerConfig,
+    state_dict)``.  Attention and norms map as LLaMA's; each layer's
+    experts stack into the port's ``[E, in, out]`` expert weights (``w1``
+    -> ``experts_wi``, ``w3`` -> ``experts_up``, ``w2`` ->
+    ``experts_wo``), the router gate -> ``router``."""
+    hf_cfg, sd, _ = _hf_source(
+        model_or_path,
+        lambda tf, p: tf.MixtralForCausalLM.from_pretrained(p))
+    cfg = mixtral_config(hf_cfg, dtype=dtype, **config_overrides)
+    out = _llama_common(sd, cfg.n_layers)
+    for i in range(cfg.n_layers):
+        moe, dst = f"model.layers.{i}.block_sparse_moe.", f"layer_{i}.moe."
+        out[dst + "router.weight"] = _f32(sd[moe + "gate.weight"])
+        for name, w in (("experts_wi", "w1"), ("experts_up", "w3"),
+                        ("experts_wo", "w2")):
+            # HF Linear [out, in] -> stacked [E, in, out]
+            out[dst + name] = torch.stack([
+                _f32(sd[f"{moe}experts.{e}.{w}.weight"]).t()
+                for e in range(cfg.num_experts)]).contiguous()
+    return cfg, _finalize(out, "Mixtral", cfg.n_layers)

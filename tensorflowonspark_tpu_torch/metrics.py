@@ -1,6 +1,20 @@
-"""Host-side serving counters, gauges and latency windows: copies of
-the JAX package's ``metrics.Counters``, ``Gauge`` and ``LatencyWindow``
-(the port imports nothing from that package).  The continuous batcher
+"""Evaluation metrics on torch tensors, and the host-side serving
+counters, gauges and latency windows: copies of the JAX package's
+``metrics`` (the port imports nothing from that package).
+
+The eval half (``accuracy``, ``topk_accuracy``, ``cross_entropy``,
+``perplexity``, ``mean_squared_error``, ``confusion_matrix``,
+``mean_iou``, ``iou_from_confusion``, :class:`MetricAccumulator`) takes
+tensors on any device and returns f32 scalars on that device, so an
+eval loop reads back once, at ``MetricAccumulator.result()``.  Each
+takes an optional boolean / 0-1 ``mask`` (padding-aware eval: mask off
+the rows ``feed.pad_batch`` repeated).  Accumulation is f32, as in the
+JAX package; ``topk_accuracy`` breaks ties as JAX's ``argsort`` does
+(ascending and stable, the last k taken: among equal logits the higher
+index wins), which ``torch.topk`` does not promise.  torch is imported
+inside these functions only.
+
+The serving half:  The continuous batcher
 reads its pipeline depth and park-pool depth from a :class:`Gauge` and
 its TTFT and per-class queue delays from a :class:`LatencyWindow`.
 
@@ -13,6 +27,126 @@ generated, not hand-maintained.  Imports no torch: a control-plane
 process (the fleet gateway) reads it too."""
 import bisect
 import threading
+
+
+def _masked_mean(values, mask):
+    """``(mean of values over mask, the count)``, f32."""
+    import torch
+
+    values = values.float()
+    if mask is None:
+        return values.mean(), torch.tensor(float(values.numel()),
+                                           device=values.device)
+    m = mask.float().reshape(values.shape)
+    return (values * m).sum() / m.sum().clamp_min(1.0), m.sum()
+
+
+def accuracy(logits, labels, mask=None):
+    """Top-1 accuracy over ``[..., num_classes]`` logits (the first of
+    equal maxima is the prediction, as ``jnp.argmax`` takes it)."""
+    return _masked_mean(logits.argmax(-1) == labels, mask)[0]
+
+
+def topk_accuracy(logits, labels, k=5, mask=None):
+    """Top-k accuracy: label within the k highest logits, ties broken as
+    JAX's stable ascending ``argsort`` breaks them (the last k of it)."""
+    import torch
+
+    topk = torch.argsort(logits, dim=-1, stable=True)[..., -k:]
+    hit = (topk == labels[..., None]).any(dim=-1)
+    return _masked_mean(hit, mask)[0]
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean softmax cross entropy with integer labels (f32)."""
+    logits = logits.float()
+    logz = logits.logsumexp(-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return _masked_mean(logz - gold, mask)[0]
+
+
+def perplexity(logits, labels, mask=None):
+    """exp(mean token cross entropy) — LM eval."""
+    return cross_entropy(logits, labels, mask).exp()
+
+
+def mean_squared_error(pred, target, mask=None):
+    return _masked_mean((pred.float() - target.float()) ** 2, mask)[0]
+
+
+def _one_hot(ids, num_classes):
+    """f32 one-hot rows; an id outside ``[0, num_classes)`` gives a zero
+    row, as ``jax.nn.one_hot`` does."""
+    import torch
+
+    classes = torch.arange(num_classes, device=ids.device)
+    return (ids.reshape(-1, 1) == classes).float()
+
+
+def confusion_matrix(preds, labels, num_classes, mask=None):
+    """``[num_classes, num_classes]`` f32 counts, rows = true class: the
+    one-hot product ``t.T @ p``, as the JAX package forms it."""
+    t = _one_hot(labels, num_classes)
+    p = _one_hot(preds, num_classes)
+    if mask is not None:
+        t = t * mask.float().reshape(-1, 1)
+    return t.T @ p
+
+
+def mean_iou(logits, labels, mask=None, num_classes=None):
+    """Mean intersection-over-union over the classes that APPEAR (in
+    labels or predictions); ``mask`` excludes ignore pixels.  For a
+    multi-batch eval, sum ``confusion_matrix`` per batch and call
+    :func:`iou_from_confusion` once."""
+    num_classes = num_classes or logits.shape[-1]
+    cm = confusion_matrix(logits.argmax(-1), labels, num_classes, mask)
+    return iou_from_confusion(cm)
+
+
+def iou_from_confusion(cm):
+    """Mean IoU from an accumulated confusion matrix (rows = true)."""
+    import torch
+
+    cm = cm.float()
+    tp = cm.diagonal()
+    fn = cm.sum(1) - tp
+    fp = cm.sum(0) - tp
+    denom = tp + fp + fn
+    present = denom > 0
+    iou = torch.where(present, tp / denom.clamp_min(1.0),
+                      torch.zeros_like(tp))
+    return iou.sum() / present.sum().clamp_min(1)
+
+
+class MetricAccumulator:
+    """Running weighted means kept on the device until :meth:`result`.
+
+        acc = MetricAccumulator()
+        for x, y in batches:
+            logits = eval_step(params, x)
+            acc.update(n=y.numel(), accuracy=metrics.accuracy(logits, y),
+                       loss=metrics.cross_entropy(logits, y))
+        print(acc.result())                        # one readback a tag
+
+    Values and the weight ``n`` may be device scalars or plain numbers;
+    ``n`` weights the batch (1 an update by default).  With masked
+    metrics pass the VALID count as the weight."""
+
+    def __init__(self):
+        self._sums = {}
+        self._weights = {}
+
+    def update(self, n=1, **values):
+        for tag, v in values.items():
+            prev_s, prev_w = self._sums.get(tag), self._weights.get(tag)
+            s = v * n
+            self._sums[tag] = s if prev_s is None else prev_s + s
+            self._weights[tag] = n if prev_w is None else prev_w + n
+
+    def result(self):
+        """{tag: float} — the only device-to-host reads."""
+        return {tag: float(s) / float(self._weights[tag])
+                for tag, s in self._sums.items()}
 
 
 class Counters:

@@ -24,14 +24,23 @@ shape, checked on the CPU.
   and the jobs surface; ``affine_prompts`` picks prompts whose prefix
   hashes to the named replica; the legs' sizes are the ones the phase
   reports.
+- phase 21's models: ``hf_layout`` gives the key names and shapes of the
+  ``transformers`` model's own state dict (LLaMA, GPT-2, Mixtral,
+  ``BertForPreTraining``; tiny configs), ``hf_state_dict`` draws it the
+  same from a seed with tied keys one tensor, ``hf_convert`` of it equals
+  ``from_hf_*`` of the HF model holding it, and ``HF_CONFIGS`` are the
+  published widths (TinyLlama-1.1B, GPT-2 124M, Mixtral-8x7B's 46.7 B and
+  its 2-layer cut, bert-base-uncased).
 """
 import importlib.util
+import math
 import os
 
 import numpy as np
 import pytest
 import torch
 
+from tensorflowonspark_tpu_torch import convert as convert_mod
 from tensorflowonspark_tpu_torch import fleet, quantize
 from tensorflowonspark_tpu_torch.models import transformer as port_tf
 
@@ -255,3 +264,104 @@ def test_fleet_phase_gateway_and_affine_prompts(tmp_path):
             "http://%s:%d/metrics" % gw.http_addr
     finally:
         gw.stop()
+
+
+# --- phase 21: HF-layout state dicts ---------------------------------------
+
+def _tiny_hf(family):
+    """A tiny config dict of ``family`` with the published one's fields."""
+    c = dict(chip_smoke.HF_CONFIGS[family])
+    if family in ("llama", "mixtral"):
+        c.update(vocab_size=50, hidden_size=32, intermediate_size=48,
+                 num_hidden_layers=2, num_attention_heads=4,
+                 num_key_value_heads=2, num_local_experts=3)
+    elif family == "gpt2":
+        c.update(vocab_size=50, n_embd=32, n_layer=2, n_head=4,
+                 n_positions=40)
+    else:
+        c.update(vocab_size=60, hidden_size=32, num_hidden_layers=2,
+                 num_attention_heads=4, intermediate_size=48,
+                 max_position_embeddings=40)
+    if family != "mixtral":
+        c.pop("num_local_experts", None)
+    return c
+
+
+def _hf_model(transformers, family, c):
+    cls = {"llama": ("LlamaConfig", "LlamaForCausalLM"),
+           "gpt2": ("GPT2Config", "GPT2LMHeadModel"),
+           "mixtral": ("MixtralConfig", "MixtralForCausalLM"),
+           "bert": ("BertConfig", "BertForPreTraining")}[family]
+    return getattr(transformers, cls[1])(getattr(transformers, cls[0])(
+        **c)).eval()
+
+
+@pytest.mark.parametrize("family", ["llama", "gpt2", "mixtral", "bert"])
+def test_hf_layouts_are_the_transformers_state_dicts(family):
+    transformers = pytest.importorskip("transformers")
+    c = _tiny_hf(family)
+    hf = _hf_model(transformers, family, c)
+    want = {k: tuple(v.shape) for k, v in hf.state_dict().items()}
+    layout = chip_smoke.hf_layout(family, c)
+    assert {k: shape for k, (shape, _) in layout.items()} == want
+    # tied keys are the same tensor in the seeded state dict, as in HF's
+    gen = torch.Generator().manual_seed(0)
+    sd = chip_smoke.hf_state_dict(torch, family, c, "cpu", gen)
+    again = chip_smoke.hf_state_dict(torch, family, c, "cpu",
+                                     torch.Generator().manual_seed(0))
+    for key, (_, kind) in layout.items():
+        assert torch.equal(sd[key], again[key])
+        if kind.startswith("tied:"):
+            assert sd[key] is sd[kind[5:]]
+        elif kind == "norm":
+            assert torch.equal(sd[key], torch.ones_like(sd[key]))
+
+
+@pytest.mark.parametrize("family", ["llama", "gpt2", "mixtral", "bert"])
+def test_hf_convert_of_the_seeded_dict_is_the_hf_models(family,
+                                                        monkeypatch):
+    transformers = pytest.importorskip("transformers")
+    monkeypatch.setitem(chip_smoke.HF_CONFIGS, family, _tiny_hf(family))
+    cfg, sd, seconds = chip_smoke.hf_convert(torch, family, "cpu", 5,
+                                             n_layers=1)
+    assert seconds >= 0 and cfg.n_layers == 1
+    c = chip_smoke.hf_config(family, 1)
+    hf = _hf_model(transformers, family, c)
+    hf.load_state_dict(chip_smoke.hf_state_dict(
+        torch, family, c, "cpu", torch.Generator().manual_seed(5)),
+        strict=True)
+    want_cfg, want = getattr(convert_mod, "from_hf_" + family)(hf)
+    assert cfg == want_cfg
+    assert sorted(sd) == sorted(want)
+    assert all(torch.equal(sd[k], want[k]) for k in want)
+
+
+def test_hf_configs_are_the_published_widths():
+    cfgs = {f: chip_smoke.hf_config(f) for f in chip_smoke.HF_CONFIGS}
+    llama, gpt2, mixtral, bert = (cfgs[f] for f in ("llama", "gpt2",
+                                                    "mixtral", "bert"))
+    # TinyLlama: head_dim 64, 32 q / 4 kv heads (group 8), ~1.10 B params
+    assert llama["hidden_size"] // llama["num_attention_heads"] == 64
+    assert llama["num_attention_heads"] // llama["num_key_value_heads"] == 8
+    n = sum(math.prod(s) for s, kind in chip_smoke.hf_layout(
+        "llama", llama).values() if not kind.startswith("tied:"))
+    assert 1.09e9 < n < 1.11e9
+    # GPT-2: head_dim 64, MHA, tied lm_head, 124 M params
+    assert gpt2["n_embd"] // gpt2["n_head"] == 64
+    n = sum(math.prod(s) for s, kind in chip_smoke.hf_layout(
+        "gpt2", gpt2).values() if not kind.startswith("tied:"))
+    assert 124e6 < n < 125e6
+    # Mixtral: head_dim 128, group 4, 46.7 B params whole, ~3.2 B at 2
+    assert mixtral["hidden_size"] // mixtral["num_attention_heads"] == 128
+    n = sum(math.prod(s) for s, _ in chip_smoke.hf_layout(
+        "mixtral", mixtral).values())
+    assert 46.6e9 < n < 46.8e9
+    cut = chip_smoke.hf_config("mixtral", chip_smoke.HF_MIXTRAL_LAYERS)
+    n = sum(math.prod(s) for s, _ in chip_smoke.hf_layout(
+        "mixtral", cut).values())
+    assert 3.1e9 < n < 3.3e9
+    ours = convert_mod.mixtral_config(cut)
+    assert ours.moe_capacity_factor == 4.0 and ours.max_seq_len == 32768
+    # bert-base-uncased
+    assert (bert["hidden_size"], bert["num_hidden_layers"],
+            bert["vocab_size"]) == (768, 12, 30522)

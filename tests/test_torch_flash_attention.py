@@ -24,10 +24,11 @@ Tolerances: f32 1e-5 (f32 math on both sides; summation order differs);
 bf16 2e-2 (f32 math on both sides, then outputs and gradients rounded
 to bf16, where one ulp is 2^-8 relative).
 
-On a mismatch the forward-and-gradients test saves its evidence under
-``build/flake_evidence/`` of the checkout (its inputs and both sides'
-outputs, ``.npz``; the xdist worker and the names of the tests that
-process ran before it, ``.json``) and names the files in its failure.
+On a mismatch the forward-and-gradients test and the two-block merge
+save their evidence under ``build/flake_evidence/`` of the checkout
+(inputs and both sides' outputs, ``.npz``; the xdist worker, the
+process's torch settings and the names of the tests that process ran
+before it, ``.json``) and name the files in the failure.
 """
 import importlib
 import json
@@ -87,9 +88,23 @@ def evidence(request):
         with open(stem + ".json", "w") as f:
             json.dump({"test": request.node.nodeid,
                        "worker": os.environ.get("PYTEST_XDIST_WORKER"),
-                       "pid": os.getpid(), "tests_before": ran}, f, indent=1)
+                       "pid": os.getpid(), "torch_state": _torch_state(),
+                       "tests_before": ran}, f, indent=1)
         return stem
     return save
+
+
+def _torch_state():
+    """The process-wide torch settings that can move f32 CPU results."""
+    return {"num_threads": torch.get_num_threads(),
+            "num_interop_threads": torch.get_num_interop_threads(),
+            "default_dtype": str(torch.get_default_dtype()),
+            "float32_matmul_precision":
+                torch.get_float32_matmul_precision(),
+            "grad_enabled": torch.is_grad_enabled(),
+            "deterministic": torch.are_deterministic_algorithms_enabled(),
+            "mkldnn_enabled": torch.backends.mkldnn.enabled,
+            "config": torch.__config__.parallel_info()}
 
 
 @pytest.mark.parametrize("causal,S,group,dtype", [
@@ -222,7 +237,7 @@ def _merge(parts):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-def test_two_block_merge_equals_full_attention(causal):
+def test_two_block_merge_equals_full_attention(causal, evidence):
     q, k, v, g = _inputs(8, 32, 2)
     half = 16
     leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
@@ -245,9 +260,19 @@ def test_two_block_merge_equals_full_attention(causal):
     merged = torch.cat(outs, dim=1)
     got = [merged] + list(torch.autograd.grad(merged, leaves,
                                               torch.from_numpy(g)))
-    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
-        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
-                                   atol=1e-5, rtol=1e-5, err_msg=name)
+    names = ("out", "dq", "dk", "dv")
+    try:
+        for name, a, b in zip(names, got, want):
+            np.testing.assert_allclose(a.detach().numpy(),
+                                       b.detach().numpy(), atol=1e-5,
+                                       rtol=1e-5, err_msg=name)
+    except AssertionError as e:
+        arrays = dict(q=q, k=k, v=v, g=g)
+        for name, a, b in zip(names, got, want):
+            arrays["merged_" + name] = a.detach().numpy()
+            arrays["full_" + name] = b.detach().numpy()
+        raise AssertionError(f"{e}\nevidence: {evidence(**arrays)}."
+                             "{npz,json}") from e
 
 
 def _tensor_core_forward(q, k, v, causal, tile=64):

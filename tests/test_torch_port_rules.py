@@ -1,9 +1,12 @@
 """The port's ground rules, checked on the CPU.
 
-- The port and ``chip_smoke.py`` import with ``jax``, ``flax``,
-  ``msgpack``, ``cloudpickle`` and the JAX package blocked, and no source
-  file names them in an import; the cluster runtime's modules import
-  without ``torch``.
+- The port, ``chip_smoke.py`` and the port's MNIST example import with
+  ``jax``, ``flax``, ``orbax``, ``msgpack``, ``cloudpickle`` and the JAX
+  package blocked, and no source file names them in an import;
+  ``transformers`` and PIL are imported inside functions only (the
+  example imports with them blocked too); the cluster runtime's modules,
+  ``utils`` and ``image`` import without ``torch``, and so do the
+  example's files.
 - Entry points raise without CUDA unless the CPU is asked for.
 - A CPU tensor passed to each kernel wrapper takes the plain version
   (the launch counts stay 0); each kernel's CUDA source exists, names
@@ -42,8 +45,15 @@ from tensorflowonspark_tpu_torch.parallel import train as port_train
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "tensorflowonspark_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "cloudpickle",
-             "tensorflowonspark_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack",
+             "cloudpickle", "tensorflowonspark_tpu")
+# optional packages: imported only inside the functions that need them
+LAZY = ("transformers", "PIL")
+# the port's MNIST example (examples/mnist), beside the JAX one
+EXAMPLES = ("torch_mnist_data_setup", "torch_mnist_common",
+            "torch_mnist_spark")
+EXAMPLE_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "examples", "mnist")
 # the cluster runtime, the data layer and the pipeline API: executors
 # and feeders import these without torch (a process that never loaded
 # torch forks a clean node process); tracing and the metrics a fleet
@@ -54,7 +64,8 @@ TORCH_FREE = ("util", "faults", "marker", "gpu_info", "reservation",
               "data", "minispark", "minispark.executor", "minispark.sql",
               "minispark.sql.types", "minispark.ml", "minispark.streaming",
               "dfutil", "pipeline", "pipeline_ml", "trace", "metrics",
-              "fleet", "fleet_client", "jobs")
+              "fleet", "fleet_client", "jobs", "utils", "utils.checkpoint",
+              "utils.summary", "image")
 TINY = dict(vocab_size=32, d_model=64, n_heads=4, n_kv_heads=2, n_layers=1,
             d_ff=64, max_seq_len=32, dtype="float32", rope=True)
 
@@ -81,7 +92,8 @@ def test_imports_with_jax_blocked():
                 "deeplab", "vit", "bert"):
         assert f"tensorflowonspark_tpu_torch.models.{mod}" in _module_names()
     assert "tensorflowonspark_tpu_torch.ops.xent" in _module_names()
-    for mod in ("kvtier", "kvtransfer", "trace"):
+    for mod in ("kvtier", "kvtransfer", "trace", "image", "utils",
+                "utils.checkpoint", "utils.summary"):
         assert f"tensorflowonspark_tpu_torch.{mod}" in _module_names()
     code = (
         "import sys\n"
@@ -127,6 +139,55 @@ def test_no_source_imports_jax_or_the_jax_package():
                 continue
             for mod in mods:
                 assert mod.split(".")[0] not in FORBIDDEN, (path, mod)
+
+
+def test_examples_import_with_jax_blocked():
+    code = (
+        "import sys\n"
+        f"for name in {FORBIDDEN + LAZY!r}:\n"
+        "    sys.modules[name] = None\n"
+        f"sys.path.insert(0, {EXAMPLE_DIR!r})\n"
+        "import importlib\n"
+        f"for mod in {EXAMPLES!r}:\n"
+        "    importlib.import_module(mod)\n"
+        "print('torch' in sys.modules)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    # the executors of --platform cuda must not load torch before their
+    # node process does
+    assert res.stdout.strip() == "False"
+
+
+def _imports(tree):
+    """``(module, at module level)`` of every absolute import."""
+    top = set(map(id, tree.body))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            mods = [node.module or ""] if not node.level else []
+        else:
+            continue
+        for mod in mods:
+            yield mod, id(node) in top
+
+
+def test_examples_and_optional_packages_import_rules():
+    paths = _port_sources() + [os.path.join(EXAMPLE_DIR, m + ".py")
+                               for m in EXAMPLES]
+    lazy_seen = set()
+    for path in paths:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for mod, top in _imports(tree):
+            root = mod.split(".")[0]
+            assert root not in FORBIDDEN, (path, mod)
+            if root in LAZY:
+                lazy_seen.add(root)
+                assert not top, (path, mod)
+    assert lazy_seen == set(LAZY)
 
 
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
