@@ -16,7 +16,9 @@ GPU, the fleet gateway, its client and bulk jobs in front of two of
 them, the model zoo (MnistMLP, MnistCNN, ResNet-56, ResNet-50, UNet,
 DeepLabV3, ViT-B/16, BERT-base) and the MoE flagship trained on it,
 HuggingFace checkpoints (TinyLlama, GPT-2, Mixtral, BERT) converted,
-served, fine-tuned and checkpointed, and the MNIST example.
+served, fine-tuned and checkpointed, the MNIST example, and ViT-B/16
+served over ``:predict`` from the builder, a ``torch.export`` program
+and an AOTInductor package, profiled on demand, with speculation v1.
 
     python3 chip_smoke.py
 
@@ -296,11 +298,13 @@ caught and reported as passed):
    migration snapshot's pages and kernel 3 reading a promoted prefix at
    its offset (bf16 and int8 pools, shuffled page ids) against their
    plain versions;
-18. (after 17, on phase 5's export) the ``fleet_main_path`` line, one
+18. (after 17, on phase 5's full-depth export, or phase 17's when the
+   run is late: :func:`full_depth`) the ``fleet_main_path`` line, one
    ``fleet_leg`` line a leg before it: the port's gateway in process
-   (``fleet.make_gateway``, ``--jobs_dir``) in front of two full-depth
-   replicas that join through ``serve``'s ``--fleet`` path (0.2 s
-   heartbeats; the gateway ejects after two sweeps over 1 s).  On a
+   (``fleet.make_gateway``, ``--jobs_dir``) in front of two
+   replicas that join through ``serve``'s
+   ``--fleet`` path (0.2 s heartbeats; the gateway ejects after two
+   sweeps over 1 s).  On a
    ``--role prefill`` / ``decode`` pair: four streams through the
    gateway (two greedy, two seeded sampled) handed off A -> B by the
    planted ``X-Fleet-Migrate-To``, each equal to A's own answer; the
@@ -365,7 +369,8 @@ caught and reported as passed):
    full-state checkpoint after step HF_SAVE_AT (write, read s and GB/s;
    the state restored into a fresh one bit for bit equal to the saved
    one, the following steps' losses equal to the uninterrupted run's;
-   HF_TRAIN_CUT layers when the disk lacks room), and
+   the fine-tuning at full depth, or on HF_TRAIN_CUT of the 22 layers
+   when the disk lacks room or the run is late: :func:`full_depth`), and
    ``metrics.perplexity`` on a held-out batch; GPT-2 (12 heads of 64,
    MHA, learned positions and biases, tied head) served over 8 prompts
    of 100..900 tokens; Mixtral-8x7B at HF_MIXTRAL_LAYERS of its 32
@@ -386,6 +391,26 @@ caught and reported as passed):
    loaded by ``export.load_saved_model`` scores the 1000 examples
    (``metrics.accuracy`` at least MNIST_MIN_ACCURACY), the event files
    read back by ``read_scalars`` hold every step once;
+23. (after 22) the ``predict_main_path`` line (a
+   ``predict_profile_top5`` line before it): ViT-B/16 at its published
+   width and depth (seeded f32 weights) exported with
+   ``aot_batch_sizes=[8]`` for the card (the ``torch.export`` program
+   and the AOTInductor package; the export and compile seconds), served
+   over ``:predict`` by three servers in turn (``--engine builder``,
+   ``jax``, ``native``; ``--batch_wait_ms 5 --batch_size 32``) to 4
+   concurrent clients x 4 requests x 8 images of JSON integers 0-255:
+   requests/s, images/s, p50 / p95 latency, micro-batches a request, a
+   batch of 8's device ms beside the host's JSON ms a request; kernel
+   4's launches set to 0 just before each burst and read just after,
+   and > 0 under every engine (the kernel runs inside both artifacts);
+   each engine's logits within PREDICT_RTOL of max |logit| of the
+   builder's, 2 images within PREDICT_CPU_RTOL of the CPU's f32
+   forward; ``/v1/debug:profile`` (1 s) during a burst: 200, device time
+   of the flash kernel in its trace (a trace without it fails), a
+   second capture 409; kernel 4 in f32 against its plain version at
+   :predict's shapes; speculation v1 (``slot_spec_round_greedy``) on
+   the full-depth flagship in f32 with a 2-layer draft, 8 rows of 32
+   greedy tokens equal to ``generate``'s, commits a round;
 16c. (after 8b) the ``lora_train_main_path`` line: ``make_lora_loss`` on
    the flagship step's model (B 8 x S 1024), adamw_fused over the rank-8
    adapters: a warm-up step and a window of 5, kernels 4-6 16 launches
@@ -397,19 +422,25 @@ caught and reported as passed):
    each kernel's own main path: the
    quantised kernels from their serving run, the int8 kv kernels from the
    int8 kv run with bf16 weights, kernel 11 from the fused LayerNorm
-   run, kernel 8 from phase 8b; phases 15 to 21 add their runs'
+   run, kernel 8 from phase 8b; phases 15 to 21 and 23 add their runs'
    launches); the ``engine_serial_vs_async`` line
    (phase 12's four numbers of each engine, dense and paged, beside the
    card's name and power limit); then the card line and, last, the
    ``ok`` line.
 
 The whole run, the kernels' build included, must end inside its 1,200
-s limit: phase 17 serves REPLICA_LAYERS of the flagship's 16 layers to
-stay there; phases 19 and 20 take about 20 s on one H100 80GB (700 W).
+s limit: phase 17 serves REPLICA_LAYERS of the flagship's 16 layers,
+phases 18 and 21 run at full depth unless the run reaches them late
+(:func:`full_depth`), and phase 23's export (its AOTInductor compile,
+2-3 minutes of host work) runs in a child process started before phase
+12, beside the serving phases, and is joined after phase 18, before any
+phase that times a kernel or a step (``PredictExport``); phases 19 and
+20 take about 20 s on one H100 80GB (700 W).
 
 Exits 2 without a result when no CUDA device exists or when the port's
 package is not beside this file.
 """
+import atexit
 import json
 import math
 import os
@@ -4809,10 +4840,22 @@ REPLICA_TEMP = 0.8
 HANDOFF_NEW = 64     # a handoff moves at the first tick
 REPLICA_PAGE = 64                        # phase 12's paged pool
 REPLICA_POOL = 512
-# phase 17 serves the flagship at full width cut to 4 of its 16 layers
-# (its host launches scale with depth; the whole run must stay inside
-# its time limit); phase 18 serves it at full depth
+# phases 17 and 18 serve the flagship at full width cut to 4 of its 16
+# layers (their host launches scale with depth; the whole run must stay
+# inside its time limit)
 REPLICA_LAYERS = 4
+# phases 18 and 21 run at full depth when the run reaches them by these
+# seconds (``at_s``), else at REPLICA_LAYERS / HF_TRAIN_CUT layers of the
+# same widths, so that a slow host stays inside the 1,200 s limit: on an
+# H100 80GB (700 W) whose host reached phase 18 at 550 s, phases 1-22 at
+# full depth took 1,181 s, and phase 23 adds 35-60 s
+FULL_DEPTH_BY_S = {"fleet": 450.0, "hf_train": 900.0}
+
+
+def full_depth(phase):
+    """True when ``phase`` (a key of FULL_DEPTH_BY_S) starts in time to
+    run at full depth."""
+    return time.monotonic() - T0 <= FULL_DEPTH_BY_S[phase]
 # the two-turn conversation: a pool of 40 pages that a 2000-token filler
 # must evict from, a host tier behind it
 CONVERSATION = dict(turn1=1024, user=64, new=32, filler=2000, pages=40,
@@ -5914,7 +5957,8 @@ def redriven_snapshot(gw, srv, killed):
 
 def phase_fleet(torch, dev, cfg, export_dir, card):
     """Phase 18: the port's gateway (in process, with ``--jobs_dir``) in
-    front of two full-depth flagship replicas on this card that join
+    front of two flagship replicas (of ``export_dir``: full width, full
+    depth unless the run is late) on this card that join
     through ``serve``'s ``--fleet`` path: gateway-driven disaggregation
     and the trace on a prefill / decode pair, ``/v1/fleet:migrate``; then
     on a mixed pair affinity and the gateway's cost, a bulk job beside
@@ -6446,7 +6490,7 @@ HF_NEW = 32
 HF_GPT2_LENS = (100, 214, 329, 443, 557, 671, 786, 900)
 HF_MIXTRAL_LENS = (100, 300, 500, 700)
 HF_TRAIN_STEPS, HF_SAVE_AT = 10, 5      # after a warm-up step
-HF_TRAIN_CUT = 4        # layers of the round trip when the disk is short
+HF_TRAIN_CUT = 4        # TinyLlama's layers in its fine-tuning round trip
 HF_LR = 3e-4
 HF_BERT_STEPS = 2
 
@@ -6816,8 +6860,9 @@ def hf_llama_train(torch, dev, cfg, state_dict, card):
     into a fresh one equals the saved one bit for bit and steps
     HF_SAVE_AT+1.. again give the uninterrupted losses.  Then
     ``metrics.perplexity`` over a held-out batch.  With too little free
-    disk for the state the round trip runs on HF_TRAIN_CUT layers of the
-    same widths.  Returns (numbers, launches)."""
+    disk for the state, or when the run reaches it late
+    (:func:`full_depth`), the round trip runs on HF_TRAIN_CUT layers of
+    the same widths.  Returns (numbers, launches)."""
     import dataclasses
 
     from tensorflowonspark_tpu_torch import metrics, ops
@@ -6834,8 +6879,10 @@ def hf_llama_train(torch, dev, cfg, state_dict, card):
     n_params = sum(t.numel() for t in state_dict.values())
     state_bytes = 3 * 4 * n_params          # f32 params and two moments
     free = shutil.disk_usage(root).free
+    cut_for_disk = free < 1.5 * state_bytes
+    cut_for_time = not full_depth("hf_train")
     layers = cfg.n_layers
-    if free < 1.5 * state_bytes:
+    if cut_for_disk or cut_for_time:
         layers = HF_TRAIN_CUT
         keep = {f"layer_{i}." for i in range(layers)}
         state_dict = {k: v for k, v in state_dict.items()
@@ -6952,7 +6999,8 @@ def hf_llama_train(torch, dev, cfg, state_dict, card):
     gb = ckpt_bytes / 1e9
     return dict(
         layers=layers, layers_published=cfg.n_layers,
-        cut_for_disk=layers != cfg.n_layers, free_disk_gb=free / 1e9,
+        cut_for_disk=cut_for_disk, cut_for_time=cut_for_time,
+        free_disk_gb=free / 1e9,
         params=sum(v.numel() for v in state_dict.values()), batch=8,
         seq=1024, steps=n_steps, first_step_ms=first_ms,
         step_ms=window_ms[0], step_ms_during_async_save=window_ms[1],
@@ -7235,6 +7283,476 @@ def phase_mnist(torch, dev, card):
                 logged_steps=[len(x) for x in logged], nvidia_smi=card)
 
 
+# ---- phase 23: :predict over the builder and both AOT artifacts, the
+# on-demand profile, speculation v1
+
+PREDICT_VIT = dict(image_size=224, patch_size=16, channels=3,
+                   num_classes=1000, d_model=768, n_heads=12, n_layers=12,
+                   d_ff=3072, dtype="float32")
+PREDICT_BUILDER = "tensorflowonspark_tpu_torch.models.vit:ViTBase"
+PREDICT_SIGNATURES = {"serving_default": {
+    "inputs": {"image": {"shape": [224, 224, 3], "dtype": "float32"}},
+    "outputs": ["logits"]}}
+PREDICT_AOT_BATCH = 8            # the artifacts' compiled batch size
+PREDICT_CLIENTS = 4              # concurrent clients
+PREDICT_REQUESTS = 4             # each client's, one after another
+PREDICT_IMAGES = 8               # a request's
+PREDICT_ARGV = ("--batch_wait_ms", "5", "--batch_size", "32")
+PREDICT_ENGINES = ("builder", "jax", "native")
+PREDICT_RTOL = 1e-3      # an engine against the builder, of max |logit|
+PREDICT_CPU_RTOL = 1e-2  # the card against the CPU's f32 forward, of scale
+PREDICT_CPU_IMAGES = 2
+PREDICT_PROFILE_MS = 1000
+PREDICT_PROFILED = "native"
+SPEC_V1 = dict(k=4, new=32, draft_layers=2,
+               lens=(64, 96, 128, 160, 192, 224, 256, 288))
+
+
+PREDICT_EXPORT_DIR = os.path.join(HERE, "build", "chip_smoke",
+                                  "export_vit_b16")
+PREDICT_COMPILE_THREADS = 4      # the child's inductor compile workers
+
+
+def predict_export(torch, dev, export_dir):
+    """ViT-B/16 at its published width and depth with seeded f32 weights
+    (built on the CPU), exported with ``aot_batch_sizes=[8]`` for the
+    card: the ``torch.export`` program and the AOTInductor package.
+    Returns the export's numbers."""
+    from tensorflowonspark_tpu_torch import aot, export
+    from tensorflowonspark_tpu_torch.models import vit
+
+    torch.manual_seed(SEED + 23)
+    model = vit.ViTBase(**PREDICT_VIT).eval().requires_grad_(False)
+    shutil.rmtree(export_dir, ignore_errors=True)
+    t = time.monotonic()
+    export.export_saved_model(
+        export_dir, model.state_dict(), builder=PREDICT_BUILDER,
+        builder_kwargs=PREDICT_VIT, signatures=PREDICT_SIGNATURES,
+        aot_batch_sizes=[PREDICT_AOT_BATCH], device=dev)
+    total_s = time.monotonic() - t
+    spec = aot.read_spec(export_dir)
+    files = {f: os.path.getsize(os.path.join(export_dir, "aot", f))
+             for f in sorted(os.listdir(os.path.join(export_dir, "aot")))}
+    return dict(params=sum(p.numel() for p in model.parameters()),
+                export_total_s=total_s,
+                torch_export_s=spec["seconds"]["export"],
+                aoti_compile_s=spec["seconds"]["compile"],
+                artifact_bytes=files)
+
+
+def predict_export_main(export_dir, device):
+    """The child of :class:`PredictExport`: :func:`predict_export` on
+    ``device``, its numbers written to ``<export_dir>.json``."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    os.nice(19)
+    numbers = predict_export(torch, torch.device(device), export_dir)
+    with open(export_dir + ".json", "w") as f:
+        json.dump(dict(numbers, ended_wall=time.time()), f)
+    return 0
+
+
+class PredictExport:
+    """Phase 23's export (:func:`predict_export`) in a child process,
+    started before phase 12: the AOTInductor compile is minutes of host
+    work (133-162 s on an H100's host), so it runs beside the serving
+    phases, niced and held to PREDICT_COMPILE_THREADS compile workers,
+    instead of on the run's critical path.  The run joins it after
+    phase 18, before any phase that times a kernel or a step.
+    :meth:`wait` joins it; :meth:`stop` kills it if it still runs."""
+
+    def __init__(self, dev):
+        self.dir = PREDICT_EXPORT_DIR
+        shutil.rmtree(self.dir, ignore_errors=True)
+        os.makedirs(os.path.dirname(self.dir), exist_ok=True)
+        for path in (self.dir + ".json", self.dir + ".log"):
+            if os.path.exists(path):
+                os.remove(path)
+        env = dict(os.environ, TORCHINDUCTOR_COMPILE_THREADS=str(
+            PREDICT_COMPILE_THREADS))
+        self.t0, self.numbers = time.monotonic(), None
+        with open(self.dir + ".log", "w") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--predict-export", self.dir, str(dev)], env=env,
+                stdout=log, stderr=subprocess.STDOUT)
+
+    def wait(self, timeout=1200):
+        """The export's numbers, with the seconds this run waited for it
+        and when (``at_s``'s clock) it started and ended; joined once."""
+        if self.numbers is not None:
+            return self.numbers
+        t = time.monotonic()
+        rc = self.proc.wait(timeout=timeout)
+        waited = time.monotonic() - t
+        if rc:
+            with open(self.dir + ".log") as f:
+                tail = f.read()[-4000:]
+            raise AssertionError(f"the ViT-B/16 export exited {rc}:\n{tail}")
+        with open(self.dir + ".json") as f:
+            numbers = json.load(f)
+        ended = time.monotonic() - (time.time() - numbers.pop("ended_wall"))
+        self.numbers = dict(numbers, export_wait_s=waited,
+                            export_started_at_s=round(self.t0 - T0, 1),
+                            export_ended_at_s=round(ended - T0, 1))
+        return self.numbers
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def post_bytes(url, body, timeout=600):
+    req = urllib.request.Request(url, data=body, headers={
+        "Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+class PredictServer:
+    """``make_server`` over the ViT export with ``argv``, served from a
+    thread on 127.0.0.1; closed on exit."""
+
+    def __init__(self, export_dir, dev, *argv):
+        from tensorflowonspark_tpu_torch import serve
+
+        self.server, self.service = serve.make_server(
+            serve.build_argparser().parse_args([
+                "--export_dir", export_dir, "--device", str(dev), "--host",
+                "127.0.0.1", "--port", "0", *argv]))
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.base = "http://127.0.0.1:%d" % self.server.server_address[1]
+        self.url = self.base + "/v1/models/default:predict"
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=60)
+        return False
+
+
+def predict_burst(url, bodies):
+    """PREDICT_CLIENTS threads, each posting its body PREDICT_REQUESTS
+    times in a row: ``(logits by (client, request), latencies s, wall
+    s)``."""
+    import numpy as np
+
+    outs, lat, errors = {}, [], []
+    lock = threading.Lock()
+
+    def client(c):
+        try:
+            for r in range(PREDICT_REQUESTS):
+                t = time.monotonic()
+                preds = post_bytes(url, bodies[c])["predictions"]
+                dt = time.monotonic() - t
+                with lock:
+                    lat.append(dt)
+                    outs[(c, r)] = np.asarray([p["logits"] for p in preds],
+                                              np.float32)
+        except Exception as e:    # reported below, the run fails
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(PREDICT_CLIENTS)]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.monotonic() - t0
+    if errors or len(outs) != PREDICT_CLIENTS * PREDICT_REQUESTS:
+        raise AssertionError(f"predict burst failed: {errors[:3]}")
+    return outs, sorted(lat), wall
+
+
+def pct(sorted_values, q):
+    return sorted_values[min(len(sorted_values) - 1,
+                             int(q * len(sorted_values)))]
+
+
+def predict_profile(torch, srv, bodies):
+    """``POST /v1/debug:profile`` (PREDICT_PROFILE_MS) while a burst runs,
+    and a second capture while it holds the profiler: 200 then 409; the
+    trace's device time by kernel (``utils.profiling.parse_trace``), the
+    flash kernel among it.  A trace without device events fails."""
+    from tensorflowonspark_tpu_torch.utils import profiling
+
+    box = {}
+    burst = threading.Thread(target=lambda: box.update(
+        burst=predict_burst(srv.url, bodies)))
+    burst.start()
+    time.sleep(0.5)
+    cap = threading.Thread(target=lambda: box.update(first=post_json(
+        srv.base + "/v1/debug:profile",
+        {"duration_ms": PREDICT_PROFILE_MS})))
+    cap.start()
+    time.sleep(0.2)
+    try:
+        post_json(srv.base + "/v1/debug:profile", {"duration_ms": 10})
+        second = 200
+    except urllib.error.HTTPError as e:
+        second = e.code
+    cap.join(timeout=120)
+    burst.join(timeout=900)
+    if second != 409:
+        raise AssertionError(f"an overlapping capture got {second}, not 409")
+    first = box.get("first") or {}
+    if "artifact" not in first:
+        raise AssertionError(f"debug:profile gave {first}")
+    rows = profiling.parse_trace(first["artifact"])
+    device_ms = sum(us for _, us, _ in rows) / 1e3
+    flash = [(name, us / 1e3, n) for name, us, n in rows
+             if "tos::flash" in name]
+    if not rows or device_ms <= 0 or not flash or flash[0][1] <= 0:
+        raise AssertionError(f"the profile holds no CUDA time of the flash "
+                             f"kernel: {rows[:8]}")
+    top = [dict(name=name[:80], device_ms=us / 1e3, count=n)
+           for name, us, n in rows[:5]]
+    print(json.dumps({"predict_profile_top5": top}), flush=True)
+    return dict(status=200, overlapping_status=second,
+                duration_ms=first["duration_ms"],
+                trace_bytes=os.path.getsize(first["artifact"]),
+                device_ms=device_ms,
+                device_busy_share=device_ms / PREDICT_PROFILE_MS,
+                flash_device_ms=flash[0][1], flash_kernels=flash[0][2],
+                top5=top)
+
+
+def predict_runner(srv):
+    """What the server's engine runs on device tensors: the builder's
+    module, the exported program or the AOTInductor package."""
+    return srv.service._predict_rows._predict.runner
+
+
+def predict_device_ms(torch, srv, dev):
+    """CUDA-event time of one execution of the engine's program at the
+    artifacts' batch on device tensors."""
+    run = predict_runner(srv)
+    size = PREDICT_VIT["image_size"]
+    x = torch.rand((PREDICT_AOT_BATCH, size, size, 3), device=dev) * 255
+    with torch.no_grad():
+        return time_ms(lambda: run(x), reps=10)
+
+
+def predict_flash_checks(torch, dev):
+    """Kernel 4 (f32, non-causal, head_dim 64) against its plain version
+    at the shapes :predict gives it: an artifact's batch of 8 and the
+    builder's chunk of 32, 197 tokens of 12 heads."""
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+
+    out = {}
+    for B in (PREDICT_AOT_BATCH, 32):
+        gen = torch.Generator().manual_seed(SEED + B)
+        q, k, v = (torch.randn((B, 197, 12, 64), generator=gen).to(dev)
+                   for _ in range(3))
+        got, empty = fa.flash_fwd(q, k, v, False, need_lse=False)
+        ref, _ = fa.flash_fwd_plain(q, k, v, False)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        if empty.numel() or not torch.allclose(got, ref, atol=TOL,
+                                               rtol=TOL):
+            raise AssertionError(f"flash f32 (B {B}) disagrees: {err}")
+        out[f"b{B}"] = dict(shape=[B, 197, 12, 12, 64], max_abs_err=err,
+                            tol=TOL)
+    return out
+
+
+def spec_v1_run(torch, dev):
+    """Speculation v1 (``decode.slot_spec_round_greedy``): the full-depth
+    FLAGSHIP_LM_V2 as the target and a 2-layer draft of its width
+    (seeded), in f32 on the card, 8 greedy rows of SPEC_V1 lens
+    prefilled into dense slot caches, rounds of k = 4 until every row
+    committed 32 tokens; each row's tokens equal to greedy ``generate``
+    (the paged kernels' path).  f32, because bf16 logits of random
+    weights tie exactly at many positions (margin 0.0), where the two
+    attention paths may break a tie apart."""
+    from tensorflowonspark_tpu_torch import quantize
+    from tensorflowonspark_tpu_torch.benchmarks import FLAGSHIP_LM_V2
+    from tensorflowonspark_tpu_torch.models import decode
+    from tensorflowonspark_tpu_torch.models.transformer import (
+        build_transformer, torch_dtype)
+
+    def model(cfg, seed):
+        with torch.device(dev):
+            m = build_transformer(**cfg)
+        m.reset_parameters(torch.Generator(dev).manual_seed(seed))
+        return quantize.cast_float_leaves(m, torch_dtype(m.cfg)).eval() \
+            .requires_grad_(False)
+
+    cfg = dict(FLAGSHIP_LM_V2, max_seq_len=4096, dtype="float32")
+    target = model(cfg, SEED)
+    draft = model(dict(cfg, n_layers=SPEC_V1["draft_layers"]), SEED + 1)
+    gen = torch.Generator().manual_seed(SEED + 230)
+    prompts = [torch.randint(1, cfg["vocab_size"], (n,), generator=gen)
+               .tolist() for n in SPEC_V1["lens"]]
+    rows, k, new = len(prompts), SPEC_V1["k"], SPEC_V1["new"]
+    entries = [(r, p, 0) for r, p in enumerate(prompts)]
+    caches, toks = [], None
+    with torch.no_grad():
+        for m in (target, draft):
+            _, cache = decode.init_slot_cache(m, rows, device=dev)
+            args = decode.build_prefill_batch(
+                entries, rows, max(SPEC_V1["lens"]), rows, dev)
+            last = decode.slot_prefill_many(m, cache, *args, 0)
+            caches.append(cache)
+            toks = torch.argmax(last, dim=-1) if toks is None else toks
+        committed = [[int(t)] for t in toks.tolist()]
+        commits, t0, rounds = [], time.monotonic(), 0
+        while min(len(c) for c in committed) < new:
+            toks, t_next, commit, _, _ = decode.slot_spec_round_greedy(
+                target, draft, caches[0], caches[1], toks, k=k)
+            rounds += 1
+            got = commit.tolist()
+            commits.append(got)
+            for r, row in enumerate(t_next.tolist()):
+                committed[r] += row[:got[r]]
+        torch.cuda.synchronize()
+        spec_s = time.monotonic() - t0
+        for r, p in enumerate(prompts):
+            want = decode.generate(target, [p], new, device=dev)[0].tolist()
+            d = divergence(torch, target, p, want, p + committed[r][:new])
+            if d is not None:
+                raise AssertionError(f"spec v1 row {r} parted from greedy "
+                                     f"generate: {d}")
+    flat = [c for rnd in commits for c in rnd]
+    out = dict(target_layers=cfg["n_layers"],
+               draft_layers=SPEC_V1["draft_layers"], rows=rows, k=k,
+               new_tokens=new, prompt_lens=list(SPEC_V1["lens"]),
+               rounds=rounds, commits_per_round=commits,
+               mean_commit=sum(flat) / len(flat), spec_s=spec_s,
+               rows_equal=rows, dtype=cfg["dtype"])
+    del target, draft, caches
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_predict(torch, dev, card, export_child=None):
+    """Phase 23: ``:predict`` on the card.  ViT-B/16 exported with the
+    port's AOT artifacts at batch 8 (:func:`predict_export`, in the child
+    ``export_child`` started early, or in one started now), served by
+    three servers in turn (``--engine builder``, ``jax`` — the
+    ``torch.export`` program — and ``native`` — the AOTInductor package
+    — each with ``--batch_wait_ms 5 --batch_size 32``): a warm-up
+    request (the first :predict loads the weights), then
+    PREDICT_CLIENTS concurrent clients x PREDICT_REQUESTS requests of
+    PREDICT_IMAGES images (JSON integers 0-255), kernel 4's launch count
+    set to 0 just before the burst and read just after (it must rise
+    under every engine: the hand-written kernel runs inside both
+    artifacts).  Each engine's logits within PREDICT_RTOL of max |logit|
+    of the builder's; PREDICT_CPU_IMAGES images of the builder within
+    PREDICT_CPU_RTOL of the CPU's f32 forward; ``/v1/debug:profile``
+    during a burst (:func:`predict_profile`); kernel 4 against its plain
+    version at :predict's shapes; speculation v1 (:func:`spec_v1_run`).
+    Returns ``(numbers, launches)``."""
+    import numpy as np
+
+    from tensorflowonspark_tpu_torch import ops
+
+    from tensorflowonspark_tpu_torch import export
+
+    t_phase = time.monotonic()
+    child = export_child or PredictExport(dev)
+    try:
+        exported = child.wait()
+    finally:
+        child.stop()
+    export_dir = child.dir
+    cpu_model, _ = export.load_model(export_dir, device="cpu")
+    rng = np.random.RandomState(SEED + 23)
+    size = PREDICT_VIT["image_size"]
+    images = rng.randint(0, 256, (PREDICT_CLIENTS, PREDICT_IMAGES, size,
+                                  size, 3))
+    t = time.monotonic()
+    bodies = [json.dumps({"instances": [{"image": img.tolist()}
+                                        for img in imgs]}).encode()
+              for imgs in images]
+    encode_ms = (time.monotonic() - t) * 1e3 / PREDICT_CLIENTS
+    t = time.monotonic()
+    decoded = json.loads(bodies[0])
+    np.asarray([i["image"] for i in decoded["instances"]], np.float32)
+    decode_ms = (time.monotonic() - t) * 1e3
+    launches, engines, ref = {}, {}, None
+    try:
+        for engine in PREDICT_ENGINES:
+            with PredictServer(export_dir, dev, "--engine", engine,
+                               *PREDICT_ARGV) as srv:
+                t = time.monotonic()
+                post_bytes(srv.url, bodies[0])
+                first_s = time.monotonic() - t
+                batcher = srv.service._batcher
+                ops.reset_launch_counts()
+                execs, served = batcher.executions, srv.service.requests
+                outs, lat, wall = predict_burst(srv.url, bodies)
+                got = ops.launch_counts(("flash_fwd", "layernorm"))
+                execs = batcher.executions - execs
+                if got["flash_fwd"] <= 0:
+                    raise AssertionError(f"--engine {engine}: kernel 4 was "
+                                         "not launched")
+                add_launches(launches, got)
+                if engine == "builder":
+                    ref = outs
+                scale = max(float(np.abs(o).max()) for o in ref.values())
+                err = max(float(np.abs(outs[key] - ref[key]).max())
+                          for key in ref)
+                if err > PREDICT_RTOL * scale:
+                    raise AssertionError(f"--engine {engine}: logits {err} "
+                                         f"from the builder's (scale "
+                                         f"{scale})")
+                n_req = PREDICT_CLIENTS * PREDICT_REQUESTS
+                engines[engine] = dict(
+                    desc=srv.service.desc, first_request_s=first_s,
+                    requests=n_req, requests_served=srv.service.requests
+                    - served, burst_s=wall, requests_per_s=n_req / wall,
+                    images_per_s=n_req * PREDICT_IMAGES / wall,
+                    latency_ms_p50=pct(lat, 0.5) * 1e3,
+                    latency_ms_p95=pct(lat, 0.95) * 1e3,
+                    executions=execs, microbatches_per_request=execs / n_req,
+                    flash_launches=got["flash_fwd"],
+                    flash_launches_per_execution=got["flash_fwd"] / execs,
+                    max_abs_err_vs_builder=err, logit_scale=scale,
+                    batch8_device_ms=predict_device_ms(torch, srv, dev))
+                if engine == PREDICT_PROFILED:
+                    engines[engine]["profile"] = predict_profile(
+                        torch, srv, bodies)
+            torch.cuda.empty_cache()
+        x = torch.from_numpy(images[0][:PREDICT_CPU_IMAGES].astype(
+            np.float32))
+        with torch.no_grad():
+            cpu = cpu_model(x).numpy()
+        cpu_scale = float(np.abs(cpu).max())
+        cpu_err = float(np.abs(ref[(0, 0)][:PREDICT_CPU_IMAGES] - cpu).max())
+        if not np.isfinite(cpu).all() or cpu_err > PREDICT_CPU_RTOL * \
+                cpu_scale:
+            raise AssertionError(f"the card's logits are {cpu_err} from the "
+                                 f"CPU's f32 forward (scale {cpu_scale})")
+    finally:
+        shutil.rmtree(export_dir, ignore_errors=True)
+        for path in (export_dir + ".json", export_dir + ".log"):
+            if os.path.exists(path):
+                os.remove(path)
+    checks = predict_flash_checks(torch, dev)
+    t = time.monotonic()
+    spec = spec_v1_run(torch, dev)
+    spec["seconds"] = time.monotonic() - t
+    return dict(model="ViT-B/16", vit=PREDICT_VIT, **exported,
+                clients=PREDICT_CLIENTS, requests_a_client=PREDICT_REQUESTS,
+                images_a_request=PREDICT_IMAGES, argv=list(PREDICT_ARGV),
+                engines=engines, host_json_encode_ms_a_request=encode_ms,
+                host_json_decode_ms_a_request=decode_ms,
+                cpu_images=PREDICT_CPU_IMAGES, cpu_max_abs_err=cpu_err,
+                cpu_logit_scale=cpu_scale, cpu_rtol=PREDICT_CPU_RTOL,
+                rtol=PREDICT_RTOL, flash_checks=checks, spec_v1=spec,
+                seconds=time.monotonic() - t_phase, nvidia_smi=card), launches
+
+
 def main():
     try:
         import torch
@@ -7350,6 +7868,11 @@ def main():
                     splits[name] = kv_main["launches_by_shape"][name]
             torch.cuda.empty_cache()
 
+        # phase 23's export compiles beside the serving phases 12-18
+        # (PredictExport), which time no kernel; it is joined after
+        # phase 18, and the ``predict_export`` line says when it ran
+        predict_child = PredictExport(dev)
+        atexit.register(predict_child.stop)
         engine_outs, engine = phase_serving_engine(torch, dev, cfg,
                                                    export_dir, card)
         emit("serving_engine", **engine)
@@ -7378,16 +7901,22 @@ def main():
         replicas, r_launches = phase_replicas(torch, dev, r_cfg, r_dir,
                                               card, tier_cfg=cfg)
         emit("replicas_main_path", n_layers=REPLICA_LAYERS, **replicas)
-        shutil.rmtree(r_dir, ignore_errors=True)
         torch.cuda.empty_cache()
-        # phase 18 on the same export: the gateway in front of them
-        fleet_out, f_launches = phase_fleet(torch, dev, cfg, export_dir,
-                                            card)
-        emit("fleet_main_path", **fleet_out)
+        # phase 18: the gateway in front of two replicas, of phase 5's
+        # full-depth export when the run is in time, else of phase 17's
+        fleet_full = full_depth("fleet")
+        f_cfg, f_dir = (cfg, export_dir) if fleet_full else (r_cfg, r_dir)
+        fleet_out, f_launches = phase_fleet(torch, dev, f_cfg, f_dir, card)
+        emit("fleet_main_path", n_layers=f_cfg["n_layers"],
+             cut_for_time=not fleet_full, **fleet_out)
+        shutil.rmtree(r_dir, ignore_errors=True)
         for extra in (x_launches, a6_launches, spec_launches, r_launches,
                       f_launches):
             add_launches(launches, extra)
         torch.cuda.empty_cache()
+        # phase 23's export has run beside phases 12-18; it ends before
+        # any phase that times a kernel or a step
+        emit("predict_export", **predict_child.wait())
     finally:
         for d in (export_dir, *(os.path.join(HERE, "build", "chip_smoke", n)
                                 for n in ("export_jax_bf16", "export_int8",
@@ -7490,6 +8019,13 @@ def main():
     emit("mnist_main_path", **phase_mnist(torch, dev, card))
     torch.cuda.empty_cache()
 
+    # phase 23: :predict over the builder and both AOT artifacts
+    predict, predict_launches = phase_predict(torch, dev, card,
+                                              predict_child)
+    emit("predict_main_path", **predict)
+    add_launches(launches, predict_launches)
+    torch.cuda.empty_cache()
+
     # the serving kernels' launches by shape, each from its own main path
     emit("launch_split", nvidia_smi=card, kernels=splits)
     emit("engine_serial_vs_async", nvidia_smi=card, **engine_summary(engine))
@@ -7510,4 +8046,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--predict-export"]:
+        sys.exit(predict_export_main(*sys.argv[2:4]))
     sys.exit(main())

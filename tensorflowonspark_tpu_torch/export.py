@@ -65,7 +65,8 @@ def _resolve_builder(spec):
 def export_saved_model(export_dir, state_dict, builder=DEFAULT_BUILDER,
                        builder_kwargs=None, signatures=None, is_chief=True,
                        aot_batch_sizes=None, aot_platforms=None,
-                       quantize_int8=False, quantize_kwargs=None):
+                       quantize_int8=False, quantize_kwargs=None,
+                       device=None):
     """Write the serving artifact: ``tfos_model.json`` and ``params.pt``
     (``state_dict`` saved as given, on the CPU).
 
@@ -75,15 +76,31 @@ def export_saved_model(export_dir, state_dict, builder=DEFAULT_BUILDER,
     forwards ``targets`` / ``min_elements`` / ``axis``) as int8 ``q``
     ``[in, out]`` / f32 ``scale`` entries, and records ``"quantized":
     "int8"`` and the narrowest float dtype of ``state_dict`` as
-    ``dequant_dtype``, as the JAX export does.  ``aot_batch_sizes`` /
-    ``aot_platforms`` (compiled artifacts for the native runner) raise
-    NotImplementedError."""
+    ``dequant_dtype``, as the JAX export does.
+
+    ``aot_batch_sizes`` also writes ahead-of-time artifacts of the
+    default signature (else the first declared one) at those batch sizes
+    (`aot.export_aot`): the module is rebuilt from what was just written
+    (``load_model``, on ``device``: ``cuda`` unless the CPU is asked
+    for) and exported for each of ``aot_platforms`` (default: that
+    device) in both forms: the ``torch.export`` program (engine ``jax``)
+    and the AOTInductor package (engine ``native``).  Artifacts are local files: a remote ``export_dir`` raises before
+    anything is written."""
     if quantize_kwargs and not quantize_int8:
         raise ValueError("quantize_kwargs needs quantize_int8=True")
-    if aot_batch_sizes or aot_platforms:
-        raise NotImplementedError(
-            "export_saved_model(aot_batch_sizes=) is not ported yet (ROADMAP "
-            "A8: aot and the native runner)")
+    if aot_platforms and not aot_batch_sizes:
+        raise ValueError("aot_platforms needs aot_batch_sizes")
+    if aot_batch_sizes:
+        # checked before any write, so a large params upload is not
+        # wasted on an export that cannot finish
+        if fsio.is_remote(export_dir):
+            raise ValueError(
+                "aot_batch_sizes requires a local export_dir: AOT artifacts "
+                "must be local files — export locally, then copy the "
+                "directory")
+        from .device import resolve
+
+        device = resolve(device)
     if not is_chief:
         logger.info("non-chief process skipping export to %s", export_dir)
         return None
@@ -98,6 +115,17 @@ def export_saved_model(export_dir, state_dict, builder=DEFAULT_BUILDER,
     with fsio.fopen(fsio.join(export_dir, PARAMS_FILE), "wb") as f:
         torch.save(state, f)
     logger.info("exported saved model to %s", export_dir)
+    if aot_batch_sizes:
+        from . import aot
+
+        spec = _read_spec(export_dir)
+        names = list(spec["signatures"])
+        _, signature = read_signature(
+            export_dir, DEFAULT_SIGNATURE if DEFAULT_SIGNATURE in names
+            else names[0])
+        model, _ = load_model(export_dir, device=device)
+        aot.export_aot(export_dir, model, signature,
+                       batch_sizes=aot_batch_sizes, platforms=aot_platforms)
     return export_dir
 
 
@@ -225,6 +253,23 @@ def _read_state(export_dir, dev):
     return convert.qparams_from_jax(move(tree))
 
 
+def _builder_kwargs(builder, spec, state):
+    """The spec's builder kwargs, with ``in_features`` of a ``Linear`` /
+    ``MLP`` read from its first stored kernel when the spec leaves it
+    out: flax infers a Dense's input width, so a JAX export never
+    records it, and a PyTorch layer is built with it."""
+    from .models import linear
+
+    kwargs = dict(spec["builder_kwargs"])
+    if builder in (linear.Linear, linear.MLP) and "in_features" not in kwargs:
+        first = "dense" if builder is linear.Linear else "dense_0"
+        if first + ".weight" in state:
+            kwargs["in_features"] = int(state[first + ".weight"].shape[1])
+        else:                   # a stored int8 kernel, [in, out]
+            kwargs["in_features"] = int(state[first + ".q"].shape[0])
+    return kwargs
+
+
 def _load(export_dir, spec, dev, dequantize=True):
     import torch
 
@@ -233,7 +278,7 @@ def _load(export_dir, spec, dev, dequantize=True):
     builder = _resolve_builder(spec["builder"])
     state = _read_state(export_dir, dev)
     with torch.device("meta"):
-        model = builder(**spec["builder_kwargs"])
+        model = builder(**_builder_kwargs(builder, spec, state))
     stored = sorted(k[:-len(".q")] for k in state if k.endswith(".q"))
     deq = getattr(torch, spec.get("dequant_dtype") or "float32")
     for prefix in stored:

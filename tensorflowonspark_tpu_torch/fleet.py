@@ -1736,10 +1736,10 @@ class _GatewayHandler(BaseHTTPRequestHandler):
                     self._reject(e)
                     return
             try:
-                # direct relay, NOT _forward_once: a replica whose
-                # profiler is unavailable answers 503 (a port replica
-                # 501: its profiler is ROADMAP A8), and that verdict
-                # must reach the operator without tripping the breaker
+                # direct relay, NOT _forward_once: the replica's verdict
+                # (200 with its trace, 409 while a capture runs, 503 when
+                # its profiler raises) must reach the operator without
+                # tripping the breaker
                 conn, resp = gw._request(r, "POST", "/v1/debug:profile",
                                          body=body, timeout=30.0)
             except OSError as e:

@@ -4,24 +4,36 @@ counterpart of ``tensorflowonspark_tpu/inference.py``.
 Maps the reference's JVM inference driver
 (reference: src/main/scala/com/yahoo/tensorflowonspark/Inference.scala:30-43
 args, :52-79 load TFRecords -> TFModel.transform -> write JSON): reads
-TFRecord files, runs the exported model rebuilt from its builder spec
-(`export.load_saved_model`) and writes JSON-lines output, one file per
-input shard.
+TFRecord files, runs the exported model — preferring the port's
+ahead-of-time artifact when the export carries one (`aot`) — and
+writes JSON-lines output, one file per input shard.
 
     python -m tensorflowonspark_tpu_torch.inference \\
         --export_dir /models/lm --input data/tfrecords \\
         --schema_hint 'struct<tokens:array<int>>' \\
         --input_mapping '{"tokens": "input"}' \\
-        --output /tmp/predictions [--device cuda] [--engine auto|builder]
+        --output /tmp/predictions [--device cuda] \\
+        [--engine auto|native|jax|builder]
 
 The model runs on ``--device``: ``cuda`` unless ``--device cpu`` is
-given, and without CUDA it raises.  ``--engine native`` and ``jax`` (the
-JAX package's AOT artifact and native runner) raise NotImplementedError;
-``auto`` and ``builder`` both rebuild the model from its spec.
+given, and without CUDA it raises.  ``--engine``: ``auto`` takes the
+port's artifact when the export has one (its AOTInductor package:
+every export of the port writes both forms), else rebuilds the model
+from its builder spec; ``native`` (the AOTInductor package) and ``jax``
+(the ``torch.export`` program) require the port's artifact and raise
+ValueError without one; ``builder`` always rebuilds.  A JAX-package
+export's StableHLO artifact is not the port's: ``auto`` serves such an
+export through the builder (and says so in its description), ``native``
+and ``jax`` raise.
 """
 import argparse
 import json
 import logging
+import threading
+
+# `predict_batched` moved to `aot` (where the JAX package keeps it); the
+# name stays importable from here
+from .aot import predict_batched  # noqa: F401
 
 logger = logging.getLogger(__name__)
 
@@ -45,8 +57,11 @@ def build_argparser():
     p.add_argument("--signature_def_key", default=None)
     p.add_argument("--engine", choices=["auto", "native", "jax", "builder"],
                    default="auto",
-                   help="auto / builder: rebuild the model from its spec; "
-                        "native and jax are not ported")
+                   help="auto: the port's AOT artifact if present (its "
+                        "AOTInductor package), else rebuild "
+                        "from the model spec; native / jax: the "
+                        "AOTInductor package / torch.export program "
+                        "(required); builder: rebuild")
     p.add_argument("--device", default=None,
                    help="torch device to run on (default cuda; cpu must be "
                         "asked for)")
@@ -107,57 +122,77 @@ def _decode_shard(path, fields):
     return columns, count
 
 
-def predict_batched(predict, arrays, batch_size):
-    """Run a variable-size batch through `predict` in chunks of
-    `batch_size` rows, repeat-padding the tail chunk (trimmed after), so
-    the model sees one batch shape throughout."""
-    import numpy as np
+class _Predictor:
+    """``predict_rows(columns, n) -> {out_col: array}`` over one engine,
+    the weights loaded at the first call (``lazy``) or at once.  Bare
+    rows key their column by ``input_names``: the feature names as fed,
+    after the ``input_mapping`` inversion."""
 
-    n = int(arrays[0].shape[0])
-    outs_accum = None
-    for start in range(0, n, batch_size):
-        chunk = [a[start:start + batch_size] for a in arrays]
-        got = chunk[0].shape[0]
-        if got < batch_size:
-            pad = batch_size - got
-            chunk = [np.concatenate([c] + [c[-1:]] * pad, axis=0)
-                     for c in chunk]
-        outs = predict(chunk)
-        outs = [np.asarray(o)[:got] for o in outs]
-        if outs_accum is None:
-            outs_accum = [[o] for o in outs]
-        else:
-            for acc, o in zip(outs_accum, outs):
-                acc.append(o)
-    if outs_accum is None:
-        return []
-    return [np.concatenate(acc, axis=0) for acc in outs_accum]
+    def __init__(self, load, run, input_names, lazy):
+        self._load, self._run = load, run
+        self.input_names = input_names
+        self._lock = threading.Lock()
+        self._predict = None if lazy else load()
+
+    def __call__(self, columns, n):
+        if self._predict is None:
+            with self._lock:
+                if self._predict is None:
+                    self._predict = self._load()
+        return self._run(self._predict, columns, n)
 
 
-def _load_predictor(args):
-    """Return (predict_rows(columns) -> {out_col: array}, description)."""
-    from . import export
+def _load_predictor(args, lazy=False):
+    """Return ``(predict_rows(columns, n) -> {out_col: array},
+    description)`` for ``args.engine`` (the JAX CLI's choice, over the
+    port's artifacts).  With ``lazy`` the signature (or the artifact's
+    spec) is read and checked now and the weights load at the first
+    call, as the server wants."""
+    from . import aot, export
+    from .device import resolve
 
-    if args.engine in ("native", "jax"):
-        raise NotImplementedError(
-            f"--engine {args.engine} is not ported yet (ROADMAP A8: aot and "
-            "the native runner); use --engine auto or builder")
+    engine = getattr(args, "engine", None) or "auto"
+    if engine not in ("auto", "native", "jax", "builder"):
+        raise ValueError(f"--engine {engine!r} not in auto, native, jax, "
+                         "builder")
     in_map = json.loads(args.input_mapping) if args.input_mapping else None
     out_map = json.loads(args.output_mapping) if args.output_mapping else None
-
-    predict, signature = export.load_saved_model(
-        args.export_dir, args.signature_def_key, device=args.device)
-    out_names = signature.get("outputs", ["output"])
-    bs = max(1, int(args.batch_size or 64))
-    desc = f"builder(batch={bs}, device={predict.device})"
-
-    def _apply_chunk(chunk):
-        outs = predict(*chunk)
-        return outs if isinstance(outs, (tuple, list)) else (outs,)
-
     inv = {v: k for k, v in (in_map or {}).items()}
+    export_dir = args.export_dir
+    dev = resolve(getattr(args, "device", None))
+    if engine == "builder" or (engine == "auto"
+                               and not aot.is_torch_artifact(export_dir)):
+        _, signature = export.read_signature(export_dir,
+                                             args.signature_def_key)
+        bs = max(1, int(args.batch_size or 64))
+        desc = f"builder(batch={bs}, device={dev})"
+        if aot.has_aot(export_dir) and engine == "auto":
+            desc += (", the export's aot/ is the JAX package's StableHLO "
+                     "artifact, which the port does not run")
 
-    def predict_rows(columns):
+        def load():
+            predict, _ = export.load_saved_model(
+                export_dir, args.signature_def_key, device=dev)
+
+            def apply_chunk(chunk):
+                outs = predict(*chunk)
+                return outs if isinstance(outs, (tuple, list)) else (outs,)
+            apply_chunk.runner = predict.model   # on device tensors
+            return apply_chunk
+    else:
+        spec, bs, chosen, _ = aot.find_artifact(
+            export_dir, args.batch_size, engine, device=dev)
+        signature = {"inputs": {i["name"]: i for i in spec["inputs"]},
+                     "outputs": spec["outputs"]}
+        desc = f"aot(engine={chosen}, batch={bs}, device={dev})"
+
+        def load():
+            return aot.load_aot(export_dir, batch_size=bs, engine=chosen,
+                                device=dev)[0]
+
+    out_names = signature.get("outputs", ["output"])
+
+    def run(predict, columns, n):
         cols = {}
         for name in signature["inputs"]:
             feat = inv.get(name, name)
@@ -166,11 +201,12 @@ def _load_predictor(args):
                     f"model input {name!r} not fed: no feature {feat!r} "
                     f"(have {sorted(columns)})")
             cols[name] = columns[feat]
-        arrays = export.coerce_inputs(signature, cols)
-        outs = predict_batched(_apply_chunk, arrays, bs)
+        outs = aot.predict_batched(
+            predict, export.coerce_inputs(signature, cols), bs)
         return _name_outputs(outs, out_names, out_map)
 
-    return predict_rows, desc
+    names = [inv.get(n, n) for n in signature["inputs"]]
+    return _Predictor(load, run, names, lazy), desc
 
 
 def _name_outputs(outs, out_names, out_map):
@@ -208,7 +244,7 @@ def main(argv=None):
         if n == 0:
             fsio.fopen(out_path, "w").close()
             continue
-        named = predict_rows(columns)
+        named = predict_rows(columns, n)
         with fsio.fopen(out_path, "w") as out:
             for r in range(n):
                 row = {k: v[r].tolist() for k, v in named.items()}

@@ -818,6 +818,62 @@ def spec_accept_sampled(t_logits, props, temps, seeds, ords, topks=None,
     return c_tok, commit
 
 
+def _stop_walk(c_tok, commit, rems, eoss, eos_on):
+    """The per-row stop decision over a round's committed tokens
+    ``c_tok [n, k]``: ``(n_del, done, rems_new)``.  ``n_del[r]`` counts
+    the deliverable tokens (committed, within the remaining budget, not
+    past the first eos), ``done[r]`` is raised when the budget is spent
+    or an eos was delivered — the host loop's per-token walk, batched."""
+    ii = torch.arange(c_tok.shape[1], device=c_tok.device)[None, :]
+    is_eos = eos_on[:, None] & (c_tok == eoss[:, None]) & (
+        ii < commit[:, None])
+    j_eos = _first_false(~is_eos)
+    n_del = torch.minimum(commit, torch.minimum(rems.clamp_min(0).long(),
+                                                j_eos + 1))
+    rems_new = rems - n_del.to(rems.dtype)
+    return n_del, (rems_new <= 0) | (j_eos < n_del), rems_new
+
+
+def slot_spec_round_greedy(model, draft, t_cache, d_cache, toks, rems=None,
+                           eoss=None, eos_on=None, k=4):
+    """Speculation v1, the JAX package's ``_jitted_slot_spec_round``:
+    one greedy round over ALL rows of dense slot caches.  ``k`` draft
+    slot steps propose, ONE target pass verifies the ``[n, k]`` block,
+    each row commits the longest prefix of proposals equal to the
+    target's argmax plus the target's next argmax (1..k tokens, every
+    one the target's own greedy choice), and both caches rewind per row
+    to the committed length.  Unlike the grouped `speculative_generate`
+    (batch-min acceptance), each row advances at its own agreement.
+
+    Returns ``(new_toks, t_next [n, k], commit, t_cache, d_cache)``: row
+    r committed ``t_next[r, :commit[r]]``.  With ``rems`` / ``eoss`` /
+    ``eos_on`` the stop walk joins the round on the device and it
+    returns ``(new_toks, t_next, commit, n_del, done, rems_new, t_cache,
+    d_cache)`` (`_stop_walk`).  The caches update in place.  No server
+    flag reaches it: the JAX server, as the port's, serves v2
+    (`spec_round`)."""
+    if k < 1:
+        raise ValueError(f"k={k} must be >= 1")
+    idx = t_cache.cache_index
+    toks = toks.long()
+    d_tok, props = toks, []
+    for _ in range(k):
+        d_tok = torch.argmax(draft(d_tok[:, None], d_cache)[:, -1], dim=-1)
+        props.append(d_tok)
+    props = torch.stack(props, dim=1)                        # [n, k]
+    block = torch.cat([toks[:, None], props[:, :-1]], dim=1)
+    t_next = torch.argmax(model(block, t_cache), dim=-1)     # [n, k]
+    commit = _first_false(props == t_next).clamp(max=k - 1) + 1
+    new_toks = t_next.gather(1, (commit - 1)[:, None])[:, 0]
+    t_cache.cache_index = (idx + commit).to(torch.int32)
+    d_cache.cache_index = (idx + commit).to(torch.int32)
+    if rems is None:
+        return new_toks, t_next, commit, t_cache, d_cache
+    n_del, done, rems_new = _stop_walk(t_next, commit, rems, eoss, eos_on)
+    return (new_toks, t_next, commit, n_del, done, rems_new, t_cache,
+            d_cache)
+
+
 def spec_round(model, cache, toks, temps, seeds, ords, rems, eoss, eos_on,
                k, draft=None, d_cache=None, ctx=None, ctx_len=None,
                lora=None, topks=None, topps=None, minps=None, sampled=True):
@@ -840,7 +896,6 @@ def spec_round(model, cache, toks, temps, seeds, ords, rems, eoss, eos_on,
     committed tokens.  Returns ``(new_toks, c_tok [n, k], commit, n_del,
     done, rems_new, ords_new, ctx_len_new)`` (``ctx_len_new`` None in
     model mode); caches and ``ctx`` update in place."""
-    dev = toks.device
     idx = cache.cache_index
     is_g = temps <= 0
     toks = toks.long()
@@ -886,15 +941,7 @@ def spec_round(model, cache, toks, temps, seeds, ords, rems, eoss, eos_on,
     cache.cache_index = (idx + commit).to(torch.int32)
     if d_cache is not None:
         d_cache.cache_index = (idx + commit).to(torch.int32)
-    # deliverable: committed, within budget, not past the first eos
-    ii = torch.arange(k, device=dev)[None, :]
-    is_eos = eos_on[:, None] & (c_tok == eoss[:, None]) & (
-        ii < commit[:, None])
-    j_eos = _first_false(~is_eos)
-    n_del = torch.minimum(commit, torch.minimum(rems.clamp_min(0).long(),
-                                                j_eos + 1))
-    rems_new = rems - n_del.to(rems.dtype)
-    done = (rems_new <= 0) | (j_eos < n_del)
+    n_del, done, rems_new = _stop_walk(c_tok, commit, rems, eoss, eos_on)
     ctx_len_new = None
     if draft is None:
         ctx_len_new = ngram_append(ctx, ctx_len, c_tok, n_del)

@@ -21,6 +21,10 @@ family, each with its plain PyTorch version beside it.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises.  Kernels build at first use (ops/_build.py), never at import.
+The flash forward and the LayerNorm are also dispatcher ops
+(``tos::flash_fwd``, ``tos::layernorm``), so ``torch.export`` programs
+and AOTInductor packages (``aot``) run them; tracing any other launch
+raises.
 The package binds its submodules (no function re-exports under the
 same names), so ``ops.paged_attention`` is always the module; it
 re-exports ``flash_attention_with_lse``, whose name no module takes.

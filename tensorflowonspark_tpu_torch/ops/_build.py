@@ -188,7 +188,24 @@ def stream_ptr(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+# the kernels a traced program (``torch.export``, AOTInductor) may hold:
+# the dispatcher ops of ops/flash_attention.py and ops/layernorm.py
+TRACEABLE = ("tos::flash_fwd", "tos::layernorm")
+
+
 def ptr(t):
+    """A tensor's device pointer for a C entry.  A tensor under tracing
+    (``torch.export``, AOTInductor) has none: the launch raises, naming
+    the kernels that are dispatcher ops, instead of tracing into a
+    ctypes call."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    if is_fake(t):
+        raise RuntimeError(
+            "a ctypes kernel launch cannot be traced by torch.export / "
+            f"AOTInductor; only {', '.join(TRACEABLE)} are dispatcher ops "
+            "(the paged decode, the flash backward, the optimizers and the "
+            "quantised matmuls run eagerly only)")
     return ctypes.c_void_p(t.data_ptr())
 
 

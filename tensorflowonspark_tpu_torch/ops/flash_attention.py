@@ -20,7 +20,11 @@ Three kernels, one wrapper each (:func:`flash_fwd`, :func:`flash_bwd_dq`,
 plain PyTorch version (:func:`flash_fwd_plain`, :func:`flash_bwd_dq_plain`,
 :func:`flash_bwd_dkv_plain`); a CUDA tensor launches the hand-written
 kernel in ``csrc/flash_attention.cu`` (design and bound in its header) or
-raises.  The kernels take head_dim 64 or 128, in f32 or bf16; in bf16 all
+raises.  The forward is the dispatcher op ``tos::flash_fwd``
+(``torch.library.custom_op``, with a fake implementation for its
+shapes): the wrapper, ``_Flash`` and ``_FlashLSE`` call it, and
+``torch.export`` / AOTInductor keep it as one node of their graphs, so
+an exported program runs the hand-written kernel too.  The kernels take head_dim 64 or 128, in f32 or bf16; in bf16 all
 three run on the tensor cores, in f32 on the CUDA cores.  The C entries
 refuse rows that are not 16-byte aligned; the wrappers hand them an
 aligned copy of a misaligned view.  Their card tests alone, with the
@@ -172,29 +176,55 @@ def _rows(t, name, shape):
 
 
 def flash_fwd(q, k, v, causal=True, sm_scale=None, need_lse=True):
-    """Forward of kernel 4: ``(out, lse)``, lse f32 ``[B, H, S]`` or None
-    when ``need_lse`` is False (the kernel then writes none).  CPU tensors
-    take :func:`flash_fwd_plain`."""
+    """Forward of kernel 4: ``(out, lse)``, lse f32 ``[B, H, S]``, or an
+    empty f32 tensor when ``need_lse`` is False (the kernel then writes
+    none).  Goes through the dispatcher op ``tos::flash_fwd``: CPU
+    tensors take :func:`flash_fwd_plain`, CUDA tensors the kernel."""
     _check_shapes(q, k, v)
-    if q.device.type == "cpu":
-        out, lse = flash_fwd_plain(q, k, v, causal, sm_scale)
-        return out, (lse if need_lse else None)
+    return torch.ops.tos.flash_fwd(q, k, v, bool(causal), _scale(q, sm_scale),
+                                   bool(need_lse))
+
+
+flash_fwd.launches = 0
+
+
+# kernel 4 as a dispatcher op, so that ``torch.export`` and AOTInductor
+# record it in their graphs (a ctypes launch on raw pointers cannot be
+# traced); the CUDA implementation counts the launches, so an exported
+# program's executions count too
+@torch.library.custom_op("tos::flash_fwd", mutates_args=(),
+                         device_types="cpu")
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, sm_scale: float,
+                  need_lse: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    out, lse = flash_fwd_plain(q, k, v, causal, sm_scale)
+    return out.contiguous(), (lse.contiguous() if need_lse
+                              else lse.new_empty((0,)))
+
+
+@_flash_fwd_op.register_kernel("cuda")
+def _flash_fwd_cuda(q, k, v, causal, sm_scale, need_lse):
     q, k, v = _card_args(q, k, v)
     B, S, H, D = q.shape
     out = torch.empty_like(q)
-    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-           if need_lse else None)
+    lse = torch.empty((B, H, S) if need_lse else (0,), dtype=torch.float32,
+                      device=q.device)
     P = _build.ptr
     code = _build.lib().tos_flash_fwd(
         P(q), P(k), P(v), P(out), P(lse) if need_lse else None, B, S, H,
-        k.shape[2], D, _scale(q, sm_scale), int(causal), _build.dtype_code(q),
+        k.shape[2], D, sm_scale, int(causal), _build.dtype_code(q),
         _build.stream_ptr(q.device))
     _build.check(code, "tos_flash_fwd")
     flash_fwd.launches += 1
     return out, lse
 
 
-flash_fwd.launches = 0
+@_flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, causal, sm_scale, need_lse):
+    B, S, H, _ = q.shape
+    return (q.new_empty(q.shape),
+            q.new_empty((B, H, S) if need_lse else (0,),
+                        dtype=torch.float32))
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal=True, sm_scale=None):

@@ -10,7 +10,9 @@ returns f32.
 The one rule of the port's kernels: a CPU tensor takes the plain PyTorch
 version (:func:`layernorm_plain`, the port of ``layernorm_reference``); a
 CUDA tensor launches the hand-written kernel ``csrc/layernorm.cu``
-(design and bound in its header) or raises.  The kernel needs no row
+(design and bound in its header) or raises.  The forward is the
+dispatcher op ``tos::layernorm``, so ``torch.export`` / AOTInductor
+keep the kernel in their graphs.  The kernel needs no row
 padding (the TPU version pads N to its row block); how it splits a row
 over threads is :func:`kernel_layout`, a function of D and the dtype
 alone.  The gradient, as in the JAX custom VJP, recomputes through the
@@ -58,12 +60,26 @@ def layernorm_plain(x, scale, bias, eps=1e-6):
 
 
 def _layernorm(x, scale, bias, eps):
-    """Forward of one LayerNorm over ``x [..., D]`` (kernel 11).  CPU
-    tensors take :func:`layernorm_plain`."""
-    if x.device.type == "cpu":
-        return layernorm_plain(x, scale, bias, eps)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"fused_layernorm: no kernel for {x.device}")
+    """Forward of one LayerNorm over ``x [..., D]`` (kernel 11), through
+    the dispatcher op ``tos::layernorm``: CPU tensors take
+    :func:`layernorm_plain`, CUDA tensors the kernel."""
+    return torch.ops.tos.layernorm(x, scale, bias, float(eps))
+
+
+_layernorm.launches = 0
+
+
+# kernel 11 as a dispatcher op, so that ``torch.export`` and AOTInductor
+# keep it in their graphs; the CUDA implementation counts the launches
+@torch.library.custom_op("tos::layernorm", mutates_args=(),
+                         device_types="cpu")
+def _layernorm_op(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                  eps: float) -> torch.Tensor:
+    return layernorm_plain(x, scale, bias, eps).contiguous()
+
+
+@_layernorm_op.register_kernel("cuda")
+def _layernorm_cuda(x, scale, bias, eps):
     D = x.shape[-1]
     vec, lanes = kernel_layout(D, x.dtype)      # raises above D 8192
     for name, t in (("scale", scale), ("bias", bias)):
@@ -88,7 +104,9 @@ def _layernorm(x, scale, bias, eps):
     return y.reshape(x.shape)
 
 
-_layernorm.launches = 0
+@_layernorm_op.register_fake
+def _layernorm_fake(x, scale, bias, eps):
+    return x.new_empty(x.shape)
 
 
 class _FusedLayerNorm(torch.autograd.Function):

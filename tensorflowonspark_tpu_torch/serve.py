@@ -1,7 +1,10 @@
-"""Online :generate server over an exported decoder LM — the port of
+"""Online :predict / :generate server over an export — the port of
 ``tensorflowonspark_tpu/serve.py``.
 
     python -m tensorflowonspark_tpu_torch.serve --export_dir D \\
+        [--engine auto|native|jax|builder] [--batch_size 64] \\
+        [--batch_wait_ms MS] [--signature_def_key K] \\
+        [--input_mapping JSON] [--output_mapping JSON] \\
         [--generate_kv_page_size 64 --generate_kv_pages N] \\
         [--generate_engine async|serial] [--generate_pipeline_depth 2] \\
         [--generate_long_prompt_threshold T] \\
@@ -14,6 +17,9 @@
         [--generate_trace_ring N --generate_trace_decode_sample N] \\
         [--fleet HOST:PORT --fleet_heartbeat_s S]
 
+    POST /v1/models/<name>:predict
+        {"instances": [{feature: value, ..}, ..]} (or bare rows for a
+        single-input model) -> {"predictions": [{output: value}, ..]}
     POST /v1/models/<name>:generate
         {"inputs": [[ids..]], "max_new_tokens": n, "temperature": t,
          "seed": s, "eos_id": e, "top_k": k, "top_p": p, "min_p": m,
@@ -28,11 +34,20 @@
         ndjson, the first event {"resumed": true} (the splice ack)
     POST /v1/kv:export              {"dest": {"host", "port"}} or "dests"
     POST /v1/fleet:drain            fence admissions, wait for idle
+    POST /v1/debug:profile          {"duration_ms": n, "dir": D}: a
+        torch.profiler capture -> {"artifact": trace.json, "duration_ms"}
     GET  /v1/models/<name>   -> engine stats and kernel launch counts
     GET  /metrics, /v1/metrics (Prometheus text), /v1/trace/<id>
     GET  /healthz, /readyz (503 + Retry-After while draining)
 
-Every request runs through the ContinuousBatcher, as in the JAX server:
+:predict serves the export's signature as the JAX server does: the
+engine of the batch CLI (``inference._load_predictor``: the port's
+AOT artifact — ``torch.export`` program or AOTInductor package — or
+the rebuilt module), its weights loaded at the first :predict, one
+device execution at a time, or coalesced across concurrent requests
+over ``--batch_wait_ms`` (up to ``--batch_size`` rows).
+
+Every :generate runs through the ContinuousBatcher, as in the JAX server:
 slot-based continuous batching with batched multi-row prefill rounds
 interleaved with decode steps, by default on the async engine (a device
 thread dispatching, a host thread reading back) over the dense slot
@@ -72,7 +87,8 @@ host-side while interactive work waits (``--generate_preempt_ms``);
 request tracing (``trace``) and a Prometheus scrape.  ``--fleet
 HOST:PORT`` registers the replica with a port gateway (``fleet``,
 ``fleet_client``), heartbeats every ``--fleet_heartbeat_s`` and says
-BYE at shutdown.  Runs on ``cuda``
+BYE at shutdown.  ``POST /v1/debug:profile`` captures a
+``torch.profiler`` trace while serving goes on.  Runs on ``cuda``
 unless ``--device cpu`` is given; without a CUDA device and without
 that request it raises.  Flags and request fields whose feature is not
 ported raise NotImplementedError (HTTP 501) naming the ROADMAP item;
@@ -83,6 +99,7 @@ import collections
 import itertools
 import json
 import logging
+import os
 import queue as queue_mod
 import sys
 import threading
@@ -109,8 +126,8 @@ PRIORITY_CLASSES = ("interactive", "batch")
 def build_argparser():
     p = argparse.ArgumentParser(
         prog="tensorflowonspark_tpu_torch.serve",
-        description="online :generate HTTP server over an exported LM "
-                    "(PyTorch / CUDA port)")
+        description="online :predict / :generate HTTP server over an "
+                    "export (PyTorch / CUDA port)")
     p.add_argument("--export_dir", required=True)
     p.add_argument("--model_name", default="default",
                    help="name served under /v1/models/<name>")
@@ -119,6 +136,28 @@ def build_argparser():
     p.add_argument("--device", default=None,
                    help="torch device to serve on (default: cuda; 'cpu' "
                         "must be asked for explicitly)")
+    p.add_argument("--engine", choices=["auto", "native", "jax", "builder"],
+                   default="auto",
+                   help=":predict engine: auto = the port's AOT artifact if "
+                        "the export has one (its AOTInductor package), "
+                        "else rebuild from the model spec; "
+                        "native / jax = the AOTInductor package / "
+                        "torch.export program (required); builder = rebuild")
+    p.add_argument("--batch_size", type=int, default=64,
+                   help=":predict rows per device execution (the builder's "
+                        "chunk; an artifact's nearest compiled size), and "
+                        "the micro-batcher's row cap")
+    p.add_argument("--batch_wait_ms", type=float, default=0.0,
+                   help=">0 enables dynamic micro-batching: concurrent "
+                        ":predict requests within this window coalesce into "
+                        "one device execution (up to --batch_size rows)")
+    p.add_argument("--signature_def_key", default=None,
+                   help=":predict signature (default serving_default)")
+    p.add_argument("--input_mapping", default=None,
+                   help='JSON {feature_name: model_input_name} of :predict')
+    p.add_argument("--output_mapping", default=None,
+                   help='JSON {model_output_name: result_column} of '
+                        ':predict')
     p.add_argument("--max_new_tokens_limit", type=int, default=512,
                    help="upper bound a :generate request may ask for")
     p.add_argument("--generate_slots", type=int, default=8,
@@ -244,47 +283,21 @@ def build_argparser():
                    help="replica->gateway heartbeat interval (keep well "
                         "under the gateway's --heartbeat_timeout_s)")
     p.add_argument("--verbose", action="store_true")
-    # the JAX server's other flags: parsed so that its command lines reach
-    # the NotImplementedError that names their ROADMAP item
-    for flag, kw in _JAX_ONLY_FLAGS:
-        p.add_argument(flag, default=None, **kw)
+    # the JAX server's read-path switches: parsed so that its command
+    # lines reach the error that says why the port refuses them
+    for flag, choices, _ in _READ_PATH_FLAGS:
+        p.add_argument("--" + flag, choices=choices, default=None)
     return p
 
 
-_ZOO = "the zoo and the rest"
-# (flag, argparse keywords) of the JAX server's flags the port lacks;
-# each defaults to None, "not asked for"
-_JAX_ONLY_FLAGS = (
-    ("--generate_paged_attn", dict(choices=["kernel", "einsum"])),
-    ("--generate_paged_prefill", dict(choices=["kernel", "blend"])),
-    ("--engine", dict(choices=["auto", "native", "jax", "builder"])),
-    ("--batch_size", dict(type=int)),
-    ("--batch_wait_ms", dict(type=float)),
-    ("--input_mapping", {}),
-    ("--output_mapping", {}),
-    ("--signature_def_key", {}),
-)
-
-
-def _given(v):
-    """Any value given: a flag whose default (None) means "not asked"."""
-    return True
-
-
-# (flag, predicate of "asked for" a value other than None, ROADMAP item)
-_UNPORTED_FLAGS = (
-    # "kernel" is what the port runs; the plain XLA read paths are not
-    ("generate_paged_attn", lambda v: v == "einsum", _ZOO),
-    ("generate_paged_prefill", lambda v: v == "blend", _ZOO),
-    ("engine", lambda v: v in ("native", "jax", "builder"),
-     _ZOO + " (aot and the native runner)"),
-    # the :predict endpoint's flags
-    ("batch_size", _given, _ZOO + " (:predict)"),
-    ("batch_wait_ms", _given, _ZOO + " (:predict)"),
-    ("input_mapping", _given, _ZOO + " (:predict)"),
-    ("output_mapping", _given, _ZOO + " (:predict)"),
-    ("signature_def_key", _given, _ZOO + " (:predict)"),
-)
+# the JAX server's switches to its plain XLA read paths: (flag, its
+# choices, the value the port refuses); each defaults to None, "not
+# asked for", and "kernel" is what the port runs
+_READ_PATH_FLAGS = (("generate_paged_attn", ("kernel", "einsum"), "einsum"),
+                    ("generate_paged_prefill", ("kernel", "blend"), "blend"))
+_NO_SWITCH = ("the port's paged kernel wrappers take no switch: a CUDA tensor "
+              "always runs the hand-written kernel (no plain read path to "
+              "choose)")
 
 
 def _is_int(x):
@@ -2926,6 +2939,11 @@ class ContinuousBatcher:
         self._ack_retire_waiters()
 
 
+class NotADecoderError(TypeError):
+    """The export's builder rebuilds no decoder LM: :generate is
+    unavailable on it (HTTP 404, as the JAX server answers)."""
+
+
 def _load_lm(export_dir, quantize_mode, device):
     """An export's decoder LM ready to serve on ``device``: quantised by
     ``quantize_mode`` (int8 / int4) from its stored weights, its other
@@ -2940,9 +2958,9 @@ def _load_lm(export_dir, quantize_mode, device):
     model, spec = export_mod.load_model(
         export_dir, device=device, dequantize=quantize_mode != "int8")
     if not isinstance(model, Transformer):
-        raise TypeError(f"export builder rebuilds {type(model).__name__}, "
-                        "not a Transformer — :generate serves decoder LMs "
-                        "only")
+        raise NotADecoderError(
+            f"export builder rebuilds {type(model).__name__}, not a "
+            "Transformer — :generate serves decoder LMs only")
     stored = quantize_mode == "int8" and spec.get("quantized") == "int8"
     if quantize_mode != "none" and not stored:
         # quantise the stored (f32 master) weights BEFORE the compute-width
@@ -3287,19 +3305,165 @@ class GenerateService:
         self.batcher.stop()
 
 
+class PredictUnavailableError(RuntimeError):
+    """The export holds no :predict signature to serve (HTTP 404)."""
+
+
+def _instances_to_columns(instances, input_names=None):
+    """[{feature: value}, ...] -> ({feature: [values]}, n).
+
+    Also accepts TF Serving's bare row format ([[...], [...]] or scalars)
+    when the model has exactly one input: the values map onto that input.
+    """
+    if not isinstance(instances, list) or not instances:
+        raise ValueError('"instances" must be a non-empty list')
+    first = instances[0]
+    if not isinstance(first, dict):
+        if input_names is not None and len(input_names) == 1:
+            return {input_names[0]: list(instances)}, len(instances)
+        raise ValueError(
+            "each instance must be a {feature: value} object (bare rows are "
+            "only accepted for single-input models)")
+    cols = {k: [] for k in first}
+    for i, inst in enumerate(instances):
+        if not isinstance(inst, dict) or set(inst) != set(cols):
+            got = sorted(inst) if isinstance(inst, dict) else inst
+            raise ValueError(f"instance {i} features {got} differ from "
+                             f"instance 0 {sorted(cols)}")
+        for k, v in inst.items():
+            cols[k].append(v)
+    return cols, len(instances)
+
+
+def _rows_from_outputs(outputs, n):
+    """{out_col: array-like [n, ...]} -> [{out_col: value}, ...]."""
+    listed = {name: np.asarray(col).tolist() for name, col in outputs.items()}
+    return [{name: listed[name][i] for name in listed} for i in range(n)]
+
+
+class _MicroBatcher:
+    """Coalesce concurrent :predict calls into one device execution — the
+    TF-Serving request-batching analog of the JAX server.  The first
+    request opens a window of ``wait_ms``; requests arriving within it
+    are merged (up to ``max_batch`` rows) into one columnar execution,
+    and each caller's future receives exactly its row slice.  A
+    malformed request fails alone, a predictor failure fails only its
+    own window, and the thread never dies (``close`` ends it)."""
+
+    def __init__(self, predict_cols, wait_ms=5.0, max_batch=256):
+        self._predict = predict_cols
+        self._wait_s = wait_ms / 1e3
+        self._max = max_batch
+        self._q = queue_mod.Queue()
+        self.executions = 0
+        self._thread = threading.Thread(target=self._loop,
+                                        name="serve-batcher", daemon=True)
+        self._thread.start()
+
+    def submit(self, cols, n):
+        import concurrent.futures as cf
+
+        fut = cf.Future()
+        self._q.put((cols, n, fut))
+        return fut.result()
+
+    def close(self, timeout=10.0):
+        self._q.put(None)
+        self._thread.join(timeout)
+
+    def _loop(self):
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            batch, total = [item], item[1]
+            deadline = time.monotonic() + self._wait_s
+            while total < self._max:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                try:
+                    item = self._q.get(timeout=remaining)
+                except queue_mod.Empty:
+                    break
+                if item is None:        # close: serve this window first
+                    self._q.put(None)
+                    break
+                batch.append(item)
+                total += item[1]
+            # per-request validation BEFORE merging: a malformed request
+            # fails alone instead of poisoning every future of its window
+            head_keys = set(batch[0][0])
+            good = []
+            for cols, n, fut in batch:
+                if set(cols) != head_keys:
+                    fut.set_exception(ValueError(
+                        f"request features {sorted(cols)} differ from "
+                        f"batch head {sorted(head_keys)}"))
+                else:
+                    good.append((cols, n, fut))
+            if not good:
+                continue
+            try:
+                merged = {k: [] for k in head_keys}
+                for cols, _, _ in good:
+                    for k, v in cols.items():
+                        merged[k].extend(v)
+                outputs = self._predict(merged, sum(n for _, n, _ in good))
+                self.executions += 1
+                arrays = {k: np.asarray(v) for k, v in outputs.items()}
+                off = 0
+                for _, n, fut in good:
+                    fut.set_result(
+                        {k: a[off:off + n] for k, a in arrays.items()})
+                    off += n
+            except Exception as e:
+                # result distribution included: any escape here would kill
+                # the thread and wedge every later submit
+                for _, _, fut in good:
+                    if not fut.done():
+                        fut.set_exception(e)
+
+
 class ModelService:
     """The served model: resolves the device at construction (raising
-    without CUDA unless the CPU was asked for) and builds the
-    GenerateService lazily on the first :generate; its migration engine
-    (page server, relays), the drain fence and the scrape surface."""
+    without CUDA unless the CPU was asked for), reads and checks the
+    :predict signature (or the artifact's spec) and loads its weights at
+    the first :predict, and builds the GenerateService lazily on the
+    first :generate (an LM replica holds its weights once); its
+    migration engine (page server, relays), the drain fence, the
+    profiler and the scrape surface.
+
+    ``--batch_wait_ms`` > 0 coalesces concurrent :predict requests into
+    one device execution (`_MicroBatcher`); at 0 a lock serialises the
+    executions."""
 
     def __init__(self, args):
+        from tensorflowonspark_tpu_torch import export, fsio, inference
+
         self.args = args
         self.device = device_mod.resolve(getattr(args, "device", None))
         self.export_dir = args.export_dir
         self.model_name = getattr(args, "model_name", "default")
         self.role = getattr(args, "role", None) or "mixed"
-        self.desc = f"torch-{self.device.type}"
+        self.requests = 0                # :predict requests served
+        self._predict_rows, self._predict_error = None, None
+        spec_path = fsio.join(self.export_dir, export.MODEL_SPEC)
+        if fsio.exists(spec_path):
+            self._predict_rows, self.desc = inference._load_predictor(
+                args, lazy=True)
+        else:
+            # no export spec here: :predict answers 404 with the reason
+            self.desc = f"none(device={self.device})"
+            self._predict_error = f"no export spec {spec_path}"
+        self._lock = threading.Lock()    # one device: serialise :predict
+        self._batcher = None
+        wait_ms = getattr(args, "batch_wait_ms", 0.0) or 0.0
+        if wait_ms > 0 and self._predict_rows is not None:
+            self._batcher = _MicroBatcher(
+                self._predict_rows, wait_ms=wait_ms,
+                max_batch=getattr(args, "batch_size", 64) or 64)
+        self._profile_lock = threading.Lock()   # one capture at a time
         self._lora = {}
         for spec in (getattr(args, "generate_lora", None) or []):
             name, sep, path = spec.partition("=")
@@ -3310,42 +3474,105 @@ class ModelService:
         self._bind_host = getattr(args, "host", "127.0.0.1")
         self._advertise_host = getattr(args, "advertise_host", None)
         self._gen = None
+        self._gen_error = None      # why :generate is unavailable here
         self._gen_lock = threading.Lock()
         self._migrator = None
         self._draining = threading.Event()
 
+    def predict(self, instances):
+        """``POST :predict``: ``instances`` (feature objects, or bare rows
+        for a single-input model) -> one prediction object a row."""
+        if self._predict_rows is None:
+            raise PredictUnavailableError(self._predict_error)
+        cols, n = _instances_to_columns(
+            instances, getattr(self._predict_rows, "input_names", None))
+        if self._batcher is not None:
+            outputs = self._batcher.submit(cols, n)
+            with self._lock:
+                self.requests += 1
+            return _rows_from_outputs(outputs, n)
+        with self._lock:   # one device: serialise executions
+            outputs = self._predict_rows(cols, n)
+            self.requests += 1
+        return _rows_from_outputs(outputs, n)
+
+    def debug_profile(self, body):
+        """``POST /v1/debug:profile``: a time-bounded ``torch.profiler``
+        capture (`utils.profiling.trace`) while serving goes on; returns
+        ``(status, payload)``: 200 with the trace file (``artifact``) and
+        ``duration_ms``, 409 while another capture holds the profiler,
+        503 when the profiler itself raises.  ``duration_ms`` must lie in
+        (0, 10000] and ``dir`` be a string (ValueError -> 400)."""
+        from tensorflowonspark_tpu_torch.utils import profiling
+
+        dur = body.get("duration_ms", 500)
+        if (not isinstance(dur, (int, float)) or isinstance(dur, bool)
+                or not 0 < dur <= 10000):
+            raise ValueError('"duration_ms" must be a number in '
+                             "(0, 10000]")
+        out_dir = body.get("dir")
+        if out_dir is not None and not isinstance(out_dir, str):
+            raise ValueError('"dir" must be a string path')
+        if not self._profile_lock.acquire(blocking=False):
+            return 409, {"error": "a profile capture is already running"}
+        try:
+            if out_dir is None:
+                import tempfile
+
+                out_dir = tempfile.mkdtemp(prefix="torch-profile-")
+            try:
+                with profiling.trace(out_dir):
+                    time.sleep(float(dur) / 1000.0)
+            except Exception as e:
+                logger.warning("profiler capture failed: %s", e)
+                return 503, {"error": "profiler unavailable: "
+                             f"{type(e).__name__}: {e}"}
+            return 200, {"artifact": os.path.join(out_dir,
+                                                  profiling.TRACE_FILE),
+                         "duration_ms": float(dur)}
+        finally:
+            self._profile_lock.release()
+
     def generate_service(self):
+        """The lazily built GenerateService, or None when the export's
+        builder rebuilds no decoder LM (probed once)."""
         with self._gen_lock:
-            if self._gen is None:
-                a = self.args
-                self._gen = GenerateService(
-                    self.export_dir,
-                    max_new_tokens_limit=a.max_new_tokens_limit,
-                    slots=a.generate_slots, read_chunk=a.generate_read_chunk,
-                    prefill_chunk=a.generate_prefill_chunk,
-                    prefill_rows=a.generate_prefill_rows,
-                    prefill_budget=a.generate_prefill_budget,
-                    request_timeout_s=a.generate_timeout_s,
-                    kv_page_size=a.generate_kv_page_size,
-                    kv_pages=a.generate_kv_pages,
-                    kv_dtype=a.generate_kv_dtype,
-                    engine=a.generate_engine,
-                    pipeline_depth=a.generate_pipeline_depth,
-                    long_prompt_threshold=a.generate_long_prompt_threshold,
-                    quantize_mode=a.generate_quantize,
-                    draft_export_dir=a.draft_export_dir, draft_k=a.draft_k,
-                    spec_draft=a.spec_draft,
-                    lora_rank=a.generate_lora_rank,
-                    lora_capacity=a.generate_lora_capacity,
-                    lora_adapters=self._lora,
-                    host_cache_mb=a.generate_host_cache_mb,
-                    prio_weight=a.generate_priority_weight,
-                    preempt_ms=a.generate_preempt_ms,
-                    park_capacity=a.generate_park_capacity,
-                    trace_ring=a.generate_trace_ring,
-                    trace_decode_sample=a.generate_trace_decode_sample,
-                    device=self.device)
+            if self._gen is None and self._gen_error is None:
+                try:
+                    self._gen = self._build_generate(self.args)
+                except NotADecoderError as e:
+                    logger.info(":generate unavailable: %s", e)
+                    self._gen_error = str(e)
             return self._gen
+
+    def _build_generate(self, a):
+        return GenerateService(
+            self.export_dir,
+            max_new_tokens_limit=a.max_new_tokens_limit,
+            slots=a.generate_slots, read_chunk=a.generate_read_chunk,
+            prefill_chunk=a.generate_prefill_chunk,
+            prefill_rows=a.generate_prefill_rows,
+            prefill_budget=a.generate_prefill_budget,
+            request_timeout_s=a.generate_timeout_s,
+            kv_page_size=a.generate_kv_page_size,
+            kv_pages=a.generate_kv_pages,
+            kv_dtype=a.generate_kv_dtype,
+            engine=a.generate_engine,
+            pipeline_depth=a.generate_pipeline_depth,
+            long_prompt_threshold=a.generate_long_prompt_threshold,
+            quantize_mode=a.generate_quantize,
+            draft_export_dir=a.draft_export_dir, draft_k=a.draft_k,
+            spec_draft=a.spec_draft,
+            lora_rank=a.generate_lora_rank,
+            lora_capacity=a.generate_lora_capacity,
+            lora_adapters=self._lora,
+            host_cache_mb=a.generate_host_cache_mb,
+            prio_weight=a.generate_priority_weight,
+            preempt_ms=a.generate_preempt_ms,
+            park_capacity=a.generate_park_capacity,
+            trace_ring=a.generate_trace_ring,
+            trace_decode_sample=a.generate_trace_decode_sample,
+            device=self.device)
 
     def migration_engine(self):
         """The lazily built kvtransfer.MigrationEngine of this replica
@@ -3443,13 +3670,16 @@ class ModelService:
 
     def metadata(self):
         out = {"model": {"export_dir": self.export_dir, "engine": self.desc,
-                         "device": str(self.device), "role": self.role},
+                         "device": str(self.device), "role": self.role,
+                         "requests_served": self.requests},
                "status": "draining" if self.draining else "ok"}
+        if self._batcher is not None:
+            out["model"]["batched_executions"] = self._batcher.executions
         with self._gen_lock:
             gen = self._gen
         if gen is not None:
             out["model"]["generate"] = "available"
-            out["model"]["requests_served"] = gen.requests
+            out["model"]["requests_served"] += gen.requests
             out["model"]["generate_slots"] = gen.batcher.n_slots
             out["model"]["generate_stats"] = gen.batcher.stats()
             if gen.quantize_mode != "none":
@@ -3489,6 +3719,8 @@ class ModelService:
         return [] if gen is None else gen.batcher.trace.spans(trace_id)
 
     def close(self):
+        if self._batcher is not None:
+            self._batcher.close()
         with self._gen_lock:
             gen, self._gen = self._gen, None
             migrator, self._migrator = self._migrator, None
@@ -3590,25 +3822,39 @@ class _Handler(BaseHTTPRequestHandler):
                 self._send(500, {"error": f"{type(e).__name__}: {e}"})
             return
         if path == "/v1/debug:profile":
-            self._send(501, {"error": "/v1/debug:profile is not ported yet "
-                                      "(ROADMAP: A8, utils/profiling)",
-                             "type": "not_ported"})
+            # a time-bounded torch.profiler capture: the "why is the card
+            # idle" layer under device_idle_fraction.  Not fenced on
+            # draining: a misbehaving replica is the one worth profiling
+            try:
+                self._send(*self.service.debug_profile(self._json(raw)))
+            except (ValueError, KeyError, TypeError) as e:
+                self._send(400, {"error": f"{type(e).__name__}: {e}"})
+            except Exception as e:
+                logger.exception("debug:profile failed")
+                self._send(500, {"error": f"{type(e).__name__}: {e}"})
             return
+        is_predict = self.path == f"/v1/models/{name}:predict"
         is_generate = self.path == f"/v1/models/{name}:generate"
         is_resume = self.path == f"/v1/models/{name}:resume"
-        if not (is_generate or is_resume):
+        if not (is_predict or is_generate or is_resume):
             self._send(404, {"error": f"unknown path {self.path} (serving "
-                             f"model {name!r}; the port serves :generate "
-                             "and :resume)"})
+                             f"model {name!r})"})
             return
         if self.service.draining:
             self._send(503, {"error": "replica is draining",
                              "type": "draining"},
                        headers=[("Retry-After", "1")])
             return
+        if is_predict:
+            self._predict(raw)
+            return
         try:
             req = self._json(raw)
             gen = self.service.generate_service()
+            if gen is None:
+                self._send(404, {"error": ":generate unavailable: "
+                                 + self.service._gen_error})
+                return
             idem_key = self.headers.get("Idempotency-Key")
             if is_resume:
                 # always streams: the first event is the splice ack
@@ -3644,6 +3890,23 @@ class _Handler(BaseHTTPRequestHandler):
         except Exception as e:   # keep the server alive on model errors
             logger.exception("generate failed")
             self._send(500, {"error": f"{type(e).__name__}: {e}"})
+
+    def _predict(self, raw):
+        try:
+            preds = self.service.predict(self._json(raw).get("instances"))
+        except PredictUnavailableError as e:
+            # the export has no :predict signature to serve
+            self._send(404, {"error": f":predict unavailable: {e}"})
+            return
+        except (ValueError, KeyError, TypeError, AttributeError) as e:
+            # malformed client input in any shape
+            self._send(400, {"error": str(e) or type(e).__name__})
+            return
+        except Exception as e:   # keep the server alive on model errors
+            logger.exception("predict failed")
+            self._send(500, {"error": f"{type(e).__name__}: {e}"})
+            return
+        self._send(200, {"predictions": preds})
 
     def _stream_events(self, events):
         """Newline-delimited JSON events in chunked framing, one chunk per
@@ -3682,12 +3945,15 @@ def make_server(args):
     """Build (server, service); the caller runs serve_forever().  Flags
     whose feature is not ported raise NotImplementedError; the device is
     resolved here, so a missing CUDA device raises before serving."""
-    for flag, asked, item in _UNPORTED_FLAGS:
-        value = getattr(args, flag, None)
-        if value is not None and asked(value):
-            raise NotImplementedError(
-                f"--{flag}={getattr(args, flag)!r} is not ported yet "
-                f"(ROADMAP: {item})")
+    for flag, _, refused in _READ_PATH_FLAGS:
+        if getattr(args, flag, None) == refused:
+            raise NotImplementedError(f"--{flag}={refused!r} is refused: "
+                                      f"{_NO_SWITCH}")
+    if getattr(args, "batch_size", 64) < 1:
+        raise ValueError("--batch_size must be >= 1")
+    if getattr(args, "batch_wait_ms", 0.0) < 0:
+        raise ValueError("--batch_wait_ms must be >= 0 (0 disables "
+                         "micro-batching)")
     if getattr(args, "generate_slots", 8) < 1:
         raise ValueError("--generate_slots must be >= 1")
     paged = getattr(args, "generate_kv_page_size", 0) > 0

@@ -1,2 +1,3 @@
-"""Auxiliary subsystems of the port: checkpointing (``checkpoint``) and
-TensorBoard scalar summaries (``summary``)."""
+"""Auxiliary subsystems of the port: checkpointing (``checkpoint``),
+TensorBoard scalar summaries (``summary``) and profiling
+(``profiling``: ``torch.profiler`` captures and their Chrome traces)."""

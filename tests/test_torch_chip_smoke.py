@@ -31,6 +31,15 @@ shape, checked on the CPU.
   ``from_hf_*`` of the HF model holding it, and ``HF_CONFIGS`` are the
   published widths (TinyLlama-1.1B, GPT-2 124M, Mixtral-8x7B's 46.7 B and
   its 2-layer cut, bert-base-uncased).
+- phase 23: ``PREDICT_VIT`` is ViT-B/16's published config and the
+  traffic the one the phase reports (4 clients x 4 requests x 8 images,
+  ``--batch_wait_ms 5 --batch_size 32``); ``PredictServer``,
+  ``post_bytes`` and ``predict_burst`` over ``torch_aot_vit``'s export
+  on the CPU, one server an engine: every request answered, the
+  micro-batcher coalescing, kernel 4's dispatcher op in both artifacts'
+  paths, each engine's logits within ``PREDICT_RTOL`` of the builder's;
+  ``spec_v1_run`` on a tiny stand-in for the flagship: 8 rows, every one
+  committing its 32 tokens equal to ``generate``'s.
 """
 import importlib.util
 import math
@@ -43,6 +52,8 @@ import torch
 from tensorflowonspark_tpu_torch import convert as convert_mod
 from tensorflowonspark_tpu_torch import fleet, quantize
 from tensorflowonspark_tpu_torch.models import transformer as port_tf
+
+from torch_aot_vit import vit_aot_export  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _spec = importlib.util.spec_from_file_location(
@@ -365,3 +376,118 @@ def test_hf_configs_are_the_published_widths():
     # bert-base-uncased
     assert (bert["hidden_size"], bert["num_hidden_layers"],
             bert["vocab_size"]) == (768, 12, 30522)
+
+
+def test_full_depth_guard_and_the_export_childs_window(monkeypatch,
+                                                      tmp_path):
+    """Phases 18 and 21 keep their full depth unless the run reaches
+    them after FULL_DEPTH_BY_S; phase 23's export child is joined once,
+    and its window is given on the run's ``at_s`` clock."""
+    import json
+    import time
+
+    for late, fleet_full, hf_full in ((100, True, True),
+                                      (500, False, True),
+                                      (1000, False, False)):
+        monkeypatch.setattr(chip_smoke, "T0", time.monotonic() - late)
+        assert chip_smoke.full_depth("fleet") is fleet_full
+        assert chip_smoke.full_depth("hf_train") is hf_full
+    monkeypatch.setattr(chip_smoke, "T0", time.monotonic() - 300)
+
+    class Proc:
+        joins = 0
+
+        def wait(self, timeout=None):
+            Proc.joins += 1
+            return 0
+
+    child = object.__new__(chip_smoke.PredictExport)
+    child.dir, child.proc, child.numbers = str(tmp_path / "vit"), Proc(), None
+    child.t0 = chip_smoke.T0 + 100
+    with open(child.dir + ".json", "w") as f:
+        json.dump({"export_total_s": 90.0, "ended_wall": time.time() - 50},
+                  f)
+    got = child.wait()
+    assert got["export_started_at_s"] == 100.0
+    assert abs(got["export_ended_at_s"] - 250.0) <= 1.0
+    assert "ended_wall" not in got and got["export_total_s"] == 90.0
+    assert child.wait() is got and Proc.joins == 1
+
+
+def test_predict_phase_is_vit_b16_under_its_traffic():
+    from tensorflowonspark_tpu_torch import serve
+    from tensorflowonspark_tpu_torch.models import vit
+
+    cfg = vit.ViTConfig(**chip_smoke.PREDICT_VIT)
+    base = vit.ViTConfig(dtype="float32")
+    assert cfg == base and (cfg.image_size, cfg.patch_size, cfg.d_model,
+                            cfg.n_heads, cfg.n_layers, cfg.d_ff,
+                            cfg.num_classes) == (224, 16, 768, 12, 12, 3072,
+                                                 1000)
+    assert cfg.d_model // cfg.n_heads == 64      # kernel 4's head_dim
+    assert (chip_smoke.PREDICT_CLIENTS, chip_smoke.PREDICT_REQUESTS,
+            chip_smoke.PREDICT_IMAGES, chip_smoke.PREDICT_AOT_BATCH) == (
+                4, 4, 8, 8)
+    args = serve.build_argparser().parse_args(
+        ["--export_dir", "d", *chip_smoke.PREDICT_ARGV])
+    assert (args.batch_wait_ms, args.batch_size, args.engine) == (5.0, 32,
+                                                                  "auto")
+    assert chip_smoke.pct([1, 2, 3, 4], 0.5) == 3
+    assert chip_smoke.pct([1, 2, 3, 4], 0.95) == 4
+
+
+def test_predict_phase_servers_and_burst_on_the_cpu(vit_aot_export,
+                                                    monkeypatch):
+    import json
+
+    from tensorflowonspark_tpu_torch import ops
+
+    d, _, _ = vit_aot_export
+    monkeypatch.setattr(chip_smoke, "PREDICT_REQUESTS", 2)
+    rng = np.random.RandomState(7)
+    images = rng.randint(0, 256, (chip_smoke.PREDICT_CLIENTS, 3, 8, 8, 3))
+    bodies = [json.dumps({"instances": [{"image": i.tolist()} for i in imgs]})
+              .encode() for imgs in images]
+    ref = None
+    for engine in chip_smoke.PREDICT_ENGINES:
+        with chip_smoke.PredictServer(d, "cpu", "--engine", engine,
+                                      *chip_smoke.PREDICT_ARGV) as srv:
+            ops.reset_launch_counts()
+            outs, lat, wall = chip_smoke.predict_burst(srv.url, bodies)
+            assert len(outs) == len(lat) == 8 and wall > 0
+            assert srv.service.requests == 8
+            assert 1 <= srv.service._batcher.executions <= 8
+            # the CPU runs the plain version through the dispatcher op
+            assert ops.launch_counts(("flash_fwd",)) == {"flash_fwd": 0}
+            assert srv.service.desc.startswith(
+                "builder(" if engine == "builder" else f"aot(engine={engine}")
+            # what the phase times on device tensors, at the artifact's
+            # batch
+            run = chip_smoke.predict_runner(srv)
+            with torch.no_grad():
+                logits = run(torch.rand(4, 8, 8, 3) * 255)
+            assert tuple(logits.shape) == (4, 5)
+        ref = ref or outs
+        scale = max(float(np.abs(o).max()) for o in ref.values())
+        for key, o in outs.items():
+            assert o.shape == (3, 5)
+            assert np.abs(o - ref[key]).max() <= chip_smoke.PREDICT_RTOL * \
+                scale
+
+
+def test_spec_v1_run_on_a_tiny_flagship(monkeypatch):
+    from tensorflowonspark_tpu_torch import benchmarks
+
+    tiny = dict(benchmarks.FLAGSHIP_LM_V2, vocab_size=64, d_model=64,
+                n_heads=4, n_kv_heads=2, d_ff=128, n_layers=3,
+                dtype="float32", attention_impl="dense")
+    monkeypatch.setattr(benchmarks, "FLAGSHIP_LM_V2", tiny)
+    monkeypatch.setattr(chip_smoke, "SPEC_V1", dict(
+        chip_smoke.SPEC_V1, lens=(5, 9, 3, 12, 7, 4, 10, 6)))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a: None)
+    out = chip_smoke.spec_v1_run(torch, torch.device("cpu"))
+    assert out["rows"] == 8 and out["k"] == 4 and out["new_tokens"] == 32
+    assert out["rows_equal"] == 8 and out["dtype"] == "float32"
+    assert len(out["commits_per_round"]) == out["rounds"]
+    assert 1 <= out["mean_commit"] <= 4

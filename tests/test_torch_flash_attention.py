@@ -172,7 +172,7 @@ def test_no_grad_forward_skips_the_lse_and_heads_must_divide():
     q, k, v, _ = _inputs(5, 8, 2)
     tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
     out, lse = port_fa.flash_fwd(tq, tk, tv, need_lse=False)
-    assert lse is None
+    assert lse.dtype == torch.float32 and lse.numel() == 0
     assert torch.equal(port_fa.flash_attention(tq, tk, tv), out)
     with pytest.raises(ValueError, match="multiple of kv heads"):
         port_fa.flash_attention(tq, tk[:, :, :1].expand(-1, -1, 3, -1),

@@ -8,8 +8,10 @@
   ATOL = RTOL = 1e-4 (f32 on both sides, different summation order),
   with the same keys, row counts and output file names; run once as a
   subprocess, as a user runs it;
-- ``--engine native`` and ``--engine jax`` raise NotImplementedError
-  naming ROADMAP A8;
+- ``--engine native`` and ``--engine jax`` run the port's artifact (the
+  AOTInductor package and the ``torch.export`` program of
+  ``torch_aot_vit``'s ViT, within 1e-5 of the builder) and raise
+  ValueError on an export without one;
 - with no ``--device`` and no CUDA it raises.
 """
 import json
@@ -28,6 +30,8 @@ from tensorflowonspark_tpu import export as jax_export
 from tensorflowonspark_tpu import inference as jax_inference
 from tensorflowonspark_tpu.models import transformer as jax_tf
 from tensorflowonspark_tpu_torch import convert, dfutil, export, inference
+
+from torch_aot_vit import vit_aot_export  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL = RTOL = 1e-4
@@ -97,11 +101,25 @@ def test_cli_matches_jax_builder_engine(setup):
 
 
 @pytest.mark.parametrize("engine", ["native", "jax"])
-def test_unported_engines_raise_naming_a8(setup, engine):
+def test_unported_engines_raise_naming_a8(setup, vit_aot_export, engine):
     root, _, pdir, data = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(ValueError, match="requires an AOT artifact"):
         inference.main(_args(pdir, data, str(root / engine), "--engine",
                              engine, "--device", "cpu"))
+    vdir, _, _ = vit_aot_export
+    x = np.random.RandomState(5).standard_normal((5, 8, 8, 3)).astype(
+        np.float32)
+    shard = str(root / f"images-{engine}")
+    dfutil.write_tfrecords(({"image": r.reshape(-1)} for r in x), shard)
+    out = str(root / f"out-{engine}")
+    assert inference.main([
+        "--export_dir", vdir, "--input", shard, "--output", out,
+        "--schema_hint", "struct<image:array<float>>", "--engine", engine,
+        "--device", "cpu"]) == 0
+    got = np.asarray([json.loads(line)["logits"] for line in open(
+        os.path.join(out, "part-00000.json"))], np.float32)
+    want, _ = export.load_saved_model(vdir, device="cpu")
+    assert np.abs(got - want(x)).max() <= 1e-5
 
 
 def test_cli_needs_cuda_unless_cpu_is_asked_for(setup, monkeypatch):

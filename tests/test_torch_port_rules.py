@@ -11,8 +11,10 @@
 - A CPU tensor passed to each kernel wrapper takes the plain version
   (the launch counts stay 0); each kernel's CUDA source exists, names
   the TPU function it replaces and is built by ``ops/_build.py``.
-- Unported flags (every JAX serve flag the port lacks), fields and
-  train-step options raise instead of being ignored; the replica's
+- Unported flags (the JAX server's two switches to its plain read
+  paths), fields and train-step options raise instead of being ignored;
+  the :predict flags and ``--engine`` build a server over the port's
+  artifacts and each takes effect; the replica's
   fleet flags (host tier, roles, priorities, preemption, tracing) are
   ported and build a server; ``--fleet`` and ``--fleet_heartbeat_s``
   register the replica with a port gateway, announcing the features
@@ -27,9 +29,9 @@ import numpy as np
 import pytest
 import torch
 
-from tensorflowonspark_tpu_torch import (benchmarks, convert, export, fleet,
-                                         fleet_client, ops, optim, quantize,
-                                         serve)
+from tensorflowonspark_tpu_torch import (aot, benchmarks, convert, export,
+                                         fleet, fleet_client, ops, optim,
+                                         quantize, serve)
 from tensorflowonspark_tpu_torch.models import decode as port_decode
 from tensorflowonspark_tpu_torch.models import transformer as port_tf
 from tensorflowonspark_tpu_torch.ops import _build
@@ -42,6 +44,8 @@ from tensorflowonspark_tpu_torch.ops import quant_matmul as port_qm
 from tensorflowonspark_tpu_torch.parallel import mesh as port_mesh
 from tensorflowonspark_tpu_torch.parallel import sharding as port_sharding
 from tensorflowonspark_tpu_torch.parallel import train as port_train
+
+from torch_aot_vit import vit_aot_export  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "tensorflowonspark_tpu_torch")
@@ -65,7 +69,7 @@ TORCH_FREE = ("util", "faults", "marker", "gpu_info", "reservation",
               "minispark.sql.types", "minispark.ml", "minispark.streaming",
               "dfutil", "pipeline", "pipeline_ml", "trace", "metrics",
               "fleet", "fleet_client", "jobs", "utils", "utils.checkpoint",
-              "utils.summary", "image")
+              "utils.summary", "utils.profiling", "image")
 TINY = dict(vocab_size=32, d_model=64, n_heads=4, n_kv_heads=2, n_layers=1,
             d_ff=64, max_seq_len=32, dtype="float32", rope=True)
 
@@ -93,7 +97,8 @@ def test_imports_with_jax_blocked():
         assert f"tensorflowonspark_tpu_torch.models.{mod}" in _module_names()
     assert "tensorflowonspark_tpu_torch.ops.xent" in _module_names()
     for mod in ("kvtier", "kvtransfer", "trace", "image", "utils",
-                "utils.checkpoint", "utils.summary"):
+                "utils.checkpoint", "utils.summary", "aot",
+                "utils.profiling"):
         assert f"tensorflowonspark_tpu_torch.{mod}" in _module_names()
     code = (
         "import sys\n"
@@ -209,7 +214,8 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
 
 
 def test_loaders_pipeline_and_cli_follow_the_device_rule(monkeypatch,
-                                                        tmp_path):
+                                                        tmp_path,
+                                                        vit_aot_export):
     from tensorflowonspark_tpu_torch import dfutil, inference, pipeline
 
     model = port_tf.build_transformer(**TINY)
@@ -234,10 +240,21 @@ def test_loaders_pipeline_and_cli_follow_the_device_rule(monkeypatch,
     with pytest.raises(RuntimeError, match="no CUDA device"):
         inference.main(["--export_dir", str(tmp_path), "--input", shard,
                         "--output", str(tmp_path / "out")])
-    for kw in ({"aot_batch_sizes": [8]},):
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            export.export_saved_model(str(tmp_path / "x"),
-                                      model.state_dict(), **kw)
+    # aot_batch_sizes compiles on the card unless the CPU is asked for
+    sig = {"serving_default": {"inputs": {"input": {"shape": [4],
+                                                    "dtype": "int32"}},
+                               "outputs": ["output"]}}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        export.export_saved_model(str(tmp_path / "x"), model.state_dict(),
+                                  builder_kwargs=TINY, signatures=sig,
+                                  aot_batch_sizes=[8])
+    assert not os.path.exists(tmp_path / "x")
+    # with device="cpu" it writes both forms for the CPU (the shared
+    # fixture's export)
+    vdir, _, _ = vit_aot_export
+    assert aot.read_spec(vdir)["devices"] == ["cpu"]
+    assert sorted(os.listdir(os.path.join(vdir, "aot"))) == [
+        "aot_spec.json", "model_b4.cpu.aoti.pt2", "model_b4.cpu.pt2"]
     assert export.export_saved_model(str(tmp_path / "y"), model.state_dict(),
                                      is_chief=False) is None
     assert not os.path.exists(tmp_path / "y")
@@ -348,21 +365,51 @@ def test_kernel_sources_exist_and_are_built():
 
 
 @pytest.mark.parametrize("flag", [
-    # the JAX server's flags the port's parser lacked
+    # the JAX server's switches to its plain XLA read paths
     ["--generate_paged_attn", "einsum"],
-    ["--generate_paged_prefill", "blend"],
-    ["--engine", "native"], ["--batch_size", "64"],
-    ["--batch_wait_ms", "5"], ["--input_mapping", "x"],
-    ["--output_mapping", "y"], ["--signature_def_key", "serving_default"],
-    ["--engine", "jax"], ["--engine", "builder"]])
+    ["--generate_paged_prefill", "blend"]])
 def test_unported_flags_raise(flag):
     args = serve.build_argparser().parse_args([
         "--export_dir", "unused", "--device", "cpu",
         "--generate_kv_page_size", "8", "--generate_kv_pages", "8", *flag])
     name = flag[0].lstrip("-")
     with pytest.raises(NotImplementedError,
-                       match=f"--{name}=.* not ported yet \\(ROADMAP: "):
+                       match=f"--{name}=.* is refused: the port's paged "
+                             "kernel wrappers take no switch"):
         serve.make_server(args)
+
+
+@pytest.mark.parametrize("flag,effect", [
+    (["--engine", "native"], "aot(engine=native"),
+    (["--engine", "jax"], "aot(engine=jax"),
+    (["--engine", "builder"], "builder(batch=64"),
+    (["--batch_size", "3"], "aot(engine=native, batch=4"),
+    (["--batch_wait_ms", "5"], "batcher"),
+    (["--input_mapping", '{"pixels": "image"}'], "pixels"),
+    (["--output_mapping", '{"logits": "scores"}'], "scores"),
+    (["--signature_def_key", "serving_default"], "aot(engine=native")])
+def test_predict_flags_are_ported(vit_aot_export, flag, effect):
+    """The :predict flags and ``--engine`` (refused until A8c) build a
+    server over an export with the port's artifacts, and each takes
+    effect: the engine and batch size in ``desc``, the micro-batcher,
+    the renamed input and output, the signature."""
+    d, _, _ = vit_aot_export
+    args = serve.build_argparser().parse_args([
+        "--export_dir", d, "--device", "cpu", "--port", "0", *flag])
+    server, service = serve.make_server(args)
+    try:
+        if effect == "batcher":
+            assert service._batcher is not None
+            assert service._batcher._wait_s == 0.005
+        elif effect == "pixels":
+            assert service._predict_rows.input_names == ["pixels"]
+        elif effect == "scores":
+            out = service.predict([{"image": np.zeros((8, 8, 3)).tolist()}])
+            assert list(out[0]) == ["scores"] and len(out[0]["scores"]) == 5
+        else:
+            assert service.desc.startswith(effect), service.desc
+    finally:
+        server.server_close()
 
 
 @pytest.mark.parametrize("flag", [[], ["--fleet_heartbeat_s", "0.3"]])

@@ -19,7 +19,7 @@ controller of the port's replica, against the JAX package's.
   draft model and composes with n-gram speculation); a live request
   whose ``Idempotency-Key`` a second request reuses is cancelled;
   ``POST /v1/fleet:drain`` fences admissions (503 with ``Retry-After``,
-  ``/readyz`` 503); ``/v1/debug:profile`` answers 501 naming A8;
+  ``/readyz`` 503); ``/v1/debug:profile`` captures a trace (200);
 - chip_smoke phase 17's load (every row a batch session, interactive
   requests one per thread) gives the same interactive tokens with the
   controller armed and disarmed, in f32 (ROADMAP §C).
@@ -239,8 +239,9 @@ def test_drain_idempotency_and_the_unported_profile(export_dir):
         assert twin == [lm_mod.solo(lm_mod.tiny_lm()[2], prompt, 4)]
         assert len(box["ev"][-1]["output"]) < len(prompt) + 100
         assert b.stats()["idempotency_cancels"] == 1
-        status, _, raw = r.post("/v1/debug:profile", {})
-        assert status == 501 and "A8" in json.loads(raw)["error"]
+        status, _, raw = r.post("/v1/debug:profile", {"duration_ms": 20})
+        assert status == 200 and json.loads(raw)["artifact"].endswith(
+            "trace.json")
         # the drain fences admissions: 503 + Retry-After, /readyz 503
         status, _, raw = r.post("/v1/fleet:drain", {})
         assert status == 200 and json.loads(raw)["drained"]
