@@ -18,7 +18,10 @@ DeepLabV3, ViT-B/16, BERT-base) and the MoE flagship trained on it,
 HuggingFace checkpoints (TinyLlama, GPT-2, Mixtral, BERT) converted,
 served, fine-tuned and checkpointed, the MNIST example, and ViT-B/16
 served over ``:predict`` from the builder, a ``torch.export`` program
-and an AOTInductor package, profiled on demand, with speculation v1.
+and an AOTInductor package, profiled on demand, with speculation v1,
+and every workload of the ``benchmarks`` module (decode, quantised-matmul
+and prefill-chunk steps, the eight batcher bursts up to a 32,768-token
+prompt).
 
     python3 chip_smoke.py
 
@@ -411,6 +414,33 @@ caught and reported as passed):
    :predict's shapes; speculation v1 (``slot_spec_round_greedy``) on
    the full-depth flagship in f32 with a 2-layer draft, 8 rows of 32
    greedy tokens equal to ``generate``'s, commits a round;
+24. (after 23) one ``workload`` line a builder of the port's
+   ``benchmarks`` module, then the ``workloads_main_path`` line: each
+   builder at the flagship's full width (at full depth when the run
+   reaches the phase by FULL_DEPTH_BY_S, else at A8D_CUT_LAYERS of its
+   16 layers: :func:`full_depth`), driven as the JAX package's
+   ``bench.py`` segments drive it with A8D_SMOKE's cut of their traffic
+   (each line lists its ``cuts``; ``scripts/torch_a8d_phase.py`` runs
+   the whole traffic): ``make_decode_step`` in bf16, int8 and int4
+   (its 2-layer cut on the card against the same step on the CPU in
+   f32 from the same masters and random kv: logits within A8D_STEP_RTOL
+   of their std, greedy picks equal but at a near tie; then timed
+   windows), ``make_qmm_op`` in each mode (against
+   ``quant_matmul_plain`` or the f32 product on the card within
+   QMM_TOL, its leaf's bytes equal ``qmm_weight_bytes``; timed),
+   ``make_prefill_chunk_step`` (checked like the decode step; timed;
+   both branches of ``prefill_chunk_write_bytes``), and the eight
+   bursts, every handle complete with its tokens and the counter its
+   builder names moved: ``make_prefill_burst`` (``ttft_count``),
+   ``make_engine_burst``, ``make_spec_burst`` (``spec_rounds``),
+   ``make_migrate_pair`` (freeze, wire through a ``PageServer``,
+   resume: ``migrations_completed`` / ``_resumed``),
+   ``make_sched_burst`` (``sessions_parked``, the park pool back to
+   empty), ``make_warm_burst`` (``host_hits``), ``make_job_burst`` (a
+   ``JobManager`` over the records: every record done and written) and
+   ``make_long_burst`` (the 32,768-token prompt: ``long_chunks_
+   dispatched``, ``kv_table_grows``); the launch counts set to 0 just
+   before each run and read just after;
 16c. (after 8b) the ``lora_train_main_path`` line: ``make_lora_loss`` on
    the flagship step's model (B 8 x S 1024), adamw_fused over the rank-8
    adapters: a warm-up step and a window of 5, kernels 4-6 16 launches
@@ -422,8 +452,8 @@ caught and reported as passed):
    each kernel's own main path: the
    quantised kernels from their serving run, the int8 kv kernels from the
    int8 kv run with bf16 weights, kernel 11 from the fused LayerNorm
-   run, kernel 8 from phase 8b; phases 15 to 21 and 23 add their runs'
-   launches); the ``engine_serial_vs_async`` line
+   run, kernel 8 from phase 8b; phases 15 to 21, 23 and 24 add their
+   runs' launches); the ``engine_serial_vs_async`` line
    (phase 12's four numbers of each engine, dense and paged, beside the
    card's name and power limit); then the card line and, last, the
    ``ok`` line.
@@ -435,7 +465,8 @@ phases 18 and 21 run at full depth unless the run reaches them late
 2-3 minutes of host work) runs in a child process started before phase
 12, beside the serving phases, and is joined after phase 18, before any
 phase that times a kernel or a step (``PredictExport``); phases 19 and
-20 take about 20 s on one H100 80GB (700 W).
+20 take about 20 s on one H100 80GB (700 W); phase 24 runs a cut of its
+traffic, at A8D_CUT_LAYERS layers when it starts late.
 
 Exits 2 without a result when no CUDA device exists or when the port's
 package is not beside this file.
@@ -457,7 +488,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 T0 = time.monotonic()
 SEED = 20261016
 PEAK_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
-PEAK_BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
+# the card's dense bf16 tensor-core peak, from benchmarks.bf16_peak of
+# its name at first use (peak_bf16): 989e12 on an H100 SXM
+PEAK_BF16_FLOP_PER_S = None
 PEAK_F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 TOL = 1e-2                          # f32 math, bf16 output rounding
 # fused-dequant matmuls in bf16: the largest error within this share of
@@ -526,7 +559,26 @@ def launch_floor_ms():
     return time_ms(one.zero_)
 
 
-def bound(nbytes, flops, peak=PEAK_BF16_FLOP_PER_S):
+def peak_bf16():
+    """PEAK_BF16_FLOP_PER_S, read from ``benchmarks.bf16_peak`` of the
+    card's name at the first call; raises for a card the table does not
+    know (a bound against a guessed peak is a made-up number)."""
+    global PEAK_BF16_FLOP_PER_S
+    if PEAK_BF16_FLOP_PER_S is None:
+        import torch
+
+        from tensorflowonspark_tpu_torch.benchmarks import bf16_peak
+
+        name = torch.cuda.get_device_name(0)
+        PEAK_BF16_FLOP_PER_S = bf16_peak(name)
+        if PEAK_BF16_FLOP_PER_S is None:
+            raise RuntimeError(f"no dense bf16 peak known for {name!r} "
+                               "(benchmarks.PEAK_BF16)")
+    return PEAK_BF16_FLOP_PER_S
+
+
+def bound(nbytes, flops, peak=None):
+    peak = peak or peak_bf16()
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
@@ -2497,7 +2549,7 @@ def phase_train_main(torch, dev, optimizer=None, windows=2, window=5,
         window_step_ms=times, step_ms=step_ms,
         tokens_per_s=B * S / (step_ms / 1000.0),
         mfu=6.0 * n_params * B * S / (step_ms / 1000.0)
-        / PEAK_BF16_FLOP_PER_S,
+        / peak_bf16(),
         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
         losses=losses, loss_fell=losses[-1] < losses[0], launches=launches,
         **extra)
@@ -4849,7 +4901,8 @@ REPLICA_LAYERS = 4
 # same widths, so that a slow host stays inside the 1,200 s limit: on an
 # H100 80GB (700 W) whose host reached phase 18 at 550 s, phases 1-22 at
 # full depth took 1,181 s, and phase 23 adds 35-60 s
-FULL_DEPTH_BY_S = {"fleet": 450.0, "hf_train": 900.0}
+FULL_DEPTH_BY_S = {"fleet": 450.0, "hf_train": 800.0,
+                   "workloads": 900.0}
 
 
 def full_depth(phase):
@@ -7494,7 +7547,14 @@ def predict_profile(torch, srv, bodies):
         srv.base + "/v1/debug:profile",
         {"duration_ms": PREDICT_PROFILE_MS})))
     cap.start()
-    time.sleep(0.2)
+    # the second capture must overlap the first: wait until the server
+    # holds the profiler (a fixed 0.2 s lost that race on a slow host)
+    deadline = time.monotonic() + 60
+    while not srv.service._profile_lock.locked():
+        if time.monotonic() > deadline or not cap.is_alive():
+            raise AssertionError(f"the first capture never held the "
+                                 f"profiler: {box.get('first')}")
+        time.sleep(0.005)
     try:
         post_json(srv.base + "/v1/debug:profile", {"duration_ms": 10})
         second = 200
@@ -7751,6 +7811,723 @@ def phase_predict(torch, dev, card, export_child=None):
                 cpu_logit_scale=cpu_scale, cpu_rtol=PREDICT_CPU_RTOL,
                 rtol=PREDICT_RTOL, flash_checks=checks, spec_v1=spec,
                 seconds=time.monotonic() - t_phase, nvidia_smi=card), launches
+
+
+# ---- phase 24: benchmarks.py's workloads --------------------------------
+
+# phase 24 at the flagship's full depth when the run reaches it by
+# FULL_DEPTH_BY_S["workloads"], else at A8D_CUT_LAYERS of its 16 layers
+A8D_CUT_LAYERS = 4
+A8D_DECODE_MODES = (None, "int8", "int4")
+A8D_QMM_MODES = ("bf16", "int8", "int4")
+# the traffic of the JAX package's bench.py segments, whole: steps and
+# windows of the two step builders, the qmm op's timed calls, bursts a
+# configuration (burst 0 pays the warm-up), the migrations, and the
+# configurations each segment runs (engine: (engine, quantize))
+A8D_WHOLE = dict(decode_steps=32, prefill_steps=16, windows=3, qmm_reps=64,
+                 reps=3, migrate_reps=5, prefill_rows=(4, 1),
+                 engines=(("async", None), ("serial", None),
+                          ("async", "int8")),
+                 spec_modes=("ngram", "model", "off"), sched=(True, False),
+                 long=(True, False), warm_warmup=True, max_new=None,
+                 batch_max_new=None)
+# phase 24's cut of it, to stay inside the smoke's limit: fewer steps,
+# one burst a configuration, one configuration a segment, shorter
+# generations (each line lists its cuts beside the whole traffic)
+A8D_SMOKE = dict(A8D_WHOLE, decode_steps=8, prefill_steps=4, windows=1,
+                 qmm_reps=10, reps=1, migrate_reps=2, prefill_rows=(4,),
+                 engines=(("async", None),), spec_modes=("ngram",),
+                 sched=(True,), long=(True,), warm_warmup=False, max_new=24,
+                 batch_max_new=32)
+A8D_STEP_RTOL = 5e-2        # phase 4's: of the CPU logits' std
+
+
+def a8d_config(n_layers=None, **over):
+    from tensorflowonspark_tpu_torch.benchmarks import FLAGSHIP_LM_V2
+
+    cfg = dict(FLAGSHIP_LM_V2, **over)
+    if n_layers:
+        cfg["n_layers"] = n_layers
+    return cfg
+
+
+def a8d_cuts(traffic):
+    """The keys where ``traffic`` departs from the whole traffic."""
+    return {k: v for k, v in traffic.items() if A8D_WHOLE[k] != v}
+
+
+def a8d_fill_pools(torch, card_cache, cpu_cache, upto, seed):
+    """The same random kv (bf16 values) in both caches' pages that hold
+    each row's first ``upto`` positions, so the steps read real
+    context."""
+    gen = torch.Generator().manual_seed(seed)
+    used = -(-upto // cpu_cache.page_size)
+    ids = cpu_cache.page_table[:, :used].reshape(-1).long()
+    for name in ("pages_key", "pages_value"):
+        for card_pool, cpu_pool in zip(getattr(card_cache, name),
+                                       getattr(cpu_cache, name)):
+            vals = torch.randn((len(ids), *cpu_pool.shape[1:]),
+                               generator=gen).bfloat16()
+            cpu_pool.index_copy_(0, ids, vals.float())
+            card_pool.index_copy_(0, ids.to(card_pool.device),
+                                  vals.to(card_pool.device))
+
+
+def a8d_logits_check(torch, got, ref, label):
+    """Card logits against the CPU's: the largest difference within
+    A8D_STEP_RTOL of the CPU logits' std; returns it and the tolerance."""
+    ref = ref.float().cpu()
+    got = got.float().cpu()
+    tol = A8D_STEP_RTOL * ref.std().item()
+    diff = (got - ref).abs().max().item()
+    if not (torch.isfinite(got).all() and diff <= tol):
+        raise AssertionError(f"{label}: logits {diff} from the CPU's (tol "
+                             f"{tol})")
+    return diff, tol
+
+
+def a8d_step_parity(torch, dev, kind, quants=(None,)):
+    """A step builder's check: its 2-layer cut built on the card (bf16
+    compute) and on the CPU (f32), the CPU taking the card's f32
+    masters, the same random kv in both pools; for each of ``quants``
+    both models are quantised (copies, by the builder's own helper).
+    Decode: one forward's logits, then one step's greedy picks, equal but
+    at a near tie; prefill: one dispatch's logits.  Returns
+    ``{quant or "bf16": numbers}``."""
+    import copy
+
+    from tensorflowonspark_tpu_torch import benchmarks as bm
+
+    make = (bm.make_decode_step if kind == "decode"
+            else bm.make_prefill_chunk_step)
+    card = make(device=dev, config=a8d_config(2))
+    cpu = make(device="cpu", config=a8d_config(2, dtype="float32"))
+    cpu[1].load_state_dict({k: v.cpu() for k, v in
+                            card[1].state_dict().items()})
+    shape = (bm.FLAGSHIP_DECODE if kind == "decode"
+             else bm.FLAGSHIP_PREFILL_KERNEL)
+    a8d_fill_pools(torch, card[2], cpu[2], shape["fill"]
+                   + shape.get("chunk", 1), SEED + 24)
+    out = {}
+    for quant in quants:
+        runs = [(fn, bm._quantized(copy.deepcopy(model), quant), cache,
+                 args) for fn, model, cache, args in (card, cpu)]
+        out[quant or "bf16"] = a8d_check_one(torch, dev, kind, runs, quant)
+    return out
+
+
+def a8d_check_one(torch, dev, kind, runs, quant):
+    label = f"{kind} step ({quant or 'bf16'})"
+    out = dict(n_layers=2, quantize=quant)
+    if kind == "prefill":
+        logits = [fn(model, cache, *args)[0]
+                  for fn, model, cache, args in runs]
+        out["max_abs_diff"], out["tol"] = a8d_logits_check(
+            torch, logits[0], logits[1], label)
+        return out
+    vocab = runs[1][1].cfg.vocab_size
+    toks = torch.randint(1, vocab, (runs[1][3][0].shape[0],),
+                         generator=torch.Generator().manual_seed(SEED),
+                         dtype=torch.int32)
+    saved = [cache.cache_index.clone() for _, _, cache, _ in runs]
+    logits = []
+    for (_, model, cache, _), idx in zip(runs, saved):
+        with torch.no_grad():
+            logits.append(model(toks.to(idx.device).long()[:, None],
+                                cache)[:, -1])
+        cache.cache_index = idx.clone()
+    out["max_abs_diff"], out["tol"] = a8d_logits_check(
+        torch, logits[0], logits[1], label)
+    picks = [step(model, cache, toks.to(idx.device), *args[1:])[0].cpu()
+             for (step, model, cache, args), idx in zip(runs, saved)]
+    for (_, _, cache, _), idx in zip(runs, saved):
+        cache.cache_index = idx
+    top2 = torch.topk(logits[1].float(), 2, dim=-1).values
+    parted = picks[0] != picks[1]
+    if bool((parted & (top2[:, 0] - top2[:, 1] > out["tol"])).any()):
+        raise AssertionError(f"{label}: greedy picks part above a near "
+                             "tie")
+    out["picks_equal"] = int((~parted).sum())
+    out["rows"] = int(parted.numel())
+    return out
+
+
+def a8d_timed_steps(torch, fn, steps, windows):
+    """Best window of ``steps`` calls of ``fn``: per call, CUDA-event ms
+    (the device timeline, host gaps included) and host ms."""
+    best = None
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(steps):
+            fn()
+        end.record()
+        host = (time.perf_counter() - t0) * 1e3 / steps
+        end.synchronize()
+        ms = start.elapsed_time(end) / steps
+        if best is None or ms < best[0]:
+            best = (ms, host)
+    return dict(step_ms=best[0], host_ms_a_step=best[1], steps=steps,
+                windows=windows)
+
+
+def a8d_decode(torch, dev, traffic, n_layers):
+    """make_decode_step in bf16, int8 and int4: the 2-layer check, then
+    the step at ``n_layers`` (two warm-up steps, then the timed
+    windows, kernel launches counted over them)."""
+    from tensorflowonspark_tpu_torch import benchmarks as bm
+    from tensorflowonspark_tpu_torch import ops
+
+    modes, launches = {}, {}
+    checks = a8d_step_parity(torch, dev, "decode", A8D_DECODE_MODES)
+    torch.cuda.empty_cache()
+    for quant in A8D_DECODE_MODES:
+        check = checks[quant or "bf16"]
+        step, model, cache, args = bm.make_decode_step(
+            quantize=quant, device=dev, config=a8d_config(n_layers))
+        state = list(args)
+
+        def one():
+            state[0], _, state[3] = step(model, cache, *state)
+
+        one()
+        one()
+        ops.reset_launch_counts()
+        timing = a8d_timed_steps(torch, one, traffic["decode_steps"],
+                                 traffic["windows"])
+        got = {k: v for k, v in ops.launch_counts().items() if v}
+        toks = state[0].cpu()
+        want = ["paged_attention"] + ([f"{quant}_matmul"] if quant else [])
+        if not all(got.get(k, 0) > 0 for k in want) or not bool(
+                ((toks >= 0) & (toks < model.cfg.vocab_size)).all()):
+            raise AssertionError(f"decode step ({quant or 'bf16'}): "
+                                 f"launches {got}, picks {toks.tolist()}")
+        add_launches(launches, got)
+        modes[quant or "bf16"] = dict(check=check, launches=got, **timing,
+                                      cache_index=int(cache.cache_index[0]))
+        del step, model, cache, args, state
+        torch.cuda.empty_cache()
+    return dict(modes=modes, shape=bm.FLAGSHIP_DECODE), launches
+
+
+def a8d_qmm(torch, dev, traffic):
+    """make_qmm_op in each mode: the op against ``quant_matmul_plain``
+    (int8, int4) or the f32 product (bf16) on the card within QMM_TOL of
+    the largest plain output, then timed (time_ms), the launches counted
+    over the timed calls; the analytic weight bytes beside the leaf's."""
+    from tensorflowonspark_tpu_torch import benchmarks as bm
+    from tensorflowonspark_tpu_torch import ops
+    from tensorflowonspark_tpu_torch.ops.quant_matmul import (
+        quant_matmul_plain)
+
+    out, launches = {}, {}
+    for mode in A8D_QMM_MODES:
+        fn, x, w = bm.make_qmm_op(mode, device=dev)
+        y = fn(x, w)
+        if mode == "bf16":
+            ref = (x.float() @ w.float()).to(x.dtype)
+            leaf = w.numel() * w.element_size()
+        else:
+            ref = quant_matmul_plain(x, w)
+            leaf = (w["q"].numel() + w["scale"].numel() * 4
+                    if mode == "int8" else w.q.numel() + w.scale.numel() * 4)
+        err = (y.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        if err > QMM_TOL * scale or leaf != bm.qmm_weight_bytes(mode):
+            raise AssertionError(f"qmm {mode}: {err} of {scale}, leaf "
+                                 f"{leaf} bytes")
+        ops.reset_launch_counts()
+        ms = time_ms(lambda: fn(x, w), reps=traffic["qmm_reps"])
+        got = {k: v for k, v in ops.launch_counts().items() if v}
+        if mode != "bf16" and not got.get(f"{mode}_matmul"):
+            raise AssertionError(f"qmm {mode}: kernel not launched")
+        add_launches(launches, got)
+        out[mode] = dict(ms=ms, max_abs_err=err, plain_scale=scale,
+                         tol=QMM_TOL, weight_bytes=leaf,
+                         gb_per_s=leaf / ms / 1e6, launches=got)
+    return dict(modes=out, shape=bm.FLAGSHIP_QMM), launches
+
+
+def a8d_prefill(torch, dev, traffic, n_layers):
+    """make_prefill_chunk_step: the 2-layer check, then the dispatch at
+    ``n_layers`` (a warm-up, then the timed windows, launches counted);
+    both branches of the analytic write bytes beside it."""
+    from tensorflowonspark_tpu_torch import benchmarks as bm
+    from tensorflowonspark_tpu_torch import ops
+
+    check = a8d_step_parity(torch, dev, "prefill")["bf16"]
+    torch.cuda.empty_cache()
+    cfg = a8d_config(n_layers)
+    prefill, model, cache, args = bm.make_prefill_chunk_step(device=dev,
+                                                             config=cfg)
+    last = {}
+
+    def one():
+        last["logits"], _ = prefill(model, cache, *args)
+
+    one()
+    ops.reset_launch_counts()
+    timing = a8d_timed_steps(torch, one, traffic["prefill_steps"],
+                             traffic["windows"])
+    got = {k: v for k, v in ops.launch_counts().items() if v}
+    if not (got.get("page_write") and got.get("prefill_read")
+            and bool(torch.isfinite(last["logits"]).all())):
+        raise AssertionError(f"prefill chunk step: launches {got}")
+    d = bm.FLAGSHIP_PREFILL_KERNEL
+    out = dict(check=check, launches=got, **timing, shape=d,
+               tokens_per_s=d["n_slots"] * d["chunk"] / timing["step_ms"]
+               * 1e3,
+               write_bytes={impl: bm.prefill_chunk_write_bytes(
+                   impl, config=cfg) for impl in ("kernel", "blend")})
+    del prefill, model, cache, args, last
+    torch.cuda.empty_cache()
+    return out, got
+
+
+def a8d_drain(handles, prompts, max_new, timeout=600):
+    """Wait for every handle: each sequence the prompt plus max_new
+    tokens, else the burst fails.  Returns the outputs."""
+    outs = [list(h.result(timeout=timeout)) for h in handles]
+    for out, p in zip(outs, prompts):
+        if out[:len(p)] != list(p) or len(out) != len(p) + max_new:
+            raise AssertionError(f"a burst handle ended with {len(out)} of "
+                                 f"{len(p) + max_new} tokens")
+    return outs
+
+
+def a8d_bursts(batcher, prompts, max_new, reps):
+    """``reps`` bursts of ``prompts``: tokens/s and the TTFT mean from
+    ``stats()`` of the best burst past the first (burst 0 pays the
+    warm-up; with one burst, that one), the burst's outputs and the
+    batcher's stats after it.  ``ttft_count`` must move by the burst's
+    requests."""
+    runs = []
+    for _ in range(reps):
+        s0 = batcher.stats()
+        t0 = time.perf_counter()
+        outs = a8d_drain([batcher.submit(p, max_new) for p in prompts],
+                         prompts, max_new)
+        wall = time.perf_counter() - t0
+        s1 = batcher.stats()
+        n = s1["ttft_count"] - s0["ttft_count"]
+        if n != len(prompts):
+            raise AssertionError(f"ttft_count moved {n}, {len(prompts)} "
+                                 "requests")
+        runs.append(dict(tokens_per_s=len(prompts) * max_new / wall,
+                         wall_s=wall, ttft_ms_mean=(
+                             s1["ttft_ms_sum"] - s0["ttft_ms_sum"]) / n))
+    best = max(runs[1:] or runs, key=lambda r: r["tokens_per_s"])
+    return outs, dict(best, bursts=reps, requests=len(prompts),
+                      max_new=max_new), batcher.stats()
+
+
+def a8d_stat_keys(st, *keys):
+    return {k: st.get(k) for k in keys}
+
+
+def a8d_counted(torch, fn):
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after: ``(its result, the launches)``."""
+    from tensorflowonspark_tpu_torch import ops
+
+    ops.reset_launch_counts()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, {k: v for k, v in ops.launch_counts().items() if v}
+
+
+def a8d_serving(torch, dev, traffic, n_layers, common):
+    """The eight batcher bursts, one ``workload`` line each (with
+    ``common``), every batcher stopped and freed before the next
+    builder: ``{builder: numbers}`` and the launches of all of them."""
+    import queue
+    import tempfile
+
+    from tensorflowonspark_tpu_torch import benchmarks as bm
+    from tensorflowonspark_tpu_torch import jobs as jobs_mod
+    from tensorflowonspark_tpu_torch import kvtransfer
+
+    cfg = a8d_config(n_layers)
+    mx = traffic["max_new"]
+    lines, launches = {}, {}
+    started = [time.monotonic()]
+
+    def record(name, numbers, got):
+        add_launches(launches, got)
+        now = time.monotonic()
+        lines[name] = dict(numbers, launches=got,
+                           seconds=now - started[0])
+        emit("workload", builder=name, **common, **lines[name])
+        started[0] = now
+        torch.cuda.empty_cache()
+
+    def summed(runs):
+        total = {}
+        for run in runs.values():
+            add_launches(total, run["launches"])
+        return total
+
+    # TTFT: batched (4 rows a dispatch) and sequential admission
+    out = {}
+    for rows in traffic["prefill_rows"]:
+        batcher, prompts, max_new = bm.make_prefill_burst(
+            prefill_rows=rows, device=dev, config=cfg)
+        try:
+            (_, best, _), got = a8d_counted(torch, lambda: a8d_bursts(
+                batcher, prompts, max_new, max(traffic["reps"], 1)))
+        finally:
+            batcher.stop()
+        out[f"prefill_rows_{rows}"] = dict(best, launches=got)
+        del batcher
+    record("make_prefill_burst", dict(runs=out, shape=bm.FLAGSHIP_PREFILL),
+           summed(out))
+
+    # engine tokens/s: the engines, and int8 weights
+    out = {}
+    for engine, quant in traffic["engines"]:
+        batcher, prompts, max_new = bm.make_engine_burst(
+            engine=engine, quantize=quant, device=dev, config=cfg,
+            max_new=mx)
+        try:
+            (outs, best, st), got = a8d_counted(torch, lambda: a8d_bursts(
+                batcher, prompts, max_new, traffic["reps"]))
+        finally:
+            batcher.stop()
+        if quant and not got.get(f"{quant}_matmul"):
+            raise AssertionError(f"engine burst ({quant}): no {quant} "
+                                 "matmul launched")
+        out[engine + (f"_{quant}" if quant else "")] = dict(
+            best, launches=got, **a8d_stat_keys(
+                st, "decode_steps", "decode_step_ms_p50",
+                "device_idle_fraction", "pipeline_depth_peak"))
+        del batcher
+    record("make_engine_burst", dict(runs=out, shape=bm.FLAGSHIP_ENGINE),
+           summed(out))
+
+    # speculation: n-gram, a 4-layer draft, off
+    out = {}
+    for mode in traffic["spec_modes"]:
+        batcher, prompts, max_new = bm.make_spec_burst(
+            mode=mode, device=dev, config=cfg, max_new=mx)
+        try:
+            (outs, best, st), got = a8d_counted(torch, lambda: a8d_bursts(
+                batcher, prompts, max_new, traffic["reps"]))
+        finally:
+            batcher.stop()
+        if mode != "off" and st["spec_rounds"] <= 0:
+            raise AssertionError(f"spec burst ({mode}): no spec round")
+        out[mode] = dict(best, launches=got, **a8d_stat_keys(
+            st, "spec_rounds", "spec_accept_rate", "spec_k_mean",
+            "spec_tokens_proposed", "spec_tokens_accepted"))
+        del batcher
+    record("make_spec_burst", dict(runs=out, shape=bm.FLAGSHIP_SPEC),
+           summed(out))
+
+    # kv migration: freeze mid-decode, wire through a PageServer, resume
+    src, dst, prompt, max_new = bm.make_migrate_pair(device=dev, config=cfg)
+    server = kvtransfer.PageServer()
+
+    def migrations():
+        ms, stalls, pages = [], [], 0
+        for _ in range(traffic["migrate_reps"]):
+            h = src.submit(prompt, max_new)
+            h.tokens.get(timeout=600)          # mid-decode
+            t_last = time.perf_counter()
+            frozen = src.freeze_session(h, timeout_s=600)
+            if frozen is None:
+                raise AssertionError("the session ended before the cut")
+            try:
+                while True:
+                    try:
+                        h.tokens.get(timeout=0.05)
+                        t_last = time.perf_counter()
+                    except queue.Empty:
+                        break
+                t0 = time.perf_counter()
+                meta, blocks = kvtransfer.wire_snapshot(
+                    frozen, "a8d", page_size=src.kv_page_size)
+                ticket = server.register(meta, blocks)
+                try:
+                    meta2, blocks2 = kvtransfer.pull_snapshot(server.addr,
+                                                              ticket)
+                    h2, installed = dst.submit_resume(meta2, blocks2)
+                    if not installed.wait(600):
+                        raise AssertionError("resume timed out")
+                finally:
+                    server.release(ticket)
+                t1 = time.perf_counter()
+                h2.tokens.get(timeout=600)     # live again
+                t2 = time.perf_counter()
+                src.complete_migration(frozen)
+                frozen = None
+            finally:
+                if frozen is not None:
+                    src.rollback_migration(frozen)
+            a8d_drain([h2], [prompt], max_new)
+            ms.append((t1 - t0) * 1e3)
+            stalls.append((t2 - t_last) * 1e3)
+            pages = int(meta["n_pages"])
+        return ms, stalls, pages
+
+    try:
+        (ms, stalls, pages), got = a8d_counted(torch, migrations)
+        s_src, s_dst = src.stats(), dst.stats()
+    finally:
+        server.close()
+        src.stop()
+        dst.stop()
+    n = traffic["migrate_reps"]
+    if s_src["migrations_completed"] != n or s_dst.get(
+            "migrations_resumed", 0) != n:
+        raise AssertionError(f"migrations: {s_src['migrations_completed']} "
+                             f"completed, {s_dst.get('migrations_resumed')} "
+                             f"resumed of {n}")
+    record("make_migrate_pair", dict(
+        migrate_ms=ms, stall_ms=stalls, migrate_ms_median=statistics.median(
+            ms[1:] or ms), n_pages=pages, migrations_completed=n,
+        shape=bm.FLAGSHIP_MIGRATE), got)
+    del src, dst
+
+    # preemption: batch sessions on every slot, interactive on top
+    out = {}
+    for armed in traffic["sched"]:
+        (batcher, batch_prompts, batch_max_new, inter_prompts,
+         inter_max_new) = bm.make_sched_burst(preempt=armed, device=dev,
+                                              config=cfg)
+        batch_max_new = traffic["batch_max_new"] or batch_max_new
+
+        def sched():
+            hs = [batcher.submit(p, batch_max_new, priority="batch")
+                  for p in batch_prompts]
+            for h in hs:
+                h.tokens.get(timeout=600)
+            ihs = []
+            for p in inter_prompts:
+                ihs.append(batcher.submit(p, inter_max_new,
+                                          priority="interactive"))
+                time.sleep(0.01)
+            a8d_drain(ihs, inter_prompts, inter_max_new)
+            a8d_drain(hs, batch_prompts, batch_max_new)
+            return batcher.stats()
+
+        try:
+            st, got = a8d_counted(torch, sched)
+        finally:
+            batcher.stop()
+        if (armed and st["sessions_parked"] <= 0) or st["parked_sessions"]:
+            raise AssertionError(f"sched burst (armed {armed}): parked "
+                                 f"{st['sessions_parked']}, left "
+                                 f"{st['parked_sessions']}")
+        out["armed" if armed else "disarmed"] = dict(launches=got,
+                                                     **a8d_stat_keys(
+            st, "sessions_parked", "sessions_unparked",
+            "qdelay_interactive_p50_ms", "qdelay_interactive_p95_ms"))
+        del batcher
+    record("make_sched_burst", dict(runs=out, shape=bm.FLAGSHIP_SCHED),
+           summed(out))
+
+    # the host tier: cold pass, demote, warm pass from host pages
+    batcher, prompts, max_new = bm.make_warm_burst(device=dev, config=cfg)
+    tier = batcher._host_tier
+
+    def warm():
+        def burst():
+            s0 = batcher.stats()
+            outs = a8d_drain([batcher.submit(p, max_new) for p in prompts],
+                             prompts, max_new)
+            s1 = batcher.stats()
+            n = max(1, s1["ttft_count"] - s0["ttft_count"])
+            return ((s1["ttft_ms_sum"] - s0["ttft_ms_sum"]) / n, outs,
+                    s1["host_hits"] - s0["host_hits"],
+                    s1["prefill_tokens_shared"]
+                    - s0["prefill_tokens_shared"])
+
+        if traffic["warm_warmup"]:
+            burst()
+            tier.flush()
+            batcher.drop_prefix_cache()
+            tier.clear()
+        cold = burst()
+        tier.flush()
+        batcher.drop_prefix_cache()
+        tier.flush()
+        return cold, burst()
+
+    try:
+        (cold, hot), got = a8d_counted(torch, warm)
+    finally:
+        batcher.stop()
+    if hot[2] <= 0:
+        raise AssertionError("warm burst: no host hit")
+    record("make_warm_burst", dict(
+        cold_ttft_ms=cold[0], warm_ttft_ms=hot[0], host_hits=hot[2],
+        prefill_tokens_skipped=hot[3],
+        warm_equal_cold=sum(a == b for a, b in zip(hot[1], cold[1])),
+        conversations=len(prompts), shape=bm.FLAGSHIP_WARM), got)
+    del batcher, tier
+
+    # a bulk job through JobManager, interactive probes on top
+    (batcher, record_prompts, record_max_new, inter_prompts,
+     inter_max_new) = bm.make_job_burst(device=dev, config=cfg)
+    d = bm.FLAGSHIP_JOB
+    scratch = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(scratch, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="a8d_job_", dir=scratch)
+
+    def probe_p95():
+        lats = []
+        for p in inter_prompts:
+            t0 = time.perf_counter()
+            a8d_drain([batcher.submit(p, inter_max_new,
+                                      priority="interactive")],
+                      [p], inter_max_new)
+            lats.append((time.perf_counter() - t0) * 1e3)
+        return pct(sorted(lats), 0.95)
+
+    def job():
+        idle = probe_p95()
+        path = os.path.join(work, "records.jsonl")
+        with open(path, "w", encoding="utf-8") as f:
+            for p in record_prompts:
+                f.write(json.dumps(p) + "\n")
+
+        def dispatch(body, key):
+            hs = [batcher.submit(p, int(body.get("max_new_tokens",
+                                                 record_max_new)),
+                                 priority=body.get("priority", "batch"))
+                  for p in body["inputs"]]
+            return {"outputs": [h.result(timeout=600) for h in hs]}
+
+        mgr = jobs_mod.JobManager(os.path.join(work, "jobs"),
+                                  dispatch=dispatch,
+                                  default_workers=d["workers"],
+                                  checkpoint_every=d["checkpoint_every"])
+        try:
+            t0 = time.perf_counter()
+            st = mgr.submit({"input": path, "partitions": d["partitions"],
+                             "request": {"max_new_tokens": record_max_new}})
+            loaded = probe_p95()
+            deadline = time.monotonic() + 600
+            while (mgr.status(st["id"])["state"] == "running"
+                   and time.monotonic() < deadline):
+                time.sleep(0.02)
+            elapsed = time.perf_counter() - t0
+            final = mgr.status(st["id"])
+            with open(final["output"] or os.devnull, encoding="utf-8") as f:
+                lines_out = sum(1 for _ in f)
+        finally:
+            mgr.stop()
+        return final, lines_out, elapsed, idle, loaded
+
+    try:
+        (final, lines_out, elapsed, idle, loaded), got = a8d_counted(torch,
+                                                                     job)
+    finally:
+        batcher.stop()
+        shutil.rmtree(work, ignore_errors=True)
+    n = len(record_prompts)
+    if (final["state"] != "completed" or final["records_done"] != n
+            or lines_out != n):
+        raise AssertionError(f"job burst: {final}, {lines_out} output lines")
+    record("make_job_burst", dict(
+        records=n, records_done=final["records_done"], output_lines=lines_out,
+        records_per_s=n / elapsed, inter_p95_idle_ms=idle,
+        inter_p95_loaded_ms=loaded, shape=d), got)
+    del batcher
+
+    # a 32,768-token prompt, the lane armed and disarmed
+    out = {}
+    for armed in traffic["long"]:
+        (batcher, long_prompt, long_max_new, inter_prompts,
+         inter_max_new) = bm.make_long_burst(armed=armed, device=dev,
+                                             config=cfg)
+
+        def long_run():
+            a8d_drain([batcher.submit(inter_prompts[0], inter_max_new,
+                                      priority="interactive")],
+                      inter_prompts[:1], inter_max_new)
+            s0 = batcher.stats()
+            t0 = time.perf_counter()
+            lh = batcher.submit(long_prompt, long_max_new, priority="batch")
+            ihs = []
+            for p in inter_prompts:
+                ihs.append(batcher.submit(p, inter_max_new,
+                                          priority="interactive"))
+                time.sleep(0.01)
+            lh.tokens.get(timeout=600)
+            ttft = (time.perf_counter() - t0) * 1e3
+            a8d_drain(ihs, inter_prompts, inter_max_new)
+            a8d_drain([lh], [long_prompt], long_max_new)
+            total = (time.perf_counter() - t0) * 1e3
+            s1 = batcher.stats()
+            return ttft, total, s0, s1
+
+        try:
+            (ttft, total, s0, s1), got = a8d_counted(torch, long_run)
+        finally:
+            batcher.stop()
+        delta = {k: s1.get(k, 0) - s0.get(k, 0) for k in (
+            "long_chunks_dispatched", "kv_table_grows",
+            "kv_pages_demoted_overflow", "host_demotions")}
+        if armed and not (delta["long_chunks_dispatched"] > 0
+                          and delta["kv_table_grows"] > 0):
+            raise AssertionError(f"long burst (armed): {delta}")
+        if not got.get("prefill_read"):
+            raise AssertionError("long burst: kernel 3 not launched")
+        out["armed" if armed else "disarmed"] = dict(
+            ttft_ms=ttft, tpot_ms=(total - ttft) / max(1, long_max_new - 1),
+            launches=got, kv_table_width=s1.get("kv_table_width"),
+            **delta, **a8d_stat_keys(s1, "qdelay_interactive_p95_ms"))
+        del batcher
+    record("make_long_burst", dict(runs=out, long_prompt_len=len(
+        long_prompt), shape=bm.FLAGSHIP_LONG), summed(out))
+    return lines, launches
+
+
+def phase_workloads(torch, dev, card, whole=False):
+    """Phase 24: every workload builder of the port's ``benchmarks``
+    module at the flagship's full width, one ``workload`` line each (the
+    card's name and power limit in every one): the decode step (bf16,
+    int8, int4), the qmm op, the prefill chunk step and the eight
+    batcher bursts, driven as the JAX package's ``bench.py`` segments
+    drive them — ``whole`` (``scripts/torch_a8d_phase.py``) with their
+    whole traffic (A8D_WHOLE) at full depth, else with A8D_SMOKE's cut,
+    at full depth when the run reaches the phase in time
+    (:func:`full_depth`) and at A8D_CUT_LAYERS layers after.  Each line
+    holds a check that fails the run: the steps against the same step
+    on the CPU at 2 layers, the qmm op against its plain version on the
+    card, each burst's handles complete and its counter moved.  Returns
+    ``(lines, launches)``."""
+    full = whole or full_depth("workloads")
+    n_layers = None if full else A8D_CUT_LAYERS
+    depth = n_layers or a8d_config()["n_layers"]
+    traffic = A8D_WHOLE if whole else A8D_SMOKE
+    common = dict(nvidia_smi=card, n_layers=depth,
+                  cut_for_time=not full, cuts=a8d_cuts(traffic))
+    lines, launches = {}, {}
+    t = time.monotonic()
+    for name, run in (
+            ("make_decode_step", lambda: a8d_decode(torch, dev, traffic,
+                                                    n_layers)),
+            ("make_qmm_op", lambda: a8d_qmm(torch, dev, traffic)),
+            ("make_prefill_chunk_step", lambda: a8d_prefill(
+                torch, dev, traffic, n_layers))):
+        t0 = time.monotonic()
+        numbers, got = run()
+        add_launches(launches, got)
+        lines[name] = dict(numbers, launches=got,
+                           seconds=time.monotonic() - t0)
+        emit("workload", builder=name, **common, **lines[name])
+        torch.cuda.empty_cache()
+    bursts, got = a8d_serving(torch, dev, traffic, n_layers, common)
+    add_launches(launches, got)
+    lines.update(bursts)
+    return dict(builders=list(lines), n_layers=depth,
+                cut_for_time=not full, whole_traffic=whole,
+                seconds=time.monotonic() - t), launches
 
 
 def main():
@@ -8024,6 +8801,13 @@ def main():
                                               predict_child)
     emit("predict_main_path", **predict)
     add_launches(launches, predict_launches)
+    torch.cuda.empty_cache()
+
+    # phase 24: the benchmarks module's workloads (one workload line each)
+    workloads, w_launches = phase_workloads(torch, dev, card)
+    emit("workloads_main_path", nvidia_smi=card, launches=w_launches,
+         **workloads)
+    add_launches(launches, w_launches)
     torch.cuda.empty_cache()
 
     # the serving kernels' launches by shape, each from its own main path

@@ -193,14 +193,31 @@ def stream_ptr(device):
 TRACEABLE = ("tos::flash_fwd", "tos::layernorm")
 
 
+def eager(t):
+    """True when a wrapper may launch on ``t`` directly, outside the
+    dispatcher: a plain tensor, no ``torch.compile`` / ``torch.export``
+    trace running and no dispatch mode (fake, functional or proxy
+    tensors) active.  Otherwise the dispatcher op runs, so that the
+    trace records it."""
+    import torch
+
+    # is_compiling first: torch.compile folds it to True and never
+    # traces the rest
+    return (not torch.compiler.is_compiling()
+            and type(t) is torch.Tensor
+            and not torch._C._len_torch_dispatch_stack())
+
+
 def ptr(t):
     """A tensor's device pointer for a C entry.  A tensor under tracing
     (``torch.export``, AOTInductor) has none: the launch raises, naming
     the kernels that are dispatcher ops, instead of tracing into a
-    ctypes call."""
+    ctypes call.  Only a tensor subclass can be one, so a plain tensor
+    skips the check (a launch reads several pointers)."""
+    import torch
     from torch._subclasses.fake_tensor import is_fake
 
-    if is_fake(t):
+    if type(t) is not torch.Tensor and is_fake(t):
         raise RuntimeError(
             "a ctypes kernel launch cannot be traced by torch.export / "
             f"AOTInductor; only {', '.join(TRACEABLE)} are dispatcher ops "

@@ -20,11 +20,12 @@ Three kernels, one wrapper each (:func:`flash_fwd`, :func:`flash_bwd_dq`,
 plain PyTorch version (:func:`flash_fwd_plain`, :func:`flash_bwd_dq_plain`,
 :func:`flash_bwd_dkv_plain`); a CUDA tensor launches the hand-written
 kernel in ``csrc/flash_attention.cu`` (design and bound in its header) or
-raises.  The forward is the dispatcher op ``tos::flash_fwd``
+raises.  The forward is also the dispatcher op ``tos::flash_fwd``
 (``torch.library.custom_op``, with a fake implementation for its
-shapes): the wrapper, ``_Flash`` and ``_FlashLSE`` call it, and
-``torch.export`` / AOTInductor keep it as one node of their graphs, so
-an exported program runs the hand-written kernel too.  The kernels take head_dim 64 or 128, in f32 or bf16; in bf16 all
+shapes): under a trace the wrapper, ``_Flash`` and ``_FlashLSE`` call
+it, and ``torch.export`` / AOTInductor keep it as one node of their
+graphs, so an exported program runs the hand-written kernel too; an
+eager call launches directly.  The kernels take head_dim 64 or 128, in f32 or bf16; in bf16 all
 three run on the tensor cores, in f32 on the CUDA cores.  The C entries
 refuse rows that are not 16-byte aligned; the wrappers hand them an
 aligned copy of a misaligned view.  Their card tests alone, with the
@@ -178,11 +179,18 @@ def _rows(t, name, shape):
 def flash_fwd(q, k, v, causal=True, sm_scale=None, need_lse=True):
     """Forward of kernel 4: ``(out, lse)``, lse f32 ``[B, H, S]``, or an
     empty f32 tensor when ``need_lse`` is False (the kernel then writes
-    none).  Goes through the dispatcher op ``tos::flash_fwd``: CPU
-    tensors take :func:`flash_fwd_plain`, CUDA tensors the kernel."""
+    none).  CPU tensors take :func:`flash_fwd_plain`, CUDA tensors the
+    kernel.  An eager call launches directly; under a trace
+    (``_build.eager``) it goes through the dispatcher op
+    ``tos::flash_fwd``, which the trace records."""
     _check_shapes(q, k, v)
-    return torch.ops.tos.flash_fwd(q, k, v, bool(causal), _scale(q, sm_scale),
-                                   bool(need_lse))
+    args = (q, k, v, bool(causal), _scale(q, sm_scale), bool(need_lse))
+    if _build.eager(q):
+        if q.device.type == "cuda":
+            return _flash_fwd_cuda(*args)
+        if q.device.type == "cpu":
+            return _flash_fwd_op_cpu(*args)
+    return torch.ops.tos.flash_fwd(*args)
 
 
 flash_fwd.launches = 0
@@ -197,6 +205,10 @@ flash_fwd.launches = 0
 def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool, sm_scale: float,
                   need_lse: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    return _flash_fwd_op_cpu(q, k, v, causal, sm_scale, need_lse)
+
+
+def _flash_fwd_op_cpu(q, k, v, causal, sm_scale, need_lse):
     out, lse = flash_fwd_plain(q, k, v, causal, sm_scale)
     return out.contiguous(), (lse.contiguous() if need_lse
                               else lse.new_empty((0,)))

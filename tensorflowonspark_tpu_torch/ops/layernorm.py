@@ -10,9 +10,10 @@ returns f32.
 The one rule of the port's kernels: a CPU tensor takes the plain PyTorch
 version (:func:`layernorm_plain`, the port of ``layernorm_reference``); a
 CUDA tensor launches the hand-written kernel ``csrc/layernorm.cu``
-(design and bound in its header) or raises.  The forward is the
+(design and bound in its header) or raises.  The forward is also the
 dispatcher op ``tos::layernorm``, so ``torch.export`` / AOTInductor
-keep the kernel in their graphs.  The kernel needs no row
+keep the kernel in their graphs; an eager call skips the dispatcher and
+launches directly.  The kernel needs no row
 padding (the TPU version pads N to its row block); how it splits a row
 over threads is :func:`kernel_layout`, a function of D and the dtype
 alone.  The gradient, as in the JAX custom VJP, recomputes through the
@@ -60,9 +61,16 @@ def layernorm_plain(x, scale, bias, eps=1e-6):
 
 
 def _layernorm(x, scale, bias, eps):
-    """Forward of one LayerNorm over ``x [..., D]`` (kernel 11), through
-    the dispatcher op ``tos::layernorm``: CPU tensors take
-    :func:`layernorm_plain`, CUDA tensors the kernel."""
+    """Forward of one LayerNorm over ``x [..., D]`` (kernel 11): CPU
+    tensors take :func:`layernorm_plain`, CUDA tensors the kernel.  An
+    eager call launches directly; under a trace (``_build.eager``) it
+    goes through the dispatcher op ``tos::layernorm``, which the trace
+    records."""
+    if _build.eager(x):
+        if x.device.type == "cuda":
+            return _layernorm_cuda(x, scale, bias, eps)
+        if x.device.type == "cpu":
+            return layernorm_plain(x, scale, bias, eps)
     return torch.ops.tos.layernorm(x, scale, bias, float(eps))
 
 

@@ -40,6 +40,10 @@ shape, checked on the CPU.
   paths, each engine's logits within ``PREDICT_RTOL`` of the builder's;
   ``spec_v1_run`` on a tiny stand-in for the flagship: 8 rows, every one
   committing its 32 tokens equal to ``generate``'s.
+- phase 24: its whole traffic is ``bench.py``'s and the smoke's cut
+  departs from it in traffic only; ``phase_workloads`` on a tiny
+  stand-in for the flagship prints one line a builder, holds every
+  check and sums the serving kernels' launches.
 """
 import importlib.util
 import math
@@ -491,3 +495,112 @@ def test_spec_v1_run_on_a_tiny_flagship(monkeypatch):
     assert out["rows_equal"] == 8 and out["dtype"] == "float32"
     assert len(out["commits_per_round"]) == out["rounds"]
     assert 1 <= out["mean_commit"] <= 4
+
+
+def test_workload_phase_traffic_is_bench_pys_and_its_cut():
+    """Phase 24's whole traffic is the JAX package's bench.py segments'
+    (steps, windows, bursts a configuration, migrations, configurations),
+    the smoke's cut departs only in traffic, and the phase keeps its
+    full depth unless the run reaches it after FULL_DEPTH_BY_S."""
+    import time
+
+    whole, smoke = chip_smoke.A8D_WHOLE, chip_smoke.A8D_SMOKE
+    assert (whole["decode_steps"], whole["prefill_steps"], whole["windows"],
+            whole["reps"], whole["migrate_reps"]) == (32, 16, 3, 3, 5)
+    assert whole["engines"] == (("async", None), ("serial", None),
+                                ("async", "int8"))
+    assert whole["spec_modes"] == ("ngram", "model", "off")
+    assert whole["sched"] == whole["long"] == (True, False)
+    assert whole["prefill_rows"] == (4, 1) and whole["warm_warmup"]
+    assert set(smoke) == set(whole) and chip_smoke.a8d_cuts(whole) == {}
+    cuts = chip_smoke.a8d_cuts(smoke)
+    assert cuts["max_new"] == 24 and cuts["long"] == (True,)
+    assert chip_smoke.A8D_DECODE_MODES == (None, "int8", "int4")
+    gate = chip_smoke.FULL_DEPTH_BY_S["workloads"]
+    for late, full in ((gate - 10, True), (gate + 10, False)):
+        chip_smoke.T0, saved = time.monotonic() - late, chip_smoke.T0
+        try:
+            assert chip_smoke.full_depth("workloads") is full
+        finally:
+            chip_smoke.T0 = saved
+
+
+def test_workload_phase_on_a_tiny_flagship(monkeypatch):
+    """Phase 24 on the CPU over a tiny stand-in for the flagship and
+    small frozen shapes: one ``workload`` line a builder, every check
+    held (the steps against their CPU twins, the qmm op against its
+    plain version, each burst's handles and counters), the launches of
+    kernels 1-3, 9 and 10 summed for the kernels line."""
+    import json
+    import time
+
+    from tensorflowonspark_tpu_torch import benchmarks as bm
+    from tensorflowonspark_tpu_torch import ops
+
+    monkeypatch.setattr(bm, "FLAGSHIP_LM_V2", dict(
+        bm.FLAGSHIP_LM_V2, vocab_size=64, d_model=64, n_heads=4,
+        n_kv_heads=2, n_layers=2, d_ff=128))
+    monkeypatch.setattr(bm, "FLAGSHIP_DECODE", dict(
+        bm.FLAGSHIP_DECODE, max_seq=256, fill=100))
+    monkeypatch.setattr(bm, "FLAGSHIP_PREFILL_KERNEL", dict(
+        bm.FLAGSHIP_PREFILL_KERNEL, max_seq=256, fill=100, chunk=32))
+    monkeypatch.setattr(bm, "FLAGSHIP_QMM", dict(bm.FLAGSHIP_QMM,
+                                                 in_dim=256, out_dim=512))
+    monkeypatch.setattr(bm, "FLAGSHIP_LONG", dict(
+        bm.FLAGSHIP_LONG, long_prompt_len=512, long_prompt_threshold=128,
+        kv_pages=40, max_seq=544, host_cache_mb=1))
+
+    class Event:
+        def __init__(self, **kw):
+            self.t = 0.0
+
+        def record(self):
+            self.t = time.perf_counter()
+
+        def synchronize(self):
+            pass
+
+        def elapsed_time(self, other):
+            return (other.t - self.t) * 1e3
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a: None)
+    monkeypatch.setattr(chip_smoke, "time_ms",
+                        lambda fn, reps=25, warmup=3: (fn(), 1.0)[1])
+    # the plain versions count no launches: every wrapper "launches" once
+    # a read, so the checks on the counts can pass
+    kernels = ("paged_attention", "page_write", "prefill_read",
+               "int8_matmul", "int4_matmul")
+    monkeypatch.setattr(ops, "launch_counts",
+                        lambda names=None: {k: 1 for k in kernels})
+    printed = []
+    monkeypatch.setattr(chip_smoke, "emit", lambda phase, **kw: printed.append(
+        json.loads(json.dumps({"phase": phase, **kw}))))
+    out, launches = chip_smoke.phase_workloads(torch, torch.device("cpu"),
+                                               "card, 700.00 W")
+    names = [line["builder"] for line in printed]
+    assert names == out["builders"] == [
+        "make_decode_step", "make_qmm_op", "make_prefill_chunk_step",
+        "make_prefill_burst", "make_engine_burst", "make_spec_burst",
+        "make_migrate_pair", "make_sched_burst", "make_warm_burst",
+        "make_job_burst", "make_long_burst"]
+    assert all(line["nvidia_smi"] == "card, 700.00 W" and line["cuts"]
+               for line in printed)
+    assert set(launches) == set(kernels) and all(
+        n >= 11 for n in launches.values())
+    by = {line["builder"]: line for line in printed}
+    decode = by["make_decode_step"]["modes"]
+    assert set(decode) == {"bf16", "int8", "int4"}
+    for mode in decode.values():
+        assert mode["check"]["max_abs_diff"] <= mode["check"]["tol"]
+    assert by["make_prefill_chunk_step"]["check"]["max_abs_diff"] <= \
+        by["make_prefill_chunk_step"]["check"]["tol"]
+    assert by["make_spec_burst"]["runs"]["ngram"]["spec_rounds"] > 0
+    assert by["make_migrate_pair"]["migrations_completed"] == 2
+    assert by["make_sched_burst"]["runs"]["armed"]["sessions_parked"] > 0
+    assert by["make_warm_burst"]["host_hits"] > 0
+    assert by["make_job_burst"]["records_done"] == 64
+    long_run = by["make_long_burst"]["runs"]["armed"]
+    assert long_run["long_chunks_dispatched"] > 0
+    assert long_run["kv_table_grows"] > 0

@@ -932,6 +932,33 @@ def test_layernorm_realigns_misaligned_views(dev, D):
     assert [n for k, n in launched.items() if "layernorm_kernel" in k] == [1]
 
 
+def test_eager_kernel_4_and_11_launch_directly_and_count(dev):
+    # an eager call on the card launches without the dispatcher op (no
+    # tos::* op event) and counts once; the op itself counts too, which
+    # is how an exported program's launches are counted
+    gen = torch.Generator().manual_seed(41)
+    x = torch.randn((8, 2048), generator=gen).to(dev, torch.bfloat16)
+    w = (1 + 0.1 * torch.randn(2048, generator=gen)).to(dev, torch.bfloat16)
+    b = (0.1 * torch.randn(2048, generator=gen)).to(dev, torch.bfloat16)
+    q = torch.randn((1, 128, 16, 128), generator=gen).to(dev, torch.bfloat16)
+    k = torch.randn((1, 128, 8, 128), generator=gen).to(dev, torch.bfloat16)
+    ops.reset_launch_counts()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        y = ln.fused_layernorm(x, w, b)
+        out, _ = fa.flash_fwd(q, k, k)
+        torch.cuda.synchronize()
+    assert not {e.name for e in prof.events()} & {"tos::layernorm",
+                                                  "tos::flash_fwd"}
+    assert ops.launch_counts(("layernorm", "flash_fwd")) == {
+        "layernorm": 1, "flash_fwd": 1}
+    y2 = torch.ops.tos.layernorm(x, w, b, 1e-6)
+    out2, _ = torch.ops.tos.flash_fwd(q, k, k, True, 128 ** -0.5, True)
+    assert ops.launch_counts(("layernorm", "flash_fwd")) == {
+        "layernorm": 2, "flash_fwd": 2}
+    assert torch.equal(y, y2) and torch.equal(out, out2)
+
+
 def _write_case(gen, dtype, B, S, n_kv, Dh, page, starts, dev, int8):
     """A chunk, a pool (int8 with scales, or float) whose table is a
     permutation of its pages but the sink (the last page), and one table
