@@ -441,6 +441,23 @@ caught and reported as passed):
    ``make_long_burst`` (the 32,768-token prompt: ``long_chunks_
    dispatched``, ``kv_table_grows``); the launch counts set to 0 just
    before each run and read just after;
+25. (after 24) the ``tp_serving_main_path`` line: kernels 1-3, bf16 and
+   int8 pools, at the flagship's tp-4 local shapes (4 q and 2 kv heads
+   a rank; 16 rows at 2000 of 4096, a 4 x 256 chunk at 2000) against
+   their plain versions on the same inputs (the page writes bitwise off
+   the sink); with 2 or more cards also the full-depth flagship (seeded
+   f32 masters served in bf16) served tensor-parallel at each tp of
+   A3C_TPS that the cards allow, one rank a card (``cluster.run`` over
+   ``LocalBackend(tp, spawn)``, nccl), phase 5's traffic (8 prompts of
+   100-1,500 tokens, 32 greedy new tokens, paged page 64) over a bf16
+   and an int8 pool: every rank's final decode registers equal the
+   leader's and ``generate`` on every rank gives the leader's tokens,
+   the leader's outputs match the one-card batcher's and its solo
+   answer its burst twin's (a bf16 near tie that parts them held to
+   SPEC_MARGIN), each of kernels 1-3 launched on
+   every rank; tokens/s, decode step median and max, TTFT, kv pool and
+   weight bytes a rank, the leader's solo-request device busy share and
+   the header broadcast's host cost a step, at tp 1 and each tp;
 16c. (after 8b) the ``lora_train_main_path`` line: ``make_lora_loss`` on
    the flagship step's model (B 8 x S 1024), adamw_fused over the rank-8
    adapters: a warm-up step and a window of 5, kernels 4-6 16 launches
@@ -452,8 +469,9 @@ caught and reported as passed):
    each kernel's own main path: the
    quantised kernels from their serving run, the int8 kv kernels from the
    int8 kv run with bf16 weights, kernel 11 from the fused LayerNorm
-   run, kernel 8 from phase 8b; phases 15 to 21, 23 and 24 add their
-   runs' launches); the ``engine_serial_vs_async`` line
+   run, kernel 8 from phase 8b; phases 15 to 21, 23, 24 and 25 (its
+   tp runs, every rank's) add their runs' launches); the
+   ``engine_serial_vs_async`` line
    (phase 12's four numbers of each engine, dense and paged, beside the
    card's name and power limit); then the card line and, last, the
    ``ok`` line.
@@ -472,6 +490,7 @@ Exits 2 without a result when no CUDA device exists or when the port's
 package is not beside this file.
 """
 import atexit
+import contextlib
 import json
 import math
 import os
@@ -1350,7 +1369,8 @@ def phase_quant_parity(torch, dev):
 
 # kernel-name fragments -> the group a training step's device time is
 # reported under (first match wins; the rest is "other")
-KERNEL_GROUPS = (("tos::quant_matmul", "quant matmul kernels"),
+KERNEL_GROUPS = (("nccl", "collectives"),
+                 ("tos::quant_matmul", "quant matmul kernels"),
                  ("tos::split_sum", "quant matmul kernels"),
                  ("tos::paged_decode", "paged kernels"),
                  ("tos::page_write", "paged kernels"),
@@ -7532,36 +7552,62 @@ def pct(sorted_values, q):
 
 
 def predict_profile(torch, srv, bodies):
-    """``POST /v1/debug:profile`` (PREDICT_PROFILE_MS) while a burst runs,
-    and a second capture while it holds the profiler: 200 then 409; the
-    trace's device time by kernel (``utils.profiling.parse_trace``), the
-    flash kernel among it.  A trace without device events fails."""
+    """``POST /v1/debug:profile`` (PREDICT_PROFILE_MS) while the server
+    executes, and a second capture while it holds the profiler: 200 then
+    409; the trace's device time by kernel (``utils.profiling.
+    parse_trace``), the flash kernel among it.  The clients post from
+    before the capture until it has returned, and the capture starts once
+    the burst has reached the card (the first bodies' JSON decode alone
+    holds the host for about a second), so the window overlaps
+    executions.  A trace without device events fails."""
     from tensorflowonspark_tpu_torch.utils import profiling
 
-    box = {}
-    burst = threading.Thread(target=lambda: box.update(
-        burst=predict_burst(srv.url, bodies)))
-    burst.start()
-    time.sleep(0.5)
-    cap = threading.Thread(target=lambda: box.update(first=post_json(
-        srv.base + "/v1/debug:profile",
-        {"duration_ms": PREDICT_PROFILE_MS})))
-    cap.start()
-    # the second capture must overlap the first: wait until the server
-    # holds the profiler (a fixed 0.2 s lost that race on a slow host)
-    deadline = time.monotonic() + 60
-    while not srv.service._profile_lock.locked():
-        if time.monotonic() > deadline or not cap.is_alive():
-            raise AssertionError(f"the first capture never held the "
-                                 f"profiler: {box.get('first')}")
-        time.sleep(0.005)
+    batcher = srv.service._batcher
+    execs0 = batcher.executions
+    box, errors, done = {}, [], threading.Event()
+
+    def client(c):
+        try:
+            while not done.is_set():
+                post_bytes(srv.url, bodies[c])
+        except Exception as e:    # reported below, the run fails
+            errors.append(repr(e))
+
+    clients = [threading.Thread(target=client, args=(c,))
+               for c in range(PREDICT_CLIENTS)]
+    for t in clients:
+        t.start()
     try:
-        post_json(srv.base + "/v1/debug:profile", {"duration_ms": 10})
-        second = 200
-    except urllib.error.HTTPError as e:
-        second = e.code
-    cap.join(timeout=120)
-    burst.join(timeout=900)
+        deadline = time.monotonic() + 120
+        while batcher.executions == execs0:
+            if time.monotonic() > deadline or errors:
+                raise AssertionError(f"the profiled burst never reached the "
+                                     f"card: {errors[:3]}")
+            time.sleep(0.005)
+        cap = threading.Thread(target=lambda: box.update(first=post_json(
+            srv.base + "/v1/debug:profile",
+            {"duration_ms": PREDICT_PROFILE_MS})))
+        cap.start()
+        # the second capture must overlap the first: wait until the server
+        # holds the profiler (a fixed 0.2 s lost that race on a slow host)
+        deadline = time.monotonic() + 60
+        while not srv.service._profile_lock.locked():
+            if time.monotonic() > deadline or not cap.is_alive():
+                raise AssertionError(f"the first capture never held the "
+                                     f"profiler: {box.get('first')}")
+            time.sleep(0.005)
+        try:
+            post_json(srv.base + "/v1/debug:profile", {"duration_ms": 10})
+            second = 200
+        except urllib.error.HTTPError as e:
+            second = e.code
+        cap.join(timeout=120)
+    finally:
+        done.set()
+        for t in clients:
+            t.join(timeout=600)
+    if errors:
+        raise AssertionError(f"the profiled burst failed: {errors[:3]}")
     if second != 409:
         raise AssertionError(f"an overlapping capture got {second}, not 409")
     first = box.get("first") or {}
@@ -8530,6 +8576,382 @@ def phase_workloads(torch, dev, card, whole=False):
                 seconds=time.monotonic() - t), launches
 
 
+# phase 25: the flagship served tensor-parallel (ROADMAP A3c, item 1)
+A3C_TPS = (2, 4)                 # the multi-card runs, as the cards allow
+A3C_LOCAL_TP = 4                 # the one-card kernel check's local shapes
+A3C_KERNEL_S = 30.0              # the one-card check's budget
+# phase 5's traffic and engine: 8 prompts of ENGINE_LENS, ENGINE_NEW
+# greedy new tokens, the paged pool of phase_main_path
+A3C_ENGINE = dict(n_slots=8, prefill_chunk=256, kv_page_size=64,
+                  kv_pages=512)
+A3C_KV = ("auto", "int8")
+A3C_GENERATE = 2                 # prompts generate() runs on every rank
+
+
+def a3c_kernel_checks(torch, dev, tp=A3C_LOCAL_TP):
+    """Kernels 1-3, bf16 and int8 pools, at the flagship's tp-``tp``
+    local shapes (its q and kv heads over ``tp``; FLAGSHIP_DECODE's rows
+    and FLAGSHIP_PREFILL_KERNEL's chunk) against their plain versions on
+    the same inputs: the reads within TOL, the page writes bitwise off
+    the sink; each kernel's and its plain version's ms.  Raises on a
+    disagreement or past A3C_KERNEL_S."""
+    from tensorflowonspark_tpu_torch.benchmarks import (
+        FLAGSHIP_DECODE, FLAGSHIP_LM_V2, FLAGSHIP_PREFILL_KERNEL)
+    from tensorflowonspark_tpu_torch.ops import paged_attention as pa
+    from tensorflowonspark_tpu_torch.ops import paged_prefill as pp
+
+    t0 = time.monotonic()
+    Dh = FLAGSHIP_LM_V2["d_model"] // FLAGSHIP_LM_V2["n_heads"]
+    H = FLAGSHIP_LM_V2["n_heads"] // tp
+    n_kv = FLAGSHIP_LM_V2["n_kv_heads"] // tp
+    bf16 = torch.bfloat16
+    gen = torch.Generator().manual_seed(SEED + 25)
+    out = dict(tp=tp, H=H, n_kv=n_kv, Dh=Dh)
+
+    def pools_of(kv, NP, page):
+        if kv == "int8":
+            pools, scales = int8_pool(torch, gen, NP, page, n_kv, Dh, dev)
+            return pools, dict(key_scales=scales[0], value_scales=scales[1])
+        return [torch.randn((NP, page, n_kv, Dh), generator=gen).to(
+            dev, bf16) for _ in range(2)], {}
+
+    def read_check(name, got, want):
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if not torch.allclose(got.float(), want.float(), atol=TOL, rtol=TOL):
+            raise AssertionError(f"phase 25: {name} disagrees at the tp-{tp}"
+                                 f" local shapes: {err}")
+        return err
+
+    for kv in ("bf16", "int8"):
+        row = {}
+        d = FLAGSHIP_DECODE
+        B, page, fill = d["n_slots"], d["page_size"], d["fill"]
+        max_pages = d["max_seq"] // page
+        NP = B * max_pages + 1
+        q = torch.randn((B, 1, H, Dh), generator=gen).to(dev, bf16)
+        pools, sc = pools_of(kv, NP, page)
+        table = shuffled_table(torch, gen, B, max_pages, NP, dev)
+        lengths = torch.full((B,), fill + 1, dtype=torch.int32, device=dev)
+        row["paged_attention"] = dict(
+            max_abs_err=read_check(
+                f"kernel 1 ({kv})", pa.paged_attention(q, *pools, table,
+                                                       lengths, **sc),
+                pa.paged_attention_plain(q, *pools, table, lengths, **sc)),
+            ms=time_ms(lambda: pa.paged_attention(q, *pools, table, lengths,
+                                                  **sc), reps=10),
+            plain_ms=time_ms(lambda: pa.paged_attention_plain(
+                q, *pools, table, lengths, **sc), reps=5))
+        del pools
+        d = FLAGSHIP_PREFILL_KERNEL
+        B, page, fill, S = d["n_slots"], d["page_size"], d["fill"], d["chunk"]
+        max_pages = d["max_seq"] // page
+        NP = B * max_pages + 1
+        q = torch.randn((B, S, H, Dh), generator=gen).to(dev, bf16)
+        k, v = (torch.randn((B, S, n_kv, Dh), generator=gen).to(dev, bf16)
+                for _ in range(2))
+        pools, sc = pools_of(kv, NP, page)
+        table = shuffled_table(torch, gen, B, max_pages, NP, dev)
+        starts = torch.full((B,), fill, dtype=torch.int32, device=dev)
+        if kv == "int8":
+            scales = [sc["key_scales"], sc["value_scales"]]
+            (ck, cv), w = page_write_int8_case(torch, pp, k, v, pools,
+                                               scales, table, starts)
+        else:
+            w = page_write_case(torch, pp, k, v, *pools, table, starts)
+            ck, cv = k, v
+        row["page_write"] = dict(max_abs_err=0.0, ms=w["ms"],
+                                 plain_ms=w["plain_ms"])
+        row["prefill_read"] = dict(
+            max_abs_err=read_check(
+                f"kernel 3 ({kv})",
+                pp._read_attention(q, ck, cv, *pools, table, starts, **sc),
+                pp.read_attention_plain(q, ck, cv, *pools, table, starts,
+                                        **sc)),
+            ms=time_ms(lambda: pp._read_attention(q, ck, cv, *pools, table,
+                                                  starts, **sc), reps=10),
+            plain_ms=time_ms(lambda: pp.read_attention_plain(
+                q, ck, cv, *pools, table, starts, **sc), reps=5))
+        out[kv] = row
+        del pools, q, k, v, ck, cv
+        torch.cuda.empty_cache()
+    out["seconds"] = time.monotonic() - t0
+    if out["seconds"] > A3C_KERNEL_S:
+        raise AssertionError(f"phase 25's kernel check took "
+                             f"{out['seconds']:.1f} s (> {A3C_KERNEL_S})")
+    return out
+
+
+def a3c_model(torch, dev, mesh=None):
+    """The full-depth flagship at phase 5's max_seq_len: f32 masters
+    drawn on the card from the seed (the same draw on every rank),
+    served in bf16 as the server loads an export, split over ``mesh``
+    (``shard_params``) when given."""
+    from tensorflowonspark_tpu_torch.benchmarks import FLAGSHIP_LM_V2
+    from tensorflowonspark_tpu_torch.models.transformer import (
+        build_transformer)
+    from tensorflowonspark_tpu_torch.parallel import sharding
+
+    with torch.device(dev):
+        model = build_transformer(**dict(FLAGSHIP_LM_V2, max_seq_len=4096))
+    model.reset_parameters(torch.Generator(dev).manual_seed(SEED))
+    model = model.to(torch.bfloat16).eval().requires_grad_(False)
+    if mesh is not None:
+        sharding.shard_params(model,
+                              sharding.infer_param_shardings(model, mesh))
+    return model
+
+
+def a3c_serve(torch, dev, mesh=None, rank=0, timeout=1200):
+    """Phase 5's traffic through ``ContinuousBatcher`` over the flagship
+    (split over ``mesh``; None: one card), once a kv dtype of A3C_KV:
+    the launch counts set to 0 just before each engine is built and read
+    when it has stopped.  The leader (every rank builds the engine, tp
+    index 0 leads) submits the burst, then one prompt alone under
+    torch.profiler (the prefix cache dropped first; its answer is
+    returned beside the burst's), after one short ``generate`` on every
+    rank that warms the card up, and with a mesh runs ``generate`` on
+    A3C_GENERATE prompts, as every rank does; a follower replays until
+    the leader's stop.  Returns this rank's numbers."""
+    from tensorflowonspark_tpu_torch import ops, serve
+    from tensorflowonspark_tpu_torch.benchmarks import FLAGSHIP_LM_V2
+    from tensorflowonspark_tpu_torch.models import decode
+    from tensorflowonspark_tpu_torch.parallel import mesh as mesh_mod
+
+    model = a3c_model(torch, dev, mesh)
+    leader = mesh is None or mesh_mod.tp_leader(mesh) == rank
+    prompts = engine_prompts(torch, FLAGSHIP_LM_V2["vocab_size"])
+    out = dict(rank=rank, leader=leader, weight_bytes=resident_bytes(model),
+               runs={})
+    # a warm-up on every rank alike (cuBLAS, the collectives' first
+    # communicator, the kernels' first launches), before anything is timed
+    with (mesh_mod.use_mesh(mesh) if mesh is not None
+          else contextlib.nullcontext()):
+        decode.generate(model, [prompts[0][:64]], 4, device=dev)
+    torch.cuda.synchronize()
+    for kv in A3C_KV:
+        ops.reset_launch_counts()
+        with (mesh_mod.use_mesh(mesh) if mesh is not None
+              else contextlib.nullcontext()):
+            b = serve.ContinuousBatcher(model, device=dev, kv_dtype=kv,
+                                        **A3C_ENGINE)
+        run = dict(kv_pool_bytes=b.kv_pool_bytes)
+        if not leader:
+            b.follow(timeout=timeout)
+            st = b.stats()
+            run.update(tp_headers=st["tp_headers"],
+                       tp_header_us_mean=st["tp_header_us_mean"])
+        else:
+            try:
+                t0 = time.monotonic()
+                handles = [b.submit(p, ENGINE_NEW) for p in prompts]
+                outs = [h.result(timeout=timeout) for h in handles]
+                run["burst_s"] = time.monotonic() - t0
+                b.drop_prefix_cache()
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    t1 = time.monotonic()
+                    solo = b.submit(prompts[3], ENGINE_NEW).result(
+                        timeout=timeout)
+                    solo_ms = (time.monotonic() - t1) * 1000.0
+                prof_sum = profile_summary(prof, solo_ms)
+                st = b.stats()
+            finally:
+                b.stop()
+            # the solo answer against its burst twin: a3c_summary holds a
+            # parting to SPEC_MARGIN on the one-card model (the leader of
+            # a split model cannot run that forward alone)
+            run.update(
+                outputs=outs, solo=solo, burst_new_tokens_per_s=(
+                    len(prompts) * ENGINE_NEW / run["burst_s"]),
+                ttft_mean_ms=st["ttft_avg_ms"],
+                decode_step_ms_p50=st["decode_step_ms_p50"],
+                decode_step_ms_max=st["decode_step_ms_max"],
+                decode_steps=st["decode_steps"],
+                prefill_dispatches=st["prefill_dispatches"],
+                solo_wall_ms=solo_ms, solo_device_ms=prof_sum["device_ms"],
+                solo_device_busy_share=prof_sum["device_busy_share"],
+                solo_device_ms_by_group=prof_sum["device_ms_by_group"],
+                tp_headers=st.get("tp_headers", 0),
+                tp_header_us_mean=st.get("tp_header_us_mean", 0.0))
+        torch.cuda.synchronize()
+        run["launches"] = ops.launch_counts(b.kernels)
+        run["registers"] = {name: getattr(b, name).tolist() for name in
+                            ("_toks", "_rems", "_ords")}
+        out["runs"][kv] = run
+        del b
+        torch.cuda.empty_cache()
+    if mesh is not None:
+        # solo generate, every rank alike: the picks of every rank
+        with mesh_mod.use_mesh(mesh):
+            out["generate"] = [decode.generate(
+                model, [p], ENGINE_NEW, device=dev)[0].tolist()
+                for p in prompts[:A3C_GENERATE]]
+    return out
+
+
+def a3c_serve_fn(args, ctx):
+    """Phase 25's map_fun, one rank a GPU: joins the world (nccl),
+    serves on ``MeshSpec(tp=world)`` (:func:`a3c_serve`) and writes
+    ``a3c_rank<r>.json`` in the executor's working dir."""
+    import torch
+    import torch.distributed as dist
+
+    from tensorflowonspark_tpu_torch.device import resolve
+    from tensorflowonspark_tpu_torch.parallel import mesh as mesh_mod
+
+    _card_flags(torch)
+    ctx.init_distributed(timeout=900)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dev = resolve()
+    mesh = mesh_mod.build_mesh(mesh_mod.MeshSpec(dp=1, tp=world), device=dev)
+    out = a3c_serve(torch, dev, mesh, rank)
+    out.update(world=world, backend=dist.get_backend(),
+               device=torch.cuda.get_device_name(0))
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(os.path.join(ctx.working_dir, f"a3c_rank{rank}.json"),
+              "w") as f:
+        json.dump(out, f)
+
+
+def a3c_cluster(torch, tp):
+    """Every rank's :func:`a3c_serve` numbers from a cluster of ``tp``
+    executors, one GPU each."""
+    from tensorflowonspark_tpu_torch import backend, cluster
+
+    root = os.path.join(HERE, "build", "chip_smoke", f"a3c_tp{tp}")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.time()
+    c = cluster.run(
+        backend.LocalBackend(tp, workdir=root, start_method="spawn"),
+        a3c_serve_fn, {}, num_executors=tp,
+        input_mode=cluster.InputMode.SPARK, num_chips=1,
+        reservation_timeout=300)
+    try:
+        # the map_fun reads no feed: shutdown's end-of-feed waits for it
+        c.shutdown(timeout=1800)
+    except BaseException:
+        c.abort()
+        raise
+    wall_s = time.time() - t0
+    ranks = []
+    for i in range(tp):
+        d = os.path.join(root, f"executor-{i}")
+        for f in os.listdir(d):
+            if f.startswith("a3c_rank"):
+                with open(os.path.join(d, f)) as fh:
+                    ranks.append(json.load(fh))
+    ranks.sort(key=lambda r: r["rank"])
+    shutil.rmtree(root, ignore_errors=True)
+    if [r["rank"] for r in ranks] != list(range(tp)):
+        raise AssertionError(f"phase 25: ranks {[r['rank'] for r in ranks]}"
+                             f" of {tp}")
+    if {r["backend"] for r in ranks} != {"nccl"}:
+        raise AssertionError(f"phase 25: backends "
+                             f"{[r['backend'] for r in ranks]}")
+    return ranks, wall_s
+
+
+A3C_NUMBERS = ("burst_new_tokens_per_s", "ttft_mean_ms",
+               "decode_step_ms_p50", "decode_step_ms_max", "decode_steps",
+               "prefill_dispatches", "solo_wall_ms", "solo_device_ms",
+               "solo_device_busy_share", "solo_device_ms_by_group",
+               "tp_header_us_mean", "tp_headers")
+
+
+def a3c_summary(torch, tp, ranks, ref, ref_model, prompts):
+    """Phase 25's checks of one tp run against the one-card run ``ref``,
+    and its numbers: every rank's registers and ``generate`` tokens
+    equal the leader's, the leader's outputs ``ref``'s and its solo
+    answer its burst twin's, each but at a near tie (:func:`tie_or_equal`
+    on ``ref_model``), each serving kernel launched on every rank.
+    Returns ``(numbers, launches summed over the ranks)``."""
+    from tensorflowonspark_tpu_torch import ops
+
+    (lead,) = [r for r in ranks if r["leader"]]
+    launches, runs = {}, {}
+    for kv in A3C_KV:
+        want = lead["runs"][kv]
+        for r in ranks:
+            if r["runs"][kv]["registers"] != want["registers"]:
+                raise AssertionError(f"phase 25 tp {tp} ({kv}): rank "
+                                     f"{r['rank']}'s decode registers are "
+                                     "not the leader's")
+            names = (ops.SERVING_KERNELS_INT8_KV if kv == "int8"
+                     else ops.SERVING_KERNELS)
+            got = r["runs"][kv]["launches"]
+            if any(got.get(n, 0) < 1 for n in names):
+                raise AssertionError(f"phase 25 tp {tp} ({kv}): rank "
+                                     f"{r['rank']} launched {got}")
+            add_launches(launches, got)
+        ties = [tie_or_equal(torch, ref_model, p, w, g,
+                             f"phase 25 tp {tp} ({kv}) prompt {i}")
+                for i, (p, w, g) in enumerate(zip(
+                    prompts, ref["runs"][kv]["outputs"], want["outputs"]))]
+        solo = tie_or_equal(torch, ref_model, prompts[3],
+                            want["outputs"][3], want["solo"],
+                            f"phase 25 tp {tp} ({kv}) solo")
+        runs[kv] = dict(
+            {k: want.get(k) for k in A3C_NUMBERS}, solo_near_tie=solo,
+            kv_pool_bytes=[r["runs"][kv]["kv_pool_bytes"] for r in ranks],
+            # a header's host time on each rank: the leader's send, the
+            # followers' receive (each the wait for the other side in it)
+            header_us_mean_by_rank=[r["runs"][kv].get("tp_header_us_mean")
+                                    for r in ranks],
+            launches_per_rank=[r["runs"][kv]["launches"] for r in ranks],
+            near_ties=[t for t in ties if t is not None],
+            equal_to_one_card=sum(t is None for t in ties))
+    for r in ranks:
+        if r["generate"] != lead["generate"]:
+            raise AssertionError(f"phase 25 tp {tp}: rank {r['rank']}'s "
+                                 "generate tokens are not the leader's")
+    for i, g in enumerate(lead["generate"]):
+        tie_or_equal(torch, ref_model, prompts[i],
+                     ref["runs"]["auto"]["outputs"][i], g,
+                     f"phase 25 tp {tp} generate prompt {i}")
+    return dict(weight_bytes=[r["weight_bytes"] for r in ranks],
+                devices=[r["device"] for r in ranks], runs=runs), launches
+
+
+def phase_a3c(torch, dev, card):
+    """Phase 25: :func:`a3c_kernel_checks` on one card; with 2 or more
+    cards also phase 5's traffic at tp 1 in this process and at each tp
+    of A3C_TPS the cards allow (:func:`a3c_cluster`), checked and
+    measured (:func:`a3c_summary`).  Returns ``(line, launches)``."""
+    from tensorflowonspark_tpu_torch.benchmarks import FLAGSHIP_LM_V2
+
+    out = dict(nvidia_smi=card, kernels=a3c_kernel_checks(torch, dev))
+    n = torch.cuda.device_count()
+    out["cards"] = n
+    launches = {}
+    tps = [tp for tp in A3C_TPS if tp <= n]
+    if not tps:
+        out["tp_runs"] = "one card: the kernels at the tp-4 local shapes only"
+        return out, launches
+    ref = a3c_serve(torch, dev)
+    ref_model = a3c_model(torch, dev)
+    prompts = engine_prompts(torch, FLAGSHIP_LM_V2["vocab_size"])
+    out["tp1"] = dict(weight_bytes=ref["weight_bytes"], runs={
+        kv: dict({k: ref["runs"][kv].get(k) for k in A3C_NUMBERS},
+                 kv_pool_bytes=ref["runs"][kv]["kv_pool_bytes"],
+                 solo_near_tie=tie_or_equal(
+                     torch, ref_model, prompts[3],
+                     ref["runs"][kv]["outputs"][3], ref["runs"][kv]["solo"],
+                     f"phase 25 tp 1 ({kv}) solo"))
+        for kv in A3C_KV})
+    torch.cuda.empty_cache()
+    for tp in tps:
+        ranks, wall_s = a3c_cluster(torch, tp)
+        numbers, got = a3c_summary(torch, tp, ranks, ref, ref_model, prompts)
+        out[f"tp{tp}"] = dict(numbers, wall_s=wall_s)
+        add_launches(launches, got)
+    del ref_model
+    torch.cuda.empty_cache()
+    return out, launches
+
+
 def main():
     try:
         import torch
@@ -8808,6 +9230,13 @@ def main():
     emit("workloads_main_path", nvidia_smi=card, launches=w_launches,
          **workloads)
     add_launches(launches, w_launches)
+    torch.cuda.empty_cache()
+
+    # phase 25: the flagship served tensor-parallel (the kernels at the
+    # tp-4 local shapes on one card; the tp runs with 2 or more cards)
+    a3c, a3c_launches = phase_a3c(torch, dev, card)
+    emit("tp_serving_main_path", launches=a3c_launches, **a3c)
+    add_launches(launches, a3c_launches)
     torch.cuda.empty_cache()
 
     # the serving kernels' launches by shape, each from its own main path

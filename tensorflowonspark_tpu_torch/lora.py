@@ -50,6 +50,35 @@ def _kernels(params):
     return dict(sorted(out.items()))
 
 
+BANK_PROJECTIONS = ("query", "key", "value", "out")
+
+
+def bank_slices(attn, index):
+    """``{projection: (rows of A, columns of B)}``: the part of each
+    attention projection's adapter (``A [in, r]``, ``B [r, out]``) that
+    tp rank ``index`` holds in a serving engine's bank, by the layer's
+    own split (``models.transformer.Attention``).  A column-parallel
+    projection keeps A whole and its columns of B; a k / v projection
+    whose heads the forward reads from the gathered weight keeps B
+    whole (the forward takes the same rows of it); the row-parallel
+    ``out`` keeps its rows of A and B whole, so each rank adds its
+    partial delta before the all-reduce.  Unsplit: everything whole."""
+    whole = slice(None)
+    out = {p: (whole, whole) for p in BANK_PROJECTIONS}
+    if not attn.split():
+        return out
+
+    def block(n):
+        return slice(index * n, (index + 1) * n)
+
+    out["query"] = (whole, block(attn.query.local_shape()[0]))
+    if attn.kv_column_parallel():
+        for p in ("key", "value"):
+            out[p] = (whole, block(getattr(attn, p).local_shape()[0]))
+    out["out"] = (block(attn.out.local_shape()[1]), whole)
+    return out
+
+
 def target_paths(params, targets=DEFAULT_TARGETS):
     """Paths (slash-joined) of the kernels a pattern selects."""
     pat = re.compile(targets)

@@ -34,6 +34,14 @@ LoRA banks (``lora=(banks, ids)``, passed to the model's forward), the
 n-gram proposer (:func:`ngram_propose`), the rejection walk of sampled
 verification (:func:`spec_accept_sampled`) and
 :func:`speculative_generate`.
+
+On a tp mesh (a model that ``parallel.sharding.shard_params`` split, run
+inside ``parallel.mesh.use_mesh``, every rank calling alike): a slot
+cache holds this rank's kv heads (``Attention.cache_heads``), the
+paged kernels run on them, and every pick reads the whole-vocabulary
+logits (``gather_vocab``), so every rank picks the same token, sampled
+ones too.  Speculation and the kv migration helpers raise there, naming
+ROADMAP A3c.
 """
 import dataclasses
 import math
@@ -43,7 +51,9 @@ import torch
 
 from tensorflowonspark_tpu_torch import device as device_mod
 from tensorflowonspark_tpu_torch.models.transformer import (
-    Transformer, TransformerConfig, torch_dtype)
+    Transformer, TransformerConfig, gather_vocab, torch_dtype)
+from tensorflowonspark_tpu_torch.parallel.mesh import (
+    A3C, active_mesh, check_serving_mesh)
 
 
 def to_device(array, device):
@@ -72,6 +82,7 @@ class SlotCache:
     key_scales: list = None    # per layer: [n_slots + 1, L, n_kv] f32
     value_scales: list = None
     rows: torch.Tensor = None  # [rows] int64 store row of each view row
+    split: bool = False        # holds one tp rank's kv heads
 
     def rows_view(self, rows, cache_index):
         """A view over store rows ``rows`` (pad rows name the garbage
@@ -99,6 +110,7 @@ class PagedCache:
     page_size: int
     key_scales: list = None    # per layer: [kv_pages, page, n_kv] f32
     value_scales: list = None
+    split: bool = False        # holds one tp rank's kv heads
 
     def rows_view(self, page_table, cache_index):
         """A cache over other rows (a prefill batch) sharing these pools:
@@ -114,15 +126,20 @@ class PagedCache:
 
 
 def _cache_layout(model_or_cfg, device, kv_dtype):
-    """(cfg, device, head_dim, n_kv, int8?, store dtype) of a slot cache
-    for a Transformer (its parameters' device) or a config (``device``,
-    resolved by the port's device rule)."""
+    """(cfg, device, head_dim, n_kv, int8?, store dtype, split?) of a slot
+    cache for a Transformer (its parameters' device; a tp-split one's kv
+    heads on this rank, read from its own split) or a config
+    (``device``, resolved by the port's device rule)."""
+    split = False
     if isinstance(model_or_cfg, Transformer):
         cfg = model_or_cfg.cfg
         dev = next(model_or_cfg.parameters()).device
+        split = model_or_cfg.split()
+        n_kv = _first_attention(model_or_cfg).cache_heads()
     elif isinstance(model_or_cfg, TransformerConfig):
         cfg = model_or_cfg
         dev = device_mod.resolve(device)
+        n_kv = cfg.n_heads if cfg.n_kv_heads is None else cfg.n_kv_heads
     else:
         raise TypeError(f"expected Transformer or TransformerConfig, got "
                         f"{type(model_or_cfg)}")
@@ -130,10 +147,30 @@ def _cache_layout(model_or_cfg, device, kv_dtype):
     if kv_dtype not in ("auto", "int8"):
         raise ValueError(f"kv_dtype={kv_dtype!r} not in ('auto', 'int8')")
     head_dim = cfg.d_model // cfg.n_heads
-    n_kv = cfg.n_heads if cfg.n_kv_heads is None else cfg.n_kv_heads
     quant = kv_dtype == "int8"
     return (cfg, dev, head_dim, n_kv, quant,
-            torch.int8 if quant else torch_dtype(cfg))
+            torch.int8 if quant else torch_dtype(cfg), split)
+
+
+def _first_attention(model):
+    return getattr(model, model.layer_names[0]).attn
+
+
+def refuse_split(model, what):
+    """Raise NotImplementedError naming ROADMAP A3c when tp splits
+    ``model`` (``what``: the feature that is not ported there)."""
+    if model.split():
+        raise NotImplementedError(f"{what} on a tp mesh is not ported yet "
+                                  f"({A3C})")
+
+
+def check_tp_decode(model):
+    """Raise unless a tp-split ``model`` decodes inside ``use_mesh`` of a
+    serving mesh that splits it (``parallel.mesh.check_serving_mesh``);
+    a whole model decodes anywhere."""
+    if model.split() and check_serving_mesh(active_mesh()) == 1:
+        raise ValueError("a tp-split model decodes inside parallel.mesh."
+                         "use_mesh(mesh), on the tp mesh it was split over")
 
 
 def _per_layer(cfg, shape, dtype, dev):
@@ -149,7 +186,7 @@ def init_slot_cache(model_or_cfg, n_slots, kv_dtype=None, device=None):
     garbage row) in the compute dtype, or int8 with f32 scales
     (``kv_dtype="int8"``; None takes the config's), and zero indices.
     Returns ``(model_or_cfg, cache)``."""
-    cfg, dev, head_dim, n_kv, quant, dt = _cache_layout(
+    cfg, dev, head_dim, n_kv, quant, dt, split = _cache_layout(
         model_or_cfg, device, kv_dtype)
     if n_slots < 1:
         raise ValueError("a slot cache needs n_slots >= 1")
@@ -162,7 +199,8 @@ def init_slot_cache(model_or_cfg, n_slots, kv_dtype=None, device=None):
         keys=stores(shape, dt), values=stores(shape, dt),
         cache_index=torch.zeros((n_slots,), dtype=torch.int32, device=dev),
         key_scales=stores(shape[:3], torch.float32) if quant else None,
-        value_scales=stores(shape[:3], torch.float32) if quant else None)
+        value_scales=stores(shape[:3], torch.float32) if quant else None,
+        split=split)
     return model_or_cfg, cache
 
 
@@ -185,7 +223,7 @@ def init_paged_slot_cache(model_or_cfg, n_slots, page_size, n_pages,
     reserve one pool page as a garbage SINK and point every unallocated
     or retired table entry at it (serve.ContinuousBatcher allocates
     ``kv_pages + 1`` pages and uses the last as the sink)."""
-    cfg, dev, head_dim, n_kv, quant, dt = _cache_layout(
+    cfg, dev, head_dim, n_kv, quant, dt, split = _cache_layout(
         model_or_cfg, device, kv_dtype)
     if page_size < 1 or cfg.max_seq_len % page_size:
         raise ValueError(f"max_seq_len={cfg.max_seq_len} must be a multiple "
@@ -208,7 +246,8 @@ def init_paged_slot_cache(model_or_cfg, n_slots, page_size, n_pages,
         cache_index=torch.zeros((n_slots,), dtype=torch.int32, device=dev),
         page_size=page_size,
         key_scales=pools(shape[:3], torch.float32) if quant else None,
-        value_scales=pools(shape[:3], torch.float32) if quant else None)
+        value_scales=pools(shape[:3], torch.float32) if quant else None,
+        split=split)
     return model_or_cfg, cache
 
 
@@ -262,7 +301,13 @@ def kv_leaves(cache):
     """``{block name: store}`` of every kv leaf of ``cache``: the pools
     (``layer_<i>/attn/pages_key``, ``pages_value`` and, for an int8
     pool, ``pages_key_scale`` / ``pages_value_scale``, dim 0 = pool
-    pages) or the dense stores (``cached_key`` ... , dim 0 = rows)."""
+    pages) or the dense stores (``cached_key`` ... , dim 0 = rows).  A
+    cache of one tp rank's kv heads raises: the migration and host-tier
+    blocks are whole-head (ROADMAP A3c)."""
+    if cache.split:
+        raise NotImplementedError(
+            "kv migration / host tier / parking on a tp mesh is not ported "
+            f"yet ({A3C})")
     if isinstance(cache, PagedCache):
         names, stores = ("pages_key", "pages_value"), (cache.pages_key,
                                                        cache.pages_value)
@@ -393,7 +438,8 @@ def slot_prefill_many(model, cache, chunks, rows, starts, n_valids, sink,
     logits = model(chunks.long(), sub, lora=lora)
     set_row_indices(cache, rows, starts + n_valids)
     pick = (n_valids.long() - 1).clamp(0, chunks.shape[1] - 1)
-    return logits[torch.arange(logits.shape[0], device=logits.device), pick]
+    return gather_vocab(logits, lambda lg: lg[
+        torch.arange(lg.shape[0], device=lg.device), pick])
 
 
 def filter_top_k_p(logits, top_k, top_p, min_p=None):
@@ -565,7 +611,8 @@ def slot_step(model, cache, toks, temps, seeds, ords, topks=None,
     raised when row b's budget hits zero or it picked its eos, so the
     serving engine reads the verdict back with the tokens and never
     inspects token values to decide whether to keep dispatching."""
-    logits = model(toks.long()[:, None], cache, lora=lora)[:, -1]
+    logits = gather_vocab(model(toks.long()[:, None], cache, lora=lora),
+                          lambda lg: lg[:, -1])
     if seen is not None:
         seen[torch.arange(toks.shape[0], device=toks.device),
              toks.long()] = 1
@@ -613,13 +660,16 @@ def generate(model, prompt, max_new_tokens, temperature=0.0, seed=None,
     ``cuda``; raises without one unless ``device="cpu"``); the model's
     parameters must live there.  ``kv_dtype="int8"`` decodes on an int8
     paged pool, as the batcher serves it (None: the config's).  Returns
-    an int64 tensor on that device.
+    an int64 tensor on that device.  A tp-split model generates on its
+    mesh: every rank calls this alike inside ``use_mesh(mesh)`` and gets
+    the same tokens.
     """
     dev = device_mod.resolve(device)
     param_dev = next(model.parameters()).device
     if param_dev.type != dev.type or (
             dev.index is not None and param_dev.index != dev.index):
         raise ValueError(f"model parameters are on {param_dev}, not {dev}")
+    check_tp_decode(model)
     check_pick_args(temperature, top_k, top_p, min_p)
     penalized = check_penalty(repetition_penalty)
     if temperature > 0 and seed is None:
@@ -854,6 +904,8 @@ def slot_spec_round_greedy(model, draft, t_cache, d_cache, toks, rems=None,
     (`spec_round`)."""
     if k < 1:
         raise ValueError(f"k={k} must be >= 1")
+    for m in (model, draft):
+        refuse_split(m, "speculation")
     idx = t_cache.cache_index
     toks = toks.long()
     d_tok, props = toks, []
@@ -896,6 +948,9 @@ def spec_round(model, cache, toks, temps, seeds, ords, rems, eoss, eos_on,
     committed tokens.  Returns ``(new_toks, c_tok [n, k], commit, n_del,
     done, rems_new, ords_new, ctx_len_new)`` (``ctx_len_new`` None in
     model mode); caches and ``ctx`` update in place."""
+    for m in (model, draft):
+        if m is not None:
+            refuse_split(m, "speculation")
     idx = cache.cache_index
     is_g = temps <= 0
     toks = toks.long()
@@ -962,6 +1017,8 @@ def speculative_generate(model, draft_model, prompt, max_new_tokens, k=4,
     dev = device_mod.resolve(device)
     if k < 1:
         raise ValueError(f"k={k} must be >= 1")
+    for m in (model, draft_model):
+        refuse_split(m, "speculation")
     prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.int64)
     if max_new_tokens <= 0:
         return prompt.to(dev)

@@ -28,7 +28,10 @@ Split over GPUs (the forward reads its mesh from
 ``parallel.mesh.use_mesh``, which the train and eval steps enter; the
 collectives are ``parallel.collectives``):
 
-- **tp** (parameters sharded by the JAX rules, ``parallel.sharding``):
+- **tp** (parameters sharded by the JAX rules, ``parallel.sharding``;
+  training, and decoding with a slot cache that holds this rank's kv
+  heads, :meth:`Attention.cache_heads`, LoRA banks split with the
+  layers they adapt):
   ``query`` / ``key`` / ``value`` / ``wi`` are column-parallel at local
   head counts, entered through ``copy_to_tp``; ``out`` / ``wo`` are
   row-parallel, left through ``reduce_from_tp`` (the bias added after
@@ -391,74 +394,97 @@ class Attention(nn.Module):
         self.key = Dense(cfg.d_model, kv, cfg.use_bias, dt)
         self.value = Dense(cfg.d_model, kv, cfg.use_bias, dt)
         self.out = Dense(cfg.d_model, cfg.d_model, cfg.use_bias, dt)
+        # this rank's tp coordinate, set by parallel.sharding.shard_params:
+        # a cache built outside use_mesh reads its heads from it
+        self.tp_index = 0
 
     def split(self):
         """True when tp splits this layer's heads (the query projection is
         column-parallel)."""
         return self.query.local_shape()[0] < self.cfg.d_model
 
-    def _kv(self, dense, h, par, n_local_q):
-        """k or v ``[B, S, heads, Dh]`` for this rank's q heads: the
-        local heads of a column-parallel projection, or, where tp splits
-        the projection mid-head (or leaves it whole), the heads read from
-        the gathered weight (repeated to one per q head where this rank's
-        q heads do not group evenly over them)."""
+    def kv_column_parallel(self):
+        """True when tp splits the k / v projections at whole heads (a
+        rank's columns are its kv heads); otherwise, split mid-head or
+        whole, the forward reads its heads from the gathered weight
+        (``_kv``)."""
+        kv = self.n_kv * self.head_dim
+        local = self.key.local_shape()[0]
+        return local < kv and self.n_kv % (kv // local) == 0
+
+    def cache_heads(self):
+        """The kv heads a slot cache holds for this layer on this rank:
+        every one unsplit; under tp the heads this rank's q heads read
+        (its share of an even split, or those selected from the gathered
+        weight, never repeated).  Read from the layer's own split and
+        ``tp_index``, so a cache built outside ``use_mesh`` holds the
+        right count; ranks whose q heads straddle the kv heads
+        differently hold different counts."""
+        if not self.split():
+            return self.n_kv
+        if self.kv_column_parallel():
+            return self.key.local_shape()[0] // self.head_dim
+        n_q = self.query.local_shape()[0] // self.head_dim
+        return _kv_heads(self.cfg.n_heads, self.n_kv, n_q, self.tp_index)[1]
+
+    def _kv(self, dense, h, par, n_local_q, lora, name):
+        """k or v for this rank's q heads: ``(heads [B, S, n, Dh],
+        index)``.  The local heads of a column-parallel projection; or,
+        where tp splits the projection mid-head (or leaves it whole), the
+        heads this rank's q heads read, from the gathered weight (with
+        the LoRA delta of the same rows of a whole ``B``).  ``index`` is
+        None where the q heads group evenly over the returned heads, else
+        the head each q head reads."""
         B, S = h.shape[0], h.shape[1]
         hd, n_kv, tp = self.head_dim, self.n_kv, par.tp
         w = dense.weight
-        if w.shape[0] < n_kv * hd and n_kv % tp.size == 0:
-            return dense(h).reshape(B, S, n_kv // tp.size, hd)
+        if self.kv_column_parallel():
+            return (self._proj(dense, h, lora, name).reshape(
+                B, S, n_kv // tp.size, hd), None)
         # every rank reads its own rows of the whole weight: the gather's
         # backward reduce-scatters, a replicated weight's all-reduces
         w = (coll.gather_seq(w, tp, dim=0) if w.shape[0] < n_kv * hd
              else coll.copy_to_tp(w, tp))
-        group = self.cfg.n_heads // n_kv
-        heads = [(tp.index * n_local_q + i) // group
-                 for i in range(n_local_q)]
-        first, n_sel = heads[0], heads[-1] - heads[0] + 1
+        first, n_sel, index = _kv_heads(self.cfg.n_heads, n_kv, n_local_q,
+                                        tp.index)
         rows = slice(first * hd, (first + n_sel) * hd)
         bias = (None if dense.bias is None else
                 coll.copy_to_tp(dense.bias, tp)[rows].to(dense.dtype))
         out = F.linear(h.to(dense.dtype), w[rows].to(dense.dtype), bias)
-        out = out.reshape(B, S, n_sel, hd)
-        per = n_local_q // n_sel
-        if n_local_q % n_sel or any(heads[i] - first != i // per
-                                    for i in range(n_local_q)):
-            out = out[:, :, [i - first for i in heads]]
-        return out
+        if lora is not None:
+            out = out + _lora_delta(h, lora, name, rows).to(out.dtype)
+        return out.reshape(B, S, n_sel, hd), index
 
     def _proj(self, dense, x, lora, name):
         """One projection, with the optional PER-ROW LoRA delta (the
         JAX ``Attention._proj``): ``lora = (banks, ids)`` holds this
         layer's ``{name}_a [L, d_in, r]`` / ``{name}_b [L, r, d_out]``
         banks (the scale folded into b; index 0 the all-zero null
-        adapter) and ``ids [B]``, each row's bank index.  Row n computes
-        ``x_n @ W + (x_n @ A[ids_n]) @ B[ids_n]`` in f32, cast to y's
-        dtype, for any S (a decode step, a prefill chunk, a verify
+        adapter; under tp this rank's columns of a column-parallel
+        projection's ``b``) and ``ids [B]``, each row's bank index.  Row
+        n computes ``x_n @ W + (x_n @ A[ids_n]) @ B[ids_n]`` in f32, cast
+        to y's dtype, for any S (a decode step, a prefill chunk, a verify
         block)."""
         y = dense(x)
         if lora is None:
             return y
-        banks, ids = lora
-        a = banks[f"{name}_a"][ids]                 # [B, d_in, r]
-        b = banks[f"{name}_b"][ids]                 # [B, r, d_out]
-        delta = torch.bmm(torch.bmm(x.float(), a.float()), b.float())
-        return y + delta.to(y.dtype)
+        return y + _lora_delta(x, lora, name).to(y.dtype)
 
     def forward(self, x, cache=None, layer=0, mask=None, lora=None):
         cfg = self.cfg
         par = _par(cfg)
         split = self.split()
-        if lora is not None and (split or par.cp_kind):
-            raise _a3c("LoRA adapters on a split layer")
+        if lora is not None and par.cp_kind:
+            raise _a3c("LoRA adapters under context parallelism")
         if split and par.cp.size > 1:
             raise _a3c("context parallelism over an axis that also splits "
                        "the parameters (tp-sharded attention)")
-        if cache is not None and (par.cp_kind or split):
-            raise (NotImplementedError(
+        if cache is not None and par.cp_kind:
+            raise NotImplementedError(
                 "decode mode with sequence-parallel attention is not "
-                "supported; decode on a tp/dp mesh instead") if par.cp_kind
-                else _a3c("decoding on a tp mesh"))
+                "supported; decode on a tp/dp mesh instead")
+        if cache is not None and par.sp:
+            raise _a3c("decoding under sequence parallelism")
         if par.sp and not split:
             raise _a3c("sequence parallelism over attention that tp does "
                        "not split")
@@ -474,9 +500,15 @@ class Attention(nn.Module):
                        f"{par.tp.size} ranks")
         H = q.shape[-1] // self.head_dim
         q = q.reshape(B, S, H, self.head_dim)
+        index = None
         if split:
-            k = self._kv(self.key, x, par, H)
-            v = self._kv(self.value, x, par, H)
+            # a cache holds what _kv returns (Attention.cache_heads); where
+            # the q heads do not group evenly over it, a cacheless forward
+            # repeats it to one a q head, a cached one regroups the queries
+            k, index = self._kv(self.key, x, par, H, lora, "key")
+            v, _ = self._kv(self.value, x, par, H, lora, "value")
+            if index is not None and cache is None:
+                k, v = k[:, :, index], v[:, :, index]
         else:
             k = self._proj(self.key, x, lora, "key").reshape(
                 B, S, self.n_kv, self.head_dim)
@@ -501,9 +533,13 @@ class Attention(nn.Module):
             if mask is not None:
                 raise NotImplementedError(
                     "key-padding masks are not supported in decode mode")
-            out = (_paged_attention_body(q, k, v, cache, layer)
-                   if hasattr(cache, "page_table")
-                   else _slot_attention_body(q, k, v, cache, layer))
+            body = (_paged_attention_body if hasattr(cache, "page_table")
+                    else _slot_attention_body)
+            if index is None:
+                out = body(q, k, v, cache, layer)
+            else:
+                qg, pos = _group_queries(q, index)
+                out = body(qg, k, v, cache, layer)[:, :, pos]
         elif par.cp_kind:
             if mask is not None:
                 raise NotImplementedError(
@@ -530,15 +566,62 @@ class Attention(nn.Module):
                                         mask=mask)
         out = out.reshape(B, S, H * self.head_dim)
         if split:
-            return _row_parallel(self.out, out, par)
+            return _row_parallel(self.out, out, par, None if lora is None
+                                 else _lora_delta(out, lora, "out"))
         return self._proj(self.out, out, lora, "out")
 
 
-def _row_parallel(dense, x, par):
-    """A row-parallel projection: this rank's partial sums, summed over tp
+def _kv_heads(n_heads, n_kv, n_q, index):
+    """``(first, n_sel, index)`` of the kv heads that q heads ``index *
+    n_q ..`` (``n_q`` of them, as tp rank ``index`` holds) read under
+    GQA: the run ``first .. first + n_sel - 1``, and None where the q
+    heads group evenly over it (``n_q / n_sel`` each, in order), else
+    the run position each q head reads."""
+    group = n_heads // n_kv
+    heads = [(index * n_q + i) // group for i in range(n_q)]
+    first, n_sel = heads[0], heads[-1] - heads[0] + 1
+    per = n_q // n_sel
+    if n_q % n_sel or any(heads[i] - first != i // per for i in range(n_q)):
+        return first, n_sel, [h - first for h in heads]
+    return first, n_sel, None
+
+
+def _group_queries(q, index):
+    """``(q', pos)``: the q heads laid out for k / v heads they do not
+    group evenly over (``_kv_heads``'s ``index``, the k / v head each q
+    head reads, in order): each k / v head's q heads, padded with zero
+    heads to the largest group, so that head ``h`` of ``q'`` reads k / v
+    head ``h // group`` as the attention bodies and kernels group them;
+    q head ``i`` is head ``pos[i]`` of ``q'``."""
+    n_sel = index[-1] + 1
+    width = max(index.count(j) for j in range(n_sel))
+    pos = [j * width + index[:i].count(j) for i, j in enumerate(index)]
+    qg = q.new_zeros(q.shape[0], q.shape[1], n_sel * width, q.shape[3])
+    qg[:, :, pos] = q
+    return qg, pos
+
+
+def _lora_delta(x, lora, name, cols=None):
+    """The per-row LoRA delta ``(x_n @ A[ids_n]) @ B[ids_n]`` in f32 of
+    projection ``name`` (``lora = (banks, ids)``; ``cols``: those columns
+    of a whole ``B`` only)."""
+    banks, ids = lora
+    a = banks[f"{name}_a"][ids]                 # [B, d_in, r]
+    b = banks[f"{name}_b"][ids]                 # [B, r, d_out]
+    if cols is not None:
+        b = b[..., cols]
+    return torch.bmm(torch.bmm(x.float(), a.float()), b.float())
+
+
+def _row_parallel(dense, x, par, delta=None):
+    """A row-parallel projection: this rank's partial sums, with its
+    partial LoRA ``delta`` (``x_local @ A[local rows] @ B``: the ranks'
+    partials sum to the whole delta), summed over tp
     (``reduce_from_tp``; under sp ``scatter_seq``, which also leaves this
     rank's sequence block), then the replicated bias, added once."""
     y = F.linear(x.to(dense.dtype), dense.weight.to(dense.dtype))
+    if delta is not None:
+        y = y + delta.to(y.dtype)
     y = (coll.scatter_seq(y, par.tp) if par.sp
          else coll.reduce_from_tp(y, par.tp))
     return y if dense.bias is None else y + dense.bias.to(dense.dtype)
@@ -904,6 +987,15 @@ class Transformer(nn.Module):
                             w.normal_(0.0, (w.shape[0] * w.shape[1]) ** -0.5,
                                       generator=generator)
 
+    def split(self):
+        """True when tp splits this model's parameters (``shard_params``
+        on a tp mesh: the first layer's attention, the tables or the
+        head), so that its forwards run on that mesh only."""
+        return (getattr(self, self.layer_names[0]).attn.split()
+                if self.layer_names else False) or (
+            self.token_embed.weight.shape[1] < self.cfg.d_model
+            or self.lm_head.local_shape()[0] < self.cfg.vocab_size)
+
     def moe_layers(self):
         """``{layer name: MoEMLP}`` of the MoE layers, in order (each
         holds its last forward's ``aux_loss``, ``dropped`` and
@@ -1067,11 +1159,16 @@ def vocab_parallel_lm_loss(logits, targets, split, ignore_id=-1):
     return total / torch.clamp_min(count, 1.0)
 
 
-def gather_vocab(logits):
+def gather_vocab(logits, select=None):
     """The whole-vocabulary logits of a split forward's (this rank's
-    sequence block of them), all-gathered over the vocab group: for
-    checks on small models only."""
+    sequence block of them), all-gathered over the vocab group.
+    ``select`` (a function of the logits) picks the rows to gather
+    first, so a decode step or a prefill chunk gathers only the
+    positions it picks from: every rank then picks from the same
+    whole-vocabulary logits."""
     split = getattr(logits, "logits_split", None)
+    if select is not None:
+        logits = select(logits)
     if split is None or split.vocab.size == 1:
         return logits
     return coll.gather_seq(logits, split.vocab, dim=logits.dim() - 1,

@@ -6,7 +6,8 @@ libtos_kernels.so`` under the repository root, loaded with ``ctypes``.
 Tensors cross the boundary as raw device pointers and the stream as an
 opaque pointer; each C entry returns ``cudaGetLastError()`` and
 :func:`check` raises when it is not 0, so a refused launch never passes
-silently.
+silently.  Every wrapper launches through :func:`launch`, which makes the
+tensors' device the current one for the call.
 
 The build happens at first use (or explicitly through :func:`build`),
 from the sources in the checkout alone: one ``nvcc -c`` per source, all
@@ -186,6 +187,27 @@ def stream_ptr(device):
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def launch(name, device, *args):
+    """Call C entry `name` with `args` and PyTorch's current stream on
+    `device`, with `device` the calling thread's current device for the
+    call, and raise when the entry reports a CUDA error.  The entries'
+    ``cudaFuncSetAttribute`` and the launch itself act on the current
+    device, and CUDA refuses a launch into another device's stream: a
+    tensor on ``cuda:1`` from a thread whose current device is 0 (a new
+    thread starts on device 0) launches on its own device here.  Every
+    wrapper launches through this function; where ``device`` is already
+    current (an engine thread makes its model's device current) it
+    switches nothing."""
+    import torch
+
+    if device.index is None or device.index == torch.cuda.current_device():
+        code = getattr(lib(), name)(*args, stream_ptr(device))
+    else:
+        with torch.cuda.device(device):
+            code = getattr(lib(), name)(*args, stream_ptr(device))
+    check(code, name)
 
 
 # the kernels a traced program (``torch.export``, AOTInductor) may hold:

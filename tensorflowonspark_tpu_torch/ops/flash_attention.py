@@ -222,11 +222,9 @@ def _flash_fwd_cuda(q, k, v, causal, sm_scale, need_lse):
     lse = torch.empty((B, H, S) if need_lse else (0,), dtype=torch.float32,
                       device=q.device)
     P = _build.ptr
-    code = _build.lib().tos_flash_fwd(
+    _build.launch("tos_flash_fwd", q.device,
         P(q), P(k), P(v), P(out), P(lse) if need_lse else None, B, S, H,
-        k.shape[2], D, sm_scale, int(causal), _build.dtype_code(q),
-        _build.stream_ptr(q.device))
-    _build.check(code, "tos_flash_fwd")
+        k.shape[2], D, sm_scale, int(causal), _build.dtype_code(q))
     flash_fwd.launches += 1
     return out, lse
 
@@ -249,11 +247,9 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal=True, sm_scale=None):
     delta = _rows(delta, "delta", (B, H, S))
     dq = torch.empty_like(q)
     P = _build.ptr
-    code = _build.lib().tos_flash_bwd_dq(
+    _build.launch("tos_flash_bwd_dq", q.device,
         P(q), P(k), P(v), P(do), P(lse), P(delta), P(dq), B, S, H,
-        k.shape[2], D, _scale(q, sm_scale), int(causal), _build.dtype_code(q),
-        _build.stream_ptr(q.device))
-    _build.check(code, "tos_flash_bwd_dq")
+        k.shape[2], D, _scale(q, sm_scale), int(causal), _build.dtype_code(q))
     flash_bwd_dq.launches += 1
     return dq
 
@@ -272,11 +268,9 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, sm_scale=None):
     delta = _rows(delta, "delta", (B, H, S))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     P = _build.ptr
-    code = _build.lib().tos_flash_bwd_dkv(
+    _build.launch("tos_flash_bwd_dkv", q.device,
         P(q), P(k), P(v), P(do), P(lse), P(delta), P(dk), P(dv), B, S, H,
-        k.shape[2], D, _scale(q, sm_scale), int(causal), _build.dtype_code(q),
-        _build.stream_ptr(q.device))
-    _build.check(code, "tos_flash_bwd_dkv")
+        k.shape[2], D, _scale(q, sm_scale), int(causal), _build.dtype_code(q))
     flash_bwd_dkv.launches += 1
     return dk, dv
 

@@ -135,12 +135,10 @@ def _adamw(g, p, mu, nu, scalars, out, *, b1, b2, eps, wd, write_param):
                 scalars=scalars)
     g = g.contiguous()
     P = _build.ptr
-    code = _build.lib().tos_adamw(
+    _build.launch("tos_adamw", g.device,
         P(g), P(p), P(mu), P(nu), P(out), P(scalars), g.numel(), float(b1),
         1.0 - b1, float(b2), 1.0 - b2, float(eps), float(wd),
-        int(write_param), _build.dtype_code(g), _build.dtype_code(mu),
-        _build.stream_ptr(g.device))
-    _build.check(code, "tos_adamw")
+        int(write_param), _build.dtype_code(g), _build.dtype_code(mu))
     _adamw.launches += 1
 
 
@@ -186,12 +184,10 @@ def _lion(g, p, mu, scalars, out, *, b1, b2, wd, write_param):
                 scalars=scalars)
     g = g.contiguous()
     P = _build.ptr
-    code = _build.lib().tos_lion(
+    _build.launch("tos_lion", g.device,
         P(g), P(p), P(mu), P(out), P(scalars), g.numel(), float(b1),
         1.0 - b1, float(b2), 1.0 - b2, float(wd), int(write_param),
-        _build.dtype_code(g), _build.dtype_code(mu),
-        _build.stream_ptr(g.device))
-    _build.check(code, "tos_lion")
+        _build.dtype_code(g), _build.dtype_code(mu))
     _lion.launches += 1
 
 

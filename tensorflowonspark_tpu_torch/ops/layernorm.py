@@ -96,18 +96,15 @@ def _layernorm_cuda(x, scale, bias, eps):
                              f"{tuple(t.shape)} on {t.device}")
     if scale.dtype != bias.dtype:
         raise TypeError(f"scale {scale.dtype} and bias {bias.dtype} differ")
-    lib = _build.lib()
     # the 16-byte loads need 16-byte aligned bases: a misaligned view
     # runs on an aligned copy
     x2, scale, bias = (_build.aligned(t) for t in (x.reshape(-1, D), scale,
                                                    bias))
     y = torch.empty_like(x2)
     P = _build.ptr
-    code = lib.tos_layernorm(
+    _build.launch("tos_layernorm", x.device,
         P(x2), P(scale), P(bias), P(y), x2.shape[0], D, vec, lanes,
-        float(eps), _build.dtype_code(x2), _build.dtype_code(scale),
-        _build.stream_ptr(x.device))
-    _build.check(code, "tos_layernorm")
+        float(eps), _build.dtype_code(x2), _build.dtype_code(scale))
     _layernorm.launches += 1
     return y.reshape(x.shape)
 

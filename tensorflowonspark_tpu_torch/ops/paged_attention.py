@@ -201,7 +201,6 @@ def _split_partials(q, pages_key, pages_value, page_table, lengths, *,
     quant = key_scales is not None
     if sm_scale is None:
         sm_scale = 1.0 / (Dh ** 0.5)
-    lib = _build.lib()
     q, pages_key, pages_value = (_build.aligned(t)
                                  for t in (q, pages_key, pages_value))
     table = page_table.to(torch.int32).contiguous()
@@ -215,12 +214,10 @@ def _split_partials(q, pages_key, pages_value, page_table, lengths, *,
     l = torch.empty_like(m)
     P = _build.ptr
     scales = ((P(key_scales), P(value_scales)) if quant else (None, None))
-    code = lib.tos_paged_decode(
+    _build.launch("tos_paged_decode", q.device,
         P(q), P(pages_key), P(pages_value), *scales, P(table), P(lens),
         P(acc), P(m), P(l), B, S, H, n_kv, Dh, page, max_pages, NP, n_splits,
-        float(sm_scale), _build.dtype_code(q), _build.dtype_code(pages_key),
-        _build.stream_ptr(q.device))
-    _build.check(code, "tos_paged_decode")
+        float(sm_scale), _build.dtype_code(q), _build.dtype_code(pages_key))
     return acc, m, l
 
 
@@ -232,8 +229,7 @@ def _combine_splits(q, acc, m, l):
     n_kv, n_splits = acc.shape[1], acc.shape[2]
     out = torch.empty((B, S, H, Dh), dtype=q.dtype, device=q.device)
     P = _build.ptr
-    code = _build.lib().tos_paged_decode_combine(
+    _build.launch("tos_paged_decode_combine", q.device,
         P(acc), P(m), P(l), P(out), B, S, H, n_kv, Dh, n_splits,
-        _build.dtype_code(q), _build.stream_ptr(q.device))
-    _build.check(code, "tos_paged_decode_combine")
+        _build.dtype_code(q))
     return out

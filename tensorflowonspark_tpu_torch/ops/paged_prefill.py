@@ -175,16 +175,13 @@ def _write_pages(k, v, pages_key, pages_value, page_table, starts):
     _check_in_place(pages_key=pages_key, pages_value=pages_value)
     B, S, n_kv, Dh = k.shape
     NP, page = pages_key.shape[:2]
-    lib = _build.lib()
     k, v = _build.aligned(k), _build.aligned(v)
     table = page_table.to(torch.int32).contiguous()
     st = starts.to(torch.int32).contiguous()
     P = _build.ptr
-    code = lib.tos_page_write(
+    _build.launch("tos_page_write", k.device,
         P(k), P(v), P(pages_key), P(pages_value), P(table), P(st), B, S,
-        n_kv * Dh * k.element_size(), page, table.shape[1], NP,
-        _build.stream_ptr(k.device))
-    _build.check(code, "tos_page_write")
+        n_kv * Dh * k.element_size(), page, table.shape[1], NP)
     _write_pages.launches += 1
     return k, v
 
@@ -208,17 +205,15 @@ def _write_pages_int8(k, v, pages_key, pages_value, key_scales,
     _check_in_place(pages_key=pages_key, pages_value=pages_value)
     B, S, n_kv, Dh = k.shape
     NP, page = pages_key.shape[:2]
-    lib = _build.lib()
     k, v = _build.aligned(k), _build.aligned(v)
     ck, cv = torch.empty_like(k), torch.empty_like(v)
     table = page_table.to(torch.int32).contiguous()
     st = starts.to(torch.int32).contiguous()
     P = _build.ptr
-    code = lib.tos_page_write_int8(
+    _build.launch("tos_page_write_int8", k.device,
         P(k), P(v), P(pages_key), P(pages_value), P(key_scales),
         P(value_scales), P(ck), P(cv), P(table), P(st), B, S, n_kv, Dh, page,
-        table.shape[1], NP, _build.dtype_code(k), _build.stream_ptr(k.device))
-    _build.check(code, "tos_page_write_int8")
+        table.shape[1], NP, _build.dtype_code(k))
     _write_pages_int8.launches += 1
     return ck, cv
 
@@ -243,7 +238,6 @@ def _read_attention(q, ck, cv, pages_key, pages_value, page_table, starts,
     NP, page, n_kv = pages_key.shape[:3]
     if sm_scale is None:
         sm_scale = 1.0 / (Dh ** 0.5)
-    lib = _build.lib()
     q, ck, cv, pages_key, pages_value = (
         _build.aligned(t) for t in (q, ck, cv, pages_key, pages_value))
     table = page_table.to(torch.int32).contiguous()
@@ -251,12 +245,10 @@ def _read_attention(q, ck, cv, pages_key, pages_value, page_table, starts,
     out = torch.empty_like(q)
     P = _build.ptr
     scales = ((P(key_scales), P(value_scales)) if quant else (None, None))
-    code = lib.tos_prefill_read(
+    _build.launch("tos_prefill_read", q.device,
         P(q), P(ck), P(cv), P(pages_key), P(pages_value), *scales, P(table),
         P(st), P(out), B, S, H, n_kv, Dh, page, table.shape[1], NP,
-        float(sm_scale), _build.dtype_code(q), _build.dtype_code(pages_key),
-        _build.stream_ptr(q.device))
-    _build.check(code, "tos_prefill_read")
+        float(sm_scale), _build.dtype_code(q), _build.dtype_code(pages_key))
     (READ_INT8_LAUNCHES if quant else _read_attention).launches += 1
     return out
 

@@ -113,12 +113,11 @@ def _launch(x2, q, scale, K, N, group, int4, name):
     vec = (int(N % 4 == 0 and q.data_ptr() % 16 == 0
                and scale.data_ptr() % 16 == 0)
            | int(K % 8 == 0 and x2.data_ptr() % 16 == 0) << 1)
-    code = _build.lib().tos_quant_matmul(
+    _build.launch("tos_quant_matmul", x2.device,
         _build.ptr(x2), _build.ptr(q), _build.ptr(scale), _build.ptr(out),
         None if partial is None else _build.ptr(partial), M, K, N,
         q.shape[0], group, int(int4), block_m, per, splits, vec,
-        _build.dtype_code(x2), _build.stream_ptr(x2.device))
-    _build.check(code, "tos_quant_matmul")
+        _build.dtype_code(x2))
     return out
 
 

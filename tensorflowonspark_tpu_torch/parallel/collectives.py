@@ -16,7 +16,14 @@ pipeline's neighbour exchange :func:`ring_shift`.
 
 Every function short-circuits where its group holds one rank, so the
 same code runs on a mesh of 1 and with no process group at all.
+
+A tp serving engine's leader drives its followers through a
+:class:`HeaderChannel`: one broadcast of a host header a device
+operation, over a gloo group of the tp ranks, so the header never
+waits for the card.
 """
+import datetime
+import time
 import math
 from typing import Any, NamedTuple
 
@@ -26,7 +33,7 @@ import torch.distributed as dist
 from tensorflowonspark_tpu_torch.ops.fused_optim import global_norm
 from tensorflowonspark_tpu_torch.parallel.mesh import (AXIS_DP, AXIS_FSDP,
                                                        AXIS_PP, AXIS_TP,
-                                                       BATCH_AXES)
+                                                       BATCH_AXES, tp_leader)
 
 
 class AxisGroup(NamedTuple):
@@ -499,3 +506,89 @@ def anchor(x, *tied):
     not use still runs its backward, so its peers' backward exchanges
     find it."""
     return _Anchor.apply(x, *tied)
+
+
+# --- the tp serving engine's host headers ----------------------------
+
+# the timeout of a gloo header group made beside an nccl tp group: an idle
+# leader sends a noop every few seconds, so only a dead rank trips it
+HEADER_TIMEOUT_S = 1800.0
+
+
+class HeaderChannel:
+    """Host headers from a tp group's leader (tp index 0) to its other
+    ranks, in order: the leader :meth:`send` s one per device operation
+    and each follower :meth:`recv` s it and replays the operation, so
+    every rank issues the forward's collectives in the same order.
+
+    A header is a fixed ``int64`` tensor (``HEADER`` entries: the
+    operation's code, the payload flag and up to ``HEADER - 2`` small
+    ints) broadcast over a gloo group of the tp ranks (the tp group
+    itself where it is gloo; a new one beside an nccl group), so that
+    neither side waits for the card; a variable payload (a prefill's
+    chunks, an adapter's arrays) follows as one
+    ``broadcast_object_list``.  ``seconds`` / ``count`` add up the host
+    time in :meth:`send` (the leader; it holds the wait for followers
+    still replaying the previous operation) or in :meth:`recv` (a
+    follower: its wait for the leader).  Every rank of the world
+    constructs the first channel of a mesh together (``new_group`` is
+    collective)."""
+
+    HEADER = 8
+
+    def __init__(self, mesh):
+        g = mesh.group(AXIS_TP)
+        self.size = g.size
+        self.leader = tp_leader(mesh)
+        self.is_leader = mesh.rank == self.leader
+        if dist.get_backend(g.pg) == "gloo":
+            self.pg = g.pg
+        else:
+            # one gloo group a mesh, made by the first channel on it
+            if getattr(mesh, "_header_pg", None) is None:
+                mesh._header_pg = dist.new_group(
+                    dist.get_process_group_ranks(g.pg), backend="gloo",
+                    timeout=datetime.timedelta(seconds=HEADER_TIMEOUT_S))
+            self.pg = mesh._header_pg
+        self.seconds = 0.0
+        self.count = 0
+
+    def send(self, code, ints=(), payload=None):
+        """Leader: broadcast operation ``code`` with ``ints`` (at most
+        ``HEADER - 2`` ints) and an optional picklable ``payload``."""
+        t0 = time.perf_counter()
+        if len(ints) > self.HEADER - 2:
+            raise ValueError(f"{len(ints)} ints exceed a header")
+        hdr = torch.zeros(self.HEADER, dtype=torch.int64)
+        hdr[0], hdr[1] = int(code), int(payload is not None)
+        if ints:
+            hdr[2:2 + len(ints)] = torch.tensor([int(i) for i in ints])
+        dist.broadcast(hdr, src=self.leader, group=self.pg)
+        if payload is not None:
+            dist.broadcast_object_list([payload], src=self.leader,
+                                       group=self.pg)
+        self.seconds += time.perf_counter() - t0
+        self.count += 1
+
+    def recv(self):
+        """Follower: the next ``(code, ints, payload)`` the leader sent
+        (``ints``: the header's ``HEADER - 2`` int slots)."""
+        t0 = time.perf_counter()
+        hdr = torch.empty(self.HEADER, dtype=torch.int64)
+        dist.broadcast(hdr, src=self.leader, group=self.pg)
+        payload = None
+        if hdr[1]:
+            box = [None]
+            dist.broadcast_object_list(box, src=self.leader, group=self.pg)
+            payload = box[0]
+        values = hdr.tolist()
+        self.seconds += time.perf_counter() - t0
+        self.count += 1
+        return values[0], values[2:], payload
+
+    def gather(self, obj):
+        """Every tp rank's ``obj``, in the group's rank order (a
+        collective: the construction's agreement check)."""
+        got = [None] * self.size
+        dist.all_gather_object(got, obj, group=self.pg)
+        return got

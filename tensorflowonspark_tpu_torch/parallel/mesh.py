@@ -192,6 +192,32 @@ class Mesh:
                     self._groups[axes] = _Group(made[members], n, order)
 
 
+def check_serving_mesh(mesh):
+    """Raise unless ``mesh`` serves: ``MeshSpec(tp=n)``, every other axis
+    of extent 1 (the JAX package serves rows over a dp axis; here
+    replicas behind the fleet gateway serve more rows).  Returns the
+    mesh's tp extent (1 without a mesh)."""
+    if mesh is None:
+        return 1
+    if mesh.shape[AXIS_DP] > 1:
+        raise NotImplementedError(
+            f"a dp axis under a serving mesh ({mesh!r}) is not ported yet "
+            f"({A3C}); serve more rows with replicas behind the fleet "
+            "gateway")
+    for axis in (AXIS_FSDP, AXIS_PP):
+        if mesh.shape[axis] > 1:
+            raise NotImplementedError(
+                f"a {axis} axis under a serving mesh ({mesh!r}) is not "
+                f"ported yet ({A3C}); a serving mesh is MeshSpec(tp=n)")
+    return mesh.shape[AXIS_TP]
+
+
+def tp_leader(mesh):
+    """The global rank of this rank's tp group leader (tp index 0): the
+    rank that schedules a tp serving engine (the others follow it)."""
+    return mesh.neighbor(AXIS_TP, -mesh.coords[AXIS_TP])
+
+
 def build_mesh(spec=None, ranks=None, device=None):
     """The mesh of ``spec`` (default ``MeshSpec()``: every rank on dp)
     over ``ranks`` (default: the default group's ranks in order; any

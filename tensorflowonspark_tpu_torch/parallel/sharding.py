@@ -16,13 +16,18 @@ blocks of a shard are JAX's.
 
 :func:`shard_params` gives each rank its slice of every sharded
 parameter as a plain local tensor; :func:`gather_params` puts the full
-tensors back together.
+tensors back together.  A serving tree (a float ``Transformer``) splits
+by the same rules; the LoRA banks of a serving engine split with the
+layers they adapt (``lora.bank_slices``).
 """
 import logging
 import re
 
+import torch
+
 from tensorflowonspark_tpu_torch.convert import flax_path, shard_of
-from tensorflowonspark_tpu_torch.parallel.mesh import AXIS_PP, NamedSharding
+from tensorflowonspark_tpu_torch.parallel.mesh import (A3C, AXIS_PP, AXIS_TP,
+                                                       NamedSharding)
 
 logger = logging.getLogger(__name__)
 
@@ -152,6 +157,14 @@ def shard_params(params, shardings):
                 "splits); one card runs a MoE model whole")
     if mesh is not None:
         mesh.check_placeable()
+        if mesh.shape[AXIS_TP] > 1 and isinstance(params, torch.nn.Module):
+            from tensorflowonspark_tpu_torch.quantize import quantized_modes
+
+            if quantized_modes(params):
+                # a quantised weight is a buffer (q, scale), never split
+                raise NotImplementedError(
+                    "quantised weights on a tp mesh are not ported yet "
+                    f"({A3C}): shard the float model")
         if hasattr(params, "keep_stage") and mesh.shape[AXIS_PP] > 1:
             params.keep_stage(mesh.coords[AXIS_PP])
             tensors = named_tensors(params)
@@ -166,6 +179,10 @@ def shard_params(params, shardings):
             t.data = local
         else:
             out[name] = local.requires_grad_(t.requires_grad)
+    if mesh is not None and hasattr(params, "named_parameters"):
+        for m in params.modules():
+            if hasattr(m, "tp_index"):   # models.transformer.Attention
+                m.tp_index = mesh.coords[AXIS_TP]
     return params if hasattr(params, "named_parameters") else out
 
 

@@ -96,6 +96,8 @@ none is ignored.
 """
 import argparse
 import collections
+import contextlib
+import dataclasses
 import itertools
 import json
 import logging
@@ -111,9 +113,12 @@ import torch
 
 from tensorflowonspark_tpu_torch import device as device_mod
 from tensorflowonspark_tpu_torch import faults, ops, trace
+from tensorflowonspark_tpu_torch import lora as lora_mod
 from tensorflowonspark_tpu_torch import quantize as quantize_mod
 from tensorflowonspark_tpu_torch.metrics import Counters, Gauge, LatencyWindow
 from tensorflowonspark_tpu_torch.models import decode as decode_mod
+from tensorflowonspark_tpu_torch.parallel import collectives as coll
+from tensorflowonspark_tpu_torch.parallel import mesh as mesh_mod
 
 logger = logging.getLogger(__name__)
 
@@ -121,6 +126,15 @@ logger = logging.getLogger(__name__)
 QUANTIZE_MODES = ("none",) + quantize_mod.MODES
 # :generate priority classes (the "priority" field / X-Priority header)
 PRIORITY_CLASSES = ("interactive", "batch")
+# the device operations of a tp serving engine, by header code: the
+# leader applies each through ContinuousBatcher._devop, which first sends
+# it to the followers (parallel.collectives.HeaderChannel), and each
+# follower replays it (ContinuousBatcher._dev_<name>) in the same order
+_TP_OPS = ("stop", "noop", "step", "prefill", "occupy", "free_row",
+           "map_row", "grow", "set_index", "lora")
+# an idle tp leader sends a noop this often, so the followers' header
+# receive never reaches its group's timeout
+_TP_KEEPALIVE_S = 10.0
 
 
 def build_argparser():
@@ -491,6 +505,23 @@ class ContinuousBatcher:
     controller, which parks batch sessions (at most ``park_capacity``)
     while interactive work waits past it.  ``trace``: a span ring
     (``trace.Recorder``) fed at the JAX package's sites.
+
+    On a tp mesh (``parallel.mesh.MeshSpec(tp=n)``; the engine takes the
+    mesh from ``use_mesh`` at construction): every rank builds the
+    engine inside ``use_mesh(mesh)`` with the same arguments over its
+    split of the model (``parallel.sharding.shard_params``), and the
+    ranks check that they agree.  The leader (tp index 0) is the whole
+    engine; every device write it makes goes through ``_devop``, which
+    first sends the operation to the other ranks (one host header over a
+    gloo group), so each follower's device thread replays the leader's
+    forwards and writes in its order and every rank issues the
+    forward's collectives alike.  Each rank's cache holds its kv heads;
+    every pick reads the whole vocabulary, so the followers' tokens are
+    the leader's without a readback.  A follower takes no requests
+    (``submit`` raises); its ``follow()`` (or ``stop()``) returns once
+    the leader's ``stop()`` ended the replay.  Speculation, migration,
+    the host tier, parking and quantised weights raise there, naming
+    ROADMAP A3c.
     """
 
     def __init__(self, model, n_slots=8, max_pending=1024, read_chunk=8,
@@ -503,6 +534,31 @@ class ContinuousBatcher:
                  trace_ring=trace.DEFAULT_RING,
                  trace_decode_sample=trace.DEFAULT_DECODE_SAMPLE,
                  trace_recorder=None, device=None):
+        self._mesh, self._chan = self._tp_channel(model, dict(
+            n_slots=n_slots, max_pending=max_pending, read_chunk=read_chunk,
+            prefill_chunk=prefill_chunk, prefill_rows=prefill_rows,
+            prefill_budget=prefill_budget, kv_page_size=kv_page_size,
+            kv_pages=kv_pages, kv_dtype=kv_dtype, engine=engine,
+            pipeline_depth=pipeline_depth,
+            long_prompt_threshold=long_prompt_threshold,
+            spec_draft=spec_draft, draft=draft_model is not None,
+            draft_k=draft_k, lora_rank=lora_rank,
+            lora_capacity=lora_capacity, host_cache_mb=host_cache_mb,
+            prio_weight=prio_weight, preempt_ms=preempt_ms,
+            park_capacity=park_capacity))
+        self._follower = (self._chan is not None
+                          and not self._chan.is_leader)
+        if self._chan is not None:
+            what = ("speculation" if spec_draft not in (None, "off")
+                    or draft_model is not None else
+                    "kv migration / host tier / parking"
+                    if host_cache_mb or preempt_ms else
+                    "quantised weights" if quantize_mod.quantized_modes(model)
+                    else None)
+            if what:
+                raise NotImplementedError(f"{what} on a tp mesh is not "
+                                          f"ported yet ({mesh_mod.A3C})")
+        self._last_send = time.monotonic()
         if engine not in ("async", "serial"):
             raise ValueError(f"engine={engine!r} not in ('async', 'serial')")
         if n_slots < 1:
@@ -740,7 +796,7 @@ class ContinuousBatcher:
         self._thread = threading.Thread(target=self._loop,
                                         name="slot-batcher", daemon=True)
         self._host_thread = None
-        if engine == "async":
+        if engine == "async" and not self._follower:
             self._host_thread = threading.Thread(
                 target=self._host_loop, name="slot-host", daemon=True)
             self._host_thread.start()
@@ -748,12 +804,58 @@ class ContinuousBatcher:
         # resuming block on device-thread acks, which an engine loop
         # cannot wait for
         self._preempt_thread = None
-        if self.preempt_ms > 0:
+        if self.preempt_ms > 0 and self._chan is None:
             self._preempt_thread = threading.Thread(
                 target=self._preempt_loop, name="preempt-controller",
                 daemon=True)
             self._preempt_thread.start()
         self._thread.start()
+
+    @staticmethod
+    def _tp_channel(model, args):
+        """``(mesh, channel)`` of an engine built inside ``use_mesh``: the
+        serving mesh (``check_serving_mesh``) and, on a tp mesh, the
+        header channel, once every rank agreed on ``args``, the model's
+        config and its split (a mismatch raises on every rank).  ``(None
+        or the mesh, None)`` off a tp mesh."""
+        mesh = mesh_mod.active_mesh()
+        tp = mesh_mod.check_serving_mesh(mesh)
+        if tp == 1:
+            if model.split():
+                raise ValueError("a tp-split model serves inside parallel."
+                                 "mesh.use_mesh(mesh), on the tp mesh it "
+                                 "was split over")
+            return mesh, None
+        if not model.split():
+            raise ValueError("a tp mesh serves a model split over it "
+                             "(parallel.sharding.shard_params)")
+        chan = coll.HeaderChannel(mesh)
+        mine = {**{k: repr(v) for k, v in args.items()},
+                "config": repr(dataclasses.asdict(model.cfg)),
+                "split": repr([(n, tuple(p.shape), str(p.dtype))
+                               for n, p in model.named_parameters()])}
+        ranks = chan.gather(mine)
+        differ = sorted({k for r in ranks for k in mine if r[k] != mine[k]})
+        if differ:
+            raise ValueError(
+                "the tp ranks built their engines differently: "
+                + "; ".join(f"{k}: {[r[k] for r in ranks]}" for k in differ))
+        return mesh, chan
+
+    def _on_mesh(self):
+        """The engine's mesh around a forward (tp only)."""
+        return (mesh_mod.use_mesh(self._mesh) if self._chan is not None
+                else contextlib.nullcontext())
+
+    def _refuse_follower(self, what):
+        if self._follower:
+            raise RuntimeError(f"a tp follower rank takes no {what}: the "
+                               "leader (tp index 0) schedules the engine")
+
+    def _refuse_tp(self, what):
+        if self._chan is not None:
+            raise NotImplementedError(f"{what} on a tp mesh is not ported "
+                                      f"yet ({mesh_mod.A3C})")
 
     # ---- public surface -------------------------------------------------
 
@@ -869,6 +971,14 @@ class ContinuousBatcher:
         for cls in PRIORITY_CLASSES:
             out.update(self._ttft_cls[cls].stats(f"ttft_{cls}"))
             out.update(self._qdelay[cls].stats(f"qdelay_{cls}"))
+        if self._chan is not None:
+            # headers sent (the leader) or received (a follower), and the
+            # host time a header took, the wait for the other side in it
+            out["tp_size"] = self._chan.size
+            out["tp_headers"] = self._chan.count
+            out["tp_header_us_mean"] = (
+                self._chan.seconds * 1e6 / self._chan.count
+                if self._chan.count else 0.0)
         out.update(self.trace.stats())
         out.update(self.counters.snapshot())
         return out
@@ -876,6 +986,7 @@ class ContinuousBatcher:
     def submit(self, prompt, max_new, temperature=0.0, eos_id=None, seed=0,
                top_k=0, top_p=1.0, min_p=0.0, adapter=None, stop=None,
                repetition_penalty=1.0, priority=None, trace_id=None):
+        self._refuse_follower("requests")
         if self._dead is not None:
             raise RuntimeError(f"batcher died: {self._dead}")
         # tracing is best-effort: a malformed id is dropped here rather
@@ -958,7 +1069,11 @@ class ContinuousBatcher:
     def stop(self, timeout=30):
         """Shut the engine threads (and the preemption controller) down;
         queued, in-flight, mid-admission and parked requests fail with
-        RuntimeError; the host tier closes."""
+        RuntimeError; the host tier closes.  On a tp leader the device
+        thread's end also ends the followers' replay; on a follower this
+        is :meth:`follow`."""
+        if self._follower:
+            return self.follow(timeout)
         self._stop.set()
         self._thread.join(timeout)
         if self._host_thread is not None:
@@ -971,12 +1086,28 @@ class ContinuousBatcher:
         if self._host_tier is not None:
             self._host_tier.close()
 
+    def follow(self, timeout=None):
+        """A tp follower: wait until the leader's ``stop()`` ends the
+        replay of its device operations (TimeoutError after ``timeout``
+        seconds, the replay going on; RuntimeError when the replay died);
+        then the engine is stopped."""
+        if not self._follower:
+            raise RuntimeError("follow() is a tp follower's: this rank "
+                               "leads the engine")
+        self._thread.join(timeout)
+        if self._thread.is_alive():
+            raise TimeoutError(f"the tp leader did not stop in {timeout}s")
+        if self._dead is not None:
+            raise RuntimeError(f"tp follower died: {self._dead}")
+        self._dead = RuntimeError("batcher stopped")
+
     def drop_prefix_cache(self, timeout_s=30.0):
         """Evict every refcount-0 page of the prefix cache (each demotes
         to the host tier first when it is armed; pages still shared with
         live rows stay).  From any thread: posts a device thread
         operation and waits for its ack.  Returns the number of pages
         evicted (0 for the dense cache)."""
+        self._refuse_follower("prefix-cache operations")
         if not self.kv_page_size:
             return 0
         if self._dead is not None:
@@ -1018,17 +1149,26 @@ class ContinuousBatcher:
             "key": (cfg.d_model, n_kv * head_dim),
             "value": (cfg.d_model, n_kv * head_dim),
             "out": (cfg.d_model, cfg.d_model)}
+        # on a tp mesh each rank's banks hold its part of every adapter:
+        # the part its split layers read (lora.bank_slices)
+        self._lora_slices = lora_mod.bank_slices(
+            getattr(self.model, self.model.layer_names[0]).attn,
+            self._mesh.coords[mesh_mod.AXIS_TP] if self._chan else 0)
+        local = {p: (len(range(di)[self._lora_slices[p][0]]),
+                     len(range(do)[self._lora_slices[p][1]]))
+                 for p, (di, do) in self._lora_dims.items()}
         L, r = capacity + 1, self.lora_rank
         self._lora_banks = {
             f"layer_{i}": {
                 **{f"{p}_a": torch.zeros((L, di, r), device=self.device)
-                   for p, (di, _) in self._lora_dims.items()},
+                   for p, (di, _) in local.items()},
                 **{f"{p}_b": torch.zeros((L, r, do), device=self.device)
-                   for p, (_, do) in self._lora_dims.items()}}
+                   for p, (_, do) in local.items()}}
             for i in range(cfg.n_layers)}
         self._lora_ids = torch.zeros((self.n_slots,), dtype=torch.int64,
                                      device=self.device)
         self._adapters = {}            # name -> bank index
+        self._adapters_pending = set()  # names whose banks are being written
         self._free_lora = list(range(1, L))
         self._adapter_refs = {}        # index -> requests in flight
         # prefix-cache identity of each index: a never-reused token per
@@ -1044,7 +1184,10 @@ class ContinuousBatcher:
         tree ``{"layer_<i>/attn/<proj>/kernel": {"a", "b"}}`` (attention
         projections only); `scale` folds into the stored b.  Paths the
         adapter does not cover stay zero.  Thread-safe; visible from the
-        engine's next dispatch.  Returns the bank index."""
+        engine's next dispatch.  Returns the bank index.  On a tp mesh
+        (the leader's call) the device thread sends the host arrays to
+        every rank, and each writes its part of them into its banks."""
+        self._refuse_follower("adapter registrations")
         if not self.lora_rank:
             raise ValueError("no LoRA bank configured (lora_rank=0; pass "
                              "lora_rank / --generate_lora_rank)")
@@ -1071,34 +1214,54 @@ class ContinuousBatcher:
                     f"([{di}, {self.lora_rank}], [{self.lora_rank}, {do}])")
             by_slot[(parts[0], parts[2])] = (a, b)
         with self._lora_lock:
-            if name in self._adapters:
+            if name in self._adapters or name in self._adapters_pending:
                 raise ValueError(f"adapter {name!r} already registered")
             if not self._free_lora:
                 raise ValueError(
                     f"adapter bank full ({len(self._adapters)} registered; "
                     "raise lora_capacity / --generate_lora_capacity)")
             idx = self._free_lora.pop()
-            try:
-                with torch.no_grad():
-                    for layer, bank in self._lora_banks.items():
-                        for proj in self._lora_dims:
-                            a, b = by_slot.get((layer, proj), (None, None))
-                            if a is None:
-                                bank[f"{proj}_a"][idx].zero_()
-                                bank[f"{proj}_b"][idx].zero_()
-                            else:
-                                bank[f"{proj}_a"][idx].copy_(a.float())
-                                bank[f"{proj}_b"][idx].copy_(
-                                    b.float() * float(scale))
-            except BaseException:
+            self._adapters_pending.add(name)
+        try:
+            if self._chan is None:
+                self._dev_lora(idx, by_slot, scale)
+            else:
+                # the device thread writes every rank's banks (the lock
+                # stays free: that thread takes it at admission)
+                host = {k: (a.detach().cpu(), b.detach().cpu())
+                        for k, (a, b) in by_slot.items()}
+                if not self._device_op(("lora", idx, host, float(scale))):
+                    raise RuntimeError(f"batcher stopped: {self._dead}")
+        except BaseException:
+            with self._lora_lock:
+                self._adapters_pending.discard(name)
                 self._free_lora.append(idx)   # the index stays in the pool
-                raise
+            raise
+        with self._lora_lock:
+            self._adapters_pending.discard(name)
             self._adapters[name] = idx
             self._adapter_refs.setdefault(idx, 0)
             self._adapter_token[idx] = next(self._token_counter)
         logger.info("registered LoRA adapter %r at bank index %d (%d paths, "
                     "scale %.3g)", name, idx, len(adapters), scale)
         return idx
+
+    def _dev_lora(self, idx, by_slot, scale):
+        """Write adapter ``by_slot`` (``{(layer, projection): (a, b)}``,
+        host or device tensors at the whole layer's shapes; missing
+        paths zero) into bank index ``idx``: this rank's part of each
+        (``lora.bank_slices``), ``scale`` folded into b."""
+        with torch.no_grad():
+            for layer, bank in self._lora_banks.items():
+                for proj, (rows, cols) in self._lora_slices.items():
+                    a, b = by_slot.get((layer, proj), (None, None))
+                    if a is None:
+                        bank[f"{proj}_a"][idx].zero_()
+                        bank[f"{proj}_b"][idx].zero_()
+                    else:
+                        bank[f"{proj}_a"][idx].copy_(a[rows].float())
+                        bank[f"{proj}_b"][idx].copy_(
+                            b[:, cols].float() * float(scale))
 
     def unregister_adapter(self, name):
         """Remove `name`; refuses while requests using it are in flight."""
@@ -1352,19 +1515,24 @@ class ContinuousBatcher:
                     max(_pow2_width(need), 2 * self._table_width))
         if new_w <= self._table_width:
             return
+        self._devop("grow", new_w)
+        self.counters.inc("kv_table_grows")
+
+    def _dev_grow(self, new_w):
         decode_mod.grow_page_table(self._cache, new_w, self._sink)
         self._table_width = new_w
         self._sink_entries = torch.full((new_w,), self._sink,
                                         dtype=torch.int32, device=self.device)
-        self.counters.inc("kv_table_grows")
 
     def _map_row(self, row, pages):
         """Point `row`'s table at `pages` (growing the tables first when
         they are too narrow)."""
         if len(pages) > self._table_width:
             self._grow_table(len(pages))
-        decode_mod.set_row_page_table(self._cache, row,
-                                      self._row_entries(pages))
+        self._devop("map_row", row, self._row_entries(pages))
+
+    def _dev_map_row(self, row, entries):
+        decode_mod.set_row_page_table(self._cache, row, entries)
 
     def _overflow_reclaim(self, want):
         """The mega-prompt lane's overflow valve: free up to `want` pool
@@ -1528,14 +1696,7 @@ class ContinuousBatcher:
             self._n_sampled -= s["sampled"]
             self._n_penalized -= s["pen"]
         self._slots[row] = None
-        if s is not None:
-            # free rows decode greedily, unfiltered, unpenalised, on the
-            # base model (device writes, no sync)
-            self._temps[row] = 0.0
-            self._topks[row], self._topps[row] = 0, 1.0
-            self._minps[row], self._reps[row] = 0.0, 1.0
-            if self.lora_rank:
-                self._lora_ids[row] = 0
+        table = False
         if self.kv_page_size and self._row_pages[row] is not None:
             if self._host_tier is not None and s is not None:
                 self._demote_retiring(row, s)
@@ -1547,6 +1708,21 @@ class ContinuousBatcher:
             self._row_pages[row] = None
             self._row_shared_n[row] = 0
             self._row_prefix_keys[row] = None
+            table = True
+        if s is not None or table:
+            self._devop("free_row", row, s is not None, table)
+
+    def _dev_free_row(self, row, controls, table):
+        """A retired row's device writes: with ``controls`` it decodes
+        greedily, unfiltered, unpenalised, on the base model (no sync);
+        with ``table`` its page table names the sink."""
+        if controls:
+            self._temps[row] = 0.0
+            self._topks[row], self._topps[row] = 0, 1.0
+            self._minps[row], self._reps[row] = 0.0, 1.0
+            if self.lora_rank:
+                self._lora_ids[row] = 0
+        if table:
             decode_mod.set_row_page_table(self._cache, row,
                                           self._sink_entries)
 
@@ -1614,9 +1790,7 @@ class ContinuousBatcher:
             # write cursor moves past the shared pages, so that junk
             # lands in its own first fresh page, which the prefill
             # overwrites, or the sink, never in a page other rows read
-            decode_mod.set_row_indices(
-                self._cache, decode_mod.to_device([row], self.device),
-                decode_mod.to_device([shared], self.device))
+            self._devop("set_index", row, shared)
         # the draft's dense cache shares nothing: it catches up over the
         # shared positions first, chunk by chunk, in rounds of its own
         self._admissions.append({
@@ -1775,15 +1949,18 @@ class ContinuousBatcher:
             return adm["d_sizes"][adm["di"]]
         return adm["sizes"][adm["i"]]
 
+    def _prefill_shape(self, entries):
+        """``(bucket, width)`` of one round's ``(row, chunk, start)``
+        entries: rows padded to a power of two, chunks to a power-of-two
+        bucket capped at the prefill chunk."""
+        return (_bucket_len(max(len(c) for _, c, _ in entries),
+                            self.prefill_chunk), _pow2_width(len(entries)))
+
     def _prefill_batch(self, entries):
-        """``(bucket, width, tensors)`` of one round's ``(row, chunk,
-        start)`` entries: rows padded to a power of two, chunks to a
-        power-of-two bucket capped at the prefill chunk
-        (``decode.build_prefill_batch``)."""
-        bucket = _bucket_len(max(len(c) for _, c, _ in entries),
-                             self.prefill_chunk)
-        width = _pow2_width(len(entries))
-        return bucket, width, decode_mod.build_prefill_batch(
+        """``(width, tensors)`` of one round's entries at
+        :meth:`_prefill_shape` (``decode.build_prefill_batch``)."""
+        bucket, width = self._prefill_shape(entries)
+        return width, decode_mod.build_prefill_batch(
             entries, width, bucket, self.n_slots, self.device)
 
     def _run_prefill_round(self):
@@ -1814,7 +1991,7 @@ class ContinuousBatcher:
             with torch.no_grad():
                 decode_mod.slot_prefill_many(
                     self.draft_model, self._d_cache,
-                    *self._prefill_batch(entries)[2], 0)
+                    *self._prefill_batch(entries)[1], 0)
             self.counters.inc("prefill_dispatches")
             for (row, chunk, off), adm in zip(entries, catchup):
                 self.trace.event(adm["item"].get("trace"), "prefill",
@@ -1839,19 +2016,33 @@ class ContinuousBatcher:
             else:
                 self.trace.event(tid, "prefill", row=adm["row"],
                                  chunk=len(chunk), offset=off)
-        bucket, width, batch = self._prefill_batch(entries)
+        bucket, width = self._prefill_shape(entries)
         if self.kv_page_size:
             # bucket overshoot and pad rows write into the sink
             pad = (sum(bucket - len(c) for _, c, _ in entries)
                    + (width - len(entries)) * bucket)
             if pad:
                 self.counters.inc("kv_sink_writes", pad)
+        logits = self._devop(
+            "prefill", entries, [adm["item"]["aidx"] for adm in selected]
+            if self.lora_rank else None)
+        self.counters.inc("prefill_dispatches")
+        for i, adm in enumerate(selected):
+            if adm in finishing:
+                self._admissions.remove(adm)
+                self._finish_admission(adm, logits[i])
+        return True
+
+    def _dev_prefill(self, entries, aidxs):
+        """One batched prefill forward over ``entries`` (``aidxs``: each
+        entry's adapter, or None without a bank): the last-position
+        whole-vocabulary logits of each row."""
+        width, batch = self._prefill_batch(entries)
         lora = None
-        if self.lora_rank:
-            aidxs = [adm["item"]["aidx"] for adm in selected]
+        if aidxs is not None:
             lora = (self._lora_banks, decode_mod.to_device(
-                aidxs + [0] * (width - len(aidxs)), self.device))
-        with torch.no_grad():
+                list(aidxs) + [0] * (width - len(aidxs)), self.device))
+        with torch.no_grad(), self._on_mesh():
             logits = decode_mod.slot_prefill_many(
                 self.model, self._cache, *batch,
                 self._sink if self.kv_page_size else 0, lora=lora)
@@ -1859,12 +2050,7 @@ class ContinuousBatcher:
                 # the draft's dense cache mirrors every target chunk
                 decode_mod.slot_prefill_many(self.draft_model, self._d_cache,
                                              *batch, 0)
-        self.counters.inc("prefill_dispatches")
-        for i, adm in enumerate(selected):
-            if adm in finishing:
-                self._admissions.remove(adm)
-                self._finish_admission(adm, logits[i])
-        return True
+        return logits
 
     def _finish_admission(self, adm, logits_row):
         """Final chunk done: publish the row's prefix pages, pick the
@@ -1917,23 +2103,9 @@ class ContinuousBatcher:
             self.trace.event(tid, "retire", row=row, reason="first_token")
             return
         self._gen[row] += 1
-        # a fresh tensor: pending readback entries still hold the old one
-        self._toks = self._toks.clone()
-        self._toks[row] = tok
-        self._rems[row] = max_new - 1
-        self._eoss[row] = eos if eos is not None else 0
-        self._eos_on[row] = eos is not None
-        self._temps[row] = item["temp"]
-        self._seeds[row] = item["seed"]
-        self._ords[row] = 1
-        self._topks[row] = item["topk"]
-        self._topps[row] = item["topp"]
-        self._minps[row] = item["minp"]
-        if self.lora_rank:
-            self._lora_ids[row] = item["aidx"]
-        if pen:
-            self._seen[row] = seen[0]
-            self._reps[row] = item["rep"]
+        self._devop("occupy", row, tok, max_new - 1, eos, item["temp"],
+                    item["seed"], item["topk"], item["topp"], item["minp"],
+                    item["aidx"], item["rep"], prompt if pen else None)
         sampled = item["temp"] > 0
         self._n_filtered += filt
         self._n_sampled += sampled
@@ -1945,6 +2117,31 @@ class ContinuousBatcher:
         if self.spec_mode == "ngram":
             decode_mod.set_row_ctx(self._spec_ctx, self._spec_ctx_len, row,
                                    seq)
+
+    def _dev_occupy(self, row, tok, rems, eos, temp, seed, topk, topp, minp,
+                    aidx, rep, prompt):
+        """An admitted row's decode registers: its first token, budget,
+        eos, sampling controls, adapter and (``rep != 1``) the penalty's
+        seen table of ``prompt``."""
+        # a fresh tensor: pending readback entries still hold the old one
+        self._toks = self._toks.clone()
+        self._toks[row] = tok
+        self._rems[row] = rems
+        self._eoss[row] = eos if eos is not None else 0
+        self._eos_on[row] = eos is not None
+        self._temps[row] = temp
+        self._seeds[row] = seed
+        self._ords[row] = 1
+        self._topks[row] = topk
+        self._topps[row] = topp
+        self._minps[row] = minp
+        if self.lora_rank:
+            self._lora_ids[row] = aidx
+        if rep != 1.0:
+            self._seen[row] = decode_mod.seen_from_prompt(
+                decode_mod.to_device([prompt], self.device),
+                self.vocab_size)[0]
+            self._reps[row] = rep
 
     @staticmethod
     def _hit_stop(seq, stops, gen_start):
@@ -2149,6 +2346,7 @@ class ContinuousBatcher:
         None when the session completed before the cut landed;
         TimeoutError when no cut lands in `timeout_s`, the session
         running on untouched."""
+        self._refuse_tp("kv migration / host tier / parking")
         if self._dead is not None:
             raise RuntimeError(f"batcher died: {self._dead}")
         if self.draft_model is not None:
@@ -2282,6 +2480,7 @@ class ContinuousBatcher:
         ValueError instead of killing the device loop.  Returns
         ``(handle, installed)``: the event sets once the row is live
         (the :resume surface's splice ack)."""
+        self._refuse_tp("kv migration / host tier / parking")
         kind = "paged" if self.kv_page_size else "dense"
         if meta.get("kind") != kind:
             raise ValueError(
@@ -2331,6 +2530,7 @@ class ContinuousBatcher:
         ``meta`` uses wire_snapshot's keys minus the kv layout, so a
         record works against any layout.  Returns ``(handle,
         installed)`` like :meth:`submit_resume`."""
+        self._refuse_tp("kv migration / host tier / parking")
         item, seq, remaining = self._resume_item(meta, "replay")
         # no "kv" key: _start_admission reads that as "prefill again"
         item["resume"] = {"seq": seq, "remaining": remaining,
@@ -2535,20 +2735,75 @@ class ContinuousBatcher:
                 # give the same tokens, sampled ones the same distribution
                 self.counters.inc("spec_draft_fallbacks")
                 use_spec = False
-        lora = (self._lora_banks, self._lora_ids) if self.lora_rank else None
         if use_spec:
+            lora = ((self._lora_banks, self._lora_ids) if self.lora_rank
+                    else None)
             return self._dispatch_spec(fkw, lora)
-        pkw = ({"seen": self._seen, "reps": self._reps}
-               if self._n_penalized else {})
-        with torch.no_grad():
+        done = self._devop("step", self._n_filtered > 0,
+                           self._n_penalized > 0, self._n_sampled > 0)
+        return self._toks, None, done, tuple(self._gen), None
+
+    def _dev_step(self, filtered, penalized, sampled):
+        """One plain decode step of every row (``decode.slot_step``);
+        returns the done plane."""
+        fkw = ({"topks": self._topks, "topps": self._topps,
+                "minps": self._minps} if filtered else {})
+        pkw = {"seen": self._seen, "reps": self._reps} if penalized else {}
+        lora = (self._lora_banks, self._lora_ids) if self.lora_rank else None
+        with torch.no_grad(), self._on_mesh():
             self._toks, self._rems, done = decode_mod.slot_step(
                 self.model, self._cache, self._toks, self._temps,
                 self._seeds, self._ords, rems=self._rems, eoss=self._eoss,
-                eos_on=self._eos_on, lora=lora,
-                sampled=self._n_sampled > 0, **fkw, **pkw)
+                eos_on=self._eos_on, lora=lora, sampled=bool(sampled),
+                **fkw, **pkw)
         self._ords = self._ords + 1
         self._steps += 1
-        return self._toks, None, done, tuple(self._gen), None
+        return done
+
+    def _devop(self, name, *args):
+        """Apply device operation ``name`` (``_dev_<name>``, one of
+        ``_TP_OPS``) on this rank and return its result.  On a tp leader
+        the operation first goes to the followers, whose replay issues
+        the same forwards, collectives and writes in the same order: a
+        header of ints where every argument is one, else a payload."""
+        if self._chan is not None:
+            code = _TP_OPS.index(name)
+            if len(args) <= coll.HeaderChannel.HEADER - 3 and all(
+                    isinstance(a, (bool, int)) for a in args):
+                self._chan.send(code, (len(args),) + args)
+            else:
+                self._chan.send(code, payload=args)
+            self._last_send = time.monotonic()
+        return getattr(self, "_dev_" + name)(*args)
+
+    def _dev_set_index(self, row, value):
+        decode_mod.set_row_indices(
+            self._cache, decode_mod.to_device([row], self.device),
+            decode_mod.to_device([value], self.device))
+
+    def _dev_noop(self):
+        pass
+
+    def _tp_keepalive(self):
+        """An idle tp leader's noop, every ``_TP_KEEPALIVE_S``."""
+        if (self._chan is not None
+                and time.monotonic() - self._last_send > _TP_KEEPALIVE_S):
+            self._devop("noop")
+
+    def _follow_loop(self):
+        """A tp follower's device thread: replay the leader's device
+        operations, in its order, until its stop."""
+        try:
+            while True:
+                code, ints, payload = self._chan.recv()
+                name = _TP_OPS[code]
+                if name == "stop":
+                    return
+                args = (payload if payload is not None
+                        else ints[1:1 + ints[0]])
+                getattr(self, "_dev_" + name)(*args)
+        except BaseException as e:
+            self._die(e, "tp follower died")
 
     def _dispatch_spec(self, fkw, lora):
         """One speculative round at the adaptive k (the host thread's
@@ -2746,6 +3001,8 @@ class ContinuousBatcher:
                 return
             if op[0] == "drop_prefix":
                 op[1]["n"] = self._evict_cached_pages(self._total_pages)
+            elif op[0] == "lora":
+                self._devop("lora", op[1], op[2], op[3])
             elif op[0] == "freeze":
                 self._apply_freeze(op[1], op[2])
             else:
@@ -2798,6 +3055,7 @@ class ContinuousBatcher:
         """Admission, one prefill round and one decode step; returns
         (active, clean): whether a row decodes, and whether the round was
         decode-only (no prefill, no idle wait)."""
+        self._tp_keepalive()
         self._admit(block=idle)
         prefilled = self._run_prefill_round()
         active = any(s is not None for s in self._slots)
@@ -2815,10 +3073,26 @@ class ContinuousBatcher:
         return now
 
     def _loop(self):
-        if self.engine == "async":
-            self._loop_async()
-        else:
-            self._loop_serial()
+        # a new thread starts on device 0: the model's device is made
+        # current (events, streams and kernel launches follow it)
+        dev = next(self.model.parameters()).device
+        with (torch.cuda.device(dev) if dev.type == "cuda"
+              else contextlib.nullcontext()):
+            if self._follower:
+                self._follow_loop()
+                return
+            try:
+                if self.engine == "async":
+                    self._loop_async()
+                else:
+                    self._loop_serial()
+            finally:
+                if self._chan is not None:
+                    try:
+                        self._chan.send(_TP_OPS.index("stop"))
+                    except Exception:
+                        logger.exception("tp leader could not end the "
+                                         "followers' replay")
 
     def _loop_serial(self):
         """The one-thread reference engine: dispatch, flush, and process

@@ -38,13 +38,26 @@ shape, checked on the CPU.
   on the CPU, one server an engine: every request answered, the
   micro-batcher coalescing, kernel 4's dispatcher op in both artifacts'
   paths, each engine's logits within ``PREDICT_RTOL`` of the builder's;
+  ``predict_profile`` on the CPU: the capture starts once the burst has
+  executed and the clients post until it returns, so its trace holds
+  kernel 4's dispatcher op, and an overlapping capture gets 409;
   ``spec_v1_run`` on a tiny stand-in for the flagship: 8 rows, every one
   committing its 32 tokens equal to ``generate``'s.
 - phase 24: its whole traffic is ``bench.py``'s and the smoke's cut
   departs from it in traffic only; ``phase_workloads`` on a tiny
   stand-in for the flagship prints one line a builder, holds every
   check and sums the serving kernels' launches.
+- phase 25: its traffic and engine are phase 5's, its kernel check the
+  flagship's tp-4 local shapes (4 q and 2 kv heads a rank); on one card
+  ``phase_a3c`` runs the kernel check alone (a tiny stand-in for the
+  flagship on the CPU: every read within TOL of its plain version, no
+  launches added); ``a3c_serve`` at tp 1 on the tiny stand-in serves
+  the burst and a solo answer, and ``a3c_summary`` holds ranks made
+  from it (a solo answer parted from its burst twin away from a tie
+  fails), and fails a rank whose registers or ``generate`` tokens are
+  not the leader's, or that launched no kernel.
 """
+import contextlib
 import importlib.util
 import math
 import os
@@ -479,6 +492,44 @@ def test_predict_phase_servers_and_burst_on_the_cpu(vit_aot_export,
                 scale
 
 
+def test_predict_profile_captures_while_the_server_executes(
+        vit_aot_export, monkeypatch):
+    import json
+
+    from tensorflowonspark_tpu_torch.utils import profiling
+
+    d, _, _ = vit_aot_export
+    rng = np.random.RandomState(8)
+    images = rng.randint(0, 256, (chip_smoke.PREDICT_CLIENTS, 3, 8, 8, 3))
+    bodies = [json.dumps({"instances": [{"image": i.tolist()} for i in imgs]})
+              .encode() for imgs in images]
+    # the CPU trace holds neither device events nor the server threads'
+    # ops (torch.profiler records host ops of its own thread): count the
+    # executions inside the capture, and hand the check one flash row
+    during, servers = [], []
+    trace = profiling.trace
+
+    @contextlib.contextmanager
+    def watched(log_dir):
+        with trace(log_dir) as prof:
+            n = servers[0].service._batcher.executions
+            yield prof
+            during.append(servers[0].service._batcher.executions - n)
+
+    monkeypatch.setattr(profiling, "trace", watched)
+    monkeypatch.setattr(profiling, "parse_trace",
+                        lambda path: [("tos::flash_fwd_kernel", 1.0, 1)])
+    monkeypatch.setattr(chip_smoke, "PREDICT_PROFILE_MS", 300)
+    with chip_smoke.PredictServer(d, "cpu", "--engine", "builder",
+                                  *chip_smoke.PREDICT_ARGV) as srv:
+        servers.append(srv)
+        prof = chip_smoke.predict_profile(torch, srv, bodies)
+        assert not srv.service._profile_lock.locked()
+    assert (prof["status"], prof["overlapping_status"],
+            prof["duration_ms"]) == (200, 409, 300)
+    assert len(during) == 1 and during[0] >= 1
+
+
 def test_spec_v1_run_on_a_tiny_flagship(monkeypatch):
     from tensorflowonspark_tpu_torch import benchmarks
 
@@ -604,3 +655,108 @@ def test_workload_phase_on_a_tiny_flagship(monkeypatch):
     long_run = by["make_long_burst"]["runs"]["armed"]
     assert long_run["long_chunks_dispatched"] > 0
     assert long_run["kv_table_grows"] > 0
+
+
+def test_tp_serving_phase_is_phase_5s_traffic_at_tp_4s_local_shapes():
+    from tensorflowonspark_tpu_torch.benchmarks import FLAGSHIP_LM_V2
+
+    assert chip_smoke.A3C_TPS == (2, 4) and chip_smoke.A3C_KV == (
+        "auto", "int8")
+    assert chip_smoke.A3C_ENGINE == dict(n_slots=8, prefill_chunk=256,
+                                         kv_page_size=64, kv_pages=512)
+    assert chip_smoke.ENGINE_LENS == (100, 300, 500, 700, 900, 1100, 1300,
+                                      1500) and chip_smoke.ENGINE_NEW == 32
+    tp = chip_smoke.A3C_LOCAL_TP
+    assert (FLAGSHIP_LM_V2["n_heads"] // tp,
+            FLAGSHIP_LM_V2["n_kv_heads"] // tp) == (4, 2)
+
+
+def _tiny_a3c(monkeypatch):
+    """A tiny stand-in for the flagship (8 q over 4 kv heads, so tp 4
+    keeps 2 and 1 a rank), small frozen shapes, no card calls."""
+    from tensorflowonspark_tpu_torch import benchmarks as bm
+
+    monkeypatch.setattr(bm, "FLAGSHIP_LM_V2", dict(
+        bm.FLAGSHIP_LM_V2, vocab_size=64, d_model=64, n_heads=8,
+        n_kv_heads=4, n_layers=2, d_ff=128))
+    monkeypatch.setattr(bm, "FLAGSHIP_DECODE", dict(
+        bm.FLAGSHIP_DECODE, max_seq=256, fill=100))
+    monkeypatch.setattr(bm, "FLAGSHIP_PREFILL_KERNEL", dict(
+        bm.FLAGSHIP_PREFILL_KERNEL, max_seq=256, fill=100, chunk=32))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a: None)
+    monkeypatch.setattr(chip_smoke, "time_ms",
+                        lambda fn, reps=25, warmup=3: (fn(), 1.0)[1])
+    monkeypatch.setattr(chip_smoke, "bound", lambda nbytes, flops: (1.0,
+                                                                    "bytes"))
+
+
+def test_tp_serving_phase_on_one_card_checks_the_kernels(monkeypatch):
+    _tiny_a3c(monkeypatch)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    out, launches = chip_smoke.phase_a3c(torch, torch.device("cpu"),
+                                         "card, 700.00 W")
+    assert launches == {} and out["cards"] == 1 and "tp1" not in out
+    k = out["kernels"]
+    assert (k["tp"], k["H"], k["n_kv"]) == (4, 2, 1)
+    for kv in ("bf16", "int8"):
+        assert set(k[kv]) == {"paged_attention", "page_write",
+                              "prefill_read"}
+        for row in k[kv].values():
+            assert row["max_abs_err"] <= chip_smoke.TOL
+
+
+def test_tp_serving_phase_summary_holds_the_ranks(monkeypatch):
+    import copy
+
+    from tensorflowonspark_tpu_torch import benchmarks as bm
+    from tensorflowonspark_tpu_torch import ops
+
+    _tiny_a3c(monkeypatch)
+    dev = torch.device("cpu")
+    ref = chip_smoke.a3c_serve(torch, dev)
+    assert set(ref["runs"]) == {"auto", "int8"}
+    prompts = chip_smoke.engine_prompts(torch,
+                                        bm.FLAGSHIP_LM_V2["vocab_size"])
+    assert all(len(o) == len(p) + chip_smoke.ENGINE_NEW for o, p in zip(
+        ref["runs"]["auto"]["outputs"], prompts))
+    model = chip_smoke.a3c_model(torch, dev)
+    lead = copy.deepcopy(ref)
+    lead["generate"] = [o for o in ref["runs"]["auto"]["outputs"][
+        :chip_smoke.A3C_GENERATE]]
+    lead["device"] = "card"
+    for kv, names in (("auto", ops.SERVING_KERNELS),
+                      ("int8", ops.SERVING_KERNELS_INT8_KV)):
+        lead["runs"][kv]["launches"] = {n: 3 for n in names}
+    follower = copy.deepcopy(lead)
+    follower.update(rank=1, leader=False)
+    numbers, launches = chip_smoke.a3c_summary(torch, 2, [lead, follower],
+                                               ref, model, prompts)
+    assert launches == {n: 6 for n in ops.SERVING_KERNELS
+                        + ops.SERVING_KERNELS_INT8_KV}
+    assert numbers["runs"]["auto"]["equal_to_one_card"] == len(prompts)
+    assert numbers["runs"]["auto"]["solo_near_tie"] is None
+    for broken in ("registers", "generate", "launches", "solo"):
+        bad, lead2 = copy.deepcopy(follower), copy.deepcopy(lead)
+        if broken == "registers":
+            bad["runs"]["int8"]["registers"]["_toks"][0] += 1
+        elif broken == "generate":
+            bad["generate"][0][-1] = (bad["generate"][0][-1] + 1) % 64
+        elif broken == "launches":
+            bad["runs"]["auto"]["launches"]["page_write"] = 0
+        else:
+            # a solo answer that parts from its burst twin at the first
+            # new position where the model's top-2 margin is no tie
+            solo = lead2["runs"]["auto"]["solo"]
+            with torch.no_grad():
+                for at in range(len(prompts[3]), len(solo)):
+                    logits = model(torch.tensor([solo[:at]]))[0, -1].float()
+                    top = logits.topk(2).values
+                    if (top[0] - top[1]).item() > chip_smoke.SPEC_MARGIN:
+                        break
+                else:
+                    pytest.fail("no position off a tie")
+            solo[at] = int(logits.argmin())
+        with pytest.raises(AssertionError, match="phase 25"):
+            chip_smoke.a3c_summary(torch, 2, [lead2, bad], ref, model,
+                                   prompts)

@@ -1148,3 +1148,116 @@ def test_fork_started_executor_is_refused_after_cuda(dev, tmp_path):
         cluster.run(fork, fn_cluster_train_on_card, {}, num_executors=1,
                     input_mode=cluster.InputMode.SPARK)
     assert fork._bootstrap_procs == []
+
+
+def test_every_kernel_launches_on_its_tensors_device():
+    # tensors on cuda:1 from a thread whose current device is 0: each of
+    # the 11 kernels (and the int8 branches of 1-3) runs on its tensors'
+    # device (_build.launch) and agrees with its plain version there,
+    # and the thread's current device stays 0
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA devices")
+    torch.cuda.set_device(0)
+    d1 = torch.device("cuda:1")
+    gen = torch.Generator().manual_seed(25)
+    bf16 = torch.bfloat16
+
+    def rnd(*shape, dtype=bf16, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(d1, dtype)
+
+    def close(got, want, tol=1e-2):
+        assert got.device == d1
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+
+    counts = ops.launch_counts()
+    # kernels 1-3, bf16 and int8 pools (16 rows, 4 q / 2 kv heads of 128)
+    B, S, H, n_kv, Dh, page, width = 4, 8, 4, 2, 128, 16, 4
+    NP = B * width + 1
+    table = torch.randperm(NP - 1, generator=gen)[:B * width].reshape(
+        B, width).to(d1, torch.int32)
+    starts = torch.full((B,), 20, dtype=torch.int32, device=d1)
+    q1, q = rnd(B, 1, H, Dh), rnd(B, S, H, Dh)
+    k, v = rnd(B, S, n_kv, Dh), rnd(B, S, n_kv, Dh)
+    for kv in ("bf16", "int8"):
+        if kv == "int8":
+            pools = [torch.randint(-127, 128, (NP, page, n_kv, Dh),
+                                   generator=gen, dtype=torch.int8).to(d1)
+                     for _ in range(2)]
+            sc = dict(key_scales=rnd(NP, page, n_kv, dtype=torch.float32,
+                                     scale=0.01).abs() + 0.01,
+                      value_scales=rnd(NP, page, n_kv, dtype=torch.float32,
+                                       scale=0.01).abs() + 0.01)
+            plain = [t.clone() for t in pools] + [
+                sc["key_scales"].clone(), sc["value_scales"].clone()]
+            ck, cv = pp._write_pages_int8(k, v, *pools, sc["key_scales"],
+                                          sc["value_scales"], table, starts)
+            pp.write_pages_plain(k, v, plain[0], plain[1], table, starts,
+                                 plain[2], plain[3])
+            mine = pools + [sc["key_scales"], sc["value_scales"]]
+        else:
+            pools = [rnd(NP, page, n_kv, Dh) for _ in range(2)]
+            sc = {}
+            plain = [t.clone() for t in pools]
+            pp._write_pages(k, v, *pools, table, starts)
+            pp.write_pages_plain(k, v, *plain, table, starts)
+            ck, cv, mine = k, v, pools
+        for a, b in zip(mine, plain):
+            assert torch.equal(a[:-1], b[:-1])       # off the sink
+        lengths = starts + 1
+        close(pa.paged_attention(q1, *pools, table, lengths, **sc),
+              pa.paged_attention_plain(q1, *pools, table, lengths, **sc))
+        close(pp._read_attention(q, ck, cv, *pools, table, starts, **sc),
+              pp.read_attention_plain(q, ck, cv, *pools, table, starts,
+                                      **sc))
+    # kernels 4-6
+    fq, fk, fv, do = (rnd(2, 70, 4, 64), rnd(2, 70, 2, 64),
+                      rnd(2, 70, 2, 64), rnd(2, 70, 4, 64))
+    out, lse = fa.flash_fwd(fq, fk, fv, True)
+    ref, ref_lse = fa.flash_fwd_plain(fq, fk, fv, True)
+    close(out, ref)
+    delta = torch.einsum("bshd,bshd->bhs", do.float(), ref.float())
+    close(fa.flash_bwd_dq(fq, fk, fv, do, ref_lse, delta, True),
+          fa.flash_bwd_dq_plain(fq, fk, fv, do, ref_lse, delta, True),
+          tol=4e-2)
+    for got, want in zip(
+            fa.flash_bwd_dkv(fq, fk, fv, do, ref_lse, delta, True),
+            fa.flash_bwd_dkv_plain(fq, fk, fv, do, ref_lse, delta, True)):
+        close(got, want, tol=4e-2)
+    # kernels 7 and 8
+    n = 4097
+    g, p = rnd(n, dtype=torch.float32), rnd(n, dtype=torch.float32)
+    mu, nu = rnd(n, dtype=torch.float32, scale=0.1), rnd(
+        n, dtype=torch.float32).abs()
+    scal = torch.tensor([3e-4, 0.5, 0.19, 0.002], device=d1)
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.1, write_param=False)
+    want = fo.adamw_plain(g, p, mu, nu, scal, **kw)
+    got = torch.empty_like(g)
+    fo._adamw(g, p, mu, nu, scal, got, **kw)
+    for a, b in zip((got, mu, nu), want):
+        close(a, b, tol=1e-5)
+    kw = dict(b1=0.9, b2=0.99, wd=0.1, write_param=False)
+    want = fo.lion_plain(g, p, mu, scal, **kw)
+    got = torch.empty_like(g)
+    fo._lion(g, p, mu, scal, got, **kw)
+    for a, b in zip((got, mu), want):
+        close(a, b, tol=1e-6)
+    # kernels 9 and 10
+    w = torch.randn((256, 96), generator=gen) * 0.3
+    x = rnd(5, 256)
+    for leaf in (quantize.quantize_int8(w), quantize.int4_pack(w, 128)):
+        on1 = ({"q": leaf["q"].to(d1), "scale": leaf["scale"].to(d1)}
+               if isinstance(leaf, dict) else quantize.Int4Weight(
+                   leaf.q.to(d1), leaf.scale.to(d1), leaf.in_dim,
+                   leaf.group_size))
+        close(qm.quant_matmul(x, on1), qm.quant_matmul_plain(x, on1),
+              tol=2e-2)
+    # kernel 11
+    x = rnd(7, 1000, scale=2.0)
+    lw, lb = rnd(1000, scale=0.1) + 1, rnd(1000, scale=0.1)
+    close(ln.fused_layernorm(x, lw, lb), ln.layernorm_plain(x, lw, lb))
+    torch.cuda.synchronize(d1)
+    assert torch.cuda.current_device() == 0
+    after = ops.launch_counts()
+    assert all(after[name] > counts[name] for name in after), (counts,
+                                                               after)
