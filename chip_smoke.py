@@ -8580,12 +8580,21 @@ def phase_workloads(torch, dev, card, whole=False):
 A3C_TPS = (2, 4)                 # the multi-card runs, as the cards allow
 A3C_LOCAL_TP = 4                 # the one-card kernel check's local shapes
 A3C_KERNEL_S = 30.0              # the one-card check's budget
+A3C_QMM_M = (16, 1024)           # kernels 9 and 10: a decode step, a prefill
 # phase 5's traffic and engine: 8 prompts of ENGINE_LENS, ENGINE_NEW
 # greedy new tokens, the paged pool of phase_main_path
 A3C_ENGINE = dict(n_slots=8, prefill_chunk=256, kv_page_size=64,
                   kv_pages=512)
 A3C_KV = ("auto", "int8")
 A3C_GENERATE = 2                 # prompts generate() runs on every rank
+A3C_QUANT = ("int8", "int4")     # weights, each over the bf16 pool
+# FLAGSHIP_SPEC's burst (``benchmarks.make_spec_burst``'s engine: the
+# dense cache, 16 motif prompts of 64 tokens, 96 new), with n-gram and
+# with the 4-layer draft, and its one-at-a-time check on A3C_SPEC_CHECK
+# prompts
+A3C_SPEC = ("ngram", "model")
+A3C_SPEC_CHECK = 2
+A3C_SPEC_STATS = ("spec_rounds", "spec_tokens_accepted", "spec_k_mean")
 
 
 def a3c_kernel_checks(torch, dev, tp=A3C_LOCAL_TP):
@@ -8593,8 +8602,9 @@ def a3c_kernel_checks(torch, dev, tp=A3C_LOCAL_TP):
     local shapes (its q and kv heads over ``tp``; FLAGSHIP_DECODE's rows
     and FLAGSHIP_PREFILL_KERNEL's chunk) against their plain versions on
     the same inputs: the reads within TOL, the page writes bitwise off
-    the sink; each kernel's and its plain version's ms.  Raises on a
-    disagreement or past A3C_KERNEL_S."""
+    the sink; each kernel's and its plain version's ms.  Then kernels 9
+    and 10 at the same tp's local projections (:func:`a3c_quant_checks`).
+    Raises on a disagreement or past A3C_KERNEL_S."""
     from tensorflowonspark_tpu_torch.benchmarks import (
         FLAGSHIP_DECODE, FLAGSHIP_LM_V2, FLAGSHIP_PREFILL_KERNEL)
     from tensorflowonspark_tpu_torch.ops import paged_attention as pa
@@ -8675,6 +8685,7 @@ def a3c_kernel_checks(torch, dev, tp=A3C_LOCAL_TP):
         out[kv] = row
         del pools, q, k, v, ck, cv
         torch.cuda.empty_cache()
+    out["quant_matmul"] = a3c_quant_checks(torch, dev, tp, gen)
     out["seconds"] = time.monotonic() - t0
     if out["seconds"] > A3C_KERNEL_S:
         raise AssertionError(f"phase 25's kernel check took "
@@ -8682,112 +8693,273 @@ def a3c_kernel_checks(torch, dev, tp=A3C_LOCAL_TP):
     return out
 
 
-def a3c_model(torch, dev, mesh=None):
+def a3c_local_projections(tp):
+    """``{projection: (K, N)}`` a rank of the flagship launches kernels 9
+    and 10 at under tp ``tp`` (column-parallel: N over tp; row-parallel:
+    K; k / v whole kv heads)."""
+    from tensorflowonspark_tpu_torch.benchmarks import FLAGSHIP_LM_V2
+
+    c = FLAGSHIP_LM_V2
+    D, Fd, V = c["d_model"], c["d_ff"], c["vocab_size"]
+    kv = c["n_kv_heads"] * D // c["n_heads"]
+    return {"query": (D, D // tp), "key_value": (D, kv // tp),
+            "out": (D // tp, D), "wi": (D, Fd // tp), "wo": (Fd // tp, D),
+            "lm_head": (D, V // tp)}
+
+
+def a3c_quant_checks(torch, dev, tp, gen):
+    """Kernels 9 and 10 at the flagship's tp-``tp`` local shapes
+    (:func:`a3c_local_projections`; int4 at the serving group 128),
+    M A3C_QMM_M, against their plain versions on the same inputs (within
+    QMM_TOL of the output's scale), each timed beside its plain version
+    and its bound.  Raises on a disagreement."""
+    from tensorflowonspark_tpu_torch import quantize
+    from tensorflowonspark_tpu_torch.ops import quant_matmul as qm
+
+    bf16 = torch.bfloat16
+    group = quantize.DEFAULT_GROUP_SIZE
+    out = {}
+    for proj, (K, N) in a3c_local_projections(tp).items():
+        w = (torch.randn((K, N), generator=gen) * K ** -0.5).to(dev)
+        leaves = {"int8": quantize.quantize_int8(w),
+                  "int4": quantize.int4_pack(w, group)}
+        del w
+        for M in A3C_QMM_M:
+            x = torch.randn((M, K), generator=gen).to(dev, bf16)
+            for mode, leaf in leaves.items():
+                got = qm.quant_matmul(x, leaf)
+                want = qm.quant_matmul_plain(x, leaf)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                scale = want.float().abs().max().item()
+                if err > QMM_TOL * scale:
+                    raise AssertionError(
+                        f"phase 25: kernel {9 if mode == 'int8' else 10} "
+                        f"({mode}) disagrees at the tp-{tp} {proj} shape "
+                        f"{K} x {N}, M {M}: {err} > {QMM_TOL} x {scale}")
+                w_bytes = (leaf["q"].numel() + 4 * leaf["scale"].numel()
+                           if mode == "int8" else
+                           leaf.q.numel() + 4 * leaf.scale.numel())
+                b_ms, b_by = bound(w_bytes + 2 * M * K + 2 * M * N,
+                                   2 * M * K * N)
+                out[f"{mode}_{proj}_m{M}"] = dict(
+                    K=K, N=N, M=M, max_abs_err=err, tol=QMM_TOL * scale,
+                    ms=time_ms(lambda: qm.quant_matmul(x, leaf), reps=10),
+                    plain_ms=time_ms(lambda: qm.quant_matmul_plain(x, leaf),
+                                     reps=3, warmup=1),
+                    bound_ms=b_ms, bound_by=b_by)
+        del leaves
+    return out
+
+
+def a3c_model(torch, dev, mesh=None, quantize=None):
     """The full-depth flagship at phase 5's max_seq_len: f32 masters
     drawn on the card from the seed (the same draw on every rank),
-    served in bf16 as the server loads an export, split over ``mesh``
-    (``shard_params``) when given."""
+    served as the server loads an export (bf16; or ``quantize`` int8 /
+    int4 from the whole masters, the other leaves bf16, the scales f32),
+    then split over ``mesh`` (``shard_params``) when given."""
+    from tensorflowonspark_tpu_torch import quantize as quantize_mod
     from tensorflowonspark_tpu_torch.benchmarks import FLAGSHIP_LM_V2
     from tensorflowonspark_tpu_torch.models.transformer import (
         build_transformer)
-    from tensorflowonspark_tpu_torch.parallel import sharding
 
     with torch.device(dev):
         model = build_transformer(**dict(FLAGSHIP_LM_V2, max_seq_len=4096))
     model.reset_parameters(torch.Generator(dev).manual_seed(SEED))
-    model = model.to(torch.bfloat16).eval().requires_grad_(False)
+    if quantize:
+        quantize_mod.quantize_module(model, quantize)
+        model = quantize_mod.cast_float_leaves(model, torch.bfloat16)
+    else:
+        model = model.to(torch.bfloat16)
+    return a3c_split(model.eval().requires_grad_(False), mesh)
+
+
+def a3c_split(model, mesh):
+    from tensorflowonspark_tpu_torch.parallel import sharding
+
     if mesh is not None:
         sharding.shard_params(model,
                               sharding.infer_param_shardings(model, mesh))
     return model
 
 
-def a3c_serve(torch, dev, mesh=None, rank=0, timeout=1200):
-    """Phase 5's traffic through ``ContinuousBatcher`` over the flagship
-    (split over ``mesh``; None: one card), once a kv dtype of A3C_KV:
-    the launch counts set to 0 just before each engine is built and read
-    when it has stopped.  The leader (every rank builds the engine, tp
-    index 0 leads) submits the burst, then one prompt alone under
-    torch.profiler (the prefix cache dropped first; its answer is
-    returned beside the burst's), after one short ``generate`` on every
-    rank that warms the card up, and with a mesh runs ``generate`` on
-    A3C_GENERATE prompts, as every rank does; a follower replays until
-    the leader's stop.  Returns this rank's numbers."""
-    from tensorflowonspark_tpu_torch import ops, serve
-    from tensorflowonspark_tpu_torch.benchmarks import FLAGSHIP_LM_V2
-    from tensorflowonspark_tpu_torch.models import decode
+def a3c_spec_engine(**kw):
+    """``make_spec_burst``'s engine arguments, and ``kw``."""
+    from tensorflowonspark_tpu_torch.benchmarks import FLAGSHIP_SPEC as d
+
+    return dict(n_slots=d["n_slots"], read_chunk=4,
+                prefill_chunk=d["prefill_chunk"],
+                prefill_rows=d["prefill_rows"], draft_k=d["draft_k"], **kw)
+
+
+def a3c_spec_models(torch, dev, mode, mesh=None):
+    """FLAGSHIP_SPEC's target and, for ``mode`` "model", its
+    ``draft_layers``-deep draft of the same widths (f32 masters from
+    seeds 0 and 1, as ``benchmarks.make_spec_burst`` builds them), split
+    over ``mesh`` when given."""
+    from tensorflowonspark_tpu_torch import benchmarks
+
+    d = benchmarks.FLAGSHIP_SPEC
+    target = benchmarks._seeded_lm(None, d["max_seq"], dev)
+    draft = (benchmarks._seeded_lm(None, d["max_seq"], dev, seed=1,
+                                   n_layers=d["draft_layers"])
+             if mode == "model" else None)
+    return a3c_split(target, mesh), (None if draft is None
+                                     else a3c_split(draft, mesh))
+
+
+def spec_burst_prompts(vocab):
+    """FLAGSHIP_SPEC's prompts: a random motif tiled to ``prompt_len``,
+    each (``benchmarks.make_spec_burst``'s draw)."""
+    import numpy as np
+
+    from tensorflowonspark_tpu_torch.benchmarks import FLAGSHIP_SPEC as d
+
+    rs = np.random.RandomState(0)
+    out = []
+    for _ in range(d["prompts"]):
+        motif = rs.randint(1, vocab, d["motif_len"])
+        out.append(np.tile(motif, d["prompt_len"] // d["motif_len"] + 1)[
+            :d["prompt_len"]].astype("int32").tolist())
+    return out
+
+
+def on_mesh(mesh):
     from tensorflowonspark_tpu_torch.parallel import mesh as mesh_mod
 
-    model = a3c_model(torch, dev, mesh)
-    leader = mesh is None or mesh_mod.tp_leader(mesh) == rank
-    prompts = engine_prompts(torch, FLAGSHIP_LM_V2["vocab_size"])
-    out = dict(rank=rank, leader=leader, weight_bytes=resident_bytes(model),
-               runs={})
-    # a warm-up on every rank alike (cuBLAS, the collectives' first
-    # communicator, the kernels' first launches), before anything is timed
-    with (mesh_mod.use_mesh(mesh) if mesh is not None
-          else contextlib.nullcontext()):
-        decode.generate(model, [prompts[0][:64]], 4, device=dev)
-    torch.cuda.synchronize()
-    for kv in A3C_KV:
-        ops.reset_launch_counts()
-        with (mesh_mod.use_mesh(mesh) if mesh is not None
-              else contextlib.nullcontext()):
-            b = serve.ContinuousBatcher(model, device=dev, kv_dtype=kv,
-                                        **A3C_ENGINE)
-        run = dict(kv_pool_bytes=b.kv_pool_bytes)
-        if not leader:
-            b.follow(timeout=timeout)
-            st = b.stats()
-            run.update(tp_headers=st["tp_headers"],
-                       tp_header_us_mean=st["tp_header_us_mean"])
-        else:
-            try:
-                t0 = time.monotonic()
-                handles = [b.submit(p, ENGINE_NEW) for p in prompts]
+    return (mesh_mod.use_mesh(mesh) if mesh is not None
+            else contextlib.nullcontext())
+
+
+def a3c_run(torch, dev, mesh, leader, model, prompts, max_new, kw, timeout,
+            solo=True, one_at_a_time=False):
+    """One engine over ``model`` (``kw``: its arguments), built on every
+    rank; the launch counts set to 0 just before it is built and read
+    when it has stopped.  The leader submits ``prompts`` as one greedy
+    burst of ``max_new`` new tokens (``one_at_a_time``: each after the
+    previous one's answer), then with ``solo`` one prompt alone under
+    torch.profiler (the prefix cache dropped first; its answer is
+    returned beside the burst's); a follower replays until the leader's
+    stop.  Returns this rank's numbers."""
+    from tensorflowonspark_tpu_torch import ops, serve
+
+    ops.reset_launch_counts()
+    with on_mesh(mesh):
+        b = serve.ContinuousBatcher(model, device=dev, **kw)
+    run = dict(kv_pool_bytes=b.kv_pool_bytes)
+    if not leader:
+        b.follow(timeout=timeout)
+        st = b.stats()
+        run.update({k: st[k] for k in (
+            "tp_headers", "tp_header_us_mean") + A3C_SPEC_STATS})
+    else:
+        try:
+            t0 = time.monotonic()
+            if one_at_a_time:
+                outs = [b.submit(p, max_new).result(timeout=timeout)
+                        for p in prompts]
+            else:
+                handles = [b.submit(p, max_new) for p in prompts]
                 outs = [h.result(timeout=timeout) for h in handles]
-                run["burst_s"] = time.monotonic() - t0
+            run["burst_s"] = time.monotonic() - t0
+            if solo:
                 b.drop_prefix_cache()
                 with torch.profiler.profile(activities=[
                         torch.profiler.ProfilerActivity.CPU,
                         torch.profiler.ProfilerActivity.CUDA]) as prof:
                     t1 = time.monotonic()
-                    solo = b.submit(prompts[3], ENGINE_NEW).result(
+                    run["solo"] = b.submit(prompts[3], max_new).result(
                         timeout=timeout)
                     solo_ms = (time.monotonic() - t1) * 1000.0
                 prof_sum = profile_summary(prof, solo_ms)
-                st = b.stats()
-            finally:
-                b.stop()
-            # the solo answer against its burst twin: a3c_summary holds a
-            # parting to SPEC_MARGIN on the one-card model (the leader of
-            # a split model cannot run that forward alone)
-            run.update(
-                outputs=outs, solo=solo, burst_new_tokens_per_s=(
-                    len(prompts) * ENGINE_NEW / run["burst_s"]),
-                ttft_mean_ms=st["ttft_avg_ms"],
-                decode_step_ms_p50=st["decode_step_ms_p50"],
-                decode_step_ms_max=st["decode_step_ms_max"],
-                decode_steps=st["decode_steps"],
-                prefill_dispatches=st["prefill_dispatches"],
-                solo_wall_ms=solo_ms, solo_device_ms=prof_sum["device_ms"],
-                solo_device_busy_share=prof_sum["device_busy_share"],
-                solo_device_ms_by_group=prof_sum["device_ms_by_group"],
-                tp_headers=st.get("tp_headers", 0),
-                tp_header_us_mean=st.get("tp_header_us_mean", 0.0))
+                run.update(solo_wall_ms=solo_ms,
+                           solo_device_ms=prof_sum["device_ms"],
+                           solo_device_busy_share=prof_sum[
+                               "device_busy_share"],
+                           solo_device_ms_by_group=prof_sum[
+                               "device_ms_by_group"])
+            st = b.stats()
+        finally:
+            b.stop()
+        # the solo answer against its burst twin: a3c_summary holds a
+        # parting to SPEC_MARGIN on the one-card model (the leader of a
+        # split model cannot run that forward alone)
+        run.update(
+            outputs=outs, burst_new_tokens_per_s=(
+                len(prompts) * max_new / run["burst_s"]),
+            ttft_mean_ms=st["ttft_avg_ms"],
+            decode_step_ms_p50=st["decode_step_ms_p50"],
+            decode_step_ms_max=st["decode_step_ms_max"],
+            decode_steps=st["decode_steps"],
+            prefill_dispatches=st["prefill_dispatches"],
+            spec_accept_rate=st["spec_accept_rate"],
+            tp_headers=st.get("tp_headers", 0),
+            tp_header_us_mean=st.get("tp_header_us_mean", 0.0),
+            **{k: st[k] for k in A3C_SPEC_STATS})
+    torch.cuda.synchronize()
+    run["launches"] = ops.launch_counts(b.kernels)
+    run["registers"] = {name: getattr(b, name).tolist() for name in
+                        ("_toks", "_rems", "_ords")}
+    del b
+    torch.cuda.empty_cache()
+    return run
+
+
+def a3c_serve(torch, dev, mesh=None, rank=0, timeout=1200):
+    """Phase 25's runs over the flagship (split over ``mesh``; None: one
+    card), each by :func:`a3c_run`: phase 5's traffic with bf16 weights
+    once a kv dtype of A3C_KV (after one short ``generate`` on every rank
+    that warms the card up; with a mesh then ``generate`` on
+    A3C_GENERATE prompts, as every rank does), with each weight mode of
+    A3C_QUANT over the bf16 pool, and FLAGSHIP_SPEC's burst once a
+    speculation mode of A3C_SPEC, then its serial engine taking
+    A3C_SPEC_CHECK prompts one at a time (its rounds and adaptive k are
+    then a function of the requests alone).  Returns this rank's
+    numbers."""
+    from tensorflowonspark_tpu_torch import benchmarks
+    from tensorflowonspark_tpu_torch.models import decode
+    from tensorflowonspark_tpu_torch.parallel import mesh as mesh_mod
+
+    leader = mesh is None or mesh_mod.tp_leader(mesh) == rank
+    vocab = benchmarks.FLAGSHIP_LM_V2["vocab_size"]
+    prompts = engine_prompts(torch, vocab)
+    out = dict(rank=rank, leader=leader, weight_bytes={}, runs={})
+    for mode in (None,) + A3C_QUANT:
+        model = a3c_model(torch, dev, mesh, quantize=mode)
+        out["weight_bytes"][mode or "bf16"] = resident_bytes(model)
+        # a warm-up on every rank alike (cuBLAS, the collectives' first
+        # communicator, the kernels' first launches), before anything is
+        # timed
+        with on_mesh(mesh):
+            decode.generate(model, [prompts[0][:64]], 4, device=dev)
         torch.cuda.synchronize()
-        run["launches"] = ops.launch_counts(b.kernels)
-        run["registers"] = {name: getattr(b, name).tolist() for name in
-                            ("_toks", "_rems", "_ords")}
-        out["runs"][kv] = run
-        del b
+        for kv in (A3C_KV if mode is None else ("auto",)):
+            out["runs"][kv if mode is None else f"w_{mode}"] = a3c_run(
+                torch, dev, mesh, leader, model, prompts, ENGINE_NEW,
+                dict(A3C_ENGINE, kv_dtype=kv), timeout)
+        if mesh is not None and mode is None:
+            # solo generate, every rank alike: the picks of every rank
+            with mesh_mod.use_mesh(mesh):
+                out["generate"] = [decode.generate(
+                    model, [p], ENGINE_NEW, device=dev)[0].tolist()
+                    for p in prompts[:A3C_GENERATE]]
+        del model
         torch.cuda.empty_cache()
-    if mesh is not None:
-        # solo generate, every rank alike: the picks of every rank
-        with mesh_mod.use_mesh(mesh):
-            out["generate"] = [decode.generate(
-                model, [p], ENGINE_NEW, device=dev)[0].tolist()
-                for p in prompts[:A3C_GENERATE]]
+    sp = spec_burst_prompts(vocab)
+    max_new = benchmarks.FLAGSHIP_SPEC["max_new"]
+    for mode in A3C_SPEC:
+        target, draft = a3c_spec_models(torch, dev, mode, mesh)
+        run = a3c_run(torch, dev, mesh, leader, target, sp, max_new,
+                      a3c_spec_engine(spec_draft=mode, draft_model=draft),
+                      timeout, solo=False)
+        run["one_at_a_time"] = a3c_run(
+            torch, dev, mesh, leader, target, sp[:A3C_SPEC_CHECK], max_new,
+            a3c_spec_engine(engine="serial", spec_draft=mode,
+                            draft_model=draft), timeout, solo=False,
+            one_at_a_time=True)
+        out["runs"][f"spec_{mode}"] = run
+        del target, draft
+        torch.cuda.empty_cache()
     return out
 
 
@@ -8831,7 +9003,7 @@ def a3c_cluster(torch, tp):
         reservation_timeout=300)
     try:
         # the map_fun reads no feed: shutdown's end-of-feed waits for it
-        c.shutdown(timeout=1800)
+        c.shutdown(timeout=2400)
     except BaseException:
         c.abort()
         raise
@@ -8858,96 +9030,172 @@ A3C_NUMBERS = ("burst_new_tokens_per_s", "ttft_mean_ms",
                "decode_step_ms_p50", "decode_step_ms_max", "decode_steps",
                "prefill_dispatches", "solo_wall_ms", "solo_device_ms",
                "solo_device_busy_share", "solo_device_ms_by_group",
-               "tp_header_us_mean", "tp_headers")
+               "tp_header_us_mean", "tp_headers", "spec_rounds",
+               "spec_tokens_accepted", "spec_k_mean", "spec_accept_rate")
 
 
-def a3c_summary(torch, tp, ranks, ref, ref_model, prompts):
+def a3c_kernels(label):
+    """The kernels run ``label`` of :func:`a3c_serve` must launch on
+    every rank: the paged ones of its pool and its weights' matmul
+    (FLAGSHIP_SPEC's burst runs the dense cache in bf16: none)."""
+    from tensorflowonspark_tpu_torch import ops
+
+    if label.startswith("spec_"):
+        return ()
+    if label == "int8":
+        return ops.SERVING_KERNELS_INT8_KV
+    if label.startswith("w_"):
+        return ops.SERVING_KERNELS + (f"{label[2:]}_matmul",)
+    return ops.SERVING_KERNELS
+
+
+class A3cRefModels:
+    """The one-card model of each run of :func:`a3c_serve`, built when a
+    check first asks for it (the divergences' forwards)."""
+
+    def __init__(self, torch, dev):
+        self.torch, self.dev, self.models = torch, dev, {}
+
+    def __call__(self, label):
+        if label not in self.models:
+            torch, dev = self.torch, self.dev
+            if label.startswith("spec_"):
+                self.models[label] = a3c_spec_models(torch, dev, "ngram")[0]
+            else:
+                self.models[label] = a3c_model(torch, dev, quantize=(
+                    label[2:] if label.startswith("w_") else None))
+        return self.models[label]
+
+
+def a3c_run_prompts(torch, label):
+    from tensorflowonspark_tpu_torch.benchmarks import FLAGSHIP_LM_V2
+
+    vocab = FLAGSHIP_LM_V2["vocab_size"]
+    return (spec_burst_prompts(vocab) if label.startswith("spec_")
+            else engine_prompts(torch, vocab))
+
+
+def a3c_summary(torch, tp, ranks, ref, ref_models):
     """Phase 25's checks of one tp run against the one-card run ``ref``,
     and its numbers: every rank's registers and ``generate`` tokens
     equal the leader's, the leader's outputs ``ref``'s and its solo
     answer its burst twin's, each but at a near tie (:func:`tie_or_equal`
-    on ``ref_model``), each serving kernel launched on every rank.
-    Returns ``(numbers, launches summed over the ranks)``."""
-    from tensorflowonspark_tpu_torch import ops
-
+    on the one-card model, ``ref_models``), each run's kernels launched
+    on every rank; under speculation every rank's counters equal the
+    leader's, and on the one-at-a-time check tp 1's wherever the tokens
+    are tp 1's.  Returns ``(numbers, launches summed over the ranks)``."""
     (lead,) = [r for r in ranks if r["leader"]]
     launches, runs = {}, {}
-    for kv in A3C_KV:
-        want = lead["runs"][kv]
+    for label, want in lead["runs"].items():
+        prompts = a3c_run_prompts(torch, label)
+        what = f"phase 25 tp {tp} ({label})"
         for r in ranks:
-            if r["runs"][kv]["registers"] != want["registers"]:
-                raise AssertionError(f"phase 25 tp {tp} ({kv}): rank "
-                                     f"{r['rank']}'s decode registers are "
-                                     "not the leader's")
-            names = (ops.SERVING_KERNELS_INT8_KV if kv == "int8"
-                     else ops.SERVING_KERNELS)
-            got = r["runs"][kv]["launches"]
-            if any(got.get(n, 0) < 1 for n in names):
-                raise AssertionError(f"phase 25 tp {tp} ({kv}): rank "
-                                     f"{r['rank']} launched {got}")
-            add_launches(launches, got)
-        ties = [tie_or_equal(torch, ref_model, p, w, g,
-                             f"phase 25 tp {tp} ({kv}) prompt {i}")
+            got = r["runs"][label]
+            if got["registers"] != want["registers"]:
+                raise AssertionError(f"{what}: rank {r['rank']}'s decode "
+                                     "registers are not the leader's")
+            if any(got["launches"].get(n, 0) < 1
+                   for n in a3c_kernels(label)):
+                raise AssertionError(f"{what}: rank {r['rank']} launched "
+                                     f"{got['launches']}")
+            for key in A3C_SPEC_STATS:
+                if got[key] != want[key]:
+                    raise AssertionError(
+                        f"{what}: rank {r['rank']}'s {key} {got[key]} is "
+                        f"not the leader's {want[key]}")
+            add_launches(launches, got["launches"])
+        model = ref_models(label)
+        ties = [tie_or_equal(torch, model, p, w, g, f"{what} prompt {i}")
                 for i, (p, w, g) in enumerate(zip(
-                    prompts, ref["runs"][kv]["outputs"], want["outputs"]))]
-        solo = tie_or_equal(torch, ref_model, prompts[3],
-                            want["outputs"][3], want["solo"],
-                            f"phase 25 tp {tp} ({kv}) solo")
-        runs[kv] = dict(
-            {k: want.get(k) for k in A3C_NUMBERS}, solo_near_tie=solo,
-            kv_pool_bytes=[r["runs"][kv]["kv_pool_bytes"] for r in ranks],
+                    prompts, ref["runs"][label]["outputs"],
+                    want["outputs"]))]
+        runs[label] = dict(
+            {k: want.get(k) for k in A3C_NUMBERS},
+            kv_pool_bytes=[r["runs"][label]["kv_pool_bytes"] for r in ranks],
             # a header's host time on each rank: the leader's send, the
             # followers' receive (each the wait for the other side in it)
-            header_us_mean_by_rank=[r["runs"][kv].get("tp_header_us_mean")
+            header_us_mean_by_rank=[r["runs"][label].get("tp_header_us_mean")
                                     for r in ranks],
-            launches_per_rank=[r["runs"][kv]["launches"] for r in ranks],
+            launches_per_rank=[r["runs"][label]["launches"] for r in ranks],
             near_ties=[t for t in ties if t is not None],
             equal_to_one_card=sum(t is None for t in ties))
+        if "solo" in want:
+            runs[label]["solo_near_tie"] = tie_or_equal(
+                torch, model, prompts[3], want["outputs"][3], want["solo"],
+                f"{what} solo")
+        if "one_at_a_time" in want:
+            check, one = want["one_at_a_time"], ref["runs"][label][
+                "one_at_a_time"]
+            for r in ranks:
+                for key in A3C_SPEC_STATS:
+                    if r["runs"][label]["one_at_a_time"][key] != check[key]:
+                        raise AssertionError(
+                            f"{what} one at a time: rank {r['rank']}'s "
+                            f"{key} is not the leader's")
+            same = check["outputs"] == one["outputs"]
+            if same and any(check[k] != one[k] for k in A3C_SPEC_STATS):
+                raise AssertionError(
+                    f"{what} one at a time: the counters "
+                    f"{[check[k] for k in A3C_SPEC_STATS]} are not tp 1's "
+                    f"{[one[k] for k in A3C_SPEC_STATS]}")
+            runs[label]["one_at_a_time"] = dict(
+                {k: check[k] for k in A3C_SPEC_STATS},
+                tokens_equal_to_one_card=same, near_ties=[
+                    t for t in (tie_or_equal(
+                        torch, model, p, w, g, f"{what} one at a time")
+                        for p, w, g in zip(prompts, one["outputs"],
+                                           check["outputs"]))
+                    if t is not None])
     for r in ranks:
         if r["generate"] != lead["generate"]:
             raise AssertionError(f"phase 25 tp {tp}: rank {r['rank']}'s "
                                  "generate tokens are not the leader's")
+    prompts = a3c_run_prompts(torch, "auto")
     for i, g in enumerate(lead["generate"]):
-        tie_or_equal(torch, ref_model, prompts[i],
+        tie_or_equal(torch, ref_models("auto"), prompts[i],
                      ref["runs"]["auto"]["outputs"][i], g,
                      f"phase 25 tp {tp} generate prompt {i}")
-    return dict(weight_bytes=[r["weight_bytes"] for r in ranks],
+    return dict(weight_bytes={mode: [r["weight_bytes"][mode] for r in ranks]
+                              for mode in lead["weight_bytes"]},
                 devices=[r["device"] for r in ranks], runs=runs), launches
 
 
 def phase_a3c(torch, dev, card):
     """Phase 25: :func:`a3c_kernel_checks` on one card; with 2 or more
-    cards also phase 5's traffic at tp 1 in this process and at each tp
-    of A3C_TPS the cards allow (:func:`a3c_cluster`), checked and
+    cards also :func:`a3c_serve`'s runs at tp 1 in this process and at
+    each tp of A3C_TPS the cards allow (:func:`a3c_cluster`), checked and
     measured (:func:`a3c_summary`).  Returns ``(line, launches)``."""
-    from tensorflowonspark_tpu_torch.benchmarks import FLAGSHIP_LM_V2
-
     out = dict(nvidia_smi=card, kernels=a3c_kernel_checks(torch, dev))
     n = torch.cuda.device_count()
     out["cards"] = n
     launches = {}
     tps = [tp for tp in A3C_TPS if tp <= n]
     if not tps:
-        out["tp_runs"] = "one card: the kernels at the tp-4 local shapes only"
+        out["tp_runs"] = ("one card: the kernels at the tp-4 local shapes "
+                          "only")
         return out, launches
     ref = a3c_serve(torch, dev)
-    ref_model = a3c_model(torch, dev)
-    prompts = engine_prompts(torch, FLAGSHIP_LM_V2["vocab_size"])
-    out["tp1"] = dict(weight_bytes=ref["weight_bytes"], runs={
-        kv: dict({k: ref["runs"][kv].get(k) for k in A3C_NUMBERS},
-                 kv_pool_bytes=ref["runs"][kv]["kv_pool_bytes"],
-                 solo_near_tie=tie_or_equal(
-                     torch, ref_model, prompts[3],
-                     ref["runs"][kv]["outputs"][3], ref["runs"][kv]["solo"],
-                     f"phase 25 tp 1 ({kv}) solo"))
-        for kv in A3C_KV})
+    ref_models = A3cRefModels(torch, dev)
+    runs = {}
+    for label, run in ref["runs"].items():
+        runs[label] = dict({k: run.get(k) for k in A3C_NUMBERS},
+                           kv_pool_bytes=run["kv_pool_bytes"])
+        if "solo" in run:
+            runs[label]["solo_near_tie"] = tie_or_equal(
+                torch, ref_models(label), a3c_run_prompts(torch, label)[3],
+                run["outputs"][3], run["solo"], f"phase 25 tp 1 ({label}) "
+                "solo")
+        if "one_at_a_time" in run:
+            runs[label]["one_at_a_time"] = {
+                k: run["one_at_a_time"][k] for k in A3C_SPEC_STATS}
+    out["tp1"] = dict(weight_bytes=ref["weight_bytes"], runs=runs)
     torch.cuda.empty_cache()
     for tp in tps:
         ranks, wall_s = a3c_cluster(torch, tp)
-        numbers, got = a3c_summary(torch, tp, ranks, ref, ref_model, prompts)
+        numbers, got = a3c_summary(torch, tp, ranks, ref, ref_models)
         out[f"tp{tp}"] = dict(numbers, wall_s=wall_s)
         add_launches(launches, got)
-    del ref_model
+    del ref_models
     torch.cuda.empty_cache()
     return out, launches
 

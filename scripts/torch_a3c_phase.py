@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
-"""Phase 25 of ``chip_smoke.py`` alone: kernels 1-3 at the flagship's
-tp-4 local shapes against their plain versions, then, with 2 or more
-visible GPUs, the full-depth flagship served tensor-parallel at tp 2 and
-tp 4 (one rank a GPU: ``cluster.run`` over ``LocalBackend(tp,
-start_method="spawn")``, nccl) on phase 5's traffic, checked against the
-one-card batcher in this process; without the other phases.
+"""Phase 25 of ``chip_smoke.py`` alone: kernels 1-3, 9 and 10 at the
+flagship's tp-4 local shapes against their plain versions, then, with 2
+or more visible GPUs, the full-depth flagship served tensor-parallel at
+tp 2 and tp 4 (one rank a GPU: ``cluster.run`` over ``LocalBackend(tp,
+start_method="spawn")``, nccl), checked against the one-card batcher in
+this process: phase 5's traffic with bf16 weights over the bf16 and int8
+pools and with int8 and int4 weights, and FLAGSHIP_SPEC's burst with
+n-gram and with the 4-layer draft; without the other phases.
 
     python3 scripts/torch_a3c_phase.py
 
 Prints the cards' names and power limits and a ``peer_access`` line,
 builds the kernels from a clean build directory, then prints the
-``tp_serving_main_path`` JSON line (tokens/s, decode step median and
-max, TTFT, kv pool and weight bytes a rank, the leader's device busy
-share and the header broadcast's host cost, at tp 1, 2 and 4).  Needs a
-CUDA device; exits 2 without one.
+``tp_serving_main_path`` JSON line (per run: tokens/s, decode step
+median and max, TTFT, the speculation counters, kv pool bytes a rank,
+the leader's device busy share and the header broadcast's host cost;
+weight bytes a rank by weight mode; at tp 1, 2 and 4).  Needs a CUDA
+device; exits 2 without one.
 """
 import os
 import shutil

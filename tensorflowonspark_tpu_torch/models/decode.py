@@ -40,8 +40,9 @@ inside ``parallel.mesh.use_mesh``, every rank calling alike): a slot
 cache holds this rank's kv heads (``Attention.cache_heads``), the
 paged kernels run on them, and every pick reads the whole-vocabulary
 logits (``gather_vocab``), so every rank picks the same token, sampled
-ones too.  Speculation and the kv migration helpers raise there, naming
-ROADMAP A3c.
+ones too; so does every step of speculation (a draft split over the
+same mesh, the verify block, the acceptance walk).  The kv migration
+helpers raise there, naming ROADMAP A3c.
 """
 import dataclasses
 import math
@@ -154,14 +155,6 @@ def _cache_layout(model_or_cfg, device, kv_dtype):
 
 def _first_attention(model):
     return getattr(model, model.layer_names[0]).attn
-
-
-def refuse_split(model, what):
-    """Raise NotImplementedError naming ROADMAP A3c when tp splits
-    ``model`` (``what``: the feature that is not ported there)."""
-    if model.split():
-        raise NotImplementedError(f"{what} on a tp mesh is not ported yet "
-                                  f"({A3C})")
 
 
 def check_tp_decode(model):
@@ -728,6 +721,12 @@ def generate(model, prompt, max_new_tokens, temperature=0.0, seed=None,
 
 # ---- speculative decoding ---------------------------------------------------
 
+def _last_logits(model, toks, cache):
+    """One cached step of ``toks [n]``: the whole-vocabulary logits
+    ``[n, V]`` (a draft's step)."""
+    return gather_vocab(model(toks[:, None], cache), lambda lg: lg[:, -1])
+
+
 def _first_false(mask):
     """Index of the first False of each row of ``mask [n, k]`` (k where
     every entry is True)."""
@@ -904,17 +903,15 @@ def slot_spec_round_greedy(model, draft, t_cache, d_cache, toks, rems=None,
     (`spec_round`)."""
     if k < 1:
         raise ValueError(f"k={k} must be >= 1")
-    for m in (model, draft):
-        refuse_split(m, "speculation")
     idx = t_cache.cache_index
     toks = toks.long()
     d_tok, props = toks, []
     for _ in range(k):
-        d_tok = torch.argmax(draft(d_tok[:, None], d_cache)[:, -1], dim=-1)
+        d_tok = torch.argmax(_last_logits(draft, d_tok, d_cache), dim=-1)
         props.append(d_tok)
     props = torch.stack(props, dim=1)                        # [n, k]
     block = torch.cat([toks[:, None], props[:, :-1]], dim=1)
-    t_next = torch.argmax(model(block, t_cache), dim=-1)     # [n, k]
+    t_next = torch.argmax(gather_vocab(model(block, t_cache)), dim=-1)
     commit = _first_false(props == t_next).clamp(max=k - 1) + 1
     new_toks = t_next.gather(1, (commit - 1)[:, None])[:, 0]
     t_cache.cache_index = (idx + commit).to(torch.int32)
@@ -947,10 +944,9 @@ def spec_round(model, cache, toks, temps, seeds, ords, rems, eoss, eos_on,
     advance per row by the commit; the budget / eos walk runs over the
     committed tokens.  Returns ``(new_toks, c_tok [n, k], commit, n_del,
     done, rems_new, ords_new, ctx_len_new)`` (``ctx_len_new`` None in
-    model mode); caches and ``ctx`` update in place."""
-    for m in (model, draft):
-        if m is not None:
-            refuse_split(m, "speculation")
+    model mode); caches and ``ctx`` update in place.  On a tp mesh every
+    logit read is the whole vocabulary's (``gather_vocab``), so each
+    rank proposes, accepts and commits alike."""
     idx = cache.cache_index
     is_g = temps <= 0
     toks = toks.long()
@@ -967,7 +963,7 @@ def spec_round(model, cache, toks, temps, seeds, ords, rems, eoss, eos_on,
     else:
         d_tok, plist, qlist = toks, [], []
         for i in range(k):
-            dl = draft(d_tok[:, None], d_cache)[:, -1].float()
+            dl = _last_logits(draft, d_tok, d_cache).float()
             greedy = torch.argmax(dl, dim=-1)
             if sampled:
                 d_sc = scaled(dl)
@@ -982,7 +978,7 @@ def spec_round(model, cache, toks, temps, seeds, ords, rems, eoss, eos_on,
         if sampled:
             q_sl = torch.stack(qlist, dim=1)
     block = torch.cat([toks[:, None], props[:, :-1]], dim=1)
-    t_logits = model(block, cache, lora=lora)
+    t_logits = gather_vocab(model(block, cache, lora=lora))
     t_pick = torch.argmax(t_logits, dim=-1)
     commit = _first_false(props == t_pick).clamp(max=k - 1) + 1
     c_tok = t_pick
@@ -1018,7 +1014,7 @@ def speculative_generate(model, draft_model, prompt, max_new_tokens, k=4,
     if k < 1:
         raise ValueError(f"k={k} must be >= 1")
     for m in (model, draft_model):
-        refuse_split(m, "speculation")
+        check_tp_decode(m)
     prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.int64)
     if max_new_tokens <= 0:
         return prompt.to(dev)
@@ -1048,11 +1044,12 @@ def speculative_generate(model, draft_model, prompt, max_new_tokens, k=4,
             d_tok, props = last, []
             for _ in range(m):
                 d_tok = torch.argmax(
-                    draft_model(d_tok[:, None], d_cache)[:, -1], dim=-1)
+                    _last_logits(draft_model, d_tok, d_cache), dim=-1)
                 props.append(d_tok)
             props = torch.stack(props, dim=1)
             block = torch.cat([last[:, None], props[:, :-1]], dim=1)
-            t_next = torch.argmax(model(block, t_cache), dim=-1)
+            t_next = torch.argmax(gather_vocab(model(block, t_cache)),
+                                  dim=-1)
             # the batch's shortest agreement (a deliberate host read:
             # every row advances by it)
             a = min(int(_first_false(props == t_next).min()), m - 1)

@@ -275,32 +275,58 @@ class Dense(nn.Module):
         self.quant, self.group_size = mode, group
 
     def local_shape(self):
-        """``(out, in)`` of the weight this rank holds (tp splits one of
-        them; a quantised weight is whole)."""
-        if self.quant is not None:
-            return self.out_features, self.in_features
-        return tuple(self.weight.shape)
+        """``(out, in)`` of the weight this rank holds: tp splits one of
+        them, a quantised weight's ``q`` / ``scale`` with it
+        (``parallel.sharding``: the int8 ``q`` over either dim, the
+        packed int4 ``q`` and its group scales over whole groups)."""
+        if self.quant is None:
+            return tuple(self.weight.shape)
+        if self.quant == "int8":
+            return self.q.shape[1], self.q.shape[0]
+        # int4: K pads to whole groups; a row split holds whole groups
+        whole = -(-self.in_features // self.group_size)
+        return self.q.shape[1], (self.in_features
+                                 if self.scale.shape[0] == whole
+                                 else self.scale.shape[0] * self.group_size)
 
     def quantized_leaf(self):
-        """The quantised weight as ``ops.quant_matmul`` takes it."""
+        """The quantised weight this rank holds, as ``ops.quant_matmul``
+        takes it."""
         if self.quant == "int8":
             return {"q": self.q, "scale": self.scale}
-        return quantize.Int4Weight(self.q, self.scale, self.in_features,
+        return quantize.Int4Weight(self.q, self.scale, self.local_shape()[1],
                                    self.group_size)
+
+    def matmul(self, x):
+        """``x`` times the weight this rank holds, in ``dtype``, without
+        the bias: one ``F.linear``, or kernel 9 / 10 for a quantised
+        weight."""
+        if self.quant is None:
+            return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        return quant_matmul(x.to(self.dtype), self.quantized_leaf())
 
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(self.dtype)
+        out = self.local_shape()[0]
+        if bias is not None and bias.shape[0] != out:
+            # column-parallel: this rank's slice of the replicated bias
+            # (its gradient all-reduced, so whole on every rank)
+            tp = coll.axis_group(active_mesh(), AXIS_TP)
+            bias = coll.copy_to_tp(bias, tp).narrow(0, tp.index * out, out)
         if self.quant is None:
-            w = self.weight
-            if bias is not None and bias.shape[0] != w.shape[0]:
-                # column-parallel: this rank's slice of the replicated
-                # bias (its gradient all-reduced, so whole on every rank)
-                tp = coll.axis_group(active_mesh(), AXIS_TP)
-                bias = coll.copy_to_tp(bias, tp).narrow(
-                    0, tp.index * w.shape[0], w.shape[0])
-            return F.linear(x.to(self.dtype), w.to(self.dtype), bias)
-        y = quant_matmul(x.to(self.dtype), self.quantized_leaf())
+            return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
+                            bias)
+        y = self.matmul(x)
         return y if bias is None else y + bias
+
+    def take_columns(self, cols):
+        """Keep columns ``cols`` (a slice) of a whole quantised weight,
+        contiguous (``Attention.take_kv_heads``)."""
+        if self.quant is None or self.local_shape()[0] != self.out_features:
+            raise ValueError("take_columns keeps columns of a whole "
+                             "quantised weight")
+        self.q.data = self.q[:, cols].contiguous()
+        self.scale.data = self.scale[:, cols].contiguous()
 
 
 class RMSNorm(nn.Module):
@@ -397,6 +423,9 @@ class Attention(nn.Module):
         # this rank's tp coordinate, set by parallel.sharding.shard_params:
         # a cache built outside use_mesh reads its heads from it
         self.tp_index = 0
+        # quantised k / v projections that hold only this rank's kv heads'
+        # columns (take_kv_heads)
+        self.kv_selected = False
 
     def split(self):
         """True when tp splits this layer's heads (the query projection is
@@ -408,9 +437,28 @@ class Attention(nn.Module):
         rank's columns are its kv heads); otherwise, split mid-head or
         whole, the forward reads its heads from the gathered weight
         (``_kv``)."""
+        if self.kv_selected:
+            return False
         kv = self.n_kv * self.head_dim
         local = self.key.local_shape()[0]
         return local < kv and self.n_kv % (kv // local) == 0
+
+    def take_kv_heads(self):
+        """Where tp splits this layer's heads but cannot split quantised k
+        / v projections at whole heads (``parallel.sharding`` leaves their
+        ``q`` / ``scale`` whole), keep the columns of the kv heads this
+        rank's q heads read, once, so that kernels 9 and 10 run on them
+        (a float weight is gathered a call instead, ``_kv``)."""
+        if (not self.split() or self.key.quant is None
+                or self.kv_column_parallel()):
+            return
+        n_q = self.query.local_shape()[0] // self.head_dim
+        first, n_sel, _ = _kv_heads(self.cfg.n_heads, self.n_kv, n_q,
+                                    self.tp_index)
+        cols = slice(first * self.head_dim, (first + n_sel) * self.head_dim)
+        for dense in (self.key, self.value):
+            dense.take_columns(cols)
+        self.kv_selected = True
 
     def cache_heads(self):
         """The kv heads a slot cache holds for this layer on this rank:
@@ -432,25 +480,33 @@ class Attention(nn.Module):
         index)``.  The local heads of a column-parallel projection; or,
         where tp splits the projection mid-head (or leaves it whole), the
         heads this rank's q heads read, from the gathered weight (with
-        the LoRA delta of the same rows of a whole ``B``).  ``index`` is
-        None where the q heads group evenly over the returned heads, else
-        the head each q head reads."""
+        the LoRA delta of the same rows of a whole ``B``); a quantised
+        weight already holds only those heads (``take_kv_heads``).
+        ``index`` is None where the q heads group evenly over the returned
+        heads, else the head each q head reads."""
         B, S = h.shape[0], h.shape[1]
         hd, n_kv, tp = self.head_dim, self.n_kv, par.tp
-        w = dense.weight
         if self.kv_column_parallel():
             return (self._proj(dense, h, lora, name).reshape(
                 B, S, n_kv // tp.size, hd), None)
-        # every rank reads its own rows of the whole weight: the gather's
-        # backward reduce-scatters, a replicated weight's all-reduces
-        w = (coll.gather_seq(w, tp, dim=0) if w.shape[0] < n_kv * hd
-             else coll.copy_to_tp(w, tp))
+        w = None
+        if not self.kv_selected:
+            # every rank reads its own rows of the whole weight: the
+            # gather's backward reduce-scatters, a replicated weight's
+            # all-reduces
+            w = dense.weight
+            w = (coll.gather_seq(w, tp, dim=0) if w.shape[0] < n_kv * hd
+                 else coll.copy_to_tp(w, tp))
         first, n_sel, index = _kv_heads(self.cfg.n_heads, n_kv, n_local_q,
                                         tp.index)
         rows = slice(first * hd, (first + n_sel) * hd)
         bias = (None if dense.bias is None else
                 coll.copy_to_tp(dense.bias, tp)[rows].to(dense.dtype))
-        out = F.linear(h.to(dense.dtype), w[rows].to(dense.dtype), bias)
+        if w is None:
+            out = dense.matmul(h)
+            out = out if bias is None else out + bias
+        else:
+            out = F.linear(h.to(dense.dtype), w[rows].to(dense.dtype), bias)
         if lora is not None:
             out = out + _lora_delta(h, lora, name, rows).to(out.dtype)
         return out.reshape(B, S, n_sel, hd), index
@@ -619,7 +675,7 @@ def _row_parallel(dense, x, par, delta=None):
     partials sum to the whole delta), summed over tp
     (``reduce_from_tp``; under sp ``scatter_seq``, which also leaves this
     rank's sequence block), then the replicated bias, added once."""
-    y = F.linear(x.to(dense.dtype), dense.weight.to(dense.dtype))
+    y = dense.matmul(x)
     if delta is not None:
         y = y + delta.to(y.dtype)
     y = (coll.scatter_seq(y, par.tp) if par.sp

@@ -17,8 +17,11 @@ blocks of a shard are JAX's.
 :func:`shard_params` gives each rank its slice of every sharded
 parameter as a plain local tensor; :func:`gather_params` puts the full
 tensors back together.  A serving tree (a float ``Transformer``) splits
-by the same rules; the LoRA banks of a serving engine split with the
-layers they adapt (``lora.bank_slices``).
+by the same rules, its quantised weights' ``q`` / ``scale`` by their
+float weight's rule (every rank quantises the whole masters first, then
+takes its slice: a slice quantised alone would get other scales); the
+LoRA banks of a serving engine split with the layers they adapt
+(``lora.bank_slices``).
 """
 import logging
 import re
@@ -102,22 +105,86 @@ def infer_param_shardings(params, mesh, rules=DEFAULT_RULES, axis_map=None,
     for name, leaf in named_tensors(params).items():
         path, transposed = flax_path(name, leaf.ndim)
         shape = tuple(leaf.shape)[::-1] if transposed else tuple(leaf.shape)
-        spec = spec_for_path(path, rules, axis_map)
-        # Axes of extent 1 carry no sharding; an axis whose size does not
-        # divide the dim (a GQA kv-projection narrower than tp) replicates.
-        spec = P(*(
-            ax if (ax is not None and mesh.shape.get(ax, 1) > 1
-                   and i < len(shape) and shape[i] % mesh.shape[ax] == 0)
-            else None
-            for i, ax in enumerate(spec)))
+        spec = _fit(spec_for_path(path, rules, axis_map), shape, mesh)
         if fsdp and fsdp_size > 1:
             spec = _add_fsdp(spec, shape, fsdp_size)
-        # Drop specs that exceed the leaf's rank (scalar params etc.)
-        if len(spec) > len(shape):
-            spec = P()
-        while len(spec) and spec[-1] is None:
-            spec = P(*spec[:-1])
-        out[name] = NamedSharding(mesh, spec, transposed)
+        out[name] = NamedSharding(mesh, _trim(spec, shape), transposed)
+    if isinstance(params, torch.nn.Module):
+        out.update(_quantized_shardings(params, mesh, rules, axis_map))
+    return out
+
+
+def _fit(spec, shape, mesh):
+    """``spec`` on a leaf of ``shape``: axes of extent 1 carry no
+    sharding, and an axis whose size does not divide the dim (a GQA
+    kv-projection narrower than tp) replicates."""
+    return P(*(
+        ax if (ax is not None and mesh.shape.get(ax, 1) > 1
+               and i < len(shape) and shape[i] % mesh.shape[ax] == 0)
+        else None
+        for i, ax in enumerate(spec)))
+
+
+def _trim(spec, shape):
+    """Drop specs that exceed the leaf's rank (scalar params etc.) and
+    trailing Nones."""
+    if len(spec) > len(shape):
+        spec = P()
+    while len(spec) and spec[-1] is None:
+        spec = P(*spec[:-1])
+    return spec
+
+
+def quantized_tensors(model):
+    """``{name: buffer}`` of the quantised weights' ``q`` / ``scale``
+    buffers of ``model`` (``Dense.set_quantized``)."""
+    from tensorflowonspark_tpu_torch.quantize import quantized_denses
+
+    return {f"{name}.{leaf}": getattr(mod, leaf)
+            for name, mod in quantized_denses(model)
+            for leaf in ("q", "scale")}
+
+
+def _quantized_shardings(model, mesh, rules, axis_map):
+    """The ``q`` / ``scale`` buffers' shardings of every quantised
+    ``Dense``, by its float weight's rule at the whole ``[K, N]``
+    (``.../kernel``): column-parallel splits both over N; row-parallel
+    splits ``q`` over K (int4: its packed rows) and the int4 group scales
+    over their group rows, and leaves the int8 ``[1, N]`` scale whole
+    (each rank's partial sums share each column's scale).  k / v
+    projections that tp would split mid-head stay whole here
+    (``Attention.take_kv_heads`` keeps a rank's heads)."""
+    from tensorflowonspark_tpu_torch.quantize import quantized_denses
+
+    tp = mesh.shape.get(AXIS_TP, 1)
+    out = {}
+    for name, mod in quantized_denses(model):
+        path, _ = flax_path(name + ".weight", 2)
+        K, N = mod.in_features, mod.out_features
+        spec = _fit(spec_for_path(path, rules, axis_map), (K, N), mesh)
+        split = [i for i, ax in enumerate(spec) if ax is not None]
+        if any(ax != AXIS_TP for ax in spec if ax is not None):
+            raise NotImplementedError(
+                f"{name}: a quantised weight split over {spec} is not "
+                f"ported yet ({A3C}: quantised weights split over tp only)")
+        parent = model.get_submodule(name.rsplit(".", 1)[0]) if (
+            "." in name) else None
+        if (split == [1] and name.rsplit(".", 1)[-1] in ("key", "value")
+                and hasattr(parent, "take_kv_heads")
+                and parent.n_kv % tp):
+            split = []
+        if split == [0] and mod.quant == "int4" and (
+                K % tp or (K // tp) % mod.group_size):
+            raise NotImplementedError(
+                f"{name}: an int4 group of {mod.group_size} rows straddles "
+                f"the row-parallel split of K={K} over tp={tp}; not ported "
+                f"yet ({A3C}): pick a group size that divides K / tp")
+        q_spec = {(): P(), (1,): P(None, AXIS_TP), (0,): P(AXIS_TP)}[
+            tuple(split)]
+        scale_spec = (P() if split == [0] and mod.quant == "int8"
+                      else q_spec)
+        out[f"{name}.q"] = NamedSharding(mesh, q_spec)
+        out[f"{name}.scale"] = NamedSharding(mesh, scale_spec)
     return out
 
 
@@ -147,7 +214,7 @@ def shard_params(params, shardings):
     with a pp axis first drops every other stage's layers.  Every rank
     must pass the same full parameters."""
     mesh = next(iter(shardings.values())).mesh if shardings else None
-    tensors = named_tensors(params)
+    tensors = _shardable(params)
     for name, t in tensors.items():
         if ".experts_" in "." + name and shardings[name].split_axes(t.ndim):
             raise NotImplementedError(
@@ -157,17 +224,9 @@ def shard_params(params, shardings):
                 "splits); one card runs a MoE model whole")
     if mesh is not None:
         mesh.check_placeable()
-        if mesh.shape[AXIS_TP] > 1 and isinstance(params, torch.nn.Module):
-            from tensorflowonspark_tpu_torch.quantize import quantized_modes
-
-            if quantized_modes(params):
-                # a quantised weight is a buffer (q, scale), never split
-                raise NotImplementedError(
-                    "quantised weights on a tp mesh are not ported yet "
-                    f"({A3C}): shard the float model")
         if hasattr(params, "keep_stage") and mesh.shape[AXIS_PP] > 1:
             params.keep_stage(mesh.coords[AXIS_PP])
-            tensors = named_tensors(params)
+            tensors = _shardable(params)
     dev = mesh.device if mesh is not None else None
     out = {}
     for name, t in tensors.items():
@@ -183,7 +242,16 @@ def shard_params(params, shardings):
         for m in params.modules():
             if hasattr(m, "tp_index"):   # models.transformer.Attention
                 m.tp_index = mesh.coords[AXIS_TP]
+                m.take_kv_heads()
     return params if hasattr(params, "named_parameters") else out
+
+
+def _shardable(params):
+    """:func:`named_tensors`, and a module's quantised buffers."""
+    tensors = named_tensors(params)
+    if isinstance(params, torch.nn.Module):
+        tensors.update(quantized_tensors(params))
+    return tensors
 
 
 def gather_params(params, shardings):

@@ -201,7 +201,8 @@ def quantize_module(model, mode="int8", group_size=DEFAULT_GROUP_SIZE,
     """Quantise every ``Dense`` weight of ``model`` with at least
     ``min_elements`` elements in place (``Dense.set_quantized``); returns
     the names of the quantised modules.  Raises when nothing matched, as
-    ``quantize_tree`` does."""
+    ``quantize_tree`` does, and on a weight that tp split (quantise the
+    whole model, then split it)."""
     if mode not in MODES:
         raise ValueError(f"mode must be 'int8' or 'int4', got {mode!r}")
     done = []
@@ -209,6 +210,11 @@ def quantize_module(model, mode="int8", group_size=DEFAULT_GROUP_SIZE,
         for name, mod in _dense_modules(model):
             if mod.quant is not None or mod.weight.numel() < min_elements:
                 continue
+            if mod.local_shape() != (mod.out_features, mod.in_features):
+                # an int8 row-parallel scale is the amax over all of K
+                raise ValueError(
+                    f"{name} is split over tp: quantise the whole model, "
+                    "then split it (parallel.sharding.shard_params)")
             kernel = mod.weight.float().t()          # [in, out], f32
             if mode == "int8":
                 mod.set_quantized(quantize_int8(kernel))
@@ -221,6 +227,13 @@ def quantize_module(model, mode="int8", group_size=DEFAULT_GROUP_SIZE,
     logger.info("quantized %d kernels to %s (weight bytes %.2fx smaller)",
                 len(done), mode, fb / max(qb, 1))
     return done
+
+
+def quantized_denses(model):
+    """``[(name, Dense)]`` of the quantised ``Dense`` modules of
+    ``model``."""
+    return [(name, mod) for name, mod in _dense_modules(model)
+            if mod.quant is not None]
 
 
 def quantized_modes(model):
@@ -245,14 +258,13 @@ def cast_float_leaves(model, dtype):
 
 def quantized_bytes(model):
     """``(quantized_bytes, float_equivalent_bytes)`` over the quantised
-    weights of ``model``; the float equivalent counts f32, as the JAX
-    package does."""
+    weights of ``model`` (of a tp-split one: this rank's slices); the
+    float equivalent counts f32, as the JAX package does."""
     qb = fb = 0
-    for _, mod in _dense_modules(model):
-        if mod.quant is None:
-            continue
+    for _, mod in quantized_denses(model):
+        out, inp = mod.local_shape()
         qb += mod.q.numel() + mod.scale.numel() * 4
-        fb += mod.in_features * mod.out_features * 4
+        fb += out * inp * 4
     return qb, fb
 
 

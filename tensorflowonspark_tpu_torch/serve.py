@@ -131,7 +131,7 @@ PRIORITY_CLASSES = ("interactive", "batch")
 # it to the followers (parallel.collectives.HeaderChannel), and each
 # follower replays it (ContinuousBatcher._dev_<name>) in the same order
 _TP_OPS = ("stop", "noop", "step", "prefill", "occupy", "free_row",
-           "map_row", "grow", "set_index", "lora")
+           "map_row", "grow", "set_index", "lora", "spec", "draft_prefill")
 # an idle tp leader sends a noop this often, so the followers' header
 # receive never reaches its group's timeout
 _TP_KEEPALIVE_S = 10.0
@@ -519,9 +519,12 @@ class ContinuousBatcher:
     every pick reads the whole vocabulary, so the followers' tokens are
     the leader's without a readback.  A follower takes no requests
     (``submit`` raises); its ``follow()`` (or ``stop()``) returns once
-    the leader's ``stop()`` ended the replay.  Speculation, migration,
-    the host tier, parking and quantised weights raise there, naming
-    ROADMAP A3c.
+    the leader's ``stop()`` ended the replay.  Quantised weights split
+    with their layers (kernels 9 and 10 on each rank's slice); a draft
+    model splits over the same mesh, and each rank's draft cache holds
+    its kv heads; the n-gram table and the draft's writes replay like
+    every other.  Migration, the host tier and parking raise there,
+    naming ROADMAP A3c.
     """
 
     def __init__(self, model, n_slots=8, max_pending=1024, read_chunk=8,
@@ -545,19 +548,11 @@ class ContinuousBatcher:
             draft_k=draft_k, lora_rank=lora_rank,
             lora_capacity=lora_capacity, host_cache_mb=host_cache_mb,
             prio_weight=prio_weight, preempt_ms=preempt_ms,
-            park_capacity=park_capacity))
+            park_capacity=park_capacity), draft_model)
         self._follower = (self._chan is not None
                           and not self._chan.is_leader)
-        if self._chan is not None:
-            what = ("speculation" if spec_draft not in (None, "off")
-                    or draft_model is not None else
-                    "kv migration / host tier / parking"
-                    if host_cache_mb or preempt_ms else
-                    "quantised weights" if quantize_mod.quantized_modes(model)
-                    else None)
-            if what:
-                raise NotImplementedError(f"{what} on a tp mesh is not "
-                                          f"ported yet ({mesh_mod.A3C})")
+        if host_cache_mb or preempt_ms:
+            self._refuse_tp("kv migration / host tier / parking")
         self._last_send = time.monotonic()
         if engine not in ("async", "serial"):
             raise ValueError(f"engine={engine!r} not in ('async', 'serial')")
@@ -763,6 +758,10 @@ class ContinuousBatcher:
         self._minps = zeros(torch.float32)
         self._reps = zeros(torch.float32, 1.0)
         self._seen = zeros(torch.int8, shape=(n_slots, self.vocab_size))
+        # a tp follower's rows still decoding and its count of accepted
+        # draft tokens (`_dev_spec`: it reads no tokens back)
+        self._live = zeros(torch.bool)
+        self._spec_accepted = zeros(torch.int64, shape=())
         self._n_sampled = self._n_filtered = self._n_penalized = 0
         self._steps = 0
         self._step_ms = collections.deque(maxlen=1024)   # decode-only chunks
@@ -812,28 +811,40 @@ class ContinuousBatcher:
         self._thread.start()
 
     @staticmethod
-    def _tp_channel(model, args):
+    def _tp_channel(model, args, draft=None):
         """``(mesh, channel)`` of an engine built inside ``use_mesh``: the
         serving mesh (``check_serving_mesh``) and, on a tp mesh, the
         header channel, once every rank agreed on ``args``, the model's
-        config and its split (a mismatch raises on every rank).  ``(None
-        or the mesh, None)`` off a tp mesh."""
+        (and the draft's) config, split and quantisation (a mismatch
+        raises on every rank).  ``(None or the mesh, None)`` off a tp
+        mesh."""
         mesh = mesh_mod.active_mesh()
         tp = mesh_mod.check_serving_mesh(mesh)
+        models = {"model": model, "draft": draft}
+        for label, m in models.items():
+            if m is None:
+                continue
+            if tp == 1 and m.split():
+                raise ValueError(f"a tp-split {label} serves inside "
+                                 "parallel.mesh.use_mesh(mesh), on the tp "
+                                 "mesh it was split over")
+            if tp > 1 and not m.split():
+                raise ValueError(f"a tp mesh serves a {label} split over it "
+                                 "(parallel.sharding.shard_params)")
         if tp == 1:
-            if model.split():
-                raise ValueError("a tp-split model serves inside parallel."
-                                 "mesh.use_mesh(mesh), on the tp mesh it "
-                                 "was split over")
             return mesh, None
-        if not model.split():
-            raise ValueError("a tp mesh serves a model split over it "
-                             "(parallel.sharding.shard_params)")
         chan = coll.HeaderChannel(mesh)
-        mine = {**{k: repr(v) for k, v in args.items()},
-                "config": repr(dataclasses.asdict(model.cfg)),
-                "split": repr([(n, tuple(p.shape), str(p.dtype))
-                               for n, p in model.named_parameters()])}
+        mine = {k: repr(v) for k, v in args.items()}
+        for label, m in models.items():
+            if m is None:
+                continue
+            mine.update({
+                f"{label}_config": repr(dataclasses.asdict(m.cfg)),
+                f"{label}_split": repr([(n, tuple(p.shape), str(p.dtype))
+                                        for n, p in m.named_parameters()]),
+                f"{label}_quant": repr(
+                    [(n, d.quant, d.group_size)
+                     for n, d in quantize_mod.quantized_denses(m)])})
         ranks = chan.gather(mine)
         differ = sorted({k for r in ranks for k in mine if r[k] != mine[k]})
         if differ:
@@ -908,6 +919,8 @@ class ContinuousBatcher:
         for key in ("spec_tokens_proposed", "spec_tokens_accepted",
                     "spec_draft_fallbacks"):
             out[key] = self.counters.get(key)
+        if self._follower:
+            out["spec_tokens_accepted"] = int(self._spec_accepted)
         proposed = out["spec_tokens_proposed"]
         out["spec_accept_rate"] = (
             round(out["spec_tokens_accepted"] / proposed, 4) if proposed
@@ -1722,6 +1735,8 @@ class ContinuousBatcher:
             self._minps[row], self._reps[row] = 0.0, 1.0
             if self.lora_rank:
                 self._lora_ids[row] = 0
+            if self._follower:
+                self._live[row] = False
         if table:
             decode_mod.set_row_page_table(self._cache, row,
                                           self._sink_entries)
@@ -1988,10 +2003,7 @@ class ContinuousBatcher:
                 entries.append((adm["row"],
                                 adm["item"]["prompt"][off:off + size], off))
                 adm["d_off"], adm["di"] = off + size, adm["di"] + 1
-            with torch.no_grad():
-                decode_mod.slot_prefill_many(
-                    self.draft_model, self._d_cache,
-                    *self._prefill_batch(entries)[1], 0)
+            self._devop("draft_prefill", entries)
             self.counters.inc("prefill_dispatches")
             for (row, chunk, off), adm in zip(entries, catchup):
                 self.trace.event(adm["item"].get("trace"), "prefill",
@@ -2052,6 +2064,15 @@ class ContinuousBatcher:
                                              *batch, 0)
         return logits
 
+    def _dev_draft_prefill(self, entries):
+        """One batched prefill of the draft's dense cache alone (its
+        catch-up over positions the target shares from the prefix
+        cache)."""
+        with torch.no_grad(), self._on_mesh():
+            decode_mod.slot_prefill_many(
+                self.draft_model, self._d_cache,
+                *self._prefill_batch(entries)[1], 0)
+
     def _finish_admission(self, adm, logits_row):
         """Final chunk done: publish the row's prefix pages, pick the
         first token (ordinal 0 of the request's noise), record TTFT,
@@ -2105,7 +2126,8 @@ class ContinuousBatcher:
         self._gen[row] += 1
         self._devop("occupy", row, tok, max_new - 1, eos, item["temp"],
                     item["seed"], item["topk"], item["topp"], item["minp"],
-                    item["aidx"], item["rep"], prompt if pen else None)
+                    item["aidx"], item["rep"], prompt if pen else None,
+                    seq if self.spec_mode == "ngram" else None)
         sampled = item["temp"] > 0
         self._n_filtered += filt
         self._n_sampled += sampled
@@ -2114,15 +2136,13 @@ class ContinuousBatcher:
                             "filtered": filt, "sampled": sampled, "pen": pen,
                             "stops": item["stops"], "plen": len(prompt),
                             "item": item}
-        if self.spec_mode == "ngram":
-            decode_mod.set_row_ctx(self._spec_ctx, self._spec_ctx_len, row,
-                                   seq)
 
     def _dev_occupy(self, row, tok, rems, eos, temp, seed, topk, topp, minp,
-                    aidx, rep, prompt):
+                    aidx, rep, prompt, ctx):
         """An admitted row's decode registers: its first token, budget,
-        eos, sampling controls, adapter and (``rep != 1``) the penalty's
-        seen table of ``prompt``."""
+        eos, sampling controls, adapter, (``rep != 1``) the penalty's
+        seen table of ``prompt`` and (n-gram speculation) the row's
+        committed tokens ``ctx`` in the n-gram table."""
         # a fresh tensor: pending readback entries still hold the old one
         self._toks = self._toks.clone()
         self._toks[row] = tok
@@ -2142,6 +2162,11 @@ class ContinuousBatcher:
                 decode_mod.to_device([prompt], self.device),
                 self.vocab_size)[0]
             self._reps[row] = rep
+        if ctx is not None:
+            decode_mod.set_row_ctx(self._spec_ctx, self._spec_ctx_len, row,
+                                   ctx)
+        if self._follower:
+            self._live[row] = True
 
     @staticmethod
     def _hit_stop(seq, stops, gen_start):
@@ -2724,8 +2749,6 @@ class ContinuousBatcher:
             idle = sum(s is None for s in self._slots)
             if idle:
                 self.counters.inc("kv_sink_writes", idle)
-        fkw = ({"topks": self._topks, "topps": self._topps,
-                "minps": self._minps} if self._n_filtered else {})
         use_spec = self.spec_mode != "off" and not self._n_penalized
         if use_spec:
             try:
@@ -2736,9 +2759,7 @@ class ContinuousBatcher:
                 self.counters.inc("spec_draft_fallbacks")
                 use_spec = False
         if use_spec:
-            lora = ((self._lora_banks, self._lora_ids) if self.lora_rank
-                    else None)
-            return self._dispatch_spec(fkw, lora)
+            return self._dispatch_spec()
         done = self._devop("step", self._n_filtered > 0,
                            self._n_penalized > 0, self._n_sampled > 0)
         return self._toks, None, done, tuple(self._gen), None
@@ -2758,6 +2779,8 @@ class ContinuousBatcher:
                 **fkw, **pkw)
         self._ords = self._ords + 1
         self._steps += 1
+        if self._follower:
+            self._live = self._live & ~done
         return done
 
     def _devop(self, name, *args):
@@ -2805,33 +2828,52 @@ class ContinuousBatcher:
         except BaseException as e:
             self._die(e, "tp follower died")
 
-    def _dispatch_spec(self, fkw, lora):
+    def _dispatch_spec(self):
         """One speculative round at the adaptive k (the host thread's
-        latest suggestion, through `_speck_q`)."""
+        latest suggestion, through `_speck_q`; a tp follower replays the
+        leader's k from the header)."""
         try:
             while True:
                 self._spec_k = self._speck_q.get_nowait()
         except queue_mod.Empty:
             pass
         k = self._spec_k
+        c_tok, n_del, done = self._devop("spec", k, self._n_filtered > 0,
+                                         self._n_sampled > 0)
+        self.counters.inc("spec_tokens_proposed",
+                          k * sum(s is not None for s in self._slots))
+        return c_tok, n_del, done, tuple(self._gen), k
+
+    def _dev_spec(self, k, filtered, sampled):
+        """One speculative round of every row (``decode.spec_round``) at
+        ``k``; returns ``(c_tok, n_del, done)``.  A tp follower, which
+        reads nothing back, counts the accepted tokens of its live rows
+        on the device (as the leader's host thread does from the
+        readback)."""
+        fkw = ({"topks": self._topks, "topps": self._topps,
+                "minps": self._minps} if filtered else {})
+        lora = (self._lora_banks, self._lora_ids) if self.lora_rank else None
         if self.spec_mode == "ngram":
             skw = {"ctx": self._spec_ctx, "ctx_len": self._spec_ctx_len}
         else:
             skw = {"draft": self.draft_model, "d_cache": self._d_cache}
-        with torch.no_grad():
+        with torch.no_grad(), self._on_mesh():
             (self._toks, c_tok, _, n_del, done, self._rems, self._ords,
              ctx_len) = decode_mod.spec_round(
                 self.model, self._cache, self._toks, self._temps,
                 self._seeds, self._ords, self._rems, self._eoss,
-                self._eos_on, k, lora=lora, sampled=self._n_sampled > 0,
+                self._eos_on, k, lora=lora, sampled=bool(sampled),
                 **skw, **fkw)
         if ctx_len is not None:
             self._spec_ctx_len = ctx_len
         self._spec_rounds += 1
         self._spec_k_sum += k
-        self.counters.inc("spec_tokens_proposed",
-                          k * sum(s is not None for s in self._slots))
-        return c_tok, n_del, done, tuple(self._gen), k
+        if self._follower:
+            acc = torch.where(n_del >= k, k, (n_del - 1).clamp_min(0))
+            self._spec_accepted = self._spec_accepted + (
+                acc * self._live).sum()
+            self._live = self._live & ~done
+        return c_tok, n_del, done
 
     def _flush(self, reads):
         """Stack a chunk's tokens, counts and done planes and START their

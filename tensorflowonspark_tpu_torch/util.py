@@ -110,8 +110,31 @@ def get_ip_address():
         s.close()
 
 
+# ports handed out for a later bind (get_free_port): below the ephemeral
+# ranges of Linux (32768-60999) and IANA (49152-65535), from which every
+# outgoing connection on the host takes its local port
+FREE_PORTS = (20000, 32767)
+
+
 def get_free_port(host=""):
-    """Reserve an ephemeral TCP port and return it (racy but adequate)."""
+    """A TCP port free now, for a server that another process binds later
+    (the ``torch.distributed`` rendezvous, a profiler): drawn at random
+    from FREE_PORTS and probed with a bind.  A port of the ephemeral
+    range (``bind(0)``) can be taken by any outgoing connection on the
+    host between the probe and the bind (the rendezvous then fails with
+    EADDRINUSE and the other ranks wait for it); one outside it only by
+    another explicit bind.  Falls back to an ephemeral port when the
+    draws find none free."""
+    for _ in range(64):
+        port = random.randint(*FREE_PORTS)
+        s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        try:
+            s.bind((host, port))
+            return port
+        except OSError:
+            continue
+        finally:
+            s.close()
     s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
     try:
         s.bind((host, 0))

@@ -48,14 +48,17 @@ shape, checked on the CPU.
   stand-in for the flagship prints one line a builder, holds every
   check and sums the serving kernels' launches.
 - phase 25: its traffic and engine are phase 5's, its kernel check the
-  flagship's tp-4 local shapes (4 q and 2 kv heads a rank); on one card
+  flagship's tp-4 local shapes (4 q and 2 kv heads a rank; kernels 9
+  and 10 at the rank's projections, M 16 and 1024); on one card
   ``phase_a3c`` runs the kernel check alone (a tiny stand-in for the
-  flagship on the CPU: every read within TOL of its plain version, no
-  launches added); ``a3c_serve`` at tp 1 on the tiny stand-in serves
-  the burst and a solo answer, and ``a3c_summary`` holds ranks made
-  from it (a solo answer parted from its burst twin away from a tie
-  fails), and fails a rank whose registers or ``generate`` tokens are
-  not the leader's, or that launched no kernel.
+  flagship on the CPU: every read within TOL of its plain version, every
+  quantised matmul within QMM_TOL, no launches added); ``a3c_serve`` at
+  tp 1 on the tiny stand-in serves the burst and a solo answer with
+  bf16, int8 and int4 weights and FLAGSHIP_SPEC's burst with n-gram and
+  a draft, and ``a3c_summary`` holds ranks made from it (a solo answer
+  parted from its burst twin away from a tie fails), and fails a rank
+  whose registers, ``generate`` tokens or speculation counters are not
+  the leader's, or that launched no kernel.
 """
 import contextlib
 import importlib.util
@@ -595,6 +598,8 @@ def test_workload_phase_on_a_tiny_flagship(monkeypatch):
         bm.FLAGSHIP_DECODE, max_seq=256, fill=100))
     monkeypatch.setattr(bm, "FLAGSHIP_PREFILL_KERNEL", dict(
         bm.FLAGSHIP_PREFILL_KERNEL, max_seq=256, fill=100, chunk=32))
+    monkeypatch.setattr(bm, "FLAGSHIP_SPEC", dict(
+        bm.FLAGSHIP_SPEC, prompts=4, max_new=12, draft_layers=1))
     monkeypatch.setattr(bm, "FLAGSHIP_QMM", dict(bm.FLAGSHIP_QMM,
                                                  in_dim=256, out_dim=512))
     monkeypatch.setattr(bm, "FLAGSHIP_LONG", dict(
@@ -683,6 +688,8 @@ def _tiny_a3c(monkeypatch):
         bm.FLAGSHIP_DECODE, max_seq=256, fill=100))
     monkeypatch.setattr(bm, "FLAGSHIP_PREFILL_KERNEL", dict(
         bm.FLAGSHIP_PREFILL_KERNEL, max_seq=256, fill=100, chunk=32))
+    monkeypatch.setattr(bm, "FLAGSHIP_SPEC", dict(
+        bm.FLAGSHIP_SPEC, prompts=4, max_new=12, draft_layers=1))
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a: None)
     monkeypatch.setattr(chip_smoke, "time_ms",
@@ -704,6 +711,17 @@ def test_tp_serving_phase_on_one_card_checks_the_kernels(monkeypatch):
                               "prefill_read"}
         for row in k[kv].values():
             assert row["max_abs_err"] <= chip_smoke.TOL
+    shapes = chip_smoke.a3c_local_projections(tp=4)
+    # the tiny flagship's rank: d_model 64 over 8 q / 4 kv heads, d_ff 128
+    assert shapes == {"query": (64, 16), "key_value": (64, 8),
+                      "out": (16, 64), "wi": (64, 32), "wo": (32, 64),
+                      "lm_head": (64, 16)}
+    q = k["quant_matmul"]
+    assert set(q) == {f"{mode}_{proj}_m{m}" for mode in ("int8", "int4")
+                      for proj in shapes for m in chip_smoke.A3C_QMM_M}
+    for row in q.values():
+        assert (row["K"], row["N"]) in shapes.values()
+        assert row["max_abs_err"] <= row["tol"]
 
 
 def test_tp_serving_phase_summary_holds_the_ranks(monkeypatch):
@@ -715,35 +733,59 @@ def test_tp_serving_phase_summary_holds_the_ranks(monkeypatch):
     _tiny_a3c(monkeypatch)
     dev = torch.device("cpu")
     ref = chip_smoke.a3c_serve(torch, dev)
-    assert set(ref["runs"]) == {"auto", "int8"}
+    assert set(ref["runs"]) == {"auto", "int8", "w_int8", "w_int4",
+                                "spec_ngram", "spec_model"}
+    assert set(ref["weight_bytes"]) == {"bf16", "int8", "int4"}
+    assert (ref["weight_bytes"]["int4"] < ref["weight_bytes"]["int8"]
+            < ref["weight_bytes"]["bf16"])
     prompts = chip_smoke.engine_prompts(torch,
                                         bm.FLAGSHIP_LM_V2["vocab_size"])
-    assert all(len(o) == len(p) + chip_smoke.ENGINE_NEW for o, p in zip(
-        ref["runs"]["auto"]["outputs"], prompts))
+    for label in ("auto", "w_int8", "w_int4"):
+        assert all(len(o) == len(p) + chip_smoke.ENGINE_NEW for o, p in
+                   zip(ref["runs"][label]["outputs"], prompts))
+    for mode in chip_smoke.A3C_SPEC:
+        run = ref["runs"][f"spec_{mode}"]
+        assert run["spec_rounds"] > 0
+        assert run["one_at_a_time"]["spec_rounds"] > 0
     model = chip_smoke.a3c_model(torch, dev)
+    ref_models = chip_smoke.A3cRefModels(torch, dev)
     lead = copy.deepcopy(ref)
     lead["generate"] = [o for o in ref["runs"]["auto"]["outputs"][
         :chip_smoke.A3C_GENERATE]]
     lead["device"] = "card"
-    for kv, names in (("auto", ops.SERVING_KERNELS),
-                      ("int8", ops.SERVING_KERNELS_INT8_KV)):
-        lead["runs"][kv]["launches"] = {n: 3 for n in names}
+    for label in lead["runs"]:
+        lead["runs"][label]["launches"] = {
+            n: 3 for n in chip_smoke.a3c_kernels(label)}
+    for label in ("spec_ngram", "spec_model"):
+        one = lead["runs"][label]["one_at_a_time"]
+        assert one == ref["runs"][label]["one_at_a_time"]
     follower = copy.deepcopy(lead)
     follower.update(rank=1, leader=False)
     numbers, launches = chip_smoke.a3c_summary(torch, 2, [lead, follower],
-                                               ref, model, prompts)
-    assert launches == {n: 6 for n in ops.SERVING_KERNELS
-                        + ops.SERVING_KERNELS_INT8_KV}
+                                               ref, ref_models)
+    assert launches == dict(
+        {n: 18 for n in ops.SERVING_KERNELS},
+        **{n: 6 for n in ops.SERVING_KERNELS_INT8_KV},
+        int8_matmul=6, int4_matmul=6)
     assert numbers["runs"]["auto"]["equal_to_one_card"] == len(prompts)
     assert numbers["runs"]["auto"]["solo_near_tie"] is None
-    for broken in ("registers", "generate", "launches", "solo"):
+    assert numbers["runs"]["spec_model"]["one_at_a_time"][
+        "tokens_equal_to_one_card"]
+    for broken in ("registers", "generate", "launches", "solo", "spec",
+                   "spec_one_at_a_time"):
         bad, lead2 = copy.deepcopy(follower), copy.deepcopy(lead)
         if broken == "registers":
             bad["runs"]["int8"]["registers"]["_toks"][0] += 1
         elif broken == "generate":
             bad["generate"][0][-1] = (bad["generate"][0][-1] + 1) % 64
         elif broken == "launches":
-            bad["runs"]["auto"]["launches"]["page_write"] = 0
+            bad["runs"]["w_int4"]["launches"]["int4_matmul"] = 0
+        elif broken == "spec":
+            bad["runs"]["spec_ngram"]["spec_tokens_accepted"] += 1
+        elif broken == "spec_one_at_a_time":
+            # the leader's counters, off tp 1's with the same tokens
+            for r in (lead2, bad):
+                r["runs"]["spec_model"]["one_at_a_time"]["spec_rounds"] += 1
         else:
             # a solo answer that parts from its burst twin at the first
             # new position where the model's top-2 margin is no tie
@@ -758,5 +800,4 @@ def test_tp_serving_phase_summary_holds_the_ranks(monkeypatch):
                     pytest.fail("no position off a tie")
             solo[at] = int(logits.argmin())
         with pytest.raises(AssertionError, match="phase 25"):
-            chip_smoke.a3c_summary(torch, 2, [lead2, bad], ref, model,
-                                   prompts)
+            chip_smoke.a3c_summary(torch, 2, [lead2, bad], ref, ref_models)

@@ -179,3 +179,10 @@ def test_quantize_module_rejects_bad_input(tiny):
                                  min_elements=1 << 30)
     with pytest.raises(TypeError, match="not a quantized leaf"):
         quantize.dequantize_leaf(torch.ones(2, 2))
+    # a weight tp split (here by hand: the columns of rank 0 of 2) is not
+    # quantised alone: its scales would not be the whole weight's
+    split = port_tf.build_transformer(**CFG)
+    wi = split.layer_0.mlp.wi
+    wi.weight.data = wi.weight.data[:wi.out_features // 2].contiguous()
+    with pytest.raises(ValueError, match="quantise the whole model"):
+        quantize.quantize_module(split, "int8", min_elements=1)

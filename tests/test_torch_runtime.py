@@ -41,6 +41,8 @@ def test_port_helpers(tmp_path):
     with pytest.raises(ValueError):
         util.parse_port_spec("9-3")
     port = util.get_free_port("127.0.0.1")
+    # outside the ephemeral ranges, where no outgoing connection takes it
+    assert util.FREE_PORTS[0] <= port <= util.FREE_PORTS[1] < 32768
     sock = util.bind_socket("127.0.0.1", [port])
     try:
         assert sock.getsockname()[1] == port

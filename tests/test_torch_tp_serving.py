@@ -1,11 +1,12 @@
 """The port's serving on a tp mesh against the JAX package, on the CPU.
 
-Two gloo worlds, of 2 and of 4 ranks, run at once (each rank its own
-interpreter, ``tests/torch_tp_serving_ranks.py``, torch and the port
-only, every collective under a timeout); under xdist the workers share
-them through a lock in the session's temp root.  Each world splits four
-small f32 LMs (2 layers, d_model 32 or 48, vocab 64) over
-``MeshSpec(tp=n)``:
+Two gloo worlds, of 2 and of 4 ranks, run one after the other (each
+rank its own interpreter, ``tests/torch_tp_serving_ranks.py``, torch and
+the port only, every collective under a timeout), so that at most 4
+rank processes load the CPU beside the test workers; under xdist the
+workers share them through a lock in the session's temp root.  Each
+world splits four small f32 LMs (2 layers, d_model 32 or 48, vocab 64)
+over ``MeshSpec(tp=n)``:
 
 - ``gqa8``: 8 heads over 2 kv heads, RoPE (the JAX package's
   ``test_generate_with_tp_sharded_params``): at tp 4 the kv projection
@@ -43,9 +44,32 @@ The JAX side runs here, unsharded.  Checked, at tp 2 and 4:
 - (e) two LoRA adapters on mixed rows: the port's tokens at tp 1 and
   the JAX batcher's; an adapter whose ``out`` banks alone are non-zero
   moves the logits, by the tp-1 model's delta;
-- (f) every queued feature raises ``NotImplementedError`` naming
-  ROADMAP A3c, and engines built with different arguments raise on
-  every rank.
+- (f) every queued feature (the host tier, parking, kv migration, a dp
+  axis) raises ``NotImplementedError`` naming ROADMAP A3c, and engines
+  built with different arguments raise on every rank;
+- (g) quantised weights (``gqa8`` and ``uneven``, every projection,
+  int8 and int4 at a group that fits every row-parallel split), the
+  whole masters quantised, then split: each rank's ``q`` / ``scale``
+  equal, bit for bit, the JAX ``quantize_tree`` leaf of the whole tree
+  sliced by the float weight's rule (column-parallel over N, row-parallel
+  ``q`` and int4 group scales over K with the int8 scale whole, k / v
+  that tp cannot split at whole heads: the rank's kv heads' columns);
+- (h) ``generate`` of the first prompt on every rank and the dense and
+  paged batchers (the plain versions of kernels 1-3, 9 and 10) give the JAX
+  ``ContinuousBatcher``'s tokens on the unsharded quantised tree;
+- (i) a stored int8 export, loaded as the server loads it
+  (``serve._load_lm``), serves on the mesh with the same tokens;
+- (j) an int4 group that straddles a row-parallel split raises
+  ``NotImplementedError`` naming ROADMAP A3c;
+- (k) n-gram and draft-model speculation (a 1-layer draft of the extras
+  config's widths, split over the same mesh; paged serial engines that
+  take one request at a time, a shared prefix so the draft catches up,
+  and a dense async n-gram engine): greedy rows give JAX ``generate``'s
+  tokens (greedy speculation's promise; the JAX batcher's draft engine
+  breaks it on the prefix-cache hit), sampled rows the port's at tp 1,
+  and on the engines that take one request at a time ``spec_rounds`` /
+  ``spec_tokens_accepted`` / ``spec_k_mean`` equal tp 1's on every
+  rank.
 
 Tolerance: greedy tokens equal exactly (f32).
 """
@@ -61,6 +85,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
+from tensorflowonspark_tpu import quantize as jax_quantize
 from tensorflowonspark_tpu import serve as jax_serve
 from tensorflowonspark_tpu.models import decode as jax_decode
 from tensorflowonspark_tpu.models import transformer as jax_tf
@@ -82,8 +107,8 @@ RANK = 4
 NEW = 6
 LOGIT_TOL = 2e-5
 VARIANTS = ("dense_async", "dense_serial", "paged_async", "paged_serial")
-REFUSED = ("spec_ngram", "host_tier", "preempt", "quantised", "migration",
-           "speculation", "dp_axis")
+REFUSED = ("host_tier", "preempt", "migration", "dp_axis")
+QUANT_MODES = ("int8", "int4")
 _STATE = {}
 
 
@@ -128,6 +153,7 @@ def inputs():
     cfg = CFGS[EXTRAS_CONFIG]
     _STATE["inputs"] = dict(
         cfgs=CFGS, extras_config=EXTRAS_CONFIG, rank=RANK,
+        tp1_world=WORLDS[0],
         params={n: _numpy_tree(c, 3 + i)
                 for i, (n, c) in enumerate(CFGS.items())},
         prompts=[rng.randint(0, 64, n).tolist() for n in (5, 19, 11)],
@@ -137,6 +163,7 @@ def inputs():
                        rng.randint(0, 64, 70).tolist()],
         adapters={"a": _adapter(rng, cfg, ("query", "key", "value", "out")),
                   "b": _adapter(rng, cfg, ("query", "value", "out"))},
+        draft_params=_numpy_tree(dict(cfg, n_layers=1), 20),
         out_only={EXTRAS_CONFIG: _adapter(rng, cfg, ("out",), scale=3.0)})
     return _STATE["inputs"]
 
@@ -146,32 +173,32 @@ def _run_worlds(d):
         pickle.dump(inputs(), f)
     env = dict(os.environ, OMP_NUM_THREADS="1")
     env.pop("JAX_PLATFORMS", None)
-    procs, logs = [], []
+    rcs = {}
     for n in WORLDS:
         wd = d / f"tp{n}"
         wd.mkdir(exist_ok=True)
         (wd / "inputs.pkl").write_bytes((d / "inputs.pkl").read_bytes())
-        for r in range(n):
-            log = open(wd / f"log{r}", "w")
-            logs.append(log)
-            procs.append(((n, r), subprocess.Popen(
-                [sys.executable, os.path.join(HERE,
-                                              "torch_tp_serving_ranks.py"),
-                 str(r), str(n), str(wd)], stdout=log,
-                stderr=subprocess.STDOUT, env=env)))
-    try:
-        rcs = {}
-        for key, p in procs:
-            try:
-                rcs[key] = p.wait(timeout=240)
-            except subprocess.TimeoutExpired:
-                rcs[key] = "timeout"
-    finally:
-        for _, p in procs:
-            if p.poll() is None:
-                p.kill()
-        for f in logs:
-            f.close()
+        procs, logs = [], []
+        try:
+            for r in range(n):
+                log = open(wd / f"log{r}", "w")
+                logs.append(log)
+                procs.append(((n, r), subprocess.Popen(
+                    [sys.executable,
+                     os.path.join(HERE, "torch_tp_serving_ranks.py"),
+                     str(r), str(n), str(wd)], stdout=log,
+                    stderr=subprocess.STDOUT, env=env)))
+            for key, p in procs:
+                try:
+                    rcs[key] = p.wait(timeout=240)
+                except subprocess.TimeoutExpired:
+                    rcs[key] = "timeout"
+        finally:
+            for _, p in procs:
+                if p.poll() is None:
+                    p.kill()
+            for f in logs:
+                f.close()
     if any(rc != 0 for rc in rcs.values()):
         tails = [(d / f"tp{n}" / f"log{r}").read_text()[-3000:]
                  for n, r in rcs]
@@ -261,10 +288,72 @@ def _jax_engine(label):
     return _STATE[key]
 
 
+def _jax_qtree(name, mode):
+    """The JAX ``quantize_tree`` of config ``name``'s whole tree."""
+    key = ("qtree", name, mode)
+    if key not in _STATE:
+        _STATE[key] = jax_quantize.quantize_tree(
+            _jax(name)[1], mode=mode, min_elements=ranks_mod.QUANT_MIN,
+            group_size=ranks_mod.QUANT_GROUPS[name])
+    return _STATE[key]
+
+
+def _jax_quant_batcher(name, mode):
+    """The JAX batcher's outputs on the unsharded quantised tree, driven
+    as ``_jax_batcher``.  Its ``QuantDense`` dequantises inline
+    (``quant_matmul_impl="dequant"``): the JAX package's own path for
+    quantised weights under a mesh, and one a test can afford (the
+    Pallas kernels' interpreter takes up to ~100 s a batcher here)."""
+    key = ("qbatcher", name, mode)
+    if key not in _STATE:
+        jm = jax_tf.Transformer(jax_tf.TransformerConfig(
+            **dict(CFGS[name], quant_matmul_impl="dequant")))
+        b = jax_serve.ContinuousBatcher(jm, _jax_qtree(name, mode),
+                                        **ranks_mod.ENGINE)
+        try:
+            _STATE[key] = ranks_mod.drive(b, inputs()["prompts"])
+        finally:
+            b.stop()
+    return _STATE[key]
+
+
+def _want_slice(name, path, q, scale, tp, index):
+    """The rank's slice of a whole quantised leaf, by the float weight's
+    rule."""
+    cfg = CFGS[name]
+    proj = path.split("/")[-2]
+
+    def block(n):
+        return slice(index * n, (index + 1) * n)
+
+    if proj in ("out", "wo"):              # row-parallel: K
+        return (q[block(q.shape[0] // tp)],
+                scale if scale.shape[0] == 1
+                else scale[block(scale.shape[0] // tp)])
+    if proj in ("key", "value") and cfg["n_kv_heads"] % tp:
+        # the kv heads this rank's q heads read, whole
+        hd = cfg["d_model"] // cfg["n_heads"]
+        n_q = cfg["n_heads"] // tp
+        group = cfg["n_heads"] // cfg["n_kv_heads"]
+        heads = [(index * n_q + i) // group for i in range(n_q)]
+        cols = slice(heads[0] * hd, (heads[-1] + 1) * hd)
+        return q[:, cols], scale[:, cols]
+    cols = block(q.shape[1] // tp)          # column-parallel: N
+    return q[:, cols], scale[:, cols]
+
+
 def _noiseless(label):
     """The rows of engine ``label`` that draw no sampling noise."""
     rows = ranks_mod.extra_cases(inputs())[label][1]
     return [i for i, kw in enumerate(rows) if not kw.get("temperature")]
+
+
+def _tp1(worlds, name):
+    """The port's results at tp 1 on config ``name`` (the first world's
+    ranks ran them, a share of the configs each)."""
+    (res,) = [r["tp1"][name] for r in worlds[WORLDS[0]]
+              if name in r.get("tp1", {})]
+    return res
 
 
 def _leader(ranks):
@@ -306,8 +395,8 @@ def test_sampled_generate_is_one_on_every_rank_and_tp1(worlds, tp, name):
     ranks = worlds[tp]
     got = [r["configs"][name]["sampled"] for r in ranks]
     assert all(g == got[0] for g in got)
-    assert got[0] == ranks[0]["tp1"][name]["sampled"]
-    assert got[0] != ranks[0]["tp1"][name]["greedy"]   # it did sample
+    assert got[0] == _tp1(worlds, name)["sampled"]
+    assert got[0] != _tp1(worlds, name)["greedy"]   # it did sample
 
 
 @pytest.mark.parametrize("variant", VARIANTS)
@@ -330,7 +419,7 @@ def test_batcher_equals_the_jax_batcher(worlds, tp, name, variant):
 def test_int8_prefix_grow_and_lane_equal_tp1(worlds, tp):
     ranks = worlds[tp]
     outs, st = _leader(ranks)["configs"][EXTRAS_CONFIG]["extras"]
-    ref, ref_st = ranks[0]["tp1"][EXTRAS_CONFIG]["extras"]
+    ref, ref_st = _tp1(worlds, EXTRAS_CONFIG)["extras"]
     assert outs == ref
     want = _jax_engine("extras")
     for i in _noiseless("extras"):
@@ -347,7 +436,7 @@ def test_int8_prefix_grow_and_lane_equal_tp1(worlds, tp):
 def test_dense_int8_sampled_and_penalised_rows_equal_tp1(worlds, tp):
     ranks = worlds[tp]
     outs, st = _leader(ranks)["configs"][EXTRAS_CONFIG]["dense_int8"]
-    ref, _ = ranks[0]["tp1"][EXTRAS_CONFIG]["dense_int8"]
+    ref, _ = _tp1(worlds, EXTRAS_CONFIG)["dense_int8"]
     assert outs == ref and st["kv_dtype"] == "int8"
     want = _jax_engine("dense_int8")
     for i in _noiseless("dense_int8"):
@@ -361,19 +450,19 @@ def test_dense_int8_sampled_and_penalised_rows_equal_tp1(worlds, tp):
 def test_lora_rows_equal_tp1(worlds, tp):
     ranks = worlds[tp]
     outs, st = _leader(ranks)["configs"][EXTRAS_CONFIG]["lora"]
-    ref, _ = ranks[0]["tp1"][EXTRAS_CONFIG]["lora"]
+    ref, _ = _tp1(worlds, EXTRAS_CONFIG)["lora"]
     assert outs == ref
     assert outs == _jax_engine("lora")
     assert st["lora_adapters"] == ["a", "b"]
     # the adapters move the tokens (the base row and the adapted rows of
     # the same prompt differ)
-    assert outs[3] != ranks[0]["tp1"][EXTRAS_CONFIG]["engines"][
+    assert outs[3] != _tp1(worlds, EXTRAS_CONFIG)["engines"][
         "paged_async"][0][0]
 
 
 @pytest.mark.parametrize("tp", WORLDS)
 def test_out_only_adapter_moves_the_logits_as_at_tp1(worlds, tp):
-    ref = worlds[tp][0]["tp1"][EXTRAS_CONFIG]["out_only"]
+    ref = _tp1(worlds, EXTRAS_CONFIG)["out_only"]
     assert np.abs(ref["out_only"] - ref["base"]).max() > 1e-2
     for r in worlds[tp]:
         got = r["configs"][EXTRAS_CONFIG]["out_only"]
@@ -398,3 +487,108 @@ def test_mismatched_engines_raise_on_every_rank(worlds, tp):
         assert kind == "ValueError" and "n_slots" in text, text
         kind, text = r["refusals"]["no_mesh"]
         assert kind == "ValueError" and "use_mesh" in text, text
+
+
+QUANT = [(tp, name, mode) for tp in WORLDS for name in ranks_mod.QUANT_GROUPS
+         for mode in QUANT_MODES]
+
+
+@pytest.mark.parametrize("tp,name,mode", QUANT)
+def test_quantised_leaves_are_the_jax_trees_sliced(worlds, tp, name, mode):
+    flat = {jax.tree_util.keystr(path): leaf for path, leaf in
+            jax.tree_util.tree_flatten_with_path(
+                _jax_qtree(name, mode),
+                is_leaf=jax_quantize.is_quantized_leaf)[0]
+            if jax_quantize.is_quantized_leaf(leaf)}
+    # every projection of every layer and the head
+    assert len(flat) == 6 * CFGS[name]["n_layers"] + 1
+    for r in worlds[tp]:
+        leaves = r["configs"][name]["quant"][mode]["leaves"]
+        assert len(leaves) == 2 * len(flat)
+        for port_name in {n.rsplit(".", 1)[0] for n in leaves}:
+            path = port_name.replace(".", "/") + "/kernel"
+            leaf = flat["".join(f"['{k}']" for k in path.split("/"))]
+            if mode == "int8":
+                q, scale = leaf["q"], leaf["scale"]
+            else:
+                q, scale = leaf.q, leaf.scale
+            want_q, want_s = _want_slice(name, path, np.asarray(q),
+                                         np.asarray(scale), tp,
+                                         r["tp_index"])
+            got_q, got_s = (leaves[port_name + ".q"],
+                            leaves[port_name + ".scale"])
+            assert got_q.dtype == np.int8 and got_s.dtype == np.float32
+            np.testing.assert_array_equal(got_q, want_q, err_msg=path)
+            np.testing.assert_array_equal(got_s, want_s, err_msg=path)
+
+
+@pytest.mark.parametrize("tp,name,mode", QUANT)
+def test_quantised_tokens_equal_the_jax_batcher(worlds, tp, name, mode):
+    want = _jax_quant_batcher(name, mode)
+    for r in worlds[tp]:
+        assert r["configs"][name]["quant"][mode]["generate"] == want[0], \
+            r["rank"]
+    engines = _leader(worlds[tp])["configs"][name]["quant"][mode]["engines"]
+    for variant in ranks_mod.QUANT_VARIANTS:
+        outs, st = engines[variant]
+        assert outs == want, variant
+        assert f"{mode}_matmul" in st["kernel_launches"]
+
+
+@pytest.mark.parametrize("tp", WORLDS)
+def test_stored_int8_export_serves_on_the_mesh(worlds, tp):
+    outs, st = _leader(worlds[tp])["configs"]["gqa8"]["quant"]["stored_int8"]
+    assert outs == _jax_quant_batcher("gqa8", "int8")
+    assert "int8_matmul" in st["kernel_launches"]
+
+
+@pytest.mark.parametrize("tp", WORLDS)
+def test_straddling_int4_group_raises_naming_a3c(worlds, tp):
+    for r in worlds[tp]:
+        kind, text = r["refusals"]["int4_straddle"]
+        assert kind == "NotImplementedError", text
+        assert "ROADMAP A3c" in text and "straddles" in text, text
+
+
+def _jax_greedy(prompt):
+    """JAX ``generate``'s greedy tokens of one prompt on the extras
+    config."""
+    key = ("greedy", tuple(prompt))
+    if key not in _STATE:
+        jm, params = _jax(EXTRAS_CONFIG)
+        _STATE[key] = np.asarray(jax_decode.generate(
+            jm, params, jnp.asarray([prompt], jnp.int32),
+            max_new_tokens=NEW))[0].tolist()
+    return _STATE[key]
+
+
+@pytest.mark.parametrize("label", tuple(ranks_mod.SPEC_ENGINES))
+@pytest.mark.parametrize("tp", WORLDS)
+def test_speculation_equals_tp1_and_jax_greedy(worlds, tp, label):
+    """Greedy speculation commits the target's own greedy tokens: the
+    greedy rows are held to JAX ``generate``'s.  (The JAX batcher's draft
+    engine breaks that promise on the third row, a prefix-cache hit: it
+    gives other tokens than its own ``generate``; ROADMAP C.)"""
+    ranks = worlds[tp]
+    outs, st = _leader(ranks)["configs"][EXTRAS_CONFIG][label]
+    ref, ref_st = _tp1(worlds, EXTRAS_CONFIG)[label]
+    assert outs == ref
+    prompts = ranks_mod.extra_cases(inputs())[label][0]
+    for i in _noiseless(label):
+        assert outs[i] == _jax_greedy(prompts[i]), i
+    assert st["spec_rounds"] > 0 and st["spec_mode"] == (
+        "ngram" if "ngram" in label else "model")
+    for r in ranks:
+        got = r["configs"][EXTRAS_CONFIG][label][1]
+        # a follower replays the leader's rounds at the leader's k
+        assert got["spec_rounds"] == st["spec_rounds"], r["rank"]
+        assert got["spec_k_mean"] == st["spec_k_mean"], r["rank"]
+        if label in ranks_mod.SPEC_ONE_AT_A_TIME:
+            for key in ranks_mod.SPEC_STATS:
+                assert got[key] == ref_st[key], (r["rank"], key)
+    if label in ranks_mod.SPEC_ONE_AT_A_TIME:
+        assert ref_st["spec_tokens_accepted"] > 0
+    if label == "spec_draft":
+        # the third request shares the first one's prefix pages: the
+        # draft caught up over them
+        assert st["prefix_hits"] > 0
